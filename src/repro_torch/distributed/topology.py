@@ -1,0 +1,100 @@
+"""Topology: the execution substrate a handle runs on.
+
+Port of ``repro/distributed/topology.py`` for this slice: P ranks
+emulated on ONE device (``Topology.local(P, device)``). The substrate has
+no tiers, so ``network()`` returns the model network unchanged (the
+paper's TSUBAME-like one by default) and ``SpmmConfig(net="auto")``
+decides exactly as the reference does on a flat substrate.
+
+Entry points default to ``device="cuda"`` and raise when no CUDA device
+is present; pass ``device="cpu"`` to run the kernels' plain versions.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+__all__ = ["Topology", "TopologyError", "resolve_device"]
+
+
+class TopologyError(ValueError):
+    """A topology cannot satisfy the requested execution substrate."""
+
+
+def resolve_device(device: Union[str, torch.device, None] = "cuda"
+                   ) -> torch.device:
+    """``device`` as a torch.device; CUDA must really be there."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; the port runs on the card by "
+                "default — pass device='cpu' to run the kernels' plain "
+                "versions instead")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """P ranks emulated on one device.
+
+    ``kind``    'local' (the only kind in this slice).
+    ``P``       number of ranks.
+    ``device``  the torch device every rank's tensors live on.
+    """
+
+    kind: str
+    P: int
+    device: torch.device
+
+    @classmethod
+    def local(cls, P: int, device: Union[str, torch.device, None] = "cuda"
+              ) -> "Topology":
+        """``P`` ranks on ``device``."""
+        P = int(P)
+        if P < 1:
+            raise TopologyError(f"topology needs at least 1 rank, got {P}")
+        return cls(kind="local", P=P, device=resolve_device(device))
+
+    @classmethod
+    def resolve(cls, where: Union["Topology", int],
+                device: Union[str, torch.device, None] = "cuda",
+                expect_p: Optional[int] = None) -> "Topology":
+        """A ``Topology`` passes through; an int P becomes ``local(P, device)``."""
+        if isinstance(where, Topology):
+            topo = where
+        elif isinstance(where, (int, np.integer)) and not isinstance(
+                where, bool):
+            topo = cls.local(int(where), device)
+        else:
+            raise TypeError(
+                f"cannot resolve a Topology from {type(where).__name__!r}; "
+                f"pass a Topology or an int P (the number of ranks to "
+                f"emulate on the device)")
+        if expect_p is not None and topo.P != int(expect_p):
+            raise TopologyError(
+                f"this plan needs a topology with exactly {int(expect_p)} "
+                f"ranks, but the given one has {topo.P}; pass the int "
+                f"{int(expect_p)} or a Topology over {int(expect_p)} ranks")
+        return topo
+
+    def network(self, default=None):
+        """The NetworkSpec ``net="auto"`` scores against: ``default`` (the
+        TSUBAME-like model network unless a caller overrides), since a
+        flat substrate carries no tiers."""
+        from ..core.comm_model import TSUBAME_LIKE
+
+        return TSUBAME_LIKE if default is None else default
+
+    def describe(self) -> dict:
+        """Stable summary for ``h.stats()``."""
+        return {"kind": self.kind, "P": self.P, "tiers": None,
+                "n_hosts": 1,
+                "platform": "gpu" if self.device.type == "cuda" else "cpu"}
