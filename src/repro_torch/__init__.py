@@ -9,9 +9,14 @@ torch version beside it.
     from repro_torch import SpmmConfig, compile_spmm
     h = compile_spmm(a, 8, SpmmConfig(backends=("coo", "bsr")))
     c = h(b)          # on the card; device="cpu" runs the plain versions
+
+    hf = compile_fused(adj, 8, edge="leaky_relu")   # FusedMM (GAT layers)
+    c = hf(q, k, v)   # leaky_relu(A ⊙ (q kᵀ)) @ v through one comm phase
 """
-from .core.api import DistSpmm, SpmmConfig, compile_spmm
+from .core.api import (
+    DistSpmm, SpmmConfig, compile_fused, compile_sddmm, compile_spmm,
+)
 from .distributed.topology import Topology, TopologyError
 
-__all__ = ["DistSpmm", "SpmmConfig", "compile_spmm", "Topology",
-           "TopologyError"]
+__all__ = ["DistSpmm", "SpmmConfig", "compile_spmm", "compile_sddmm",
+           "compile_fused", "Topology", "TopologyError"]

@@ -1,12 +1,18 @@
 """SHIRO core for the port: host-side planning (copies of the reference's
-NumPy modules), the local backends, the flat executor and the front door."""
-from .api import DistSpmm, SpmmConfig, compile_spmm
+NumPy modules), the local backends, the flat SpMM / SDDMM / FusedMM
+executors and the front door."""
+from .api import (
+    DistSpmm, SpmmConfig, compile_fused, compile_sddmm, compile_spmm,
+)
 from .comm_model import (
-    NetworkSpec, TSUBAME_LIKE, choose_schedule, modeled_time,
-    strategy_volumes,
+    NetworkSpec, TSUBAME_LIKE, choose_fused_schedule, choose_schedule,
+    modeled_time, strategy_volumes,
 )
 from .comm_schedule import (
     CommRound, CommSchedule, build_comm_schedule, single_round_schedule,
+)
+from .dist_sddmm import (
+    EDGE_FNS, flat_fused, flat_sddmm, flat_spmm_values, fused_sddmm_spmm,
 )
 from .dist_spmm import (
     FlatExecPlan, flat_exec_arrays, flat_exec_from_numpy, flat_spmm,
@@ -22,11 +28,14 @@ from .sparse import (
 )
 
 __all__ = [
-    "DistSpmm", "SpmmConfig", "compile_spmm",
-    "NetworkSpec", "TSUBAME_LIKE", "choose_schedule", "modeled_time",
-    "strategy_volumes",
+    "DistSpmm", "SpmmConfig", "compile_spmm", "compile_sddmm",
+    "compile_fused",
+    "NetworkSpec", "TSUBAME_LIKE", "choose_fused_schedule",
+    "choose_schedule", "modeled_time", "strategy_volumes",
     "CommRound", "CommSchedule", "build_comm_schedule",
     "single_round_schedule",
+    "EDGE_FNS", "flat_fused", "flat_sddmm", "flat_spmm_values",
+    "fused_sddmm_spmm",
     "FlatExecPlan", "flat_exec_arrays", "flat_exec_from_numpy", "flat_spmm",
     "BsrBackend", "CooBackend", "available_backends", "get_backend",
     "register_backend",

@@ -2,9 +2,10 @@
 
 The flat-executor part of ``repro.core.comm_model`` (NumPy only), copied
 so that the port never imports the JAX package: paper Eqs. 1-3 and 9, the
-flat schedule's α-β times and ``choose_schedule``. The hierarchical,
-fused and replicated models come with the slices that port their
-executors (ROADMAP items 7, 8 and 10).
+flat schedule's α-β times and ``choose_schedule``, and the flat FusedMM
+scoring (``modeled_time_fused_schedule``, ``choose_fused_schedule``). The
+hierarchical and replicated models come with the slices that port their
+executors (ROADMAP items 7 and 10).
 
 Bandwidth defaults mirror the paper's TSUBAME4.0 numbers (450 GB/s NVLink
 intra-group, 25 GB/s IB inter-group).
@@ -31,6 +32,8 @@ __all__ = [
     "modeled_time_staged",
     "modeled_time_overlap",
     "choose_schedule",
+    "modeled_time_fused_schedule",
+    "choose_fused_schedule",
 ]
 
 
@@ -328,3 +331,84 @@ def choose_schedule(
             if t < best3[1]:
                 best3 = (sched, t, use)
     return best3
+
+
+# ---------------------------------------------------------------------------
+# FusedMM (SDDMM → SpMM in one communication phase) scoring
+# ---------------------------------------------------------------------------
+#
+# The fused executor's bytes per schedule are fixed by the SAME row
+# counts as SpMM: the joint [Y | B] gather moves every B-phase row at
+# width F+N, and the C-phase rows are crossed twice — X dest→source at
+# width F, aggregated partials source→dest at width N — F+N per row
+# again. So fused and the unfused SDDMM→SpMM composition move IDENTICAL
+# bytes; what fusion buys is α: per bucketed round the unfused pair pays
+# (b>0)+(c>0) latencies TWICE (once per phase-separated kernel launch),
+# the fused round pays (b>0) + 2·(c>0) — one B-phase α saved per round
+# with B traffic, and one α total in the single-round case (3 a2a vs
+# 2+2). SDDMM alone needs no new scorer: its rows match SpMM's with both
+# parts at width F, i.e. ``modeled_time_schedule(plan, sched, F, net)``.
+
+
+def _fused_alpha_beta_time(sched: CommSchedule, unit: float, bw: float,
+                           lat: float) -> float:
+    """α-β time of one FUSED schedule realization on a fixed tier.
+
+    ``unit`` is the per-row byte width (F+N)·sz — joint gather rows and
+    the X+C row pair both carry it (see the module comment above).
+    """
+    if sched.kind == "single":
+        return 3 * lat + sched.rows_per_process() * unit / bw
+    out = 0.0
+    for rnd in sched.rounds:
+        rows_b = sum(sched.slots_b[d - 1] for d in rnd.shifts)
+        rows_c = sum(sched.slots_c[d - 1] for d in rnd.shifts)
+        phases = (1 if rows_b else 0) + (2 if rows_c else 0)
+        out += phases * lat + (rows_b + rows_c) * unit / bw
+    return out
+
+
+def modeled_time_fused_schedule(
+    plan: SpmmPlan,
+    sched: CommSchedule,
+    n_feat: int,
+    n_dense: int,
+    net: NetworkSpec,
+    sz_dt: int = 4,
+) -> float:
+    """α-β time of one flat FusedMM schedule realization.
+
+    ``n_feat`` is the sampled feature width F (X/Y columns), ``n_dense``
+    the SpMM operand width N; every scheduled row crosses the wire once
+    at width F+N.
+    """
+    bw, lat = _tier(net, plan.P)
+    return _fused_alpha_beta_time(sched, (n_feat + n_dense) * sz_dt, bw, lat)
+
+
+def choose_fused_schedule(
+    plan: SpmmPlan,
+    n_feat: int,
+    n_dense: int,
+    net: NetworkSpec,
+    k_max: int = 4,
+    sz_dt: int = 4,
+) -> Tuple[CommSchedule, float]:
+    """Pick the fastest schedule for the fused kernel (comm-only — the
+    fused executors are staged by construction, no overlap axis)."""
+    single = single_round_schedule(plan)
+    best = (single,
+            modeled_time_fused_schedule(plan, single, n_feat, n_dense, net,
+                                        sz_dt))
+    seen = set()
+    for K in range(1, max(1, k_max) + 1):
+        sched = build_comm_schedule(plan, K=K)
+        key = (sched.slots_b, sched.slots_c)
+        if key in seen:
+            continue
+        seen.add(key)
+        t = modeled_time_fused_schedule(plan, sched, n_feat, n_dense, net,
+                                        sz_dt)
+        if t < best[1]:
+            best = (sched, t)
+    return best

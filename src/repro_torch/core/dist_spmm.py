@@ -38,7 +38,7 @@ from .comm_schedule import (
 )
 from .local_backend import (
     BsrBackend, LocalSpmmBackend, backend_compute_segment,
-    backend_prepare_segments, get_backend,
+    backend_prepare_segments, coo_piece_with_maps, get_backend,
 )
 from .planner import SpmmPlan, local_piece_csrs
 
@@ -330,6 +330,9 @@ def flat_exec_from_numpy(fields: Dict[str, Any]) -> FlatExecPlan:
     pieces = {be: {name: {k: arr(v) for k, v in piece.items()}
                    for name, piece in by_piece.items()}
               for be, by_piece in fields["pieces"].items()}
+    if "coo" in pieces:  # the port's coo fold needs each piece's row maps
+        pieces["coo"] = {name: coo_piece_with_maps(piece)
+                         for name, piece in pieces["coo"].items()}
     return FlatExecPlan(
         pieces=pieces,
         b_send_idx=arr(fields["b_send_idx"]),

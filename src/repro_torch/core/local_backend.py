@@ -1,10 +1,9 @@
 """Pluggable local-compute backends for the flat executor.
 
-Port of ``repro/core/local_backend.py`` (the SpMM half; the SDDMM
-contract waits for the SDDMM slice). The executor (core.dist_spmm) fixes
-the collectives, and a backend fixes how each padded sparse piece
-(diagonal block, column-covered part, row-covered part) is multiplied
-against its dense operand:
+Port of ``repro/core/local_backend.py``. The executors (core.dist_spmm,
+core.dist_sddmm) fix the collectives, and a backend fixes how each padded
+sparse piece (diagonal block, column-covered part, row-covered part) is
+multiplied against its dense operand:
 
 * ``prepare(csrs)`` — host side, once per plan: the planner's
   per-process CSR pieces become stacked tensors in the backend's native
@@ -17,10 +16,14 @@ the piece layout, so the collective log is identical across backends.
 
 Built-ins:
 
-* ``CooBackend`` — padded COO gather + ``index_add_`` (plain torch on
-  every device, as the reference computes it outside Pallas).
+* ``CooBackend`` — padded COO: gather (K1), scale, sorted fold (K2);
+  no atomics, so its C is the same from run to run.
 * ``BsrBackend`` — ELL block layout feeding the BSR kernels
-  (kernels.bsr_spmm: K3 for ``compute``, K4 for ``compute_segment``).
+  (kernels.bsr_spmm: K3 for ``compute``, K4 for ``compute_segment``;
+  kernels.sddmm: K5 for ``sddmm``).
+
+Both also implement the SDDMM contract (``sddmm`` / ``with_values``)
+that the SDDMM and FusedMM executors use.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ import numpy as np
 import torch
 
 from ..kernels.ops import (
-    bsr_spmm_acc_op, bsr_spmm_op, coo_accumulate_rows_op,
+    bsr_sddmm_op, bsr_spmm_acc_op, bsr_spmm_op, coo_accumulate_rows_op,
+    prepare_sorted_scatter,
 )
 from .sparse import CSRMatrix, ell_from_csr
 
@@ -42,6 +46,11 @@ __all__ = [
     "CooBackend",
     "BsrBackend",
     "coo_spmm_local",
+    "coo_sddmm_local",
+    "coo_scatter_maps",
+    "coo_piece_with_maps",
+    "backend_sddmm",
+    "backend_with_values",
     "get_backend",
     "register_backend",
     "available_backends",
@@ -127,19 +136,81 @@ def backend_compute_segment(be: "LocalSpmmBackend", piece: Piece,
 
 
 # ---------------------------------------------------------------------------
+# SDDMM contract (core.dist_sddmm executors)
+# ---------------------------------------------------------------------------
+#
+# The SDDMM kernel family reuses a piece's native layout with the
+# dataflow reversed: instead of folding stored values against dense ROWS
+# of B, every stored nonzero (i, j) SAMPLES the dot product x_i · y_j and
+# scales it by its stored value. Two methods close the loop:
+#
+# * ``sddmm(piece, x, y)`` — device side. ``x`` [P, rows, F] indexes the
+#   piece's ROW space and ``y`` [P, cols, F] its COLUMN space (the
+#   executors hand each piece exactly the buffers its index spaces refer
+#   to — local rows for the diagonal, exchanged rows for the covered
+#   parts). Returns the sampled values in the backend's NATIVE value
+#   layout (the shape ``prepare`` stored them in), padding slots zero
+#   because their stored values are zero.
+# * ``with_values(piece, vals)`` — swap a piece's stored values for
+#   ``vals`` (a ``sddmm`` result), leaving the index structure (and any
+#   host-prepared maps) untouched. This is what lets FusedMM chain
+#   SDDMM→SpMM without re-laying out anything: the sampled values drop
+#   straight into the SpMM kernels.
+
+
+def backend_sddmm(be: "LocalSpmmBackend", piece: Piece, x: torch.Tensor,
+                  y: torch.Tensor) -> torch.Tensor:
+    """Sampled values for one stacked piece — backend method required."""
+    fn = getattr(be, "sddmm", None)
+    if fn is None:
+        raise NotImplementedError(
+            f"backend {be.name!r} implements no sddmm(piece, x, y); the "
+            f"kernel='sddmm'/'fused' family needs it (see CooBackend / "
+            f"BsrBackend for the contract).")
+    return fn(piece, x, y)
+
+
+def backend_with_values(be: "LocalSpmmBackend", piece: Piece,
+                        vals: torch.Tensor) -> Piece:
+    """Piece with stored values swapped for ``vals`` — method required."""
+    fn = getattr(be, "with_values", None)
+    if fn is None:
+        raise NotImplementedError(
+            f"backend {be.name!r} implements no with_values(piece, vals); "
+            f"the kernel='fused' executor needs it to feed sampled values "
+            f"back into the SpMM phase.")
+    return fn(piece, vals)
+
+
+# ---------------------------------------------------------------------------
 # COO backend (portable default)
 # ---------------------------------------------------------------------------
 
 
-def coo_spmm_local(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
-                   b: torch.Tensor, m_out: int) -> torch.Tensor:
-    """C[p, m_out, N] = scatter-add_e val[p, e] * b[p, col[p, e]] into row[p, e].
+def coo_spmm_local(piece: Piece, b: torch.Tensor, m_out: int
+                   ) -> torch.Tensor:
+    """C[p, m_out, N] = Σ_e val[p, e] · b[p, col[p, e]] folded into row[p, e].
 
-    Padded entries carry val == 0 so they contribute nothing.
+    ``piece`` carries ``col``, ``val`` and the sorted-scatter maps of
+    ``row`` (``perm`` / ``meta``); padded entries join no row.
     """
     acc = torch.zeros((b.shape[0], m_out, b.shape[2]), dtype=b.dtype,
                       device=b.device)
-    return coo_accumulate_rows_op(acc, row, col, val, b)
+    return coo_accumulate_rows_op(acc, piece["col"], piece["val"],
+                                  piece["perm"], piece["meta"], b)
+
+
+def coo_sddmm_local(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+                    x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """vals[p, e] = val[p, e] · (x[p, row[p, e]] · y[p, col[p, e]]).
+
+    Padded entries carry val == 0 (and row == col == 0, which gather
+    real but ignored rows), so they sample to exactly zero for finite
+    operands. Plain torch, as the reference computes coo outside Pallas.
+    """
+    xr = torch.take_along_dim(x, row.long()[..., None], dim=1)
+    yc = torch.take_along_dim(y, col.long()[..., None], dim=1)
+    return val * (xr * yc).sum(dim=-1)
 
 
 def _stack_coo(csrs: List[CSRMatrix]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -158,28 +229,72 @@ def _stack_coo(csrs: List[CSRMatrix]) -> Tuple[np.ndarray, np.ndarray, np.ndarra
     return row, col, val
 
 
+def coo_scatter_maps(row: np.ndarray, nnz: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """The sorted-scatter maps of a stacked coo ``row`` array [P, S].
+
+    ``nnz[p]`` counts rank p's real entries; the pads after them get
+    target -1 so they join no row. Returns (perm [P, S], meta [P, S+1]).
+    """
+    tgt = np.where(np.arange(row.shape[1])[None, :] < np.asarray(nnz)[:, None],
+                   row, -1)
+    maps = [prepare_sorted_scatter(t) for t in tgt]
+    return (np.stack([m[0] for m in maps]), np.stack([m[1] for m in maps]))
+
+
+def coo_piece_with_maps(piece: Piece) -> Piece:
+    """A coo piece made elsewhere (the reference's exec arrays carry only
+    ``row`` / ``col`` / ``val``) with its sorted-scatter maps added.
+
+    The arrays do not say which entries are padding, so every entry joins
+    its row, as in the reference's scatter-add: a pad (val 0.0) adds
+    0 · b[col] to its row.
+    """
+    if "perm" in piece:
+        return piece
+    row = np.asarray(piece["row"])
+    perm, meta = coo_scatter_maps(row, [row.shape[1]] * row.shape[0])
+    return dict(piece, perm=torch.from_numpy(perm),
+                meta=torch.from_numpy(meta))
+
+
 @dataclasses.dataclass(frozen=True)
 class CooBackend:
-    """Padded-COO gather + segment scatter-add."""
+    """Padded COO: gather, scale, sorted fold (no atomics).
+
+    ``prepare`` stacks each rank's piece in CSR order (rows ascend,
+    columns ascend within a row) and adds the host-side sorted-scatter
+    maps of its ``row`` array, so the fold adds each row's entries in
+    ascending column order on every device.
+    """
 
     name: ClassVar[str] = "coo"
 
     def prepare(self, csrs: List[CSRMatrix]) -> Piece:
         row, col, val = _stack_coo(csrs)
+        perm, meta = coo_scatter_maps(row, [c.nnz for c in csrs])
         return {"row": torch.from_numpy(row), "col": torch.from_numpy(col),
-                "val": torch.from_numpy(val)}
+                "val": torch.from_numpy(val), "perm": torch.from_numpy(perm),
+                "meta": torch.from_numpy(meta)}
 
     def compute(self, piece: Piece, b: torch.Tensor, m_out: int
                 ) -> torch.Tensor:
-        return coo_spmm_local(piece["row"], piece["col"], piece["val"],
-                              b, m_out)
+        return coo_spmm_local(piece, b, m_out)
 
     def compute_segment(self, piece: Piece, b_prefix: torch.Tensor,
                         acc: torch.Tensor) -> torch.Tensor:
-        # scatter straight into the running accumulator (in place) — the
-        # same gather/scatter-add chain the staged compute runs, resumed
-        return coo_accumulate_rows_op(acc, piece["row"], piece["col"],
-                                      piece["val"], b_prefix)
+        # fold straight into the running accumulator (in place) — the
+        # same gather/fold chain the staged compute runs, resumed
+        return coo_accumulate_rows_op(acc, piece["col"], piece["val"],
+                                      piece["perm"], piece["meta"], b_prefix)
+
+    def sddmm(self, piece: Piece, x: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+        return coo_sddmm_local(piece["row"], piece["col"], piece["val"],
+                               x, y)
+
+    def with_values(self, piece: Piece, vals: torch.Tensor) -> Piece:
+        return dict(piece, val=vals)
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +361,37 @@ class BsrBackend:
         would regroup the chain and drift by an ulp."""
         return bsr_spmm_acc_op(piece["block_cols"], piece["blocks"],
                                b_prefix, acc, bn=self.bn)
+
+    def sddmm(self, piece: Piece, x: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+        """Sampled [P, mb, t, bm, bk] block values = blocks ⊙ (X · Yᵀ) (K5).
+
+        X/Y row counts are padded up to the block grid with zero rows,
+        which land only on padding slots. The reference also pads F to a
+        multiple of 128 for the TPU's lanes; the card has no such tiling
+        and zero feature columns add exact zeros, so F stays as it is.
+        """
+        cols, blocks = piece["block_cols"], piece["blocks"]
+        P_, mb, _, bm, bk = blocks.shape
+        kb = max(-(-y.shape[1] // bk), 1)
+        f = x.shape[2]
+        dt = torch.promote_types(x.dtype, y.dtype)
+        x3 = _pad_rows(x.to(dt), mb * bm).view(P_, mb, bm, f)
+        y3 = _pad_rows(y.to(dt), kb * bk).view(P_, kb, bk, f)
+        return bsr_sddmm_op(cols, blocks, x3, y3).to(x.dtype)
+
+    def with_values(self, piece: Piece, vals: torch.Tensor) -> Piece:
+        return dict(piece, blocks=vals)
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` [P, r, F] with zero rows appended up to ``rows`` (contiguous)."""
+    if x.shape[1] > rows:
+        raise ValueError(f"operand has {x.shape[1]} rows, the block grid "
+                         f"{rows}")
+    out = x.new_zeros((x.shape[0], rows, x.shape[2]))
+    out[:, :x.shape[1]] = x
+    return out
 
 
 # ---------------------------------------------------------------------------

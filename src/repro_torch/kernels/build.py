@@ -29,7 +29,8 @@ __all__ = ["BUILD_DIR", "SOURCES", "nvcc_path", "build", "build_log",
            "library", "check", "stream_of", "dtype_code"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gather_rows.cu", "scatter_add_rows.cu", "bsr_spmm.cu")
+SOURCES = ("gather_rows.cu", "scatter_add_rows.cu", "bsr_spmm.cu",
+           "bsr_sddmm.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,6 +48,8 @@ _SIGNATURES = {
                        _I64, _I64, _I32, _I32, _P],
     "repro_bsr_spmm_acc": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                            _I64, _I64, _I64, _I32, _I32, _P],
+    "repro_bsr_sddmm": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I64,
+                        _I64, _I32, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -20,6 +20,7 @@ import torch
 from . import bsr_spmm as _bsr
 from . import gather_rows as _gather
 from . import scatter_add_rows as _scatter
+from . import sddmm as _sddmm
 from .scatter_add_rows import prepare_sorted_scatter
 
 __all__ = [
@@ -29,12 +30,14 @@ __all__ = [
     "coo_accumulate_rows_op",
     "bsr_spmm_op",
     "bsr_spmm_acc_op",
+    "bsr_sddmm_op",
     "prepare_sorted_scatter",
     "launch_counts",
     "reset_launch_counts",
 ]
 
-_COUNTERS = (_gather.LAUNCHES, _scatter.LAUNCHES, _bsr.LAUNCHES)
+_COUNTERS = (_gather.LAUNCHES, _scatter.LAUNCHES, _bsr.LAUNCHES,
+             _sddmm.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -91,25 +94,25 @@ def scatter_add_rows_exec_op(c: torch.Tensor, partials: torch.Tensor,
     return fn(c, partials, perm, meta)
 
 
-def coo_accumulate_rows_op(acc: torch.Tensor, row: torch.Tensor,
-                           col: torch.Tensor, val: torch.Tensor,
-                           b: torch.Tensor) -> torch.Tensor:
+def coo_accumulate_rows_op(acc: torch.Tensor, col: torch.Tensor,
+                           val: torch.Tensor, perm: torch.Tensor,
+                           meta: torch.Tensor, b: torch.Tensor
+                           ) -> torch.Tensor:
     """Padded-COO scatter-add ``acc[p, row[p, e]] += val[p, e]·b[p, col[p, e]]``.
 
-    IN PLACE on ``acc`` [P, m, n] (contiguous), which is returned. Plain
-    gather + ``index_add_`` on every device: the reference computes the
-    coo backend outside Pallas too, so it has no hand kernel. On the CPU
-    the adds to one row run in nonzero order (deterministic); on CUDA
-    ``index_add_`` uses atomics, so their order varies between runs.
+    IN PLACE on ``acc`` [P, m, n] (contiguous), which is returned.
+    ``perm`` / ``meta`` are the sorted-scatter maps of the piece's ``row``
+    array (``prepare_sorted_scatter``, pads at -1). Three steps, no
+    atomics: gather ``b[col]`` (K1), scale by ``val`` (one multiply), fold
+    into ``acc`` in slot order (K2). The piece's entries are in CSR order,
+    so each row's chain is ``acc + e1 + e2 + …`` in ascending column
+    order — the chain segment-by-segment accumulation replays, which keeps
+    overlapped coo C bit-identical to staged C, and every run equal to
+    the last.
     """
-    P, m, n = acc.shape
-    K = b.shape[1]
-    ranks = torch.arange(P, device=b.device)[:, None]
-    src = b.reshape(P * K, n)[(col.long() + ranks * K).reshape(-1)]
-    vals = (src * val.reshape(-1, 1)).to(acc.dtype)
-    acc.view(P * m, n).index_add_(0, (row.long() + ranks * m).reshape(-1),
-                                  vals)
-    return acc
+    src = pack_rows_op(b, col)  # [P, nnz, n]
+    prods = (src * val[..., None]).to(acc.dtype)
+    return scatter_add_rows_exec_op(acc, prods, perm, meta)
 
 
 def bsr_spmm_op(block_cols: torch.Tensor, blocks: torch.Tensor,
@@ -133,3 +136,15 @@ def bsr_spmm_acc_op(block_cols: torch.Tensor, blocks: torch.Tensor,
     if on_card(block_cols, blocks, b, acc):
         return _bsr.bsr_spmm_acc_cuda(block_cols, blocks, b, acc, bn=bn)
     return _bsr.bsr_spmm_acc_plain(block_cols, blocks, b, acc)
+
+
+def bsr_sddmm_op(block_cols: torch.Tensor, blocks: torch.Tensor,
+                 x3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
+    """Sampled ``blocks ⊙ (X_blk · Y_blkᵀ)`` per stored block, float32 (K5).
+
+    ``x3`` [P, mb, bm, F] / ``y3`` [P, kb, bk, F] are the dense rows in
+    block-row view; the result has ``blocks``' shape [P, mb, t, bm, bk].
+    """
+    if on_card(block_cols, blocks, x3, y3):
+        return _sddmm.bsr_sddmm_cuda(block_cols, blocks, x3, y3)
+    return _sddmm.bsr_sddmm_plain(block_cols, blocks, x3, y3)

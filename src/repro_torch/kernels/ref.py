@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["bsr_spmm_ref", "gather_rows_ref", "scatter_add_rows_ref"]
+__all__ = ["bsr_spmm_ref", "bsr_sddmm_ref", "gather_rows_ref",
+           "scatter_add_rows_ref"]
 
 
 def bsr_spmm_ref(block_cols: torch.Tensor, blocks: torch.Tensor,
@@ -33,6 +34,26 @@ def bsr_spmm_ref(block_cols: torch.Tensor, blocks: torch.Tensor,
     out = torch.einsum("...mtik,...mtkn->...min", blocks.float(),
                        gathered.float())
     return out.reshape(*lead, mb * bm, n).to(b.dtype)
+
+
+def bsr_sddmm_ref(block_cols: torch.Tensor, blocks: torch.Tensor,
+                  x3: torch.Tensor, y3: torch.Tensor) -> torch.Tensor:
+    """Block-sparse SDDMM oracle (``repro/kernels/sddmm.py``'s).
+
+    block_cols: [..., mb, t] int32, block-column id per stored block, -1 = pad
+    blocks:     [..., mb, t, bm, bk] float, stored values (pads are zero)
+    x3:         [..., mb, bm, f] dense rows, block-row view
+    y3:         [..., kb, bk, f] dense rows, block-row view
+    returns     [..., mb, t, bm, bk] = blocks ⊙ (x_blk · y_blkᵀ), the
+                products in float32, cast to x3's dtype
+    """
+    *lead, mb, t = block_cols.shape
+    kb, bk, f = y3.shape[-3:]
+    safe = block_cols.clamp(min=0).long().reshape(*lead, mb * t, 1)
+    y_g = torch.take_along_dim(y3.reshape(*lead, kb, bk * f), safe, dim=-2)
+    y_g = y_g.reshape(*lead, mb, t, bk, f)
+    prod = torch.einsum("...mif,...mtkf->...mtik", x3.float(), y_g.float())
+    return (blocks.float() * prod).to(x3.dtype)
 
 
 def gather_rows_ref(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

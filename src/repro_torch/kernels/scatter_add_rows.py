@@ -64,16 +64,45 @@ def _check_shapes(c, partials, perm, meta) -> None:
 def scatter_add_rows_plain(c: torch.Tensor, partials: torch.Tensor,
                            perm: torch.Tensor, meta: torch.Tensor
                            ) -> torch.Tensor:
-    """The same in-place update in plain torch (slot order per row)."""
+    """The same in-place update in plain torch, with the kernel's chain.
+
+    Each segment is seeded from C in float32 and folded in slot order,
+    then written once — the kernel's arithmetic, so the two agree bit for
+    bit on every device. The fold runs depth by depth: step k adds the
+    k-th slot of every segment that long, and no segment appears twice in
+    one step, so no two adds ever race (no atomics on CUDA either).
+    """
     _check_shapes(c, partials, perm, meta)
     P, S, n = partials.shape
     M = c.shape[1]
-    valid = (torch.arange(S, device=c.device)[None, :]
-             < meta[:, S:].long())
-    offs = torch.arange(P, device=c.device)[:, None] * M
-    flat_tgt = (meta[:, :S].long() + offs)[valid]
-    rows = torch.take_along_dim(partials, perm.long()[..., None], dim=1)
-    c.view(P * M, n).index_add_(0, flat_tgt, rows[valid].to(c.dtype))
+    dev = c.device
+    valid = torch.arange(S, device=dev)[None, :] < meta[:, S:].long()
+    tgt = meta[:, :S].long()
+    # a malformed map reads nothing, as in the kernel
+    src = perm.long()
+    valid &= (tgt >= 0) & (tgt < M) & (src >= 0) & (src < S)
+    ranks = torch.arange(P, device=dev)[:, None]
+    flat_tgt = (tgt + ranks * M)[valid]  # ascending: ranks, then sorted rows
+    flat_src = (src + ranks * S)[valid]
+    if flat_tgt.numel() == 0:
+        return c
+    start = torch.ones_like(flat_tgt, dtype=torch.bool)
+    start[1:] = flat_tgt[1:] != flat_tgt[:-1]
+    seg = torch.cumsum(start.long(), 0) - 1
+    first = torch.nonzero(start).squeeze(1)
+    depth = torch.arange(flat_tgt.numel(), device=dev) - first[seg]
+    order = torch.argsort(depth, stable=True)
+    per_depth = torch.bincount(depth).tolist()
+    c_flat = c.view(P * M, n)
+    acc = c_flat[flat_tgt[first]].float()
+    rows = partials.reshape(P * S, n)
+    lo = 0
+    for count in per_depth:
+        idx = order[lo:lo + count]
+        lo += count
+        s = seg[idx]
+        acc[s] = acc[s] + rows[flat_src[idx]].float()
+    c_flat[flat_tgt[first]] = acc.to(c.dtype)
     return c
 
 

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import bsr_spmm as K34
 from repro_torch.kernels import gather_rows as K1
 from repro_torch.kernels import scatter_add_rows as K2
+from repro_torch.kernels import sddmm as K5
 from repro_torch.kernels.ops import launch_counts
 
 # decided when each test runs, never while the module is imported
@@ -128,3 +129,90 @@ def test_kernels_reject_cpu_operands():
     idx = torch.zeros((1, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         K1.gather_rows_cuda(b, idx)
+
+
+SDDMM_SHAPES = [
+    # (mb, t, bm, bk, kb, F): F 1, 16, 33, 128, an empty piece, 16x8 blocks
+    (3, 4, 8, 8, 5, 1),
+    (4, 3, 8, 8, 6, 16),
+    (2, 5, 8, 8, 4, 33),
+    (3, 2, 8, 8, 3, 128),
+    (4, 0, 8, 8, 3, 16),
+    (2, 3, 16, 8, 4, 24),
+]
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", SDDMM_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_sddmm_kernel_matches_plain(shape, dtype):
+    mb, t, bm, bk, kb, f = shape
+    rng = np.random.default_rng(sum(shape))
+    cols = rng.integers(-1, kb, size=(P, mb, t)).astype(np.int32)
+    if t:
+        cols[:, 0] = -1  # all-pad block rows
+    blocks = rng.standard_normal((P, mb, t, bm, bk)).astype(np.float32)
+    blocks[cols < 0] = 0.0
+    x3 = _cuda(rng.standard_normal((P, mb, bm, f)).astype(np.float32))
+    y3 = _cuda(rng.standard_normal((P, kb, bk, f)).astype(np.float32))
+    cols, blocks = _cuda(cols), _cuda(blocks)
+    x3, y3 = x3.to(dtype), y3.to(dtype)
+    before = launch_counts()["bsr_sddmm"]
+    out = K5.bsr_sddmm_cuda(cols, blocks, x3, y3)
+    torch.cuda.synchronize()
+    assert launch_counts()["bsr_sddmm"] == before + (1 if t else 0)
+    assert out.dtype == torch.float32 and out.shape == blocks.shape
+    ref = K5.bsr_sddmm_plain(cols, blocks, x3, y3)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    assert not out[cols < 0].any()  # pad slots are exact zeros
+
+
+def _executor_case():
+    from repro_torch.core import comm_schedule, dist_spmm, planner, sparse
+
+    a = sparse.power_law_sparse(512, 512, 6000, 1.2, seed=2)
+    plan = planner.build_plan(a, 8)
+    ex = dist_spmm.flat_exec_arrays(
+        plan, backends=("coo", "bsr"),
+        schedule=comm_schedule.build_comm_schedule(plan, K=4)).to("cuda")
+    return a, ex
+
+
+@requires_cuda
+def test_coo_overlapped_bit_identical_on_the_card():
+    """The coo fold (K1 gather, K2 sorted fold) has no atomics: overlapped
+    C equals staged C bit for bit, and two calls give the same bits."""
+    from repro_torch.core.dist_spmm import flat_spmm
+
+    a, ex = _executor_case()
+    b = torch.randn((512, 64), device="cuda")
+    staged = flat_spmm(ex, b, backend="coo")
+    over = flat_spmm(ex, b, backend="coo", overlap=True)
+    again = flat_spmm(ex, b, backend="coo", overlap=True)
+    torch.cuda.synchronize()
+    assert torch.equal(over, staged) and torch.equal(again, over)
+    want = a.to_dense().astype(np.float64) @ b.double().cpu().numpy()
+    np.testing.assert_allclose(staged.cpu().numpy(), want, rtol=2e-4,
+                               atol=2e-4)
+
+
+@requires_cuda
+def test_flat_fused_bsr_repeats_bit_for_bit():
+    from repro_torch.core.dist_sddmm import flat_fused
+
+    a, ex = _executor_case()
+    x, y = torch.randn((512, 16), device="cuda"), \
+        torch.randn((512, 16), device="cuda")
+    b = torch.randn((512, 32), device="cuda")
+    before = launch_counts()
+    c1 = flat_fused(ex, x, y, b, backend="bsr", edge="leaky_relu")
+    c2 = flat_fused(ex, x, y, b, backend="bsr", edge="leaky_relu")
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert torch.equal(c1, c2)
+    for k in ("gather_rows", "scatter_add_rows", "bsr_spmm", "bsr_sddmm"):
+        assert after[k] > before[k], k
+    s = a.to_dense().astype(np.float64) * (
+        x.double().cpu().numpy() @ y.double().cpu().numpy().T)
+    want = np.where(s > 0, s, 0.2 * s) @ b.double().cpu().numpy()
+    np.testing.assert_allclose(c1.cpu().numpy(), want, rtol=2e-4, atol=2e-4)

@@ -127,3 +127,89 @@ def test_overlap_needs_overlap_layouts():
         t_dist.flat_spmm(ex, b, backend="bsr")
     with pytest.raises(ValueError, match="not divisible"):
         t_dist.flat_spmm(ex, torch.zeros((63, 4)))
+
+
+@pytest.mark.parametrize("K", [None, 4])
+def test_coo_pieces_carry_row_maps(K):
+    """Every coo piece (diag, colp, rowp and the overlapped body's
+    colp@i / rowp@i) carries the sorted-scatter maps of its row array,
+    pads at -1; entries are in CSR order, so each row's fold runs in
+    ascending column order."""
+    a = _port_csr(power_law_sparse(64, 64, 400, 1.2, 2))
+    plan = t_plan.build_plan(a, 8)
+    sched = None if K is None else t_sched.build_comm_schedule(plan, K=K)
+    ex = t_dist.flat_exec_arrays(plan, schedule=sched)
+    names = set(ex.pieces["coo"])
+    assert {"diag", "colp", "rowp"} <= names
+    if K is not None:
+        assert any(n.startswith("colp@") for n in names)
+    for name, piece in ex.pieces["coo"].items():
+        row, col, val = (piece[k].numpy() for k in ("row", "col", "val"))
+        for p in range(row.shape[0]):
+            nnz = int(piece["meta"][p, -1])
+            tgt = np.where(np.arange(row.shape[1]) < nnz, row[p], -1)
+            perm, meta = t_dist.prepare_sorted_scatter(tgt)
+            np.testing.assert_array_equal(piece["perm"][p].numpy(), perm,
+                                          err_msg=name)
+            np.testing.assert_array_equal(piece["meta"][p].numpy(), meta,
+                                          err_msg=name)
+            assert not val[p, nnz:].any(), name
+            key = row[p, :nnz].astype(np.int64) * 64 + col[p, :nnz]
+            assert (np.diff(key) > 0).all(), name
+
+
+def test_coo_piece_with_maps_folds_every_stored_entry():
+    """Arrays made elsewhere say nothing of padding, so every entry joins
+    its row, as in the reference's scatter-add; a stored explicit zero at
+    (0, 0) that is last in its rank stays in the fold."""
+    from repro_torch.core.local_backend import coo_piece_with_maps
+
+    row = np.array([[1, 2, 0], [0, 3, 0]], np.int32)
+    col = np.array([[4, 1, 0], [2, 2, 0]], np.int32)
+    val = np.array([[1.0, 2.0, 0.0], [3.0, 4.0, 0.0]], np.float32)
+    piece = coo_piece_with_maps({k: torch.from_numpy(v) for k, v in
+                                 (("row", row), ("col", col), ("val", val))})
+    for p in range(2):
+        perm, meta = t_dist.prepare_sorted_scatter(row[p])
+        np.testing.assert_array_equal(piece["perm"][p].numpy(), perm)
+        np.testing.assert_array_equal(piece["meta"][p].numpy(), meta)
+        assert int(piece["meta"][p, -1]) == 3
+    assert coo_piece_with_maps(piece) is piece
+
+
+def test_coo_overlapped_bit_identical_through_k1_k2_plain():
+    """The coo fold goes through the K1/K2 plain versions on the CPU, and
+    overlapped C stays bit-identical to staged C (and run to run)."""
+    from repro_torch.kernels import gather_rows, scatter_add_rows
+
+    a = _port_csr(power_law_sparse(64, 64, 400, 1.2, 2))
+    plan = t_plan.build_plan(a, 8)
+    ex = t_dist.flat_exec_arrays(plan, schedule=t_sched.build_comm_schedule(
+        plan, K=4))
+    b = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (64, 8)).astype(np.float32))
+    calls = {"gather": 0, "scatter": 0}
+    orig_g, orig_s = (gather_rows.gather_rows_plain,
+                      scatter_add_rows.scatter_add_rows_plain)
+
+    def count(key, fn):
+        def wrapped(*args):
+            calls[key] += 1
+            return fn(*args)
+        return wrapped
+
+    gather_rows.gather_rows_plain = count("gather", orig_g)
+    scatter_add_rows.scatter_add_rows_plain = count("scatter", orig_s)
+    try:
+        staged = t_dist.flat_spmm(ex, b, backend="coo")
+        n_staged = dict(calls)
+        over = t_dist.flat_spmm(ex, b, backend="coo", overlap=True)
+    finally:
+        gather_rows.gather_rows_plain = orig_g
+        scatter_add_rows.scatter_add_rows_plain = orig_s
+    # staged: the B pack + 3 piece gathers; 3 piece folds + the aggregation
+    assert n_staged == {"gather": 4, "scatter": 4}
+    assert torch.equal(over, staged)
+    assert torch.equal(t_dist.flat_spmm(ex, b, backend="coo"), staged)
+    np.testing.assert_allclose(staged.numpy(), a.to_dense() @ b.numpy(),
+                               rtol=2e-4, atol=2e-4)

@@ -179,8 +179,12 @@ def test_coo_accumulate_matches_reference_scatter():
                                        jnp.asarray(col[p]),
                                        jnp.asarray(val[p]),
                                        jnp.asarray(b[p]))) for p in range(2)])
+    from repro_torch.core.local_backend import coo_scatter_maps
+
+    perm, meta = coo_scatter_maps(row, [20, 20])
     acc_t = _t(acc).clone()
-    out = ops.coo_accumulate_rows_op(acc_t, _t(row), _t(col), _t(val), _t(b))
+    out = ops.coo_accumulate_rows_op(acc_t, _t(col), _t(val), _t(perm),
+                                     _t(meta), _t(b))
     assert out is acc_t
     np.testing.assert_allclose(out.numpy(), want, rtol=1e-6, atol=1e-6)
 
@@ -204,3 +208,25 @@ def test_ops_reject_other_devices():
         ops.pack_rows_op(b, idx)
     with pytest.raises(ValueError, match="different devices"):
         ops.pack_rows_op(torch.zeros((1, 4, 8)), idx)
+
+
+@pytest.mark.parametrize("M,n,S", [(8, 16, 12), (4, 8, 40)])
+def test_scatter_plain_folds_in_slot_order(M, n, S):
+    """The plain version seeds each segment from C and adds its slots in
+    slot order, one float32 add at a time — the kernel's chain, bit for
+    bit, whatever the segment lengths."""
+    rng = np.random.default_rng(M + S)
+    c = (rng.standard_normal((2, M, n)) * 1e3).astype(np.float32)
+    parts = rng.standard_normal((2, S, n)).astype(np.float32)
+    tgt = rng.integers(-1, M, size=(2, S)).astype(np.int32)
+    prep = [prepare_sorted_scatter(t) for t in tgt]
+    perm = np.stack([pm for pm, _ in prep])
+    meta = np.stack([mt for _, mt in prep])
+    want = c.copy()
+    for p in range(2):
+        for s in range(int(meta[p, -1])):
+            row = want[p, meta[p, s]]
+            row[...] = row + parts[p, perm[p, s]]  # float32, slot order
+    out = K2.scatter_add_rows_plain(_t(c).clone(), _t(parts), _t(perm),
+                                    _t(meta))
+    assert torch.equal(out, _t(want))
