@@ -2,7 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port runs on the card.
 
     python3 chip_smoke.py            # full size, one NVIDIA H100
-    python3 chip_smoke.py --quick    # a small matrix: build + every check
+    python3 chip_smoke.py --quick    # small matrix, olmoe-smoke: every check
 
 Run from the repository root on a machine with a CUDA card; it imports the
 port from ``src/`` and nothing of JAX or of the JAX package. It drives the
@@ -14,7 +14,7 @@ matrix (coo and bsr) and a power-law one (coo: its ELL form would need
 ~86 GB), then GAT inference on the uniform graph through the FusedMM
 handle. Phases, each of which raises on a failed check:
 
-1. build: nvcc builds K1–K5 from ``src/repro_torch/csrc``;
+1. build: nvcc builds K1–K6 from ``src/repro_torch/csrc``;
 2. kernels: every kernel's calls on each path are recorded and replayed
    against the kernel's plain torch version on the same inputs (K1 and
    K2 exact, float32 1e-5 for K3–K5), and again at ``tests/test_kernels.py``'s
@@ -37,7 +37,23 @@ handle. Phases, each of which raises on a failed check:
    and repeat bit for bit, K1, K2, K3 and K5 launched on bsr and K1, K2
    on coo; the kernel calls of both forwards and of the F = 128 SDDMM
    are replayed against the plain versions as in phase 2;
-6. timing: median ``h(b)`` per backend and median GAT forward per backend.
+6. timing: median ``h(b)`` per backend and median GAT forward per backend;
+7. LM serving: OLMoE-1B-7B at its published width (bfloat16, 16 layers,
+   d_model 2048, 64 experts top-8, vocab 50304; random weights from
+   ``torch.Generator("cuda").manual_seed(0)``; ``--quick``: olmoe-smoke)
+   through the port's transformer: a prefill ``forward`` of 8 prompts ×
+   128 tokens, then ``ContinuousBatcher(max_batch=8, max_len=128)``
+   serving 12 requests (prompts of 32–64 tokens, 16 new tokens each: two
+   waves), twice, with identical outputs; every RMSNorm is K6 (2·16 + 1
+   launches per forward and per decode step), and the K6 calls of one
+   prefill and one decode step are replayed against the plain version
+   (float32 1e-5, bfloat16 one ulp); a float32 copy of the first 2 layers
+   gives ``decode_step`` logits equal to ``forward``'s within 2e-4, both
+   within 2e-4 of a float64 run of the plain versions; then the SHIRO
+   dispatch of one 8 × 128 prefill, ``compile_dispatch(cfg, tokens=1024,
+   M=8)``, with decisions equal to the reference's, ``h(x)`` on x [1024,
+   2048] float32 within 2e-4 of the dense dispatch and its K1/K2 calls
+   replayed exactly.
 
 It prints the card's name and power limit, then one JSON line of kernel
 rows, then ``{"ok": true, "device": {...}}`` as its last line. Without a
@@ -46,6 +62,8 @@ CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -86,6 +104,21 @@ GAT_DIMS = dict(feat_dim=128, hidden=128, n_classes=40, n_layers=2,
                 att_dim=16)  # ogbn-arxiv's features and classes
 SDDMM_F = 128
 
+LM_ARCH = "olmoe-1b-7b"  # the config the repo calls SHIRO-first-class
+LM_PREFILL = (8, 128)  # prompts x tokens of the prefill forward
+LM_SERVE = dict(max_batch=8, max_len=128, requests=12, prompt=(32, 64),
+                new_tokens=16)  # more requests than slots: two waves
+LM_F32 = dict(n_layers=2, batch=2, tokens=16)  # the float32 / float64 copy
+DISPATCH = dict(tokens=1024, M=8)  # one 8 x 128 prefill's MoE dispatch
+# the reference's dispatch decisions (repro.models.moe.compile_dispatch(
+# get_config("olmoe-1b-7b"), 1024, 8).stats(), JAX package, CPU run)
+EXPECT_DISPATCH = dict(strategy="flat", plan_strategy="joint", net="tsubame4",
+                       shape=(8424, 1024), backends=("coo",),
+                       schedule_kind="bucketed", schedule_K=1, overlap=True,
+                       modeled_time_schedule=5.1539199999999996e-05,
+                       volume_rows=4917, volume_rows_padded=6160,
+                       volume_rows_padded_single=7040, pattern_nnz=8192)
+
 KERNELS = {
     # name: (source, the Pallas function it replaces)
     "gather_rows": ("src/repro_torch/csrc/gather_rows.cu",
@@ -98,6 +131,8 @@ KERNELS = {
                      "src/repro/kernels/bsr_spmm.py:110"),
     "bsr_sddmm": ("src/repro_torch/csrc/bsr_sddmm.cu",
                   "src/repro/kernels/sddmm.py:72"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:33"),
 }
 
 
@@ -141,6 +176,27 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_busy_ms(fns, key: str, reps: int = 5) -> float:
+    """Device time of the kernels named ``*key*`` under torch.profiler,
+    per pass over ``fns`` (each called ``reps`` times): the kernel's own
+    time, without the host time between launches that CUDA events count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and key in e.key)
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no {key} kernel")
+    return us / 1e3 / reps
+
+
 # ---------------------------------------------------------------------------
 # kernel calls: record on the main path, replay against the plain versions
 # ---------------------------------------------------------------------------
@@ -150,14 +206,15 @@ def record_kernel_calls(fn):
     """Run ``fn()`` with every kernel wrapper wrapped to keep a copy of
     its arguments; returns {kernel: [(args, kwargs), ...]}."""
     from repro_torch.kernels import (
-        bsr_spmm, gather_rows, scatter_add_rows, sddmm,
+        bsr_spmm, gather_rows, rmsnorm, scatter_add_rows, sddmm,
     )
 
     targets = {"gather_rows": (gather_rows, "gather_rows_cuda"),
                "scatter_add_rows": (scatter_add_rows, "scatter_add_rows_cuda"),
                "bsr_spmm": (bsr_spmm, "bsr_spmm_cuda"),
                "bsr_spmm_acc": (bsr_spmm, "bsr_spmm_acc_cuda"),
-               "bsr_sddmm": (sddmm, "bsr_sddmm_cuda")}
+               "bsr_sddmm": (sddmm, "bsr_sddmm_cuda"),
+               "rmsnorm": (rmsnorm, "rmsnorm_cuda")}
     calls = {k: [] for k in targets}
     originals = {k: getattr(mod, attr) for k, (mod, attr) in targets.items()}
 
@@ -228,16 +285,56 @@ def _sddmm_csr(cols, blocks, rows: int, ncols: int):
         return coo.to_sparse_csr()
 
 
+def bf16_ulp(y: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at |y| (8 significant bits)."""
+    mag = y.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_rmsnorm(out: torch.Tensor, plain: torch.Tensor, x: torch.Tensor,
+                  g: torch.Tensor, eps: float, rbg: bool) -> float:
+    """K6 against its plain version, which repeats the kernel's float32
+    chain (the same bits), and against the oracle ``rmsnorm_ref`` (torch's
+    own order of the sum of squares): float32 within 1e-5, bfloat16 within
+    one ulp of |y| — and with two roundings (``rbg``) one ulp of the
+    rounded x·r carried through the gain on top, since r's last float32
+    bit can move cast(x·r) by one bf16 ulp. Returns the max abs
+    difference from the oracle."""
+    from repro_torch.kernels.ref import rmsnorm_ref
+
+    if not torch.equal(out, plain):
+        raise AssertionError("rmsnorm kernel != plain version (same chain)")
+    ref = rmsnorm_ref(x, g, eps, round_before_gain=rbg)
+    diff = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        return float(diff.max())
+    tol = bf16_ulp(torch.maximum(out.float().abs(), ref.float().abs()))
+    if rbg:
+        xf = x.float()
+        inter = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+                 ).to(torch.bfloat16)
+        tol = tol + bf16_ulp(inter) * g.float().abs()
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"rmsnorm kernel differs from the oracle beyond "
+                             f"the bf16 tolerance: {diff.max()}")
+    return float(diff.max())
+
+
 def kernel_row(name, calls, launches):
     """Replay one kernel's recorded calls: error vs plain, times, bound."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels import bsr_spmm as k34
     from repro_torch.kernels import gather_rows as k1
+    from repro_torch.kernels import rmsnorm as k6
     from repro_torch.kernels import scatter_add_rows as k2
     from repro_torch.kernels import sddmm as k5
 
     if not calls:
         raise AssertionError(f"{name}: no call recorded on the main path")
-    err = ms = plain_ms = lib_ms = bound_ms = 0.0
+    err = ms = plain_ms = lib_ms = bound_ms = oracle_err = 0.0
+    runs = []
     by = {"bytes": 0.0, "operations": 0.0}
     for args, kw in calls:
         if name == "gather_rows":
@@ -281,6 +378,19 @@ def kernel_row(name, calls, launches):
             nbytes = (n_valid * n * es + (perm.numel() + meta.numel()) * 4
                       + 2 * touched * n * es)
             flops = float(n_valid * n)
+        elif name == "rmsnorm":
+            x, g, eps = args
+            rbg = kw["round_before_gain"]
+            out = k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg)
+            ref = k6.rmsnorm_plain(x, g, eps, round_before_gain=rbg)
+            oracle_err = max(oracle_err,
+                             check_rmsnorm(out, ref, x, g, eps, rbg))
+            run = lambda: k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg)  # noqa: E731,E501
+            plain = lambda: k6.rmsnorm_plain(x, g, eps, round_before_gain=rbg)  # noqa: E731,E501
+            lib = lambda: F.rms_norm(x, (x.shape[-1],), weight=g, eps=eps)  # noqa: E731,E501
+            es = x.element_size()
+            nbytes = 2 * x.numel() * es + g.numel() * es  # read x, g; write y
+            flops = 4.0 * x.numel()  # square-add, scale, gain (+ rounding)
         elif name == "bsr_sddmm":
             cols, blocks, x3, y3 = args
             out = k5.bsr_sddmm_cuda(cols, blocks, x3, y3)
@@ -338,17 +448,46 @@ def kernel_row(name, calls, launches):
         err = max(err, float((out.float() - ref.float()).abs().max())
                   if out.numel() else 0.0)
         ms += time_ms(run)
+        runs.append(run)
         plain_ms += time_ms(plain, iters=1, warmup=0)  # warm from the check
         lib_ms += time_ms(lib)
         b_ms, b_by = _bound(nbytes, flops)
         bound_ms += b_ms
         by[b_by] += b_ms
     source, replaces = KERNELS[name]
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": int(launches),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": max(by, key=by.get),
-            "library_ms": lib_ms, "calls_per_h": len(calls)}
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": int(launches),
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": max(by, key=by.get),
+           "library_ms": lib_ms, "calls_per_h": len(calls)}
+    if name == "rmsnorm":
+        row["max_abs_err_vs_oracle"] = oracle_err
+        row["kernel_busy_ms"] = kernel_busy_ms(runs, "rmsnorm_kernel")
+    return row
+
+
+def kernel_summary(name: str, per_path: dict, card: str) -> dict:
+    """One kernel's JSON row: its first path's numbers at the top level,
+    each path's own under "paths", max_abs_err the worst over them."""
+    for path, r in per_path.items():
+        log(f"kernel {name} {path} [{card}]: {r['ms']:.4f} ms per call "
+            f"of the path over {r['calls_per_h']} launch(es), "
+            f"{r['launches']} launch(es) counted, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"max abs err {r['max_abs_err']:.3g}"
+            + (f" (vs the oracle {r['max_abs_err_vs_oracle']:.3g}); kernels "
+               f"busy {r['kernel_busy_ms']:.4f} ms (torch.profiler)"
+               if "kernel_busy_ms" in r else ""))
+    row = dict(next(iter(per_path.values())))
+    row["max_abs_err"] = max(r["max_abs_err"] for r in per_path.values())
+    row["paths"] = {
+        path: {key: r[key] for key in (
+            "launches", "calls_per_h", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "max_abs_err_vs_oracle",
+            "kernel_busy_ms") if key in r}
+        for path, r in per_path.items()}
+    return row
 
 
 def sweep_checks() -> None:
@@ -635,10 +774,8 @@ def check_sddmm_values(h, vals, a, x: torch.Tensor, y: torch.Tensor) -> float:
     return err
 
 
-def median_gat_ms(model, feats, fused, reps: int = 7):
-    """Median device time and host time of one GAT forward."""
-    from repro_torch.models.gnn import gat_forward
-
+def median_ms(fn, reps: int = 7):
+    """Median device time (CUDA events) and host time of one ``fn()``."""
     dev_ms, host_ms = [], []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -646,24 +783,7 @@ def median_gat_ms(model, feats, fused, reps: int = 7):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        gat_forward(model, feats, fused)
-        end.record()
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        dev_ms.append(start.elapsed_time(end))
-    return statistics.median(dev_ms), statistics.median(host_ms)
-
-
-def median_call_ms(h, b, backend: str, reps: int = 7):
-    """Median device time and host time of one ``h(b)`` call."""
-    dev_ms, host_ms = [], []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        h(b, backend=backend)
+        fn()
         end.record()
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
@@ -700,14 +820,251 @@ def profile_cells(cells) -> None:
                 f"{e.count // 3:4d}x  {e.key[:70]}")
 
 
+# ---------------------------------------------------------------------------
+# LM serving: OLMoE-1B-7B through the port's transformer and batcher
+# ---------------------------------------------------------------------------
+
+
+class plain_rmsnorm:
+    """Within the block, K6's wrapper runs the plain version on the card
+    (for the float64 reference run, which the kernel does not take)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import rmsnorm
+
+        self.saved = rmsnorm.rmsnorm_cuda
+        rmsnorm.rmsnorm_cuda = rmsnorm.rmsnorm_plain
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import rmsnorm
+
+        rmsnorm.rmsnorm_cuda = self.saved
+
+
+def lm_requests(Request, vocab: int, seed: int = 0):
+    """LM_SERVE's requests: prompts of 32-64 tokens from numpy ``seed``."""
+    rng = np.random.default_rng(seed)
+    lo, hi = LM_SERVE["prompt"]
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(n)).astype(
+        np.int32), max_new_tokens=LM_SERVE["new_tokens"])
+        for i, n in enumerate(rng.integers(lo, hi + 1, LM_SERVE["requests"]))]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def check_finite(t: torch.Tensor, shape, what: str) -> None:
+    if tuple(t.shape) != tuple(shape) or not bool(torch.isfinite(t).all()):
+        raise AssertionError(f"{what}: shape {tuple(t.shape)} (want "
+                             f"{tuple(shape)}) or non-finite values")
+
+
+def lm_serving(args, card: str, dev: str = "cuda") -> dict:
+    """Phase 7 on ``dev``. Returns kernel paths for the JSON rows: K6's
+    prefill, decode-step and float32-copy paths, and K1/K2's dispatch
+    path."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.dist_spmm import flat_spmm
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.moe import compile_dispatch, dispatch_matrix
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+
+    cfg = get_smoke_config(LM_ARCH) if args.quick else get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = TT.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"LM: {cfg.name} ({cfg.dtype}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_experts} experts top-"
+        f"{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): {n_params:,} "
+        f"parameters, random (torch.Generator({dev!r}) seed 0), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    per_step = 2 * cfg.n_layers + 1  # ln1 + ln2 per layer, final norm
+    rng = np.random.default_rng(0)
+    B, S = LM_PREFILL
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)}
+    max_len = LM_SERVE["max_len"]
+
+    # the K6 calls of one prefill and one decode step, before the counted runs
+    pre_calls = record_kernel_calls(
+        lambda: TT.forward(params, cfg, None, batch))
+    cache = TT.init_decode_cache(cfg, B, max_len, device=dev)
+    first = batch["tokens"][:, :1]
+    dec_calls = record_kernel_calls(
+        lambda: TT.decode_step(params, cfg, None, first, cache))
+
+    ops.reset_launch_counts()
+    logits = TT.forward(params, cfg, None, batch)
+    torch.cuda.synchronize()
+    pre_launches = ops.launch_counts()
+    check_finite(logits, (B, S, cfg.vocab_size), "prefill logits")
+    cache = TT.init_decode_cache(cfg, B, max_len, device=dev)
+    ops.reset_launch_counts()
+    step_logits, _ = TT.decode_step(params, cfg, None, first, cache)
+    torch.cuda.synchronize()
+    dec_launches = ops.launch_counts()
+    check_finite(step_logits, (B, 1, cfg.vocab_size), "decode-step logits")
+    log(f"prefill {B}x{S} launches: {json.dumps(pre_launches)}; one decode "
+        f"step (B={B}): {json.dumps(dec_launches)}")
+    for what, n in (("prefill", pre_launches), ("decode step", dec_launches)):
+        if n["rmsnorm"] != per_step or sum(n.values()) != per_step:
+            raise AssertionError(f"{what}: K6 launched {n['rmsnorm']} times "
+                                 f"(want 2·{cfg.n_layers} + 1 = {per_step}) "
+                                 f"or another kernel ran: {n}")
+
+    # the batcher: 12 requests through 8 slots, twice
+    def serve():
+        reqs = lm_requests(Request, cfg.vocab_size)
+        batcher = ContinuousBatcher(cfg, params, LM_SERVE["max_batch"],
+                                    max_len)
+        for r in reqs:
+            batcher.submit(r)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = batcher.run()
+        torch.cuda.synchronize()
+        return reqs, stats, time.perf_counter() - t
+
+    ops.reset_launch_counts()
+    reqs, stats, wall = serve()
+    serve_launches = ops.launch_counts()
+    want_tokens = LM_SERVE["requests"] * LM_SERVE["new_tokens"]
+    log(f"batcher: served {stats.served}, generated {stats.generated_tokens} "
+        f"tokens in {stats.decode_steps} decode steps, mean occupancy "
+        f"{stats.mean_occupancy:.4f}, launches {json.dumps(serve_launches)}")
+    if stats.served != LM_SERVE["requests"] or \
+            stats.generated_tokens != want_tokens:
+        raise AssertionError(f"batcher served {stats.served} requests and "
+                             f"{stats.generated_tokens} tokens (want "
+                             f"{LM_SERVE['requests']} and {want_tokens})")
+    if serve_launches["rmsnorm"] != per_step * stats.decode_steps:
+        raise AssertionError(f"batcher: K6 launched "
+                             f"{serve_launches['rmsnorm']} times over "
+                             f"{stats.decode_steps} steps")
+    reqs2, stats2, wall2 = serve()
+    if [r.output for r in reqs2] != [r.output for r in reqs]:
+        raise AssertionError("batcher: a second run gave other tokens")
+    log(f"batcher: a second run gave identical outputs; generated tokens per "
+        f"second [{card}]: {want_tokens / wall:.1f} and "
+        f"{want_tokens / wall2:.1f} (host wall {wall:.3f} s and "
+        f"{wall2:.3f} s, prompts fed token by token)")
+    for fn, what in ((lambda: TT.forward(params, cfg, None, batch),
+                      f"prefill {B}x{S}"),
+                     (lambda: TT.decode_step(params, cfg, None, first, cache),
+                      f"decode step B={B}")):
+        dev_ms, host_ms = median_ms(fn)
+        log(f"{what} [{card}]: median of 7: {dev_ms:.3f} ms device events, "
+            f"{host_ms:.3f} ms host wall")
+    if args.profile:
+        profile_cells([
+            (lambda: TT.forward(params, cfg, None, batch), f"prefill {B}x{S}"),
+            (lambda: TT.decode_step(params, cfg, None, first, cache),
+             f"decode step B={B}")])
+
+    # a float32 copy of the first layers: decode == forward, both == float64
+    n_l = min(LM_F32["n_layers"], cfg.n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=n_l)
+    p32 = {k: v for k, v in params.items() if k != "layers"}
+    p32["layers"] = TT._tree_map(lambda t: t[:n_l], params["layers"])
+    p32 = TT._tree_map(lambda t: t.float(), p32)
+    del params, logits, cache
+    gc.collect()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        LM_F32["batch"], LM_F32["tokens"])).astype(np.int32)).to(dev)
+    f32_calls = record_kernel_calls(
+        lambda: TT.forward(p32, cfg32, None, {"tokens": toks}))
+    ops.reset_launch_counts()
+    fwd32 = TT.forward(p32, cfg32, None, {"tokens": toks})
+    torch.cuda.synchronize()
+    f32_launches = ops.launch_counts()["rmsnorm"]
+    if f32_launches != 2 * n_l + 1:
+        raise AssertionError(f"float32 copy: K6 launched {f32_launches} times")
+    cache32 = TT.init_decode_cache(cfg32, toks.shape[0], toks.shape[1],
+                                  device=dev)
+    steps = []
+    for j in range(toks.shape[1]):
+        out, cache32 = TT.decode_step(p32, cfg32, None, toks[:, j:j + 1],
+                                      cache32)
+        steps.append(out)
+    dec32 = torch.cat(steps, dim=1)
+    check_finite(fwd32, (*toks.shape, cfg.vocab_size), "float32 logits")
+    cfg64 = dataclasses.replace(cfg32, dtype="float64")
+    p64 = TT._tree_map(lambda t: t.double(), p32)
+    with plain_rmsnorm():
+        fwd64 = TT.forward(p64, cfg64, None, {"tokens": toks})
+    want = _host64(fwd64)
+    log(f"float32 copy ({n_l} layers, {toks.shape[0]}x{toks.shape[1]} "
+        f"tokens): decode_step vs forward: "
+        f"{check_close(dec32, _host64(fwd32), 'decode vs forward')}")
+    log(f"  forward vs the float64 plain run: "
+        f"{check_close(fwd32, want, 'forward vs float64')}")
+    log(f"  decode_step vs the float64 plain run: "
+        f"{check_close(dec32, want, 'decode vs float64')}")
+    del p32, p64, fwd64, cache32
+    gc.collect()
+
+    # the SHIRO dispatch of one prefill's tokens at the model's width
+    t0 = time.perf_counter()
+    hd = compile_dispatch(cfg, DISPATCH["tokens"], DISPATCH["M"], device=dev)
+    log(f"dispatch: compile_dispatch({cfg.name}, tokens="
+        f"{DISPATCH['tokens']}, M={DISPATCH['M']}) "
+        f"{time.perf_counter() - t0:.2f} s: {hd}")
+    if not args.quick:
+        check_decisions(hd, EXPECT_DISPATCH, {}, "dispatch")
+    x = torch.from_numpy(rng.standard_normal(
+        (DISPATCH["tokens"], cfg.d_model), dtype=np.float32)).to(dev)
+    disp_calls = record_kernel_calls(
+        lambda: flat_spmm(hd.ex, x, backend="coo", overlap=hd.overlap))
+    ops.reset_launch_counts()
+    c = hd(x)
+    torch.cuda.synchronize()
+    disp_launches = ops.launch_counts()
+    log(f"dispatch launches: {json.dumps(disp_launches)}")
+    if disp_launches["gather_rows"] < 1 or disp_launches["scatter_add_rows"] < 1:
+        raise AssertionError(f"dispatch: K1/K2 not launched: {disp_launches}")
+    check_rows(hd, "dispatch")
+    a = dispatch_matrix(cfg, DISPATCH["tokens"], DISPATCH["M"])
+    dense = torch.zeros(a.shape, dtype=torch.float64, device=dev)
+    rows_ = np.repeat(np.arange(a.shape[0]), np.diff(a.indptr))
+    dense[torch.from_numpy(rows_).to(dev), torch.from_numpy(
+        a.indices.astype(np.int64)).to(dev)] = torch.from_numpy(
+        a.data.astype(np.float64)).to(dev)
+    log(f"  dispatch C {list(c.shape)} vs the dense dispatch in float64: "
+        f"{check_close(c, _host64(dense @ x.double()), 'dispatch C')}")
+
+    return {
+        "rmsnorm": {"prefill": kernel_row("rmsnorm", pre_calls["rmsnorm"],
+                                          pre_launches["rmsnorm"]),
+                    "decode_step": kernel_row("rmsnorm", dec_calls["rmsnorm"],
+                                              dec_launches["rmsnorm"]),
+                    "f32_copy": kernel_row("rmsnorm", f32_calls["rmsnorm"],
+                                           f32_launches)},
+        "gather_rows": {"dispatch": kernel_row(
+            "gather_rows", disp_calls["gather_rows"],
+            disp_launches["gather_rows"])},
+        "scatter_add_rows": {"dispatch": kernel_row(
+            "scatter_add_rows", disp_calls["scatter_add_rows"],
+            disp_launches["scatter_add_rows"])},
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quick", action="store_true",
-                        help="small matrix; skips the full-size decision "
-                             "checks")
+                        help="small matrix and olmoe-smoke; skips the "
+                             "full-size decision checks")
     parser.add_argument("--profile", action="store_true",
                         help="also print a torch.profiler breakdown of one "
-                             "h(b) per cell and one GAT forward per backend")
+                             "h(b) per cell, one GAT forward per backend, "
+                             "one LM prefill and one decode step")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -730,7 +1087,7 @@ def main() -> int:
     # 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
     build.library()
-    log(f"build: K1-K5 in {time.perf_counter() - t0:.1f} s -> "
+    log(f"build: K1-K6 in {time.perf_counter() - t0:.1f} s -> "
         f"{build.build()}")
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line:
@@ -776,7 +1133,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     log(f"uniform main path launches: {json.dumps(launches)}")
-    if min(launches[k] for k in KERNELS if k != "bsr_sddmm") < 1:
+    if min(launches[k] for k in KERNELS
+           if k not in ("bsr_sddmm", "rmsnorm")) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     if h.cache_info()["lowerings"] != 2 or h.cache_info()["hits"] != 1:
         raise AssertionError(f"cache: {h.cache_info()}")
@@ -940,33 +1298,18 @@ def main() -> int:
         "bsr_sddmm": {"gat": (gat_calls, gat_launches["bsr"]),
                       "sddmm_f128": (sd_calls, sd_launches)},
     }
-    rows = []
-    for k in KERNELS:
-        per_path = {path: kernel_row(k, c[k], n[k])
-                    for path, (c, n) in paths[k].items()}
-        for path, r in per_path.items():
-            log(f"kernel {k} {path} [{card}]: {r['ms']:.4f} ms per call "
-                f"of the path over {r['calls_per_h']} launch(es), "
-                f"{r['launches']} launch(es) counted, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-                f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-                f"max abs err {r['max_abs_err']:.3g}")
-        row = dict(next(iter(per_path.values())))
-        row["max_abs_err"] = max(r["max_abs_err"] for r in per_path.values())
-        row["paths"] = {
-            path: {key: r[key] for key in (
-                "launches", "calls_per_h", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")}
-            for path, r in per_path.items()}
-        rows.append(row)
+    per_kernel = {k: {path: kernel_row(k, c[k], n[k])
+                      for path, (c, n) in paths[k].items()} for k in paths}
     cells = [(h, "coo", "uniform coo"), (h, "bsr", "uniform bsr"),
              (hp, "coo", "power-law coo")]
     for handle, backend, what in cells:
-        dev_ms, host_ms = median_call_ms(handle, b, backend)
+        dev_ms, host_ms = median_ms(
+            lambda: handle(b, backend=backend))
         log(f"h(b) {what} [{card}]: median of 7: {dev_ms:.3f} ms device "
             f"events, {host_ms:.3f} ms host wall")
     for backend in ("coo", "bsr"):
-        dev_ms, host_ms = median_gat_ms(model, feats, fused_fn(backend))
+        dev_ms, host_ms = median_ms(
+            lambda: gat_forward(model, feats, fused_fn(backend)))
         log(f"GAT forward {backend} [{card}]: median of 7: {dev_ms:.3f} ms "
             f"device events, {host_ms:.3f} ms host wall")
     if args.profile:
@@ -975,9 +1318,23 @@ def main() -> int:
              for hh, be, what in cells]
             + [(lambda be=be: gat_forward(model, feats, fused_fn(be)),
                 f"GAT forward {be}") for be in ("coo", "bsr")])
-    log(f"peak device memory: "
+    log(f"peak device memory, phases 1-6: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
+    # 7. LM serving, after the SpMM phases' tensors are released ---------
+    del (calls, coo_calls, p_calls, gat_calls, gat_calls_coo, sd_calls,
+         layer_calls, paths, k1k2, h, hp, hf, model, feats, b, gat_out, vals,
+         x128, y128, c_coo, c_bsr, c_hit, c_p, c_p2, again)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm_paths = lm_serving(args, card)
+    for k, extra in lm_paths.items():
+        per_kernel.setdefault(k, {}).update(extra)
+    log(f"peak device memory, phase 7: "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    rows = [kernel_summary(k, per_kernel[k], card) for k in KERNELS]
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

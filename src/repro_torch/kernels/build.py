@@ -30,7 +30,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "nvcc_path", "build", "build_log",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("gather_rows.cu", "scatter_add_rows.cu", "bsr_spmm.cu",
-           "bsr_sddmm.cu")
+           "bsr_sddmm.cu", "rmsnorm.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,8 +39,10 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 _SIGNATURES = {
-    # name: argtypes (pointers and the stream as c_void_p, sizes as int64)
+    # name: argtypes (pointers and the stream as c_void_p, sizes as int64,
+    # eps as float)
     "repro_gather_rows": [_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P],
     "repro_scatter_add_rows": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                                _P],
@@ -50,6 +52,7 @@ _SIGNATURES = {
                            _I64, _I64, _I64, _I32, _I32, _P],
     "repro_bsr_sddmm": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I64,
                         _I64, _I32, _P],
+    "repro_rmsnorm": [_P, _P, _P, _I64, _I64, _F32, _I32, _I32, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -19,6 +19,7 @@ import torch
 
 from . import bsr_spmm as _bsr
 from . import gather_rows as _gather
+from . import rmsnorm as _rms
 from . import scatter_add_rows as _scatter
 from . import sddmm as _sddmm
 from .scatter_add_rows import prepare_sorted_scatter
@@ -31,13 +32,14 @@ __all__ = [
     "bsr_spmm_op",
     "bsr_spmm_acc_op",
     "bsr_sddmm_op",
+    "rmsnorm_op",
     "prepare_sorted_scatter",
     "launch_counts",
     "reset_launch_counts",
 ]
 
 _COUNTERS = (_gather.LAUNCHES, _scatter.LAUNCHES, _bsr.LAUNCHES,
-             _sddmm.LAUNCHES)
+             _sddmm.LAUNCHES, _rms.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -148,3 +150,15 @@ def bsr_sddmm_op(block_cols: torch.Tensor, blocks: torch.Tensor,
     if on_card(block_cols, blocks, x3, y3):
         return _sddmm.bsr_sddmm_cuda(block_cols, blocks, x3, y3)
     return _sddmm.bsr_sddmm_plain(block_cols, blocks, x3, y3)
+
+
+def rmsnorm_op(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
+               round_before_gain: bool = False) -> torch.Tensor:
+    """RMSNorm over the last dim, ``x · rsqrt(mean(x²) + eps) · g`` (K6).
+
+    ``round_before_gain`` says where the rounding to x's dtype falls (see
+    ``kernels.rmsnorm``): ``False`` as ``rmsnorm_pallas``, ``True`` as the
+    model's ``rms_norm``.
+    """
+    fn = _rms.rmsnorm_cuda if on_card(x, g) else _rms.rmsnorm_plain
+    return fn(x, g, eps, round_before_gain=round_before_gain)

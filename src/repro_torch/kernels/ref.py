@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["bsr_spmm_ref", "bsr_sddmm_ref", "gather_rows_ref",
-           "scatter_add_rows_ref"]
+           "rmsnorm_ref", "scatter_add_rows_ref"]
 
 
 def bsr_spmm_ref(block_cols: torch.Tensor, blocks: torch.Tensor,
@@ -62,6 +62,24 @@ def gather_rows_ref(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                 dim=-2)
     return torch.where((idx >= 0)[..., None], rows,
                        torch.zeros((), dtype=b.dtype))
+
+
+def rmsnorm_ref(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
+                round_before_gain: bool = False) -> torch.Tensor:
+    """RMSNorm oracle over the last dim: ``x · rsqrt(mean(x²) + eps) · g``.
+
+    The reduction runs in float32 (float64 stays float64). With
+    ``round_before_gain=False`` the result is rounded to x's dtype once,
+    after the gain (``rmsnorm_pallas``); with ``True`` it is rounded
+    before the gain too, and the gain is applied in x's dtype (the
+    model's ``rms_norm``). In float32 the two are the same.
+    """
+    wide = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(wide)
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    if round_before_gain:
+        return y.to(x.dtype) * g
+    return (y * g.to(wide)).to(x.dtype)
 
 
 def scatter_add_rows_ref(c: torch.Tensor, partials: torch.Tensor,

@@ -1,0 +1,218 @@
+"""LM assembly for the dense and MoE families: prefill and decode.
+
+Port of ``repro/models/transformer.py``. Params are nested dicts with the
+reference's names and its stacked ``[L, ...]`` layer tensors, so a tree
+of the reference's ``init_params`` carries over as it is
+(``transformer_from_numpy``); a Python loop over the layers replaces
+``lax.scan``. Every RMSNorm — ln1 and ln2 of each block and the final
+norm, 2·L + 1 per forward and per decode step — launches K6 on the card.
+
+The decode cache is written IN PLACE (``DecodeCache.k`` / ``.v``,
+``[L, B, kvh, Smax, hd]``); ``decode_step`` returns the same tensors in a
+cache one token longer.
+
+What waits: the ``ssm``, ``hybrid``, ``encdec``, ``vlm`` and ``audio``
+families and ``lm_loss`` (training) for ROADMAP item 17; a ``dist``
+context for item 15. Each raises ``NotImplementedError`` naming its item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+from .layers import (
+    KVCache, attention, attention_decode, init_attn_params, init_mlp_params,
+    mlp, no_dist, normal, rms_norm,
+)
+from .moe import init_moe_params, moe_layer
+
+__all__ = [
+    "init_params", "forward", "DecodeCache", "init_decode_cache",
+    "decode_step", "transformer_from_numpy",
+]
+
+FAMILIES = ("dense", "moe")
+
+
+def _check(cfg: ModelConfig, dist=None) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) waits for ROADMAP item 17; "
+            f"the port runs {FAMILIES}")
+    no_dist(dist, "the transformer")
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _tree_map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _layer(layers: dict, i: int) -> dict:
+    """Layer i's params from the stacked ``[L, ...]`` tree (views)."""
+    return _tree_map(lambda a: a[i], layers)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    blk = {
+        "ln1": torch.ones((d,), dtype=dt, device=device),
+        "attn": init_attn_params(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim, cfg.qkv_bias, dt, device),
+        "ln2": torch.ones((d,), dtype=dt, device=device),
+    }
+    if cfg.family == "moe":
+        blk["moe"] = init_moe_params(gen, cfg, dt, device)
+    else:
+        blk["mlp"] = init_mlp_params(gen, d, cfg.d_ff, cfg.mlp, dt, device)
+    return blk
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> Dict[str, Any]:
+    """Random weights with the reference's shapes, dtypes and scales.
+
+    ``generator`` lives on ``device``. The layers are drawn one at a time
+    into the stacked tensors, so the peak is the model plus one layer.
+    """
+    _check(cfg)
+    dt = _dtype(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    params: Dict[str, Any] = {
+        "embed": normal(generator, (v, d), 0.02, dt, device),
+        "final_norm": torch.ones((d,), dtype=dt, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal(generator, (d, v), 0.02, dt, device)
+    first = _init_block(generator, cfg, device)
+    layers = _tree_map(lambda a: a.new_empty((cfg.n_layers,) + a.shape),
+                       first)
+    for i in range(cfg.n_layers):
+        _set_layer(layers, i, first if i == 0 else
+                   _init_block(generator, cfg, device))
+    params["layers"] = layers
+    return params
+
+
+def _set_layer(layers: dict, i: int, blk: dict) -> None:
+    for k, v in blk.items():
+        if isinstance(v, dict):
+            _set_layer(layers[k], i, v)
+        else:
+            layers[k][i].copy_(v)
+
+
+def transformer_from_numpy(params: dict, cfg: ModelConfig,
+                           device="cuda") -> Dict[str, Any]:
+    """The reference ``init_params`` tree, as numpy arrays, in the port.
+
+    bfloat16 arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    rejects) go through a ``uint16`` view and ``.view(torch.bfloat16)``,
+    so the bits carry over exactly.
+    """
+    _check(cfg)
+
+    def leaf(a) -> torch.Tensor:
+        a = np.array(a)  # a writable copy: torch.from_numpy shares memory
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        return t.to(device)
+
+    return _tree_map(leaf, params)
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _block_apply(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One causal decoder block: pre-norm attention, then pre-norm MLP/MoE."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attention(lp["attn"], h, cfg.n_heads, cfg.n_kv_heads,
+                      rope_theta=cfg.rope_theta)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if "moe" in lp:
+        return x + moe_layer(lp["moe"], h, cfg)
+    return x + mlp(lp["mlp"], h, cfg.mlp)
+
+
+def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def forward(params: dict, cfg: ModelConfig, dist,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Returns logits [B, S, V]; ``batch["tokens"]`` is [B, S] (int)."""
+    _check(cfg, dist)
+    x = params["embed"][batch["tokens"].long()].to(_dtype(cfg))
+    for i in range(cfg.n_layers):
+        x = _block_apply(_layer(params["layers"], i), x, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ _head(params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DecodeCache:
+    """Decode state of the dense / MoE families: k, v [L, B, kvh, Smax, hd]
+    and the shared clock ``length`` (a host integer)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int = 0
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      device="cuda") -> DecodeCache:
+    _check(cfg)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return DecodeCache(
+        k=torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        v=torch.zeros(shape, dtype=_dtype(cfg), device=device))
+
+
+def decode_step(params: dict, cfg: ModelConfig, dist,
+                token: torch.Tensor, cache: DecodeCache,
+                ) -> Tuple[torch.Tensor, DecodeCache]:
+    """One new token: token [B, 1] -> (logits [B, 1, V], updated cache).
+
+    Writes the token's K/V into ``cache.k`` / ``cache.v`` in place.
+    """
+    _check(cfg, dist)
+    h = params["embed"][token.long()].to(_dtype(cfg))
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        att, _ = attention_decode(
+            lp["attn"], hn, KVCache(cache.k[i], cache.v[i], cache.length),
+            cfg.n_heads, cfg.n_kv_heads, rope_theta=cfg.rope_theta)
+        h = h + att
+        hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        if "moe" in lp:
+            h = h + moe_layer(lp["moe"], hn, cfg)
+        else:
+            h = h + mlp(lp["mlp"], hn, cfg.mlp)
+    x = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return x @ _head(params, cfg), DecodeCache(cache.k, cache.v,
+                                               cache.length + 1)

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import bsr_spmm as K34
 from repro_torch.kernels import gather_rows as K1
 from repro_torch.kernels import scatter_add_rows as K2
+from repro_torch.kernels import rmsnorm as K6
 from repro_torch.kernels import sddmm as K5
 from repro_torch.kernels.ops import launch_counts
 
@@ -216,3 +217,75 @@ def test_flat_fused_bsr_repeats_bit_for_bit():
         x.double().cpu().numpy() @ y.double().cpu().numpy().T)
     want = np.where(s > 0, s, 0.2 * s) @ b.double().cpu().numpy()
     np.testing.assert_allclose(c1.cpu().numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+RMS_SHAPES = [
+    # (leading dims, D): test_rmsnorm_kernel_matches_ref's four shapes, the
+    # OLMoE width at decode (8 rows) and prefill (1024 rows), a 3-d input,
+    # and widths that take the one-element access path (D % 8 != 0)
+    ((4,), 32), ((128,), 64), ((16,), 128), ((3,), 48), ((8,), 2048),
+    ((1024,), 2048), ((2, 3), 64), ((5,), 50), ((2,), 1001),
+]
+
+
+@requires_cuda
+@pytest.mark.parametrize("lead,d", RMS_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("round_before_gain", [False, True])
+def test_rmsnorm_kernel_matches_plain(lead, d, dtype, round_before_gain):
+    rng = np.random.default_rng(d + len(lead))
+    x = _cuda(rng.standard_normal(lead + (d,)).astype(np.float32)).to(dtype)
+    g = _cuda(rng.standard_normal(d).astype(np.float32)).to(dtype)
+    before = launch_counts()["rmsnorm"]
+    out = K6.rmsnorm_cuda(x, g, 1e-5, round_before_gain=round_before_gain)
+    torch.cuda.synchronize()
+    assert launch_counts()["rmsnorm"] == before + 1
+    # the plain version repeats the kernel's float32 chain: the same bits
+    assert torch.equal(out, K6.rmsnorm_plain(
+        x, g, 1e-5, round_before_gain=round_before_gain))
+
+
+@requires_cuda
+def test_rmsnorm_kernel_unaligned_rows_and_bad_operands():
+    """A view whose data does not start on 16 bytes takes the
+    one-element-access path: the same elements in the same order, so the
+    same bits as the plain version."""
+    rows, d = 6, 256
+    buf = torch.randn(rows * d + 1, device="cuda")
+    x = buf[1:].view(rows, d)  # 4 bytes past an aligned start
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    g = torch.randn(d, device="cuda")
+    assert torch.equal(K6.rmsnorm_cuda(x, g), K6.rmsnorm_plain(x, g))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K6.rmsnorm_cuda(x.double(), g.double())
+    with pytest.raises(TypeError, match="gain dtype"):
+        K6.rmsnorm_cuda(x, g.to(torch.bfloat16))
+
+
+@requires_cuda
+def test_lm_on_the_card_launches_k6_and_matches_the_cpu():
+    """olmoe-smoke (float32): forward and decode_step on the card equal the
+    CPU's plain run within 1e-4, and launch K6 2·L + 1 times each."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as TT
+
+    cfg = get_smoke_config("olmoe-1b-7b")
+    cpu = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = TT._tree_map(lambda t: t.cuda(), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 6)).astype(np.int32))
+    before = launch_counts()["rmsnorm"]
+    got = TT.forward(card, cfg, None, {"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    assert launch_counts()["rmsnorm"] == before + 2 * cfg.n_layers + 1
+    want = TT.forward(cpu, cfg, None, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    cache = TT.init_decode_cache(cfg, 2, 8, device="cuda")
+    for j in range(toks.shape[1]):
+        before = launch_counts()["rmsnorm"]
+        step, cache = TT.decode_step(card, cfg, None, toks[:, j:j + 1].cuda(),
+                                     cache)
+        torch.cuda.synchronize()
+        assert launch_counts()["rmsnorm"] == before + 2 * cfg.n_layers + 1
+        torch.testing.assert_close(step[:, 0].cpu(), want[:, j], rtol=1e-4,
+                                   atol=1e-4)
