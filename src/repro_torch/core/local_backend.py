@@ -307,7 +307,8 @@ class BsrBackend:
     """ELL block layout feeding the BSR kernels.
 
     ``block``: (bm, bk) dense-block shape of the layout.
-    ``bn``: column tile one thread block of the kernel covers.
+    ``bn``: the reference's column tile, passed to the kernels (the card's
+    kernels pick their own tile from the width of B).
     """
 
     name: ClassVar[str] = "bsr"

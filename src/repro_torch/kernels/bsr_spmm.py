@@ -8,10 +8,11 @@ stored (bm × bk) block (-1 = pad, an all-zero block) and
 ``blocks[p, i, t]`` holds it; ``b[p]`` is [K, n], with rows past K
 reading as zero. Outputs keep the first ``m_out`` rows of the block grid.
 
-Both CUDA kernels (``csrc/bsr_spmm.cu``) fold one stored block per t step,
-in ascending t, through one shared device routine, so feeding a piece's
-column segments to K4 one after another gives the same bits as one K3
-call over the whole piece. The plain versions repeat that fold (per t:
+Both CUDA kernels (``csrc/bsr_spmm.cu``) are instances of one template
+that folds one stored block per t step, in ascending t (reading only the
+B rows of a block's nonzero A columns), so feeding a piece's column
+segments to K4 one after another gives the same bits as one K3 call over
+the whole piece. The plain versions repeat that fold (per t:
 ``d_t = Σ_k a·b`` in ascending k, then ``acc + d_t``), so on the CPU too
 the overlapped executor's C equals the staged one bit for bit.
 Accumulation is float32; the output takes ``b``'s dtype.
@@ -111,8 +112,8 @@ def _launch(fn_name, kernel, cols, blocks, b, out, bn):
 
 
 def bsr_spmm_cuda(cols, blocks, b, m_out: int, bn: int = 128) -> torch.Tensor:
-    """The K3 kernel: C [P, m_out, n] = A @ B. ``bn`` is the column tile
-    one thread block covers."""
+    """The K3 kernel: C [P, m_out, n] = A @ B. ``bn`` is the reference's
+    column tile: checked, while the card's tile follows from n."""
     _check_shapes(cols, blocks, b, m_out)
     out = torch.empty((b.shape[0], m_out, b.shape[2]), dtype=b.dtype,
                       device=b.device)

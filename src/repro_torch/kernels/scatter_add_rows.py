@@ -4,9 +4,10 @@ Port of ``repro/kernels/scatter_add_rows.py::scatter_add_rows_sorted_pallas``:
 stage ④ of every flat executor body. The planner sorts each rank's
 receive slots by target row on the host (``prepare_sorted_scatter``, a
 copy of the reference's), which turns the scatter into a segmented
-reduction: the CUDA kernel (``csrc/scatter_add_rows.cu``) gives each
-(rank, segment, column) one thread that folds its segment in slot order
-and writes C once — deterministic, no atomics.
+reduction: the CUDA kernel (``csrc/scatter_add_rows.cu``) folds each
+segment in slot order and writes C once — a warp per short segment, a
+thread block per hub row, loads issued ahead of the adds — deterministic,
+no atomics.
 
 Both versions UPDATE ``c`` IN PLACE and return it (the reference donates
 and aliases C the same way). ``c`` must be contiguous.

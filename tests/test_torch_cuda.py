@@ -86,6 +86,148 @@ def test_bsr_spmm_acc_kernel_matches_plain_and_chains(shape):
     assert torch.equal(acc, whole)
 
 
+def _sparse_bsr_inputs(bm, bk, n, seed, mb=6, t=9, kb=7):
+    """ELL pieces as sparse as the main path's: one nonzero per stored
+    block (so all-zero rows and A columns), a few blocks with two or three
+    nonzero columns, a stored all-zero block, pad slots in the middle of a
+    row's slots, a block-row of pads only, and B rows ending inside the
+    last block column (K = kb * bk - 3)."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, kb, size=(P, mb, t)).astype(np.int32)
+    cols[:, :, [2, 5, 6]] = -1
+    cols[:, 1] = -1
+    cols[:, 3, 0] = kb - 1
+    blocks = np.zeros((P, mb, t, bm, bk), np.float32)
+    for idx in zip(*np.nonzero(cols >= 0)):
+        blocks[idx + (rng.integers(bm), rng.integers(bk))] = rng.standard_normal()
+    blocks[:, 0, 0, :, [1, bk - 1]] = rng.standard_normal((2, P, bm))
+    blocks[:, 2, 1, 3, :] = rng.standard_normal((P, bk))
+    cols[:, 4, 3] = 0
+    blocks[:, 4, 3] = 0.0  # stored zeros
+    K = kb * bk - 3
+    b = rng.standard_normal((P, K, n)).astype(np.float32)
+    return cols, blocks, b
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose data starts one element past an
+    aligned address (16-byte loads would misalign)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+@requires_cuda
+@pytest.mark.parametrize("block", [(8, 8), (16, 16), (8, 32)], ids=str)
+@pytest.mark.parametrize("n", [1, 40, 128, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_kernels_on_sparse_blocks_and_ragged_widths(block, n, dtype):
+    """K3 and K4 on blocks with about one nonzero each, at ragged widths,
+    with B aligned and one element off: the plain version within the
+    kernels' tolerance, and the unaligned (one element at a time) access
+    giving the bits of the vector access."""
+    bm, bk = block
+    cols, blocks, b = _sparse_bsr_inputs(bm, bk, n, bm * bk + n)
+    cols, blocks = _cuda(cols), _cuda(blocks)
+    b = _cuda(b).to(dtype)
+    m_out = cols.shape[1] * bm - 5
+    tol = 1e-5 if dtype == torch.float32 else 6e-2
+    before = launch_counts()["bsr_spmm"]
+    out = K34.bsr_spmm_cuda(cols, blocks, b, m_out)
+    torch.cuda.synchronize()
+    assert launch_counts()["bsr_spmm"] == before + 1
+    ref = K34.bsr_spmm_plain(cols, blocks, b, m_out)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    assert torch.equal(K34.bsr_spmm_cuda(cols, blocks, _misaligned(b), m_out),
+                       out)
+    rng = np.random.default_rng(n)
+    acc0 = _cuda(rng.standard_normal((P, m_out, n)).astype(np.float32)
+                 ).to(dtype)
+    got = K34.bsr_spmm_acc_cuda(cols, blocks, b, acc0.clone())
+    want = K34.bsr_spmm_acc_plain(cols, blocks, b, acc0.clone())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    acc_off = _misaligned(acc0)
+    K34.bsr_spmm_acc_cuda(cols, blocks, _misaligned(b), acc_off)
+    assert torch.equal(acc_off, got)
+
+
+@requires_cuda
+@pytest.mark.parametrize("block", [(8, 8), (16, 8)], ids=str)
+@pytest.mark.parametrize("n", [40, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_acc_slot_by_slot_equals_one_call_on_sparse_blocks(block, n,
+                                                               dtype):
+    """K4 over the stored slots one call at a time gives the bits of one
+    K3 call, on inputs as sparse as the main path's (in bfloat16 the
+    accumulator is float32, as the executor keeps it)."""
+    bm, bk = block
+    cols, blocks, b = (_cuda(x) for x in _sparse_bsr_inputs(bm, bk, n, n))
+    b = b.to(dtype)
+    m_out = cols.shape[1] * bm
+    whole = K34.bsr_spmm_cuda(cols, blocks, b.float(), m_out)
+    acc = torch.zeros_like(whole)
+    for s in range(cols.shape[2]):
+        K34.bsr_spmm_acc_cuda(cols[:, :, s:s + 1].contiguous(),
+                              blocks[:, :, s:s + 1].contiguous(), b.float(),
+                              acc)
+    assert torch.equal(acc, whole)
+
+
+def _scatter_case(tgt, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    M = int(tgt.max()) + 3
+    S = tgt.shape[1]
+    c = _cuda(rng.standard_normal((P, M, n)).astype(np.float32)).to(dtype)
+    parts = _cuda(rng.standard_normal((P, S, n)).astype(np.float32)
+                  ).to(dtype)
+    prep = [K2.prepare_sorted_scatter(t) for t in tgt]
+    perm = _cuda(np.stack([pm for pm, _ in prep]))
+    meta = _cuda(np.stack([mt for _, mt in prep]))
+    return c, parts, perm, meta
+
+
+@requires_cuda
+@pytest.mark.parametrize("n", [40, 128, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_kernel_hub_segment(n, dtype):
+    """One target takes 5,000 of 6,000 slots (longer than any unit's
+    batch or stage), the rest spread over 40 rows, some slots pads: the
+    kernel folds the same chain as the plain version."""
+    rng = np.random.default_rng(n)
+    tgt = rng.integers(-1, 40, size=(P, 6000)).astype(np.int32)
+    for p in range(P):
+        tgt[p, rng.permutation(6000)[:5000]] = 7 + p
+    c, parts, perm, meta = _scatter_case(tgt, n, dtype, n + 1)
+    before = launch_counts()["scatter_add_rows"]
+    out = K2.scatter_add_rows_cuda(c.clone(), parts, perm, meta)
+    torch.cuda.synchronize()
+    assert launch_counts()["scatter_add_rows"] == before + 1
+    assert torch.equal(out, K2.scatter_add_rows_plain(c.clone(), parts,
+                                                      perm, meta))
+
+
+@requires_cuda
+@pytest.mark.parametrize("n", [40, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_kernel_segments_straddle_unit_edges(n, dtype):
+    """Segments of 1 to 300 slots placed across the 32-slot warp and
+    256-slot block edges and around the one-warp length limit, with C and
+    the partials one element off an aligned address."""
+    runs = [31, 1, 33, 64, 65, 63, 2, 200, 256, 257, 3, 32, 300, 5, 66]
+    tgt = np.repeat(np.arange(len(runs), dtype=np.int32) * 2, runs)
+    tgt = np.stack([np.concatenate([tgt[p:], np.full(p, -1, np.int32)])
+                    for p in range(P)])
+    c, parts, perm, meta = _scatter_case(tgt, n, dtype, n)
+    want = K2.scatter_add_rows_plain(c.clone(), parts, perm, meta)
+    assert torch.equal(K2.scatter_add_rows_cuda(c.clone(), parts, perm, meta),
+                       want)
+    c_off = _misaligned(c)
+    K2.scatter_add_rows_cuda(c_off, _misaligned(parts), perm, meta)
+    assert torch.equal(c_off, want)
+
+
 @requires_cuda
 @pytest.mark.parametrize("K,n,S", [(16, 8, 5), (64, 32, 20), (8, 128, 3),
                                    (128, 256, 64)])
@@ -111,7 +253,7 @@ def test_scatter_add_kernel_matches_plain(M, n, S):
     meta = _cuda(np.stack([mt for _, mt in prep]))
     out = K2.scatter_add_rows_cuda(c.clone(), parts, perm, meta)
     ref = K2.scatter_add_rows_plain(c.clone(), parts, perm, meta)
-    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, ref)  # one slot-order chain in both
 
 
 @requires_cuda

@@ -230,3 +230,54 @@ def test_scatter_plain_folds_in_slot_order(M, n, S):
     out = K2.scatter_add_rows_plain(_t(c).clone(), _t(parts), _t(perm),
                                     _t(meta))
     assert torch.equal(out, _t(want))
+
+
+def _one_nonzero_blocks(bm, bk, seed, mb=5, t=8, kb=6, n=16):
+    """ELL pieces with one nonzero per stored block (the main path's fill),
+    pad slots in the middle of each row's slots."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, kb, size=(mb, t)).astype(np.int32)
+    cols[:, [1, 4]] = -1
+    blocks = np.zeros((mb, t, bm, bk), np.float32)
+    for i, s in zip(*np.nonzero(cols >= 0)):
+        blocks[i, s, rng.integers(bm), rng.integers(bk)] = rng.standard_normal()
+    b = rng.standard_normal((kb * bk, n)).astype(np.float32)
+    return cols, blocks, b
+
+
+@pytest.mark.parametrize("block", [(8, 8), (16, 8), (8, 32)], ids=str)
+def test_bsr_plain_chain_on_one_nonzero_blocks(block):
+    """On blocks with one nonzero each, the plain K4 over the slots one
+    call at a time gives the bits of one plain K3 call, and both match the
+    reference's oracle."""
+    bm, bk = block
+    cols, blocks, b = _one_nonzero_blocks(bm, bk, bm + bk)
+    mb, t = cols.shape
+    want = np.asarray(jref.bsr_spmm_ref(jnp.asarray(cols), jnp.asarray(blocks),
+                                        jnp.asarray(b)))
+    cols_t, blocks_t, b_t = _t(cols)[None], _t(blocks)[None], _t(b)[None]
+    whole = K34.bsr_spmm_plain(cols_t, blocks_t, b_t, mb * bm)
+    np.testing.assert_allclose(whole[0].numpy(), want, rtol=1e-5, atol=1e-5)
+    acc = torch.zeros_like(whole)
+    for s in range(t):
+        K34.bsr_spmm_acc_plain(cols_t[:, :, s:s + 1], blocks_t[:, :, s:s + 1],
+                               b_t, acc)
+    assert torch.equal(acc, whole)
+
+
+def test_scatter_plain_hub_matches_interpret_bit_for_bit():
+    """A hub row (one target with 200 of 240 slots) folds in slot order in
+    the plain version exactly as the reference's Pallas kernel does."""
+    rng = np.random.default_rng(7)
+    M, n, S = 12, 8, 240
+    tgt = rng.integers(-1, M, size=S).astype(np.int32)
+    tgt[rng.permutation(S)[:200]] = 5
+    c = (rng.standard_normal((M, n)) * 1e3).astype(np.float32)
+    parts = rng.standard_normal((S, n)).astype(np.float32)
+    perm, meta = prepare_sorted_scatter(tgt)
+    want = np.asarray(scatter_add_rows_sorted_pallas(
+        jnp.asarray(c), jnp.asarray(parts[perm]), jnp.asarray(meta),
+        interpret=True))
+    out = K2.scatter_add_rows_plain(_t(c)[None].clone(), _t(parts)[None],
+                                    _t(perm)[None], _t(meta)[None])
+    assert torch.equal(out[0], torch.from_numpy(want))
