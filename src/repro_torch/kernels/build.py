@@ -10,6 +10,14 @@ compiler.
 The library lands in ``<repo>/build/repro_torch/`` (listed in
 ``.gitignore``) under a name that hashes the sources and flags, so a
 changed source rebuilds and an unchanged one loads at once.
+
+Every wrapper's launch goes through ``library()`` and ``stream_of()``, so
+both are kept lean: ``library()`` takes its lock only until the library
+is loaded, and ``stream_of()`` asks PyTorch for the raw handle of the
+current stream (``torch._C._cuda_getCurrentRawStream``, the accessor
+PyTorch's own generated Triton launchers call) instead of building a
+``torch.cuda.Stream`` object per launch. CPU builds of torch lack that
+accessor, so it is looked up at the first CUDA launch, never at import.
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -57,6 +65,7 @@ _SIGNATURES = {
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+_raw_stream: Optional[Callable[[int], int]] = None
 
 
 def nvcc_path() -> str:
@@ -125,6 +134,8 @@ def build_log() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -147,8 +158,11 @@ def check(rc: int, kernel: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as a raw handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s (CUDA) device, as a raw handle."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+    return _raw_stream(t.get_device())
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -160,5 +160,13 @@ def rmsnorm_op(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
     ``kernels.rmsnorm``): ``False`` as ``rmsnorm_pallas``, ``True`` as the
     model's ``rms_norm``.
     """
-    fn = _rms.rmsnorm_cuda if on_card(x, g) else _rms.rmsnorm_plain
-    return fn(x, g, eps, round_before_gain=round_before_gain)
+    # the LM runs this 2·L + 1 times a step, so a CUDA x goes straight to
+    # the wrapper, which checks g's device itself. The wrapper is looked up
+    # on its module at call time, so a recorder that replaces it sees the
+    # call.
+    if x.is_cuda:
+        return _rms.rmsnorm_cuda(x, g, eps,
+                                 round_before_gain=round_before_gain)
+    on_card(x, g)  # raises unless g is on the CPU too
+    return _rms.rmsnorm_plain(x, g, eps,
+                              round_before_gain=round_before_gain)

@@ -18,7 +18,12 @@ In float32 the two are the same chain. The reduction is float32 in both.
 
 ``rmsnorm_cuda`` launches the kernel (``csrc/rmsnorm.cu``: one 256-thread
 block per row, 16-byte loads, float32 sum of squares by warp shuffles,
-``__frsqrt_rn``) on CUDA tensors and counts the launch in ``LAUNCHES``;
+``__frsqrt_rn``) on CUDA tensors and counts the launch in ``LAUNCHES``.
+The kernel is busy about 3 µs a launch at the LM prefill's 1024 bfloat16
+rows of 2048 on an H100, so the wrapper's host time is the cost to keep
+down: one pass of checks, no reshape or copy for contiguous operands
+(the kernel takes x as numel / D rows of D), one allocation, and the
+shared lean launch path of ``kernels.build``.
 ``rmsnorm_plain`` repeats the kernel's float32 chain step by step in
 plain torch (the same order of the sum of squares, a correctly rounded
 ``rsqrt``), so the two agree bit for bit; it runs on the CPU and is the
@@ -98,21 +103,24 @@ def rmsnorm_plain(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
 
 def rmsnorm_cuda(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
                  round_before_gain: bool = False) -> torch.Tensor:
-    """The K6 kernel on the card: x [..., D], g [D] -> y like x."""
-    if not (x.is_cuda and g.is_cuda and x.device == g.device):
+    """The K6 kernel on the card: x [..., D], g [D] -> y like x. Only a
+    strided x or g is copied (made contiguous) first."""
+    if not (x.is_cuda and g.device == x.device):
         raise ValueError("rmsnorm_cuda needs x and g on one CUDA device")
     _check(x, g)
     code = build.dtype_code(x.dtype, "rmsnorm")
-    d = x.shape[-1]
-    x2 = x.reshape(-1, d).contiguous()
-    g = g.contiguous()
-    out = torch.empty_like(x2)
-    if out.numel() == 0:
-        return out.reshape(x.shape)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not g.is_contiguous():
+        g = g.contiguous()
+    out = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return out
+    d = g.shape[0]
     rc = build.library().repro_rmsnorm(
-        x2.data_ptr(), g.data_ptr(), out.data_ptr(), x2.shape[0], d,
-        eps, code, int(round_before_gain),
-        build.stream_of(x2))
+        x.data_ptr(), g.data_ptr(), out.data_ptr(), n // d, d, eps, code,
+        round_before_gain, build.stream_of(x))
     build.check(rc, "rmsnorm")
     LAUNCHES["rmsnorm"] += 1
-    return out.reshape(x.shape)
+    return out

@@ -8,13 +8,18 @@ stored values; ``x3[p, i]`` is the (bm × F) tile of X rows of block-row i
 and ``y3[p, kb]`` the (bk × F) tile of Y rows of block column kb. The
 result is float32 ``[P, mb, t, bm, bk]``.
 
-The CUDA kernel (``csrc/bsr_sddmm.cu``) takes one block-row of one rank
-per thread block, keeps its X tile in shared memory and stages the Y tile
-of each stored block; each thread forms one dot in ascending f with
-FMAs. The plain version repeats that arithmetic (the FMA chain over f in
-ascending order, then the float32 multiply by the stored value; pads give
-exact zeros). An empty piece (``t == 0``) returns zeros without a launch,
-as the reference does.
+The CUDA kernel (``csrc/bsr_sddmm.cu``) gives 8×8 blocks, the backend's
+default, one warp per block-row: the X tile sits in shared memory, each
+stored block is read once, ballots find its nonzero entries and the lanes
+share them, so only the dots of stored nonzeros are formed, each with one
+Y row. Other block shapes take a generic instance (one thread per block
+element). Either way a nonzero entry's dot is the FMA chain over f in
+ascending order, then one float32 multiply by the stored value; a stored
+zero and a pad slot give +0.0 without a dot (so where X or Y holds an
+inf or a NaN, a zero entry stays +0.0 where the dense product gives NaN).
+The plain version repeats that arithmetic, so kernel and plain version
+agree bit for bit. An empty piece (``t == 0``) returns zeros without a
+launch, as the reference does.
 """
 from __future__ import annotations
 
@@ -26,8 +31,38 @@ __all__ = ["LAUNCHES", "bsr_sddmm_cuda", "bsr_sddmm_plain"]
 
 LAUNCHES = {"bsr_sddmm": 0}
 
-# the kernel's shared memory: X and Y tiles, rows padded to an odd stride
 _SMEM_LIMIT = 232_448  # bytes a block may use on Hopper
+_GROUP_VALS = 8 * 64  # the 8x8 instance's dots per group of 8 slots
+
+
+def _smem_bytes(bm: int, bk: int, f: int) -> int:
+    """Shared memory the kernel needs at the least: for 8×8 blocks one
+    warp's dots and entry list (4 + 2 bytes each) and its X tile (8 rows,
+    a stride that keeps them in distinct banks); for other blocks the X and
+    Y tiles of one block-row, rows padded to an odd stride."""
+    if (bm, bk) == (8, 8):
+        stride = f + 4 if f % 4 == 0 else (f if f % 2 else f + 1)
+        return _GROUP_VALS * 6 + 8 * stride * 4
+    stride = f + 1 if f % 2 == 0 else f
+    return (bm + bk) * stride * 4
+
+
+def _fma(x: torch.Tensor, y: torch.Tensor,
+         acc: torch.Tensor) -> torch.Tensor:
+    """``__fmaf_rn(x, y, acc)`` elementwise: x·y + acc rounded ONCE to
+    float32. The product of two float32 values is exact in float64; the
+    float64 sum is made round-to-odd from its exact error (TwoSum), and a
+    round-to-odd value with 29 bits to spare rounds to float32 as the
+    exact sum does (plain float64 rounding would tie now and then)."""
+    p = x.double() * y.double()
+    a = acc.double()
+    s = p + a
+    bp = s - a
+    err = (p - bp) + (a - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward),
+                       s).float()
 
 
 def _check_shapes(cols, blocks, x3, y3) -> None:
@@ -59,17 +94,15 @@ def bsr_sddmm_plain(cols: torch.Tensor, blocks: torch.Tensor,
     valid = (cols >= 0) & (cols < kb)
     ranks = torch.arange(P, device=cols.device)[:, None, None]
     y_g = y3[ranks, torch.where(valid, cols, 0).long()]  # [P, mb, t, bk, F]
-    # the kernel's FMA chain: a product of two float32 values is exact in
-    # float64, so each step rounds once to float64 and once to float32
-    # (one ulp from a true FMA only where that double rounding ties)
+    # the kernel's FMA chain, each step rounded once to float32 (_fma)
     x = x3.double()
     acc = out
     for k in range(f):  # ascending f
-        acc = (x[:, :, None, :, None, k] * y_g[:, :, :, None, :, k].double()
-               + acc.double()).float()
-    out = blocks.float() * acc
-    return torch.where(valid[..., None, None], out,
-                       torch.zeros((), device=out.device))
+        acc = _fma(x[:, :, None, :, None, k], y_g[:, :, :, None, :, k], acc)
+    # a stored zero gives +0.0 without its dot, as in the kernel
+    keep = valid[..., None, None] & (blocks != 0)
+    return torch.where(keep, blocks.float() * acc,
+                       torch.zeros((), device=acc.device))
 
 
 def bsr_sddmm_cuda(cols: torch.Tensor, blocks: torch.Tensor,
@@ -92,15 +125,16 @@ def bsr_sddmm_cuda(cols: torch.Tensor, blocks: torch.Tensor,
     if bm * bk > 1024:
         raise ValueError(f"bsr_sddmm runs one thread per block element; "
                          f"{bm}x{bk} blocks exceed 1024 threads")
-    stride = f + 1 if f % 2 == 0 else f
-    if (bm + bk) * stride * 4 > _SMEM_LIMIT:
-        raise ValueError(f"bsr_sddmm keeps the X and Y tiles in shared "
-                         f"memory; F={f} needs more than {_SMEM_LIMIT} bytes")
+    if _smem_bytes(bm, bk, f) > _SMEM_LIMIT:
+        raise ValueError(f"bsr_sddmm's shared memory for {bm}x{bk} blocks "
+                         f"at F={f} exceeds {_SMEM_LIMIT} bytes")
     out = torch.empty((P, mb, t, bm, bk), dtype=torch.float32,
                       device=x3.device)
     if t == 0 or P * mb == 0 or kb == 0:  # nothing stored, nothing sampled
         return out.zero_()
     blocks = blocks.float().contiguous()
+    if blocks.data_ptr() % 8:  # the kernel reads a float2 per lane
+        blocks = blocks.clone()
     cols, x3, y3 = cols.contiguous(), x3.contiguous(), y3.contiguous()
     rc = build.library().repro_bsr_sddmm(
         cols.data_ptr(), blocks.data_ptr(), x3.data_ptr(), y3.data_ptr(),

@@ -305,9 +305,96 @@ def test_bsr_sddmm_kernel_matches_plain(shape, dtype):
     torch.cuda.synchronize()
     assert launch_counts()["bsr_sddmm"] == before + (1 if t else 0)
     assert out.dtype == torch.float32 and out.shape == blocks.shape
-    ref = K5.bsr_sddmm_plain(cols, blocks, x3, y3)
-    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    # the plain version repeats the kernel's chain: the same bits
+    assert torch.equal(out, K5.bsr_sddmm_plain(cols, blocks, x3, y3))
     assert not out[cols < 0].any()  # pad slots are exact zeros
+
+
+def _sparse_sddmm_inputs(block, f, seed, mb=5, t=37, kb=6):
+    """Stored blocks of one nonzero, every fifth a denser block with stored
+    zeros among its entries, an all-zero stored block (slot 2) and pads in
+    the middle of rows; t = 37 crosses the 8x8 kernel's 32-slot column
+    prefetch and its 8-slot groups."""
+    bm, bk = block
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, kb, size=(P, mb, t)).astype(np.int32)
+    cols[..., 1::4] = -1
+    blocks = np.zeros((P, mb, t, bm, bk), np.float32)
+    p, i, s = np.meshgrid(np.arange(P), np.arange(mb), np.arange(t),
+                          indexing="ij")
+    blocks[p, i, s, rng.integers(0, bm, p.shape),
+           rng.integers(0, bk, p.shape)] = rng.standard_normal(p.shape)
+    dense = rng.standard_normal(blocks.shape).astype(np.float32)
+    dense *= rng.random(blocks.shape) < 0.6
+    blocks[:, :, 3::5] = dense[:, :, 3::5]
+    blocks[:, :, 2] = 0.0
+    cols[:, :, 2] = 0
+    blocks[cols < 0] = 0.0
+    x3 = rng.standard_normal((P, mb, bm, f)).astype(np.float32)
+    y3 = rng.standard_normal((P, kb, bk, f)).astype(np.float32)
+    return _cuda(cols), _cuda(blocks), _cuda(x3), _cuda(y3)
+
+
+def _off_by_one(t: torch.Tensor) -> torch.Tensor:
+    """The same values in a contiguous view one element past an aligned
+    start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@requires_cuda
+@pytest.mark.parametrize("block", [(8, 8), (16, 8)], ids=str)
+@pytest.mark.parametrize("f", [1, 16, 33, 128, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsr_sddmm_kernel_on_sparse_blocks(block, f, dtype):
+    cols, blocks, x3, y3 = _sparse_sddmm_inputs(block, f, f + block[0])
+    x3, y3 = x3.to(dtype), y3.to(dtype)
+    out = K5.bsr_sddmm_cuda(cols, blocks, x3, y3)
+    shifted = K5.bsr_sddmm_cuda(cols, blocks, _off_by_one(x3),
+                                _off_by_one(y3))
+    torch.cuda.synchronize()
+    assert torch.equal(out, K5.bsr_sddmm_plain(cols, blocks, x3, y3))
+    # one element off alignment takes the element-wise loads: same bits
+    assert torch.equal(shifted.view(torch.int32), out.view(torch.int32))
+    zero = blocks == 0  # stored zeros, the all-zero block and the pads
+    assert not out[zero].any() and not out[zero].signbit().any()
+    assert bool(out[~zero].ne(0).all())
+
+
+@requires_cuda
+@pytest.mark.parametrize("block", [(8, 8), (16, 8)], ids=str)
+def test_bsr_sddmm_zero_entries_skip_non_finite_rows(block):
+    """A stored zero writes +0.0 without forming its dot, so an inf in a Y
+    row reaches only the nonzero entries that use it."""
+    cols, blocks, x3, y3 = _sparse_sddmm_inputs(block, 16, 7)
+    y3[:, :, 0, 3] = float("inf")  # row 0 of every block column
+    out = K5.bsr_sddmm_cuda(cols, blocks, x3, y3)
+    ref = K5.bsr_sddmm_plain(cols, blocks, x3, y3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+    zero = blocks == 0
+    assert torch.equal(out[zero], torch.zeros_like(out[zero]))
+    assert not out[zero].signbit().any()
+    assert not bool(out[~zero].isfinite().all())  # the inf reached some
+
+
+@requires_cuda
+def test_bsr_sddmm_kernel_rounds_each_fma_once():
+    """acc = 64 + 2⁻¹⁷ then x·y = 2⁻¹⁸ − 2⁻⁶⁴: ``__fmaf_rn`` keeps acc, as
+    the plain version does (two roundings would give 64 + 2⁻¹⁶)."""
+    acc0 = 64 + 2.0 ** -17
+    x3 = torch.tensor([acc0, 2.0 ** -9 * (1 + 2.0 ** -23)]).expand(
+        1, 1, 8, 2).contiguous().cuda()
+    y3 = torch.tensor([1.0, 2.0 ** -9 * (1 - 2.0 ** -23)]).expand(
+        1, 1, 8, 2).contiguous().cuda()
+    cols = torch.zeros((1, 1, 1), dtype=torch.int32, device="cuda")
+    blocks = torch.ones((1, 1, 1, 8, 8), device="cuda")
+    out = K5.bsr_sddmm_cuda(cols, blocks, x3, y3)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(out, acc0))
+    assert torch.equal(out, K5.bsr_sddmm_plain(cols, blocks, x3, y3))
 
 
 def _executor_case():
@@ -402,6 +489,64 @@ def test_rmsnorm_kernel_unaligned_rows_and_bad_operands():
         K6.rmsnorm_cuda(x.double(), g.double())
     with pytest.raises(TypeError, match="gain dtype"):
         K6.rmsnorm_cuda(x, g.to(torch.bfloat16))
+
+
+@requires_cuda
+def test_rmsnorm_kernel_strided_x():
+    """A strided x is made contiguous first; the result has x's shape and
+    the plain version's bits."""
+    base = torch.randn((6, 2, 256), device="cuda", dtype=torch.bfloat16)
+    x = base[:, 1]  # rows 512 elements apart
+    g = torch.randn(256, device="cuda", dtype=torch.bfloat16)
+    assert not x.is_contiguous()
+    before = launch_counts()["rmsnorm"]
+    out = K6.rmsnorm_cuda(x, g, 1e-5, round_before_gain=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["rmsnorm"] == before + 1
+    assert out.shape == x.shape
+    assert torch.equal(out, K6.rmsnorm_plain(x, g, 1e-5,
+                                             round_before_gain=True))
+
+
+@requires_cuda
+def test_raw_stream_handle_is_the_current_stream():
+    from repro_torch.kernels import build
+
+    x = torch.zeros(4, device="cuda")
+    assert build.stream_of(x) == torch.cuda.current_stream(
+        x.device).cuda_stream
+    side = torch.cuda.Stream(x.device)
+    with torch.cuda.stream(side):
+        assert build.stream_of(x) == side.cuda_stream
+        assert build.stream_of(x) == torch.cuda.current_stream(
+            x.device).cuda_stream
+    assert build.stream_of(x) == torch.cuda.current_stream(
+        x.device).cuda_stream
+
+
+@requires_cuda
+def test_kernels_launched_in_a_side_stream_match_plain():
+    """K6 and K5 launch on the current stream: inside a side stream their
+    results are the plain versions' once that stream is synchronised, and
+    each call counts one launch."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn((1024, 2048), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    g = torch.randn(2048, device="cuda", generator=gen).to(torch.bfloat16)
+    cols, blocks, x3, y3 = _sparse_sddmm_inputs((8, 8), 128, 3, mb=64)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    before = launch_counts()
+    with torch.cuda.stream(side):
+        y = K6.rmsnorm_cuda(x, g, 1e-5, round_before_gain=True)
+        vals = K5.bsr_sddmm_cuda(cols, blocks, x3, y3)
+    side.synchronize()
+    after = launch_counts()
+    assert after["rmsnorm"] == before["rmsnorm"] + 1
+    assert after["bsr_sddmm"] == before["bsr_sddmm"] + 1
+    assert torch.equal(y, K6.rmsnorm_plain(x, g, 1e-5,
+                                           round_before_gain=True))
+    assert torch.equal(vals, K5.bsr_sddmm_plain(cols, blocks, x3, y3))
 
 
 @requires_cuda

@@ -110,3 +110,98 @@ def test_sddmm_shape_errors():
         K5.bsr_sddmm_plain(cols[0], blocks, x3, y3)
     with pytest.raises(ValueError, match="CUDA"):
         K5.bsr_sddmm_cuda(cols, blocks, x3, y3)
+
+
+# the main path's kind of input: stored blocks of about one nonzero, some
+# denser blocks with stored zeros among their entries, an all-zero stored
+# block, and pad slots in the middle of rows; t = 37 crosses the kernel's
+# 32-slot column prefetch and its 8-slot groups
+SPARSE_SHAPES = [
+    # (mb, t, bm, bk, kb, F)
+    (3, 37, 8, 8, 6, 16),
+    (2, 10, 8, 8, 4, 1),
+    (2, 9, 8, 8, 5, 33),
+    (2, 12, 8, 8, 3, 128),
+    (2, 5, 8, 8, 3, 130),
+    (2, 9, 16, 8, 4, 24),
+]
+SPARSE_INTERPRET_SHAPE = SPARSE_SHAPES[0]
+
+
+def _sparse_case(shape, seed):
+    mb, t, bm, bk, kb, f = shape
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, kb, size=(mb, t)).astype(np.int32)
+    cols[:, 1::4] = -1  # pads in the middle of every row
+    blocks = np.zeros((mb, t, bm, bk), np.float32)
+    i, s = np.meshgrid(np.arange(mb), np.arange(t), indexing="ij")
+    r = rng.integers(0, bm, size=(mb, t))
+    c = rng.integers(0, bk, size=(mb, t))
+    blocks[i, s, r, c] = rng.standard_normal((mb, t)).astype(np.float32)
+    dense = rng.standard_normal((mb, t, bm, bk)).astype(np.float32)
+    dense *= rng.random((mb, t, bm, bk)) < 0.6  # stored zeros among them
+    blocks[:, 3::5] = dense[:, 3::5]
+    blocks[:, 2] = 0.0  # a stored block that holds only zeros
+    cols[:, 2] = 0
+    blocks[cols < 0] = 0.0
+    x3 = rng.standard_normal((mb, bm, f)).astype(np.float32)
+    y3 = rng.standard_normal((kb, bk, f)).astype(np.float32)
+    return cols, blocks, x3, y3
+
+
+def _old_plain(cols, blocks, x3, y3):
+    """The plain version as it stood before stored zeros wrote +0.0: the
+    same chain, then ``blocks.float() * acc`` on every valid slot."""
+    P, mb, t, bm, bk = blocks.shape
+    kb, f = y3.shape[1], y3.shape[3]
+    valid = (cols >= 0) & (cols < kb)
+    ranks = torch.arange(P)[:, None, None]
+    y_g = y3[ranks, torch.where(valid, cols, 0).long()]
+    x = x3.double()
+    acc = torch.zeros((P, mb, t, bm, bk))
+    for k in range(f):
+        acc = (x[:, :, None, :, None, k] * y_g[:, :, :, None, :, k].double()
+               + acc.double()).float()
+    out = blocks.float() * acc
+    return torch.where(valid[..., None, None], out, torch.zeros(()))
+
+
+@pytest.mark.parametrize("shape", SPARSE_SHAPES, ids=str)
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
+def test_sddmm_plain_on_sparse_blocks_matches_reference(shape, jdt, tdt, tol):
+    cols, blocks, x3, y3 = _sparse_case(shape, sum(shape))
+    xj, yj = jnp.asarray(x3, jdt), jnp.asarray(y3, jdt)
+    wants = [np.asarray(bsr_sddmm_ref(jnp.asarray(cols), jnp.asarray(blocks),
+                                      xj, yj), np.float32)]
+    if shape == SPARSE_INTERPRET_SHAPE:
+        wants.append(np.asarray(bsr_sddmm_pallas(
+            jnp.asarray(cols), jnp.asarray(blocks), xj, yj, interpret=True),
+            np.float32))
+    args = (_t(cols)[None], _t(blocks)[None], _t(xj, tdt)[None],
+            _t(yj, tdt)[None])
+    plain = K5.bsr_sddmm_plain(*args)
+    for w in wants:
+        np.testing.assert_allclose(plain[0].numpy(), w, rtol=tol, atol=tol)
+    # nonzero entries keep the old expression's bits; every other entry
+    # (a stored zero, the all-zero block, a pad) is +0.0
+    nz = args[1] != 0
+    assert torch.equal(plain[nz], _old_plain(*args)[nz])
+    assert not plain[~nz].any() and not plain[~nz].signbit().any()
+
+
+def test_sddmm_plain_rounds_each_fma_once():
+    """A step where rounding x·y + acc to float64 and then to float32
+    lands on a float32 tie that the exact sum does not: acc = 64 + 2⁻¹⁷
+    (odd last bit), x·y = 2⁻¹⁸ − 2⁻⁶⁴. The kernel's ``__fmaf_rn`` keeps acc;
+    two roundings would give 64 + 2⁻¹⁶."""
+    acc0 = 64 + 2.0 ** -17
+    x3 = torch.tensor([acc0, 2.0 ** -9 * (1 + 2.0 ** -23)]).expand(
+        1, 1, 8, 2).contiguous()
+    y3 = torch.tensor([1.0, 2.0 ** -9 * (1 - 2.0 ** -23)]).expand(
+        1, 1, 8, 2).contiguous()
+    cols = torch.zeros((1, 1, 1), dtype=torch.int32)
+    blocks = torch.ones((1, 1, 1, 8, 8))
+    out = K5.bsr_sddmm_plain(cols, blocks, x3, y3)
+    assert torch.equal(out, torch.full_like(out, acc0))
+    assert float(torch.tensor(acc0 + 2.0 ** -18 - 2.0 ** -64,
+                              dtype=torch.float64).float()) == 64 + 2.0 ** -16
