@@ -16,13 +16,15 @@ handle. Phases, each of which raises on a failed check:
 
 1. build: nvcc builds K1–K6 from ``src/repro_torch/csrc``;
 2. kernels: every kernel's calls on each path are recorded and replayed
-   against the kernel's plain torch version on the same inputs (K1, K2,
-   K5 and K6 bit for bit, float32 1e-5 for K3/K4), and again at
+   against the kernel's plain torch version on the same inputs (K1 in
+   both forms — the pack and the scaled coo gather — K2, K5 and K6 bit
+   for bit, float32 1e-5 for K3/K4), and again at
    ``tests/test_kernels.py``'s sweeps (bfloat16 6e-2) and, for K5, on
    sparse blocks at the GAT pieces' shapes; each is timed beside its
    bound, its plain version and one PyTorch library call for the same
-   function, and its wrapper's host time per launch is taken over 200
-   back-to-back calls;
+   function (for K1's scaled form, ``index_select`` then ``mul``, and the
+   former K1 pack + multiply pair beside it), and its wrapper's host time
+   per launch is taken over 200 back-to-back calls;
 3. main path, uniform: C within 2e-4 of scipy in float64, the model's
    decisions, collective rows == ``volume_rows_padded``, staged C
    bit-identical to overlapped (bsr and coo), two ``h(b)`` calls
@@ -37,8 +39,8 @@ handle. Phases, each of which raises on a failed check:
    bsr: decisions equal the reference's, each layer's C and the output
    within 2e-4 of scipy float64, the sampled values within 2e-4 of float64,
    the fused log's shift pairs equal the spmm call's, coo and bsr agree
-   and repeat bit for bit, K1, K2, K3 and K5 launched on bsr and K1, K2
-   on coo; the kernel calls of both forwards and of the F = 128 SDDMM
+   and repeat bit for bit, K1, K2, K3 and K5 launched on bsr and K1 (both
+   forms), K2 on coo; the kernel calls of both forwards and of the F = 128 SDDMM
    are replayed against the plain versions as in phase 2;
 6. timing: median ``h(b)`` per backend and median GAT forward per backend;
 7. LM serving: OLMoE-1B-7B at its published width (bfloat16, 16 layers,
@@ -126,6 +128,9 @@ KERNELS = {
     # name: (source, the Pallas function it replaces)
     "gather_rows": ("src/repro_torch/csrc/gather_rows.cu",
                     "src/repro/kernels/gather_rows.py:34"),
+    # K1's scaled form: the coo gather with the multiply by the values
+    "gather_rows_scaled": ("src/repro_torch/csrc/gather_rows.cu",
+                           "src/repro/kernels/gather_rows.py:34"),
     "scatter_add_rows": ("src/repro_torch/csrc/scatter_add_rows.cu",
                          "src/repro/kernels/scatter_add_rows.py:71"),
     "bsr_spmm": ("src/repro_torch/csrc/bsr_spmm.cu",
@@ -227,6 +232,7 @@ def record_kernel_calls(fn):
     )
 
     targets = {"gather_rows": (gather_rows, "gather_rows_cuda"),
+               "gather_rows_scaled": (gather_rows, "gather_rows_scaled_cuda"),
                "scatter_add_rows": (scatter_add_rows, "scatter_add_rows_cuda"),
                "bsr_spmm": (bsr_spmm, "bsr_spmm_cuda"),
                "bsr_spmm_acc": (bsr_spmm, "bsr_spmm_acc_cuda"),
@@ -338,6 +344,11 @@ def check_rmsnorm(out: torch.Tensor, plain: torch.Tensor, x: torch.Tensor,
     return float(diff.max())
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The bit patterns of a float32 / bfloat16 tensor (-0.0 != +0.0)."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
 def kernel_row(name, calls, launches):
     """Replay one kernel's recorded calls: error vs plain, times, bound."""
     import torch.nn.functional as F
@@ -350,7 +361,7 @@ def kernel_row(name, calls, launches):
 
     if not calls:
         raise AssertionError(f"{name}: no call recorded on the main path")
-    err = ms = plain_ms = lib_ms = bound_ms = oracle_err = 0.0
+    err = ms = plain_ms = lib_ms = bound_ms = oracle_err = pair_ms = 0.0
     runs = []
     by = {"bytes": 0.0, "operations": 0.0}
 
@@ -359,11 +370,34 @@ def kernel_row(name, calls, launches):
         of its own, so that each call's closures keep their own
         arguments."""
         oracle = 0.0
-        if name == "gather_rows":
+        pair = None
+        if name == "gather_rows_scaled":
+            b, idx, val, out_dtype = args
+            out = k1.gather_rows_scaled_cuda(b, idx, val, out_dtype)
+            ref = k1.gather_rows_scaled_plain(b, idx, val, out_dtype)
+            if not torch.equal(_bits(out), _bits(ref)):
+                raise AssertionError("gather_rows_scaled kernel != plain "
+                                     "version")
+            P_, K, n = b.shape
+            flat = torch.where(idx >= 0, idx.long() + torch.arange(
+                P_, device=b.device)[:, None] * K, P_ * K).reshape(-1)
+            b_pad = torch.cat([b.reshape(P_ * K, n), b.new_zeros(1, n)])
+            v2 = val.reshape(-1, 1)
+            run = lambda: k1.gather_rows_scaled_cuda(b, idx, val, out_dtype)  # noqa: E731,E501
+            plain = lambda: k1.gather_rows_scaled_plain(b, idx, val, out_dtype)  # noqa: E731,E501
+            # no one library call: index_select, then the multiply
+            lib = lambda: (b_pad.index_select(0, flat) * v2).to(out_dtype)  # noqa: E731,E501
+            # the former coo path: K1's pack form, then the multiply
+            pair = lambda: (k1.gather_rows_cuda(b, idx) * val[..., None]).to(out_dtype)  # noqa: E731,E501
+            es = b.element_size()
+            nbytes = (_distinct_rows(idx) * n * es + 2 * idx.numel() * 4
+                      + idx.numel() * n * out.element_size())
+            flops = float(idx.numel() * n)
+        elif name == "gather_rows":
             b, idx = args
             out = k1.gather_rows_cuda(b, idx)
             ref = k1.gather_rows_plain(b, idx)
-            if not torch.equal(out, ref):
+            if not torch.equal(_bits(out), _bits(ref)):
                 raise AssertionError("gather_rows kernel != plain version")
             P_, K, n = b.shape
             flat = torch.where(idx >= 0, idx.long() + torch.arange(
@@ -475,10 +509,11 @@ def kernel_row(name, calls, launches):
             nbytes = (nb * bm * bk * 4 + cols.numel() * 4
                       + _distinct_rows(cols) * bk * n * es
                       + P_ * m_out * n * es * (2 if acc_form else 1))
-        return out, ref, run, plain, lib, nbytes, flops, oracle
+        return out, ref, run, plain, lib, pair, nbytes, flops, oracle
 
     for args, kw in calls:
-        out, ref, run, plain, lib, nbytes, flops, oracle = replay(args, kw)
+        out, ref, run, plain, lib, pair, nbytes, flops, oracle = replay(args,
+                                                                        kw)
         oracle_err = max(oracle_err, oracle)
         err = max(err, float((out.float() - ref.float()).abs().max())
                   if out.numel() else 0.0)
@@ -486,6 +521,8 @@ def kernel_row(name, calls, launches):
         runs.append(run)
         plain_ms += time_ms(plain, iters=1, warmup=0)  # warm from the check
         lib_ms += time_ms(lib)
+        if pair is not None:
+            pair_ms += time_ms(pair)
         b_ms, b_by = _bound(nbytes, flops)
         bound_ms += b_ms
         by[b_by] += b_ms
@@ -496,6 +533,9 @@ def kernel_row(name, calls, launches):
            "bound_ms": bound_ms, "bound_by": max(by, key=by.get),
            "library_ms": lib_ms, "calls_per_h": len(calls),
            "host_us_per_launch": host_us_per_launch(runs)}
+    if name == "gather_rows_scaled":
+        row["library"] = "index_select + mul"
+        row["pack_plus_multiply_ms"] = pair_ms
     if name == "rmsnorm":
         row["max_abs_err_vs_oracle"] = oracle_err
         row["kernel_busy_ms"] = kernel_busy_ms(runs, "rmsnorm_kernel")
@@ -517,6 +557,9 @@ def kernel_summary(name: str, per_path: dict, card: str) -> dict:
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"host {r['host_us_per_launch']:.2f} us a launch, "
             f"max abs err {r['max_abs_err']:.3g}"
+            + (f"; library = index_select + mul; the former K1 pack + "
+               f"multiply {r['pack_plus_multiply_ms']:.4f} ms"
+               if "pack_plus_multiply_ms" in r else "")
             + (f" (vs the oracle {r['max_abs_err_vs_oracle']:.3g}); kernels "
                f"busy {r['kernel_busy_ms']:.4f} ms (torch.profiler; "
                f"{r['kernel_busy_ms_one_input']:.4f} ms with the last "
@@ -528,8 +571,8 @@ def kernel_summary(name: str, per_path: dict, card: str) -> dict:
         path: {key: r[key] for key in (
             "launches", "calls_per_h", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "host_us_per_launch",
-            "max_abs_err_vs_oracle", "kernel_busy_ms",
-            "kernel_busy_ms_one_input") if key in r}
+            "pack_plus_multiply_ms", "max_abs_err_vs_oracle",
+            "kernel_busy_ms", "kernel_busy_ms_one_input") if key in r}
         for path, r in per_path.items()}
     return row
 
@@ -590,13 +633,22 @@ def sweep_checks() -> None:
                                        atol=tol)
             worst[key] = max(worst[key],
                              float((out.float() - ref.float()).abs().max()))
-    for K, n, S in [(16, 8, 5), (64, 32, 20), (8, 128, 3), (128, 256, 64)]:
+    for K, n, S in [(16, 8, 5), (64, 32, 20), (8, 128, 3), (128, 256, 64),
+                    (40, 130, 33), (9, 2048, 7)]:
         b = torch.randn((2, K, n), device=dev)
         idx = torch.from_numpy(
             rng.integers(-1, K, size=(2, S)).astype(np.int32)).to(dev)
-        if not torch.equal(k1.gather_rows_cuda(b, idx),
-                           k1.gather_rows_plain(b, idx)):
-            raise AssertionError(f"gather sweep {(K, n, S)} differs")
+        val = torch.randn((2, S), device=dev)
+        for bb in (b, b.to(torch.bfloat16)):
+            if not torch.equal(_bits(k1.gather_rows_cuda(bb, idx)),
+                               _bits(k1.gather_rows_plain(bb, idx))):
+                raise AssertionError(f"gather sweep {(K, n, S)} differs")
+            for dt in (bb.dtype, torch.float32):
+                if not torch.equal(
+                        _bits(k1.gather_rows_scaled_cuda(bb, idx, val, dt)),
+                        _bits(k1.gather_rows_scaled_plain(bb, idx, val, dt))):
+                    raise AssertionError(f"scaled gather sweep {(K, n, S)} "
+                                         f"{bb.dtype} -> {dt} differs")
     for M, n, S in [(8, 16, 12), (16, 8, 30), (4, 8, 6), (32, 128, 100)]:
         c = torch.randn((2, M, n), device=dev)
         parts = torch.randn((2, S, n), device=dev)
@@ -653,7 +705,8 @@ def sweep_checks() -> None:
                 raise AssertionError("bsr_sddmm: a stored zero or a pad "
                                      "did not give +0.0")
         del cols_d, blk, x3, y3, out
-    log(f"sweeps: K1 exact, K2 exact, K3/K4 max abs err "
+    log(f"sweeps: K1 exact (both forms, f32 and bf16 b, n up to 2048), "
+        f"K2 exact, K3/K4 max abs err "
         f"f32 {worst['f32']:.3g} (tol 1e-5), bf16 {worst['bf16']:.3g} "
         f"(tol 6e-2); K5 == plain bit for bit (F 1, 16, 33, 128, t = 0, "
         f"all-pad rows; sparse blocks at [{P}, 2646, 18] and [{P}, 7566, "
@@ -872,10 +925,12 @@ def median_ms(fn, reps: int = 7):
 def profile_cells(cells) -> None:
     """torch.profiler over 3 calls per cell (``(fn, what)``, ``fn()`` one
     call): the kernels' device time as a share of the wall time (profiler
-    overhead included), and the kernels that take it."""
+    overhead included), and the kernels that take it. Returns each cell's
+    kernel names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = {}
     for fn, what in cells:
         fn()
         torch.cuda.synchronize()
@@ -896,6 +951,8 @@ def profile_cells(cells) -> None:
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"    {e.self_device_time_total / 1e3 / 3:8.3f} ms  "
                 f"{e.count // 3:4d}x  {e.key[:70]}")
+        names[what] = [e.key for e in kernels]
+    return names
 
 
 # ---------------------------------------------------------------------------
@@ -1106,7 +1163,8 @@ def lm_serving(args, card: str, dev: str = "cuda") -> dict:
     torch.cuda.synchronize()
     disp_launches = ops.launch_counts()
     log(f"dispatch launches: {json.dumps(disp_launches)}")
-    if disp_launches["gather_rows"] < 1 or disp_launches["scatter_add_rows"] < 1:
+    if min(disp_launches[k] for k in ("gather_rows", "gather_rows_scaled",
+                                      "scatter_add_rows")) < 1:
         raise AssertionError(f"dispatch: K1/K2 not launched: {disp_launches}")
     check_rows(hd, "dispatch")
     a = dispatch_matrix(cfg, DISPATCH["tokens"], DISPATCH["M"])
@@ -1128,6 +1186,9 @@ def lm_serving(args, card: str, dev: str = "cuda") -> dict:
         "gather_rows": {"dispatch": kernel_row(
             "gather_rows", disp_calls["gather_rows"],
             disp_launches["gather_rows"])},
+        "gather_rows_scaled": {"dispatch": kernel_row(
+            "gather_rows_scaled", disp_calls["gather_rows_scaled"],
+            disp_launches["gather_rows_scaled"])},
         "scatter_add_rows": {"dispatch": kernel_row(
             "scatter_add_rows", disp_calls["scatter_add_rows"],
             disp_launches["scatter_add_rows"])},
@@ -1249,7 +1310,8 @@ def main() -> int:
     torch.cuda.synchronize()
     p_launches = ops.launch_counts()
     log(f"power-law main path launches: {json.dumps(p_launches)}")
-    if p_launches["gather_rows"] < 1 or p_launches["scatter_add_rows"] < 1:
+    if min(p_launches[k] for k in ("gather_rows", "gather_rows_scaled",
+                                   "scatter_add_rows")) < 1:
         raise AssertionError(f"power-law: K1/K2 not launched: {p_launches}")
     for c, what in [(c_p, "power-law coo"), (c_p2, "power-law coo (hit)")]:
         log(f"  {what}: max abs err vs scipy float64 "
@@ -1304,7 +1366,8 @@ def main() -> int:
             f"{json.dumps(gat_launches[backend])}")
     missing = [k for k in ("gather_rows", "scatter_add_rows", "bsr_spmm",
                            "bsr_sddmm") if gat_launches["bsr"][k] < 1]
-    missing += [f"{k} (coo)" for k in ("gather_rows", "scatter_add_rows")
+    missing += [f"{k} (coo)" for k in ("gather_rows", "gather_rows_scaled",
+                                       "scatter_add_rows")
                 if gat_launches["coo"][k] < 1]
     if missing:
         raise AssertionError(f"GAT path did not launch {missing}")
@@ -1367,8 +1430,10 @@ def main() -> int:
             "power_law": (p_calls, p_launches),
             "gat": (gat_calls, gat_launches["bsr"]),
             "gat_coo": (gat_calls_coo, gat_launches["coo"])}
+    coo_paths = {k: k1k2[k] for k in ("uniform_coo", "power_law", "gat_coo")}
     paths = {
         "gather_rows": {**k1k2, "sddmm_f128": (sd_calls, sd_launches)},
+        "gather_rows_scaled": coo_paths,
         "scatter_add_rows": k1k2,
         "bsr_spmm": {"uniform": (calls, launches),
                      "gat": (gat_calls, gat_launches["bsr"])},
@@ -1391,17 +1456,26 @@ def main() -> int:
         log(f"GAT forward {backend} [{card}]: median of 7: {dev_ms:.3f} ms "
             f"device events, {host_ms:.3f} ms host wall")
     if args.profile:
-        profile_cells(
+        seen = profile_cells(
             [(lambda hh=hh, be=be: hh(b, backend=be), what)
              for hh, be, what in cells]
             + [(lambda be=be: gat_forward(model, feats, fused_fn(be)),
                 f"GAT forward {be}") for be in ("coo", "bsr")])
+        # the coo multiply rides in K1's scaled form: no kernel of its own
+        # (a MulFunctor<bool> is torch.isfinite in the front door's
+        # sampled C sweep, not a product)
+        muls = [k for k in seen["power-law coo"]
+                if "MulFunctor" in k and "MulFunctor<bool>" not in k]
+        if muls:
+            raise AssertionError(f"power-law coo ran a multiply kernel: "
+                                 f"{muls}")
+        log("profile power-law coo: no separate multiply kernel")
     log(f"peak device memory, phases 1-6: "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     # 7. LM serving, after the SpMM phases' tensors are released ---------
     del (calls, coo_calls, p_calls, gat_calls, gat_calls_coo, sd_calls,
-         layer_calls, paths, k1k2, h, hp, hf, model, feats, b, gat_out, vals,
+         layer_calls, paths, k1k2, coo_paths, h, hp, hf, model, feats, b, gat_out, vals,
          x128, y128, c_coo, c_bsr, c_hit, c_p, c_p2, again)
     gc.collect()
     torch.cuda.empty_cache()

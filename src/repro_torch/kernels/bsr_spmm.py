@@ -16,6 +16,14 @@ the whole piece. The plain versions repeat that fold (per t:
 ``d_t = Σ_k a·b`` in ascending k, then ``acc + d_t``), so on the CPU too
 the overlapped executor's C equals the staged one bit for bit.
 Accumulation is float32; the output takes ``b``'s dtype.
+
+Both skip what the kernels skip: a column k of a stored block adds to
+the rows of an 8-row slice only where some entry of that slice's
+column is nonzero (NaN counts as nonzero), and a slot whose slice has no
+such column (a pad, or stored zeros) adds nothing. For finite B that is
+exact (``0·b`` adds ±0); for a B row holding an inf or a NaN it means
+the row reaches C only through nonzero A columns, as in scipy and the
+coo path, where the reference's dense block product gives NaN.
 """
 from __future__ import annotations
 
@@ -53,14 +61,25 @@ def _fold(cols, blocks, b, acc):
     b_blk = b_pad.view(P, kb, bk, n)
     acc = acc.view(P, mb, bm, n)
     ranks = torch.arange(P, device=b.device)[:, None]
+    slices = -(-bm // 8)
     for t in range(t_steps):
         c = cols[:, :, t].long()  # [P, mb]
         gathered = b_blk[ranks, c.clamp(min=0)]  # [P, mb, bk, n]
         a = blocks[:, :, t].float()  # [P, mb, bm, bk]
+        # the kernel's column mask: per 8-row slice of the block, the
+        # columns with a nonzero entry (NaN counts) whose B row exists
+        nz = a.new_zeros((P, mb, slices * 8, bk), dtype=torch.bool)
+        nz[:, :, :bm] = a != 0
+        used = nz.view(P, mb, slices, 8, bk).any(3)
+        in_b = c[..., None] * bk + torch.arange(bk, device=b.device) < K
+        used &= (in_b & (c >= 0)[..., None])[:, :, None]
+        used = used.repeat_interleave(8, dim=2)[:, :, :bm]  # [P, mb, bm, bk]
         d = torch.zeros_like(acc)
         for k in range(bk):
-            d = d + a[..., k:k + 1] * gathered[:, :, k:k + 1, :]
-        acc = torch.where((c >= 0)[..., None, None], acc + d, acc)
+            d = torch.where(used[..., k:k + 1],
+                            d + a[..., k:k + 1] * gathered[:, :, k:k + 1, :],
+                            d)
+        acc = torch.where(used.any(-1, keepdim=True), acc + d, acc)
     return acc.view(P, mb * bm, n)
 
 

@@ -52,6 +52,8 @@ _SIGNATURES = {
     # name: argtypes (pointers and the stream as c_void_p, sizes as int64,
     # eps as float)
     "repro_gather_rows": [_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P],
+    "repro_gather_rows_scaled": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
+                                 _I32, _P],
     "repro_scatter_add_rows": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                                _P],
     "repro_bsr_spmm": [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I64,

@@ -78,9 +78,15 @@ def pack_rows_op(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Slots with ``idx < 0`` (plan padding) come back zeroed.
     """
     flat = idx.reshape(idx.shape[0], -1)
-    fn = _gather.gather_rows_cuda if on_card(b, idx) else \
-        _gather.gather_rows_plain
-    return fn(b, flat).reshape(idx.shape + (b.shape[-1],))
+    # every executor body packs here, so a CUDA idx goes straight to the
+    # wrapper, which checks b's device itself (looked up on its module at
+    # call time, so a recorder that replaces it sees the call)
+    if idx.is_cuda:
+        out = _gather.gather_rows_cuda(b, flat)
+    else:
+        on_card(b, idx)  # raises unless b is on the CPU too
+        out = _gather.gather_rows_plain(b, flat)
+    return out.reshape(idx.shape + (b.shape[-1],))
 
 
 def scatter_add_rows_exec_op(c: torch.Tensor, partials: torch.Tensor,
@@ -104,16 +110,19 @@ def coo_accumulate_rows_op(acc: torch.Tensor, col: torch.Tensor,
 
     IN PLACE on ``acc`` [P, m, n] (contiguous), which is returned.
     ``perm`` / ``meta`` are the sorted-scatter maps of the piece's ``row``
-    array (``prepare_sorted_scatter``, pads at -1). Three steps, no
-    atomics: gather ``b[col]`` (K1), scale by ``val`` (one multiply), fold
-    into ``acc`` in slot order (K2). The piece's entries are in CSR order,
-    so each row's chain is ``acc + e1 + e2 + …`` in ascending column
-    order — the chain segment-by-segment accumulation replays, which keeps
-    overlapped coo C bit-identical to staged C, and every run equal to
-    the last.
+    array (``prepare_sorted_scatter``, pads at -1). Two launches, no
+    atomics: K1's scaled form gathers ``b[col]`` and multiplies by ``val``
+    on the way to its output, ``(b[col] * val).to(acc.dtype)`` with one
+    rounding, then K2 folds the products into ``acc`` in slot order. The
+    piece's entries are in CSR order, so each row's chain is
+    ``acc + e1 + e2 + …`` in ascending column order — the chain
+    segment-by-segment accumulation replays, which keeps overlapped coo C
+    bit-identical to staged C, and every run equal to the last.
     """
-    src = pack_rows_op(b, col)  # [P, nnz, n]
-    prods = (src * val[..., None]).to(acc.dtype)
+    if on_card(b, col, val):
+        prods = _gather.gather_rows_scaled_cuda(b, col, val, acc.dtype)
+    else:
+        prods = _gather.gather_rows_scaled_plain(b, col, val, acc.dtype)
     return scatter_add_rows_exec_op(acc, prods, perm, meta)
 
 

@@ -155,6 +155,49 @@ def test_bsr_kernels_on_sparse_blocks_and_ragged_widths(block, n, dtype):
 
 @requires_cuda
 @pytest.mark.parametrize("block", [(8, 8), (16, 8)], ids=str)
+def test_bsr_kernels_skip_non_finite_rows_of_zero_columns(block):
+    """An inf, a -inf and a NaN in B rows whose A column is zero in some
+    stored blocks and nonzero in others: K3 and K4 leave the zero columns
+    out, as their plain version does, so the same entries are NaN and inf
+    in both and the finite ones agree within float32 1e-5."""
+    bm, bk = block
+    cols, blocks, b = _sparse_bsr_inputs(bm, bk, 40, 3 * bm + bk)
+    rng = np.random.default_rng(bm)
+    for v in (np.inf, -np.inf, np.nan):
+        b[:, rng.integers(b.shape[1], size=4), rng.integers(40, size=4)] = v
+    cols, blocks, b = _cuda(cols), _cuda(blocks), _cuda(b)
+    m_out = cols.shape[1] * bm - 5
+    acc0 = _cuda(rng.standard_normal((P, m_out, 40)).astype(np.float32))
+    runs = [(K34.bsr_spmm_cuda(cols, blocks, b, m_out),
+             K34.bsr_spmm_plain(cols, blocks, b, m_out)),
+            (K34.bsr_spmm_acc_cuda(cols, blocks, b, acc0.clone()),
+             K34.bsr_spmm_acc_plain(cols, blocks, b, acc0.clone()))]
+    torch.cuda.synchronize()
+    for out, ref in runs:
+        assert torch.equal(out.isnan(), ref.isnan())
+        assert torch.equal(out.isinf(), ref.isinf())
+        assert torch.equal(out.isinf() & (out > 0), ref.isinf() & (ref > 0))
+        fin = out.isfinite()
+        torch.testing.assert_close(out[fin], ref[fin], rtol=1e-5, atol=1e-5)
+        assert bool(fin.any()) and not bool(fin.all())
+    # some inf or NaN met only zero columns: those entries stay finite
+    dense_bad = torch.zeros_like(runs[0][0], dtype=torch.bool)
+    bad_row = ~b.isfinite()
+    kb = (b.shape[1] + bk - 1) // bk
+    pad = torch.zeros((P, kb * bk - b.shape[1], 40), dtype=torch.bool,
+                      device="cuda")
+    bad_blk = torch.cat([bad_row, pad], 1).view(P, kb, bk, 40).any(2)
+    for s in range(cols.shape[2]):
+        c = cols[:, :, s].long()
+        hit = torch.where((c >= 0)[..., None],
+                          bad_blk[torch.arange(P, device="cuda")[:, None],
+                                  c.clamp(min=0)], False)
+        dense_bad |= hit.repeat_interleave(bm, 1)[:, :m_out]
+    assert bool((dense_bad & runs[0][0].isfinite()).any())
+
+
+@requires_cuda
+@pytest.mark.parametrize("block", [(8, 8), (16, 8)], ids=str)
 @pytest.mark.parametrize("n", [40, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bsr_acc_slot_by_slot_equals_one_call_on_sparse_blocks(block, n,
@@ -240,6 +283,123 @@ def test_gather_rows_kernel_matches_plain(K, n, S, dtype):
     assert torch.equal(out, K1.gather_rows_plain(b, idx))
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The bit patterns of a float32 / bfloat16 tensor (so -0.0 != +0.0)."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _k1_both_forms(b, idx, val, what):
+    """Both K1 forms against their plain versions, bit for bit (the scaled
+    form into b's dtype and into float32), each call counting one launch;
+    returns the pack and the scaled outputs."""
+    before = launch_counts()
+    pack = K1.gather_rows_cuda(b, idx)
+    scaled = {dt: K1.gather_rows_scaled_cuda(b, idx, val, dt)
+              for dt in dict.fromkeys((b.dtype, torch.float32))}
+    torch.cuda.synchronize()
+    after = launch_counts()
+    launched = 1 if idx.numel() and b.shape[-1] else 0
+    assert after["gather_rows"] == before["gather_rows"] + launched, what
+    assert after["gather_rows_scaled"] == (
+        before["gather_rows_scaled"] + len(scaled) * launched), what
+    assert torch.equal(_bits(pack), _bits(K1.gather_rows_plain(b, idx))), what
+    for dt, got in scaled.items():
+        want = K1.gather_rows_scaled_plain(b, idx, val, dt)
+        assert got.dtype == dt and got.shape == want.shape, what
+        assert torch.equal(_bits(got), _bits(want)), f"{what} -> {dt}"
+    return pack, scaled[b.dtype]
+
+
+K1_WIDTHS = [1, 3, 16, 40, 128, 130, 2048]
+
+
+@requires_cuda
+@pytest.mark.parametrize("n", K1_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ranks", [1, 8])
+def test_gather_rows_both_forms_match_plain(n, dtype, ranks):
+    """Both K1 forms at the path's widths and ragged ones: random slots with
+    pads and negative values (a pad times a negative value is -0.0), no
+    slots, all pads, one hub index repeated 3,000 times, and b one element
+    off a 16-byte boundary (the element instance, the same bits)."""
+    gen = torch.Generator("cuda").manual_seed(n * 10 + ranks)
+    K = 300
+    b = torch.randn((ranks, K, n), device="cuda", generator=gen).to(dtype)
+    cases = {
+        "random": torch.randint(-1, K, (ranks, 700), device="cuda",
+                                generator=gen, dtype=torch.int32),
+        "no slots": torch.zeros((ranks, 0), device="cuda", dtype=torch.int32),
+        "all pads": torch.full((ranks, 50), -1, device="cuda",
+                               dtype=torch.int32),
+        "hub": torch.full((ranks, 3000), 17, device="cuda",
+                          dtype=torch.int32),
+    }
+    for what, idx in cases.items():
+        val = torch.randn(idx.shape, device="cuda", generator=gen)
+        pack, scaled = _k1_both_forms(b, idx, val, f"{what} n={n}")
+        if what == "all pads":
+            assert not pack.any() and not pack.signbit().any()
+            assert torch.equal(scaled.signbit(), (val < 0)[..., None].expand(
+                scaled.shape))
+        if what == "random":
+            off = _misaligned(b)
+            off_pack, off_scaled = _k1_both_forms(off, idx, val,
+                                                  f"misaligned n={n}")
+            assert torch.equal(_bits(off_pack), _bits(pack))
+            assert torch.equal(_bits(off_scaled), _bits(scaled))
+
+
+@requires_cuda
+@pytest.mark.parametrize("n", [3, 128])
+def test_gather_rows_many_blocks_and_non_finite_rows(n):
+    """300,000 slots of one rank (thousands of blocks in the grid) over b
+    rows holding an inf, a -inf and a NaN: both forms as their plain
+    versions (NaN where the plain version has NaN, the same bits
+    elsewhere)."""
+    gen = torch.Generator("cuda").manual_seed(n)
+    K, S = 1000, 300_000
+    b = torch.randn((1, K, n), device="cuda", generator=gen)
+    b[0, 3, 0], b[0, 5, n - 1], b[0, 7, n // 2] = (float("inf"),
+                                                   float("-inf"),
+                                                   float("nan"))
+    idx = torch.randint(-1, K, (1, S), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    idx[0, :3] = torch.tensor([3, 5, 7], dtype=torch.int32)
+    val = torch.randn((1, S), device="cuda", generator=gen)
+    val[0, 10] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        bb = b.to(dtype)
+        pack = K1.gather_rows_cuda(bb, idx)
+        want = K1.gather_rows_plain(bb, idx)
+        assert torch.equal(pack.isnan(), want.isnan())
+        assert torch.equal(_bits(pack)[~pack.isnan()],
+                           _bits(want)[~want.isnan()])
+        for dt in (dtype, torch.float32):
+            got = K1.gather_rows_scaled_cuda(bb, idx, val, dt)
+            want = K1.gather_rows_scaled_plain(bb, idx, val, dt)
+            torch.cuda.synchronize()
+            assert bool(got.isnan().any())
+            assert torch.equal(got.isnan(), want.isnan())
+            assert torch.equal(_bits(got)[~got.isnan()],
+                               _bits(want)[~want.isnan()])
+
+
+@requires_cuda
+def test_gather_rows_scaled_rejects_what_it_does_not_take():
+    b = torch.zeros((1, 4, 8), device="cuda")
+    idx = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        K1.gather_rows_scaled_cuda(b, idx, torch.zeros((1, 2), device="cuda",
+                                                       dtype=torch.float64),
+                                   torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K1.gather_rows_scaled_cuda(b, idx, torch.zeros((1, 2), device="cuda"),
+                                   torch.float16)
+    with pytest.raises(ValueError, match="val must be"):
+        K1.gather_rows_scaled_cuda(b, idx, torch.zeros((1, 3), device="cuda"),
+                                   torch.float32)
+
+
 @requires_cuda
 @pytest.mark.parametrize("M,n,S", [(8, 16, 12), (16, 8, 30), (4, 8, 6),
                                    (32, 128, 100)])
@@ -272,6 +432,9 @@ def test_kernels_reject_cpu_operands():
     idx = torch.zeros((1, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         K1.gather_rows_cuda(b, idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        K1.gather_rows_scaled_cuda(b, idx, torch.zeros((1, 2)),
+                                   torch.float32)
 
 
 SDDMM_SHAPES = [
@@ -410,8 +573,9 @@ def _executor_case():
 
 @requires_cuda
 def test_coo_overlapped_bit_identical_on_the_card():
-    """The coo fold (K1 gather, K2 sorted fold) has no atomics: overlapped
-    C equals staged C bit for bit, and two calls give the same bits."""
+    """The coo fold (K1's scaled gather, K2 sorted fold) has no atomics:
+    overlapped C equals staged C bit for bit, and two calls give the same
+    bits."""
     from repro_torch.core.dist_spmm import flat_spmm
 
     a, ex = _executor_case()
@@ -424,6 +588,40 @@ def test_coo_overlapped_bit_identical_on_the_card():
     want = a.to_dense().astype(np.float64) @ b.double().cpu().numpy()
     np.testing.assert_allclose(staged.cpu().numpy(), want, rtol=2e-4,
                                atol=2e-4)
+
+
+@requires_cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_coo_path_launches_the_scaled_gather_and_no_multiply(overlap):
+    """Each coo piece is one K1 scaled launch and one K2 fold: the B pack
+    is K1's pack form, and no elementwise multiply runs on the path."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core.dist_spmm import flat_spmm
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    a, ex = _executor_case()
+    b = torch.randn((512, 64), device="cuda")
+    before = launch_counts()
+    with Ops() as seen:
+        c = flat_spmm(ex, b, backend="coo", overlap=overlap)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    pieces = 3 if not overlap else 1 + len(ex.meta["c_segments"]) + len(
+        ex.meta["b_segments"])
+    assert after["gather_rows_scaled"] - before["gather_rows_scaled"] == pieces
+    assert after["gather_rows"] - before["gather_rows"] == 1  # the B pack
+    assert not [n for n in seen.names if "mul" in n], seen.names
+    want = a.to_dense().astype(np.float64) @ b.double().cpu().numpy()
+    np.testing.assert_allclose(c.cpu().numpy(), want, rtol=2e-4, atol=2e-4)
 
 
 @requires_cuda

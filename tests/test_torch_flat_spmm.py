@@ -178,8 +178,9 @@ def test_coo_piece_with_maps_folds_every_stored_entry():
 
 
 def test_coo_overlapped_bit_identical_through_k1_k2_plain():
-    """The coo fold goes through the K1/K2 plain versions on the CPU, and
-    overlapped C stays bit-identical to staged C (and run to run)."""
+    """The coo fold goes through the K1 (both forms) and K2 plain versions
+    on the CPU, and overlapped C stays bit-identical to staged C (and run
+    to run)."""
     from repro_torch.kernels import gather_rows, scatter_add_rows
 
     a = _port_csr(power_law_sparse(64, 64, 400, 1.2, 2))
@@ -188,9 +189,10 @@ def test_coo_overlapped_bit_identical_through_k1_k2_plain():
         plan, K=4))
     b = torch.from_numpy(np.random.default_rng(9).standard_normal(
         (64, 8)).astype(np.float32))
-    calls = {"gather": 0, "scatter": 0}
-    orig_g, orig_s = (gather_rows.gather_rows_plain,
-                      scatter_add_rows.scatter_add_rows_plain)
+    calls = {"gather": 0, "gather_scaled": 0, "scatter": 0}
+    orig_g, orig_gs, orig_s = (gather_rows.gather_rows_plain,
+                               gather_rows.gather_rows_scaled_plain,
+                               scatter_add_rows.scatter_add_rows_plain)
 
     def count(key, fn):
         def wrapped(*args):
@@ -199,6 +201,7 @@ def test_coo_overlapped_bit_identical_through_k1_k2_plain():
         return wrapped
 
     gather_rows.gather_rows_plain = count("gather", orig_g)
+    gather_rows.gather_rows_scaled_plain = count("gather_scaled", orig_gs)
     scatter_add_rows.scatter_add_rows_plain = count("scatter", orig_s)
     try:
         staged = t_dist.flat_spmm(ex, b, backend="coo")
@@ -206,9 +209,11 @@ def test_coo_overlapped_bit_identical_through_k1_k2_plain():
         over = t_dist.flat_spmm(ex, b, backend="coo", overlap=True)
     finally:
         gather_rows.gather_rows_plain = orig_g
+        gather_rows.gather_rows_scaled_plain = orig_gs
         scatter_add_rows.scatter_add_rows_plain = orig_s
-    # staged: the B pack + 3 piece gathers; 3 piece folds + the aggregation
-    assert n_staged == {"gather": 4, "scatter": 4}
+    # staged: the B pack, 3 piece gathers in the scaled form (gather and
+    # multiply in one step); 3 piece folds + the aggregation
+    assert n_staged == {"gather": 1, "gather_scaled": 3, "scatter": 4}
     assert torch.equal(over, staged)
     assert torch.equal(t_dist.flat_spmm(ex, b, backend="coo"), staged)
     np.testing.assert_allclose(staged.numpy(), a.to_dense() @ b.numpy(),
