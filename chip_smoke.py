@@ -42,7 +42,23 @@ handle. Phases, each of which raises on a failed check:
    and repeat bit for bit, K1, K2, K3 and K5 launched on bsr and K1 (both
    forms), K2 on coo; the kernel calls of both forwards and of the F = 128 SDDMM
    are replayed against the plain versions as in phase 2;
-6. timing: median ``h(b)`` per backend and median GAT forward per backend;
+5b. hier: the same three cells with ``hier="auto"`` — ``compile_spmm``
+   on the uniform matrix (coo and bsr: K1-K4) and the power-law one (coo:
+   K1, K2), ``compile_fused`` on the GAT graph (a 2-layer GAT forward per
+   backend, then the F = 128 SDDMM on bsr: K1, K2, K3, K5), each on the
+   (G, L) = (2, 4) grid of the 8 ranks. Decisions equal the reference's
+   (``EXPECT_HIER``), C / each layer's C / the output / the sampled values
+   within 2e-4 of scipy float64, the group-axis rows of the log ==
+   ``volume_rows_padded`` (local-axis rows and the slow-tier rows against
+   the flat plan's logged), staged == overlapped and call == call bit for
+   bit, coo vs bsr within 2e-4, every kernel of the cell launched, the
+   fused log's group pairs equal the spmm call's; each kernel's hier
+   calls are replayed against its plain version as in phase 2 (paths
+   ``hier_*`` in the kernels line);
+6. timing: median ``h(b)`` per backend and median GAT forward per backend,
+   each hier cell beside the flat one on the same matrix (``--profile``
+   also names the device time of each kind of collective: the
+   reduce-scatter's additions, the all_gather's copies, the rolls);
 7. LM serving: OLMoE-1B-7B at its published width (bfloat16, 16 layers,
    d_model 2048, 64 experts top-8, vocab 50304; random weights from
    ``torch.Generator("cuda").manual_seed(0)``; ``--quick``: olmoe-smoke)
@@ -105,6 +121,67 @@ EXPECT_FUSED = dict(kernel="fused", edge="leaky_relu", schedule_kind="bucketed",
                     modeled_time_fused=0.006233900800000001,
                     volume_rows=589422, volume_rows_padded=602920,
                     volume_rows_padded_single=693952, pattern_nnz=1335568)
+# the reference's hier="auto" decisions on the same three matrices (the JAX
+# package's _plan_and_tune, HierPlan and hier_schedule_layout, CPU run);
+# "quick" for --quick's 16,384-node matrices
+EXPECT_HIER = {
+    "full": {
+        "uniform": (dict(strategy="hier", G=2, L=4, schedule_kind="bucketed",
+                         schedule_K=1, overlap=True,
+                         modeled_time_flat=0.0035635042773333337,
+                         modeled_time_hier=0.001064553664, volume_rows=589422,
+                         volume_rows_padded=204488,
+                         volume_rows_padded_single=408976,
+                         pattern_nnz=1166229),
+                    dict(max_bg=7018, max_cg=18543, R_bg=12562, R_cg=35256)),
+        "power_law": (dict(strategy="hier", G=2, L=4,
+                           schedule_kind="bucketed", schedule_K=1,
+                           overlap=True,
+                           modeled_time_flat=0.0030354198400000003,
+                           modeled_time_hier=0.00054682528,
+                           volume_rows=260413, volume_rows_padded=180992,
+                           volume_rows_padded_single=450656,
+                           pattern_nnz=1116853),
+                      dict(max_bg=10018, max_cg=18148, R_bg=16424,
+                           R_cg=34366)),
+        "gat": (dict(strategy="hier", G=2, L=4, kernel="fused",
+                     edge="leaky_relu", schedule_kind="bucketed",
+                     schedule_K=1, overlap=False,
+                     modeled_time_flat=0.0035641816533333336,
+                     modeled_time_hier=0.0010652310399999999,
+                     modeled_time_fused=0.00212395712, volume_rows=589422,
+                     volume_rows_padded=204488,
+                     volume_rows_padded_single=408976, pattern_nnz=1335568),
+                dict(max_bg=7018, max_cg=18543, R_bg=12562, R_cg=35256)),
+    },
+    "quick": {
+        "uniform": (dict(strategy="hier", G=2, L=4, schedule_kind="bucketed",
+                         schedule_K=1, overlap=True,
+                         modeled_time_flat=0.00041598651022222224,
+                         modeled_time_hier=0.000121671488, volume_rows=57748,
+                         volume_rows_padded=20136,
+                         volume_rows_padded_single=40272, pattern_nnz=114659),
+                    dict(max_bg=703, max_cg=1814, R_bg=1256, R_cg=3459)),
+        "power_law": (dict(strategy="hier", G=2, L=4,
+                           schedule_kind="bucketed", schedule_K=1,
+                           overlap=True,
+                           modeled_time_flat=0.00037697924977777783,
+                           modeled_time_hier=7.4449472e-05,
+                           volume_rows=27371, volume_rows_padded=18448,
+                           volume_rows_padded_single=46144,
+                           pattern_nnz=107248),
+                      dict(max_bg=1050, max_cg=1834, R_bg=1727, R_cg=3463)),
+        "gat": (dict(strategy="hier", G=2, L=4, kernel="fused",
+                     edge="leaky_relu", schedule_kind="bucketed",
+                     schedule_K=1, overlap=False,
+                     modeled_time_flat=0.00041605204622222226,
+                     modeled_time_hier=0.000121737024,
+                     modeled_time_fused=0.00023619264, volume_rows=57748,
+                     volume_rows_padded=20136,
+                     volume_rows_padded_single=40272, pattern_nnz=131035),
+                dict(max_bg=703, max_cg=1814, R_bg=1256, R_cg=3459)),
+    },
+}
 GAT_DIMS = dict(feat_dim=128, hidden=128, n_classes=40, n_layers=2,
                 att_dim=16)  # ogbn-arxiv's features and classes
 SDDMM_F = 128
@@ -546,6 +623,13 @@ def kernel_row(name, calls, launches):
     return row
 
 
+def replay_paths(paths: dict) -> dict:
+    """``kernel_row`` for every (kernel, path) of ``paths`` ({kernel:
+    {path: (recorded calls, launches)}}): {kernel: {path: row}}."""
+    return {k: {path: kernel_row(k, c[k], n[k])
+                for path, (c, n) in paths[k].items()} for k in paths}
+
+
 def kernel_summary(name: str, per_path: dict, card: str) -> dict:
     """One kernel's JSON row: its first path's numbers at the top level,
     each path's own under "paths", max_abs_err the worst over them."""
@@ -743,11 +827,18 @@ def check_decisions(h, expect: dict, expect_ex: dict, what: str) -> None:
                              f"{expect} {expect_ex}")
 
 
-def check_rows(h, what: str) -> None:
+def check_rows(h, what: str) -> int:
+    """The collectives of the handle's last call carried exactly
+    ``volume_rows_padded`` rows: all of them on the flat tier, those of
+    the group axis on the hier tier. Returns the hier tier's local-axis
+    rows (0 on the flat tier)."""
     want = h.plan.volume_rows_padded(h.schedule)
-    if h.comm.rows() != want:
-        raise AssertionError(f"{what}: collectives carried {h.comm.rows()} "
-                             f"rows, the plan says {want}")
+    axis = "g" if h.strategy == "hier" else None
+    if h.comm.rows(axis) != want:
+        raise AssertionError(f"{what}: collectives carried "
+                             f"{h.comm.rows(axis)} rows, the plan says "
+                             f"{want}")
+    return h.comm.rows("l")
 
 
 # ---------------------------------------------------------------------------
@@ -834,6 +925,9 @@ def bsr_piece_coords(ex, name: str, piece, k_local: int):
     single = ex.schedule.kind == "single"
     if name == "diag":
         return (p, i, s, r, k), p * m_local + lr, p * k_local + lc
+    if "G" in ex.meta:
+        return hier_piece_coords(ex, name, (p, i, s, r, k), lr, lc,
+                                 k_local)
     if name == "colp":  # columns index the received B (= Y) rows
         idx = ex.b_send_idx.long()
         if single:
@@ -863,6 +957,69 @@ def bsr_piece_coords(ex, name: str, piece, k_local: int):
     if (tgt < 0).any():
         raise AssertionError("rowp nonzero on a padding slot")
     return (p, i, s, r, k), dst * m_local + tgt, p * k_local + lc
+
+
+def _segment_table(segments, total: int, device):
+    """Per slot of a segment space: its shift, its segment's offset and
+    its segment's width (-1 off every segment)."""
+    out = torch.full((3, max(total, 1)), -1, dtype=torch.long, device=device)
+    for d, off, slot in segments:
+        out[:, off:off + slot] = torch.tensor([[d], [off], [slot]],
+                                              device=device)
+    return out
+
+
+def hier_piece_coords(ex, name: str, at, lr, lc, k_local: int):
+    """``bsr_piece_coords`` for the two-tier layouts: colp columns index
+    the gathered B space (single: (l_src·G + g_src)·max_bg + slot;
+    bucketed: segment-major, L·off .. L·(off + slot) per group shift),
+    rowp rows the pre-aggregation space (single: dst·max_cg + slot;
+    bucketed: shift-major (dg·L + l_dst)·max_cg + slot)."""
+    p = at[0]
+    G, L = ex.meta["G"], ex.meta["L"]
+    m_local, gd = ex.meta["m_local"], p // L
+    single = ex.schedule.kind == "single"
+    if name == "colp":
+        idx = ex.b_group_send_idx.long()
+        if single:
+            lg, j = lc // ex.max_bg, lc % ex.max_bg
+            ls, gs = lg // G, lg % G
+            q = gs * L + ls
+            src = idx[q, gd, j]
+        else:
+            # the gathered space of segment (dg, off, slot) starts at L·off
+            segs = tuple((d, L * off, L * slot)
+                         for d, off, slot in ex.meta["bg_all"])
+            dg, base, width = _segment_table(segs, L * ex.meta["R_bg"],
+                                             lc.device)[:, lc]
+            if (dg < 0).any():
+                raise AssertionError("hier colp nonzero outside every B "
+                                     "segment")
+            slot = width // L
+            ls, j = (lc - base) // slot, (lc - base) % slot
+            q = ((gd - dg) % G) * L + ls
+            src = idx[q, base // L + j]
+        if (src < 0).any():
+            raise AssertionError("hier colp nonzero on a padding slot")
+        return at, p * m_local + lr, q * k_local + src
+    rows = ex.c_recv_rows.long()
+    gs = p // L
+    max_cg = ex.max_cg
+    if single:
+        dst, j = lr // max_cg, lr % max_cg
+        tgt = rows[dst, gs, j]
+    else:
+        dg, ld, j = lr // (L * max_cg), (lr // max_cg) % L, lr % max_cg
+        off = torch.full((G,), -1, dtype=torch.long, device=lr.device)
+        for d, o, _ in ex.meta["cg_all"]:
+            off[d] = o
+        if (off[dg] < 0).any():
+            raise AssertionError("hier rowp nonzero outside every C segment")
+        dst = ((gs + dg) % G) * L + ld
+        tgt = rows[dst, off[dg] + j]
+    if (tgt < 0).any():
+        raise AssertionError("hier rowp nonzero on a padding slot")
+    return at, dst * m_local + tgt, p * k_local + lc
 
 
 def check_sddmm_values(h, vals, a, x: torch.Tensor, y: torch.Tensor) -> float:
@@ -905,6 +1062,224 @@ def check_sddmm_values(h, vals, a, x: torch.Tensor, y: torch.Tensor) -> float:
     return err
 
 
+def fused_layer_fn(hf):
+    """``fused_fn(backend, record=None)``: the layer function ``gat_forward``
+    takes, through the fused handle ``hf``; with ``record`` a list, each
+    call appends (q, k, v, C, the call's collective log)."""
+    def fused_fn(backend, record=None):
+        def call(q, k, v):
+            c = hf(q, k, v, backend=backend)
+            if record is not None:
+                record.append((q, k, v, c, list(hf.comm.log)))
+            return c
+        return call
+    return fused_fn
+
+
+def gat_cell(hf, model, feats, adj, b, want, what: str):
+    """Phase 5's GAT checks on one fused handle (phase 5b's on the hier
+    one): one forward per backend with its kernel calls recorded, then a
+    counted forward per backend — every kernel of the backend launched,
+    each layer's C and the output within 2e-4 of float64 (``want``), two
+    forwards bit-identical, coo vs bsr within 2e-4 — and the fused log's
+    pairs (the group axis's on the hier tier) equal the spmm call's, with
+    one more exchange per reversed X round. Returns (the layer function,
+    {backend: recorded calls}, {backend: launch counts}, {backend: C})."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn import gat_forward
+
+    fused_fn = fused_layer_fn(hf)
+    # the kernel calls one forward per backend makes, before the counted
+    # runs
+    recorded = {be: record_kernel_calls(
+        lambda: gat_forward(model, feats, fused_fn(be)))
+        for be in ("bsr", "coo")}
+    layer_calls = {"coo": [], "bsr": []}
+    outs, launches = {}, {}
+    for be in ("coo", "bsr"):
+        ops.reset_launch_counts()
+        outs[be] = gat_forward(model, feats, fused_fn(be, layer_calls[be]))
+        torch.cuda.synchronize()
+        launches[be] = ops.launch_counts()
+        log(f"{what} {be} forward launches: {json.dumps(launches[be])}")
+    missing = [k for k in ("gather_rows", "scatter_add_rows", "bsr_spmm",
+                           "bsr_sddmm") if launches["bsr"][k] < 1]
+    missing += [f"{k} (coo)" for k in ("gather_rows", "gather_rows_scaled",
+                                       "scatter_add_rows")
+                if launches["coo"][k] < 1]
+    if missing:
+        raise AssertionError(f"{what} path did not launch {missing}")
+    for be in ("coo", "bsr"):
+        for i, (q, k, v, c, _) in enumerate(layer_calls[be]):
+            err = check_close(c, fused_oracle(adj, _host64(q), _host64(k),
+                                              _host64(v)),
+                              f"{what} {be} layer {i} C")
+            log(f"  {what} {be} layer {i} (F={q.shape[1]}, N="
+                f"{v.shape[1]}): C vs scipy float64: {err}")
+        err = check_close(outs[be], want, f"{what} {be} output")
+        log(f"  {what} {be} output {list(outs[be].shape)} vs the float64 "
+            f"forward: {err}")
+        if not torch.equal(gat_forward(model, feats, fused_fn(be)),
+                           outs[be]):
+            raise AssertionError(f"{what} {be}: two forwards differ")
+        log(f"  {what} {be}: two forwards bit-identical")
+    log(f"  {what} coo vs bsr: "
+        f"{check_close(outs['coo'], _host64(outs['bsr']), what)}")
+
+    # the fused log against the spmm call's on the same plan and schedule
+    hier = hf.strategy == "hier"
+    hf(b, kernel="spmm", backend="bsr")
+    spmm_log = list(hf.comm.log)
+    fused_log = layer_calls["bsr"][-1][4]
+    on_axis = ((lambda lg: [e for e in lg if e[0].endswith("@g")]) if hier
+               else list)
+    pairs = lambda lg: {pr for _, prs, _ in on_axis(lg) for pr in prs}  # noqa: E731,E501
+    n_extra = (len(hf.ex.meta["cg_segments" if hier else "c_segments"])
+               if hf.schedule.kind == "bucketed" else 1)
+    n_fused, n_spmm = len(on_axis(fused_log)), len(on_axis(spmm_log))
+    if pairs(fused_log) != pairs(spmm_log) or n_fused != n_spmm + n_extra:
+        raise AssertionError(f"{what} fused log: {n_fused} exchanges over "
+                             f"{len(pairs(fused_log))} pairs; spmm {n_spmm} "
+                             f"over {len(pairs(spmm_log))}")
+    log(f"  {what} fused log: the spmm call's {len(pairs(spmm_log))} "
+        f"{'group ' if hier else 'shift '}pairs, {n_fused} exchanges = spmm "
+        f"{n_spmm} + {n_extra} reversed X rounds")
+    return fused_fn, recorded, launches, outs
+
+
+def sddmm_cell(hf, adj, x, y, what: str):
+    """The F = 128 SDDMM on bsr through ``hf``: its kernel calls recorded,
+    then a counted call (K1 and K5 launched) whose sampled values are
+    checked against float64 through the plan's exchange maps. Returns
+    (recorded calls, launch counts, values)."""
+    from repro_torch.kernels import ops
+
+    calls = record_kernel_calls(
+        lambda: hf(x, y, kernel="sddmm", backend="bsr", edge=None))
+    ops.reset_launch_counts()
+    vals = hf(x, y, kernel="sddmm", backend="bsr", edge=None)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"{what} F={x.shape[1]} bsr launches: {json.dumps(launches)}")
+    if min(launches[k] for k in ("gather_rows", "bsr_sddmm")) < 1:
+        raise AssertionError(f"{what}: K1 / K5 not launched")
+    err = check_sddmm_values(hf, vals, adj, x, y)
+    log(f"  {what} F={x.shape[1]}: values max abs err vs float64 {err:.3g} "
+        f"(tol 2e-4); the stored nonzeros rebuild A through the plan's "
+        f"exchange maps")
+    return calls, launches, vals
+
+
+def check_hier_cell(h, a, b, b_host, what: str):
+    """Phase 5b's checks on one hier SpMM handle: a counted run (h(b) per
+    backend, then a cache hit), C against scipy float64, group-axis rows
+    == ``volume_rows_padded`` on every call, staged == overlapped, call
+    == call, coo vs bsr within 2e-4. Returns the counted launches."""
+    from repro_torch.core.dist_spmm import hier_spmm
+    from repro_torch.kernels import ops
+
+    backends = h.backends
+    ops.reset_launch_counts()
+    out = {}
+    for be in backends:
+        out[be] = h(b, backend=be)
+        local = check_rows(h, f"{what} {be}")
+    hit = h(b, backend=backends[0])
+    check_rows(h, f"{what} {backends[0]} (cache hit)")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"{what} main path launches: {json.dumps(launches)}")
+    want = ["gather_rows", "gather_rows_scaled", "scatter_add_rows"]
+    if "bsr" in backends:
+        want += ["bsr_spmm"] + (["bsr_spmm_acc"] if h.overlap else [])
+    if min(launches[k] for k in want) < 1:
+        raise AssertionError(f"{what}: a kernel was not launched "
+                             f"({want}): {launches}")
+    b_ig, c_ig = h.hier.inter_group_rows()
+    b_fl, c_fl = h.hier.inter_group_rows_flat()
+    log(f"  {what}: group-axis rows {h.comm.rows('g')} == "
+        f"volume_rows_padded {h.stats()['volume_rows_padded']}; local-axis "
+        f"rows {local}; slow-tier rows (B + C) {b_ig} + {c_ig} against the "
+        f"flat plan's {b_fl} + {c_fl}")
+    for be, c in out.items():
+        log(f"  {what} {be}: max abs err vs scipy float64 "
+            f"{check_c(c, a, b_host, f'{what} {be}'):.3g} (tol 2e-4)")
+        if h.ex.meta.get("overlap_ready"):  # bucketed and overlapped
+            staged = hier_spmm(h.ex, b, backend=be, overlap=False)
+            if not torch.equal(staged, c):
+                raise AssertionError(f"{what} {be}: staged C != "
+                                     f"overlapped C")
+            log(f"  {what} {be}: staged C bit-identical to overlapped C")
+    if not torch.equal(hit, out[backends[0]]):
+        raise AssertionError(f"{what}: two h(b) calls differ")
+    if len(out) == 2:
+        log(f"  {what}: coo vs bsr: "
+            f"{check_close(out['coo'], _host64(out['bsr']), what)}")
+    return launches
+
+
+def hier_phase(args, a_u, a_p, adj, b, b_host, model, feats, gat_want,
+               x128, y128):
+    """Phase 5b: the three hier="auto" cells on the matrices of phases
+    3-5. Returns (the kernel rows of the hier paths, the SpMM handles, the
+    fused handle and its GAT layer function)."""
+    from repro_torch import SpmmConfig, compile_fused, compile_spmm
+    from repro_torch.core.dist_spmm import hier_spmm
+
+    expect = EXPECT_HIER["quick" if args.quick else "full"]
+    # per path: the recorded kernel calls, the launches of its counted run
+    rec, counted, handles = {}, {}, []
+    for name, a, path_of in (
+            ("uniform", a_u, {"coo": "hier_uniform_coo",
+                              "bsr": "hier_uniform"}),
+            ("power_law", a_p, {"coo": "hier_power_law"})):
+        t0 = time.perf_counter()
+        h = compile_spmm(a, P, SpmmConfig(backends=tuple(path_of),
+                                          hier="auto"))
+        log(f"hier {name}: compile_spmm(hier='auto') "
+            f"{time.perf_counter() - t0:.1f} s: {h}")
+        check_decisions(h, *expect[name], f"hier {name}")
+        # the executor calls h(b, backend=...) make, before the counted run
+        for be, path in path_of.items():
+            rec[path] = record_kernel_calls(
+                lambda: hier_spmm(h.ex, b, backend=be, overlap=h.overlap))
+        launches = check_hier_cell(h, a, b, b_host, f"hier {name}")
+        counted.update({path: launches for path in path_of.values()})
+        handles.append(h)
+
+    # GAT on the hier fused handle, then the F = 128 SDDMM
+    t0 = time.perf_counter()
+    hf = compile_fused(adj, P, SpmmConfig(
+        kernel="fused", edge="leaky_relu", backends=("coo", "bsr"),
+        hier="auto"))
+    log(f"hier GAT: compile_fused(hier='auto') "
+        f"{time.perf_counter() - t0:.1f} s: {hf}")
+    check_decisions(hf, *expect["gat"], "hier fused")
+    fused_fn, gat_rec, gat_launches, _ = gat_cell(
+        hf, model, feats, adj, b, gat_want, "hier GAT")
+    for be, path in (("bsr", "hier_gat"), ("coo", "hier_gat_coo")):
+        rec[path], counted[path] = gat_rec[be], gat_launches[be]
+    rec["hier_sddmm_f128"], counted["hier_sddmm_f128"], _ = sddmm_cell(
+        hf, adj, x128, y128, "hier sddmm")
+
+    hu, hp = handles
+    coo = ("gather_rows", "gather_rows_scaled", "scatter_add_rows")
+    kernels_of = {
+        "hier_uniform": ("gather_rows", "scatter_add_rows", "bsr_spmm")
+        + (("bsr_spmm_acc",) if hu.overlap else ()),
+        "hier_uniform_coo": coo, "hier_power_law": coo,
+        "hier_gat": ("gather_rows", "scatter_add_rows", "bsr_spmm",
+                     "bsr_sddmm"),
+        "hier_gat_coo": coo,
+        "hier_sddmm_f128": ("gather_rows", "bsr_sddmm"),
+    }
+    paths = {}
+    for path, kernels in kernels_of.items():
+        for k in kernels:
+            paths.setdefault(k, {})[path] = (rec[path], counted[path])
+    return replay_paths(paths), hu, hp, hf, fused_fn
+
+
 def median_ms(fn, reps: int = 7):
     """Median device time (CUDA events) and host time of one ``fn()``."""
     dev_ms, host_ms = [], []
@@ -922,11 +1297,47 @@ def median_ms(fn, reps: int = 7):
     return statistics.median(dev_ms), statistics.median(host_ms)
 
 
+class comm_ranges:
+    """Within the block, every ``LocalComm`` collective runs inside a
+    profiler range named after it ("comm psum_scatter@l fold", "comm
+    all_gather@l copy", ...), so a profile names the device time of the
+    collectives' copies and of the reduce-scatter's additions."""
+
+    NAMES = {"all_to_all": "comm all_to_all", "ppermute": None,
+             "group_all_to_all": "comm all_to_all@g",
+             "local_psum_scatter": "comm psum_scatter@l fold",
+             "local_all_gather": "comm all_gather@l copy"}
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from repro_torch.distributed.comm import LocalComm
+
+        self.saved = {k: getattr(LocalComm, k) for k in self.NAMES}
+
+        def wrap(fn, name):
+            def ranged(comm, *args, **kw):
+                label = name or f"comm {kw.get('op', 'ppermute')}"
+                with record_function(label):
+                    return fn(comm, *args, **kw)
+            return ranged
+
+        for k, name in self.NAMES.items():
+            setattr(LocalComm, k, wrap(self.saved[k], name))
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed.comm import LocalComm
+
+        for k, fn in self.saved.items():
+            setattr(LocalComm, k, fn)
+
+
 def profile_cells(cells) -> None:
     """torch.profiler over 3 calls per cell (``(fn, what)``, ``fn()`` one
     call): the kernels' device time as a share of the wall time (profiler
-    overhead included), and the kernels that take it. Returns each cell's
-    kernel names."""
+    overhead included), the kernels that take it, and the device time of
+    each kind of collective (``comm_ranges``). Returns each cell's kernel
+    names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -934,16 +1345,19 @@ def profile_cells(cells) -> None:
     for fn, what in cells:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with comm_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        # the comm ranges also appear as device-side annotations: they
+        # span kernels, they are not kernels
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0]
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("comm ")]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 3
         log(f"profile {what}: kernels busy {busy_ms:.3f} ms of "
             f"{wall_ms:.3f} ms wall per call (device idle "
@@ -951,6 +1365,11 @@ def profile_cells(cells) -> None:
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"    {e.self_device_time_total / 1e3 / 3:8.3f} ms  "
                 f"{e.count // 3:4d}x  {e.key[:70]}")
+        for e in prof.key_averages():
+            if e.key.startswith("comm ") and e.device_type == DeviceType.CPU:
+                log(f"    {e.device_time_total / 1e3 / 3:8.3f} ms  "
+                    f"{e.count // 3:4d}x  {e.key} (device time of its "
+                    f"kernels)")
         names[what] = [e.key for e in kernels]
     return names
 
@@ -1339,93 +1758,21 @@ def main() -> int:
     feats_host = rng.standard_normal((m, GAT_DIMS["feat_dim"]),
                                      dtype=np.float32)
     feats = torch.from_numpy(feats_host).cuda()
-    layer_calls = {"coo": [], "bsr": []}
-
-    def fused_fn(backend, record=None):
-        def call(q, k, v):
-            c = hf(q, k, v, backend=backend)
-            if record is not None:
-                record.append((q, k, v, c, list(hf.comm.log)))
-            return c
-        return call
-
-    # the kernel calls one forward per backend makes, before the counted
-    # runs
-    gat_calls = record_kernel_calls(
-        lambda: gat_forward(model, feats, fused_fn("bsr")))
-    gat_calls_coo = record_kernel_calls(
-        lambda: gat_forward(model, feats, fused_fn("coo")))
-    gat_out, gat_launches = {}, {}
-    for backend in ("coo", "bsr"):
-        ops.reset_launch_counts()
-        gat_out[backend] = gat_forward(model, feats,
-                                       fused_fn(backend, layer_calls[backend]))
-        torch.cuda.synchronize()
-        gat_launches[backend] = ops.launch_counts()
-        log(f"GAT {backend} forward launches: "
-            f"{json.dumps(gat_launches[backend])}")
-    missing = [k for k in ("gather_rows", "scatter_add_rows", "bsr_spmm",
-                           "bsr_sddmm") if gat_launches["bsr"][k] < 1]
-    missing += [f"{k} (coo)" for k in ("gather_rows", "gather_rows_scaled",
-                                       "scatter_add_rows")
-                if gat_launches["coo"][k] < 1]
-    if missing:
-        raise AssertionError(f"GAT path did not launch {missing}")
     want = gat_oracle(adj, params, feats_host)
-    for backend in ("coo", "bsr"):
-        for i, (q, k, v, c, _) in enumerate(layer_calls[backend]):
-            err = check_close(c, fused_oracle(adj, _host64(q), _host64(k),
-                                              _host64(v)),
-                              f"GAT {backend} layer {i} C")
-            log(f"  GAT {backend} layer {i} (F={q.shape[1]}, N="
-                f"{v.shape[1]}): C vs scipy float64: {err}")
-        err = check_close(gat_out[backend], want, f"GAT {backend} output")
-        log(f"  GAT {backend} output {list(gat_out[backend].shape)} vs the "
-            f"float64 forward: {err}")
-        again = gat_forward(model, feats, fused_fn(backend))
-        if not torch.equal(again, gat_out[backend]):
-            raise AssertionError(f"GAT {backend}: two forwards differ")
-        log(f"  GAT {backend}: two forwards bit-identical")
-    log(f"  GAT coo vs bsr: "
-        f"{check_close(gat_out['coo'], _host64(gat_out['bsr']), 'GAT coo vs bsr')}")
-
-    # the fused log against the spmm call's on the same plan and schedule
-    hf(b, kernel="spmm", backend="bsr")
-    spmm_log = list(hf.comm.log)
-    fused_log = layer_calls["bsr"][-1][4]
-    pairs = lambda lg: {pr for _, prs, _ in lg for pr in prs}  # noqa: E731
-    n_extra = (len(hf.ex.meta["c_segments"])
-               if hf.schedule.kind == "bucketed" else 1)
-    if pairs(fused_log) != pairs(spmm_log) or \
-            len(fused_log) != len(spmm_log) + n_extra:
-        raise AssertionError(f"fused log: {len(fused_log)} exchanges over "
-                             f"{len(pairs(fused_log))} pairs; spmm "
-                             f"{len(spmm_log)} over {len(pairs(spmm_log))}")
-    log(f"  fused log: the spmm call's {len(pairs(spmm_log))} shift pairs, "
-        f"{len(fused_log)} exchanges = spmm {len(spmm_log)} + {n_extra} "
-        f"reversed X rounds")
+    fused_fn, gat_rec, gat_launches, gat_out = gat_cell(
+        hf, model, feats, adj, b, want, "GAT")
+    gat_calls, gat_calls_coo = gat_rec["bsr"], gat_rec["coo"]
 
     # SDDMM at a 128-wide F on bsr
     x128 = torch.randn((m, SDDMM_F), device="cuda")
     y128 = torch.randn((m, SDDMM_F), device="cuda")
-    sd_calls = record_kernel_calls(
-        lambda: hf(x128, y128, kernel="sddmm", backend="bsr", edge=None))
-    ops.reset_launch_counts()
-    vals = hf(x128, y128, kernel="sddmm", backend="bsr", edge=None)
-    torch.cuda.synchronize()
-    sd_launches = ops.launch_counts()
-    log(f"sddmm F={SDDMM_F} bsr launches: {json.dumps(sd_launches)}")
-    if sd_launches["bsr_sddmm"] < 1:
-        raise AssertionError("sddmm: K5 not launched")
-    err = check_sddmm_values(hf, vals, adj, x128, y128)
-    log(f"  sddmm F={SDDMM_F}: values max abs err vs float64 {err:.3g} "
-        f"(tol 2e-4); the stored nonzeros rebuild A through the plan's "
-        f"exchange maps")
+    sd_calls, sd_launches, vals = sddmm_cell(hf, adj, x128, y128, "sddmm")
 
-    # 6. timing --------------------------------------------------------
     # every recorded call of each path replayed against the plain version
     # and timed; a row's top level is its first path's, "paths" holds
-    # each path's own numbers and max_abs_err is the worst over them
+    # each path's own numbers and max_abs_err is the worst over them. The
+    # recorded arguments are dropped once replayed, before phase 5b
+    # records its own.
     k1k2 = {"uniform": (calls, launches), "uniform_coo": (coo_calls, launches),
             "power_law": (p_calls, p_launches),
             "gat": (gat_calls, gat_launches["bsr"]),
@@ -1441,26 +1788,42 @@ def main() -> int:
         "bsr_sddmm": {"gat": (gat_calls, gat_launches["bsr"]),
                       "sddmm_f128": (sd_calls, sd_launches)},
     }
-    per_kernel = {k: {path: kernel_row(k, c[k], n[k])
-                      for path, (c, n) in paths[k].items()} for k in paths}
-    cells = [(h, "coo", "uniform coo"), (h, "bsr", "uniform bsr"),
-             (hp, "coo", "power-law coo")]
+    per_kernel = replay_paths(paths)
+    del (calls, coo_calls, p_calls, gat_calls, gat_calls_coo, gat_rec,
+         sd_calls, paths, k1k2, coo_paths)
+    gc.collect()
+
+    # 5b. the hierarchical tier: hier="auto" on the same matrices ---------
+    hier_rows, hu, hph, hgf, hier_fused_fn = hier_phase(
+        args, a_u, a_p, adj, b, b_host, model, feats, want, x128, y128)
+    for k, extra in hier_rows.items():
+        per_kernel[k].update(extra)
+
+    # 6. timing --------------------------------------------------------
+    # each hier cell beside the flat handle on the same matrix, in turns
+    cells = [(h, "coo", "uniform coo"), (hu, "coo", "hier uniform coo"),
+             (h, "bsr", "uniform bsr"), (hu, "bsr", "hier uniform bsr"),
+             (hp, "coo", "power-law coo"),
+             (hph, "coo", "hier power-law coo")]
     for handle, backend, what in cells:
         dev_ms, host_ms = median_ms(
             lambda: handle(b, backend=backend))
         log(f"h(b) {what} [{card}]: median of 7: {dev_ms:.3f} ms device "
             f"events, {host_ms:.3f} ms host wall")
-    for backend in ("coo", "bsr"):
+    gat_cells = [(fn, be, what) for be in ("coo", "bsr")
+                 for fn, what in ((fused_fn, "GAT forward"),
+                                  (hier_fused_fn, "hier GAT forward"))]
+    for fn, backend, what in gat_cells:
         dev_ms, host_ms = median_ms(
-            lambda: gat_forward(model, feats, fused_fn(backend)))
-        log(f"GAT forward {backend} [{card}]: median of 7: {dev_ms:.3f} ms "
+            lambda: gat_forward(model, feats, fn(backend)))
+        log(f"{what} {backend} [{card}]: median of 7: {dev_ms:.3f} ms "
             f"device events, {host_ms:.3f} ms host wall")
     if args.profile:
         seen = profile_cells(
             [(lambda hh=hh, be=be: hh(b, backend=be), what)
              for hh, be, what in cells]
-            + [(lambda be=be: gat_forward(model, feats, fused_fn(be)),
-                f"GAT forward {be}") for be in ("coo", "bsr")])
+            + [(lambda fn=fn, be=be: gat_forward(model, feats, fn(be)),
+                f"{what} {be}") for fn, be, what in gat_cells])
         # the coo multiply rides in K1's scaled form: no kernel of its own
         # (a MulFunctor<bool> is torch.isfinite in the front door's
         # sampled C sweep, not a product)
@@ -1474,9 +1837,9 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     # 7. LM serving, after the SpMM phases' tensors are released ---------
-    del (calls, coo_calls, p_calls, gat_calls, gat_calls_coo, sd_calls,
-         layer_calls, paths, k1k2, coo_paths, h, hp, hf, model, feats, b, gat_out, vals,
-         x128, y128, c_coo, c_bsr, c_hit, c_p, c_p2, again)
+    del (h, hp, hf, model, feats, b, gat_out, vals, x128, y128, c_coo,
+         c_bsr, c_hit, c_p, c_p2, hu, hph, hgf, hier_fused_fn, cells,
+         gat_cells, fused_fn)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

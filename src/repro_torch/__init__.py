@@ -10,6 +10,8 @@ torch version beside it.
     h = compile_spmm(a, 8, SpmmConfig(backends=("coo", "bsr")))
     c = h(b)          # on the card; device="cpu" runs the plain versions
 
+    hh = compile_spmm(a, 8, SpmmConfig(hier="auto"))   # two-tier (G, L)
+
     hf = compile_fused(adj, 8, edge="leaky_relu")   # FusedMM (GAT layers)
     c = hf(q, k, v)   # leaky_relu(A ⊙ (q kᵀ)) @ v through one comm phase
 """

@@ -1,22 +1,29 @@
 """SHIRO core for the port: host-side planning (copies of the reference's
-NumPy modules), the local backends, the flat SpMM / SDDMM / FusedMM
-executors and the front door."""
+NumPy modules), the local backends, the flat and hierarchical SpMM /
+SDDMM / FusedMM executors and the front door."""
 from .api import (
     DistSpmm, SpmmConfig, compile_fused, compile_sddmm, compile_spmm,
 )
 from .comm_model import (
-    NetworkSpec, TSUBAME_LIKE, choose_fused_schedule, choose_schedule,
-    modeled_time, strategy_volumes,
+    NetworkSpec, TSUBAME_LIKE, choose_fused_schedule,
+    choose_hier_fused_schedule, choose_hier_schedule, choose_schedule,
+    modeled_time, modeled_time_hier, modeled_time_hier_fused_schedule,
+    modeled_time_hier_overlap, modeled_time_hier_schedule,
+    modeled_time_hier_staged, strategy_volumes,
 )
 from .comm_schedule import (
-    CommRound, CommSchedule, build_comm_schedule, single_round_schedule,
+    CommRound, CommSchedule, build_comm_schedule, build_hier_comm_schedule,
+    single_round_hier_schedule, single_round_schedule,
 )
 from .dist_sddmm import (
     EDGE_FNS, flat_fused, flat_sddmm, flat_spmm_values, fused_sddmm_spmm,
+    hier_fused, hier_sddmm, hier_spmm_values,
 )
 from .dist_spmm import (
-    FlatExecPlan, flat_exec_arrays, flat_exec_from_numpy, flat_spmm,
+    FlatExecPlan, HierExecPlan, flat_exec_arrays, flat_exec_from_numpy,
+    flat_spmm, hier_exec_arrays, hier_exec_from_numpy, hier_spmm,
 )
+from .hierarchy import HierPlan, build_hier_plan, hier_piece_csrs
 from .local_backend import (
     BsrBackend, CooBackend, available_backends, get_backend,
     register_backend,
@@ -31,12 +38,20 @@ __all__ = [
     "DistSpmm", "SpmmConfig", "compile_spmm", "compile_sddmm",
     "compile_fused",
     "NetworkSpec", "TSUBAME_LIKE", "choose_fused_schedule",
-    "choose_schedule", "modeled_time", "strategy_volumes",
+    "choose_hier_fused_schedule", "choose_hier_schedule",
+    "choose_schedule", "modeled_time", "modeled_time_hier",
+    "modeled_time_hier_fused_schedule", "modeled_time_hier_overlap",
+    "modeled_time_hier_schedule", "modeled_time_hier_staged",
+    "strategy_volumes",
     "CommRound", "CommSchedule", "build_comm_schedule",
+    "build_hier_comm_schedule", "single_round_hier_schedule",
     "single_round_schedule",
     "EDGE_FNS", "flat_fused", "flat_sddmm", "flat_spmm_values",
-    "fused_sddmm_spmm",
-    "FlatExecPlan", "flat_exec_arrays", "flat_exec_from_numpy", "flat_spmm",
+    "fused_sddmm_spmm", "hier_fused", "hier_sddmm", "hier_spmm_values",
+    "FlatExecPlan", "HierExecPlan", "flat_exec_arrays",
+    "flat_exec_from_numpy", "flat_spmm", "hier_exec_arrays",
+    "hier_exec_from_numpy", "hier_spmm",
+    "HierPlan", "build_hier_plan", "hier_piece_csrs",
     "BsrBackend", "CooBackend", "available_backends", "get_backend",
     "register_backend",
     "SpmmPlan", "build_plan", "local_piece_csrs", "plan_build_count",

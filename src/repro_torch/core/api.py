@@ -1,8 +1,8 @@
 """One front door: ``compile_spmm`` — a planned, autotuned DistSpmm handle.
 
-Port of ``repro/core/api.py`` for the flat executor:
+Port of ``repro/core/api.py`` for the flat and hierarchical executors:
 
-    cfg = SpmmConfig(backends=("coo", "bsr"))
+    cfg = SpmmConfig(backends=("coo", "bsr"), hier="auto")
     h   = compile_spmm(a, 8, cfg)        # plan + autotune + prepare, once
     c   = h(b)                           # C = A @ B on the card
     h.stats()                            # what it decided, and why
@@ -20,23 +20,29 @@ host code (``core.planner`` / ``comm_schedule`` / ``comm_model`` are
 copies), so the decisions are the reference's:
 
 1. ``build_plan(a, P, strategy, pad_to)`` — the flat SHIRO plan (MWVC).
-2. schedule: ``"auto"`` sweeps K = 1..k_max bucketed ppermute schedules
-   against the single max-padded all_to_all (``choose_schedule``),
+2. flat vs hierarchical: ``hier="auto"`` groups the P ranks as (G, L) by
+   ``Topology.auto_grouping`` (one device has no tiers, so the largest
+   L | P with 2 <= L <= ``net.group_size``) and keeps the two-tier
+   executor iff ``modeled_time_hier`` beats ``modeled_time``; ``(G, L)``
+   forces it.
+3. schedule: ``"auto"`` sweeps K = 1..k_max bucketed ppermute schedules
+   against the single max-padded all_to_all (``choose_schedule``, or
+   ``choose_hier_schedule`` over the group axis on the hier tier),
    co-optimised with the execution mode; ``"single"`` keeps the one
    round; an int K forces that bucketing.
-3. execution mode: ``overlap="auto"`` runs the round-pipelined body iff
+4. execution mode: ``overlap="auto"`` runs the round-pipelined body iff
    ``modeled_time_overlap`` beats the staged total (``kernel="spmm"``
    only: the SDDMM and fused executors always run staged, and the fused
    kernel picks its schedule with its own α-β model).
-4. every backend in ``backends`` gets its layout prepared once and moved
+5. every backend in ``backends`` gets its layout prepared once and moved
    to the device; calls pick among them (``h(b, backend="bsr")``).
 
 The P ranks are emulated on ONE device (``distributed.topology``): the
 handle's tensors live on ``device`` (default ``"cuda"``; raises without a
-card, ``device="cpu"`` runs the kernels' plain versions). The
-hierarchical executor, replication, measured autotuning, gradients and
-sessions are later slices of the port: a config or call that asks for
-them raises ``NotImplementedError`` naming the ROADMAP item.
+card, ``device="cpu"`` runs the kernels' plain versions). Replication,
+measured autotuning, gradients and sessions are later slices of the
+port: a config or call that asks for them raises ``NotImplementedError``
+naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -53,15 +59,23 @@ from ..distributed.comm import LocalComm
 from ..distributed.topology import Topology
 from ..robustness import guards
 from .comm_model import (
-    NetworkSpec, choose_fused_schedule, choose_schedule, modeled_time,
-    modeled_time_fused_schedule, modeled_time_overlap, modeled_time_schedule,
-    modeled_time_staged,
+    NetworkSpec, choose_fused_schedule, choose_hier_fused_schedule,
+    choose_hier_schedule, choose_schedule, modeled_time,
+    modeled_time_fused_schedule, modeled_time_hier,
+    modeled_time_hier_fused_schedule, modeled_time_hier_overlap,
+    modeled_time_hier_schedule, modeled_time_hier_staged,
+    modeled_time_overlap, modeled_time_schedule, modeled_time_staged,
 )
 from .comm_schedule import (
-    CommSchedule, build_comm_schedule, single_round_schedule,
+    CommSchedule, build_comm_schedule, build_hier_comm_schedule,
+    single_round_hier_schedule, single_round_schedule,
 )
-from .dist_sddmm import EDGE_FNS, flat_fused, flat_sddmm
-from .dist_spmm import BackendSpec, FlatExecPlan, flat_exec_arrays, flat_spmm
+from .dist_sddmm import EDGE_FNS, flat_fused, flat_sddmm, hier_fused, hier_sddmm
+from .dist_spmm import (
+    BackendSpec, FlatExecPlan, HierExecPlan, flat_exec_arrays, flat_spmm,
+    hier_exec_arrays, hier_spmm,
+)
+from .hierarchy import HierPlan, build_hier_plan
 from .local_backend import get_backend
 from .planner import SpmmPlan, Strategy, build_plan
 from .sparse import CSRMatrix, PatternSnapshot, pattern_snapshot
@@ -99,6 +113,10 @@ class SpmmConfig:
                        sampled values of ``"sddmm"``/``"fused"`` calls, a
                        name from ``dist_sddmm.EDGE_FNS`` (``"leaky_relu"``,
                        ``"relu"``) or None.
+    ``hier``           None = flat executor; ``(G, L)`` forces the
+                       two-tier executor on a (G, L) grid of the ranks;
+                       ``"auto"`` derives (G, L) from ``net.group_size``
+                       and keeps it iff the α-β model says it wins.
     ``backends``       local-compute layouts to prepare (names or
                        LocalSpmmBackend instances); calls select per call.
     ``default_backend`` name used when ``h(b)`` gets no ``backend=``
@@ -120,9 +138,8 @@ class SpmmConfig:
                        sweep of each C; ``"full"``/``True``: sweep every
                        row; ``False``: none of it.
 
-    Fields of the reference the port does not run yet — ``hier``,
-    ``replicate`` other than 1, ``measure=True`` — raise
-    ``NotImplementedError``.
+    Fields of the reference the port does not run yet — ``replicate``
+    other than 1, ``measure=True`` — raise ``NotImplementedError``.
     """
 
     strategy: Strategy = "joint"
@@ -154,9 +171,10 @@ class SpmmConfig:
                 raise ValueError(
                     "edge= applies to the sampled values of "
                     "kernel='sddmm'/'fused'; kernel='spmm' has none")
-        if self.hier is not None:
-            raise _not_ported(f"hier={self.hier!r} (the hierarchical "
-                              f"executor)", "7")
+        if not (self.hier is None or self.hier == "auto"
+                or (isinstance(self.hier, tuple) and len(self.hier) == 2)):
+            raise ValueError(f"hier must be None, 'auto' or a (G, L) tuple; "
+                             f"got {self.hier!r}")
         if self.replicate != 1:
             raise _not_ported(f"replicate={self.replicate!r} (1.5D "
                               f"replication)", "10")
@@ -199,8 +217,9 @@ class DistSpmm:
     """A prepared distributed-SpMM handle: ``C = A @ B`` behind one call.
 
     Built by ``compile_spmm`` / ``compile_sddmm`` / ``compile_fused`` (or
-    ``DistSpmm.load``); owns the offline plan, the autotuned schedule and
-    the prepared backend layouts on the device. PyTorch runs eagerly, so
+    ``DistSpmm.load``); owns the offline plan (and the ``HierPlan`` on the
+    hierarchical tier), the autotuned schedule and the prepared backend
+    layouts on the device. PyTorch runs eagerly, so
     an "executable" here is the executor bound to one key —
     ``(n_cols, dtype, backend)`` for spmm, ``("sddmm", F, dx, dy, backend,
     edge)`` and ``("fused", F, N, dx, dy, db, backend, edge)`` for the
@@ -210,11 +229,13 @@ class DistSpmm:
     """
 
     def __init__(self, *, config: SpmmConfig, plan: SpmmPlan,
-                 schedule: CommSchedule, ex: FlatExecPlan,
+                 hier: Optional[HierPlan], schedule: CommSchedule,
+                 ex: Union[FlatExecPlan, HierExecPlan],
                  decisions: Dict[str, Any], topology: Topology,
                  snapshot: Optional[PatternSnapshot] = None):
         self.config = config
         self.plan = plan
+        self.hier = hier
         self.schedule = schedule
         self.ex = ex
         self.topology = topology
@@ -230,7 +251,7 @@ class DistSpmm:
             raise ValueError(
                 f"default_backend {self.default_backend!r} not among "
                 f"prepared backends {self.ex.backends}")
-        self.comm = LocalComm(plan.P)
+        self.comm = LocalComm(plan.P, 1 if hier is None else hier.G)
         self._executables: Dict[Tuple[Any, ...], Callable] = {}
         self.lowerings: List[Tuple[Any, ...]] = []
         self.cache_hits = 0
@@ -240,8 +261,8 @@ class DistSpmm:
 
     @property
     def strategy(self) -> str:
-        """Chosen executor tier (only 'flat' in this slice)."""
-        return "flat"
+        """Chosen executor tier: 'flat' or 'hier'."""
+        return "flat" if self.hier is None else "hier"
 
     @property
     def backends(self) -> Tuple[str, ...]:
@@ -262,16 +283,18 @@ class DistSpmm:
                     ) -> Callable:
         return self._memo(
             (int(n_cols), _dtype_name(dtype), backend),
-            lambda: functools.partial(flat_spmm, self.ex, backend=backend,
-                                      overlap=self.overlap))
+            lambda: functools.partial(
+                flat_spmm if self.hier is None else hier_spmm, self.ex,
+                backend=backend, overlap=self.overlap))
 
     def _sddmm_executable(self, n_feat: int, dtype_x, dtype_y, backend: str,
                           edge: Optional[str]) -> Callable:
         return self._memo(
             ("sddmm", int(n_feat), _dtype_name(dtype_x),
              _dtype_name(dtype_y), backend, edge),
-            lambda: functools.partial(flat_sddmm, self.ex, backend=backend,
-                                      edge=edge))
+            lambda: functools.partial(
+                flat_sddmm if self.hier is None else hier_sddmm, self.ex,
+                backend=backend, edge=edge))
 
     def _fused_executable(self, n_feat: int, n_cols: int, dtype_x, dtype_y,
                           dtype_b, backend: str, edge: Optional[str]
@@ -279,8 +302,9 @@ class DistSpmm:
         return self._memo(
             ("fused", int(n_feat), int(n_cols), _dtype_name(dtype_x),
              _dtype_name(dtype_y), _dtype_name(dtype_b), backend, edge),
-            lambda: functools.partial(flat_fused, self.ex, backend=backend,
-                                      edge=edge))
+            lambda: functools.partial(
+                flat_fused if self.hier is None else hier_fused, self.ex,
+                backend=backend, edge=edge))
 
     def _as_operand(self, b) -> torch.Tensor:
         if not isinstance(b, torch.Tensor):
@@ -423,7 +447,6 @@ class DistSpmm:
             overlap=self.overlap,
             volume_rows=plan.volume_rows(),
             volume_rows_padded=sched.volume_rows_padded(),
-            volume_rows_padded_single=plan.volume_rows_padded(),
             cache=self.cache_info(),
             check=self._check,
             calls=self.calls,
@@ -436,12 +459,20 @@ class DistSpmm:
         if self.snapshot is not None:
             out["pattern_nnz"] = self.snapshot.nnz
             out["pattern_fingerprint"] = self.snapshot.fingerprint[:12]
+        if self.hier is not None:
+            out.update(G=self.hier.G, L=self.hier.L,
+                       volume_rows_padded_single=single_round_hier_schedule(
+                           self.hier).volume_rows_padded())
+        else:
+            out["volume_rows_padded_single"] = plan.volume_rows_padded()
         return out
 
     def __repr__(self) -> str:
         sched = self.schedule
+        tier = ("flat" if self.hier is None
+                else f"hier(G={self.hier.G},L={self.hier.L})")
         return (f"DistSpmm({self.plan.shape[0]}x{self.plan.shape[1]}, "
-                f"P={self.plan.P}, flat, schedule={sched.kind}"
+                f"P={self.plan.P}, {tier}, schedule={sched.kind}"
                 f"{f'/K={sched.K}' if sched.kind == 'bucketed' else ''}"
                 f"{', overlapped' if self.overlap else ''}"
                 f"{f', kernel={self.kernel}' if self.kernel != 'spmm' else ''}"
@@ -461,6 +492,7 @@ class DistSpmm:
             "version": _SAVE_VERSION,
             "config": self.config,
             "plan": self.plan,
+            "hier": self.hier,
             "schedule": self.schedule,
             "decisions": self.decisions,
             "snapshot": self.snapshot,
@@ -488,8 +520,8 @@ class DistSpmm:
         plan: SpmmPlan = payload["plan"]
         topo = Topology.resolve(plan.P if where is None else where, device,
                                 expect_p=plan.P)
-        return _materialize(payload["config"], plan, payload["schedule"],
-                            payload["decisions"], topo,
+        return _materialize(payload["config"], plan, payload.get("hier"),
+                            payload["schedule"], payload["decisions"], topo,
                             snapshot=payload.get("snapshot"))
 
 
@@ -498,20 +530,50 @@ class DistSpmm:
 # ---------------------------------------------------------------------------
 
 
-def _materialize(config: SpmmConfig, plan: SpmmPlan, schedule: CommSchedule,
+def _materialize(config: SpmmConfig, plan: SpmmPlan,
+                 hier: Optional[HierPlan], schedule: CommSchedule,
                  decisions: Dict[str, Any], topo: Topology,
                  snapshot: Optional[PatternSnapshot] = None) -> DistSpmm:
     """Deterministic device-side prep: exec arrays on the device + handle."""
     # the per-round consumable layouts only when execution is overlapped
     overlap = bool(decisions.get("overlap", False))
-    ex = flat_exec_arrays(plan, backends=config.backends, schedule=schedule,
-                          overlap_layouts=overlap).to(topo.device)
-    return DistSpmm(config=config, plan=plan, schedule=schedule, ex=ex,
-                    decisions=decisions, topology=topo, snapshot=snapshot)
+    if hier is not None:
+        ex = hier_exec_arrays(hier, backends=config.backends,
+                              schedule=schedule, overlap_layouts=overlap)
+    else:
+        ex = flat_exec_arrays(plan, backends=config.backends,
+                              schedule=schedule, overlap_layouts=overlap)
+    return DistSpmm(config=config, plan=plan, hier=hier, schedule=schedule,
+                    ex=ex.to(topo.device), decisions=decisions,
+                    topology=topo, snapshot=snapshot)
+
+
+def _schedule_fields(plan: SpmmPlan, hier: Optional[HierPlan],
+                     schedule: CommSchedule, n_hint: int,
+                     net: NetworkSpec) -> Dict[str, float]:
+    """The three modeled-time decision fields for one candidate."""
+    if hier is not None:
+        return {
+            "modeled_time_schedule": modeled_time_hier_schedule(
+                schedule, n_hint, net),
+            "modeled_time_staged": modeled_time_hier_staged(
+                hier, schedule, n_hint, net),
+            "modeled_time_overlap": modeled_time_hier_overlap(
+                hier, schedule, n_hint, net),
+        }
+    return {
+        "modeled_time_schedule": modeled_time_schedule(
+            plan, schedule, n_hint, net),
+        "modeled_time_staged": modeled_time_staged(
+            plan, schedule, n_hint, net),
+        "modeled_time_overlap": modeled_time_overlap(
+            plan, schedule, n_hint, net),
+    }
 
 
 def _plan_and_tune(a: CSRMatrix, P: int, config: SpmmConfig, topo: Topology
-                   ) -> Tuple[SpmmPlan, CommSchedule, Dict[str, Any]]:
+                   ) -> Tuple[SpmmPlan, Optional[HierPlan], CommSchedule,
+                              Dict[str, Any]]:
     """The offline pipeline: MWVC plan + every model decision (host only)."""
     net, n_hint = config.resolve_net(topo), config.n_dense_hint
     kernel = config.kernel
@@ -523,13 +585,47 @@ def _plan_and_tune(a: CSRMatrix, P: int, config: SpmmConfig, topo: Topology
         "n_dense_hint": n_hint,
         "modeled_time_flat": modeled_time(plan, n_hint, net),
     }
+
+    # ----- flat vs hierarchical ---------------------------------------
+    hier: Optional[HierPlan] = None
+    if config.hier is not None:
+        gl = (topo.auto_grouping(net) if config.hier == "auto"
+              else (int(config.hier[0]), int(config.hier[1])))
+        if gl is not None:
+            G, L = gl
+            if G * L != P:
+                raise ValueError(f"hier=({G},{L}) incompatible with P={P}")
+            hier_cand = build_hier_plan(plan, G, L, pad_to=config.pad_to)
+            t_hier = modeled_time_hier(hier_cand, n_hint, net)
+            decisions["modeled_time_hier"] = t_hier
+            decisions["hier_candidate"] = (G, L)
+            if config.hier != "auto" or \
+                    t_hier < decisions["modeled_time_flat"]:
+                hier = hier_cand
+
+    # ----- communication schedule + execution mode --------------------
     # The "auto" schedule sweep co-optimizes K with the execution mode.
     # Sibling kernels score differently: "fused" moves [Y|B] jointly
     # (width F+N) plus the reversed X rounds, so its own α-β function
     # picks K; "sddmm" moves the same rows as spmm at width F and always
     # executes staged, so the overlap-free sweep applies. n_dense_hint
     # stands in for both F and N.
-    if config.schedule == "single":
+    if hier is not None:
+        if config.schedule == "single":
+            schedule = single_round_hier_schedule(hier)
+        elif isinstance(config.schedule, int):
+            schedule = build_hier_comm_schedule(hier, K=config.schedule)
+        elif kernel == "fused":
+            schedule, _ = choose_hier_fused_schedule(hier, n_hint, n_hint,
+                                                     net, k_max=config.k_max)
+        elif kernel == "sddmm" or config.overlap is False:
+            schedule, _ = choose_hier_schedule(hier, n_hint, net,
+                                               k_max=config.k_max)
+        else:
+            schedule, _, _ = choose_hier_schedule(hier, n_hint, net,
+                                                  k_max=config.k_max,
+                                                  overlap=config.overlap)
+    elif config.schedule == "single":
         schedule = single_round_schedule(plan)
     elif isinstance(config.schedule, int):
         schedule = build_comm_schedule(plan, K=config.schedule)
@@ -542,18 +638,14 @@ def _plan_and_tune(a: CSRMatrix, P: int, config: SpmmConfig, topo: Topology
         schedule, _, _ = choose_schedule(plan, n_hint, net,
                                          k_max=config.k_max,
                                          overlap=config.overlap)
-    fields = {
-        "modeled_time_schedule": modeled_time_schedule(plan, schedule,
-                                                       n_hint, net),
-        "modeled_time_staged": modeled_time_staged(plan, schedule, n_hint,
-                                                   net),
-        "modeled_time_overlap": modeled_time_overlap(plan, schedule, n_hint,
-                                                     net),
-    }
+    fields = _schedule_fields(plan, hier, schedule, n_hint, net)
     decisions.update(fields)
     if kernel == "fused":
-        decisions["modeled_time_fused"] = modeled_time_fused_schedule(
-            plan, schedule, n_hint, n_hint, net)
+        decisions["modeled_time_fused"] = (
+            modeled_time_hier_fused_schedule(schedule, n_hint, n_hint, net)
+            if hier is not None
+            else modeled_time_fused_schedule(plan, schedule, n_hint,
+                                             n_hint, net))
     use_overlap = False
     if schedule.kind == "bucketed" and kernel == "spmm":
         if config.overlap is True:
@@ -564,7 +656,7 @@ def _plan_and_tune(a: CSRMatrix, P: int, config: SpmmConfig, topo: Topology
     decisions["overlap"] = use_overlap
     decisions["decision_source"] = "model"
     decisions["replicate"] = 1
-    return plan, schedule, decisions
+    return plan, hier, schedule, decisions
 
 
 def compile_spmm(a: CSRMatrix, where: Union[Topology, int],
@@ -583,8 +675,8 @@ def compile_spmm(a: CSRMatrix, where: Union[Topology, int],
     topo = Topology.resolve(where, device)
     if guards.check_mode(config):
         guards.validate_sparse_values(a, context="compile_spmm")
-    plan, schedule, decisions = _plan_and_tune(a, topo.P, config, topo)
-    return _materialize(config, plan, schedule, decisions, topo,
+    plan, hier, schedule, decisions = _plan_and_tune(a, topo.P, config, topo)
+    return _materialize(config, plan, hier, schedule, decisions, topo,
                         snapshot=pattern_snapshot(a))
 
 

@@ -1,11 +1,13 @@
 """Analytic communication volumes and a two-tier α-β time model.
 
-The flat-executor part of ``repro.core.comm_model`` (NumPy only), copied
-so that the port never imports the JAX package: paper Eqs. 1-3 and 9, the
-flat schedule's α-β times and ``choose_schedule``, and the flat FusedMM
-scoring (``modeled_time_fused_schedule``, ``choose_fused_schedule``). The
-hierarchical and replicated models come with the slices that port their
-executors (ROADMAP items 7 and 10).
+The flat and hierarchical parts of ``repro.core.comm_model`` (NumPy
+only), copied so that the port never imports the JAX package: paper Eqs.
+1-3 and 9, the flat and hier schedules' α-β times, ``choose_schedule`` /
+``choose_hier_schedule``, and the FusedMM scoring of both tiers
+(``modeled_time_fused_schedule``, ``modeled_time_hier_fused_schedule``,
+``choose_fused_schedule``, ``choose_hier_fused_schedule``). The
+replicated model comes with the slice that ports its executor (ROADMAP
+item 10).
 
 Bandwidth defaults mirror the paper's TSUBAME4.0 numbers (450 GB/s NVLink
 intra-group, 25 GB/s IB inter-group).
@@ -18,8 +20,10 @@ from typing import Dict, List, Tuple, Union
 import numpy as np
 
 from .comm_schedule import (
-    CommSchedule, build_comm_schedule, single_round_schedule,
+    CommSchedule, build_comm_schedule, build_hier_comm_schedule,
+    single_round_hier_schedule, single_round_schedule,
 )
+from .hierarchy import HierPlan
 from .planner import SpmmPlan, build_plan
 from .sparse import CSRMatrix, block_rows
 
@@ -28,12 +32,19 @@ __all__ = [
     "TSUBAME_LIKE",
     "strategy_volumes",
     "modeled_time",
+    "modeled_time_hier",
     "modeled_time_schedule",
     "modeled_time_staged",
     "modeled_time_overlap",
     "choose_schedule",
+    "modeled_time_hier_schedule",
+    "modeled_time_hier_staged",
+    "modeled_time_hier_overlap",
+    "choose_hier_schedule",
     "modeled_time_fused_schedule",
+    "modeled_time_hier_fused_schedule",
     "choose_fused_schedule",
+    "choose_hier_fused_schedule",
 ]
 
 
@@ -121,6 +132,43 @@ def modeled_time(
     t_comp = nnz_local * 2.0 * n_dense / flop_rate
     return max(t_comm, t_comp) + 0.25 * min(t_comm, t_comp)
 
+
+def modeled_time_hier(
+    hier: HierPlan,
+    n_dense: int,
+    net: NetworkSpec,
+    sz_dt: int = 4,
+    flop_rate: float = 1e12,
+) -> float:
+    """Two-stage hierarchical schedule time (paper Alg. 1 / Fig. 6(f)).
+
+    Stage I: inter-group B fetch ∥ intra-group C pre-aggregation.
+    Stage II: inter-group C transfer ∥ intra-group B distribution.
+    Each stage costs max of its two overlapped halves (complementary links).
+    """
+    P, L = hier.base.P, hier.L
+    unit = n_dense * sz_dt
+    b_inter, c_inter = hier.inter_group_rows()
+    # per-process slow-tier bytes (uniform split across P processes)
+    b_inter_pp = b_inter * unit / P
+    c_inter_pp = c_inter * unit / P
+    # intra volumes: C pre-aggregation moves every partial once intra-group;
+    # B distribution moves every de-duplicated row to its L group members.
+    c_intra = sum(pp.row_ids.size for pp in hier.base.pair_plans.values())
+    b_intra = int((hier.b_group_send_idx >= 0).sum()) * (L - 1)
+    c_intra_pp = c_intra * unit / P
+    b_intra_pp = b_intra * unit / P
+
+    stage1 = max(b_inter_pp / net.bw_inter, c_intra_pp / net.bw_intra) + net.lat_inter
+    stage2 = max(c_inter_pp / net.bw_inter, b_intra_pp / net.bw_intra) + net.lat_inter
+    nnz_local = max(
+        (blk.nnz + hier.base.a_colpart[p].nnz + hier.base.a_rowpart[p].nnz)
+        for p, blk in enumerate(hier.base.a_diag)
+    )
+    t_comp = nnz_local * 2.0 * n_dense / flop_rate
+    t_comm = stage1 + stage2
+    return max(t_comm, t_comp) + 0.25 * min(t_comm, t_comp)
+
 def _tier(net: NetworkSpec, P: int) -> Tuple[float, float]:
     """(bandwidth, latency) of the tier a P-process exchange runs on."""
     if P <= net.group_size:
@@ -195,6 +243,31 @@ def _round_flops(nnz: np.ndarray, sched: CommSchedule,
         per_proc = nnz[:, [d - 1 for d in rnd.shifts]].sum(axis=1)
         out.append(float(per_proc.max()) * 2.0 * n_dense)
     return out
+
+
+def _group_shift_compute_nnz(hier: HierPlan) -> np.ndarray:
+    """[P, G] nonzeros each process computes per group shift (0 = own)."""
+    base, G, L = hier.base, hier.G, hier.L
+    P = base.P
+    nnz = np.zeros((P, G), np.int64)
+    for (p, q), pp in base.pair_plans.items():
+        dg = (p // L - q // L) % G
+        nnz[p, dg] += pp.a_col.nnz
+        nnz[q, dg] += pp.a_row.nnz
+    return nnz
+
+
+def _hier_round_flops(nnz: np.ndarray, sched: CommSchedule,
+                      n_dense: int) -> Tuple[float, List[float]]:
+    """(own-group flops, per-round flops) for a hier inter-group schedule."""
+    local = float(nnz[:, 0].max()) * 2.0 * n_dense
+    if sched.kind == "single":
+        return local, [float(nnz[:, 1:].sum(axis=1).max()) * 2.0 * n_dense]
+    rounds = []
+    for rnd in sched.rounds:
+        per_proc = nnz[:, list(rnd.shifts)].sum(axis=1)
+        rounds.append(float(per_proc.max()) * 2.0 * n_dense)
+    return local, rounds
 
 
 def modeled_time_schedule(
@@ -333,6 +406,123 @@ def choose_schedule(
     return best3
 
 
+def modeled_time_hier_schedule(
+    sched: CommSchedule,
+    n_dense: int,
+    net: NetworkSpec,
+    sz_dt: int = 4,
+) -> float:
+    """α-β time of a hierarchical INTER-GROUP schedule realization.
+
+    The inter-group collectives always run on the slow tier, so the tier
+    choice is fixed (unlike ``modeled_time_schedule``). The single round's
+    per-process operand rows include the own-group slots the dense
+    collective cannot drop; bucketed rounds serve own-group traffic with
+    a wire-free local slice (``rows_per_process`` already excludes it).
+    """
+    return _schedule_alpha_beta_time(sched, n_dense * sz_dt,
+                                     net.bw_inter, net.lat_inter)
+
+
+def modeled_time_hier_staged(
+    hier: HierPlan,
+    sched: CommSchedule,
+    n_dense: int,
+    net: NetworkSpec,
+    sz_dt: int = 4,
+    flop_rate: float = 1e12,
+) -> float:
+    """Serialized inter-group rounds + every off-diagonal segment compute."""
+    local, rounds = _hier_round_flops(_group_shift_compute_nnz(hier),
+                                      sched, n_dense)
+    return (modeled_time_hier_schedule(sched, n_dense, net, sz_dt)
+            + (local + sum(rounds)) / flop_rate)
+
+
+def modeled_time_hier_overlap(
+    hier: HierPlan,
+    sched: CommSchedule,
+    n_dense: int,
+    net: NetworkSpec,
+    sz_dt: int = 4,
+    flop_rate: float = 1e12,
+) -> float:
+    """Round-pipelined hier time: own-group compute + Σ_k max(comm, comp).
+
+    The shift-0 (own group) segment never touches the inter-group wire;
+    its compute overlaps the first in-flight round in the executor but is
+    charged additively here so overlapped and staged share accounting
+    (the same term appears in ``modeled_time_hier_staged``, keeping
+    ``overlap ≤ staged`` exact).
+    """
+    unit = n_dense * sz_dt
+    bw, lat = net.bw_inter, net.lat_inter
+    local, flops = _hier_round_flops(_group_shift_compute_nnz(hier),
+                                     sched, n_dense)
+    if sched.kind == "single":
+        comm = 2 * lat + sched.rows_per_process() * unit / bw
+        return local / flop_rate + max(comm, flops[0] / flop_rate)
+    return local / flop_rate + sum(
+        max(comm, f / flop_rate)
+        for comm, f in zip(_round_comm_times(sched, unit, bw, lat), flops))
+
+
+def _hier_candidates(hier: HierPlan, k_max: int):
+    """The hier schedule sweep's bucketed candidates, K = 1..k_max, each
+    distinct slot layout once (in K order)."""
+    seen = set()
+    for K in range(1, max(1, k_max) + 1):
+        sched = build_hier_comm_schedule(hier, K=K)
+        key = (sched.slots_b, sched.slots_c,
+               sched.local_slot_b, sched.local_slot_c)
+        if key not in seen:
+            seen.add(key)
+            yield sched
+
+
+def choose_hier_schedule(
+    hier: HierPlan,
+    n_dense: int,
+    net: NetworkSpec,
+    k_max: int = 4,
+    sz_dt: int = 4,
+    overlap: Union[bool, str] = False,
+    flop_rate: float = 1e12,
+):
+    """Pick the fastest hierarchical inter-group schedule realization.
+
+    Mirrors ``choose_schedule`` one tier up: candidates are the single
+    max-padded all_to_all pair and bucketed group-shift schedules for
+    K = 1..k_max. ``overlap`` grows the same execution-mode axis as
+    ``choose_schedule`` — ``False`` keeps the comm-only 2-tuple return,
+    ``"auto"``/``True`` score staged-vs-overlapped totals and return
+    ``(schedule, modeled_seconds, use_overlap)``.
+    """
+    single = single_round_hier_schedule(hier)
+    if overlap is False:
+        best: Tuple[CommSchedule, float] = (
+            single, modeled_time_hier_schedule(single, n_dense, net, sz_dt))
+        for sched in _hier_candidates(hier, k_max):
+            t = modeled_time_hier_schedule(sched, n_dense, net, sz_dt)
+            if t < best[1]:
+                best = (sched, t)
+        return best
+
+    best3 = (single, modeled_time_hier_staged(hier, single, n_dense, net,
+                                              sz_dt, flop_rate), False)
+    for sched in _hier_candidates(hier, k_max):
+        t_ovl = modeled_time_hier_overlap(hier, sched, n_dense, net, sz_dt,
+                                          flop_rate)
+        cands = [(t_ovl, True)]
+        if overlap is not True:
+            cands.append((modeled_time_hier_staged(hier, sched, n_dense, net,
+                                                   sz_dt, flop_rate), False))
+        for t, use in cands:
+            if t < best3[1]:
+                best3 = (sched, t, use)
+    return best3
+
+
 # ---------------------------------------------------------------------------
 # FusedMM (SDDMM → SpMM in one communication phase) scoring
 # ---------------------------------------------------------------------------
@@ -409,6 +599,41 @@ def choose_fused_schedule(
         seen.add(key)
         t = modeled_time_fused_schedule(plan, sched, n_feat, n_dense, net,
                                         sz_dt)
+        if t < best[1]:
+            best = (sched, t)
+    return best
+
+
+def modeled_time_hier_fused_schedule(
+    sched: CommSchedule,
+    n_feat: int,
+    n_dense: int,
+    net: NetworkSpec,
+    sz_dt: int = 4,
+) -> float:
+    """α-β time of a hier INTER-GROUP FusedMM schedule realization (the
+    inter-group collectives are tier-fixed, as in
+    ``modeled_time_hier_schedule``)."""
+    return _fused_alpha_beta_time(sched, (n_feat + n_dense) * sz_dt,
+                                  net.bw_inter, net.lat_inter)
+
+
+def choose_hier_fused_schedule(
+    hier: HierPlan,
+    n_feat: int,
+    n_dense: int,
+    net: NetworkSpec,
+    k_max: int = 4,
+    sz_dt: int = 4,
+) -> Tuple[CommSchedule, float]:
+    """``choose_fused_schedule`` one tier up (inter-group candidates)."""
+    single = single_round_hier_schedule(hier)
+    best = (single,
+            modeled_time_hier_fused_schedule(single, n_feat, n_dense, net,
+                                             sz_dt))
+    for sched in _hier_candidates(hier, k_max):
+        t = modeled_time_hier_fused_schedule(sched, n_feat, n_dense, net,
+                                             sz_dt)
         if t < best[1]:
             best = (sched, t)
     return best

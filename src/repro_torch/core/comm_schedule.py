@@ -1,9 +1,9 @@
 """Skew-aware bucketed communication schedules (beyond-paper §5 extension).
 
-The flat-executor part of ``repro.core.comm_schedule`` (NumPy only),
-copied so that the port never imports the JAX package. The hierarchical
-and replicated schedules come with the slices that port their executors
-(ROADMAP items 7 and 10).
+The flat and hierarchical parts of ``repro.core.comm_schedule`` (NumPy
+only), copied so that the port never imports the JAX package. The
+replicated schedules come with the slice that ports their executor
+(ROADMAP item 10).
 
 The offline planner (core.planner) pads every (src, dst) pair to the
 GLOBAL slot maxima ``max_b`` / ``max_c`` so a single ``all_to_all`` stays
@@ -33,6 +33,11 @@ schedule** that is still fully static:
 The executor (core.dist_spmm) unrolls the rounds statically, so shapes
 never depend on data. ``CommSchedule`` is a hashable pure-int structure
 and rides in the exec plan's metadata.
+
+The same treatment applies to the hierarchical inter-group collectives
+(``build_hier_comm_schedule``): group-shift 0 — data for the process's
+OWN group, which the dense all_to_all shipped through the network — is
+served by a local slice instead of a collective.
 """
 from __future__ import annotations
 
@@ -41,16 +46,21 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from .hierarchy import HierPlan
 from .planner import SpmmPlan
 
 __all__ = [
     "CommRound",
     "CommSchedule",
     "shift_slot_demands",
+    "group_shift_slot_demands",
     "partition_slots",
     "build_comm_schedule",
+    "build_hier_comm_schedule",
     "single_round_schedule",
+    "single_round_hier_schedule",
     "flat_schedule_layout",
+    "hier_schedule_layout",
     "ordered_spans",
     "span_cuts",
 ]
@@ -88,9 +98,12 @@ class CommSchedule:
       * ``"bucketed"`` — K ppermute rounds; shift ``d``'s slot sizes are
         ``slots_b[d-1]`` / ``slots_c[d-1]`` (0 = shift not scheduled).
 
-    ``P`` is the number of ranks on the scheduled axis. The reference's
-    hierarchical fields (``local_slot_*``, ``procs``) come with the hier
-    slice.
+    ``P`` is the number of ranks on the scheduled axis (the group count
+    G for hierarchical inter-group schedules, where shift 0 data is
+    served locally and therefore never appears in ``rounds``).
+    ``procs`` is the number of PROCESSES placing operands — equal to
+    ``P`` for flat schedules, ``G·L`` for hierarchical ones (every group
+    member runs the group-axis collectives); 0 means "same as P".
     """
 
     kind: str
@@ -100,6 +113,9 @@ class CommSchedule:
     slots_b: Tuple[int, ...] = ()
     slots_c: Tuple[int, ...] = ()
     rounds: Tuple[CommRound, ...] = ()
+    local_slot_b: int = 0  # hier only: shift-0 (own group) slot width
+    local_slot_c: int = 0
+    procs: int = 0
 
     @property
     def K(self) -> int:
@@ -120,7 +136,7 @@ class CommSchedule:
 
     def volume_rows_padded(self) -> int:
         """Total rows in collective operands across all processes."""
-        return self.P * self.rows_per_process()
+        return (self.procs or self.P) * self.rows_per_process()
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +164,26 @@ def shift_slot_demands(plan: SpmmPlan) -> Tuple[np.ndarray, np.ndarray]:
         sb[d - 1] = nb[np.arange(P), dsts].max()
         sc[d - 1] = nc[np.arange(P), dsts].max()
     return sb, sc
+
+
+def group_shift_slot_demands(hier: HierPlan) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-group-shift slot maxima for the hier inter-group collectives.
+
+    Returns ``(sbg, scg)`` of length G, index = group shift ``dg``
+    (0 = own group, served locally by the bucketed executor).
+    """
+    G, L = hier.G, hier.L
+    P = hier.base.P
+    b_counts = (hier.b_group_send_idx >= 0).sum(axis=2)  # [P(src), G(dst)]
+    c_counts = (hier.c_group_rows >= 0).sum(axis=2)  # [G(src), P(dst)]
+    sbg = np.zeros(G, np.int64)
+    scg = np.zeros(G, np.int64)
+    gs = np.arange(P) // L
+    # b: source q's group gs, dest group gd -> shift (gd - gs) % G
+    np.maximum.at(sbg, (np.arange(G)[None, :] - gs[:, None]) % G, b_counts)
+    # c: source group gs, dest p's group -> shift (p // L - gs) % G
+    np.maximum.at(scg, (gs[None, :] - np.arange(G)[:, None]) % G, c_counts)
+    return sbg, scg
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +297,31 @@ def single_round_schedule(plan: SpmmPlan) -> CommSchedule:
     return CommSchedule(kind="single", P=plan.P,
                         max_b=plan.max_b, max_c=plan.max_c)
 
+
+def build_hier_comm_schedule(hier: HierPlan, K: int = 4) -> CommSchedule:
+    """Bucketed schedule for the hierarchical INTER-GROUP collectives.
+
+    Scheduled shifts run over the group axis (1..G-1); group-shift 0 —
+    traffic whose source and destination share a group — becomes a local
+    slice with its own slot width (``local_slot_*``) instead of a wire
+    round.
+    """
+    sbg, scg = group_shift_slot_demands(hier)
+    slots_b, slots_c, rounds = _make_rounds(sbg[1:], scg[1:], K)
+    return CommSchedule(
+        kind="bucketed", P=hier.G, max_b=hier.max_bg, max_c=hier.max_cg,
+        slots_b=slots_b, slots_c=slots_c, rounds=rounds,
+        local_slot_b=int(sbg[0]), local_slot_c=int(scg[0]),
+        procs=hier.base.P,
+    )
+
+
+def single_round_hier_schedule(hier: HierPlan) -> CommSchedule:
+    """The hier max-padded group all_to_all pair as a CommSchedule."""
+    return CommSchedule(kind="single", P=hier.G,
+                        max_b=hier.max_bg, max_c=hier.max_cg,
+                        procs=hier.base.P)
+
 # ---------------------------------------------------------------------------
 # buffer layouts: flat index spaces for the bucketed executors
 # ---------------------------------------------------------------------------
@@ -291,11 +352,14 @@ def span_cuts(spans: Sequence[Tuple[int, int, int]]) -> Tuple[int, ...]:
     return tuple(o + s for _, o, s in spans)
 
 
-def _segment_offsets(slots: Sequence[int]
+def _segment_offsets(slots: Sequence[int], lead: int = 0
                      ) -> Tuple[Dict[int, Tuple[int, int]], int]:
-    """{shift: (offset, slot)} over the concatenated per-shift segments."""
+    """{shift: (offset, slot)} over the concatenated per-shift segments.
+
+    ``lead`` reserves a leading local segment (hier shift 0).
+    """
     out: Dict[int, Tuple[int, int]] = {}
-    off = 0
+    off = lead
     for i, s in enumerate(slots):
         if s > 0:
             out[i + 1] = (off, int(s))
@@ -393,6 +457,138 @@ def flat_schedule_layout(plan: SpmmPlan, sched: CommSchedule
 
     return FlatScheduleLayout(
         schedule=sched, off_b=off_b, off_c=off_c, R_b=R_b, R_c=R_c,
+        b_send_idx=b_send_idx, c_recv_rows=c_recv_rows,
+        colp=colp, rowp=rowp,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class HierScheduleLayout:
+    """Bucketed layout for the hierarchical inter-group collectives.
+
+    R_bg / R_cg include the leading shift-0 (own-group) segment, which
+    the executor serves with a local slice instead of a ppermute.
+
+      b_send_idx [P, R_bg]      — local B row per send slot (group-shift
+                                  segments, -1 pad);
+      c_recv_rows [P, R_cg]     — dest-local C row per receive slot;
+      colp                      — columns remapped to the SEGMENT-MAJOR
+                                  post-all_gather space: group shift dg
+                                  owns the contiguous range
+                                  [L·off_bg[dg], L·(off_bg[dg]+slot_dg))
+                                  at inner index l_src·slot_dg + slot, so
+                                  each gathered segment is consumable the
+                                  moment it lands — the overlapped
+                                  executor accumulates per segment and
+                                  the staged executor concatenates the
+                                  same ranges in the same order;
+      rowp                      — the intra-group psum_scatter keeps its
+                                  uniform max_cg slot layout, but rows
+                                  are re-keyed SHIFT-major,
+                                  (dg·L + l_dst)·max_cg + group_slot, so
+                                  the aggregated tile for group shift dg
+                                  lands at agg[dg] on every source —
+                                  ready for a static per-shift ppermute
+                                  without consulting the group index.
+    """
+
+    schedule: CommSchedule
+    off_bg: Dict[int, Tuple[int, int]]
+    off_cg: Dict[int, Tuple[int, int]]
+    R_bg: int
+    R_cg: int
+    b_send_idx: np.ndarray
+    c_recv_rows: np.ndarray
+    colp: list
+    rowp: list
+
+
+def hier_schedule_layout(hier: HierPlan, sched: CommSchedule
+                         ) -> HierScheduleLayout:
+    """Materialize the bucketed inter-group layout for hier_spmm."""
+    from .hierarchy import hier_piece_csrs
+    from .sparse import COOMatrix, csr_from_coo
+
+    if sched.kind != "bucketed":
+        raise ValueError("hier_schedule_layout needs a bucketed schedule")
+    base = hier.base
+    P, G, L = base.P, hier.G, hier.L
+    off_bg, R_bg = _segment_offsets(sched.slots_b, lead=sched.local_slot_b)
+    off_cg, R_cg = _segment_offsets(sched.slots_c, lead=sched.local_slot_c)
+    if sched.local_slot_b:
+        off_bg[0] = (0, sched.local_slot_b)
+    if sched.local_slot_c:
+        off_cg[0] = (0, sched.local_slot_c)
+    R_bg = max(R_bg, 1)
+    R_cg = max(R_cg, 1)
+
+    b_counts = (hier.b_group_send_idx >= 0).sum(axis=2)
+    b_send_idx = np.full((P, R_bg), -1, np.int32)
+    for q in range(P):
+        gs = q // L
+        for gd in range(G):
+            cnt = int(b_counts[q, gd])
+            if not cnt:
+                continue
+            off, slot = off_bg[(gd - gs) % G]
+            assert cnt <= slot
+            b_send_idx[q, off:off + cnt] = hier.b_group_send_idx[q, gd, :cnt]
+
+    c_counts = (hier.c_group_rows >= 0).sum(axis=2)
+    c_recv_rows = np.full((P, R_cg), -1, np.int32)
+    for dst in range(P):
+        gd = dst // L
+        for gs in range(G):
+            cnt = int(c_counts[gs, dst])
+            if not cnt:
+                continue
+            off, slot = off_cg[(gd - gs) % G]
+            assert cnt <= slot
+            c_recv_rows[dst, off:off + cnt] = hier.c_group_rows[gs, dst, :cnt]
+
+    pieces = hier_piece_csrs(hier)
+
+    # colp: hier gathered col ((ls·G + gs)·max_bg + slot) -> segment-major
+    #       L·off_bg[dg] + ls·slot_dg + slot, with dg = (gd_dest - gs) % G
+    goff = np.full(G, -1, np.int64)
+    gwidth = np.zeros(G, np.int64)
+    for dg, (off, sl) in off_bg.items():
+        goff[dg] = off
+        gwidth[dg] = sl
+    colp: List = []
+    for p in range(P):
+        gd = p // L
+        csr = pieces["colp"][p]
+        coo = csr.to_coo()
+        flat = coo.col.astype(np.int64)
+        lg = flat // hier.max_bg
+        slots = flat % hier.max_bg
+        ls, gs = lg // G, lg % G
+        dg = (gd - gs) % G
+        new_cols = L * goff[dg] + ls * gwidth[dg] + slots
+        assert csr.nnz == 0 or new_cols.min() >= 0
+        colp.append(csr_from_coo(COOMatrix(
+            (csr.shape[0], L * R_bg), coo.row,
+            new_cols.astype(np.int32), coo.val)))
+
+    # rowp: dest-major row (dst·max_cg + gslot) -> shift-major
+    #       ((dg·L + l_dst)·max_cg + gslot), dg = dest group shift from q
+    rowp: List = []
+    for q in range(P):
+        gs = q // L
+        csr = pieces["rowp"][q]
+        coo = csr.to_coo()
+        flat = coo.row.astype(np.int64)
+        dst = flat // hier.max_cg
+        gslot = flat % hier.max_cg
+        dg = (dst // L - gs) % G
+        new_rows = (dg * L + dst % L) * hier.max_cg + gslot
+        rowp.append(csr_from_coo(COOMatrix(
+            (csr.shape[0], csr.shape[1]), new_rows.astype(np.int32),
+            coo.col, coo.val)))
+
+    return HierScheduleLayout(
+        schedule=sched, off_bg=off_bg, off_cg=off_cg, R_bg=R_bg, R_cg=R_cg,
         b_send_idx=b_send_idx, c_recv_rows=c_recv_rows,
         colp=colp, rowp=rowp,
     )

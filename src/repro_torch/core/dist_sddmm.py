@@ -1,13 +1,14 @@
-"""Distributed SDDMM + FusedMM over the SHIRO SpMM plans (flat executor).
+"""Distributed SDDMM + FusedMM over the SHIRO SpMM plans (both tiers).
 
-Port of the flat half of ``repro/core/dist_sddmm.py``. SDDMM —
+Port of ``repro/core/dist_sddmm.py``. SDDMM —
 ``vals(i,j) = a(i,j) · (x_i · y_j)`` per stored nonzero — is
 communication-equivalent to SpMM over the same sparsity pattern: the
 nonzeros that force rank p to FETCH row j of B for SpMM are exactly the
 ones that make it need row j of Y, and the nonzeros whose partial C rows
 p SHIPS to q are the ones whose sampled values live at q's X rows. So the
-executors here reuse the SAME ``FlatExecPlan``, schedule and piece
-layouts as ``dist_spmm`` with the dataflow reversed:
+executors here reuse the SAME exec plans (``FlatExecPlan`` /
+``HierExecPlan``), schedules and piece layouts as ``dist_spmm`` with the
+dataflow reversed:
 
 * column-covered nonzeros (colp): Y rows travel dest-ward over the
   UNCHANGED B-gather rounds (same ``b_send_idx``, same shifts).
@@ -20,17 +21,20 @@ layouts as ``dist_spmm`` with the dataflow reversed:
 The P ranks run in one process over stacked ``[P, ...]`` tensors, and
 every collective goes through a ``LocalComm``, which logs it.
 
-``flat_sddmm`` returns the sampled values in the backend's native piece
-layout ({"diag", "colp", "rowp"}); ``flat_spmm_values`` runs the SpMM of
-those values (the unfused second phase). ``flat_fused`` (FusedMM) chains
+``flat_sddmm`` / ``hier_sddmm`` return the sampled values in the
+backend's native piece layout ({"diag", "colp", "rowp"});
+``flat_spmm_values`` / ``hier_spmm_values`` run the SpMM of those values
+(the unfused second phase). ``flat_fused`` / ``hier_fused`` (FusedMM) chain
 both phases through ONE set of collectives: the B gather carries
 ``[Y | B]`` so the SDDMM operand rides the same rounds as the SpMM
 operand, the sampled values drop into the SpMM pieces via
 ``with_values`` without leaving the device, and the C transfer runs
 unchanged. The fused collective log therefore has the plain SpMM's shift
 set whenever the demanded C shifts are closed under reversal, plus one
-reversed X round per C segment. The fused and SDDMM executors always run
-staged. The hierarchical executors come with ROADMAP item 7.
+reversed X round per C segment. On the hier tier the X rows travel the
+same way over the group axis (reversed group shifts), and an
+intra-group all_gather hands every local rank its rows. The fused and
+SDDMM executors always run staged.
 
 Edge nonlinearities (the ``edge=`` axis, e.g. graph attention's
 leaky_relu) apply to the sampled values between the phases. They MUST be
@@ -49,7 +53,8 @@ import torch.nn.functional as F
 from ..distributed.comm import LocalComm
 from ..kernels.ops import pack_rows_op, scatter_add_rows_exec_op
 from .dist_spmm import (
-    BackendSpec, FlatExecPlan, Segments, _exchange_segments, flat_spmm,
+    BackendSpec, FlatExecPlan, HierExecPlan, Segments, _exchange_segments,
+    _hier_gathered, _rank_blocks, _slice_fetch, flat_spmm, hier_spmm,
 )
 from .local_backend import LocalSpmmBackend, backend_sddmm, backend_with_values
 
@@ -58,13 +63,17 @@ __all__ = [
     "resolve_edge",
     "SddmmValues",
     "flat_sddmm",
+    "hier_sddmm",
     "with_values_exec",
     "flat_spmm_values",
+    "hier_spmm_values",
     "flat_fused",
+    "hier_fused",
     "fused_sddmm_spmm",
 ]
 
 # sampled values per piece, backend-native layout, leading [P, ...] axis
+# (the rank axis of either tier)
 SddmmValues = Dict[str, torch.Tensor]
 
 EdgeSpec = Union[None, str, Callable[[torch.Tensor], torch.Tensor]]
@@ -120,8 +129,8 @@ def _flat_gather_bucketed(rows_loc: torch.Tensor, plan: FlatExecPlan,
     """Dense rows → the bucketed [P, R_b, W] receive space (one ppermute
     per scheduled B shift)."""
     send = pack_rows_op(rows_loc, plan.b_send_idx)  # [P, R_b, W]
-    return _exchange_segments(plan.meta["b_segments"], comm,
-                              plan.meta["R_b"], send)
+    return _exchange_segments(plan.meta["b_segments"], comm.shift,
+                              plan.meta["R_b"], _slice_fetch(send), send)
 
 
 def _flat_x_single(x_loc: torch.Tensor, plan: FlatExecPlan,
@@ -148,14 +157,90 @@ def _flat_x_bucketed(x_loc: torch.Tensor, plan: FlatExecPlan,
     """
     xs = pack_rows_op(x_loc, plan.c_recv_rows)  # [P, R_c, F]
     return _exchange_segments(
-        _reverse_segments(plan.meta["c_segments"], plan.P), comm,
-        plan.meta["R_c"], xs)
+        _reverse_segments(plan.meta["c_segments"], plan.P), comm.shift,
+        plan.meta["R_c"], _slice_fetch(xs), xs)
 
 
-def _exchanges(plan: FlatExecPlan, comm: LocalComm, rows_loc: torch.Tensor,
+def _hier_gather_single(rows_loc: torch.Tensor, plan: HierExecPlan,
+                        comm: LocalComm) -> torch.Tensor:
+    """Dense rows → the hier [P, L·G·max_bg, W] gathered space
+    (inter-group all_to_all, then intra-group all_gather) — Stage I/II
+    of ``hier_spmm``."""
+    P_, _, w = rows_loc.shape
+    send = pack_rows_op(rows_loc, plan.b_group_send_idx)  # [P, G, max_bg, W]
+    allg = comm.local_all_gather(comm.group_all_to_all(send))
+    return allg.reshape(P_, -1, w)
+
+
+def _hier_gather_bucketed(rows_loc: torch.Tensor, plan: HierExecPlan,
+                          comm: LocalComm) -> torch.Tensor:
+    """Dense rows → the SEGMENT-major hier gathered space [P, L·R_bg, W]."""
+    send = pack_rows_op(rows_loc, plan.b_group_send_idx)  # [P, R_bg, W]
+    recv = _exchange_segments(plan.meta["bg_segments"], comm.group_shift,
+                              plan.meta["R_bg"], _slice_fetch(send), send,
+                              local=plan.meta["local_b"])
+    return _hier_gathered(comm.local_all_gather(recv), plan.meta["bg_all"],
+                          plan.meta["R_bg"])
+
+
+def _hier_x_single(x_loc: torch.Tensor, plan: HierExecPlan,
+                   comm: LocalComm) -> torch.Tensor:
+    """X rows dest → source over the single-round hier C layout.
+
+    Dest (gd, l) packs by ``c_recv_rows`` [G(src), max_cg]; the group
+    all_to_all hands source (gs, l) the X rows of every dest group at ITS
+    local rank, and the intra-group all_gather fills in the other local
+    ranks. Transposing to (dst-group, local, slot) order reproduces the
+    rowp row space (gd·L + ld)·max_cg + slot exactly.
+    """
+    P_, _, f = x_loc.shape
+    xs = pack_rows_op(x_loc, plan.c_recv_rows)  # [P, G, max_cg, F]
+    recv = comm.group_all_to_all(xs)  # [P, G(dst), max_cg, F]
+    allx = comm.local_all_gather(recv)  # [P, L, G, max_cg, F]
+    return allx.transpose(1, 2).reshape(P_, -1, f)
+
+
+def _hier_x_bucketed(x_loc: torch.Tensor, plan: HierExecPlan,
+                     comm: LocalComm) -> torch.Tensor:
+    """X rows dest → source over the bucketed hier C layout.
+
+    Reversed group shifts land each dest group's X pack at its source
+    group (shift 0 is the wire-free own-group slice); the intra-group
+    all_gather recovers every destination local rank. The rowp row space
+    is SHIFT-major, (dg·L + ld)·max_cg + slot, with every shift padded to
+    max_cg — so each received segment is re-padded slot → max_cg and laid
+    out in ascending-shift order, zeros for unscheduled shifts (their
+    rowp rows store no nonzeros, so zero X rows sample nothing).
+    """
+    P_, _, f = x_loc.shape
+    G, L, max_cg = plan.G, plan.L, plan.max_cg
+    local_c = plan.meta["local_c"]
+    cg_segments = plan.meta["cg_segments"]
+    xs = pack_rows_op(x_loc, plan.c_recv_rows)  # [P, R_cg, F]
+    recv = _exchange_segments(_reverse_segments(cg_segments, G),
+                              comm.group_shift, plan.meta["R_cg"],
+                              _slice_fetch(xs), xs, local=local_c)
+    allx = comm.local_all_gather(recv)  # [P, L, R_cg, F]
+    off_map = dict({0: local_c} if local_c is not None else {})
+    off_map.update({d: (off, slot) for d, off, slot in cg_segments})
+    out = allx.new_zeros((P_, G, L, max_cg, f))
+    for dg, (off, slot) in off_map.items():
+        out[:, dg, :, :slot] = allx[:, :, off:off + slot]
+    return out.reshape(P_, G * L * max_cg, f)
+
+
+def _exchanges(plan, comm: LocalComm, rows_loc: torch.Tensor,
                x_loc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The column gather of ``rows_loc`` and the reversed X rounds."""
-    if plan.schedule.kind == "single":
+    """The column gather of ``rows_loc`` and the reversed X rounds, on
+    the plan's tier."""
+    single = plan.schedule.kind == "single"
+    if isinstance(plan, HierExecPlan):
+        if single:
+            return (_hier_gather_single(rows_loc, plan, comm),
+                    _hier_x_single(x_loc, plan, comm))
+        return (_hier_gather_bucketed(rows_loc, plan, comm),
+                _hier_x_bucketed(x_loc, plan, comm))
+    if single:
         return (_flat_gather_single(rows_loc, plan, comm),
                 _flat_x_single(x_loc, plan, comm))
     return (_flat_gather_bucketed(rows_loc, plan, comm),
@@ -173,24 +258,31 @@ def _sample(be: LocalSpmmBackend, pieces, x_loc, y_loc, x_rows, y_gathered,
     return _apply_edge(vals, fn_edge)
 
 
-def _setup(plan: FlatExecPlan, comm: Optional[LocalComm], x: torch.Tensor,
+def _groups(plan) -> int:
+    return plan.G if isinstance(plan, HierExecPlan) else 1
+
+
+def _setup(plan, comm: Optional[LocalComm], x: torch.Tensor,
            y: torch.Tensor) -> Tuple[LocalComm, torch.Tensor, torch.Tensor]:
-    """The comm and the stacked local blocks of X [M, F] and Y [K, F]."""
-    P_ = plan.P
-    comm = comm if comm is not None else LocalComm(P_)
-    if comm.P != P_:
-        raise ValueError(f"comm has P={comm.P}, plan has P={P_}")
-    for name, t in (("X", x), ("Y", y)):
-        if t.shape[0] % P_:
-            raise ValueError(f"{name} has {t.shape[0]} rows, not divisible "
-                             f"over P={P_} ranks")
-    return (comm, x.reshape(P_, x.shape[0] // P_, x.shape[1]),
-            y.reshape(P_, y.shape[0] // P_, y.shape[1]))
+    """The comm (on the plan's grid) and the stacked local blocks of
+    X [M, F] and Y [K, F]."""
+    comm, x_loc = _rank_blocks(plan, comm, x, _groups(plan), "X")
+    _, y_loc = _rank_blocks(plan, comm, y, _groups(plan), "Y")
+    return comm, x_loc, y_loc
 
 
 # ---------------------------------------------------------------------------
-# SDDMM executor
+# SDDMM executors
 # ---------------------------------------------------------------------------
+
+
+def _sddmm(plan, x: torch.Tensor, y: torch.Tensor, comm: Optional[LocalComm],
+           backend: Optional[BackendSpec], edge: EdgeSpec) -> SddmmValues:
+    be, pieces = plan.resolve_backend(backend)
+    fn_edge = resolve_edge(edge)
+    comm, x_loc, y_loc = _setup(plan, comm, x, y)
+    y_g, x_r = _exchanges(plan, comm, y_loc, x_loc)
+    return _sample(be, pieces, x_loc, y_loc, x_r, y_g, fn_edge)
 
 
 def flat_sddmm(plan: FlatExecPlan, x: torch.Tensor, y: torch.Tensor,
@@ -204,11 +296,17 @@ def flat_sddmm(plan: FlatExecPlan, x: torch.Tensor, y: torch.Tensor,
     leading axis P — feed ``flat_spmm_values`` for the unfused
     composition.
     """
-    be, pieces = plan.resolve_backend(backend)
-    fn_edge = resolve_edge(edge)
-    comm, x_loc, y_loc = _setup(plan, comm, x, y)
-    y_g, x_r = _exchanges(plan, comm, y_loc, x_loc)
-    return _sample(be, pieces, x_loc, y_loc, x_r, y_g, fn_edge)
+    return _sddmm(plan, x, y, comm, backend, edge)
+
+
+def hier_sddmm(plan: HierExecPlan, x: torch.Tensor, y: torch.Tensor,
+               comm: Optional[LocalComm] = None,
+               backend: Optional[BackendSpec] = None,
+               edge: EdgeSpec = None) -> SddmmValues:
+    """Sampled values with the two-tier schedule (``comm`` on the plan's
+    (G, L) grid); the same layout as ``flat_sddmm``'s, leading axis P —
+    feed ``hier_spmm_values`` for the unfused composition."""
+    return _sddmm(plan, x, y, comm, backend, edge)
 
 
 # ---------------------------------------------------------------------------
@@ -216,9 +314,10 @@ def flat_sddmm(plan: FlatExecPlan, x: torch.Tensor, y: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def with_values_exec(plan: FlatExecPlan, values: SddmmValues,
-                     backend: Optional[BackendSpec] = None) -> FlatExecPlan:
-    """An exec plan whose stored values are replaced by ``values``.
+def with_values_exec(plan, values: SddmmValues,
+                     backend: Optional[BackendSpec] = None):
+    """An exec plan (flat or hier) whose stored values are replaced by
+    ``values``.
 
     Only the selected backend's diag/colp/rowp values change. The
     per-round overlap consumables (``colp@i`` / ``rowp@i``) keep the
@@ -242,6 +341,14 @@ def flat_spmm_values(plan: FlatExecPlan, values: SddmmValues,
                      backend=backend, overlap=False)
 
 
+def hier_spmm_values(plan: HierExecPlan, values: SddmmValues,
+                     b: torch.Tensor, comm: Optional[LocalComm] = None,
+                     backend: Optional[BackendSpec] = None) -> torch.Tensor:
+    """``hier_spmm`` over swapped values (staged)."""
+    return hier_spmm(with_values_exec(plan, values, backend), b, comm,
+                     backend=backend, overlap=False)
+
+
 # ---------------------------------------------------------------------------
 # FusedMM: SDDMM → SpMM through one communication phase
 # ---------------------------------------------------------------------------
@@ -251,6 +358,62 @@ def _concat_dense(y_loc: torch.Tensor, b_loc: torch.Tensor):
     dt = torch.promote_types(y_loc.dtype, b_loc.dtype)
     yb = torch.cat([y_loc.to(dt), b_loc.to(dt)], dim=2)
     return yb, y_loc.shape[2], dt
+
+
+def _fused(plan, x: torch.Tensor, y: torch.Tensor, b: torch.Tensor,
+           comm: Optional[LocalComm], backend: Optional[BackendSpec],
+           edge: EdgeSpec) -> torch.Tensor:
+    """FusedMM on either tier: ① ONE gather round set for both phases
+    ([Y | B] jointly) and ② X rows over the reversed C layout, ③ sample
+    and swap the values into the SpMM pieces, ④ the SpMM phase as the
+    staged executor runs it."""
+    m_local = plan.meta["m_local"]
+    P_ = plan.P
+    be, pieces = plan.resolve_backend(backend)
+    fn_edge = resolve_edge(edge)
+    comm, x_loc, y_loc = _setup(plan, comm, x, y)
+    K, n = b.shape
+    if K != y.shape[0]:
+        raise ValueError(f"B has {K} rows, Y has {y.shape[0]}")
+    b_loc = b.reshape(P_, K // P_, n)
+
+    # ① + ②
+    yb, f, dt = _concat_dense(y_loc, b_loc)
+    recv, x_r = _exchanges(plan, comm, yb, x_loc)
+    y_g, b_g = recv[..., :f], recv[..., f:]
+
+    # ③
+    vals = _sample(be, pieces, x_loc, y_loc, x_r, y_g, fn_edge)
+    pc = {k: backend_with_values(be, pieces[k], vals[k])
+          for k in ("diag", "colp", "rowp")}
+
+    # ④
+    b_loc = b_loc.to(dt)
+    if isinstance(plan, HierExecPlan):
+        G, L, max_cg = plan.G, plan.L, plan.max_cg
+        partials = be.compute(pc["rowp"], b_loc, G * L * max_cg)
+        agg = comm.local_psum_scatter(
+            partials.reshape(P_, G, L * max_cg, n), dim=1)
+        if plan.schedule.kind == "single":
+            recv_c = comm.group_all_to_all(agg).reshape(P_, G * max_cg, n)
+        else:
+            recv_c = _exchange_segments(
+                plan.meta["cg_segments"], comm.group_shift,
+                plan.meta["R_cg"], lambda dg, off, slot: agg[:, dg, :slot],
+                agg, local=plan.meta["local_c"])
+    elif plan.schedule.kind == "single":
+        partials = be.compute(pc["rowp"], b_loc, P_ * plan.max_c)
+        recv_c = comm.all_to_all(partials.reshape(P_, P_, plan.max_c, n))
+        recv_c = recv_c.reshape(P_, P_ * plan.max_c, n)
+    else:
+        partials = be.compute(pc["rowp"], b_loc, plan.meta["R_c"])
+        recv_c = _exchange_segments(plan.meta["c_segments"], comm.shift,
+                                    plan.meta["R_c"], _slice_fetch(partials),
+                                    partials)
+    c = be.compute(pc["diag"], b_loc, m_local)
+    c = c + be.compute(pc["colp"], b_g, m_local)
+    c = scatter_add_rows_exec_op(c, recv_c, plan.agg_perm, plan.agg_meta)
+    return c.reshape(P_ * m_local, n)
 
 
 def flat_fused(plan: FlatExecPlan, x: torch.Tensor, y: torch.Tensor,
@@ -264,51 +427,22 @@ def flat_fused(plan: FlatExecPlan, x: torch.Tensor, y: torch.Tensor,
     ``with_values`` on the device, and the C transfer is unchanged.
     Returns C [M, N].
     """
-    m_local = plan.meta["m_local"]
-    P_ = plan.P
-    be, pieces = plan.resolve_backend(backend)
-    fn_edge = resolve_edge(edge)
-    comm, x_loc, y_loc = _setup(plan, comm, x, y)
-    K, n = b.shape
-    if K != y.shape[0]:
-        raise ValueError(f"B has {K} rows, Y has {y.shape[0]}")
-    b_loc = b.reshape(P_, K // P_, n)
+    return _fused(plan, x, y, b, comm, backend, edge)
 
-    # ① ONE gather round set for both phases: [Y | B] jointly; ② X rows
-    #   ride the reversed C layout to the rowp sources
-    yb, f, dt = _concat_dense(y_loc, b_loc)
-    recv, x_r = _exchanges(plan, comm, yb, x_loc)
-    y_g, b_g = recv[..., :f], recv[..., f:]
 
-    # ③ sample, then swap the values into the SpMM pieces
-    vals = _sample(be, pieces, x_loc, y_loc, x_r, y_g, fn_edge)
-    pc = {k: backend_with_values(be, pieces[k], vals[k])
-          for k in ("diag", "colp", "rowp")}
-
-    # ④ the SpMM phase, as the staged executor runs it
-    b_loc = b_loc.to(dt)
-    if plan.schedule.kind == "single":
-        partials = be.compute(pc["rowp"], b_loc, P_ * plan.max_c)
-        recv_c = comm.all_to_all(partials.reshape(P_, P_, plan.max_c, n))
-        recv_c = recv_c.reshape(P_, P_ * plan.max_c, n)
-    else:
-        partials = be.compute(pc["rowp"], b_loc, plan.meta["R_c"])
-        recv_c = _exchange_segments(plan.meta["c_segments"], comm,
-                                    plan.meta["R_c"], partials)
-    c = be.compute(pc["diag"], b_loc, m_local)
-    c = c + be.compute(pc["colp"], b_g, m_local)
-    c = scatter_add_rows_exec_op(c, recv_c, plan.agg_perm, plan.agg_meta)
-    return c.reshape(P_ * m_local, n)
+def hier_fused(plan: HierExecPlan, x: torch.Tensor, y: torch.Tensor,
+               b: torch.Tensor, comm: Optional[LocalComm] = None,
+               backend: Optional[BackendSpec] = None,
+               edge: EdgeSpec = None) -> torch.Tensor:
+    """FusedMM on the two-tier schedule — joint [Y | B] inter-group fetch,
+    reversed inter-group X rounds, unchanged C transfer. Returns C [M, N].
+    """
+    return _fused(plan, x, y, b, comm, backend, edge)
 
 
 def fused_sddmm_spmm(plan, x: torch.Tensor, y: torch.Tensor, b: torch.Tensor,
                      comm: Optional[LocalComm] = None,
                      backend: Optional[BackendSpec] = None,
                      edge: EdgeSpec = None) -> torch.Tensor:
-    """FusedMM on the plan's tier (only the flat tier is ported)."""
-    if not isinstance(plan, FlatExecPlan):
-        raise NotImplementedError(
-            f"fused_sddmm_spmm on a {type(plan).__name__} is not ported to "
-            f"repro_torch yet (ROADMAP.md, open item 7: the hierarchical "
-            f"executors); use the JAX package (repro) for it meanwhile")
-    return flat_fused(plan, x, y, b, comm, backend=backend, edge=edge)
+    """FusedMM on the plan's tier (flat or hierarchical)."""
+    return _fused(plan, x, y, b, comm, backend, edge)

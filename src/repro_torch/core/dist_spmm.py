@@ -1,29 +1,41 @@
-"""The flat SHIRO executor over P ranks emulated on one device (paper §5).
+"""The SHIRO executors over P ranks emulated on one device (paper §5-§6).
 
-Port of ``repro/core/dist_spmm.py``'s flat half. The reference runs
-``flat_spmm`` as a ``shard_map`` body on every mesh device; here all P
-ranks run in one process over the same stacked ``[P, ...]`` exec layouts,
-every per-rank operation is a tensor operation on the rank axis (one
-kernel launch covers all ranks), and every collective goes through a
-``distributed.comm.LocalComm``, which logs it.
+Port of ``repro/core/dist_spmm.py``'s flat and hierarchical halves. The
+reference runs ``flat_spmm`` / ``hier_spmm`` as ``shard_map`` bodies on
+every mesh device; here all P ranks run in one process over the same
+stacked ``[P, ...]`` exec layouts, every per-rank operation is a tensor
+operation on the rank axis (one kernel launch covers all ranks), and
+every collective goes through a ``distributed.comm.LocalComm``, which
+logs it.
 
-The three bodies of the reference are all here: the single max-padded
-all_to_all round, the bucketed ppermute rounds run staged, and the same
-rounds round-pipelined (``overlap=True``: each round's received slab is
-consumed as it lands, bit-identical C). Each runs four steps: ① pack B
-rows (K1) and exchange them; ② partial C rows for other ranks, exchanged;
-③ diagonal + column-covered local compute; ④ sorted scatter-add of the
-received partials (K2).
+``flat_spmm`` runs the three bodies of the reference: the single
+max-padded all_to_all round, the bucketed ppermute rounds run staged,
+and the same rounds round-pipelined (``overlap=True``: each round's
+received slab is consumed as it lands, bit-identical C). Each runs four
+steps: ① pack B rows (K1) and exchange them; ② partial C rows for other
+ranks, exchanged; ③ diagonal + column-covered local compute; ④ sorted
+scatter-add of the received partials (K2).
 
-``flat_exec_arrays`` builds the exec plan from an ``SpmmPlan``;
-``flat_exec_from_numpy`` builds it from plain arrays named like the
-reference's ``FlatExecPlan`` fields — the form that carries exec state
-from the JAX package (or a file) into the port.
+``hier_spmm`` runs the two-tier schedule (paper Alg. 1) on the ranks laid
+out as a (G, L) grid, rank p = (p // L, p % L): Stage I, the inter-group
+B fetch (group axis) and the intra-group pre-aggregation of partial C
+rows (a reduce-scatter over the local axis); Stage II, the inter-group
+C transfer and the intra-group B distribution (an all_gather over the
+local axis). It has the same three bodies, the bucketed ones serving the
+own-group (shift-0) traffic with a local slice instead of a collective.
+
+``flat_exec_arrays`` / ``hier_exec_arrays`` build the exec plans from the
+host plans; ``flat_exec_from_numpy`` / ``hier_exec_from_numpy`` build them
+from plain arrays named like the reference's ``FlatExecPlan`` /
+``HierExecPlan`` fields — the form that carries exec state from the JAX
+package (or a file) into the port.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (
+    Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union,
+)
 
 import numpy as np
 import torch
@@ -33,9 +45,11 @@ from ..kernels.ops import (
     pack_rows_op, prepare_sorted_scatter, scatter_add_rows_exec_op,
 )
 from .comm_schedule import (
-    CommRound, CommSchedule, flat_schedule_layout, ordered_spans,
-    single_round_schedule, span_cuts,
+    CommRound, CommSchedule, flat_schedule_layout, hier_schedule_layout,
+    ordered_spans, single_round_hier_schedule, single_round_schedule,
+    span_cuts,
 )
+from .hierarchy import HierPlan, hier_piece_csrs
 from .local_backend import (
     BsrBackend, LocalSpmmBackend, backend_compute_segment,
     backend_prepare_segments, coo_piece_with_maps, get_backend,
@@ -45,9 +59,13 @@ from .planner import SpmmPlan, local_piece_csrs
 __all__ = [
     "BackendSpec",
     "FlatExecPlan",
+    "HierExecPlan",
     "flat_exec_arrays",
     "flat_exec_from_numpy",
+    "hier_exec_arrays",
+    "hier_exec_from_numpy",
     "flat_spmm",
+    "hier_spmm",
 ]
 
 BackendSpec = Union[str, LocalSpmmBackend]
@@ -101,7 +119,44 @@ def _stack_sorted_scatter(tgt_rows: np.ndarray
 
 
 @dataclasses.dataclass(frozen=True)
-class FlatExecPlan:
+class _ExecPlanBase:
+    """What both exec plans share: the prepared pieces, the backend
+    lookup, the schedule and the move to a device."""
+
+    @property
+    def backends(self) -> Tuple[str, ...]:
+        return tuple(self.pieces)
+
+    @property
+    def schedule(self) -> CommSchedule:
+        return self.meta["schedule"]
+
+    def to(self, device):
+        """The same plan with every tensor on ``device``."""
+        move = lambda t: t.to(device)  # noqa: E731
+        return dataclasses.replace(self, **{
+            f.name: _map_tensors(getattr(self, f.name), move)
+            for f in dataclasses.fields(self) if f.name != "meta"})
+
+    def resolve_backend(self, backend: Optional[BackendSpec]
+                        ) -> Tuple[LocalSpmmBackend, Pieces]:
+        if backend is None:
+            be = self.meta["backends"][self.meta["default_backend"]]
+        elif isinstance(backend, str):
+            # the plan's own instances win over the global registry
+            be = self.meta["backends"].get(backend) or get_backend(backend)
+        else:
+            be = backend
+        if be.name not in self.pieces:
+            raise ValueError(
+                f"backend {be.name!r} has no prepared pieces in this plan; "
+                f"rebuild its exec arrays with backends=(..., "
+                f"{be.name!r})")
+        return be, self.pieces[be.name]
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatExecPlan(_ExecPlanBase):
     """Stacked per-rank tensors for the flat executor.
 
     ``pieces[backend][piece]`` holds the backend-native tensors for the
@@ -138,39 +193,47 @@ class FlatExecPlan:
     def max_c(self) -> int:
         return self.meta["max_c"]
 
-    @property
-    def backends(self) -> Tuple[str, ...]:
-        return tuple(self.pieces)
+
+@dataclasses.dataclass(frozen=True)
+class HierExecPlan(_ExecPlanBase):
+    """Stacked per-rank tensors for the hierarchical executor.
+
+    Every tensor leads with the rank axis P = G·L (rank p is (g, l) =
+    (p // L, p % L), the reference's [G, L, ...] leading axes merged).
+    Layouts follow the active inter-group schedule as in
+    ``FlatExecPlan``: ``b_group_send_idx`` / ``c_recv_rows`` are
+    [P, G, max_bg] / [P, G, max_cg] for the single group all_to_all pair,
+    [P, R_bg] / [P, R_cg] segment spaces (own-group segment first) for a
+    bucketed schedule.
+    """
+
+    pieces: Dict[str, Pieces]
+    b_group_send_idx: torch.Tensor  # int32, -1 pad
+    c_recv_rows: torch.Tensor  # int32, -1 pad
+    agg_perm: torch.Tensor
+    agg_meta: torch.Tensor
+    seg_agg: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    meta: dict = dataclasses.field(default_factory=dict)
 
     @property
-    def schedule(self) -> CommSchedule:
-        return self.meta["schedule"]
+    def P(self) -> int:
+        return self.meta["G"] * self.meta["L"]
 
-    def to(self, device) -> "FlatExecPlan":
-        """The same plan with every tensor on ``device``."""
-        move = lambda t: t.to(device)  # noqa: E731
-        return dataclasses.replace(
-            self, pieces=_map_tensors(self.pieces, move),
-            b_send_idx=move(self.b_send_idx),
-            c_recv_rows=move(self.c_recv_rows),
-            agg_perm=move(self.agg_perm), agg_meta=move(self.agg_meta),
-            seg_agg=_map_tensors(self.seg_agg, move))
+    @property
+    def G(self) -> int:
+        return self.meta["G"]
 
-    def resolve_backend(self, backend: Optional[BackendSpec]
-                        ) -> Tuple[LocalSpmmBackend, Pieces]:
-        if backend is None:
-            be = self.meta["backends"][self.meta["default_backend"]]
-        elif isinstance(backend, str):
-            # the plan's own instances win over the global registry
-            be = self.meta["backends"].get(backend) or get_backend(backend)
-        else:
-            be = backend
-        if be.name not in self.pieces:
-            raise ValueError(
-                f"backend {be.name!r} has no prepared pieces in this plan; "
-                f"rebuild with flat_exec_arrays(plan, backends=(..., "
-                f"{be.name!r}))")
-        return be, self.pieces[be.name]
+    @property
+    def L(self) -> int:
+        return self.meta["L"]
+
+    @property
+    def max_bg(self) -> int:
+        return self.meta["max_bg"]
+
+    @property
+    def max_cg(self) -> int:
+        return self.meta["max_cg"]
 
 
 # ---------------------------------------------------------------------------
@@ -244,11 +307,7 @@ def flat_exec_arrays(plan: SpmmPlan,
             for i, (_, off, slot) in enumerate(c_spans):
                 pieces[name][f"rowp@{i}"] = be.prepare(
                     [csr.row_block(off, off + slot) for csr in layout.rowp])
-        for i, (_, off, slot) in enumerate(c_spans):
-            sp, sm = _stack_sorted_scatter(
-                layout.c_recv_rows[:, off:off + slot])
-            seg_agg[f"perm@{i}"] = _t(sp)
-            seg_agg[f"meta@{i}"] = _t(sm)
+        seg_agg = _seg_agg(layout.c_recv_rows, c_spans)
 
     return FlatExecPlan(
         pieces=pieces,
@@ -268,6 +327,91 @@ def flat_exec_arrays(plan: SpmmPlan,
     )
 
 
+def _seg_agg(c_recv_rows: np.ndarray, spans: Segments
+             ) -> Dict[str, torch.Tensor]:
+    """Per-round sorted-scatter maps over each receive segment."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, (_, off, slot) in enumerate(spans):
+        sp, sm = _stack_sorted_scatter(c_recv_rows[:, off:off + slot])
+        out[f"perm@{i}"] = _t(sp)
+        out[f"meta@{i}"] = _t(sm)
+    return out
+
+
+def hier_exec_arrays(hier: HierPlan,
+                     backends: Sequence[BackendSpec] = ("coo",),
+                     schedule: Optional[CommSchedule] = None,
+                     overlap_layouts: bool = True
+                     ) -> HierExecPlan:
+    """Convert a HierPlan into stacked tensors (on the CPU).
+
+    ``schedule`` buckets the INTER-GROUP collectives (see
+    ``comm_schedule.build_hier_comm_schedule``); the intra-group
+    reduce-scatter / all_gather keep their uniform layouts either way.
+    ``backends`` and ``overlap_layouts`` as in ``flat_exec_arrays``.
+    """
+    base = hier.base
+    G, L, P = hier.G, hier.L, hier.base.P
+    m_local = _uniform_m_local(base.bounds)
+
+    if schedule is None or schedule.kind == "single":
+        sched = schedule or single_round_hier_schedule(hier)
+        pieces, resolved = _prepare_pieces(hier_piece_csrs(hier), backends)
+        c_recv = hier.c_group_rows.transpose(1, 0, 2)  # [P(dst), G(src), max_cg]
+        perm, meta_arr = _stack_sorted_scatter(c_recv.reshape(P, -1))
+        return HierExecPlan(
+            pieces=pieces,
+            b_group_send_idx=_t(hier.b_group_send_idx),
+            c_recv_rows=_t(c_recv),
+            agg_perm=_t(perm),
+            agg_meta=_t(meta_arr),
+            meta=dict(G=G, L=L, max_bg=hier.max_bg, max_cg=hier.max_cg,
+                      m_local=m_local, backends=resolved,
+                      default_backend=next(iter(resolved)),
+                      schedule=sched),
+        )
+
+    layout = hier_schedule_layout(hier, schedule)
+    piece_csrs = {"diag": list(base.a_diag), "colp": layout.colp,
+                  "rowp": layout.rowp}
+    pieces, resolved = _prepare_pieces(piece_csrs, backends)
+
+    # per-round consumables over the SEGMENT-MAJOR gathered space (the
+    # shift-0 own-group segment is ordinal 0 when present): colp segment
+    # layouts cut at the gathered cumulative boundaries, and per-round
+    # aggregation maps over the inter-group C receive segments
+    bg_all = ordered_spans(layout.off_bg)
+    cg_all = ordered_spans(layout.off_cg)
+    seg_agg: Dict[str, torch.Tensor] = {}
+    if overlap_layouts:
+        gathered_cuts = tuple(L * (off + slot) for _, off, slot in bg_all)
+        for name, be in resolved.items():
+            for i, seg in enumerate(
+                    backend_prepare_segments(be, layout.colp,
+                                             gathered_cuts)):
+                pieces[name][f"colp@{i}"] = seg
+        seg_agg = _seg_agg(layout.c_recv_rows, cg_all)
+    perm, meta_arr = _stack_sorted_scatter(layout.c_recv_rows)
+    return HierExecPlan(
+        pieces=pieces,
+        b_group_send_idx=_t(layout.b_send_idx),
+        c_recv_rows=_t(layout.c_recv_rows),
+        agg_perm=_t(perm),
+        agg_meta=_t(meta_arr),
+        seg_agg=seg_agg,
+        meta=dict(G=G, L=L, max_bg=hier.max_bg, max_cg=hier.max_cg,
+                  m_local=m_local, backends=resolved,
+                  default_backend=next(iter(resolved)),
+                  schedule=schedule,
+                  bg_segments=tuple(t for t in bg_all if t[0] != 0),
+                  cg_segments=tuple(t for t in cg_all if t[0] != 0),
+                  bg_all=bg_all, cg_all=cg_all,
+                  overlap_ready=overlap_layouts,
+                  local_b=layout.off_bg.get(0), local_c=layout.off_cg.get(0),
+                  R_bg=layout.R_bg, R_cg=layout.R_cg),
+    )
+
+
 def _as_schedule(s: Any) -> CommSchedule:
     """The port's CommSchedule from any object with its field names."""
     if isinstance(s, CommSchedule):
@@ -278,7 +422,10 @@ def _as_schedule(s: Any) -> CommSchedule:
     return CommSchedule(
         kind=str(s.kind), P=int(s.P), max_b=int(s.max_b), max_c=int(s.max_c),
         slots_b=tuple(int(v) for v in s.slots_b),
-        slots_c=tuple(int(v) for v in s.slots_c), rounds=rounds)
+        slots_c=tuple(int(v) for v in s.slots_c), rounds=rounds,
+        local_slot_b=int(getattr(s, "local_slot_b", 0)),
+        local_slot_c=int(getattr(s, "local_slot_c", 0)),
+        procs=int(getattr(s, "procs", 0)))
 
 
 def _as_backend(spec: Any) -> LocalSpmmBackend:
@@ -289,6 +436,53 @@ def _as_backend(spec: Any) -> LocalSpmmBackend:
         return BsrBackend(block=tuple(int(v) for v in spec.block),
                           bn=int(spec.bn))
     return get_backend(spec.name)
+
+
+def _segments(seq) -> Segments:
+    return tuple(tuple(int(v) for v in seg) for seg in seq)
+
+
+def _from_numpy(fields: Dict[str, Any], lead: int, sizes: Tuple[str, ...],
+                bucketed_keys: Tuple[str, ...]
+                ) -> Tuple[Dict[str, Any], Callable, Dict[str, Pieces]]:
+    """What both ``*_exec_from_numpy`` share: the metadata (``sizes`` as
+    ints, the schedule, the backends, and for a bucketed schedule the
+    segment descriptors, widths and ``overlap_ready``), an array converter
+    that merges the ``lead`` leading axes into the rank axis, and the
+    pieces (coo ones with the row maps the port's fold needs)."""
+    src_meta = dict(fields["meta"])
+    specs = src_meta.get("backends") or tuple(fields["pieces"])
+    if isinstance(specs, dict):
+        specs = tuple(specs.values())
+    resolved = {be.name: be for be in map(_as_backend, specs)}
+    meta = {k: int(src_meta[k]) for k in sizes}
+    meta.update(m_local=int(src_meta["m_local"]), backends=resolved,
+                default_backend=src_meta.get("default_backend")
+                or next(iter(resolved)),
+                schedule=_as_schedule(src_meta["schedule"]))
+    if meta["schedule"].kind == "bucketed":
+        for key in bucketed_keys:
+            v = src_meta[key]
+            if key.startswith("local_"):
+                meta[key] = None if v is None else tuple(int(x) for x in v)
+            elif key.startswith("R_"):
+                meta[key] = int(v)
+            else:
+                meta[key] = _segments(v)
+        meta["overlap_ready"] = bool(src_meta.get("overlap_ready", False))
+
+    def arr(a):
+        a = np.array(a)  # a private, writable copy
+        n = int(np.prod(a.shape[:lead]))
+        return torch.from_numpy(a.reshape((n,) + a.shape[lead:]))
+
+    pieces = {be: {name: {k: arr(v) for k, v in piece.items()}
+                   for name, piece in by_piece.items()}
+              for be, by_piece in fields["pieces"].items()}
+    if "coo" in pieces:  # the port's coo fold needs each piece's row maps
+        pieces["coo"] = {name: coo_piece_with_maps(piece)
+                         for name, piece in pieces["coo"].items()}
+    return meta, arr, pieces
 
 
 def flat_exec_from_numpy(fields: Dict[str, Any]) -> FlatExecPlan:
@@ -305,34 +499,9 @@ def flat_exec_from_numpy(fields: Dict[str, Any]) -> FlatExecPlan:
     Arrays may be numpy arrays or anything ``np.asarray`` accepts; the
     result lives on the CPU.
     """
-    src_meta = dict(fields["meta"])
-    specs = src_meta.get("backends") or tuple(fields["pieces"])
-    if isinstance(specs, dict):
-        specs = tuple(specs.values())
-    resolved = {be.name: be for be in map(_as_backend, specs)}
-    meta = dict(P=int(src_meta["P"]), max_b=int(src_meta["max_b"]),
-                max_c=int(src_meta["max_c"]),
-                m_local=int(src_meta["m_local"]), backends=resolved,
-                default_backend=src_meta.get("default_backend")
-                or next(iter(resolved)),
-                schedule=_as_schedule(src_meta["schedule"]))
-    if meta["schedule"].kind == "bucketed":
-        for key in ("b_segments", "c_segments"):
-            meta[key] = tuple(tuple(int(v) for v in seg)
-                              for seg in src_meta[key])
-        meta["overlap_ready"] = bool(src_meta.get("overlap_ready", False))
-        meta["R_b"] = int(src_meta["R_b"])
-        meta["R_c"] = int(src_meta["R_c"])
-
-    def arr(a):
-        return torch.from_numpy(np.array(a))  # a private, writable copy
-
-    pieces = {be: {name: {k: arr(v) for k, v in piece.items()}
-                   for name, piece in by_piece.items()}
-              for be, by_piece in fields["pieces"].items()}
-    if "coo" in pieces:  # the port's coo fold needs each piece's row maps
-        pieces["coo"] = {name: coo_piece_with_maps(piece)
-                         for name, piece in pieces["coo"].items()}
+    meta, arr, pieces = _from_numpy(
+        fields, 1, ("P", "max_b", "max_c"),
+        ("b_segments", "c_segments", "R_b", "R_c"))
     return FlatExecPlan(
         pieces=pieces,
         b_send_idx=arr(fields["b_send_idx"]),
@@ -344,33 +513,92 @@ def flat_exec_from_numpy(fields: Dict[str, Any]) -> FlatExecPlan:
     )
 
 
+def hier_exec_from_numpy(fields: Dict[str, Any]) -> HierExecPlan:
+    """A HierExecPlan from plain arrays named like the reference's fields.
+
+    The hier counterpart of ``flat_exec_from_numpy``: ``pieces``,
+    ``b_group_send_idx``, ``c_recv_rows``, ``agg_perm``, ``agg_meta``,
+    optionally ``seg_agg``, every array leading with the reference's
+    [G, L] axes (merged here into the rank axis), and ``meta``: ``G``,
+    ``L``, ``max_bg``, ``max_cg``, ``m_local``, ``schedule``,
+    ``backends``, ``default_backend`` and, for bucketed schedules,
+    ``bg_segments``, ``cg_segments``, ``bg_all``, ``cg_all``,
+    ``local_b``, ``local_c``, ``R_bg``, ``R_cg``, ``overlap_ready``.
+    """
+    meta, arr, pieces = _from_numpy(
+        fields, 2, ("G", "L", "max_bg", "max_cg"),
+        ("bg_segments", "cg_segments", "bg_all", "cg_all", "local_b",
+         "local_c", "R_bg", "R_cg"))
+    return HierExecPlan(
+        pieces=pieces,
+        b_group_send_idx=arr(fields["b_group_send_idx"]),
+        c_recv_rows=arr(fields["c_recv_rows"]),
+        agg_perm=arr(fields["agg_perm"]),
+        agg_meta=arr(fields["agg_meta"]),
+        seg_agg={k: arr(v) for k, v in fields.get("seg_agg", {}).items()},
+        meta=meta,
+    )
+
+
 # ---------------------------------------------------------------------------
-# bucketed round execution
+# bucketed round execution (shared by both executors)
 # ---------------------------------------------------------------------------
 
 
-def _exchange_segments(segments: Segments, comm: LocalComm, total: int,
-                       send: torch.Tensor) -> torch.Tensor:
+def _slice_fetch(buf: torch.Tensor):
+    """fetch() over a packed [P, total, N] send buffer sharing the
+    receive layout."""
+    return lambda d, off, slot: buf[:, off:off + slot]
+
+
+def _exchange_segments(segments: Segments, shift: Callable, total: int,
+                       fetch: Callable, like: torch.Tensor,
+                       local: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
     """One ppermute per segment, rebuilding the flat receive space.
 
-    Segment (d, off, slot) of the [P, total, N] send space goes to rank
-    ``(q + d) % P`` and comes back at the same offset, so send and
-    receive share one layout. Degenerate empty schedules yield the
-    all-padding zeros.
+    ``fetch(d, off, slot)`` gives the [P, slot, N] send slab of shift
+    ``d`` (a slice of the packed send space, or of the pre-aggregated
+    hier tiles) and ``shift(x, d)`` is the collective (``comm.shift`` on
+    the flat axis, ``comm.group_shift`` on the group axis). Segment
+    (d, off, slot) comes back at the same offset, so send and receive
+    share one layout. ``local`` is the hier shift-0 (own group) segment:
+    fetched straight into the receive space, never a collective.
+    Degenerate empty schedules yield the all-padding zeros (shaped
+    [P, total, N] after ``like``).
     """
-    parts: List[Tuple[int, torch.Tensor]] = [
-        (off, comm.shift(send[:, off:off + slot], d))
-        for d, off, slot in segments]
-    P, _, n = send.shape
+    parts: List[Tuple[int, torch.Tensor]] = []
+    if local is not None:
+        off, slot = local
+        parts.append((off, fetch(0, off, slot)))
+    parts += [(off, shift(fetch(d, off, slot), d))
+              for d, off, slot in segments]
+    P, n = like.shape[0], like.shape[-1]
     if not parts:
-        return torch.zeros((P, total, n), dtype=send.dtype,
-                           device=send.device)
+        return like.new_zeros((P, total, n))
     parts.sort(key=lambda t: t[0])
     out = torch.cat([seg for _, seg in parts], dim=1)
     if out.shape[1] < total:  # trailing dummy slot (degenerate empty plan)
         out = torch.cat([out, out.new_zeros((P, total - out.shape[1], n))],
                         dim=1)
     return out
+
+
+def _rank_blocks(plan, comm: Optional[LocalComm], b: torch.Tensor,
+                 groups: int = 1, name: str = "B"
+                 ) -> Tuple[LocalComm, torch.Tensor]:
+    """The comm (a fresh one on the plan's grid when None) and the stacked
+    local row blocks [P, K/P, N] of the operand ``b`` (called ``name``)."""
+    P_ = plan.P
+    comm = comm if comm is not None else LocalComm(P_, groups)
+    if comm.P != P_ or comm.G != groups:
+        raise ValueError(f"comm has P={comm.P}, G={comm.G}; the plan needs "
+                         f"P={P_}, G={groups}")
+    K, n = b.shape
+    if K % P_:
+        raise ValueError(f"{name} has {K} rows, not divisible over "
+                         f"P={P_} ranks")
+    return comm, b.reshape(P_, K // P_, n)
 
 
 # ---------------------------------------------------------------------------
@@ -397,13 +625,8 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
     P_ = plan.P
     be, pieces = plan.resolve_backend(backend)
     sched = plan.schedule
-    comm = comm if comm is not None else LocalComm(P_)
-    if comm.P != P_:
-        raise ValueError(f"comm has P={comm.P}, plan has P={P_}")
-    K, n = b_global.shape
-    if K % P_:
-        raise ValueError(f"B has {K} rows, not divisible over P={P_} ranks")
-    b_loc = b_global.reshape(P_, K // P_, n)
+    comm, b_loc = _rank_blocks(plan, comm, b_global)
+    n = b_loc.shape[2]
 
     if sched.kind == "single":
         # ① pack + exchange B rows (column-based comm, Fig. 1(b))
@@ -431,14 +654,14 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
         # ① pack once, then one ppermute per scheduled shift — each padded
         #   only to its round's slot ceiling
         send_b = pack_rows_op(b_loc, plan.b_send_idx)  # [P, R_b, N]
-        recv_b = _exchange_segments(b_segments, comm, plan.meta["R_b"],
-                                    send_b)
+        recv_b = _exchange_segments(b_segments, comm.shift, plan.meta["R_b"],
+                                    _slice_fetch(send_b), send_b)
 
         # ② partial C rows, computed straight into the bucketed send
         #   space, then exchanged shift by shift
         partials = be.compute(pieces["rowp"], b_loc, plan.meta["R_c"])
-        recv_c = _exchange_segments(c_segments, comm, plan.meta["R_c"],
-                                    partials)
+        recv_c = _exchange_segments(c_segments, comm.shift, plan.meta["R_c"],
+                                    _slice_fetch(partials), partials)
 
         # ③ local compute against the bucketed receive space
         c = be.compute(pieces["diag"], b_loc, m_local)
@@ -447,10 +670,7 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
         # ④ aggregation of received partials
         c = scatter_add_rows_exec_op(c, recv_c, plan.agg_perm, plan.agg_meta)
     else:
-        if not plan.meta.get("overlap_ready"):
-            raise ValueError(
-                "overlap=True needs the per-round consumable layouts; "
-                "rebuild with flat_exec_arrays(..., overlap_layouts=True)")
+        _need_overlap_layouts(plan, "flat_exec_arrays")
         b_segments = plan.meta["b_segments"]
         c_segments = plan.meta["c_segments"]
 
@@ -469,18 +689,176 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
 
         # ④ consume B rounds in order: cumulative receive prefix +
         #   segment-accumulating compute (bit-identical to staged)
-        colp_acc = torch.zeros((P_, m_local, n), dtype=b_loc.dtype,
-                               device=b_loc.device)
-        prefix = None
-        for i, seg in enumerate(recv_b):
-            prefix = seg if prefix is None else torch.cat([prefix, seg], 1)
-            colp_acc = backend_compute_segment(
-                be, pieces[f"colp@{i}"], prefix, colp_acc)
-        c = c + colp_acc
+        c = c + _colp_rounds(be, pieces, recv_b, b_loc, m_local)
 
         # ⑤ per-round aggregation of received partials
-        for i in range(len(c_segments)):
-            c = scatter_add_rows_exec_op(c, recv_c[i],
-                                         plan.seg_agg[f"perm@{i}"],
-                                         plan.seg_agg[f"meta@{i}"])
+        c = _aggregate_rounds(c, recv_c, plan.seg_agg)
+    return c.reshape(P_ * m_local, n)
+
+
+def _need_overlap_layouts(plan, arrays_fn: str) -> None:
+    if not plan.meta.get("overlap_ready"):
+        raise ValueError(
+            f"overlap=True needs the per-round consumable layouts; "
+            f"rebuild with {arrays_fn}(..., overlap_layouts=True)")
+
+
+def _colp_rounds(be: LocalSpmmBackend, pieces: Pieces,
+                 segs: Iterable[torch.Tensor], like: torch.Tensor,
+                 m_local: int) -> torch.Tensor:
+    """The overlapped colp compute: each received segment joins the
+    cumulative receive prefix, and segment i's piece ``colp@i``
+    accumulates against it — the staged compute's addition chains.
+    ``like`` is the local B block [P, K/P, N] (shape of the result)."""
+    acc = like.new_zeros((like.shape[0], m_local, like.shape[2]))
+    prefix = None
+    for i, seg in enumerate(segs):
+        prefix = seg if prefix is None else torch.cat([prefix, seg], 1)
+        acc = backend_compute_segment(be, pieces[f"colp@{i}"], prefix, acc)
+    return acc
+
+
+def _aggregate_rounds(c: torch.Tensor, recv: List[torch.Tensor],
+                      seg_agg: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Per-round sorted scatter-add of received partials (K2), in round
+    order — the staged aggregation's slot-order chain."""
+    for i, part in enumerate(recv):
+        c = scatter_add_rows_exec_op(c, part, seg_agg[f"perm@{i}"],
+                                     seg_agg[f"meta@{i}"])
+    return c
+
+
+# ---------------------------------------------------------------------------
+# hierarchical executor (paper §6 / Alg. 1)
+# ---------------------------------------------------------------------------
+
+
+def _hier_gathered(all_bg: torch.Tensor, bg_all: Segments, R_bg: int
+                   ) -> torch.Tensor:
+    """The all_gathered B segments [P, L, R_bg, N] re-laid SEGMENT-major
+    ([L·off, L·(off+slot)) per group shift) — the colp index space, and
+    the order the overlapped body consumes segments in."""
+    P_, L, _, n = all_bg.shape
+    parts = [all_bg[:, :, off:off + slot].reshape(P_, L * slot, n)
+             for _, off, slot in bg_all]
+    return torch.cat(parts, dim=1) if parts else \
+        all_bg.new_zeros((P_, L * R_bg, n))
+
+
+def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
+              comm: Optional[LocalComm] = None,
+              backend: Optional[BackendSpec] = None,
+              overlap: bool = False) -> torch.Tensor:
+    """Two-tier SHIRO schedule on the (G, L) grid of the P ranks.
+
+    Program order follows paper Alg. 1; Stage I and Stage II each pair a
+    group-axis collective with a local-axis one (``comm`` is a
+    ``LocalComm(P, groups=G)``, a fresh one when None). ``backend``
+    selects the local-compute substrate as in ``flat_spmm``; a bucketed
+    schedule (fixed at ``hier_exec_arrays`` time) replaces the two
+    inter-group all_to_alls with per-group-shift ppermute rounds and
+    serves own-group traffic with a local slice. ``overlap=True``
+    round-pipelines a bucketed plan: each group shift's C transfer
+    departs straight out of its own intra-group reduce-scatter, and every
+    received B slab is gathered and consumed as it lands — the same
+    group-axis ppermutes, bit-identical C. Returns C [M, N].
+    """
+    m_local = plan.meta["m_local"]
+    G, L, P_ = plan.G, plan.L, plan.P
+    max_bg, max_cg = plan.max_bg, plan.max_cg
+    be, pieces = plan.resolve_backend(backend)
+    sched = plan.schedule
+    comm, b_loc = _rank_blocks(plan, comm, b_global, groups=G)
+    n = b_loc.shape[2]
+
+    if sched.kind == "single":
+        # Stage I.① (inter-group, column-based): ship de-duplicated B
+        # rows once per destination group. Pairs (g, l) <-> (g', l).
+        send_bg = pack_rows_op(b_loc, plan.b_group_send_idx)  # [P, G, max_bg, N]
+        recv_bg = comm.group_all_to_all(send_bg)
+
+        # Stage I.① (intra-group, row-based): compute partials and
+        # pre-aggregate within the source group via reduce-scatter; each
+        # member ends up owning the aggregates for destinations that share
+        # its local rank (the "representative" of Fig. 6(e)).
+        partials = be.compute(pieces["rowp"], b_loc, G * L * max_cg)
+        agg = comm.local_psum_scatter(
+            partials.reshape(P_, G, L * max_cg, n), dim=1)  # [P, G, max_cg, N]
+
+        # Stage II.② (inter-group, row-based): aggregated C rows cross the
+        # slow tier once per source group.
+        recv_cg = comm.group_all_to_all(agg)
+
+        # Stage II.② (intra-group, column-based): distribute fetched B
+        # rows inside the destination group: [P, L(src), G(src), max_bg, N]
+        all_bg = comm.local_all_gather(recv_bg)
+
+        c = be.compute(pieces["diag"], b_loc, m_local)
+        c = c + be.compute(pieces["colp"],
+                           all_bg.reshape(P_, L * G * max_bg, n), m_local)
+        c = scatter_add_rows_exec_op(
+            c, recv_cg.reshape(P_, G * max_cg, n),
+            plan.agg_perm, plan.agg_meta)
+    elif not overlap:
+        R_bg, R_cg = plan.meta["R_bg"], plan.meta["R_cg"]
+
+        # Stage I.① inter-group B fetch, one ppermute per group shift;
+        # shift 0 (own group) is a wire-free local slice
+        send_bg = pack_rows_op(b_loc, plan.b_group_send_idx)  # [P, R_bg, N]
+        recv_bg = _exchange_segments(
+            plan.meta["bg_segments"], comm.group_shift, R_bg,
+            _slice_fetch(send_bg), send_bg, local=plan.meta["local_b"])
+
+        # Stage I.① intra-group pre-aggregation: rowp rows are laid out
+        # shift-major — (dg·L + ld)·max_cg + slot — so the aggregated
+        # tile for group shift dg sits at agg[:, dg]
+        partials = be.compute(pieces["rowp"], b_loc, G * L * max_cg)
+        agg = comm.local_psum_scatter(
+            partials.reshape(P_, G, L * max_cg, n), dim=1)  # [P, G, max_cg, N]
+
+        # Stage II.② inter-group C transfer, bucketed per shift: the send
+        # slab for shift dg is the pre-aggregated tile agg[:, dg]
+        recv_cg = _exchange_segments(
+            plan.meta["cg_segments"], comm.group_shift, R_cg,
+            lambda dg, off, slot: agg[:, dg, :slot], agg,
+            local=plan.meta["local_c"])
+
+        # Stage II.② intra-group B distribution, re-laid segment-major
+        all_bg = comm.local_all_gather(recv_bg)  # [P, L, R_bg, N]
+        gathered = _hier_gathered(all_bg, plan.meta["bg_all"], R_bg)
+
+        c = be.compute(pieces["diag"], b_loc, m_local)
+        c = c + be.compute(pieces["colp"], gathered, m_local)
+        c = scatter_add_rows_exec_op(c, recv_cg, plan.agg_perm,
+                                     plan.agg_meta)
+    else:
+        _need_overlap_layouts(plan, "hier_exec_arrays")
+
+        # Stage I.① inter-group B fetch, issued round by round; the
+        # shift-0 own-group segment never touches the wire
+        send_bg = pack_rows_op(b_loc, plan.b_group_send_idx)  # [P, R_bg, N]
+        b_segs = []
+        for dg, off, slot in plan.meta["bg_all"]:
+            seg = send_bg[:, off:off + slot]
+            b_segs.append(comm.group_shift(seg, dg) if dg else seg)
+
+        # Stage I.① intra-group pre-aggregation, one reduce-scatter per
+        # consumed group shift — round dg's inter-group C transfer
+        # departs as soon as ITS tile is aggregated
+        partials = be.compute(pieces["rowp"], b_loc, G * L * max_cg)
+        partials = partials.reshape(P_, G, L * max_cg, n)
+        c_segs = []
+        for dg, off, slot in plan.meta["cg_all"]:
+            seg = comm.local_psum_scatter(partials[:, dg], dim=0)[:, :slot]
+            c_segs.append(comm.group_shift(seg, dg) if dg else seg)
+
+        # Stage II: own-group compute first, then gather and consume each
+        # B slab as it lands
+        c = be.compute(pieces["diag"], b_loc, m_local)
+        gathered = (comm.local_all_gather(seg).reshape(P_, -1, n)
+                    for seg in b_segs)
+        c = c + _colp_rounds(be, pieces, gathered, b_loc, m_local)
+
+        # per-round aggregation of the inter-group partials
+        c = _aggregate_rounds(c, c_segs, plan.seg_agg)
     return c.reshape(P_ * m_local, n)

@@ -13,8 +13,9 @@ A^(p,q), decide per-nonzero between row-based and column-based communication
 * a global ``SpmmPlan`` with the padded static buffer layout needed for
   a static all_to_all (see core.dist_spmm).
 
-The reference's hierarchical and replicated plans come with the slices
-that port their executors (ROADMAP items 7 and 10).
+The two-tier plan derived from this one is ``core.hierarchy``'s; the
+reference's replicated plan comes with the slice that ports its
+executor (ROADMAP item 10).
 
 Everything here is NumPy / pure Python and runs once per sparsity pattern;
 the paper amortizes this exactly the same way (§5.3.2, §7.6).

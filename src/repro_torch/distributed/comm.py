@@ -10,13 +10,18 @@ pairs it connects and ``rows`` the rows all ranks place in its operand
 (the count ``SpmmPlan.volume_rows_padded`` predicts). The log stands in
 for the reference's pins on lowered HLO.
 
-``psum_scatter`` and ``all_gather`` come with the hierarchical executor;
-a ``torch.distributed`` communicator with this API comes with the
-multi-process slice.
+``LocalComm(P, groups=G)`` also lays the ranks out as the reference's
+two-axis (G, L) mesh (``make_spmm_mesh(P, groups=G)``): rank p is
+(g, l) = (p // L, p % L), and the hierarchical executor runs its
+collectives over either axis — ``group_all_to_all`` / ``group_shift``
+over the group axis (slow tier, op names ending ``@g``),
+``local_psum_scatter`` / ``local_all_gather`` over the local axis (fast
+tier, ``@l``). ``rows(axis)`` counts one axis. A ``torch.distributed``
+communicator with this API comes with the multi-process slice.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -26,22 +31,44 @@ Pairs = Tuple[Tuple[int, int], ...]
 
 
 class LocalComm:
-    """Collectives on the leading rank axis of stacked ``[P, ...]`` tensors."""
+    """Collectives on the leading rank axis of stacked ``[P, ...]`` tensors.
 
-    def __init__(self, P: int):
+    ``groups`` is the group count G of the (G, L) grid the grid
+    collectives run over (L = P // G); the flat collectives ignore it.
+    """
+
+    def __init__(self, P: int, groups: int = 1):
         self.P = int(P)
+        self.G = int(groups)
+        if self.G < 1 or self.P % self.G:
+            raise ValueError(f"groups={groups} does not divide P={P}")
+        self.L = self.P // self.G
         self.log: List[Tuple[str, Pairs, int]] = []
 
     def _record(self, op: str, pairs: Pairs, x: torch.Tensor) -> None:
         rows = x.numel() // x.shape[-1] if x.dim() and x.shape[-1] else 0
         self.log.append((op, pairs, int(rows)))
 
-    def rows(self) -> int:
-        """Rows placed in collective operands since the last ``reset``."""
-        return sum(r for _, _, r in self.log)
+    def rows(self, axis: Optional[str] = None) -> int:
+        """Rows placed in collective operands since the last ``reset``:
+        all of them, or those of one axis — ``"x"`` (the flat
+        collectives), ``"g"`` (group axis) or ``"l"`` (local axis)."""
+        def on(op: str) -> bool:
+            if axis is None:
+                return True
+            return op.endswith("@" + axis) if axis in ("g", "l") \
+                else "@" not in op
+        return sum(r for op, _, r in self.log if on(op))
 
     def reset(self) -> None:
         self.log.clear()
+
+    def _check_lead(self, x: torch.Tensor, what: str) -> None:
+        if x.shape[0] != self.P:
+            raise ValueError(f"{what} operand must lead with [{self.P}], "
+                             f"got {tuple(x.shape)}")
+
+    # ----- the flat axis ------------------------------------------------
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """Untiled all_to_all, split and concat on the first per-rank axis.
@@ -59,22 +86,21 @@ class LocalComm:
         return x.transpose(0, 1).contiguous()
 
     def ppermute(self, x: torch.Tensor,
-                 perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+                 perm: Sequence[Tuple[int, int]],
+                 op: str = "ppermute") -> torch.Tensor:
         """``jax.lax.ppermute``: rank ``src`` sends its slice to ``dst``.
 
         Ranks that no pair sends to receive zeros. A full shift
         ``[(q, (q + d) % P) for q]`` is ``torch.roll(x, d, 0)``.
         """
         perm = tuple((int(s), int(d)) for s, d in perm)
-        if x.shape[0] != self.P:
-            raise ValueError(f"ppermute operand must lead with [{self.P}], "
-                             f"got {tuple(x.shape)}")
+        self._check_lead(x, "ppermute")
         srcs = [s for s, _ in perm]
         dsts = [d for _, d in perm]
         if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
             raise ValueError(f"ppermute needs a partial permutation, got "
                              f"{perm}")
-        self._record("ppermute", perm, x)
+        self._record(op, perm, x)
         shifts = {(d - s) % self.P for s, d in perm}
         if len(perm) == self.P and len(shifts) == 1:
             return torch.roll(x, shifts.pop(), 0)
@@ -87,3 +113,77 @@ class LocalComm:
         """ppermute over the shift-``d`` matching ``q -> (q + d) % P``."""
         return self.ppermute(x, [(q, (q + d) % self.P)
                                  for q in range(self.P)])
+
+    # ----- the (G, L) grid ----------------------------------------------
+
+    def group_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """all_to_all over the group axis: ``jax.lax.all_to_all(x, "g", 0,
+        0, tiled=False)`` on every rank.
+
+        ``x`` is [P, G(dst), ...]; rank (g, l) receives
+        ``out[(g', l)][g] = x[(g, l)][g']`` — a transpose of dims 0 and 2
+        of the [G, L, G, ...] view. Each rank pairs only with the ranks of
+        its own local index.
+        """
+        G, L = self.G, self.L
+        self._check_lead(x, "group all_to_all")
+        if x.dim() < 2 or x.shape[1] != G:
+            raise ValueError(f"group all_to_all operand must be "
+                             f"[{self.P}, {G}, ...], got {tuple(x.shape)}")
+        pairs = tuple((g * L + l, h * L + l) for g in range(G)
+                      for l in range(L) for h in range(G))
+        self._record("all_to_all@g", pairs, x)
+        rest = tuple(x.shape[2:])
+        v = x.reshape((G, L, G) + rest)
+        return v.transpose(0, 2).contiguous().reshape((self.P, G) + rest)
+
+    def group_shift(self, x: torch.Tensor, dg: int) -> torch.Tensor:
+        """ppermute over the group axis by shift ``dg``: (g, l) sends to
+        ((g + dg) % G, l) — the global shift by ``dg·L`` ranks."""
+        return self.ppermute(
+            x, [(q, (q + dg * self.L) % self.P) for q in range(self.P)],
+            op="ppermute@g")
+
+    def _local_pairs(self) -> Pairs:
+        L = self.L
+        return tuple((g * L + a, g * L + b) for g in range(self.G)
+                     for a in range(L) for b in range(L))
+
+    def local_psum_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Reduce-scatter over the local axis: ``jax.lax.psum_scatter(x,
+        "l", scatter_dimension=dim, tiled=True)`` on every rank.
+
+        ``dim`` indexes the per-rank dims of ``x`` [P, ...]. Rank (g, l)
+        gets chunk l (along ``dim``) of the sum over l' of x[(g, l')].
+        The sum is a left fold in ascending l', whatever the shape: every
+        element's chain is x[(g, 0)] + x[(g, 1)] + … + x[(g, L-1)], so a
+        staged reduce-scatter of a whole operand and one per slice of it
+        give the same bits.
+        """
+        G, L = self.G, self.L
+        self._check_lead(x, "local psum_scatter")
+        rest = tuple(x.shape[1:])
+        if not 0 <= dim < len(rest) or rest[dim] % L:
+            raise ValueError(f"psum_scatter dim {dim} of per-rank shape "
+                             f"{rest} is not divisible by L={L}")
+        self._record("psum_scatter@l", self._local_pairs(), x)
+        v = x.reshape((G, L) + rest)
+        acc = v[:, 0]
+        for l in range(1, L):
+            acc = acc + v[:, l]
+        # acc [G, *rest] -> chunk l along dim -> [G, L, *rest/L]
+        split = (G,) + rest[:dim] + (L, rest[dim] // L) + rest[dim + 1:]
+        out = acc.reshape(split).movedim(dim + 1, 1)
+        return out.reshape((self.P,) + rest[:dim] + (rest[dim] // L,)
+                           + rest[dim + 1:])
+
+    def local_all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """All-gather over the local axis: ``jax.lax.all_gather(x, "l",
+        axis=0, tiled=False)`` on every rank — rank (g, l) gets
+        ``stack_l'(x[(g, l')])``, [P, L, ...]."""
+        G, L = self.G, self.L
+        self._check_lead(x, "local all_gather")
+        self._record("all_gather@l", self._local_pairs(), x)
+        rest = tuple(x.shape[1:])
+        v = x.reshape((G, 1, L) + rest).expand((G, L, L) + rest)
+        return v.reshape((self.P, L) + rest)

@@ -4,7 +4,9 @@ Port of ``repro/distributed/topology.py`` for this slice: P ranks
 emulated on ONE device (``Topology.local(P, device)``). The substrate has
 no tiers, so ``network()`` returns the model network unchanged (the
 paper's TSUBAME-like one by default) and ``SpmmConfig(net="auto")``
-decides exactly as the reference does on a flat substrate.
+decides exactly as the reference does on a flat substrate. For the same
+reason ``hier="auto"`` groups the ranks by ``fallback_grouping``, the
+reference's guess for a substrate with no intrinsic (G, L) structure.
 
 Entry points default to ``device="cuda"`` and raise when no CUDA device
 is present; pass ``device="cpu"`` to run the kernels' plain versions.
@@ -12,16 +14,26 @@ is present; pass ``device="cpu"`` to run the kernels' plain versions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-__all__ = ["Topology", "TopologyError", "resolve_device"]
+__all__ = ["Topology", "TopologyError", "fallback_grouping",
+           "resolve_device"]
 
 
 class TopologyError(ValueError):
     """A topology cannot satisfy the requested execution substrate."""
+
+
+def fallback_grouping(P: int, group_size: int) -> Optional[Tuple[int, int]]:
+    """Largest fast-tier group size L | P with 2 <= L <= ``group_size``,
+    as (G, L) = (P // L, L); None when no such L leaves G >= 2."""
+    for L in range(min(int(group_size), P - 1), 1, -1):
+        if P % L == 0 and P // L >= 2:
+            return P // L, L
+    return None
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda"
@@ -84,6 +96,11 @@ class Topology:
                 f"ranks, but the given one has {topo.P}; pass the int "
                 f"{int(expect_p)} or a Topology over {int(expect_p)} ranks")
         return topo
+
+    def auto_grouping(self, net) -> Optional[Tuple[int, int]]:
+        """The (G, L) grouping ``hier="auto"`` evaluates: one device has no
+        tiers, so the largest L | P with 2 <= L <= ``net.group_size``."""
+        return fallback_grouping(self.P, int(net.group_size))
 
     def network(self, default=None):
         """The NetworkSpec ``net="auto"`` scores against: ``default`` (the

@@ -2,8 +2,9 @@
 
 Decisions equal the reference's, C matches it, the executable memo counts
 hits, save/load gives a bit-identical C, the CUDA default refuses to run
-without a card, unported options raise, and the port imports neither JAX
-nor the JAX package.
+without a card, the ``hier=`` options build two-tier handles with the
+reference's decisions, unported options raise, and the port imports
+neither JAX nor the JAX package.
 """
 import ast
 import dataclasses
@@ -121,15 +122,115 @@ def test_cuda_default_raises_without_cuda(monkeypatch, power_law_matrix):
 
 
 @pytest.mark.parametrize("fields,item", [
-    (dict(hier="auto"), "7"), (dict(hier=(2, 4)), "7"),
-    (dict(kernel="sddmm", hier="auto"), "7"),
-    (dict(kernel="fused", hier=(2, 4)), "7"), (dict(replicate=2), "10"),
-    (dict(replicate="auto"), "10"), (dict(measure=True), "11"),
+    (dict(replicate=2), "10"), (dict(replicate="auto"), "10"),
+    (dict(measure=True), "11"),
 ], ids=lambda v: ",".join(f"{k}={x}" for k, x in v.items())
     if isinstance(v, dict) else f"item{v}")
 def test_unported_options_raise(fields, item):
     with pytest.raises(NotImplementedError, match=f"open item {item}"):
         T.SpmmConfig(**fields)
+
+
+# the reference's hier exec pieces pass through jax.tree_util, which
+# sorts their backend keys, so its ``backends`` is compared as a set
+HIER_KEYS = tuple(k for k in STATS_KEYS if k != "backends") + (
+    "G", "L", "kernel", "modeled_time_flat", "modeled_time_hier",
+    "hier_candidate")
+
+
+@pytest.mark.parametrize("fields", [
+    dict(hier="auto"), dict(hier=(2, 4)),
+    dict(kernel="sddmm", hier="auto"), dict(kernel="fused", hier=(2, 4)),
+], ids=lambda v: ",".join(f"{k}={x}" for k, x in v.items()))
+def test_hier_options_compile(fields, power_law_matrix):
+    """The hier configs build a handle with the reference's decisions, and
+    its C (and the sampled values / fused C of the sibling kernels)
+    matches the reference handle's."""
+    a = power_law_matrix()
+    cfg = dict(fields, backends=("coo", "bsr"))
+    ref = R.compile_spmm(a, 8, R.SpmmConfig(**cfg))
+    h = T.compile_spmm(_port_csr(a), 8, T.SpmmConfig(**cfg), device="cpu")
+    assert h.strategy == ref.strategy == "hier"
+    assert h.decisions == ref.decisions
+    want, got = ref.stats(), h.stats()
+    assert {k: got[k] for k in HIER_KEYS} == {k: want[k] for k in HIER_KEYS}
+    assert set(got["backends"]) == set(want["backends"])
+    assert f"hier(G={got['G']},L={got['L']})" in repr(h)
+    rng = np.random.default_rng(4)
+    x, y = (rng.standard_normal((64, 4)).astype(np.float32)
+            for _ in range(2))
+    b = _b(seed=4)
+    for be in ("coo", "bsr"):
+        np.testing.assert_allclose(
+            h(b, kernel="spmm", backend=be).numpy(),
+            np.asarray(ref(b, kernel="spmm", backend=be)),
+            rtol=2e-4, atol=2e-4)
+        assert h.comm.rows("g") == h.schedule.volume_rows_padded()
+    if fields.get("kernel") == "sddmm":
+        vals, want_vals = h(x, y), ref(x, y)
+        for piece in vals:
+            np.testing.assert_allclose(
+                vals[piece].numpy(), np.asarray(want_vals[piece]).reshape(
+                    vals[piece].shape), rtol=2e-4, atol=2e-4)
+    if fields.get("kernel") == "fused":
+        np.testing.assert_allclose(h(x, y, b).numpy(),
+                                   np.asarray(ref(x, y, b)),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_hier_auto_on_hub_picks_two_tiers():
+    """``tests/test_api.py``'s acceptance case on the port: hier="auto"
+    on a hub pattern under the TSUBAME-like network keeps (G, L) = (2, 4)."""
+    a = R.hub_sparse(64, 64, 2, 2, 0.3, 3)
+    h = T.compile_spmm(_port_csr(a), 8, T.SpmmConfig(
+        hier="auto", backends=("coo", "bsr")), device="cpu")
+    st = h.stats()
+    assert h.strategy == "hier" and (st["G"], st["L"]) == (2, 4)
+    assert st["modeled_time_hier"] < st["modeled_time_flat"]
+    b = _b(seed=1)
+    for be in ("coo", "bsr"):
+        np.testing.assert_allclose(h(b, backend=be).numpy(),
+                                   a.to_dense() @ b, rtol=1e-4, atol=1e-4)
+    ref = R.compile_spmm(a, 8, R.SpmmConfig(hier="auto"))
+    assert h.decisions == ref.decisions
+
+
+def test_hier_forced_single_round(power_law_matrix):
+    a = power_law_matrix()
+    cfg = dict(hier=(4, 2), schedule="single", backends=("coo", "bsr"))
+    ref = R.compile_spmm(a, 8, R.SpmmConfig(**cfg))
+    h = T.compile_spmm(_port_csr(a), 8, T.SpmmConfig(**cfg), device="cpu")
+    st = h.stats()
+    assert (st["G"], st["L"], st["schedule_kind"]) == (4, 2, "single")
+    assert h.decisions == ref.decisions
+    assert st["volume_rows_padded"] == st["volume_rows_padded_single"] == \
+        ref.stats()["volume_rows_padded"]
+    b = _b(seed=2)
+    c = h(b, backend="bsr")
+    np.testing.assert_allclose(c.numpy(), a.to_dense() @ b, rtol=2e-4,
+                               atol=2e-4)
+    assert [op for op, _, _ in h.comm.log] == [
+        "all_to_all@g", "psum_scatter@l", "all_to_all@g", "all_gather@l"]
+    with pytest.raises(ValueError, match="incompatible with P=8"):
+        T.compile_spmm(_port_csr(a), 8, hier=(3, 2), device="cpu")
+    with pytest.raises(ValueError, match="hier must be"):
+        T.SpmmConfig(hier=4)
+
+
+@pytest.mark.parametrize("schedule", ["single", 2])
+def test_hier_save_load_bit_identical(tmp_path, power_law_matrix, schedule):
+    h = T.compile_spmm(_port_csr(power_law_matrix()), 8,
+                       T.SpmmConfig(backends=("coo", "bsr"), hier=(2, 4),
+                                    schedule=schedule, overlap=True),
+                       device="cpu")
+    path = tmp_path / "hier.shiro"
+    h.save(str(path))
+    h2 = T.DistSpmm.load(str(path), device="cpu")
+    assert h2.strategy == "hier" and h2.decisions == h.decisions
+    assert h2.stats()["G"] == 2 and h2.overlap == h.overlap
+    b = _b(seed=6)
+    for be in ("coo", "bsr"):
+        assert torch.equal(h2(b, backend=be), h(b, backend=be))
 
 
 def test_guards(power_law_matrix):

@@ -1,4 +1,9 @@
-"""LocalComm's collectives equal jax.lax's under shard_map on 8 CPU devices."""
+"""LocalComm's collectives equal jax.lax's under shard_map on 8 CPU devices.
+
+The flat axis on ``make_spmm_mesh(P)``; the (G, L) grid collectives on
+``make_spmm_mesh(P, groups=G)`` (rank p = (p // L, p % L)), and the
+reduce-scatter's fixed ascending-l fold.
+"""
 import numpy as np
 import pytest
 
@@ -8,7 +13,9 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 from jax.sharding import PartitionSpec  # noqa: E402
 
-from repro.compat import all_to_all, ppermute, shard_map  # noqa: E402
+from repro.compat import (  # noqa: E402
+    all_to_all, ppermute, psum_scatter, shard_map,
+)
 from repro.launch.mesh import make_spmm_mesh  # noqa: E402
 from repro_torch.distributed.comm import LocalComm  # noqa: E402
 
@@ -66,3 +73,120 @@ def test_ppermute_rejects_non_permutations():
         comm.ppermute(torch.zeros(P, 2, 2), [(0, 1), (2, 1)])
     with pytest.raises(ValueError, match="lead with"):
         comm.ppermute(torch.zeros(P - 1, 2, 2), [(0, 1)])
+
+
+GRIDS = [(2, 4), (4, 2)]
+
+
+def _per_grid_rank(body, x: np.ndarray, G: int) -> np.ndarray:
+    """``body`` on every device of the (G, L) mesh, x[p] at device
+    (p // L, p % L); results stacked in rank order."""
+    L = P // G
+    mesh = make_spmm_mesh(P, groups=G)
+    gl = PartitionSpec("g", "l")
+    fn = shard_map(lambda v: body(v[0, 0])[None, None], mesh=mesh,
+                   in_specs=(gl,), out_specs=gl)
+    out = np.asarray(fn(jnp.asarray(x.reshape((G, L) + x.shape[1:]))))
+    return out.reshape((P,) + out.shape[2:])
+
+
+@pytest.mark.parametrize("G", [g for g, _ in GRIDS])
+def test_group_all_to_all_matches_jax(G):
+    x = np.random.default_rng(G).standard_normal((P, G, 3, 4)).astype(
+        np.float32)
+    ref = _per_grid_rank(lambda v: all_to_all(v, "g", 0, 0, tiled=False), x,
+                         G)
+    comm = LocalComm(P, groups=G)
+    np.testing.assert_array_equal(
+        comm.group_all_to_all(torch.from_numpy(x)).numpy(), ref)
+    (op, pairs, rows), = comm.log
+    L = P // G
+    assert op == "all_to_all@g" and rows == P * G * 3
+    assert {(s % L, d % L) for s, d in pairs} == {(l, l) for l in range(L)}
+    assert comm.rows("g") == rows and comm.rows("l") == comm.rows("x") == 0
+
+
+@pytest.mark.parametrize("G", [g for g, _ in GRIDS])
+def test_group_shift_matches_jax_ppermute(G):
+    x = np.random.default_rng(G + 1).standard_normal((P, 5, 2)).astype(
+        np.float32)
+    comm = LocalComm(P, groups=G)
+    for dg in range(G):
+        perm = [(g, (g + dg) % G) for g in range(G)]
+        ref = _per_grid_rank(lambda v: ppermute(v, "g", perm), x, G)
+        np.testing.assert_array_equal(
+            comm.group_shift(torch.from_numpy(x), dg).numpy(), ref)
+    # the group shift by dg is the global shift by dg·L ranks
+    L = P // G
+    assert [pairs for _, pairs, _ in comm.log] == [
+        tuple((q, (q + dg * L) % P) for q in range(P)) for dg in range(G)]
+    assert comm.rows("g") == G * P * 5
+
+
+@pytest.mark.parametrize("G", [g for g, _ in GRIDS])
+@pytest.mark.parametrize("dim", [0, 1])
+def test_local_psum_scatter_matches_jax(G, dim):
+    """Integer-valued operands, so every order of the sum is exact and the
+    comparison with jax's reduce-scatter can be bit for bit."""
+    L = P // G
+    shape = [(P, 3 * L, 2, 4), (P, 3, 2 * L, 4)][dim]
+    x = np.random.default_rng(dim).integers(-50, 50, shape).astype(
+        np.float32)
+    ref = _per_grid_rank(lambda v: psum_scatter(
+        v, "l", scatter_dimension=dim, tiled=True), x, G)
+    comm = LocalComm(P, groups=G)
+    out = comm.local_psum_scatter(torch.from_numpy(x), dim)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    (op, pairs, rows), = comm.log
+    assert op == "psum_scatter@l" and rows == int(np.prod(shape[:-1]))
+    assert {(s // L, d // L) for s, d in pairs} == {(g, g) for g in range(G)}
+
+
+@pytest.mark.parametrize("G", [g for g, _ in GRIDS])
+def test_local_all_gather_matches_jax(G):
+    x = np.random.default_rng(G + 7).standard_normal((P, 3, 2)).astype(
+        np.float32)
+    ref = _per_grid_rank(lambda v: jax.lax.all_gather(
+        v, "l", axis=0, tiled=False), x, G)
+    comm = LocalComm(P, groups=G)
+    out = comm.local_all_gather(torch.from_numpy(x))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert out.shape == (P, P // G, 3, 2)
+    assert comm.log[0][0] == "all_gather@l" and comm.rows("l") == P * 3
+
+
+@pytest.mark.parametrize("G", [g for g, _ in GRIDS])
+def test_psum_scatter_ascending_fold_is_shape_independent(G):
+    """The reduce-scatter sums in one fixed chain, x[(g, 0)] + x[(g, 1)] +
+    … + x[(g, L-1)] left to right: the staged executor's reduce-scatter
+    of the whole [G, L·m, N] operand and the overlapped executor's one
+    per group shift give the same bits, and both equal that chain."""
+    L = P // G
+    m, n = 5, 3
+    x = torch.from_numpy(np.random.default_rng(G).standard_normal(
+        (P, G, L * m, n)).astype(np.float32) * 10 ** np.random.default_rng(
+        G + 1).uniform(-4, 4, (P, G, L * m, 1)).astype(np.float32))
+    comm = LocalComm(P, groups=G)
+    staged = comm.local_psum_scatter(x, 1)  # [P, G, m, n]
+    v = x.reshape(G, L, G, L * m, n)
+    chain = v[:, 0].clone()
+    for l in range(1, L):
+        chain = chain + v[:, l]
+    for dg in range(G):
+        per_shift = comm.local_psum_scatter(x[:, dg], 0)  # [P, m, n]
+        assert torch.equal(per_shift, staged[:, dg])
+        for g in range(G):
+            for l in range(L):
+                assert torch.equal(per_shift[g * L + l],
+                                   chain[g, dg, l * m:(l + 1) * m])
+    assert comm.rows("l") == P * G * L * m * 2
+
+
+def test_grid_rejects_bad_shapes():
+    with pytest.raises(ValueError, match="does not divide"):
+        LocalComm(P, groups=3)
+    comm = LocalComm(P, groups=2)
+    with pytest.raises(ValueError, match="group all_to_all"):
+        comm.group_all_to_all(torch.zeros(P, 3, 2))
+    with pytest.raises(ValueError, match="not divisible"):
+        comm.local_psum_scatter(torch.zeros(P, 6, 2), 0)

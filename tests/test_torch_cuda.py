@@ -646,6 +646,117 @@ def test_flat_fused_bsr_repeats_bit_for_bit():
     np.testing.assert_allclose(c1.cpu().numpy(), want, rtol=2e-4, atol=2e-4)
 
 
+def _hier_case(G, L, K):
+    """A hier exec plan on the CPU and its copy on the card."""
+    from repro_torch.core import (
+        comm_schedule, dist_spmm, hierarchy, planner, sparse,
+    )
+
+    a = sparse.power_law_sparse(512, 512, 6000, 1.2, seed=2)
+    hier = hierarchy.build_hier_plan(planner.build_plan(a, G * L), G, L)
+    sched = None if K is None else comm_schedule.build_hier_comm_schedule(
+        hier, K=K)
+    ex = dist_spmm.hier_exec_arrays(hier, backends=("coo", "bsr"),
+                                    schedule=sched)
+    return a, ex, ex.to("cuda")
+
+
+HIER_CASES = [(2, 4, None), (2, 4, 1), (4, 2, None), (4, 2, 4)]
+
+
+@requires_cuda
+@pytest.mark.parametrize("G,L,K", HIER_CASES, ids=str)
+@pytest.mark.parametrize("backend", ["coo", "bsr"])
+def test_hier_spmm_on_the_card_matches_cpu(G, L, K, backend):
+    """The two-tier executor through the kernels: C within 2e-4 of the
+    CPU run of the plain versions (and of float64), overlapped == staged
+    and call == call bit for bit, the same collective log as the CPU."""
+    from repro_torch.core.dist_spmm import hier_spmm
+    from repro_torch.distributed.comm import LocalComm
+
+    a, ex_cpu, ex = _hier_case(G, L, K)
+    b = torch.randn((512, 64), device="cuda")
+    before = launch_counts()
+    comm = LocalComm(G * L, G)
+    staged = hier_spmm(ex, b, comm, backend=backend)
+    again = hier_spmm(ex, b, backend=backend)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    kernels = ("gather_rows", "scatter_add_rows") + (
+        ("gather_rows_scaled",) if backend == "coo" else ("bsr_spmm",))
+    for k in kernels:
+        assert after[k] > before[k], k
+    assert torch.equal(again, staged)
+    cpu_comm = LocalComm(G * L, G)
+    cpu = hier_spmm(ex_cpu, b.cpu(), cpu_comm, backend=backend)
+    assert comm.log == cpu_comm.log
+    np.testing.assert_allclose(staged.cpu().numpy(), cpu.numpy(), rtol=2e-4,
+                               atol=2e-4)
+    want = a.to_dense().astype(np.float64) @ b.double().cpu().numpy()
+    np.testing.assert_allclose(staged.cpu().numpy(), want, rtol=2e-4,
+                               atol=2e-4)
+    if K is not None:
+        before = launch_counts()["bsr_spmm_acc"]
+        over = hier_spmm(ex, b, backend=backend, overlap=True)
+        torch.cuda.synchronize()
+        assert torch.equal(over, staged)
+        if backend == "bsr":
+            assert launch_counts()["bsr_spmm_acc"] > before
+
+
+@requires_cuda
+@pytest.mark.parametrize("G,L,K", HIER_CASES, ids=str)
+@pytest.mark.parametrize("backend", ["coo", "bsr"])
+def test_hier_fused_on_the_card_matches_cpu(G, L, K, backend):
+    from repro_torch.core.dist_sddmm import hier_fused
+
+    a, ex_cpu, ex = _hier_case(G, L, K)
+    x, y = torch.randn((512, 16), device="cuda"), \
+        torch.randn((512, 16), device="cuda")
+    b = torch.randn((512, 32), device="cuda")
+    before = launch_counts()
+    c1 = hier_fused(ex, x, y, b, backend=backend, edge="leaky_relu")
+    c2 = hier_fused(ex, x, y, b, backend=backend, edge="leaky_relu")
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert torch.equal(c1, c2)
+    if backend == "bsr":
+        assert after["bsr_sddmm"] > before["bsr_sddmm"]
+    cpu = hier_fused(ex_cpu, x.cpu(), y.cpu(), b.cpu(), backend=backend,
+                     edge="leaky_relu")
+    np.testing.assert_allclose(c1.cpu().numpy(), cpu.numpy(), rtol=2e-4,
+                               atol=2e-4)
+    s = a.to_dense().astype(np.float64) * (
+        x.double().cpu().numpy() @ y.double().cpu().numpy().T)
+    want = np.where(s > 0, s, 0.2 * s) @ b.double().cpu().numpy()
+    np.testing.assert_allclose(c1.cpu().numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@requires_cuda
+@pytest.mark.parametrize("G", [2, 4])
+def test_grid_collectives_on_cuda_equal_cpu(G):
+    """Every grid collective is a device copy or a fixed chain of float
+    additions: on the card it gives the CPU's bits."""
+    from repro_torch.distributed.comm import LocalComm
+
+    P_, L = 8, 8 // G
+    gen = torch.Generator().manual_seed(G)
+    x = torch.randn((P_, G, 3 * L, 5), generator=gen) * torch.exp(
+        4 * torch.randn((P_, G, 3 * L, 1), generator=gen))
+    cpu, card = LocalComm(P_, G), LocalComm(P_, G)
+    xc = x.cuda()
+    pairs = [
+        (cpu.group_all_to_all(x), card.group_all_to_all(xc)),
+        (cpu.local_psum_scatter(x, 1), card.local_psum_scatter(xc, 1)),
+        (cpu.local_psum_scatter(x[:, 1], 0),
+         card.local_psum_scatter(xc[:, 1], 0)),
+        (cpu.local_all_gather(x), card.local_all_gather(xc)),
+    ] + [(cpu.group_shift(x, d), card.group_shift(xc, d)) for d in range(G)]
+    for want, got in pairs:
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert card.log == cpu.log
+
+
 RMS_SHAPES = [
     # (leading dims, D): test_rmsnorm_kernel_matches_ref's four shapes, the
     # OLMoE width at decode (8 rows) and prefill (1024 rows), a 3-d input,
