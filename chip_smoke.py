@@ -55,10 +55,22 @@ handle. Phases, each of which raises on a failed check:
    fused log's group pairs equal the spmm call's; each kernel's hier
    calls are replayed against its plain version as in phase 2 (paths
    ``hier_*`` in the kernels line);
+5c. replicated: the two SpMM cells with ``replicate="auto"`` —
+   ``compile_spmm`` on the uniform matrix (coo and bsr: K1 in both forms,
+   K2, K3) and the power-law one (coo: K1, K2), each on c = 2 lanes of
+   s = 4 shards. Decisions equal the reference's (``EXPECT_REPL``: c, s,
+   the lane shifts, the rounds, R_b, R_c, ``volume_rows_padded``, the
+   modeled times), C within 2e-4 of scipy float64, the lane-axis rows of
+   the log == ``volume_rows_padded`` (the replica reduce-scatter's rows
+   and B's c-fold copy logged apart), call == call bit for bit, coo vs
+   bsr within 2e-4, every kernel of the cell launched; each kernel's
+   replicated calls are replayed against its plain version as in phase 2
+   (paths ``repl_*`` in the kernels line);
 6. timing: median ``h(b)`` per backend and median GAT forward per backend,
-   each hier cell beside the flat one on the same matrix (``--profile``
-   also names the device time of each kind of collective: the
-   reduce-scatter's additions, the all_gather's copies, the rolls);
+   each hier and replicated cell beside the flat one on the same matrix
+   (``--profile`` also names the device time of each kind of collective:
+   the reduce-scatters' additions, the all_gather's copies, the rolls,
+   the lane exchanges and B's c-fold copy);
 7. LM serving: OLMoE-1B-7B at its published width (bfloat16, 16 layers,
    d_model 2048, 64 experts top-8, vocab 50304; random weights from
    ``torch.Generator("cuda").manual_seed(0)``; ``--quick``: olmoe-smoke)
@@ -180,6 +192,74 @@ EXPECT_HIER = {
                      volume_rows_padded=20136,
                      volume_rows_padded_single=40272, pattern_nnz=131035),
                 dict(max_bg=703, max_cg=1814, R_bg=1256, R_cg=3459)),
+    },
+}
+# the reference's replicate="auto" decisions on the two SpMM matrices (the
+# JAX package's _plan_and_tune and build_replicated_schedule, CPU run):
+# (stats(), the exec plan's sizes, the schedule's lane shifts and rounds
+# as (shifts, slot_b, slot_c, off_b, off_c, b_lanes, c_lanes))
+EXPECT_REPL = {
+    "full": {
+        "uniform": (dict(strategy="replicated", P=8, replicate=2,
+                         replica_shards=4, schedule_kind="replicated",
+                         schedule_K=2, overlap=False, volume_rows=370553,
+                         volume_rows_padded=376528,
+                         modeled_time_replicated=0.0009395046684444445,
+                         modeled_time_replicated_c2=0.0009395046684444445,
+                         modeled_time_replicated_c4=0.002736019968,
+                         modeled_time_unreplicated=0.00312929024,
+                         pattern_nnz=1166229),
+                    dict(c=2, s=4, R_b=16232, R_c=46413,
+                         lane_shifts=((3,), (1, 2)),
+                         rounds=(((3, 1), 8093, 23394, 0, 0, (0, 1), (0, 1)),
+                                 ((0, 2), 8139, 23019, 8093, 23394, (1,),
+                                  (1,))))),
+        "power_law": (dict(strategy="replicated", P=8, replicate=2,
+                           replica_shards=4, schedule_kind="replicated",
+                           schedule_K=2, overlap=False, volume_rows=170538,
+                           volume_rows_padded=355900,
+                           modeled_time_replicated=0.0009964943502222222,
+                           modeled_time_replicated_c2=0.0009964943502222222,
+                           modeled_time_replicated_c4=0.002757821240888889,
+                           modeled_time_unreplicated=0.004371014656,
+                           pattern_nnz=1116853),
+                      dict(c=2, s=4, R_b=16794, R_c=40228,
+                           lane_shifts=((3,), (1, 2)),
+                           rounds=(((3, 1), 9862, 22091, 0, 0, (0, 1),
+                                    (0, 1)),
+                                   ((0, 2), 6932, 18137, 9862, 22091, (1,),
+                                    (1,))))),
+    },
+    "quick": {
+        "uniform": (dict(strategy="replicated", P=8, replicate=2,
+                         replica_shards=4, schedule_kind="replicated",
+                         schedule_K=2, overlap=False, volume_rows=36280,
+                         volume_rows_padded=37324,
+                         modeled_time_replicated=0.00010727158044444443,
+                         modeled_time_replicated_c2=0.00010727158044444443,
+                         modeled_time_replicated_c4=0.00028390525155555556,
+                         modeled_time_unreplicated=0.000340499712,
+                         pattern_nnz=114659),
+                    dict(c=2, s=4, R_b=1651, R_c=4546,
+                         lane_shifts=((1,), (2, 3)),
+                         rounds=(((1, 2), 838, 2296, 0, 0, (0, 1), (0, 1)),
+                                 ((0, 3), 813, 2250, 838, 2296, (1,),
+                                  (1,))))),
+        "power_law": (dict(strategy="replicated", P=8, replicate=2,
+                           replica_shards=4, schedule_kind="replicated",
+                           schedule_K=2, overlap=False, volume_rows=17789,
+                           volume_rows_padded=37528,
+                           modeled_time_replicated=0.00011250460444444444,
+                           modeled_time_replicated_c2=0.00011250460444444444,
+                           modeled_time_replicated_c4=0.0002794613191111111,
+                           modeled_time_unreplicated=0.000526092672,
+                           pattern_nnz=107248),
+                      dict(c=2, s=4, R_b=1825, R_c=4165,
+                           lane_shifts=((3,), (1, 2)),
+                           rounds=(((3, 1), 1079, 2313, 0, 0, (0, 1),
+                                    (0, 1)),
+                                   ((0, 2), 746, 1852, 1079, 2313, (1,),
+                                    (1,))))),
     },
 }
 GAT_DIMS = dict(feat_dim=128, hidden=128, n_classes=40, n_layers=2,
@@ -816,11 +896,20 @@ def check_c(c: torch.Tensor, a, b_host: np.ndarray, what: str) -> float:
     return float(np.abs(got - ref).max())
 
 
+def _ex_field(h, k: str):
+    """An exec-plan size by name; a replicated schedule's lane shifts and
+    rounds (as tuples of their fields) under "lane_shifts" / "rounds"."""
+    if k == "lane_shifts":
+        return h.schedule.rplan.lane_shifts
+    if k == "rounds":
+        return tuple(dataclasses.astuple(r) for r in h.schedule.rounds)
+    return h.ex.meta[k] if k in h.ex.meta else getattr(h.ex, k)
+
+
 def check_decisions(h, expect: dict, expect_ex: dict, what: str) -> None:
     st = h.stats()
     got = {k: st[k] for k in expect}
-    got_ex = {k: h.ex.meta[k] if k in h.ex.meta else getattr(h.ex, k)
-              for k in expect_ex}
+    got_ex = {k: _ex_field(h, k) for k in expect_ex}
     log(f"{what} decisions: {json.dumps({**got, **got_ex})}")
     if got != expect or got_ex != expect_ex:
         raise AssertionError(f"{what}: decisions {got} {got_ex} != "
@@ -1280,6 +1369,99 @@ def hier_phase(args, a_u, a_p, adj, b, b_host, model, feats, gat_want,
     return replay_paths(paths), hu, hp, hf, fused_fn
 
 
+def check_repl_cell(h, a, b, b_host, what: str):
+    """Phase 5c's checks on one replicated SpMM handle: a counted run (h(b)
+    per backend, then a cache hit), C against scipy float64, lane-axis
+    rows == ``volume_rows_padded`` on every call (the replica
+    reduce-scatter's rows and B's c-fold copy logged apart), call ==
+    call, coo vs bsr within 2e-4. Returns the counted launches."""
+    from repro_torch.kernels import ops
+
+    backends = h.backends
+    sched = h.schedule
+    want_rows = sched.volume_rows_padded()
+
+    def rows_of(op):
+        return sum(r for o, _, r in h.comm.log if o == op)
+
+    def lane_rows(label):
+        if h.comm.rows("s") != want_rows:
+            raise AssertionError(f"{label}: lane exchanges carried "
+                                 f"{h.comm.rows('s')} rows, the schedule "
+                                 f"says {want_rows}")
+
+    ops.reset_launch_counts()
+    out = {}
+    for be in backends:
+        out[be] = h(b, backend=be)
+        lane_rows(f"{what} {be}")
+    hit = h(b, backend=backends[0])
+    lane_rows(f"{what} {backends[0]} (cache hit)")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"{what} main path launches: {json.dumps(launches)}")
+    want = ["gather_rows", "gather_rows_scaled", "scatter_add_rows"]
+    if "bsr" in backends:
+        want.append("bsr_spmm")
+    if min(launches[k] for k in want) < 1:
+        raise AssertionError(f"{what}: a kernel was not launched "
+                             f"({want}): {launches}")
+    n_lane = sum(1 for o, _, _ in h.comm.log if o == "ppermute@s")
+    log(f"  {what}: lane-axis rows {h.comm.rows('s')} == volume_rows_padded "
+        f"{want_rows} over {n_lane} lane exchanges; replica reduce-scatter "
+        f"rows {rows_of('psum_scatter@r')}; B's {sched.c}-fold copy rows "
+        f"{rows_of('broadcast@r')}")
+    for be, c in out.items():
+        log(f"  {what} {be}: max abs err vs scipy float64 "
+            f"{check_c(c, a, b_host, f'{what} {be}'):.3g} (tol 2e-4)")
+    if not torch.equal(hit, out[backends[0]]):
+        raise AssertionError(f"{what}: two h(b) calls differ")
+    log(f"  {what} {backends[0]}: two h(b) calls bit-identical")
+    if len(out) == 2:
+        log(f"  {what}: coo vs bsr: "
+            f"{check_close(out['coo'], _host64(out['bsr']), what)}")
+    return launches
+
+
+def repl_phase(args, a_u, a_p, b, b_host):
+    """Phase 5c: the two replicate="auto" SpMM cells on the matrices of
+    phases 3-4. Returns (the kernel rows of the replicated paths, the
+    handles)."""
+    from repro_torch import SpmmConfig, compile_spmm
+    from repro_torch.core.dist_spmm import replicated_spmm
+
+    expect = EXPECT_REPL["quick" if args.quick else "full"]
+    rec, counted, handles = {}, {}, []
+    for name, a, path_of in (
+            ("uniform", a_u, {"coo": "repl_uniform_coo",
+                              "bsr": "repl_uniform"}),
+            ("power_law", a_p, {"coo": "repl_power_law"})):
+        t0 = time.perf_counter()
+        h = compile_spmm(a, P, SpmmConfig(backends=tuple(path_of),
+                                          replicate="auto"))
+        log(f"repl {name}: compile_spmm(replicate='auto') "
+            f"{time.perf_counter() - t0:.1f} s: {h}")
+        check_decisions(h, *expect[name], f"repl {name}")
+        # the executor calls h(b, backend=...) make, before the counted run
+        for be, path in path_of.items():
+            rec[path] = record_kernel_calls(
+                lambda: replicated_spmm(h.ex, b, backend=be))
+        launches = check_repl_cell(h, a, b, b_host, f"repl {name}")
+        counted.update({path: launches for path in path_of.values()})
+        handles.append(h)
+
+    coo = ("gather_rows", "gather_rows_scaled", "scatter_add_rows")
+    kernels_of = {
+        "repl_uniform": ("gather_rows", "scatter_add_rows", "bsr_spmm"),
+        "repl_uniform_coo": coo, "repl_power_law": coo,
+    }
+    paths = {}
+    for path, kernels in kernels_of.items():
+        for k in kernels:
+            paths.setdefault(k, {})[path] = (rec[path], counted[path])
+    return replay_paths(paths), handles
+
+
 def median_ms(fn, reps: int = 7):
     """Median device time (CUDA events) and host time of one ``fn()``."""
     dev_ms, host_ms = [], []
@@ -1306,7 +1488,10 @@ class comm_ranges:
     NAMES = {"all_to_all": "comm all_to_all", "ppermute": None,
              "group_all_to_all": "comm all_to_all@g",
              "local_psum_scatter": "comm psum_scatter@l fold",
-             "local_all_gather": "comm all_gather@l copy"}
+             "local_all_gather": "comm all_gather@l copy",
+             "lane_shift": "comm ppermute@s lane",
+             "replica_psum_scatter": "comm psum_scatter@r fold",
+             "replicate": "comm broadcast@r copy"}
 
     def __enter__(self):
         from torch.profiler import record_function
@@ -1799,12 +1984,23 @@ def main() -> int:
     for k, extra in hier_rows.items():
         per_kernel[k].update(extra)
 
+    # 5c. the replicated tier: replicate="auto" on the SpMM matrices ------
+    repl_rows, (hru, hrp) = repl_phase(args, a_u, a_p, b, b_host)
+    for k, extra in repl_rows.items():
+        per_kernel[k].update(extra)
+    del repl_rows
+    gc.collect()
+
     # 6. timing --------------------------------------------------------
-    # each hier cell beside the flat handle on the same matrix, in turns
+    # each hier and replicated cell beside the flat handle on the same
+    # matrix, in turns
     cells = [(h, "coo", "uniform coo"), (hu, "coo", "hier uniform coo"),
+             (hru, "coo", "repl uniform coo"),
              (h, "bsr", "uniform bsr"), (hu, "bsr", "hier uniform bsr"),
+             (hru, "bsr", "repl uniform bsr"),
              (hp, "coo", "power-law coo"),
-             (hph, "coo", "hier power-law coo")]
+             (hph, "coo", "hier power-law coo"),
+             (hrp, "coo", "repl power-law coo")]
     for handle, backend, what in cells:
         dev_ms, host_ms = median_ms(
             lambda: handle(b, backend=backend))
@@ -1839,7 +2035,7 @@ def main() -> int:
     # 7. LM serving, after the SpMM phases' tensors are released ---------
     del (h, hp, hf, model, feats, b, gat_out, vals, x128, y128, c_coo,
          c_bsr, c_hit, c_p, c_p2, hu, hph, hgf, hier_fused_fn, cells,
-         gat_cells, fused_fn)
+         gat_cells, fused_fn, hru, hrp)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

@@ -11,6 +11,7 @@ torch version beside it.
     c = h(b)          # on the card; device="cpu" runs the plain versions
 
     hh = compile_spmm(a, 8, SpmmConfig(hier="auto"))   # two-tier (G, L)
+    hr = compile_spmm(a, 8, SpmmConfig(replicate="auto"))  # 1.5D (c, s)
 
     hf = compile_fused(adj, 8, edge="leaky_relu")   # FusedMM (GAT layers)
     c = hf(q, k, v)   # leaky_relu(A ⊙ (q kᵀ)) @ v through one comm phase

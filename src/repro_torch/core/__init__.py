@@ -1,6 +1,7 @@
 """SHIRO core for the port: host-side planning (copies of the reference's
 NumPy modules), the local backends, the flat and hierarchical SpMM /
-SDDMM / FusedMM executors and the front door."""
+SDDMM / FusedMM executors, the replicated (1.5D) SpMM executor and the
+front door."""
 from .api import (
     DistSpmm, SpmmConfig, compile_fused, compile_sddmm, compile_spmm,
 )
@@ -9,10 +10,12 @@ from .comm_model import (
     choose_hier_fused_schedule, choose_hier_schedule, choose_schedule,
     modeled_time, modeled_time_hier, modeled_time_hier_fused_schedule,
     modeled_time_hier_overlap, modeled_time_hier_schedule,
-    modeled_time_hier_staged, strategy_volumes,
+    modeled_time_hier_staged, modeled_time_replicated,
+    replicated_device_bytes, strategy_volumes,
 )
 from .comm_schedule import (
-    CommRound, CommSchedule, build_comm_schedule, build_hier_comm_schedule,
+    CommRound, CommSchedule, ReplicatedSchedule, ReplRound,
+    build_comm_schedule, build_hier_comm_schedule, build_replicated_schedule,
     single_round_hier_schedule, single_round_schedule,
 )
 from .dist_sddmm import (
@@ -20,15 +23,19 @@ from .dist_sddmm import (
     hier_fused, hier_sddmm, hier_spmm_values,
 )
 from .dist_spmm import (
-    FlatExecPlan, HierExecPlan, flat_exec_arrays, flat_exec_from_numpy,
-    flat_spmm, hier_exec_arrays, hier_exec_from_numpy, hier_spmm,
+    FlatExecPlan, HierExecPlan, ReplicatedExecPlan, flat_exec_arrays,
+    flat_exec_from_numpy, flat_spmm, hier_exec_arrays, hier_exec_from_numpy,
+    hier_spmm, replicated_exec_arrays, replicated_spmm,
 )
 from .hierarchy import HierPlan, build_hier_plan, hier_piece_csrs
 from .local_backend import (
     BsrBackend, CooBackend, available_backends, get_backend,
     register_backend,
 )
-from .planner import SpmmPlan, build_plan, local_piece_csrs, plan_build_count
+from .planner import (
+    ReplicatedPlan, SpmmPlan, build_plan, local_piece_csrs, plan_build_count,
+    replicate_plan,
+)
 from .sparse import (
     COOMatrix, CSRMatrix, csr_from_coo, ell_from_csr, pattern_snapshot,
     power_law_sparse, random_sparse,
@@ -42,19 +49,23 @@ __all__ = [
     "choose_schedule", "modeled_time", "modeled_time_hier",
     "modeled_time_hier_fused_schedule", "modeled_time_hier_overlap",
     "modeled_time_hier_schedule", "modeled_time_hier_staged",
+    "modeled_time_replicated", "replicated_device_bytes",
     "strategy_volumes",
-    "CommRound", "CommSchedule", "build_comm_schedule",
-    "build_hier_comm_schedule", "single_round_hier_schedule",
+    "CommRound", "CommSchedule", "ReplicatedSchedule", "ReplRound",
+    "build_comm_schedule", "build_hier_comm_schedule",
+    "build_replicated_schedule", "single_round_hier_schedule",
     "single_round_schedule",
     "EDGE_FNS", "flat_fused", "flat_sddmm", "flat_spmm_values",
     "fused_sddmm_spmm", "hier_fused", "hier_sddmm", "hier_spmm_values",
-    "FlatExecPlan", "HierExecPlan", "flat_exec_arrays",
-    "flat_exec_from_numpy", "flat_spmm", "hier_exec_arrays",
-    "hier_exec_from_numpy", "hier_spmm",
+    "FlatExecPlan", "HierExecPlan", "ReplicatedExecPlan",
+    "flat_exec_arrays", "flat_exec_from_numpy", "flat_spmm",
+    "hier_exec_arrays", "hier_exec_from_numpy", "hier_spmm",
+    "replicated_exec_arrays", "replicated_spmm",
     "HierPlan", "build_hier_plan", "hier_piece_csrs",
     "BsrBackend", "CooBackend", "available_backends", "get_backend",
     "register_backend",
-    "SpmmPlan", "build_plan", "local_piece_csrs", "plan_build_count",
+    "ReplicatedPlan", "SpmmPlan", "build_plan", "local_piece_csrs",
+    "plan_build_count", "replicate_plan",
     "COOMatrix", "CSRMatrix", "csr_from_coo", "ell_from_csr",
     "pattern_snapshot", "power_law_sparse", "random_sparse",
 ]

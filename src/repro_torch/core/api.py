@@ -1,6 +1,7 @@
 """One front door: ``compile_spmm`` — a planned, autotuned DistSpmm handle.
 
-Port of ``repro/core/api.py`` for the flat and hierarchical executors:
+Port of ``repro/core/api.py`` for the flat, hierarchical and replicated
+executors:
 
     cfg = SpmmConfig(backends=("coo", "bsr"), hier="auto")
     h   = compile_spmm(a, 8, cfg)        # plan + autotune + prepare, once
@@ -34,15 +35,19 @@ copies), so the decisions are the reference's:
    ``modeled_time_overlap`` beats the staged total (``kernel="spmm"``
    only: the SDDMM and fused executors always run staged, and the fused
    kernel picks its schedule with its own α-β model).
-5. every backend in ``backends`` gets its layout prepared once and moved
+5. replication (``kernel="spmm"`` only): ``replicate="auto"`` sweeps
+   c ∈ {2, 4, 8} lanes of s = P/c shards (under ``memory_budget``) and
+   keeps the 1.5D tier iff ``modeled_time_replicated`` beats the chosen
+   flat / hier time; an int c > 1 forces it (staged).
+6. every backend in ``backends`` gets its layout prepared once and moved
    to the device; calls pick among them (``h(b, backend="bsr")``).
 
 The P ranks are emulated on ONE device (``distributed.topology``): the
 handle's tensors live on ``device`` (default ``"cuda"``; raises without a
-card, ``device="cpu"`` runs the kernels' plain versions). Replication,
-measured autotuning, gradients and sessions are later slices of the
-port: a config or call that asks for them raises ``NotImplementedError``
-naming the ROADMAP item.
+card, ``device="cpu"`` runs the kernels' plain versions). Measured
+autotuning, gradients and sessions are later slices of the port: a
+config or call that asks for them raises ``NotImplementedError`` naming
+the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -64,20 +69,23 @@ from .comm_model import (
     modeled_time_fused_schedule, modeled_time_hier,
     modeled_time_hier_fused_schedule, modeled_time_hier_overlap,
     modeled_time_hier_schedule, modeled_time_hier_staged,
-    modeled_time_overlap, modeled_time_schedule, modeled_time_staged,
+    modeled_time_overlap, modeled_time_replicated, modeled_time_schedule,
+    modeled_time_staged, replicated_device_bytes,
 )
 from .comm_schedule import (
-    CommSchedule, build_comm_schedule, build_hier_comm_schedule,
+    CommSchedule, ReplicatedSchedule, build_comm_schedule,
+    build_hier_comm_schedule, build_replicated_schedule,
     single_round_hier_schedule, single_round_schedule,
 )
 from .dist_sddmm import EDGE_FNS, flat_fused, flat_sddmm, hier_fused, hier_sddmm
 from .dist_spmm import (
-    BackendSpec, FlatExecPlan, HierExecPlan, flat_exec_arrays, flat_spmm,
-    hier_exec_arrays, hier_spmm,
+    BackendSpec, FlatExecPlan, HierExecPlan, ReplicatedExecPlan,
+    flat_exec_arrays, flat_spmm, hier_exec_arrays, hier_spmm,
+    replicated_exec_arrays, replicated_spmm,
 )
 from .hierarchy import HierPlan, build_hier_plan
 from .local_backend import get_backend
-from .planner import SpmmPlan, Strategy, build_plan
+from .planner import SpmmPlan, Strategy, build_plan, replicate_plan
 from .sparse import CSRMatrix, PatternSnapshot, pattern_snapshot
 
 __all__ = ["SpmmConfig", "DistSpmm", "compile_spmm", "compile_sddmm",
@@ -133,13 +141,29 @@ class SpmmConfig:
     ``pad_to``         slot-count rounding forwarded to ``build_plan``.
     ``n_dense_hint``   dense column count the model evaluates at.
     ``k_max``          upper bound of the schedule-K sweep under "auto".
+    ``memory_budget``  per-rank byte budget (None = no limit); the
+                       ``replicate="auto"`` sweep drops candidates whose
+                       ``replicated_device_bytes`` exceed it.
     ``check``          ``"auto"``: validate B before the kernels, validate
                        the sparse values at plan time, sampled isfinite
                        sweep of each C; ``"full"``/``True``: sweep every
                        row; ``False``: none of it.
+    ``replicate``      1.5D replication factor ``c``: B is copied to
+                       ``c`` lanes of ``s = P/c`` shards, each lane covers
+                       a disjoint subset of the nonzero shifts, and the
+                       partial C is reduce-scattered over the replica
+                       axis. ``1`` (default) keeps the flat / hier
+                       executors untouched; an int ``c > 1`` forces a
+                       c-lane plan (raising if P, the row blocks or the
+                       B partition don't divide); ``"auto"`` sweeps
+                       feasible c ∈ {2, 4, 8} under ``memory_budget``
+                       and keeps the winner iff
+                       ``modeled_time_replicated`` beats the chosen flat
+                       / hier time. Only ``kernel="spmm"``; c > 1 runs
+                       staged (no ``overlap``).
 
-    Fields of the reference the port does not run yet — ``replicate``
-    other than 1, ``measure=True`` — raise ``NotImplementedError``.
+    ``measure=True`` (measured autotuning) is not ported yet and raises
+    ``NotImplementedError``.
     """
 
     strategy: Strategy = "joint"
@@ -155,6 +179,7 @@ class SpmmConfig:
     n_dense_hint: int = 64
     k_max: int = 4
     measure: Union[str, bool] = "auto"
+    memory_budget: Optional[int] = None
     check: Union[str, bool] = "auto"
     replicate: Union[int, str] = 1
 
@@ -175,9 +200,6 @@ class SpmmConfig:
                 or (isinstance(self.hier, tuple) and len(self.hier) == 2)):
             raise ValueError(f"hier must be None, 'auto' or a (G, L) tuple; "
                              f"got {self.hier!r}")
-        if self.replicate != 1:
-            raise _not_ported(f"replicate={self.replicate!r} (1.5D "
-                              f"replication)", "10")
         if self.measure is True:
             raise _not_ported("measure=True (measured autotuning)", "11")
         if self.measure not in ("auto", False):
@@ -199,6 +221,22 @@ class SpmmConfig:
         if not (self.net == "auto" or isinstance(self.net, NetworkSpec)):
             raise ValueError(f"net must be 'auto' or a NetworkSpec; "
                              f"got {self.net!r}")
+        if self.memory_budget is not None and int(self.memory_budget) <= 0:
+            raise ValueError(
+                f"memory_budget is a per-rank byte count > 0 (or None); "
+                f"got {self.memory_budget!r}")
+        if isinstance(self.replicate, bool) or not (
+                self.replicate == "auto"
+                or (isinstance(self.replicate, int) and self.replicate >= 1)):
+            raise ValueError(
+                f"replicate must be 'auto' or an int c >= 1; "
+                f"got {self.replicate!r}")
+        if self.replicate != 1 and self.kernel != "spmm":
+            raise ValueError(
+                f"replicate= applies to kernel='spmm' only; the sddmm/"
+                f"fused executors have no replicated tier yet "
+                f"(got kernel={self.kernel!r}, "
+                f"replicate={self.replicate!r})")
 
     def backend_names(self) -> Tuple[str, ...]:
         return tuple(get_backend(spec).name for spec in self.backends)
@@ -218,9 +256,11 @@ class DistSpmm:
 
     Built by ``compile_spmm`` / ``compile_sddmm`` / ``compile_fused`` (or
     ``DistSpmm.load``); owns the offline plan (and the ``HierPlan`` on the
-    hierarchical tier), the autotuned schedule and the prepared backend
-    layouts on the device. PyTorch runs eagerly, so
-    an "executable" here is the executor bound to one key —
+    hierarchical tier; on the replicated tier the plan slot holds the
+    s-shard base plan and the schedule spans all c·s ranks), the
+    autotuned schedule and the prepared backend layouts on the device.
+    PyTorch runs eagerly, so an "executable" here is the executor bound
+    to one key —
     ``(n_cols, dtype, backend)`` for spmm, ``("sddmm", F, dx, dy, backend,
     edge)`` and ``("fused", F, N, dx, dy, db, backend, edge)`` for the
     siblings; the memo counts first uses (``lowerings``) and hits exactly
@@ -229,8 +269,9 @@ class DistSpmm:
     """
 
     def __init__(self, *, config: SpmmConfig, plan: SpmmPlan,
-                 hier: Optional[HierPlan], schedule: CommSchedule,
-                 ex: Union[FlatExecPlan, HierExecPlan],
+                 hier: Optional[HierPlan],
+                 schedule: Union[CommSchedule, ReplicatedSchedule],
+                 ex: Union[FlatExecPlan, HierExecPlan, ReplicatedExecPlan],
                  decisions: Dict[str, Any], topology: Topology,
                  snapshot: Optional[PatternSnapshot] = None):
         self.config = config
@@ -251,7 +292,13 @@ class DistSpmm:
             raise ValueError(
                 f"default_backend {self.default_backend!r} not among "
                 f"prepared backends {self.ex.backends}")
-        self.comm = LocalComm(plan.P, 1 if hier is None else hier.G)
+        # replicated rungs route by schedule kind: the plan slot holds the
+        # s-shard base plan, the ranks are laid out (c, s)
+        self.replicated = schedule.kind == "replicated"
+        if self.replicated:
+            self.comm = topology.replicated_mesh(schedule.c, schedule.s)
+        else:
+            self.comm = LocalComm(plan.P, 1 if hier is None else hier.G)
         self._executables: Dict[Tuple[Any, ...], Callable] = {}
         self.lowerings: List[Tuple[Any, ...]] = []
         self.cache_hits = 0
@@ -261,8 +308,15 @@ class DistSpmm:
 
     @property
     def strategy(self) -> str:
-        """Chosen executor tier: 'flat' or 'hier'."""
+        """Chosen executor tier: 'flat', 'hier' or 'replicated'."""
+        if self.replicated:
+            return "replicated"
         return "flat" if self.hier is None else "hier"
+
+    @property
+    def P(self) -> int:
+        """Ranks the handle spans (c·s on the replicated tier)."""
+        return self.schedule.P if self.replicated else self.plan.P
 
     @property
     def backends(self) -> Tuple[str, ...]:
@@ -281,11 +335,14 @@ class DistSpmm:
 
     def _executable(self, n_cols: int, dtype: torch.dtype, backend: str
                     ) -> Callable:
+        if self.replicated:
+            fn = replicated_spmm
+        else:
+            fn = flat_spmm if self.hier is None else hier_spmm
         return self._memo(
             (int(n_cols), _dtype_name(dtype), backend),
-            lambda: functools.partial(
-                flat_spmm if self.hier is None else hier_spmm, self.ex,
-                backend=backend, overlap=self.overlap))
+            lambda: functools.partial(fn, self.ex, backend=backend,
+                                      overlap=self.overlap))
 
     def _sddmm_executable(self, n_feat: int, dtype_x, dtype_y, backend: str,
                           edge: Optional[str]) -> Callable:
@@ -326,6 +383,12 @@ class DistSpmm:
                     "edge= applies to the sampled values of "
                     "kernel='sddmm'/'fused'; kernel='spmm' has none")
             return kern, None
+        if self.replicated:
+            raise ValueError(
+                f"kernel={kern!r} has no replicated executor; this "
+                f"handle was compiled with replicate="
+                f"{self.decisions.get('replicate')} — recompile with "
+                f"replicate=1 for sddmm/fused calls")
         edge_name = self.edge if edge is _UNSET else edge
         if edge_name is not None and edge_name not in EDGE_FNS:
             raise ValueError(
@@ -371,20 +434,20 @@ class DistSpmm:
         if self._check:
             try:
                 check(out, mode=self._check, call_index=self.calls,
-                      context=f"DistSpmm(P={self.plan.P}) {what}")
+                      context=f"DistSpmm(P={self.P}) {what}")
             except guards.NumericalFault:
                 self.numerical_faults += 1
                 raise
         return out
 
     def _finite_c(self, c, **kw) -> None:
-        guards.sampled_finite_check(c, ranks=self.plan.P, **kw)
+        guards.sampled_finite_check(c, ranks=self.P, **kw)
 
     def _call_spmm(self, b, name: str) -> torch.Tensor:
         if self._check:
             guards.validate_dense_operand(
                 b, k_expected=self.plan.shape[1],
-                context=f"DistSpmm(P={self.plan.P}) call")
+                context=f"DistSpmm(P={self.P}) call")
         b = self._as_operand(b)
         fn = self._executable(b.shape[1], b.dtype, name)
         self.comm.reset()
@@ -397,7 +460,7 @@ class DistSpmm:
             guards.validate_sddmm_operands(
                 x, y, m_expected=self.plan.shape[0],
                 k_expected=self.plan.shape[1],
-                context=f"DistSpmm(P={self.plan.P}) sddmm call")
+                context=f"DistSpmm(P={self.P}) sddmm call")
         x, y = self._as_operand(x), self._as_operand(y)
         fn = self._sddmm_executable(x.shape[1], x.dtype, y.dtype, name, edge)
         self.comm.reset()
@@ -408,7 +471,7 @@ class DistSpmm:
     def _call_fused(self, x, y, b, *, name: str, edge: Optional[str]
                     ) -> torch.Tensor:
         if self._check:
-            ctx = f"DistSpmm(P={self.plan.P}) fused call"
+            ctx = f"DistSpmm(P={self.P}) fused call"
             guards.validate_sddmm_operands(
                 x, y, m_expected=self.plan.shape[0],
                 k_expected=self.plan.shape[1], context=ctx)
@@ -456,6 +519,10 @@ class DistSpmm:
         )
         out.setdefault("decision_source", "model")
         out.setdefault("replicate", 1)
+        if self.replicated:
+            # plan.P is the lane width s; the handle spans c·s ranks
+            out.update(P=sched.P, replicate=sched.c, replica_shards=sched.s,
+                       schedule_K=sched.K)
         if self.snapshot is not None:
             out["pattern_nnz"] = self.snapshot.nnz
             out["pattern_fingerprint"] = self.snapshot.fingerprint[:12]
@@ -469,10 +536,14 @@ class DistSpmm:
 
     def __repr__(self) -> str:
         sched = self.schedule
-        tier = ("flat" if self.hier is None
-                else f"hier(G={self.hier.G},L={self.hier.L})")
+        if self.replicated:
+            tier = f"replicated(c={sched.c},s={sched.s})"
+        elif self.hier is not None:
+            tier = f"hier(G={self.hier.G},L={self.hier.L})"
+        else:
+            tier = "flat"
         return (f"DistSpmm({self.plan.shape[0]}x{self.plan.shape[1]}, "
-                f"P={self.plan.P}, {tier}, schedule={sched.kind}"
+                f"P={self.P}, {tier}, schedule={sched.kind}"
                 f"{f'/K={sched.K}' if sched.kind == 'bucketed' else ''}"
                 f"{', overlapped' if self.overlap else ''}"
                 f"{f', kernel={self.kernel}' if self.kernel != 'spmm' else ''}"
@@ -518,8 +589,12 @@ class DistSpmm:
                 f"{path!r} carries format version {payload.get('version')!r};"
                 f" this library reads version {_SAVE_VERSION}")
         plan: SpmmPlan = payload["plan"]
-        topo = Topology.resolve(plan.P if where is None else where, device,
-                                expect_p=plan.P)
+        schedule = payload["schedule"]
+        # a replicated handle's plan slot holds the s-shard base plan; the
+        # handle itself spans schedule.P = c·s ranks
+        want_p = (schedule.P if schedule.kind == "replicated" else plan.P)
+        topo = Topology.resolve(want_p if where is None else where, device,
+                                expect_p=want_p)
         return _materialize(payload["config"], plan, payload.get("hier"),
                             payload["schedule"], payload["decisions"], topo,
                             snapshot=payload.get("snapshot"))
@@ -531,13 +606,17 @@ class DistSpmm:
 
 
 def _materialize(config: SpmmConfig, plan: SpmmPlan,
-                 hier: Optional[HierPlan], schedule: CommSchedule,
+                 hier: Optional[HierPlan],
+                 schedule: Union[CommSchedule, ReplicatedSchedule],
                  decisions: Dict[str, Any], topo: Topology,
                  snapshot: Optional[PatternSnapshot] = None) -> DistSpmm:
     """Deterministic device-side prep: exec arrays on the device + handle."""
     # the per-round consumable layouts only when execution is overlapped
     overlap = bool(decisions.get("overlap", False))
-    if hier is not None:
+    if schedule.kind == "replicated":
+        ex = replicated_exec_arrays(schedule.rplan, backends=config.backends,
+                                    schedule=schedule)
+    elif hier is not None:
         ex = hier_exec_arrays(hier, backends=config.backends,
                               schedule=schedule, overlap_layouts=overlap)
     else:
@@ -572,7 +651,8 @@ def _schedule_fields(plan: SpmmPlan, hier: Optional[HierPlan],
 
 
 def _plan_and_tune(a: CSRMatrix, P: int, config: SpmmConfig, topo: Topology
-                   ) -> Tuple[SpmmPlan, Optional[HierPlan], CommSchedule,
+                   ) -> Tuple[SpmmPlan, Optional[HierPlan],
+                              Union[CommSchedule, ReplicatedSchedule],
                               Dict[str, Any]]:
     """The offline pipeline: MWVC plan + every model decision (host only)."""
     net, n_hint = config.resolve_net(topo), config.n_dense_hint
@@ -655,7 +735,71 @@ def _plan_and_tune(a: CSRMatrix, P: int, config: SpmmConfig, topo: Topology
                            < fields["modeled_time_staged"])
     decisions["overlap"] = use_overlap
     decisions["decision_source"] = "model"
+
+    # ----- replication (1.5D): c lanes of s = P/c shards --------------
+    # The only strategy that changes the rank layout itself: B is copied
+    # to c lanes, each lane exchanges only its subset of the s-shard
+    # shifts over the FAST s-rank tier, and the partial C pays one
+    # replica-axis reduce-scatter. Wins at high P where the flat / hier
+    # exchange spans the slow tier but s <= group_size stays on the
+    # fast one.
     decisions["replicate"] = 1
+    replicate = config.replicate
+    if kernel == "spmm" and replicate != 1:
+        # modeled_time_replicated includes the diagonal-block compute
+        # that the staged/overlap fields exclude (it is common to both
+        # execution MODES) — add the same term to the unreplicated side
+        # so the cross-tier comparison is offset-free
+        diag = (max(blk.nnz for blk in plan.a_diag) * 2.0 * n_hint / 1e12
+                if plan.a_diag else 0.0)
+        t_base = (fields["modeled_time_overlap"] if use_overlap
+                  else fields["modeled_time_staged"]) + diag
+        budget = (int(config.memory_budget)
+                  if config.memory_budget is not None else None)
+        cands = (2, 4, 8) if replicate == "auto" else (int(replicate),)
+        best: Optional[Tuple[float, int, ReplicatedSchedule]] = None
+        infeasible: Dict[int, str] = {}
+        for c in cands:
+            if P % c or P // c < 2:
+                infeasible[c] = f"needs c | P={P} with s = P/c >= 2"
+                continue
+            s = P // c
+            base = build_plan(a, s, config.strategy, pad_to=config.pad_to)
+            sizes = {hi - lo for lo, hi in base.bounds}
+            m_local = sizes.pop() if len(sizes) == 1 else None
+            if m_local is None or m_local % c or base.shape[1] % s:
+                infeasible[c] = (
+                    f"needs uniform s={s}-way row/col blocks with "
+                    f"c={c} | m_local for the tiled replica "
+                    f"reduce-scatter (pad M and K first)")
+                continue
+            rp = replicate_plan(base, c)
+            rsched = build_replicated_schedule(rp)
+            # the budget prunes only the AUTO sweep (pick a c that fits)
+            if replicate == "auto" and budget is not None:
+                need = replicated_device_bytes(rp, rsched, n_hint)
+                if need > budget:
+                    infeasible[c] = (f"replica footprint {need} B/rank "
+                                     f"exceeds memory_budget {budget}")
+                    continue
+            t_rep = modeled_time_replicated(rp, rsched, n_hint, net)
+            decisions[f"modeled_time_replicated_c{c}"] = t_rep
+            if best is None or t_rep < best[0]:
+                best = (t_rep, c, rsched)
+        if best is None and replicate != "auto":
+            c = int(replicate)
+            raise ValueError(
+                f"replicate={c} is infeasible: "
+                f"{infeasible.get(c, 'no candidate survived')}")
+        if best is not None and (replicate != "auto" or best[0] < t_base):
+            t_rep, c, rsched = best
+            plan = rsched.rplan.base
+            hier = None
+            schedule = rsched
+            decisions["overlap"] = False
+            decisions["replicate"] = c
+            decisions["modeled_time_replicated"] = t_rep
+            decisions["modeled_time_unreplicated"] = t_base
     return plan, hier, schedule, decisions
 
 

@@ -1,13 +1,13 @@
 """Analytic communication volumes and a two-tier α-β time model.
 
-The flat and hierarchical parts of ``repro.core.comm_model`` (NumPy
-only), copied so that the port never imports the JAX package: paper Eqs.
-1-3 and 9, the flat and hier schedules' α-β times, ``choose_schedule`` /
-``choose_hier_schedule``, and the FusedMM scoring of both tiers
-(``modeled_time_fused_schedule``, ``modeled_time_hier_fused_schedule``,
-``choose_fused_schedule``, ``choose_hier_fused_schedule``). The
-replicated model comes with the slice that ports its executor (ROADMAP
-item 10).
+The flat, hierarchical and replicated parts of ``repro.core.comm_model``
+(NumPy only), copied so that the port never imports the JAX package:
+paper Eqs. 1-3 and 9, the flat and hier schedules' α-β times,
+``choose_schedule`` / ``choose_hier_schedule``, the FusedMM scoring of
+both tiers (``modeled_time_fused_schedule``,
+``modeled_time_hier_fused_schedule``, ``choose_fused_schedule``,
+``choose_hier_fused_schedule``), and the replicated (1.5D) tier's
+``modeled_time_replicated`` / ``replicated_device_bytes``.
 
 Bandwidth defaults mirror the paper's TSUBAME4.0 numbers (450 GB/s NVLink
 intra-group, 25 GB/s IB inter-group).
@@ -45,6 +45,8 @@ __all__ = [
     "modeled_time_hier_fused_schedule",
     "choose_fused_schedule",
     "choose_hier_fused_schedule",
+    "modeled_time_replicated",
+    "replicated_device_bytes",
 ]
 
 
@@ -637,3 +639,78 @@ def choose_hier_fused_schedule(
         if t < best[1]:
             best = (sched, t)
     return best
+
+
+# ---------------------------------------------------------------------------
+# replicated (1.5D) scoring: lane exchanges + replica-axis reduce-scatter
+# ---------------------------------------------------------------------------
+
+
+def modeled_time_replicated(
+    rp,
+    sched,
+    n_dense: int,
+    net: NetworkSpec,
+    sz_dt: int = 4,
+    flop_rate: float = 1e12,
+) -> float:
+    """Staged time of a ``ReplicatedSchedule`` (``c`` lanes over ``s``).
+
+    Lane exchanges span only the ``s`` contiguous ranks of a lane, so
+    they are priced at ``_tier(net, s)`` — the fast tier once
+    ``s <= group_size``, which is where replication beats the flat plan
+    whose ``_tier(net, c·s)`` exchange pays inter-group prices. The
+    replica-axis reduce-scatter moves ``(c-1)/c`` of the dense local C
+    block across lane boundaries (stride-s rank pairs: the slow tier
+    whenever P exceeds one group). Compute is the busiest rank's lane
+    nonzeros — INCLUDING the diagonal block, which replication
+    concentrates on lane 0 (flat comparisons must add their diagonal
+    term; see ``api._plan_and_tune``).
+    """
+    base = rp.base
+    c, s = rp.c, rp.s
+    unit = n_dense * sz_dt
+    bw_x, lat_x = _tier(net, s)
+    t_comm = 0.0
+    for rnd in sched.rounds:
+        phases = (1 if rnd.b_lanes else 0) + (1 if rnd.c_lanes else 0)
+        rows = ((rnd.slot_b if rnd.b_lanes else 0)
+                + (rnd.slot_c if rnd.c_lanes else 0))
+        t_comm += phases * lat_x + rows * unit / bw_x
+    # reduce-scatter over the replica axis (stride-s pairs span groups
+    # whenever P > group_size — price it at the full-P tier)
+    m_local = -(-base.shape[0] // s)
+    bw_r, lat_r = _tier(net, c * s)
+    t_rs = lat_r + (c - 1) / c * m_local * unit / bw_r if c > 1 else 0.0
+    # busiest rank: lane-assigned off-diagonal nnz + lane 0's diagonal
+    nnz_shift = _shift_compute_nnz(base)  # [s, s-1]
+    lane_nnz = np.zeros((c, s), np.int64)
+    for r, shifts in enumerate(rp.lane_shifts):
+        for d in shifts:
+            lane_nnz[r] += nnz_shift[:, d - 1]
+    lane_nnz[0] += np.array([blk.nnz for blk in base.a_diag], np.int64)
+    t_comp = float(lane_nnz.max()) * 2.0 * n_dense / flop_rate
+    return t_comm + t_rs + t_comp
+
+
+def replicated_device_bytes(rp, sched, n_dense: int, sz_dt: int = 4) -> int:
+    """Coarse per-rank allocation estimate for a replicated candidate.
+
+    The reference's estimate, with the replica memory made explicit:
+    every rank holds a FULL s-way B shard (the c-fold replication —
+    c·P/s bytes in all where flat holds P/P), the C accumulator +
+    scattered output, the lane send/recv slabs (R_b + R_c rows each
+    way), and the plan's covered row slots.
+    """
+    n = int(n_dense)
+    s = rp.s
+    m, k = rp.base.shape
+
+    def per(rows: int) -> int:
+        return -(-int(rows) // s)
+
+    rows = (per(k)                        # replicated B shard (s-way)
+            + 2 * per(m)                  # C accumulator + scattered output
+            + 2 * (sched.R_b + sched.R_c) # lane send + recv slabs
+            + per(rp.base.volume_rows())) # gathered partials
+    return rows * n * sz_dt + per(rp.base.volume_rows()) * 12

@@ -1,9 +1,8 @@
 """Skew-aware bucketed communication schedules (beyond-paper §5 extension).
 
-The flat and hierarchical parts of ``repro.core.comm_schedule`` (NumPy
-only), copied so that the port never imports the JAX package. The
-replicated schedules come with the slice that ports their executor
-(ROADMAP item 10).
+A copy of ``repro.core.comm_schedule`` (NumPy only) — the flat,
+hierarchical and replicated (1.5D) schedules and layouts — so that the
+port never imports the JAX package.
 
 The offline planner (core.planner) pads every (src, dst) pair to the
 GLOBAL slot maxima ``max_b`` / ``max_c`` so a single ``all_to_all`` stays
@@ -63,6 +62,11 @@ __all__ = [
     "hier_schedule_layout",
     "ordered_spans",
     "span_cuts",
+    "ReplRound",
+    "ReplicatedSchedule",
+    "build_replicated_schedule",
+    "ReplicatedScheduleLayout",
+    "replicated_schedule_layout",
 ]
 
 # ---------------------------------------------------------------------------
@@ -591,4 +595,225 @@ def hier_schedule_layout(hier: HierPlan, sched: CommSchedule
         schedule=sched, off_bg=off_bg, off_cg=off_cg, R_bg=R_bg, R_cg=R_cg,
         b_send_idx=b_send_idx, c_recv_rows=c_recv_rows,
         colp=colp, rowp=rowp,
+    )
+
+
+# ---------------------------------------------------------------------------
+# replicated (1.5D) schedules: c lanes execute disjoint shift subsets
+# ---------------------------------------------------------------------------
+
+
+def _empty_csr(rows: int, cols: int):
+    """An all-zero CSR of the given shape (piece placeholder)."""
+    from .sparse import CSRMatrix
+
+    return CSRMatrix((rows, cols), np.zeros(rows + 1, np.int32),
+                     np.empty(0, np.int32), np.empty(0, np.float32))
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplRound:
+    """One replicated round: every lane runs ITS OWN shift concurrently.
+
+    ``shifts[r]`` is lane r's shift this round (0 = lane idle). The
+    round's B / C segments share one ceiling and one offset across all
+    lanes (``slot_b`` at ``off_b``, ``slot_c`` at ``off_c``) so a single
+    slice serves every rank; ``b_lanes`` / ``c_lanes`` list the lanes
+    whose shift actually has demand on that part — lanes outside the
+    permutation receive zeros, and their pieces carry no nonzeros in the
+    segment. ``off_b`` / ``off_c`` are -1 when no lane participates.
+    """
+
+    shifts: Tuple[int, ...]
+    slot_b: int
+    slot_c: int
+    off_b: int
+    off_c: int
+    b_lanes: Tuple[int, ...]
+    c_lanes: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicatedSchedule:
+    """Static schedule for the replicated (1.5D) executor tier.
+
+    ``c`` lanes over ``s``-shard lane exchanges (P = c·s ranks), plus
+    the final reduce-scatter over the replica axis. Hash/equality
+    intentionally exclude ``rplan`` (the host-side ``ReplicatedPlan``
+    with its numpy pieces), as in the reference, so two schedules
+    compare by their rounds alone.
+    """
+
+    kind: str  # always "replicated"
+    c: int
+    s: int
+    rounds: Tuple[ReplRound, ...]
+    rplan: object = dataclasses.field(compare=False, default=None)
+
+    @property
+    def P(self) -> int:
+        return self.c * self.s
+
+    @property
+    def K(self) -> int:
+        return max(len(self.rounds), 1)
+
+    @property
+    def R_b(self) -> int:
+        """Width of the per-rank B receive space (>= 1)."""
+        return max(sum(r.slot_b for r in self.rounds if r.b_lanes), 1)
+
+    @property
+    def R_c(self) -> int:
+        """Width of the per-rank partial-C send space (>= 1)."""
+        return max(sum(r.slot_c for r in self.rounds if r.c_lanes), 1)
+
+    def volume_rows_padded(self) -> int:
+        """Rows placed in LANE collective operands across all ranks
+        (the reduce-scatter's dense C traffic is modeled separately)."""
+        return self.s * sum(len(r.b_lanes) * r.slot_b
+                            + len(r.c_lanes) * r.slot_c
+                            for r in self.rounds)
+
+
+def build_replicated_schedule(rp) -> ReplicatedSchedule:
+    """Rounds for a ``planner.ReplicatedPlan``: round j runs shift
+    ``lane_shifts[r][j]`` on lane r (lanes keep their shifts in
+    descending demand order, so round ceilings pair big with big)."""
+    base = rp.base
+    sb, sc = shift_slot_demands(base)
+    n_rounds = max((len(l) for l in rp.lane_shifts), default=0)
+    rounds = []
+    off_b = off_c = 0
+    for j in range(n_rounds):
+        shifts = tuple(l[j] if j < len(l) else 0 for l in rp.lane_shifts)
+        b_lanes = tuple(r for r, d in enumerate(shifts)
+                        if d and sb[d - 1] > 0)
+        c_lanes = tuple(r for r, d in enumerate(shifts)
+                        if d and sc[d - 1] > 0)
+        slot_b = max((int(sb[shifts[r] - 1]) for r in b_lanes), default=0)
+        slot_c = max((int(sc[shifts[r] - 1]) for r in c_lanes), default=0)
+        rounds.append(ReplRound(
+            shifts=shifts, slot_b=slot_b, slot_c=slot_c,
+            off_b=off_b if b_lanes else -1,
+            off_c=off_c if c_lanes else -1,
+            b_lanes=b_lanes, c_lanes=c_lanes))
+        off_b += slot_b
+        off_c += slot_c
+    return ReplicatedSchedule(kind="replicated", c=rp.c, s=base.P,
+                              rounds=tuple(rounds), rplan=rp)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicatedScheduleLayout:
+    """Host-side arrays realizing a ReplicatedSchedule (lane-major).
+
+    Rank (r, g) = lane r, shard g, linear index r·s + g:
+
+      b_send_idx [c, s, R_b]  — local B row per lane-send slot, -1 pad;
+      c_recv_rows [c, s, R_c] — dest-local C row per receive slot;
+      diag / colp / rowp      — c·s piece CSRs in lane-major order; lane
+                                0 owns the diagonal (empty on lanes > 0:
+                                the replica-axis reduce must not
+                                double-count it), colp columns live in
+                                the lane receive space (m_g × R_b), rowp
+                                rows in the lane send space (R_c × k_g).
+    """
+
+    schedule: ReplicatedSchedule
+    R_b: int
+    R_c: int
+    b_send_idx: np.ndarray
+    c_recv_rows: np.ndarray
+    diag: list
+    colp: list
+    rowp: list
+
+
+def replicated_schedule_layout(rp, sched: ReplicatedSchedule
+                               ) -> ReplicatedScheduleLayout:
+    """Materialize send maps + lane-remapped pieces for replicated_spmm."""
+    from .sparse import COOMatrix, csr_from_coo
+
+    base = rp.base
+    c, s = rp.c, base.P
+    R_b, R_c = sched.R_b, sched.R_c
+
+    # per (lane, shift) segment offsets
+    boff: Dict[Tuple[int, int], int] = {}
+    coff: Dict[Tuple[int, int], int] = {}
+    for rnd in sched.rounds:
+        for r in rnd.b_lanes:
+            boff[(r, rnd.shifts[r])] = rnd.off_b
+        for r in rnd.c_lanes:
+            coff[(r, rnd.shifts[r])] = rnd.off_c
+
+    b_send_idx = np.full((c, s, R_b), -1, np.int32)
+    c_recv_rows = np.full((c, s, R_c), -1, np.int32)
+    diag: List = []
+    colp: List = []
+    rowp: List = []
+    for r in range(c):
+        for g in range(s):
+            m_g, k_g = base.a_diag[g].shape
+            # send maps: lane r's shift d pairs src g with dst (g+d)%s
+            for d in rp.lane_shifts[r]:
+                pp = base.pair_plans.get(((g + d) % s, g))
+                if pp is not None and pp.col_ids.size:
+                    off = boff[(r, d)]
+                    b_send_idx[r, g, off:off + pp.col_ids.size] = pp.col_ids
+                pp = base.pair_plans.get((g, (g - d) % s))
+                if pp is not None and pp.row_ids.size:
+                    off = coff[(r, d)]
+                    c_recv_rows[r, g, off:off + pp.row_ids.size] = pp.row_ids
+            diag.append(base.a_diag[g] if r == 0 else _empty_csr(m_g, k_g))
+            # colp: dest-side pairs (g, q) whose shift lane r owns
+            rows_l, cols_l, vals_l = [], [], []
+            for d in rp.lane_shifts[r]:
+                pp = base.pair_plans.get((g, (g - d) % s))
+                if pp is None:
+                    continue
+                coo = pp.a_col.to_coo()
+                if not coo.nnz:
+                    continue
+                slot_of_col = np.full(pp.a_col.shape[1], -1, np.int64)
+                slot_of_col[pp.col_ids] = np.arange(pp.col_ids.size)
+                rows_l.append(coo.row.astype(np.int64))
+                cols_l.append(boff[(r, d)] + slot_of_col[coo.col])
+                vals_l.append(coo.val)
+            if rows_l:
+                colp.append(csr_from_coo(COOMatrix(
+                    (m_g, R_b),
+                    np.concatenate(rows_l).astype(np.int32),
+                    np.concatenate(cols_l).astype(np.int32),
+                    np.concatenate(vals_l))))
+            else:
+                colp.append(_empty_csr(m_g, R_b))
+            # rowp: source-side pairs (p, g) whose shift lane r owns
+            rows_l, cols_l, vals_l = [], [], []
+            for d in rp.lane_shifts[r]:
+                pp = base.pair_plans.get(((g + d) % s, g))
+                if pp is None:
+                    continue
+                roo = pp.a_row.to_coo()
+                if not roo.nnz:
+                    continue
+                slot_of_row = np.full(pp.a_row.shape[0], -1, np.int64)
+                slot_of_row[pp.row_ids] = np.arange(pp.row_ids.size)
+                rows_l.append(coff[(r, d)] + slot_of_row[roo.row])
+                cols_l.append(roo.col.astype(np.int64))
+                vals_l.append(roo.val)
+            if rows_l:
+                rowp.append(csr_from_coo(COOMatrix(
+                    (R_c, k_g),
+                    np.concatenate(rows_l).astype(np.int32),
+                    np.concatenate(cols_l).astype(np.int32),
+                    np.concatenate(vals_l))))
+            else:
+                rowp.append(_empty_csr(R_c, k_g))
+
+    return ReplicatedScheduleLayout(
+        schedule=sched, R_b=R_b, R_c=R_c,
+        b_send_idx=b_send_idx, c_recv_rows=c_recv_rows,
+        diag=diag, colp=colp, rowp=rowp,
     )

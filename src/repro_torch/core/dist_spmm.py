@@ -24,11 +24,18 @@ C transfer and the intra-group B distribution (an all_gather over the
 local axis). It has the same three bodies, the bucketed ones serving the
 own-group (shift-0) traffic with a local slice instead of a collective.
 
-``flat_exec_arrays`` / ``hier_exec_arrays`` build the exec plans from the
-host plans; ``flat_exec_from_numpy`` / ``hier_exec_from_numpy`` build them
-from plain arrays named like the reference's ``FlatExecPlan`` /
-``HierExecPlan`` fields — the form that carries exec state from the JAX
-package (or a file) into the port.
+``replicated_spmm`` runs the 1.5D tier on the ranks laid out as a (c, s)
+replica × shard grid, rank p = r·s + g: B's s-way shards copied to every
+lane, each lane exchanging only its own subset of the shifts (every lane
+on its own shift in one round), and the lanes' C blocks summed and split
+back over the replica axis in one reduce-scatter. Staged only, as in the
+reference.
+
+``flat_exec_arrays`` / ``hier_exec_arrays`` / ``replicated_exec_arrays``
+build the exec plans from the host plans; ``flat_exec_from_numpy`` /
+``hier_exec_from_numpy`` build them from plain arrays named like the
+reference's ``FlatExecPlan`` / ``HierExecPlan`` fields — the form that
+carries exec state from the JAX package (or a file) into the port.
 """
 from __future__ import annotations
 
@@ -45,27 +52,31 @@ from ..kernels.ops import (
     pack_rows_op, prepare_sorted_scatter, scatter_add_rows_exec_op,
 )
 from .comm_schedule import (
-    CommRound, CommSchedule, flat_schedule_layout, hier_schedule_layout,
-    ordered_spans, single_round_hier_schedule, single_round_schedule,
-    span_cuts,
+    CommRound, CommSchedule, ReplicatedSchedule, build_replicated_schedule,
+    flat_schedule_layout, hier_schedule_layout, ordered_spans,
+    replicated_schedule_layout, single_round_hier_schedule,
+    single_round_schedule, span_cuts,
 )
 from .hierarchy import HierPlan, hier_piece_csrs
 from .local_backend import (
     BsrBackend, LocalSpmmBackend, backend_compute_segment,
     backend_prepare_segments, coo_piece_with_maps, get_backend,
 )
-from .planner import SpmmPlan, local_piece_csrs
+from .planner import ReplicatedPlan, SpmmPlan, local_piece_csrs
 
 __all__ = [
     "BackendSpec",
     "FlatExecPlan",
     "HierExecPlan",
+    "ReplicatedExecPlan",
     "flat_exec_arrays",
     "flat_exec_from_numpy",
     "hier_exec_arrays",
     "hier_exec_from_numpy",
+    "replicated_exec_arrays",
     "flat_spmm",
     "hier_spmm",
+    "replicated_spmm",
 ]
 
 BackendSpec = Union[str, LocalSpmmBackend]
@@ -75,6 +86,10 @@ Pieces = Dict[str, Dict[str, torch.Tensor]]
 
 # static per-shift segment descriptors: ((shift, offset, slot), ...)
 Segments = Tuple[Tuple[int, int, int], ...]
+
+# static replicated round descriptors: ((per-lane shifts, slot, offset,
+# participating lanes), ...)
+LaneRounds = Tuple[Tuple[Tuple[int, ...], int, int, Tuple[int, ...]], ...]
 
 
 def _map_tensors(obj: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
@@ -234,6 +249,39 @@ class HierExecPlan(_ExecPlanBase):
     @property
     def max_cg(self) -> int:
         return self.meta["max_cg"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicatedExecPlan(_ExecPlanBase):
+    """Stacked per-rank tensors for the replicated (1.5D) executor.
+
+    Every tensor leads with the rank axis P = c·s, lane-major (rank p is
+    (r, g) = (p // s, p % s), the reference's [c, s, ...] leading axes
+    merged). ``b_send_idx`` [P, R_b] / ``c_recv_rows`` [P, R_c] are the
+    lane send and receive spaces; the metadata carries the round
+    descriptors (``b_rounds`` / ``c_rounds``): per round the per-lane
+    shifts, the shared slot ceiling, its offset and the participating
+    lanes.
+    """
+
+    pieces: Dict[str, Pieces]
+    b_send_idx: torch.Tensor  # [P, R_b] int32, -1 pad
+    c_recv_rows: torch.Tensor  # [P, R_c] int32, -1 pad
+    agg_perm: torch.Tensor  # [P, R_c] int32
+    agg_meta: torch.Tensor  # [P, R_c+1] int32
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def P(self) -> int:
+        return self.meta["c"] * self.meta["s"]
+
+    @property
+    def c(self) -> int:
+        return self.meta["c"]
+
+    @property
+    def s(self) -> int:
+        return self.meta["s"]
 
 
 # ---------------------------------------------------------------------------
@@ -412,6 +460,50 @@ def hier_exec_arrays(hier: HierPlan,
     )
 
 
+def replicated_exec_arrays(rp: ReplicatedPlan,
+                           backends: Sequence[BackendSpec] = ("coo",),
+                           schedule: Optional[ReplicatedSchedule] = None
+                           ) -> ReplicatedExecPlan:
+    """Convert a ``planner.ReplicatedPlan`` into stacked tensors (on the
+    CPU).
+
+    ``schedule`` is a ``comm_schedule.ReplicatedSchedule`` (built from
+    the plan when None). The replicated executor is staged only: the
+    lane rounds are few by construction (ceil((s-1)/c) shifts a lane)
+    and the reduce-scatter already serializes the tail, so there are no
+    per-round consumables.
+    """
+    sched = schedule or build_replicated_schedule(rp)
+    layout = replicated_schedule_layout(rp, sched)
+    c, s = rp.c, rp.s
+    m_local = _uniform_m_local(rp.base.bounds)
+    if m_local % c:
+        raise ValueError(
+            f"replicate={c} needs c | m_local for the tiled replica "
+            f"reduce-scatter (m_local={m_local}); pad M or pick another c")
+    pieces, resolved = _prepare_pieces(
+        {"diag": layout.diag, "colp": layout.colp, "rowp": layout.rowp},
+        backends)
+    c_recv = layout.c_recv_rows.reshape(c * s, layout.R_c)
+    perm, meta_arr = _stack_sorted_scatter(c_recv)
+    return ReplicatedExecPlan(
+        pieces=pieces,
+        b_send_idx=_t(layout.b_send_idx.reshape(c * s, layout.R_b)),
+        c_recv_rows=_t(c_recv),
+        agg_perm=_t(perm),
+        agg_meta=_t(meta_arr),
+        meta=dict(c=c, s=s, m_local=m_local, backends=resolved,
+                  default_backend=next(iter(resolved)), schedule=sched,
+                  b_rounds=tuple((rnd.shifts, rnd.slot_b, rnd.off_b,
+                                  rnd.b_lanes)
+                                 for rnd in sched.rounds if rnd.b_lanes),
+                  c_rounds=tuple((rnd.shifts, rnd.slot_c, rnd.off_c,
+                                  rnd.c_lanes)
+                                 for rnd in sched.rounds if rnd.c_lanes),
+                  R_b=layout.R_b, R_c=layout.R_c),
+    )
+
+
 def _as_schedule(s: Any) -> CommSchedule:
     """The port's CommSchedule from any object with its field names."""
     if isinstance(s, CommSchedule):
@@ -541,7 +633,7 @@ def hier_exec_from_numpy(fields: Dict[str, Any]) -> HierExecPlan:
 
 
 # ---------------------------------------------------------------------------
-# bucketed round execution (shared by both executors)
+# bucketed round execution (shared by the executors)
 # ---------------------------------------------------------------------------
 
 
@@ -585,20 +677,27 @@ def _exchange_segments(segments: Segments, shift: Callable, total: int,
 
 
 def _rank_blocks(plan, comm: Optional[LocalComm], b: torch.Tensor,
-                 groups: int = 1, name: str = "B"
+                 groups: int = 1, name: str = "B", replicas: int = 1
                  ) -> Tuple[LocalComm, torch.Tensor]:
-    """The comm (a fresh one on the plan's grid when None) and the stacked
-    local row blocks [P, K/P, N] of the operand ``b`` (called ``name``)."""
+    """The comm (a fresh one on the plan's layout when None) and the
+    stacked local row blocks [P, K/P, N] of the operand ``b`` (called
+    ``name``). With ``replicas`` c > 1, ``b`` splits over s = P/c shards
+    and every lane gets the whole split — [P, K/s, N], one device copy
+    (``LocalComm.replicate``)."""
     P_ = plan.P
-    comm = comm if comm is not None else LocalComm(P_, groups)
-    if comm.P != P_ or comm.G != groups:
-        raise ValueError(f"comm has P={comm.P}, G={comm.G}; the plan needs "
-                         f"P={P_}, G={groups}")
+    comm = comm if comm is not None else LocalComm(P_, groups, replicas)
+    if comm.P != P_ or comm.G != groups or comm.C != replicas:
+        raise ValueError(f"comm has P={comm.P}, G={comm.G}, c={comm.C}; "
+                         f"the plan needs P={P_}, G={groups}, c={replicas}")
     K, n = b.shape
-    if K % P_:
+    shards = P_ // replicas
+    if K % shards:
         raise ValueError(f"{name} has {K} rows, not divisible over "
-                         f"P={P_} ranks")
-    return comm, b.reshape(P_, K // P_, n)
+                         + (f"P={P_} ranks" if replicas == 1
+                            else f"s={shards} shards"))
+    if replicas == 1:
+        return comm, b.reshape(P_, K // P_, n)
+    return comm, comm.replicate(b.reshape(shards, K // shards, n))
 
 
 # ---------------------------------------------------------------------------
@@ -862,3 +961,64 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         # per-round aggregation of the inter-group partials
         c = _aggregate_rounds(c, c_segs, plan.seg_agg)
     return c.reshape(P_ * m_local, n)
+
+
+# ---------------------------------------------------------------------------
+# replicated executor (1.5D: c lanes + replica-axis reduce-scatter)
+# ---------------------------------------------------------------------------
+
+
+def _lane_exchange(comm: LocalComm, rounds: LaneRounds, buf: torch.Tensor,
+                   total: int) -> torch.Tensor:
+    """One lane exchange per round over the packed [P, total, N] send
+    space; each round's segment comes back at its own offset."""
+    segments = tuple((i, off, slot)
+                     for i, (_, slot, off, _) in enumerate(rounds))
+    return _exchange_segments(
+        segments, lambda x, i: comm.lane_shift(x, rounds[i][0], rounds[i][3]),
+        total, _slice_fetch(buf), buf)
+
+
+def replicated_spmm(plan: ReplicatedExecPlan, b_global: torch.Tensor,
+                    comm: Optional[LocalComm] = None,
+                    backend: Optional[BackendSpec] = None,
+                    overlap: bool = False) -> torch.Tensor:
+    """Execute ``C = A @ B`` on the (c, s) replica × shard layout.
+
+    ``b_global``: [K, N] dense matrix on the plan's device, split into s
+    row blocks; every lane holds all s of them (the c-fold B copy).
+    ``comm`` is a ``LocalComm(c·s, replicas=c)`` (a fresh one when None).
+    Per round, every participating lane exchanges on ITS OWN shift in one
+    lane exchange; lanes outside it receive zeros, and their pieces carry
+    no nonzeros in the segment. After the lane-local compute and
+    aggregation, the lanes' partial C blocks are summed and split over
+    the replica axis (``replica_psum_scatter``). ``backend`` as in
+    ``flat_spmm``. Returns C [M, N] in global row order.
+    """
+    if overlap:
+        raise ValueError(
+            "the replicated executor is staged-only; overlap composes "
+            "with replicate=1 tiers (flat/hier) instead")
+    m_local = plan.meta["m_local"]
+    R_b, R_c = plan.meta["R_b"], plan.meta["R_c"]
+    be, pieces = plan.resolve_backend(backend)
+    comm, b_loc = _rank_blocks(plan, comm, b_global, replicas=plan.c)
+    n = b_loc.shape[2]
+
+    # ① pack + lane-exchange B rows, one lane exchange per round
+    send_b = pack_rows_op(b_loc, plan.b_send_idx)  # [P, R_b, N]
+    recv_b = _lane_exchange(comm, plan.meta["b_rounds"], send_b, R_b)
+
+    # ② partial C rows for this lane's shifts, exchanged per round
+    partials = be.compute(pieces["rowp"], b_loc, R_c)  # [P, R_c, N]
+    recv_c = _lane_exchange(comm, plan.meta["c_rounds"], partials, R_c)
+
+    # ③ lane-local compute: the diagonal (lane 0 only, by construction)
+    #   + this lane's column-covered nonzeros
+    c = be.compute(pieces["diag"], b_loc, m_local)
+    c = c + be.compute(pieces["colp"], recv_b, m_local)
+
+    # ④ aggregate received partials, then sum + split the lanes' C blocks
+    #   over the replica axis: [s, c, m_local / c, N] in global row order
+    c = scatter_add_rows_exec_op(c, recv_c, plan.agg_perm, plan.agg_meta)
+    return comm.replica_psum_scatter(c).reshape(-1, n)

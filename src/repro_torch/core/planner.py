@@ -14,8 +14,8 @@ A^(p,q), decide per-nonzero between row-based and column-based communication
   a static all_to_all (see core.dist_spmm).
 
 The two-tier plan derived from this one is ``core.hierarchy``'s; the
-reference's replicated plan comes with the slice that ports its
-executor (ROADMAP item 10).
+replicated (1.5D) plan, ``replicate_plan``, partitions a flat plan's
+shifts across ``c`` lanes.
 
 Everything here is NumPy / pure Python and runs once per sparsity pattern;
 the paper amortizes this exactly the same way (§5.3.2, §7.6).
@@ -39,6 +39,8 @@ __all__ = [
     "pair_volume_rows",
     "local_piece_csrs",
     "plan_build_count",
+    "ReplicatedPlan",
+    "replicate_plan",
 ]
 
 # Monotone counter of MWVC plan constructions, the expensive offline
@@ -393,3 +395,72 @@ def build_plan(
         a_colpart=a_colpart,
         a_rowpart=a_rowpart,
     )
+
+
+# ---------------------------------------------------------------------------
+# replication (the 1.5D axis): c lanes over a flat plan at s = P/c shards
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicatedPlan:
+    """A 1.5D replicated plan: ``c`` lanes over a flat plan at ``s = P/c``.
+
+    B is replicated ``c``-fold (every lane holds the full s-way B shard
+    of its shard index), and the flat plan's nonzero shifts d in 1..s-1
+    are partitioned across the lanes (``lane_shifts``): lane r executes
+    only its shifts' exchanges + compute, then the lanes' partial C
+    blocks are summed and scattered over the replica axis. Memory for
+    bandwidth: each lane's exchange spans only the s contiguous ranks of
+    the lane — the fast tier once s <= NetworkSpec.group_size — while
+    the flat plan at P = c*s pays inter-group prices.
+
+    Lane 0 additionally owns the diagonal block (replicating it would
+    double-count rows through the reduce-scatter).
+    """
+
+    base: SpmmPlan  # flat plan over s shards (base.P == s)
+    c: int
+    lane_shifts: Tuple[Tuple[int, ...], ...]  # per-lane shift lists, len c
+
+    @property
+    def s(self) -> int:
+        return self.base.P
+
+    @property
+    def P(self) -> int:
+        return self.c * self.base.P
+
+    def volume_rows(self) -> int:
+        """Lane-exchanged rows (ideal); the reduce-scatter moves dense C
+        blocks and is modeled separately (comm_model)."""
+        return self.base.volume_rows()
+
+
+def replicate_plan(base: SpmmPlan, c: int) -> ReplicatedPlan:
+    """Partition the flat plan's shifts across ``c`` lanes (greedy LPT).
+
+    Shift demand is the padded per-shift slot count the bucketed layout
+    would pay (B slots + C slots); heaviest shifts are assigned first to
+    the least-loaded lane, and each lane keeps its shifts in descending
+    demand order so round j of every lane pairs big with big (round
+    padding is the max over participating lanes).
+    """
+    from .comm_schedule import shift_slot_demands
+
+    c = int(c)
+    if c < 1:
+        raise ValueError(f"replication factor must be >= 1, got {c}")
+    s = base.P
+    sb, sc = shift_slot_demands(base)
+    demands = [(int(sb[d - 1] + sc[d - 1]), d) for d in range(1, s)]
+    demands = [(w, d) for w, d in demands if w > 0]
+    demands.sort(key=lambda t: (-t[0], t[1]))
+    loads = [0] * c
+    lanes: List[List[int]] = [[] for _ in range(c)]
+    for w, d in demands:
+        r = min(range(c), key=lambda i: (loads[i], i))
+        loads[r] += w
+        lanes[r].append(d)  # assignment order IS descending demand
+    return ReplicatedPlan(base=base, c=c,
+                          lane_shifts=tuple(tuple(l) for l in lanes))

@@ -16,7 +16,16 @@ two-axis (G, L) mesh (``make_spmm_mesh(P, groups=G)``): rank p is
 collectives over either axis — ``group_all_to_all`` / ``group_shift``
 over the group axis (slow tier, op names ending ``@g``),
 ``local_psum_scatter`` / ``local_all_gather`` over the local axis (fast
-tier, ``@l``). ``rows(axis)`` counts one axis. A ``torch.distributed``
+tier, ``@l``). ``rows(axis)`` counts one axis.
+
+``LocalComm(P, replicas=c)`` lays the ranks out as the reference's
+``Topology.replicated_mesh(c, s)``, a (c, s) replica × shard mesh with
+s = P // c, lane-major: rank p = r·s + g is lane r, shard g. The
+replicated executor broadcasts B's s-way shards to every lane
+(``replicate``, op ``broadcast@r``), exchanges inside each lane with
+every lane on its own shift (``lane_shift``, op ``ppermute@s``), and
+sums the lanes' C blocks into their chunks over the replica axis
+(``replica_psum_scatter``, op ``psum_scatter@r``). A ``torch.distributed``
 communicator with this API comes with the multi-process slice.
 """
 from __future__ import annotations
@@ -34,15 +43,21 @@ class LocalComm:
     """Collectives on the leading rank axis of stacked ``[P, ...]`` tensors.
 
     ``groups`` is the group count G of the (G, L) grid the grid
-    collectives run over (L = P // G); the flat collectives ignore it.
+    collectives run over (L = P // G); ``replicas`` is the lane count c
+    of the (c, s) replica × shard layout the replica collectives run over
+    (s = P // c). The flat collectives ignore both.
     """
 
-    def __init__(self, P: int, groups: int = 1):
+    def __init__(self, P: int, groups: int = 1, replicas: int = 1):
         self.P = int(P)
         self.G = int(groups)
         if self.G < 1 or self.P % self.G:
             raise ValueError(f"groups={groups} does not divide P={P}")
         self.L = self.P // self.G
+        self.C = int(replicas)
+        if self.C < 1 or self.P % self.C:
+            raise ValueError(f"replicas={replicas} does not divide P={P}")
+        self.S = self.P // self.C
         self.log: List[Tuple[str, Pairs, int]] = []
 
     def _record(self, op: str, pairs: Pairs, x: torch.Tensor) -> None:
@@ -52,11 +67,12 @@ class LocalComm:
     def rows(self, axis: Optional[str] = None) -> int:
         """Rows placed in collective operands since the last ``reset``:
         all of them, or those of one axis — ``"x"`` (the flat
-        collectives), ``"g"`` (group axis) or ``"l"`` (local axis)."""
+        collectives), ``"g"`` (group axis), ``"l"`` (local axis), ``"s"``
+        (inside the lanes) or ``"r"`` (replica axis)."""
         def on(op: str) -> bool:
             if axis is None:
                 return True
-            return op.endswith("@" + axis) if axis in ("g", "l") \
+            return op.endswith("@" + axis) if axis in ("g", "l", "s", "r") \
                 else "@" not in op
         return sum(r for op, _, r in self.log if on(op))
 
@@ -187,3 +203,82 @@ class LocalComm:
         rest = tuple(x.shape[1:])
         v = x.reshape((G, 1, L) + rest).expand((G, L, L) + rest)
         return v.reshape((self.P, L) + rest)
+
+    # ----- the (c, s) replica x shard layout ------------------------------
+
+    def replicate(self, x: torch.Tensor) -> torch.Tensor:
+        """B's c-fold copy: ``x`` is [s, ...] (shard g's rows at x[g]);
+        every lane gets the whole of it, [P, ...] with rank (r, g) holding
+        x[g] — the reference's operand sharded over the shard axis and
+        replicated over the replica axis. One device copy, logged with
+        the rows it writes (c·s·rows per shard)."""
+        C, S = self.C, self.S
+        if x.shape[0] != S:
+            raise ValueError(f"replicate operand must lead with [{S}], got "
+                             f"{tuple(x.shape)}")
+        out = x.unsqueeze(0).expand((C,) + tuple(x.shape)).reshape(
+            (self.P,) + tuple(x.shape[1:]))
+        self._record("broadcast@r", tuple((g, r * S + g) for r in range(C)
+                                          for g in range(S)), out)
+        return out
+
+    def lane_shift(self, x: torch.Tensor, shifts: Sequence[int],
+                   lanes: Sequence[int]) -> torch.Tensor:
+        """One round of lane exchanges: lane r in ``lanes`` shifts by its
+        own ``shifts[r]`` inside its s ranks, (r, g) -> (r, (g + d) % s);
+        the reference's one ppermute over the joint (replica, shard) axes
+        with ``_lane_perm``. Ranks of the other lanes receive zeros. The
+        log counts the rows of the sending ranks only (s · |lanes| · rows
+        a rank), the count ``ReplicatedSchedule.volume_rows_padded``
+        makes."""
+        C, S = self.C, self.S
+        self._check_lead(x, "lane shift")
+        lanes = tuple(int(r) for r in lanes)
+        if len(shifts) != C or len(set(lanes)) != len(lanes) or \
+                not all(0 <= r < C for r in lanes):
+            raise ValueError(f"lane shift needs one shift per lane ({C}) "
+                             f"and distinct lanes, got {tuple(shifts)} "
+                             f"over {lanes}")
+        pairs = tuple((r * S + g, r * S + (g + int(shifts[r])) % S)
+                      for r in lanes for g in range(S))
+        per_rank = x[0].numel() // x.shape[-1] if x.shape[-1] else 0
+        self.log.append(("ppermute@s", pairs, int(per_rank * len(pairs))))
+        # each lane's roll as two slice copies straight into the result:
+        # every element is written once
+        v = x.reshape((C, S) + tuple(x.shape[1:]))
+        out = torch.empty_like(v)
+        for r in range(C):
+            if r not in lanes:
+                out[r].zero_()
+                continue
+            d = int(shifts[r]) % S
+            out[r, d:].copy_(v[r, :S - d])
+            out[r, :d].copy_(v[r, S - d:])
+        return out.reshape(x.shape)
+
+    def replica_psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """Reduce-scatter over the replica axis: ``psum_scatter(x, "r",
+        scatter_dimension=0, tiled=True)`` on every rank.
+
+        ``x`` is [P, rows, ...]; rank (r, g) gets chunk r (rows / c of
+        them) of the sum over r' of x[(r', g)]. The sum is a left fold in
+        ascending r', one fixed chain x[(0, g)] + x[(1, g)] + … The result
+        is [s, c, rows / c, ...] in (g, r) order — rank (r, g)'s chunk at
+        out[g, r], the order of the reference's output spec ``P((shard,
+        replica))`` — so its reshape to [s·rows, ...] is the global row
+        order.
+        """
+        C, S = self.C, self.S
+        self._check_lead(x, "replica psum_scatter")
+        rest = tuple(x.shape[1:])
+        if not rest or rest[0] % C:
+            raise ValueError(f"replica psum_scatter needs c={C} | rows, got "
+                             f"per-rank shape {rest}")
+        self._record("psum_scatter@r", tuple(
+            (r * S + g, q * S + g) for g in range(S) for r in range(C)
+            for q in range(C)), x)
+        v = x.reshape((C, S) + rest)
+        acc = v[0]
+        for r in range(1, C):
+            acc = acc + v[r]
+        return acc.reshape((S, C, rest[0] // C) + rest[1:])

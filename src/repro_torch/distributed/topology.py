@@ -7,6 +7,8 @@ paper's TSUBAME-like one by default) and ``SpmmConfig(net="auto")``
 decides exactly as the reference does on a flat substrate. For the same
 reason ``hier="auto"`` groups the ranks by ``fallback_grouping``, the
 reference's guess for a substrate with no intrinsic (G, L) structure.
+``replicated_mesh(c, s)`` lays the ranks out as the replicated tier's
+(c, s) replica × shard mesh.
 
 Entry points default to ``device="cuda"`` and raise when no CUDA device
 is present; pass ``device="cpu"`` to run the kernels' plain versions.
@@ -18,6 +20,8 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from .comm import LocalComm
 
 __all__ = ["Topology", "TopologyError", "fallback_grouping",
            "resolve_device"]
@@ -93,9 +97,21 @@ class Topology:
         if expect_p is not None and topo.P != int(expect_p):
             raise TopologyError(
                 f"this plan needs a topology with exactly {int(expect_p)} "
-                f"ranks, but the given one has {topo.P}; pass the int "
+                f"ranks (P={int(expect_p)}), but the given one has "
+                f"{topo.P}; pass the int "
                 f"{int(expect_p)} or a Topology over {int(expect_p)} ranks")
         return topo
+
+    def replicated_mesh(self, c: int, s: int) -> LocalComm:
+        """The (c, s) replica × shard layout of the ranks, as a
+        ``LocalComm(P, replicas=c)``: lane-major, lane r is the
+        contiguous rank range [r·s, (r+1)·s) and the replica axis strides
+        s (the reference's ``Topology.replicated_mesh``)."""
+        c, s = int(c), int(s)
+        if c < 1 or s < 1 or self.P != c * s:
+            raise TopologyError(
+                f"topology has {self.P} ranks, need c*s={c * s}")
+        return LocalComm(self.P, replicas=c)
 
     def auto_grouping(self, net) -> Optional[Tuple[int, int]]:
         """The (G, L) grouping ``hier="auto"`` evaluates: one device has no

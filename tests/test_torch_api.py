@@ -127,6 +127,13 @@ def test_cuda_default_raises_without_cuda(monkeypatch, power_law_matrix):
 ], ids=lambda v: ",".join(f"{k}={x}" for k, x in v.items())
     if isinstance(v, dict) else f"item{v}")
 def test_unported_options_raise(fields, item):
+    """An option of an open ROADMAP item raises NotImplementedError naming
+    the item. Item 10 (replication) is ported: its options now build a
+    config that keeps them."""
+    if item == "10":
+        cfg = T.SpmmConfig(**fields)
+        assert all(getattr(cfg, k) == v for k, v in fields.items())
+        return
     with pytest.raises(NotImplementedError, match=f"open item {item}"):
         T.SpmmConfig(**fields)
 

@@ -2,7 +2,10 @@
 
 The flat axis on ``make_spmm_mesh(P)``; the (G, L) grid collectives on
 ``make_spmm_mesh(P, groups=G)`` (rank p = (p // L, p % L)), and the
-reduce-scatter's fixed ascending-l fold.
+reduce-scatter's fixed ascending-l fold; the replica layout's lane
+exchange and replica-axis reduce-scatter on the reference's
+``Topology.replicated_mesh(c, s)`` (rank p = r·s + g), its fold's fixed
+ascending-r chain, and B's c-fold copy.
 """
 import numpy as np
 import pytest
@@ -190,3 +193,123 @@ def test_grid_rejects_bad_shapes():
         comm.group_all_to_all(torch.zeros(P, 3, 2))
     with pytest.raises(ValueError, match="not divisible"):
         comm.local_psum_scatter(torch.zeros(P, 6, 2), 0)
+
+
+# ----- the (c, s) replica x shard layout ----------------------------------
+
+REPLICAS = [2, 4]
+
+
+def _per_replica_rank(body, x: np.ndarray, c: int) -> np.ndarray:
+    """``body`` on every rank (r, g) of the reference's (c, s) replicated
+    mesh (``Topology.replicated_mesh``), stacked lane-major."""
+    from repro.distributed.topology import Topology
+
+    s = P // c
+    mesh, ra, ax = Topology.resolve(P).replicated_mesh(c, s)
+    rx = PartitionSpec(ra, ax)
+    fn = shard_map(lambda v: body(v[0, 0])[None, None], mesh=mesh,
+                   in_specs=(rx,), out_specs=rx)
+    out = np.asarray(fn(jnp.asarray(x.reshape((c, s) + x.shape[1:]))))
+    return out.reshape((P,) + out.shape[2:])
+
+
+@pytest.mark.parametrize("c", REPLICAS)
+def test_lane_shift_matches_jax_lane_perm(c):
+    """Every lane on its own shift inside its s ranks, one joint ppermute
+    over (replica, shard) as the reference's ``_lane_perm``; lanes outside
+    the round receive zeros, and the log counts the sending ranks' rows
+    only."""
+    s = P // c
+    rng = np.random.default_rng(c)
+    x = rng.standard_normal((P, 5, 3)).astype(np.float32)
+    comm = LocalComm(P, replicas=c)
+    rounds = [(tuple(int(v) for v in rng.integers(0, s, c)),
+               tuple(range(c))),
+              (tuple(1 + r % (s - 1) for r in range(c)), (c - 1,)),
+              (tuple(range(c)), (0,) if c == 2 else (1, 3))]
+    for shifts, lanes in rounds:
+        perm = [(r * s + g, r * s + (g + shifts[r]) % s)
+                for r in lanes for g in range(s)]
+        ref = _per_replica_rank(lambda v: ppermute(v, ("r", "x"), perm), x,
+                                c)
+        got = comm.lane_shift(torch.from_numpy(x), shifts, lanes)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        idle = [r for r in range(c) if r not in lanes]
+        assert not got.reshape(c, s, 5, 3)[idle].any()
+        op, pairs, rows = comm.log[-1]
+        assert op == "ppermute@s" and pairs == tuple(perm)
+        assert rows == s * len(lanes) * 5
+    assert comm.rows("s") == sum(s * len(l) * 5 for _, l in rounds)
+    assert comm.rows("r") == comm.rows("x") == comm.rows("g") == 0
+
+
+@pytest.mark.parametrize("c", REPLICAS)
+def test_replica_psum_scatter_matches_jax(c):
+    """Integer-valued operands, so every order of the sum is exact and the
+    comparison with jax's tiled reduce-scatter over the replica axis can
+    be bit for bit; the result comes in (g, r) order, so its reshape is
+    the global row order of the reference's ``P((shard, replica))``."""
+    s = P // c
+    x = np.random.default_rng(c + 3).integers(-50, 50, (P, 3 * c, 4)).astype(
+        np.float32)
+    ref = _per_replica_rank(lambda v: psum_scatter(
+        v, "r", scatter_dimension=0, tiled=True), x, c)  # [P, 3, 4]
+    comm = LocalComm(P, replicas=c)
+    out = comm.replica_psum_scatter(torch.from_numpy(x))
+    assert out.shape == (s, c, 3, 4)
+    for r in range(c):
+        for g in range(s):
+            np.testing.assert_array_equal(out[g, r].numpy(), ref[r * s + g])
+    (op, pairs, rows), = comm.log
+    assert op == "psum_scatter@r" and rows == P * 3 * c
+    assert {(a % s, b % s) for a, b in pairs} == {(g, g) for g in range(s)}
+    assert comm.rows("r") == rows and comm.rows("s") == 0
+
+
+@pytest.mark.parametrize("c", REPLICAS)
+def test_replica_fold_is_one_ascending_chain(c):
+    """The replica reduce-scatter sums in one fixed chain x[(0, g)] +
+    x[(1, g)] + … + x[(c-1, g)], left to right, whatever the values'
+    scales: its bits equal that staged sum."""
+    s, m, n = P // c, 2 * c, 3
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.standard_normal((P, m, n)).astype(np.float32)
+                         * 10 ** rng.uniform(-4, 4, (P, m, 1)).astype(
+                             np.float32))
+    out = LocalComm(P, replicas=c).replica_psum_scatter(x)
+    v = x.reshape(c, s, m, n)
+    chain = v[0].clone()
+    for r in range(1, c):
+        chain = chain + v[r]
+    assert torch.equal(out.reshape(s, m, n), chain)
+
+
+@pytest.mark.parametrize("c", REPLICAS)
+def test_replicate_copies_every_shard_to_every_lane(c):
+    s = P // c
+    x = torch.arange(s * 6 * 2, dtype=torch.float32).reshape(s, 6, 2)
+    comm = LocalComm(P, replicas=c)
+    out = comm.replicate(x)
+    assert out.shape == (P, 6, 2)
+    for r in range(c):
+        assert torch.equal(out[r * s:(r + 1) * s], x)
+    out[0, 0, 0] = -1.0  # one copy of its own, not a view of x
+    assert x[0, 0, 0] == 0.0
+    (op, pairs, rows), = comm.log
+    assert op == "broadcast@r" and rows == P * 6
+    assert set(pairs) == {(g, r * s + g) for r in range(c) for g in range(s)}
+
+
+def test_replica_layout_rejects_bad_shapes():
+    with pytest.raises(ValueError, match="does not divide"):
+        LocalComm(P, replicas=3)
+    comm = LocalComm(P, replicas=2)
+    with pytest.raises(ValueError, match="one shift per lane"):
+        comm.lane_shift(torch.zeros(P, 2, 2), (1,), (0,))
+    with pytest.raises(ValueError, match="distinct lanes"):
+        comm.lane_shift(torch.zeros(P, 2, 2), (1, 1), (0, 0))
+    with pytest.raises(ValueError, match="c=2 \\| rows"):
+        comm.replica_psum_scatter(torch.zeros(P, 3, 2))
+    with pytest.raises(ValueError, match="replicate operand"):
+        comm.replicate(torch.zeros(P, 3, 2))

@@ -733,6 +733,76 @@ def test_hier_fused_on_the_card_matches_cpu(G, L, K, backend):
 
 
 @requires_cuda
+@pytest.mark.parametrize("c", [2, 4])
+@pytest.mark.parametrize("backend", ["coo", "bsr"])
+def test_replicated_spmm_on_the_card_matches_cpu(c, backend):
+    """The 1.5D executor through the kernels: on coo C equals the CPU run
+    of the plain versions bit for bit (K1's scaled form and K2 keep one
+    chain), on bsr within float32 1e-5 (K3's FMAs); within 2e-4 of
+    float64; call == call; the same collective log as the CPU."""
+    from repro_torch.core import comm_schedule, dist_spmm, planner, sparse
+    from repro_torch.distributed.comm import LocalComm
+
+    a = sparse.power_law_sparse(512, 512, 6000, 1.2, seed=2)
+    rp = planner.replicate_plan(planner.build_plan(a, 8 // c), c)
+    ex_cpu = dist_spmm.replicated_exec_arrays(
+        rp, backends=("coo", "bsr"),
+        schedule=comm_schedule.build_replicated_schedule(rp))
+    ex = ex_cpu.to("cuda")
+    b = torch.randn((512, 64), device="cuda")
+    before = launch_counts()
+    comm = LocalComm(8, replicas=c)
+    out = dist_spmm.replicated_spmm(ex, b, comm, backend=backend)
+    again = dist_spmm.replicated_spmm(ex, b, backend=backend)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    kernels = ("gather_rows", "scatter_add_rows") + (
+        ("gather_rows_scaled",) if backend == "coo" else ("bsr_spmm",))
+    for k in kernels:
+        assert after[k] > before[k], k
+    assert torch.equal(again, out)
+    cpu_comm = LocalComm(8, replicas=c)
+    cpu = dist_spmm.replicated_spmm(ex_cpu, b.cpu(), cpu_comm,
+                                    backend=backend)
+    assert comm.log == cpu_comm.log
+    assert comm.rows("s") == ex.schedule.volume_rows_padded()
+    if backend == "coo":
+        assert torch.equal(out.cpu(), cpu)
+    else:
+        torch.testing.assert_close(out.cpu(), cpu, rtol=1e-5, atol=1e-5)
+    want = a.to_dense().astype(np.float64) @ b.double().cpu().numpy()
+    np.testing.assert_allclose(out.cpu().numpy(), want, rtol=2e-4,
+                               atol=2e-4)
+
+
+@requires_cuda
+@pytest.mark.parametrize("c", [2, 4])
+def test_replica_collectives_on_cuda_equal_cpu(c):
+    """The lane exchange is a copy and the replica fold a fixed chain of
+    float additions: on the card they give the CPU's bits."""
+    from repro_torch.distributed.comm import LocalComm
+
+    s = 8 // c
+    gen = torch.Generator().manual_seed(c)
+    x = torch.randn((8, 2 * c, 5), generator=gen) * torch.exp(
+        4 * torch.randn((8, 2 * c, 1), generator=gen))
+    cpu, card = LocalComm(8, replicas=c), LocalComm(8, replicas=c)
+    xc = x.cuda()
+    shifts = tuple(1 + r % (s - 1) for r in range(c))
+    pairs = [
+        (cpu.replica_psum_scatter(x), card.replica_psum_scatter(xc)),
+        (cpu.lane_shift(x, shifts, range(c)),
+         card.lane_shift(xc, shifts, range(c))),
+        (cpu.lane_shift(x, shifts, (c - 1,)),
+         card.lane_shift(xc, shifts, (c - 1,))),
+        (cpu.replicate(x[:s]), card.replicate(xc[:s])),
+    ]
+    for want, got in pairs:
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert card.log == cpu.log
+
+
+@requires_cuda
 @pytest.mark.parametrize("G", [2, 4])
 def test_grid_collectives_on_cuda_equal_cpu(G):
     """Every grid collective is a device copy or a fixed chain of float
