@@ -66,6 +66,27 @@ handle. Phases, each of which raises on a failed check:
    bsr within 2e-4, every kernel of the cell launched; each kernel's
    replicated calls are replayed against its plain version as in phase 2
    (paths ``repl_*`` in the kernels line);
+5d. training, through the backward compositions (``kernels.ops``):
+   ``dB`` of ½‖h(b)‖² through every coo SpMM handle of phases 3-5c against
+   Aᵀ(A b) by scipy in float64 (2e-4), the backward's collective rows ==
+   the forward's on each axis, a bsr call under grad refused; the GAT
+   handle's bsr SDDMM under grad (K5's Function, K3 in the backward)
+   against float64 (rtol 2e-3 / atol 2e-4); then two training cells with
+   AdamW (lr 5e-3, warmup 10, no decay): gcn-train-arxiv, a GCN 128 → 256
+   → 256 → 40 (OGB's ogbn-arxiv GCN widths) on ``compile_spmm(
+   normalize_adjacency(power-law), 8)`` for 200 epochs, and
+   gat-train-arxiv, the GAT of phase 5 on the fused handle's coo backend
+   for 50 (weights from numpy seed 0, features seed 1, labels seed 2).
+   Each cell's first step runs counted (launches by kernel and direction)
+   under an op watch that fails on ``index_add`` / ``scatter_add`` /
+   sparse products / accumulating ``index_put`` or a plain version on the
+   card, then again with every kernel call checked and timed against its
+   plain version as it happens (paths ``gcn_step``, ``gat_step``,
+   ``gat_sddmm_grad``): the two give the same grads, every grad within
+   rtol 2e-3 / atol 2e-4 of a float64 oracle, the backward's rows == the
+   forward's per call and axis; the loss falls, and ten steps repeat bit
+   for bit from a fresh start. Per-epoch times (CUDA events: forward,
+   backward, update; host wall), the prep ratio and peak memory printed;
 6. timing: median ``h(b)`` per backend and median GAT forward per backend,
    each hier and replicated cell beside the flat one on the same matrix
    (``--profile`` also names the device time of each kind of collective:
@@ -95,6 +116,7 @@ CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import gc
 import json
@@ -355,25 +377,39 @@ def host_us_per_launch(runs, n: int = 200) -> float:
     return wall / n * 1e6
 
 
-def kernel_busy_ms(fns, key: str, reps: int = 5) -> float:
+def kernel_busy_ms(fns, key: str, reps: int = 5, sessions: int = 3) -> float:
     """Device time of the kernels named ``*key*`` under torch.profiler,
-    per pass over ``fns`` (each called ``reps`` times): the kernel's own
-    time, without the host time between launches that CUDA events count."""
+    per pass over ``fns`` (each one launch of the kernel, called ``reps``
+    times): the kernel's own time, without the host time between launches
+    that CUDA events count. A profiler session can lose its device records
+    (all of them, in a short session), so a session counts only when it
+    saw every launch; up to ``sessions`` are tried, each four times as long
+    as the one before, before this fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in fns:
-                fn()
+    seen = []
+    for attempt in range(sessions):
+        if attempt:
+            reps *= 4
+        want = reps * len(fns)
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and key in e.key)
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no {key} kernel")
-    return us / 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and key in e.key]
+        count = sum(e.count for e in events)
+        us = sum(e.self_device_time_total for e in events)
+        if count == want and us > 0:
+            return us / 1e3 / reps
+        seen.append(f"{count} of {want}")
+        log(f"profiler session {attempt + 1} saw {seen[-1]} {key} launches")
+    raise AssertionError(f"the profiler saw {', '.join(seen)} {key} "
+                         f"launches in {sessions} sessions")
 
 
 # ---------------------------------------------------------------------------
@@ -381,22 +417,40 @@ def kernel_busy_ms(fns, key: str, reps: int = 5) -> float:
 # ---------------------------------------------------------------------------
 
 
-def record_kernel_calls(fn):
-    """Run ``fn()`` with every kernel wrapper wrapped to keep a copy of
-    its arguments; returns {kernel: [(args, kwargs), ...]}."""
+def _kernel_targets():
+    """{kernel: (its module, its CUDA wrapper's name)}."""
     from repro_torch.kernels import (
         bsr_spmm, gather_rows, rmsnorm, scatter_add_rows, sddmm,
     )
 
-    targets = {"gather_rows": (gather_rows, "gather_rows_cuda"),
-               "gather_rows_scaled": (gather_rows, "gather_rows_scaled_cuda"),
-               "scatter_add_rows": (scatter_add_rows, "scatter_add_rows_cuda"),
-               "bsr_spmm": (bsr_spmm, "bsr_spmm_cuda"),
-               "bsr_spmm_acc": (bsr_spmm, "bsr_spmm_acc_cuda"),
-               "bsr_sddmm": (sddmm, "bsr_sddmm_cuda"),
-               "rmsnorm": (rmsnorm, "rmsnorm_cuda")}
-    calls = {k: [] for k in targets}
+    return {"gather_rows": (gather_rows, "gather_rows_cuda"),
+            "gather_rows_scaled": (gather_rows, "gather_rows_scaled_cuda"),
+            "scatter_add_rows": (scatter_add_rows, "scatter_add_rows_cuda"),
+            "bsr_spmm": (bsr_spmm, "bsr_spmm_cuda"),
+            "bsr_spmm_acc": (bsr_spmm, "bsr_spmm_acc_cuda"),
+            "bsr_sddmm": (sddmm, "bsr_sddmm_cuda"),
+            "rmsnorm": (rmsnorm, "rmsnorm_cuda")}
+
+
+def _with_wrapped(fn, wrap):
+    """Run ``fn()`` with every kernel wrapper replaced by ``wrap(kernel,
+    original)``; the originals come back afterwards."""
+    targets = _kernel_targets()
     originals = {k: getattr(mod, attr) for k, (mod, attr) in targets.items()}
+    for k, (mod, attr) in targets.items():
+        setattr(mod, attr, wrap(k, originals[k]))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for k, (mod, attr) in targets.items():
+            setattr(mod, attr, originals[k])
+
+
+def record_kernel_calls(fn):
+    """Run ``fn()`` with every kernel wrapper wrapped to keep a copy of
+    its arguments; returns {kernel: [(args, kwargs), ...]}."""
+    calls = {k: [] for k in _kernel_targets()}
 
     def wrap(kernel, orig):
         def recorded(*args, **kwargs):
@@ -406,15 +460,35 @@ def record_kernel_calls(fn):
             return orig(*args, **kwargs)
         return recorded
 
-    for k, (mod, attr) in targets.items():
-        setattr(mod, attr, wrap(k, originals[k]))
-    try:
-        fn()
-        torch.cuda.synchronize()
-    finally:
-        for k, (mod, attr) in targets.items():
-            setattr(mod, attr, originals[k])
+    _with_wrapped(fn, wrap)
     return calls
+
+
+def stream_kernel_calls(fn, keep: int = 8, tallies=None):
+    """Run ``fn()`` with every kernel call checked against its plain
+    version and timed as it happens, before the call itself runs
+    (``KernelTally.add``); returns {kernel: tally} for the kernels that
+    ran (added to ``tallies`` when given). Nothing is kept past a call but
+    the last ``keep`` replays a kernel (for its host-time loop): a
+    training step's calls at full size would not fit on the card all at
+    once."""
+    tallies = {} if tallies is None else tallies
+    busy = []
+
+    def wrap(kernel, orig):
+        def streamed(*args, **kwargs):
+            if not busy:  # the replays call the original directly
+                busy.append(kernel)
+                try:
+                    tallies.setdefault(kernel, KernelTally(kernel, keep)
+                                       ).add(args, kwargs)
+                finally:
+                    busy.pop()
+            return orig(*args, **kwargs)
+        return streamed
+
+    _with_wrapped(fn, wrap)
+    return tallies
 
 
 def _distinct_rows(idx: torch.Tensor) -> int:
@@ -506,8 +580,11 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
 
 
-def kernel_row(name, calls, launches):
-    """Replay one kernel's recorded calls: error vs plain, times, bound."""
+def replay_call(name, args, kw):
+    """One recorded call of kernel ``name``, checked against the plain
+    version: (out, ref, run, plain, lib, pair, nbytes, flops, oracle).
+    A function of its own, so that each call's closures keep their own
+    arguments."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import bsr_spmm as k34
@@ -516,191 +593,212 @@ def kernel_row(name, calls, launches):
     from repro_torch.kernels import scatter_add_rows as k2
     from repro_torch.kernels import sddmm as k5
 
-    if not calls:
-        raise AssertionError(f"{name}: no call recorded on the main path")
-    err = ms = plain_ms = lib_ms = bound_ms = oracle_err = pair_ms = 0.0
-    runs = []
-    by = {"bytes": 0.0, "operations": 0.0}
-
-    def replay(args, kw):
-        """One recorded call, checked against the plain version. A function
-        of its own, so that each call's closures keep their own
-        arguments."""
-        oracle = 0.0
-        pair = None
-        if name == "gather_rows_scaled":
-            b, idx, val, out_dtype = args
-            out = k1.gather_rows_scaled_cuda(b, idx, val, out_dtype)
-            ref = k1.gather_rows_scaled_plain(b, idx, val, out_dtype)
-            if not torch.equal(_bits(out), _bits(ref)):
-                raise AssertionError("gather_rows_scaled kernel != plain "
-                                     "version")
-            P_, K, n = b.shape
-            flat = torch.where(idx >= 0, idx.long() + torch.arange(
-                P_, device=b.device)[:, None] * K, P_ * K).reshape(-1)
-            b_pad = torch.cat([b.reshape(P_ * K, n), b.new_zeros(1, n)])
-            v2 = val.reshape(-1, 1)
-            run = lambda: k1.gather_rows_scaled_cuda(b, idx, val, out_dtype)  # noqa: E731,E501
-            plain = lambda: k1.gather_rows_scaled_plain(b, idx, val, out_dtype)  # noqa: E731,E501
-            # no one library call: index_select, then the multiply
-            lib = lambda: (b_pad.index_select(0, flat) * v2).to(out_dtype)  # noqa: E731,E501
-            # the former coo path: K1's pack form, then the multiply
-            pair = lambda: (k1.gather_rows_cuda(b, idx) * val[..., None]).to(out_dtype)  # noqa: E731,E501
-            es = b.element_size()
-            nbytes = (_distinct_rows(idx) * n * es + 2 * idx.numel() * 4
-                      + idx.numel() * n * out.element_size())
-            flops = float(idx.numel() * n)
-        elif name == "gather_rows":
-            b, idx = args
-            out = k1.gather_rows_cuda(b, idx)
-            ref = k1.gather_rows_plain(b, idx)
-            if not torch.equal(_bits(out), _bits(ref)):
-                raise AssertionError("gather_rows kernel != plain version")
-            P_, K, n = b.shape
-            flat = torch.where(idx >= 0, idx.long() + torch.arange(
-                P_, device=b.device)[:, None] * K, P_ * K).reshape(-1)
-            b_pad = torch.cat([b.reshape(P_ * K, n), b.new_zeros(1, n)])
-            run = lambda: k1.gather_rows_cuda(b, idx)  # noqa: E731
-            plain = lambda: k1.gather_rows_plain(b, idx)  # noqa: E731
-            lib = lambda: b_pad.index_select(0, flat)  # noqa: E731
-            es = b.element_size()
-            nbytes = (_distinct_rows(idx) * n * es + idx.numel() * 4
-                      + idx.numel() * n * es)
-            flops = 0.0
-        elif name == "scatter_add_rows":
-            c0, parts, perm, meta = args
-            out = k2.scatter_add_rows_cuda(c0.clone(), parts, perm, meta)
-            ref = k2.scatter_add_rows_plain(c0.clone(), parts, perm, meta)
-            if not torch.equal(out, ref):  # one slot-order chain in both
-                raise AssertionError("scatter_add_rows kernel != plain "
-                                     "version")
-            P_, S, n = parts.shape
-            M = c0.shape[1]
-            c = c0.clone()
-            valid = torch.arange(S, device=c.device)[None] < meta[:, S:]
-            tgt = (meta[:, :S].long() + torch.arange(
-                P_, device=c.device)[:, None] * M)[valid]
-            rows = torch.take_along_dim(parts, perm.long()[..., None],
-                                        dim=1)[valid]
-            run = lambda: k2.scatter_add_rows_cuda(c, parts, perm, meta)  # noqa: E731,E501
-            plain = lambda: k2.scatter_add_rows_plain(c, parts, perm, meta)  # noqa: E731,E501
-            lib = lambda: c.view(P_ * M, n).index_add_(0, tgt, rows)  # noqa: E731,E501
-            es = c.element_size()
-            n_valid = int(valid.sum())
-            touched = int(torch.unique(tgt).numel())
-            nbytes = (n_valid * n * es + (perm.numel() + meta.numel()) * 4
-                      + 2 * touched * n * es)
-            flops = float(n_valid * n)
-        elif name == "rmsnorm":
-            x, g, eps = args
-            rbg = kw["round_before_gain"]
-            out = k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg)
-            ref = k6.rmsnorm_plain(x, g, eps, round_before_gain=rbg)
-            oracle = check_rmsnorm(out, ref, x, g, eps, rbg)
-            run = lambda: k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg)  # noqa: E731,E501
-            plain = lambda: k6.rmsnorm_plain(x, g, eps, round_before_gain=rbg)  # noqa: E731,E501
-            lib = lambda: F.rms_norm(x, (x.shape[-1],), weight=g, eps=eps)  # noqa: E731,E501
-            es = x.element_size()
-            nbytes = 2 * x.numel() * es + g.numel() * es  # read x, g; write y
-            flops = 4.0 * x.numel()  # square-add, scale, gain (+ rounding)
-        elif name == "bsr_sddmm":
-            cols, blocks, x3, y3 = args
-            out = k5.bsr_sddmm_cuda(cols, blocks, x3, y3)
-            ref = k5.bsr_sddmm_plain(cols, blocks, x3, y3)
-            if not torch.equal(out, ref):  # one FMA chain in both
-                raise AssertionError("bsr_sddmm kernel != plain version")
-            P_, mb, t, bm, bk = blocks.shape
-            kb, f = y3.shape[1], y3.shape[3]
-            csr = _sddmm_csr(cols, blocks, mb * bm, kb * bk)
-            x2 = x3.reshape(P_ * mb * bm, f)
-            y2t = y3.reshape(P_ * kb * bk, f).t()
-            stored = csr.values()
-            run = lambda: k5.bsr_sddmm_cuda(cols, blocks, x3, y3)  # noqa: E731
-            plain = lambda: k5.bsr_sddmm_plain(cols, blocks, x3, y3)  # noqa: E731,E501
-            lib = lambda: torch.sparse.sampled_addmm(  # noqa: E731
-                csr, x2, y2t, beta=0.0).values() * stored
-            # what this run's data needs: every stored block read and
-            # every slot written once, the X and Y rows of the stored
-            # nonzeros read once, 2F + 1 operations per stored nonzero
-            es = x3.element_size()
-            valid = (cols >= 0) & (cols < kb)
-            nb = int(valid.sum())
-            p, i, s, r, c = (blocks.ne(0) & valid[..., None, None]
-                             ).nonzero().unbind(1)
-            x_rows = torch.unique((p * mb + i) * bm + r).numel()
-            y_rows = torch.unique((p * kb + cols[p, i, s].long()) * bk
-                                  + c).numel()
-            flops = float(p.numel() * (2 * f + 1))
-            nbytes = (nb * bm * bk * 4 + cols.numel() * 4
-                      + (x_rows + y_rows) * f * es + out.numel() * 4)
-        else:
-            acc_form = name == "bsr_spmm_acc"
-            cols, blocks, b, last = args
-            bn = kw.get("bn", 128)
-            P_, mb, t, bm, bk = blocks.shape
-            K, n = b.shape[1], b.shape[2]
-            m_out = last.shape[1] if acc_form else int(last)
-            if acc_form:
-                out = k34.bsr_spmm_acc_cuda(cols, blocks, b, last.clone(),
-                                            bn=bn)
-                ref = k34.bsr_spmm_acc_plain(cols, blocks, b, last.clone())
-                acc = last.clone()
-                run = lambda: k34.bsr_spmm_acc_cuda(cols, blocks, b, acc, bn=bn)  # noqa: E731,E501
-                plain = lambda: k34.bsr_spmm_acc_plain(cols, blocks, b, acc)  # noqa: E731,E501
-            else:
-                out = k34.bsr_spmm_cuda(cols, blocks, b, m_out, bn=bn)
-                ref = k34.bsr_spmm_plain(cols, blocks, b, m_out)
-                run = lambda: k34.bsr_spmm_cuda(cols, blocks, b, m_out, bn=bn)  # noqa: E731,E501
-                plain = lambda: k34.bsr_spmm_plain(cols, blocks, b, m_out)  # noqa: E731,E501
-            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
-            csr = _bsr_csr(cols, blocks, K, m_out)
-            b2 = b.reshape(P_ * K, n)
-            if acc_form:
-                acc2 = last.reshape(P_ * m_out, n)
-                lib = lambda: torch.addmm(acc2, csr, b2)  # noqa: E731
-            else:
-                lib = lambda: torch.sparse.mm(csr, b2)  # noqa: E731
-            es = b.element_size()
-            nb = int((cols >= 0).sum())
-            flops = 2.0 * nb * bm * bk * n
-            nbytes = (nb * bm * bk * 4 + cols.numel() * 4
-                      + _distinct_rows(cols) * bk * n * es
-                      + P_ * m_out * n * es * (2 if acc_form else 1))
-        return out, ref, run, plain, lib, pair, nbytes, flops, oracle
-
-    for args, kw in calls:
-        out, ref, run, plain, lib, pair, nbytes, flops, oracle = replay(args,
-                                                                        kw)
-        oracle_err = max(oracle_err, oracle)
-        err = max(err, float((out.float() - ref.float()).abs().max())
-                  if out.numel() else 0.0)
-        ms += time_ms(run)
-        runs.append(run)
-        plain_ms += time_ms(plain, iters=1, warmup=0)  # warm from the check
-        lib_ms += time_ms(lib)
-        if pair is not None:
-            pair_ms += time_ms(pair)
-        b_ms, b_by = _bound(nbytes, flops)
-        bound_ms += b_ms
-        by[b_by] += b_ms
-    source, replaces = KERNELS[name]
-    row = {"name": name, "route": "cuda", "source": source,
-           "replaces": replaces, "launches": int(launches),
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": max(by, key=by.get),
-           "library_ms": lib_ms, "calls_per_h": len(calls),
-           "host_us_per_launch": host_us_per_launch(runs)}
+    oracle = 0.0
+    pair = None
     if name == "gather_rows_scaled":
-        row["library"] = "index_select + mul"
-        row["pack_plus_multiply_ms"] = pair_ms
-    if name == "rmsnorm":
-        row["max_abs_err_vs_oracle"] = oracle_err
-        row["kernel_busy_ms"] = kernel_busy_ms(runs, "rmsnorm_kernel")
-        # the same launches all on the last call's input, which then stays
-        # in L2: the busy time before each call's replay kept its own input
-        row["kernel_busy_ms_one_input"] = kernel_busy_ms(
-            [runs[-1]] * len(runs), "rmsnorm_kernel")
-    return row
+        b, idx, val, out_dtype = args
+        out = k1.gather_rows_scaled_cuda(b, idx, val, out_dtype)
+        ref = k1.gather_rows_scaled_plain(b, idx, val, out_dtype)
+        if not torch.equal(_bits(out), _bits(ref)):
+            raise AssertionError("gather_rows_scaled kernel != plain "
+                                 "version")
+        P_, K, n = b.shape
+        flat = torch.where(idx >= 0, idx.long() + torch.arange(
+            P_, device=b.device)[:, None] * K, P_ * K).reshape(-1)
+        b_pad = torch.cat([b.reshape(P_ * K, n), b.new_zeros(1, n)])
+        v2 = val.reshape(-1, 1)
+        run = lambda: k1.gather_rows_scaled_cuda(b, idx, val, out_dtype)  # noqa: E731,E501
+        plain = lambda: k1.gather_rows_scaled_plain(b, idx, val, out_dtype)  # noqa: E731,E501
+        # no one library call: index_select, then the multiply
+        lib = lambda: (b_pad.index_select(0, flat) * v2).to(out_dtype)  # noqa: E731,E501
+        # the former coo path: K1's pack form, then the multiply
+        pair = lambda: (k1.gather_rows_cuda(b, idx) * val[..., None]).to(out_dtype)  # noqa: E731,E501
+        es = b.element_size()
+        nbytes = (_distinct_rows(idx) * n * es + 2 * idx.numel() * 4
+                  + idx.numel() * n * out.element_size())
+        flops = float(idx.numel() * n)
+    elif name == "gather_rows":
+        b, idx = args
+        out = k1.gather_rows_cuda(b, idx)
+        ref = k1.gather_rows_plain(b, idx)
+        if not torch.equal(_bits(out), _bits(ref)):
+            raise AssertionError("gather_rows kernel != plain version")
+        P_, K, n = b.shape
+        flat = torch.where(idx >= 0, idx.long() + torch.arange(
+            P_, device=b.device)[:, None] * K, P_ * K).reshape(-1)
+        b_pad = torch.cat([b.reshape(P_ * K, n), b.new_zeros(1, n)])
+        run = lambda: k1.gather_rows_cuda(b, idx)  # noqa: E731
+        plain = lambda: k1.gather_rows_plain(b, idx)  # noqa: E731
+        lib = lambda: b_pad.index_select(0, flat)  # noqa: E731
+        es = b.element_size()
+        nbytes = (_distinct_rows(idx) * n * es + idx.numel() * 4
+                  + idx.numel() * n * es)
+        flops = 0.0
+    elif name == "scatter_add_rows":
+        c0, parts, perm, meta = args
+        out = k2.scatter_add_rows_cuda(c0.clone(), parts, perm, meta)
+        ref = k2.scatter_add_rows_plain(c0.clone(), parts, perm, meta)
+        if not torch.equal(out, ref):  # one slot-order chain in both
+            raise AssertionError("scatter_add_rows kernel != plain "
+                                 "version")
+        P_, S, n = parts.shape
+        M = c0.shape[1]
+        c = c0.clone()
+        valid = torch.arange(S, device=c.device)[None] < meta[:, S:]
+        tgt = (meta[:, :S].long() + torch.arange(
+            P_, device=c.device)[:, None] * M)[valid]
+        rows = torch.take_along_dim(parts, perm.long()[..., None],
+                                    dim=1)[valid]
+        run = lambda: k2.scatter_add_rows_cuda(c, parts, perm, meta)  # noqa: E731,E501
+        plain = lambda: k2.scatter_add_rows_plain(c, parts, perm, meta)  # noqa: E731,E501
+        lib = lambda: c.view(P_ * M, n).index_add_(0, tgt, rows)  # noqa: E731,E501
+        es = c.element_size()
+        n_valid = int(valid.sum())
+        touched = int(torch.unique(tgt).numel())
+        nbytes = (n_valid * n * es + (perm.numel() + meta.numel()) * 4
+                  + 2 * touched * n * es)
+        flops = float(n_valid * n)
+    elif name == "rmsnorm":
+        x, g, eps = args
+        rbg = kw["round_before_gain"]
+        out = k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg)
+        ref = k6.rmsnorm_plain(x, g, eps, round_before_gain=rbg)
+        oracle = check_rmsnorm(out, ref, x, g, eps, rbg)
+        run = lambda: k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg)  # noqa: E731,E501
+        plain = lambda: k6.rmsnorm_plain(x, g, eps, round_before_gain=rbg)  # noqa: E731,E501
+        lib = lambda: F.rms_norm(x, (x.shape[-1],), weight=g, eps=eps)  # noqa: E731,E501
+        es = x.element_size()
+        nbytes = 2 * x.numel() * es + g.numel() * es  # read x, g; write y
+        flops = 4.0 * x.numel()  # square-add, scale, gain (+ rounding)
+    elif name == "bsr_sddmm":
+        cols, blocks, x3, y3 = args
+        out = k5.bsr_sddmm_cuda(cols, blocks, x3, y3)
+        ref = k5.bsr_sddmm_plain(cols, blocks, x3, y3)
+        if not torch.equal(out, ref):  # one FMA chain in both
+            raise AssertionError("bsr_sddmm kernel != plain version")
+        P_, mb, t, bm, bk = blocks.shape
+        kb, f = y3.shape[1], y3.shape[3]
+        csr = _sddmm_csr(cols, blocks, mb * bm, kb * bk)
+        x2 = x3.reshape(P_ * mb * bm, f)
+        y2t = y3.reshape(P_ * kb * bk, f).t()
+        stored = csr.values()
+        run = lambda: k5.bsr_sddmm_cuda(cols, blocks, x3, y3)  # noqa: E731
+        plain = lambda: k5.bsr_sddmm_plain(cols, blocks, x3, y3)  # noqa: E731,E501
+        lib = lambda: torch.sparse.sampled_addmm(  # noqa: E731
+            csr, x2, y2t, beta=0.0).values() * stored
+        # what this run's data needs: every stored block read and
+        # every slot written once, the X and Y rows of the stored
+        # nonzeros read once, 2F + 1 operations per stored nonzero
+        es = x3.element_size()
+        valid = (cols >= 0) & (cols < kb)
+        nb = int(valid.sum())
+        p, i, s, r, c = (blocks.ne(0) & valid[..., None, None]
+                         ).nonzero().unbind(1)
+        x_rows = torch.unique((p * mb + i) * bm + r).numel()
+        y_rows = torch.unique((p * kb + cols[p, i, s].long()) * bk
+                              + c).numel()
+        flops = float(p.numel() * (2 * f + 1))
+        nbytes = (nb * bm * bk * 4 + cols.numel() * 4
+                  + (x_rows + y_rows) * f * es + out.numel() * 4)
+    else:
+        acc_form = name == "bsr_spmm_acc"
+        cols, blocks, b, last = args
+        bn = kw.get("bn", 128)
+        P_, mb, t, bm, bk = blocks.shape
+        K, n = b.shape[1], b.shape[2]
+        m_out = last.shape[1] if acc_form else int(last)
+        if acc_form:
+            out = k34.bsr_spmm_acc_cuda(cols, blocks, b, last.clone(),
+                                        bn=bn)
+            ref = k34.bsr_spmm_acc_plain(cols, blocks, b, last.clone())
+            acc = last.clone()
+            run = lambda: k34.bsr_spmm_acc_cuda(cols, blocks, b, acc, bn=bn)  # noqa: E731,E501
+            plain = lambda: k34.bsr_spmm_acc_plain(cols, blocks, b, acc)  # noqa: E731,E501
+        else:
+            out = k34.bsr_spmm_cuda(cols, blocks, b, m_out, bn=bn)
+            ref = k34.bsr_spmm_plain(cols, blocks, b, m_out)
+            run = lambda: k34.bsr_spmm_cuda(cols, blocks, b, m_out, bn=bn)  # noqa: E731,E501
+            plain = lambda: k34.bsr_spmm_plain(cols, blocks, b, m_out)  # noqa: E731,E501
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        csr = _bsr_csr(cols, blocks, K, m_out)
+        b2 = b.reshape(P_ * K, n)
+        if acc_form:
+            acc2 = last.reshape(P_ * m_out, n)
+            lib = lambda: torch.addmm(acc2, csr, b2)  # noqa: E731
+        else:
+            lib = lambda: torch.sparse.mm(csr, b2)  # noqa: E731
+        es = b.element_size()
+        nb = int((cols >= 0).sum())
+        flops = 2.0 * nb * bm * bk * n
+        nbytes = (nb * bm * bk * 4 + cols.numel() * 4
+                  + _distinct_rows(cols) * bk * n * es
+                  + P_ * m_out * n * es * (2 if acc_form else 1))
+    return out, ref, run, plain, lib, pair, nbytes, flops, oracle
+
+
+class KernelTally:
+    """``kernel_row``'s sums over one kernel's calls, taken one call at a
+    time (``add``), so a caller can check and time each call as it
+    happens; ``keep`` bounds the calls kept for the host-time loop (None:
+    all of them)."""
+
+    def __init__(self, name, keep=None):
+        self.name, self.n = name, 0
+        self.err = self.ms = self.plain_ms = self.lib_ms = 0.0
+        self.bound_ms = self.oracle_err = self.pair_ms = 0.0
+        self.runs = collections.deque(maxlen=keep)
+        self.by = {"bytes": 0.0, "operations": 0.0}
+
+    def add(self, args, kw):
+        out, ref, run, plain, lib, pair, nbytes, flops, oracle = replay_call(
+            self.name, args, kw)
+        self.n += 1
+        self.oracle_err = max(self.oracle_err, oracle)
+        self.err = max(self.err, float((out.float() - ref.float()).abs()
+                                       .max()) if out.numel() else 0.0)
+        self.ms += time_ms(run)
+        self.runs.append(run)
+        # warm from the check
+        self.plain_ms += time_ms(plain, iters=1, warmup=0)
+        self.lib_ms += time_ms(lib)
+        if pair is not None:
+            self.pair_ms += time_ms(pair)
+        b_ms, b_by = _bound(nbytes, flops)
+        self.bound_ms += b_ms
+        self.by[b_by] += b_ms
+
+    def row(self, launches):
+        name, runs = self.name, list(self.runs)
+        if not self.n:
+            raise AssertionError(f"{name}: no call recorded on the main path")
+        source, replaces = KERNELS[name]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": int(launches),
+               "max_abs_err": self.err, "ms": self.ms,
+               "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+               "bound_by": max(self.by, key=self.by.get),
+               "library_ms": self.lib_ms, "calls_per_h": self.n,
+               "host_us_per_launch": host_us_per_launch(runs)}
+        if name == "gather_rows_scaled":
+            row["library"] = "index_select + mul"
+            row["pack_plus_multiply_ms"] = self.pair_ms
+        if name == "rmsnorm":
+            row["max_abs_err_vs_oracle"] = self.oracle_err
+            row["kernel_busy_ms"] = kernel_busy_ms(runs, "rmsnorm_kernel")
+            # the same launches all on the last call's input, which then
+            # stays in L2: the busy time before each call's replay kept its
+            # own input
+            row["kernel_busy_ms_one_input"] = kernel_busy_ms(
+                [runs[-1]] * len(runs), "rmsnorm_kernel")
+        return row
+
+
+def kernel_row(name, calls, launches):
+    """Replay one kernel's recorded calls: error vs plain, times, bound."""
+    tally = KernelTally(name)
+    for args, kw in calls:
+        tally.add(args, kw)
+    return tally.row(launches)
 
 
 def replay_paths(paths: dict) -> dict:
@@ -937,20 +1035,12 @@ def check_rows(h, what: str) -> int:
 
 def gat_params(seed: int = 0):
     """numpy weights in the reference's ``GAT.init`` layout and scale."""
-    rng = np.random.default_rng(seed)
+    from repro_torch.models.gnn import gat_params as draw
+
     d = GAT_DIMS
     dims = ([d["feat_dim"]] + [d["hidden"]] * (d["n_layers"] - 1)
             + [d["n_classes"]])
-    out = []
-    for i in range(d["n_layers"]):
-        scale = dims[i] ** -0.5
-        out.append({
-            name: (rng.standard_normal((dims[i], width)) * scale).astype(
-                np.float32)
-            for name, width in (("wq", d["att_dim"]), ("wk", d["att_dim"]),
-                                ("wv", dims[i + 1]))})
-        out[-1]["b"] = np.zeros(dims[i + 1], np.float32)
-    return out
+    return draw(dims, d["att_dim"], seed)
 
 
 def fused_oracle(a, q, k, v) -> np.ndarray:
@@ -978,7 +1068,7 @@ def gat_oracle(a, params, feats: np.ndarray) -> np.ndarray:
 
 
 def _host64(t: torch.Tensor) -> np.ndarray:
-    return t.double().cpu().numpy()
+    return t.detach().double().cpu().numpy()
 
 
 def check_close(got: torch.Tensor, want: np.ndarray, what: str) -> str:
@@ -1462,6 +1552,461 @@ def repl_phase(args, a_u, a_p, b, b_host):
     return replay_paths(paths), handles
 
 
+# ---------------------------------------------------------------------------
+# phase 5d: training through the backward compositions
+# ---------------------------------------------------------------------------
+
+GCN_DIMS = (128, 256, 256, 40)  # OGB's ogbn-arxiv GCN baseline widths
+EPOCHS = {"gcn": 200, "gat": 50}  # the examples' defaults
+QUICK_EPOCHS = {"gcn": 20, "gat": 12}
+REPEAT_STEPS = 10
+TRAIN_OPT = dict(lr=5e-3, weight_decay=0.0, warmup_steps=10)
+GRAD_TOL = dict(rtol=2e-3, atol=2e-4)  # tests/test_sddmm.py's GAT grads
+# aten ops no backward on the card may run: atomics and library calls for
+# work a kernel of the port does
+FORBIDDEN_OPS = ("index_add", "scatter_add", "scatter_reduce", "sparse")
+PLAIN_VERSIONS = (("gather_rows", "gather_rows_plain"),
+                  ("gather_rows", "gather_rows_scaled_plain"),
+                  ("scatter_add_rows", "scatter_add_rows_plain"),
+                  ("bsr_spmm", "bsr_spmm_plain"),
+                  ("bsr_spmm", "bsr_spmm_acc_plain"),
+                  ("sddmm", "bsr_sddmm_plain"))
+
+
+class library_watch:
+    """Within the block every aten op is named (a TorchDispatchMode, which
+    the autograd engine carries into the backward's threads), under the
+    ``stage`` it ran in, and every kernel's plain version raises.
+    ``check`` then fails on an op of ``FORBIDDEN_OPS`` or an accumulating
+    ``index_put``, and unless the watch saw ops of the backward stage."""
+
+    def __enter__(self):
+        import importlib
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = collections.Counter()
+        self.stage = "forward"
+        watch = self
+
+        class Names(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                name = str(func)
+                if name.startswith("aten.index_put") and (
+                        kwargs.get("accumulate") or
+                        (len(args) > 3 and args[3])):
+                    name += " (accumulate)"
+                seen[(watch.stage, name)] += 1
+                return func(*args, **kwargs)
+
+        def refuse(name):
+            def plain(*args, **kwargs):
+                raise AssertionError(f"{name} ran on the card")
+            return plain
+
+        self.saved = []
+        for mod_name, attr in PLAIN_VERSIONS:
+            mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+            self.saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, refuse(attr))
+        self.mode = Names()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+    def check(self, what: str) -> None:
+        bad = sorted(n for n in self.seen
+                     if any(f in n[1] for f in FORBIDDEN_OPS)
+                     or n[1].endswith("(accumulate)"))
+        if bad:
+            raise AssertionError(f"{what}: the step ran {bad}")
+        if not any(stage == "backward" for stage, _ in self.seen):
+            raise AssertionError(f"{what}: the op watch saw no backward")
+
+
+class Spmm64(torch.autograd.Function):
+    """The float64 oracle's SpMM: A @ h, backward Aᵀ @ g (library CSR
+    products; oracle only)."""
+
+    @staticmethod
+    def forward(ctx, a, at, h):
+        ctx.at = at
+        return a @ h
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ctx.at @ g
+
+
+def _csr64(a, dev, transpose: bool = False):
+    import scipy.sparse as sp
+
+    m = sp.csr_matrix((a.data.astype(np.float64), a.indices, a.indptr),
+                      shape=a.shape)
+    if transpose:
+        m = m.T.tocsr()
+    with warnings.catch_warnings():  # beta-state notices of torch.sparse
+        warnings.simplefilter("ignore")
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(m.indptr.astype(np.int64)),
+            torch.from_numpy(m.indices.astype(np.int64)),
+            torch.from_numpy(m.data), size=m.shape, device=dev)
+
+
+def spmm64_fn(a, dev):
+    """``h -> A h`` in float64 with its transpose as the backward."""
+    fwd, bwd = _csr64(a, dev), _csr64(a, dev, transpose=True)
+    return lambda h: Spmm64.apply(fwd, bwd, h)
+
+
+def fused64_fn(a, dev):
+    """``(q, k, v) -> leaky_relu(A ⊙ (q kᵀ)) @ v`` in float64 over the
+    stored edges (library index ops; oracle only)."""
+    import torch.nn.functional as F
+
+    rows = torch.from_numpy(np.repeat(np.arange(a.shape[0]),
+                                      np.diff(a.indptr))).to(dev)
+    cols = torch.from_numpy(a.indices.astype(np.int64)).to(dev)
+    w = torch.from_numpy(a.data.astype(np.float64)).to(dev)
+
+    def fused(q, k, v):
+        e = F.leaky_relu(w * (q[rows] * k[cols]).sum(-1), 0.2)
+        return torch.zeros((a.shape[0], v.shape[1]), dtype=v.dtype,
+                           device=v.device).index_add(0, rows,
+                                                      e[:, None] * v[cols])
+    return fused
+
+
+def check_grads(got, want, what: str) -> float:
+    """Each grad non-None and within GRAD_TOL of float64; returns the
+    largest error over its tolerance (<= 1 passes)."""
+    worst = 0.0
+    for (name, g), w in zip(got, want):
+        if g is None:
+            raise AssertionError(f"{what}: no grad for {name}")
+        g, w = _host64(g), _host64(w)
+        np.testing.assert_allclose(g, w, err_msg=f"{what} {name}",
+                                   **GRAD_TOL)
+        worst = max(worst, float((np.abs(g - w) / (
+            GRAD_TOL["atol"] + GRAD_TOL["rtol"] * np.abs(w))).max()))
+    return worst
+
+
+def checked_step(forward, leaves, what: str):
+    """One forward + backward, run twice from the same state: counted
+    (launches by kernel and direction) inside ``library_watch``, then
+    streamed through ``stream_kernel_calls`` (every kernel call checked
+    and timed against its plain version). Both give the same grads bit
+    for bit. Returns (loss, grads, forward launches, backward launches,
+    {kernel: tally})."""
+    from repro_torch.kernels import ops
+
+    for p in leaves:
+        p.grad = None
+    ops.reset_launch_counts()
+    with library_watch() as watch:
+        loss = forward()
+        torch.cuda.synchronize()
+        fwd = ops.launch_counts()
+        watch.stage = "backward"
+        loss.backward()
+        torch.cuda.synchronize()
+    watch.check(what)
+    total = ops.launch_counts()
+    bwd = {k: total[k] - fwd[k] for k in total}
+    grads = [p.grad for p in leaves]
+    log(f"{what} launches a step, forward: {json.dumps(fwd)}; backward: "
+        f"{json.dumps(bwd)}")
+    for p in leaves:
+        p.grad = None
+    tallies, out = {}, []
+    stream_kernel_calls(lambda: out.append(forward()), tallies=tallies)
+    fwd_ms = {k: t.ms for k, t in tallies.items()}
+    stream_kernel_calls(lambda: out[0].backward(), tallies=tallies)
+    log(f"{what} kernel ms a step (replayed, CUDA events), forward / "
+        f"backward: " + ", ".join(
+            f"{k} {fwd_ms.get(k, 0.0):.4f} / {t.ms - fwd_ms.get(k, 0.0):.4f}"
+            for k, t in tallies.items()))
+    for p, g in zip(leaves, grads):
+        if not torch.equal(p.grad, g):
+            raise AssertionError(f"{what}: two steps' grads differ")
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    return loss.item(), grads, fwd, bwd, tallies
+
+
+def step_rows(tallies, fwd, bwd, want_fwd, want_bwd, what: str) -> dict:
+    """The path's kernel rows ({kernel: row}); every kernel of
+    ``want_fwd`` launched in the forward, of ``want_bwd`` in the
+    backward."""
+    missing = [(k, d) for d, want, n in (("forward", want_fwd, fwd),
+                                         ("backward", want_bwd, bwd))
+               for k in want if n[k] < 1]
+    if missing:
+        raise AssertionError(f"{what}: not launched: {missing}")
+    return {k: t.row(fwd[k] + bwd[k]) for k, t in tallies.items()}
+
+
+def train(model, loss_fn, epochs: int):
+    """AdamW (``TRAIN_OPT``, cosine over ``epochs``) for ``epochs``
+    full-batch steps: CUDA events around each step's forward, backward and
+    update, host wall per step (each step ends in a sync); the parameters
+    after ``REPEAT_STEPS`` steps are kept."""
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_step
+
+    params = list(model.parameters())
+    cfg = AdamWConfig(total_steps=epochs, **TRAIN_OPT)
+    state = adamw_init(params)
+    out = {"fwd": [], "bwd": [], "upd": [], "wall": [], "loss": []}
+    for ep in range(epochs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss = loss_fn(model)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        state, _ = adamw_step(cfg, params, state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        out["wall"].append((time.perf_counter() - t0) * 1e3)
+        for key, (i, j) in (("fwd", (0, 1)), ("bwd", (1, 2)),
+                            ("upd", (2, 3))):
+            out[key].append(ev[i].elapsed_time(ev[j]))
+        out["loss"].append(loss.item())
+        if ep + 1 == REPEAT_STEPS:
+            out["snapshot"] = [p.detach().clone() for p in params]
+    return out
+
+
+def train_cell(what: str, make_model, loss_fn, epochs: int, prep_s: float,
+               card: str):
+    """Train, then check and report: the loss falls, the first
+    ``REPEAT_STEPS`` steps repeat bit for bit from a fresh start, and the
+    per-epoch times, the prep ratio and the peak memory are printed."""
+    torch.cuda.synchronize()
+    t = train(make_model(), loss_fn, epochs)
+    losses = t["loss"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {losses[0]} "
+                             f"-> {losses[-1]}")
+    again = train(make_model(), loss_fn, REPEAT_STEPS)
+    if not all(torch.equal(a, b) for a, b in zip(t["snapshot"],
+                                                  again["snapshot"])):
+        raise AssertionError(f"{what}: {REPEAT_STEPS} steps from the same "
+                             f"start differ")
+    med = {k: statistics.median(t[k]) for k in ("fwd", "bwd", "upd", "wall")}
+    train_s = sum(t["wall"]) / 1e3
+    log(f"{what} [{card}]: {epochs} epochs, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; per epoch (median) forward {med['fwd']:.3f} ms, "
+        f"backward {med['bwd']:.3f} ms, AdamW {med['upd']:.3f} ms by CUDA "
+        f"events, {med['wall']:.3f} ms host wall; training {train_s:.2f} s")
+    log(f"  {what}: prep {prep_s:.2f} s, prep ratio (Tab. 3 protocol, "
+        f"{epochs} epochs) {100 * prep_s / (prep_s + train_s):.1f}%; "
+        f"{REPEAT_STEPS} steps repeated bit for bit; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return med
+
+
+def _axes(h):
+    return {"flat": ("x",), "hier": ("g", "l"),
+            "replicated": ("s", "r")}[h.strategy]
+
+
+def grad_check_handles(cells, b, b_host) -> None:
+    """dB of ½‖h(b)‖² through each coo handle (``cells``: (handle, A,
+    name)) against Aᵀ(A b) by scipy in float64 within the executor
+    tolerance, 2e-4 + 2e-4·|A|ᵀ(|A| |b|): relative to the magnitude of
+    the terms each float32 entry sums (on the power-law graph a hub's
+    terms reach 1e4 while their sum may be near 0), inside
+    ``library_watch``; the backward's rows == the forward's on each axis;
+    a bsr call under grad refused."""
+    import scipy.sparse as sp
+
+    want = {}
+    for h, a, what in cells:
+        if id(a) not in want:
+            m = sp.csr_matrix((a.data.astype(np.float64), a.indices,
+                               a.indptr), shape=a.shape)
+            b64 = b_host.astype(np.float64)
+            want[id(a)] = (m.T @ (m @ b64),
+                           abs(m).T @ (abs(m) @ np.abs(b64)))
+        x = b.clone().requires_grad_()
+        with library_watch() as watch:
+            c = h(x)
+            watch.stage = "backward"
+            c.backward(c.detach())
+            torch.cuda.synchronize()
+        watch.check(what)
+        ref, scale = want[id(a)]
+        got = _host64(x.grad)
+        ratio = np.abs(got - ref) / (2e-4 + 2e-4 * scale)
+        if got.shape != ref.shape or not (ratio <= 1).all():
+            raise AssertionError(f"{what} dB: max err / tol {ratio.max()}")
+        err = (f"max abs err {np.abs(got - ref).max():.3g} at |Aᵀ(A b)| up "
+               f"to {np.abs(ref).max():.3g}; max err / (2e-4 + 2e-4·"
+               f"|A|ᵀ|A||b|) {ratio.max():.3g} (<= 1 passes)")
+        rows = {ax: (h.comm.rows(ax), h.comm.rows(ax, "bwd"))
+                for ax in _axes(h)}
+        if any(f != r or f == 0 for f, r in rows.values()):
+            raise AssertionError(f"{what}: forward / backward rows {rows}")
+        if "bsr" in h.backends:
+            try:
+                h(x, backend="bsr")
+            except NotImplementedError:
+                pass
+            else:
+                raise AssertionError(f"{what}: a bsr call under grad ran")
+        log(f"  grad {what}: dB of ½‖h(b)‖² vs scipy float64: {err}; "
+            f"rows (forward, backward) {rows}"
+            + ("; bsr under grad refused" if "bsr" in h.backends else ""))
+
+
+def _check_step_rows(h, calls: int, what: str) -> None:
+    """After a step of ``calls`` handle calls: the log holds the last
+    call's forward and every call's backward; per axis the backward moved
+    ``calls`` times the forward's rows."""
+    rows = {ax: (h.comm.rows(ax), h.comm.rows(ax, "bwd")) for ax in _axes(h)}
+    if any(r != calls * f or f == 0 for f, r in rows.values()):
+        raise AssertionError(f"{what}: rows (forward, backward) {rows} for "
+                             f"{calls} calls")
+    log(f"  {what}: backward rows == {calls} calls × forward rows, per "
+        f"axis (forward, backward) {rows}")
+
+
+def train_phase(args, card, a_p, adj, cells, hf, gat_prep_s, b, b_host,
+                gat_weights, dev: str = "cuda"):
+    """Phase 5d: the grad checks on the SpMM handles (``cells``) and on
+    the GAT handle's bsr SDDMM, then the GCN cell (normalize_adjacency of
+    the power-law matrix) and the GAT cell (``hf``'s coo backend), each
+    trained with AdamW. Returns {kernel: {path: row}} for the paths
+    gcn_step, gat_step and gat_sddmm_grad."""
+    import scipy.sparse as sp
+
+    from repro_torch import compile_spmm
+    from repro_torch.core import make_spmm_fn
+    from repro_torch.models.gnn import (
+        gat_from_numpy, gat_loss, gcn_from_numpy, gcn_loss, gcn_params,
+        normalize_adjacency,
+    )
+
+    epochs = QUICK_EPOCHS if args.quick else EPOCHS
+    grad_check_handles(cells, b, b_host)
+    paths = {}
+
+    # the GAT handle's bsr SDDMM under grad: K5's Function, K3 backward
+    rng = np.random.default_rng(3)
+    xs, ys = (torch.from_numpy(rng.standard_normal(
+        (adj.shape[0], GAT_DIMS["att_dim"]), dtype=np.float32)).to(dev)
+        .requires_grad_() for _ in range(2))
+    _, grads, fwd, bwd, tallies = checked_step(
+        lambda: 0.5 * sum(v.square().sum() for v in hf(
+            xs, ys, kernel="sddmm", backend="bsr", edge=None).values()),
+        [xs, ys], "gat_sddmm_grad")
+    # the bsr layout stores a repeated (i, j) (a self-loop that
+    # normalize_adjacency adds to a stored diagonal entry) as one value
+    a64 = sp.csr_matrix((adj.data.astype(np.float64), adj.indices.copy(),
+                         adj.indptr.copy()), shape=adj.shape)
+    a64.sum_duplicates()  # in place: on copies of the graph's arrays
+    rows = np.repeat(np.arange(adj.shape[0]), np.diff(a64.indptr))
+    x64, y64 = _host64(xs), _host64(ys)
+    s = sp.csr_matrix((a64.data ** 2 * np.einsum(
+        "ef,ef->e", x64[rows], y64[a64.indices]), a64.indices, a64.indptr),
+        shape=adj.shape)
+    worst = check_grads([("X", grads[0]), ("Y", grads[1])],
+                        [torch.from_numpy(s @ y64),
+                         torch.from_numpy(s.T @ x64)], "gat_sddmm_grad")
+    log(f"  gat_sddmm_grad: dX, dY of ½Σvals² (bsr, F = "
+        f"{GAT_DIMS['att_dim']}) within rtol 2e-3 / atol 2e-4 of float64 "
+        f"(max err / tol {worst:.3g})")
+    paths["gat_sddmm_grad"] = step_rows(
+        tallies, fwd, bwd, ("gather_rows", "bsr_sddmm"),
+        ("scatter_add_rows", "bsr_spmm"), "gat_sddmm_grad")
+    del xs, ys, grads, tallies, s
+
+    # GCN: 128 -> 256 -> 256 -> 40 on normalize_adjacency(power-law)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    adj_g = normalize_adjacency(a_p)
+    hg = compile_spmm(adj_g, P, device=dev)
+    prep_s = time.perf_counter() - t0
+    st = hg.stats()
+    log(f"GCN graph: normalize_adjacency(power-law), nnz {adj_g.nnz}, "
+        f"compile_spmm {prep_s:.1f} s: {hg}; volume rows "
+        f"{st['volume_rows']} / {st['volume_rows_padded']} padded")
+    weights = gcn_params(GCN_DIMS, seed=0)
+    paths["gcn_step"], med_g = model_cell(
+        "gcn-train-arxiv", hg, make_spmm_fn(hg), len(GCN_DIMS) - 1,
+        lambda: gcn_from_numpy(weights, adj_g.shape[0], device=dev),
+        gcn_loss, GCN_DIMS[0], GCN_DIMS[-1], spmm64_fn(adj_g, dev),
+        epochs["gcn"], prep_s, card, dev, args.profile)
+    del hg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # GAT: 128 -> 128 -> 40, att_dim 16, on the GAT graph's fused handle
+    torch.cuda.reset_peak_memory_stats()
+    paths["gat_step"], med_a = model_cell(
+        "gat-train-arxiv", hf, lambda q, k, v: hf(q, k, v, backend="coo"),
+        GAT_DIMS["n_layers"],
+        lambda: gat_from_numpy(gat_weights, adj.shape[0], device=dev),
+        gat_loss, GAT_DIMS["feat_dim"], GAT_DIMS["n_classes"],
+        fused64_fn(adj, dev), epochs["gat"], gat_prep_s, card, dev,
+        args.profile)
+    out = {}
+    for path, per in paths.items():
+        for k, row in per.items():
+            out.setdefault(k, {})[path] = row
+    return out, {"gcn": med_g, "gat": med_a}
+
+
+def model_cell(what, handle, fn, calls, make_model, loss, feat_dim,
+               n_classes, oracle_fn, epochs, prep_s, card, dev,
+               profile=False):
+    """One training cell: features N(0, 1) from numpy seed 1 and labels
+    in [0, n_classes) from seed 2 on the handle's nodes; the first step
+    through ``checked_step``, its grads against the float64 oracle
+    (``oracle_fn`` in place of ``fn``), the backward's rows; then
+    ``train_cell``; with ``profile``, a torch.profiler breakdown of one
+    step. Returns ({kernel: row} of the step, median times)."""
+    n = handle.plan.shape[0]
+    feats = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (n, feat_dim), dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(np.random.default_rng(2).integers(
+        0, n_classes, n)).to(dev)
+    model = make_model()
+    first, grads, fwd, bwd, tallies = checked_step(
+        lambda: loss(model, feats, labels, fn), list(model.parameters()),
+        what)
+    _check_step_rows(handle, calls, what)
+    oracle = make_model().double()
+    loss64 = loss(oracle, feats.double(), labels, oracle_fn)
+    loss64.backward()
+    worst = check_grads(
+        [(name, g) for (name, _), g in zip(model.named_parameters(), grads)],
+        [p.grad for p in oracle.parameters()], what)
+    log(f"  {what}: first-step loss {first:.6f} (float64 "
+        f"{loss64.item():.6f}); every parameter's grad within rtol 2e-3 / "
+        f"atol 2e-4 of float64 (max err / tol {worst:.3g})")
+    coo = ("gather_rows", "gather_rows_scaled", "scatter_add_rows")
+    rows = step_rows(tallies, fwd, bwd, coo, coo, what)
+    if profile:
+        profile_cells([(lambda: loss(model, feats, labels, fn).backward(),
+                        f"{what} step (forward + backward)")])
+    del model, oracle, grads, tallies, loss64
+    gc.collect()
+    med = train_cell(what, make_model,
+                     lambda m: loss(m, feats, labels, fn), epochs, prep_s,
+                     card)
+    return rows, med
+
+
 def median_ms(fn, reps: int = 7):
     """Median device time (CUDA events) and host time of one ``fn()``."""
     dev_ms, host_ms = [], []
@@ -1807,7 +2352,8 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also print a torch.profiler breakdown of one "
                              "h(b) per cell, one GAT forward per backend, "
-                             "one LM prefill and one decode step")
+                             "one training step per training cell, one LM "
+                             "prefill and one decode step")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1934,12 +2480,14 @@ def main() -> int:
     adj = normalize_adjacency(a_u)
     hf = compile_fused(adj, P, SpmmConfig(
         kernel="fused", edge="leaky_relu", backends=("coo", "bsr")))
+    gat_prep_s = time.perf_counter() - t0
     log(f"GAT graph: normalize_adjacency(uniform), nnz {adj.nnz}, "
-        f"compile_fused {time.perf_counter() - t0:.1f} s: {hf}")
+        f"compile_fused {gat_prep_s:.1f} s: {hf}")
     if not args.quick:
         check_decisions(hf, EXPECT_FUSED, {}, "fused")
     params = gat_params(0)
-    model = gat_from_numpy(params, m, device="cuda")
+    # inference only: phase 5d trains its own copy
+    model = gat_from_numpy(params, m, device="cuda").requires_grad_(False)
     feats_host = rng.standard_normal((m, GAT_DIMS["feat_dim"]),
                                      dtype=np.float32)
     feats = torch.from_numpy(feats_host).cuda()
@@ -1991,6 +2539,20 @@ def main() -> int:
     del repl_rows
     gc.collect()
 
+    # 5d. training: grads through every SpMM handle, GCN and GAT cells --
+    # (each training cell resets the peak to report its own)
+    peak_before_5d = torch.cuda.max_memory_allocated()
+    train_rows, _ = train_phase(
+        args, card, a_p, adj,
+        [(h, a_u, "uniform"), (hp, a_p, "power-law"),
+         (hu, a_u, "hier uniform"), (hph, a_p, "hier power-law"),
+         (hru, a_u, "repl uniform"), (hrp, a_p, "repl power-law")],
+        hf, gat_prep_s, b, b_host, params)
+    for k, extra in train_rows.items():
+        per_kernel[k].update(extra)
+    del train_rows
+    gc.collect()
+
     # 6. timing --------------------------------------------------------
     # each hier and replicated cell beside the flat handle on the same
     # matrix, in turns
@@ -2030,7 +2592,8 @@ def main() -> int:
                                  f"{muls}")
         log("profile power-law coo: no separate multiply kernel")
     log(f"peak device memory, phases 1-6: "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"{max(peak_before_5d, torch.cuda.max_memory_allocated()) / 2 ** 30:.2f}"
+        f" GiB")
 
     # 7. LM serving, after the SpMM phases' tensors are released ---------
     del (h, hp, hf, model, feats, b, gat_out, vals, x128, y128, c_coo,

@@ -4,6 +4,7 @@ SDDMM / FusedMM executors, the replicated (1.5D) SpMM executor and the
 front door."""
 from .api import (
     DistSpmm, SpmmConfig, compile_fused, compile_sddmm, compile_spmm,
+    make_spmm_fn,
 )
 from .comm_model import (
     NetworkSpec, TSUBAME_LIKE, choose_fused_schedule,
@@ -43,7 +44,7 @@ from .sparse import (
 
 __all__ = [
     "DistSpmm", "SpmmConfig", "compile_spmm", "compile_sddmm",
-    "compile_fused",
+    "compile_fused", "make_spmm_fn",
     "NetworkSpec", "TSUBAME_LIKE", "choose_fused_schedule",
     "choose_hier_fused_schedule", "choose_hier_schedule",
     "choose_schedule", "modeled_time", "modeled_time_hier",

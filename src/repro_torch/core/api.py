@@ -44,10 +44,14 @@ copies), so the decisions are the reference's:
 
 The P ranks are emulated on ONE device (``distributed.topology``): the
 handle's tensors live on ``device`` (default ``"cuda"``; raises without a
-card, ``device="cpu"`` runs the kernels' plain versions). Measured
-autotuning, gradients and sessions are later slices of the port: a
-config or call that asks for them raises ``NotImplementedError`` naming
-the ROADMAP item.
+card, ``device="cpu"`` runs the kernels' plain versions). Calls are
+differentiable where the reference's are (``kernels.ops``): coo SpMM on
+every tier, coo and bsr SDDMM, coo FusedMM; a bsr SpMM or FusedMM call on
+an operand that requires grad raises, as the reference has no JVP for
+its K3 / K4. ``make_spmm_fn`` closes a handle or an exec plan over model
+code. Measured autotuning and sessions are later slices of the port: a
+config that asks for them raises ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -89,7 +93,7 @@ from .planner import SpmmPlan, Strategy, build_plan, replicate_plan
 from .sparse import CSRMatrix, PatternSnapshot, pattern_snapshot
 
 __all__ = ["SpmmConfig", "DistSpmm", "compile_spmm", "compile_sddmm",
-           "compile_fused"]
+           "compile_fused", "make_spmm_fn"]
 
 _SCHEDULE_POLICIES = ("auto", "single")
 _KERNELS = ("spmm", "sddmm", "fused")
@@ -366,9 +370,6 @@ class DistSpmm:
     def _as_operand(self, b) -> torch.Tensor:
         if not isinstance(b, torch.Tensor):
             b = torch.from_numpy(np.ascontiguousarray(b))
-        elif b.requires_grad and torch.is_grad_enabled():
-            raise _not_ported("differentiating through a DistSpmm call "
-                              "(autograd)", "9")
         return b.to(self.device).contiguous()
 
     def _resolve_call(self, kernel, edge) -> Tuple[str, Optional[str]]:
@@ -433,8 +434,9 @@ class DistSpmm:
         self.calls += 1
         if self._check:
             try:
-                check(out, mode=self._check, call_index=self.calls,
-                      context=f"DistSpmm(P={self.P}) {what}")
+                with torch.no_grad():
+                    check(out, mode=self._check, call_index=self.calls,
+                          context=f"DistSpmm(P={self.P}) {what}")
             except guards.NumericalFault:
                 self.numerical_faults += 1
                 raise
@@ -845,6 +847,32 @@ def compile_fused(a: CSRMatrix, where: Union[Topology, int],
     the same rounds, width F+N)."""
     overrides.setdefault("kernel", "fused")
     return compile_spmm(a, where, config, device=device, **overrides)
+
+
+def make_spmm_fn(ex: Union[DistSpmm, FlatExecPlan, HierExecPlan,
+                            ReplicatedExecPlan],
+                 comm: Optional[LocalComm] = None,
+                 backend: Optional[BackendSpec] = None
+                 ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Close a SHIRO executor over its plan for model code (``H -> Â·H``).
+
+    Preferred form: pass a ``DistSpmm`` handle (it owns its comm and its
+    executable memo). A raw ``FlatExecPlan`` / ``HierExecPlan`` /
+    ``ReplicatedExecPlan`` runs its executor (staged) with ``comm`` (a
+    fresh ``LocalComm`` on the plan's layout per call when None). The
+    closure is differentiable wherever the executor is.
+    """
+    if isinstance(ex, DistSpmm):
+        if comm is not None:
+            raise TypeError("a DistSpmm handle owns its comm; pass comm= "
+                            "only with a raw exec plan")
+        return lambda h: ex(h, backend=backend)
+    fn = {FlatExecPlan: flat_spmm, HierExecPlan: hier_spmm,
+          ReplicatedExecPlan: replicated_spmm}.get(type(ex))
+    if fn is None:
+        raise TypeError(f"make_spmm_fn takes a DistSpmm or an exec plan, "
+                        f"got {type(ex).__name__}")
+    return lambda h: fn(ex, h, comm, backend=backend)
 
 
 def _dtype_name(dtype) -> str:

@@ -49,7 +49,7 @@ import torch
 
 from ..distributed.comm import LocalComm
 from ..kernels.ops import (
-    pack_rows_op, prepare_sorted_scatter, scatter_add_rows_exec_op,
+    pack_rows_op, scatter_add_rows_exec_op, stack_sorted_scatter,
 )
 from .comm_schedule import (
     CommRound, CommSchedule, ReplicatedSchedule, build_replicated_schedule,
@@ -116,21 +116,6 @@ def _prepare_pieces(
     if not resolved:
         raise ValueError("at least one backend is required")
     return prepared, resolved
-
-
-def _stack_sorted_scatter(tgt_rows: np.ndarray
-                          ) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-rank sorted-scatter prep, stacked on the leading axis.
-
-    ``tgt_rows`` is [P, S] (-1 pads). Returns (perm [P, S] int32,
-    meta [P, S+1] int32) for ``scatter_add_rows_exec_op``.
-    """
-    perms, metas = [], []
-    for p in range(tgt_rows.shape[0]):
-        perm, meta = prepare_sorted_scatter(tgt_rows[p])
-        perms.append(perm)
-        metas.append(meta)
-    return np.stack(perms), np.stack(metas)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,7 +306,7 @@ def flat_exec_arrays(plan: SpmmPlan,
         sched = schedule or single_round_schedule(plan)
         pieces, resolved = _prepare_pieces(local_piece_csrs(plan), backends)
         c_recv = plan.c_send_rows.transpose(1, 0, 2)  # [P(dst), P(src), max_c]
-        perm, meta_arr = _stack_sorted_scatter(c_recv.reshape(plan.P, -1))
+        perm, meta_arr = stack_sorted_scatter(c_recv.reshape(plan.P, -1))
         return FlatExecPlan(
             pieces=pieces,
             b_send_idx=_t(plan.b_send_idx),
@@ -338,7 +323,7 @@ def flat_exec_arrays(plan: SpmmPlan,
     piece_csrs = {"diag": list(plan.a_diag), "colp": layout.colp,
                   "rowp": layout.rowp}
     pieces, resolved = _prepare_pieces(piece_csrs, backends)
-    perm, meta_arr = _stack_sorted_scatter(layout.c_recv_rows)
+    perm, meta_arr = stack_sorted_scatter(layout.c_recv_rows)
 
     # per-round consumables for the overlapped executor: segment colp
     # layouts over the cumulative receive prefix, per-round rowp row
@@ -380,7 +365,7 @@ def _seg_agg(c_recv_rows: np.ndarray, spans: Segments
     """Per-round sorted-scatter maps over each receive segment."""
     out: Dict[str, torch.Tensor] = {}
     for i, (_, off, slot) in enumerate(spans):
-        sp, sm = _stack_sorted_scatter(c_recv_rows[:, off:off + slot])
+        sp, sm = stack_sorted_scatter(c_recv_rows[:, off:off + slot])
         out[f"perm@{i}"] = _t(sp)
         out[f"meta@{i}"] = _t(sm)
     return out
@@ -406,7 +391,7 @@ def hier_exec_arrays(hier: HierPlan,
         sched = schedule or single_round_hier_schedule(hier)
         pieces, resolved = _prepare_pieces(hier_piece_csrs(hier), backends)
         c_recv = hier.c_group_rows.transpose(1, 0, 2)  # [P(dst), G(src), max_cg]
-        perm, meta_arr = _stack_sorted_scatter(c_recv.reshape(P, -1))
+        perm, meta_arr = stack_sorted_scatter(c_recv.reshape(P, -1))
         return HierExecPlan(
             pieces=pieces,
             b_group_send_idx=_t(hier.b_group_send_idx),
@@ -439,7 +424,7 @@ def hier_exec_arrays(hier: HierPlan,
                                              gathered_cuts)):
                 pieces[name][f"colp@{i}"] = seg
         seg_agg = _seg_agg(layout.c_recv_rows, cg_all)
-    perm, meta_arr = _stack_sorted_scatter(layout.c_recv_rows)
+    perm, meta_arr = stack_sorted_scatter(layout.c_recv_rows)
     return HierExecPlan(
         pieces=pieces,
         b_group_send_idx=_t(layout.b_send_idx),
@@ -485,7 +470,7 @@ def replicated_exec_arrays(rp: ReplicatedPlan,
         {"diag": layout.diag, "colp": layout.colp, "rowp": layout.rowp},
         backends)
     c_recv = layout.c_recv_rows.reshape(c * s, layout.R_c)
-    perm, meta_arr = _stack_sorted_scatter(c_recv)
+    perm, meta_arr = stack_sorted_scatter(c_recv)
     return ReplicatedExecPlan(
         pieces=pieces,
         b_send_idx=_t(layout.b_send_idx.reshape(c * s, layout.R_b)),

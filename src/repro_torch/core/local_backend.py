@@ -37,7 +37,7 @@ import torch
 
 from ..kernels.ops import (
     bsr_sddmm_op, bsr_spmm_acc_op, bsr_spmm_op, coo_accumulate_rows_op,
-    prepare_sorted_scatter,
+    coo_col_maps, coo_fold_rows, slot_targets, stack_sorted_scatter,
 )
 from .sparse import CSRMatrix, ell_from_csr
 
@@ -47,6 +47,7 @@ __all__ = [
     "BsrBackend",
     "coo_spmm_local",
     "coo_sddmm_local",
+    "coo_sddmm_op",
     "coo_scatter_maps",
     "coo_piece_with_maps",
     "backend_sddmm",
@@ -213,6 +214,49 @@ def coo_sddmm_local(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     return val * (xr * yc).sum(dim=-1)
 
 
+class _CooSddmm(torch.autograd.Function):
+    """``coo_sddmm_local`` with its transpose as the backward: with
+    ``w = val ⊙ g``, ``dx[row[e]] += w[e] · y[col[e]]`` is the coo compute
+    over the piece's ``row`` maps and ``dy[col[e]] += w[e] · x[row[e]]`` the
+    same over its transposed ``col`` maps (K1's scaled form, then K2, on
+    both devices); ``dval = g ⊙ (x[row] · y[col])`` in plain torch."""
+
+    @staticmethod
+    def forward(ctx, x, y, row, col, val, perm, meta):
+        ctx.maps = (row, col, perm, meta)
+        ctx.save_for_backward(x, y, val)
+        return coo_sddmm_local(row, col, val, x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, val = ctx.saved_tensors
+        row, col, perm, meta = ctx.maps
+        w = (val * g).float()
+        dx = dy = dval = None
+        if ctx.needs_input_grad[0]:
+            dx = coo_fold_rows(y, col, w, perm, meta, x.shape[1], x.dtype)
+        if ctx.needs_input_grad[1]:
+            dy = coo_fold_rows(x, slot_targets(perm, meta), w,
+                               *coo_col_maps(col, perm, meta), y.shape[1],
+                               y.dtype)
+        if ctx.needs_input_grad[4]:
+            dval = g * coo_sddmm_local(row, col, torch.ones_like(val), x, y)
+        return dx, dy, None, None, dval, None, None
+
+
+def coo_sddmm_op(piece: Piece, x: torch.Tensor, y: torch.Tensor
+                 ) -> torch.Tensor:
+    """``coo_sddmm_local`` on a coo piece, differentiable in ``x``, ``y``
+    and the piece's values when any of them requires grad (the piece's
+    ``perm`` / ``meta`` carry its row maps)."""
+    row, col, val = piece["row"], piece["col"], piece["val"]
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad
+                                    or val.requires_grad):
+        return _CooSddmm.apply(x, y, row, col, val, piece["perm"],
+                               piece["meta"])
+    return coo_sddmm_local(row, col, val, x, y)
+
+
 def _stack_coo(csrs: List[CSRMatrix]) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Stack per-process CSR pieces into padded COO [P, nnz_max] arrays."""
     coos = [c.to_coo() for c in csrs]
@@ -236,10 +280,8 @@ def coo_scatter_maps(row: np.ndarray, nnz: np.ndarray
     ``nnz[p]`` counts rank p's real entries; the pads after them get
     target -1 so they join no row. Returns (perm [P, S], meta [P, S+1]).
     """
-    tgt = np.where(np.arange(row.shape[1])[None, :] < np.asarray(nnz)[:, None],
-                   row, -1)
-    maps = [prepare_sorted_scatter(t) for t in tgt]
-    return (np.stack([m[0] for m in maps]), np.stack([m[1] for m in maps]))
+    return stack_sorted_scatter(np.where(
+        np.arange(row.shape[1])[None, :] < np.asarray(nnz)[:, None], row, -1))
 
 
 def coo_piece_with_maps(piece: Piece) -> Piece:
@@ -290,8 +332,7 @@ class CooBackend:
 
     def sddmm(self, piece: Piece, x: torch.Tensor, y: torch.Tensor
               ) -> torch.Tensor:
-        return coo_sddmm_local(piece["row"], piece["col"], piece["val"],
-                               x, y)
+        return coo_sddmm_op(piece, x, y)
 
     def with_values(self, piece: Piece, vals: torch.Tensor) -> Piece:
         return dict(piece, val=vals)

@@ -27,6 +27,16 @@ every lane on its own shift (``lane_shift``, op ``ppermute@s``), and
 sums the lanes' C blocks into their chunks over the replica axis
 (``replica_psum_scatter``, op ``psum_scatter@r``). A ``torch.distributed``
 communicator with this API comes with the multi-process slice.
+
+Under autograd each collective's backward is its transpose — the
+all_to_all transposes back, a shift rolls back, a reduce-scatter's is an
+all_gather and the other way round, B's copy sums over its lanes — which
+torch derives from the same tensor operations. When the gradient of a
+collective's result arrives, the comm logs that backward too, as
+``("bwd:" + op, the pairs reversed, rows)``: the rows of the gradient of
+the forward's operand, the count the forward logged, so ``rows(axis,
+"bwd")`` holds the backward to the forward's volume axis by axis. The
+entries join the log when the backward runs, after the call's own.
 """
 from __future__ import annotations
 
@@ -60,16 +70,32 @@ class LocalComm:
         self.S = self.P // self.C
         self.log: List[Tuple[str, Pairs, int]] = []
 
-    def _record(self, op: str, pairs: Pairs, x: torch.Tensor) -> None:
-        rows = x.numel() // x.shape[-1] if x.dim() and x.shape[-1] else 0
+    def _record(self, op: str, pairs: Pairs, x: torch.Tensor,
+                out: torch.Tensor, rows: Optional[int] = None) -> None:
+        """Log ``op`` with ``rows`` (default: the rows of its operand
+        ``x``), and its backward when the gradient of ``out`` arrives."""
+        if rows is None:
+            rows = x.numel() // x.shape[-1] if x.dim() and x.shape[-1] else 0
         self.log.append((op, pairs, int(rows)))
+        if out.requires_grad:
+            back = ("bwd:" + op, tuple((d, s) for s, d in pairs), int(rows))
+            out.register_hook(lambda g: self.log.append(back))
 
-    def rows(self, axis: Optional[str] = None) -> int:
+    def rows(self, axis: Optional[str] = None, direction: str = "fwd") -> int:
         """Rows placed in collective operands since the last ``reset``:
         all of them, or those of one axis — ``"x"`` (the flat
         collectives), ``"g"`` (group axis), ``"l"`` (local axis), ``"s"``
-        (inside the lanes) or ``"r"`` (replica axis)."""
+        (inside the lanes) or ``"r"`` (replica axis) — by the forward
+        collectives (``direction="fwd"``) or by their backward
+        (``"bwd"``)."""
+        if direction not in ("fwd", "bwd"):
+            raise ValueError(f"direction must be 'fwd' or 'bwd', got "
+                             f"{direction!r}")
+
         def on(op: str) -> bool:
+            if op.startswith("bwd:") != (direction == "bwd"):
+                return False
+            op = op[4:] if direction == "bwd" else op
             if axis is None:
                 return True
             return op.endswith("@" + axis) if axis in ("g", "l", "s", "r") \
@@ -98,8 +124,9 @@ class LocalComm:
             raise ValueError(f"all_to_all operand must lead with "
                              f"[{self.P}, {self.P}], got {tuple(x.shape)}")
         pairs = tuple((q, p) for q in range(self.P) for p in range(self.P))
-        self._record("all_to_all", pairs, x)
-        return x.transpose(0, 1).contiguous()
+        out = x.transpose(0, 1).contiguous()
+        self._record("all_to_all", pairs, x, out)
+        return out
 
     def ppermute(self, x: torch.Tensor,
                  perm: Sequence[Tuple[int, int]],
@@ -116,13 +143,14 @@ class LocalComm:
         if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
             raise ValueError(f"ppermute needs a partial permutation, got "
                              f"{perm}")
-        self._record(op, perm, x)
         shifts = {(d - s) % self.P for s, d in perm}
         if len(perm) == self.P and len(shifts) == 1:
-            return torch.roll(x, shifts.pop(), 0)
-        out = torch.zeros_like(x)
-        if perm:
-            out[dsts] = x[srcs]
+            out = torch.roll(x, shifts.pop(), 0)
+        else:
+            out = torch.zeros_like(x)
+            if perm:
+                out[dsts] = x[srcs]
+        self._record(op, perm, x, out)
         return out
 
     def shift(self, x: torch.Tensor, d: int) -> torch.Tensor:
@@ -148,10 +176,11 @@ class LocalComm:
                              f"[{self.P}, {G}, ...], got {tuple(x.shape)}")
         pairs = tuple((g * L + l, h * L + l) for g in range(G)
                       for l in range(L) for h in range(G))
-        self._record("all_to_all@g", pairs, x)
         rest = tuple(x.shape[2:])
         v = x.reshape((G, L, G) + rest)
-        return v.transpose(0, 2).contiguous().reshape((self.P, G) + rest)
+        out = v.transpose(0, 2).contiguous().reshape((self.P, G) + rest)
+        self._record("all_to_all@g", pairs, x, out)
+        return out
 
     def group_shift(self, x: torch.Tensor, dg: int) -> torch.Tensor:
         """ppermute over the group axis by shift ``dg``: (g, l) sends to
@@ -182,16 +211,16 @@ class LocalComm:
         if not 0 <= dim < len(rest) or rest[dim] % L:
             raise ValueError(f"psum_scatter dim {dim} of per-rank shape "
                              f"{rest} is not divisible by L={L}")
-        self._record("psum_scatter@l", self._local_pairs(), x)
         v = x.reshape((G, L) + rest)
         acc = v[:, 0]
         for l in range(1, L):
             acc = acc + v[:, l]
         # acc [G, *rest] -> chunk l along dim -> [G, L, *rest/L]
         split = (G,) + rest[:dim] + (L, rest[dim] // L) + rest[dim + 1:]
-        out = acc.reshape(split).movedim(dim + 1, 1)
-        return out.reshape((self.P,) + rest[:dim] + (rest[dim] // L,)
-                           + rest[dim + 1:])
+        out = acc.reshape(split).movedim(dim + 1, 1).reshape(
+            (self.P,) + rest[:dim] + (rest[dim] // L,) + rest[dim + 1:])
+        self._record("psum_scatter@l", self._local_pairs(), x, out)
+        return out
 
     def local_all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """All-gather over the local axis: ``jax.lax.all_gather(x, "l",
@@ -199,10 +228,11 @@ class LocalComm:
         ``stack_l'(x[(g, l')])``, [P, L, ...]."""
         G, L = self.G, self.L
         self._check_lead(x, "local all_gather")
-        self._record("all_gather@l", self._local_pairs(), x)
         rest = tuple(x.shape[1:])
         v = x.reshape((G, 1, L) + rest).expand((G, L, L) + rest)
-        return v.reshape((self.P, L) + rest)
+        out = v.reshape((self.P, L) + rest)
+        self._record("all_gather@l", self._local_pairs(), x, out)
+        return out
 
     # ----- the (c, s) replica x shard layout ------------------------------
 
@@ -219,7 +249,7 @@ class LocalComm:
         out = x.unsqueeze(0).expand((C,) + tuple(x.shape)).reshape(
             (self.P,) + tuple(x.shape[1:]))
         self._record("broadcast@r", tuple((g, r * S + g) for r in range(C)
-                                          for g in range(S)), out)
+                                          for g in range(S)), out, out)
         return out
 
     def lane_shift(self, x: torch.Tensor, shifts: Sequence[int],
@@ -242,7 +272,6 @@ class LocalComm:
         pairs = tuple((r * S + g, r * S + (g + int(shifts[r])) % S)
                       for r in lanes for g in range(S))
         per_rank = x[0].numel() // x.shape[-1] if x.shape[-1] else 0
-        self.log.append(("ppermute@s", pairs, int(per_rank * len(pairs))))
         # each lane's roll as two slice copies straight into the result:
         # every element is written once
         v = x.reshape((C, S) + tuple(x.shape[1:]))
@@ -254,7 +283,9 @@ class LocalComm:
             d = int(shifts[r]) % S
             out[r, d:].copy_(v[r, :S - d])
             out[r, :d].copy_(v[r, S - d:])
-        return out.reshape(x.shape)
+        out = out.reshape(x.shape)
+        self._record("ppermute@s", pairs, x, out, per_rank * len(pairs))
+        return out
 
     def replica_psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
         """Reduce-scatter over the replica axis: ``psum_scatter(x, "r",
@@ -274,11 +305,12 @@ class LocalComm:
         if not rest or rest[0] % C:
             raise ValueError(f"replica psum_scatter needs c={C} | rows, got "
                              f"per-rank shape {rest}")
-        self._record("psum_scatter@r", tuple(
-            (r * S + g, q * S + g) for g in range(S) for r in range(C)
-            for q in range(C)), x)
         v = x.reshape((C, S) + rest)
         acc = v[0]
         for r in range(1, C):
             acc = acc + v[r]
-        return acc.reshape((S, C, rest[0] // C) + rest[1:])
+        out = acc.reshape((S, C, rest[0] // C) + rest[1:])
+        self._record("psum_scatter@r", tuple(
+            (r * S + g, q * S + g) for g in range(S) for r in range(C)
+            for q in range(C)), x, out)
+        return out

@@ -10,30 +10,67 @@ Port of ``repro/kernels/ops.py``. Every op takes the stacked rank layout
 There is no environment switch. Each kernel launch is counted by its
 wrapper (``launch_counts``), so a run can show that it went through the
 kernels.
+
+**Gradients.** The reference differentiates its Pallas ops through
+``custom_jvp`` rules whose tangents run the jnp oracles
+(``repro/kernels/ops.py:85-101,133-176``, ``sddmm.py:115-135``). Here
+each op whose operand requires grad runs as a ``torch.autograd.Function``
+whose backward is the transpose of the op, made of the port's own kernels
+over host-built maps — on the card the kernels, on the CPU their plain
+versions, one composition on both:
+
+* pack (K1) ``out[p, s] = b[p, idx[p, s]]`` — backward: ``db`` is K2
+  folding the slots into their rows, over the sorted-scatter maps of
+  ``idx`` (pads -1 join no row);
+* aggregation (K2) ``c[p, tgt[p, s]] += partials[p, s]`` — backward:
+  ``dc`` passes through, ``dpartials`` is the K1 pack of ``dc`` by the
+  slot targets rebuilt from ``perm`` / ``meta`` (-1 for pads: zeros);
+* coo ``acc[row] += val · b[col]`` (K1 scaled + K2) — backward: ``db`` is
+  the same op on the transposed piece, K1 scaled of ``dacc`` by ``row``
+  and ``val``, then K2 into ``col`` over its sorted maps (pads -1);
+  ``dval[e] = dacc[row[e]] · b[col[e]]`` in plain torch, only when the
+  values require grad (the fused path), as the reference's coo SDDMM;
+* K5 ``blocks ⊙ (X Yᵀ)`` — backward: ``dX`` is K3 on ``blocks ⊙ g``,
+  ``dY`` K3 on the transposed ELL layout of ``blocks ⊙ g``
+  (``sddmm.transpose_ell``), ``dblocks`` K5 of ``g``;
+* K3 / K4 have no gradient in the reference (``repro/kernels/ops.py:52,
+  63`` carry no JVP): they raise under grad.
+
+The maps are static per plan: each is built on the host the first time a
+gradient needs it and cached beside the plan tensor it derives from, on
+that tensor's device, for as long as the tensor lives. A call that needs
+no gradient takes the op's direct path and pays nothing for any of this.
+The two in-place ops declare what they write (``ctx.mark_dirty``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import bsr_spmm as _bsr
 from . import gather_rows as _gather
 from . import rmsnorm as _rms
 from . import scatter_add_rows as _scatter
 from . import sddmm as _sddmm
-from .scatter_add_rows import prepare_sorted_scatter
+from .scatter_add_rows import prepare_sorted_scatter, stack_sorted_scatter
 
 __all__ = [
     "on_card",
     "pack_rows_op",
     "scatter_add_rows_exec_op",
     "coo_accumulate_rows_op",
+    "coo_fold_rows",
+    "coo_col_maps",
+    "slot_targets",
     "bsr_spmm_op",
     "bsr_spmm_acc_op",
     "bsr_sddmm_op",
     "rmsnorm_op",
     "prepare_sorted_scatter",
+    "stack_sorted_scatter",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -69,14 +106,75 @@ def on_card(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {dev}")
 
 
-def pack_rows_op(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Comm-buffer pack: ``out[p, ..., s, :] = b[p, idx[p, ..., s]]``.
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
-    ``b`` is [P, K, n]; ``idx`` [P, ...] may carry layout axes after the
-    rank (e.g. [P, P, max_b] in the single-round schedule); the gather
-    runs on the flattened slot axis and the result is reshaped back.
-    Slots with ``idx < 0`` (plan padding) come back zeroed.
-    """
+
+# ---------------------------------------------------------------------------
+# the backward maps, built on the host once per plan tensor
+# ---------------------------------------------------------------------------
+
+_MAPS: "WeakIdKeyDictionary" = WeakIdKeyDictionary()
+
+
+def _cached(key: torch.Tensor, kind, build: Callable[[], tuple]) -> tuple:
+    """``build()``'s tensors, built once for ``key`` and moved to its
+    device; the entry goes when ``key`` does."""
+    per = _MAPS.get(key)
+    if per is None:
+        per = _MAPS[key] = {}
+    if kind not in per:
+        per[kind] = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+            key.device) for a in build())
+    return per[kind]
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _fold_maps(idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sorted-scatter maps of an index array [P, ...] (-1 pads): the
+    K2 fold of its slots into the rows they name."""
+    return _cached(idx, "fold", lambda: stack_sorted_scatter(
+        _host(idx).reshape(idx.shape[0], -1)))
+
+
+def _slot_targets_np(perm: np.ndarray, meta: np.ndarray) -> np.ndarray:
+    P_, S = perm.shape
+    tgt = np.full((P_, S), -1, np.int32)
+    for p in range(P_):
+        n_valid = int(meta[p, S])
+        tgt[p, perm[p, :n_valid]] = meta[p, :n_valid]
+    return tgt
+
+
+def slot_targets(perm: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+    """The target row of every slot that sorted-scatter maps fold, [P, S]
+    int32: ``tgt[perm[s]] = meta[s]`` for ``s < n_valid``, -1 for the
+    pads (which join no row)."""
+    return _cached(perm, "targets", lambda: (
+        _slot_targets_np(_host(perm), _host(meta)),))[0]
+
+
+def coo_col_maps(col: torch.Tensor, perm: torch.Tensor, meta: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A coo piece's transposed sorted maps: every entry folded into its
+    column. An entry that joins no row (a pad of ``perm`` / ``meta``, the
+    maps of its ``row`` array) joins no column either; a piece whose pads
+    join rows (``coo_piece_with_maps``) keeps them in its columns too."""
+    def build():
+        tgt = _slot_targets_np(_host(perm), _host(meta))
+        return stack_sorted_scatter(np.where(tgt >= 0, _host(col), -1))
+    return _cached(col, "columns", build)
+
+
+# ---------------------------------------------------------------------------
+# the direct paths (one launch each; no autograd)
+# ---------------------------------------------------------------------------
+
+
+def _pack(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     flat = idx.reshape(idx.shape[0], -1)
     # every executor body packs here, so a CUDA idx goes straight to the
     # wrapper, which checks b's device itself (looked up on its module at
@@ -89,6 +187,160 @@ def pack_rows_op(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(idx.shape + (b.shape[-1],))
 
 
+def _fold(c, partials, perm, meta):
+    fn = _scatter.scatter_add_rows_cuda if on_card(c, partials, perm, meta) \
+        else _scatter.scatter_add_rows_plain
+    return fn(c, partials, perm, meta)
+
+
+def _gather_scaled(b, idx, val, out_dtype):
+    fn = _gather.gather_rows_scaled_cuda if on_card(b, idx, val) \
+        else _gather.gather_rows_scaled_plain
+    return fn(b, idx, val, out_dtype)
+
+
+def _coo_accumulate(acc, col, val, perm, meta, b):
+    return _fold(acc, _gather_scaled(b, col, val, acc.dtype), perm, meta)
+
+
+def coo_fold_rows(src: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                  perm: torch.Tensor, meta: torch.Tensor, rows: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """``out [P, rows, n] = 0``, then ``out[tgt[e]] += w[e] · src[idx[e]]``
+    for the entries that ``perm`` / ``meta`` fold: K1's scaled form, then
+    K2 — the coo compute as the backward compositions run it."""
+    out = torch.zeros((src.shape[0], rows, src.shape[2]), dtype=dtype,
+                      device=src.device)
+    return _fold(out, _gather_scaled(src, idx, w, dtype), perm, meta)
+
+
+def _k3(cols, blocks, b, m_out, bn):
+    if on_card(cols, blocks, b):
+        return _bsr.bsr_spmm_cuda(cols, blocks, b, m_out, bn=bn)
+    return _bsr.bsr_spmm_plain(cols, blocks, b, m_out)
+
+
+def _k5(cols, blocks, x3, y3):
+    if on_card(cols, blocks, x3, y3):
+        return _sddmm.bsr_sddmm_cuda(cols, blocks, x3, y3)
+    return _sddmm.bsr_sddmm_plain(cols, blocks, x3, y3)
+
+
+# ---------------------------------------------------------------------------
+# the autograd Functions
+# ---------------------------------------------------------------------------
+
+
+class _Pack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, b, idx):
+        ctx.idx, ctx.b_shape = idx, b.shape
+        return _pack(b, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        P_, K, n = ctx.b_shape
+        perm, meta = _fold_maps(ctx.idx)
+        db = g.new_zeros((P_, K, n))
+        return _fold(db, g.reshape(P_, -1, n), perm, meta), None
+
+
+class _Aggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, c, partials, perm, meta):
+        ctx.maps = (perm, meta)
+        ctx.mark_dirty(c)
+        return _fold(c, partials, perm, meta)
+
+    @staticmethod
+    def backward(ctx, g):
+        dpartials = None
+        if ctx.needs_input_grad[1]:
+            dpartials = _pack(g, slot_targets(*ctx.maps))
+        return g, dpartials, None, None
+
+
+class _CooAccumulate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, acc, col, val, perm, meta, b):
+        ctx.maps = (col, perm, meta)
+        ctx.b_like = (b.shape[1], b.dtype)
+        ctx.mark_dirty(acc)
+        # only what the backward reads: val for dB, b for dval
+        ctx.save_for_backward(val if ctx.needs_input_grad[5] else None,
+                              b if ctx.needs_input_grad[2] else None)
+        return _coo_accumulate(acc, col, val, perm, meta, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        val, b = ctx.saved_tensors
+        col, perm, meta = ctx.maps
+        tgt = slot_targets(perm, meta)
+        db = dval = None
+        if ctx.needs_input_grad[5]:
+            k, dtype = ctx.b_like
+            db = coo_fold_rows(g, tgt, val, *coo_col_maps(col, perm, meta),
+                               k, dtype)
+        if ctx.needs_input_grad[2]:
+            rows = torch.take_along_dim(g, tgt.clamp(min=0).long()[..., None],
+                                        dim=1)
+            cols = torch.take_along_dim(b, col.long()[..., None], dim=1)
+            dval = torch.where(tgt >= 0, (rows * cols).sum(-1),
+                               torch.zeros((), device=g.device)).float()
+        return g, None, dval, None, None, db
+
+
+class _BsrSddmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cols, blocks, x3, y3):
+        ctx.save_for_backward(cols, blocks, x3, y3)
+        return _k5(cols, blocks, x3, y3)
+
+    @staticmethod
+    def backward(ctx, g):
+        cols, blocks, x3, y3 = ctx.saved_tensors
+        P_, mb, t, bm, bk = blocks.shape
+        kb, f = y3.shape[1], y3.shape[3]
+        bg = blocks.float() * g
+        dblocks = dx3 = dy3 = None
+        if ctx.needs_input_grad[1]:
+            dblocks = _k5(cols, g.contiguous(), x3, y3).to(blocks.dtype)
+        if ctx.needs_input_grad[2]:
+            dx3 = _k3(cols, bg, y3.reshape(P_, kb * bk, f), mb * bm,
+                       128).view(P_, mb, bm, f)
+        if ctx.needs_input_grad[3]:
+            cols_t, slot = _cached(cols, ("transposed", kb), lambda: (
+                _sddmm.transpose_ell(_host(cols), kb)))
+            flat = bg.reshape(P_, mb * t, bm * bk)
+            bg_t = torch.take_along_dim(
+                flat, slot.clamp(min=0).long().reshape(P_, -1, 1), dim=1)
+            bg_t = torch.where(slot.reshape(P_, -1, 1) >= 0, bg_t,
+                               torch.zeros((), device=bg.device))
+            bg_t = bg_t.view(P_, kb, cols_t.shape[2], bm, bk).transpose(-1, -2)
+            dy3 = _k3(cols_t, bg_t.contiguous(),
+                       x3.reshape(P_, mb * bm, f), kb * bk,
+                       128).view(P_, kb, bk, f)
+        return None, dblocks, dx3, dy3
+
+
+# ---------------------------------------------------------------------------
+# the ops the executors call
+# ---------------------------------------------------------------------------
+
+
+def pack_rows_op(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Comm-buffer pack: ``out[p, ..., s, :] = b[p, idx[p, ..., s]]``.
+
+    ``b`` is [P, K, n]; ``idx`` [P, ...] may carry layout axes after the
+    rank (e.g. [P, P, max_b] in the single-round schedule); the gather
+    runs on the flattened slot axis and the result is reshaped back.
+    Slots with ``idx < 0`` (plan padding) come back zeroed.
+    """
+    if _needs_grad(b):
+        return _Pack.apply(b, idx)
+    return _pack(b, idx)
+
+
 def scatter_add_rows_exec_op(c: torch.Tensor, partials: torch.Tensor,
                              perm: torch.Tensor, meta: torch.Tensor
                              ) -> torch.Tensor:
@@ -97,9 +349,9 @@ def scatter_add_rows_exec_op(c: torch.Tensor, partials: torch.Tensor,
     ``perm`` / ``meta`` are the host-prepared sorted-scatter maps
     (``prepare_sorted_scatter``, once per plan). Returns ``c``.
     """
-    fn = _scatter.scatter_add_rows_cuda if on_card(c, partials, perm, meta) \
-        else _scatter.scatter_add_rows_plain
-    return fn(c, partials, perm, meta)
+    if _needs_grad(c, partials):
+        return _Aggregate.apply(c, partials, perm, meta)
+    return _fold(c, partials, perm, meta)
 
 
 def coo_accumulate_rows_op(acc: torch.Tensor, col: torch.Tensor,
@@ -119,20 +371,27 @@ def coo_accumulate_rows_op(acc: torch.Tensor, col: torch.Tensor,
     segment-by-segment accumulation replays, which keeps overlapped coo C
     bit-identical to staged C, and every run equal to the last.
     """
-    if on_card(b, col, val):
-        prods = _gather.gather_rows_scaled_cuda(b, col, val, acc.dtype)
-    else:
-        prods = _gather.gather_rows_scaled_plain(b, col, val, acc.dtype)
-    return scatter_add_rows_exec_op(acc, prods, perm, meta)
+    if _needs_grad(acc, val, b):
+        return _CooAccumulate.apply(acc, col, val, perm, meta, b)
+    return _coo_accumulate(acc, col, val, perm, meta, b)
+
+
+def _refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{kernel} has no gradient: the reference's bsr_spmm_pallas / "
+            f"bsr_spmm_acc_pallas carry no JVP (src/repro/kernels/ops.py:"
+            f"52,63), so it trains on the coo backend; call with "
+            f"backend='coo', or under torch.no_grad()")
 
 
 def bsr_spmm_op(block_cols: torch.Tensor, blocks: torch.Tensor,
                 b: torch.Tensor, m_out: int, *, bn: int = 128
                 ) -> torch.Tensor:
-    """``C [P, m_out, n] = A @ B`` for stacked ELL-BSR pieces (K3)."""
-    if on_card(block_cols, blocks, b):
-        return _bsr.bsr_spmm_cuda(block_cols, blocks, b, m_out, bn=bn)
-    return _bsr.bsr_spmm_plain(block_cols, blocks, b, m_out)
+    """``C [P, m_out, n] = A @ B`` for stacked ELL-BSR pieces (K3).
+    Raises under grad, as the reference has no JVP for it."""
+    _refuse_grad("bsr_spmm (K3)", blocks, b)
+    return _k3(block_cols, blocks, b, m_out, bn)
 
 
 def bsr_spmm_acc_op(block_cols: torch.Tensor, blocks: torch.Tensor,
@@ -142,8 +401,9 @@ def bsr_spmm_acc_op(block_cols: torch.Tensor, blocks: torch.Tensor,
 
     Resumes the staged kernel's per-element addition chain, so a piece's
     column segments fed here one after another give the bits of one
-    ``bsr_spmm_op`` over the whole piece.
+    ``bsr_spmm_op`` over the whole piece. Raises under grad, as K3.
     """
+    _refuse_grad("bsr_spmm_acc (K4)", blocks, b, acc)
     if on_card(block_cols, blocks, b, acc):
         return _bsr.bsr_spmm_acc_cuda(block_cols, blocks, b, acc, bn=bn)
     return _bsr.bsr_spmm_acc_plain(block_cols, blocks, b, acc)
@@ -156,9 +416,9 @@ def bsr_sddmm_op(block_cols: torch.Tensor, blocks: torch.Tensor,
     ``x3`` [P, mb, bm, F] / ``y3`` [P, kb, bk, F] are the dense rows in
     block-row view; the result has ``blocks``' shape [P, mb, t, bm, bk].
     """
-    if on_card(block_cols, blocks, x3, y3):
-        return _sddmm.bsr_sddmm_cuda(block_cols, blocks, x3, y3)
-    return _sddmm.bsr_sddmm_plain(block_cols, blocks, x3, y3)
+    if _needs_grad(blocks, x3, y3):
+        return _BsrSddmm.apply(block_cols, blocks, x3, y3)
+    return _k5(block_cols, blocks, x3, y3)
 
 
 def rmsnorm_op(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,

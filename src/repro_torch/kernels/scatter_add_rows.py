@@ -19,8 +19,8 @@ import torch
 
 from . import build
 
-__all__ = ["LAUNCHES", "prepare_sorted_scatter", "scatter_add_rows_cuda",
-           "scatter_add_rows_plain"]
+__all__ = ["LAUNCHES", "prepare_sorted_scatter", "stack_sorted_scatter",
+           "scatter_add_rows_cuda", "scatter_add_rows_plain"]
 
 LAUNCHES = {"scatter_add_rows": 0}
 
@@ -43,6 +43,14 @@ def prepare_sorted_scatter(tgt: np.ndarray):
     tgt_sorted[n_valid:] = fill
     meta = np.concatenate([tgt_sorted, np.asarray([n_valid], np.int32)])
     return perm, meta
+
+
+def stack_sorted_scatter(tgt: np.ndarray):
+    """``prepare_sorted_scatter`` of every rank's row of ``tgt`` [P, S]
+    (-1 pads), stacked: (perm [P, S], meta [P, S+1]), both int32."""
+    maps = [prepare_sorted_scatter(t) for t in np.asarray(tgt)]
+    return (np.stack([m[0] for m in maps]).astype(np.int32),
+            np.stack([m[1] for m in maps]).astype(np.int32))
 
 
 def _check_shapes(c, partials, perm, meta) -> None:

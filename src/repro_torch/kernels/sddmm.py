@@ -23,11 +23,12 @@ launch, as the reference does.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import build
 
-__all__ = ["LAUNCHES", "bsr_sddmm_cuda", "bsr_sddmm_plain"]
+__all__ = ["LAUNCHES", "bsr_sddmm_cuda", "bsr_sddmm_plain", "transpose_ell"]
 
 LAUNCHES = {"bsr_sddmm": 0}
 
@@ -142,3 +143,35 @@ def bsr_sddmm_cuda(cols: torch.Tensor, blocks: torch.Tensor,
     build.check(rc, "bsr_sddmm")
     LAUNCHES["bsr_sddmm"] += 1
     return out
+
+
+def transpose_ell(cols: np.ndarray, kb: int):
+    """The transposed ELL layout of stacked pieces, for K5's backward.
+
+    ``cols`` [P, mb, t] names each stored block's block column (-1 pads,
+    and ids past ``kb`` read nothing). Returns (cols_t [P, kb, t_t],
+    slot [P, kb, t_t]), both int32: block column c's j-th entry is the
+    block of block-row ``cols_t[p, c, j]`` stored at flat slot
+    ``slot[p, c, j]`` (= i·t + s) of the forward layout, entries in
+    ascending block-row order; -1 pads both. The blocks themselves are
+    transposed where the layout is applied.
+    """
+    cols = np.asarray(cols)
+    P_, mb, t = cols.shape
+    flat = cols.reshape(P_, mb * t)
+    per = []
+    for p in range(P_):
+        slots = np.flatnonzero((flat[p] >= 0) & (flat[p] < kb))
+        c = flat[p, slots]
+        order = np.argsort(c, kind="stable")  # block rows stay ascending
+        slots, c = slots[order], c[order]
+        counts = np.bincount(c, minlength=kb)
+        j = np.arange(c.size) - np.repeat(np.cumsum(counts) - counts, counts)
+        per.append((c, j, slots))
+    t_t = max([int(j.max()) + 1 for _, j, _ in per if j.size] + [0])
+    cols_t = np.full((P_, kb, t_t), -1, np.int32)
+    slot = np.full((P_, kb, t_t), -1, np.int32)
+    for p, (c, j, slots) in enumerate(per):
+        cols_t[p, c, j] = slots // t
+        slot[p, c, j] = slots
+    return cols_t, slot

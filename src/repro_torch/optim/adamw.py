@@ -1,0 +1,168 @@
+"""AdamW + schedules + global-norm clipping over lists / dicts of tensors.
+
+Port of ``repro/optim/adamw.py``: the same update, schedules and clipping,
+step for step in float32, so three steps here and there agree within
+float32 rounding. A parameter "tree" is a tensor or a list, tuple or dict
+of them (nested; dict leaves in sorted key order, as ``jax.tree_util``
+flattens them). Optimizer state is kept in float32 whatever the
+parameters' dtype: ``{'m': tree, 'v': tree, 'step': int32 scalar}``.
+
+``torch.optim.AdamW`` is not a substitute: it clips nothing, has no
+schedule of its own and folds the weight decay in before the moment
+update, so its steps differ from the reference's.
+
+    state = adamw_init(params)
+    new_params, state, metrics = adamw_update(cfg, params, grads, state)
+    state, metrics = adamw_step(cfg, list(model.parameters()), state)  # in place
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, List, Sequence, Tuple
+
+import torch
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_step",
+           "cosine_schedule", "linear_warmup", "clip_by_global_norm",
+           "global_norm"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    schedule: str = "cosine"  # cosine | linear | constant
+
+
+def _leaves(tree: Any) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _rebuild(tree: Any, leaves) -> Any:
+    """``tree``'s structure around the next values of the iterator
+    ``leaves`` (taken in ``_leaves`` order)."""
+    if isinstance(tree, dict):
+        built = {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+        return {k: built[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(t, leaves) for t in tree)
+    return next(leaves)
+
+
+def _map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and of each tree in ``rest``
+    (same structure), in ``tree``'s structure."""
+    out = [fn(*a) for a in zip(_leaves(tree), *map(_leaves, rest))]
+    return _rebuild(tree, iter(out))
+
+
+def _device(tree: Any) -> torch.device:
+    leaves = _leaves(tree)
+    return leaves[0].device if leaves else torch.device("cpu")
+
+
+def adamw_init(params: Any) -> dict:
+    f32 = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
+                                device=p.device)
+    return {"m": _map(f32, params), "v": _map(f32, params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=_device(params))}
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32 (leaf sums
+    added in flattening order)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in _leaves(tree)))
+
+
+def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return _map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
+def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    step = torch.as_tensor(step)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * (cos if cfg.schedule == "cosine" else 1.0)
+
+
+def linear_warmup(cfg: AdamWConfig, step) -> torch.Tensor:
+    warm = torch.clamp(torch.as_tensor(step) / max(cfg.warmup_steps, 1),
+                       max=1.0)
+    return cfg.lr * warm
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: dict
+                 ) -> tuple:
+    """Returns (new_params, new_state, metrics) — the reference's update:
+    clip by the global norm, bias-corrected moments in float32, decoupled
+    weight decay, the schedule's learning rate at the new step."""
+    if cfg.grad_clip > 0:
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    else:
+        gnorm = global_norm(grads)
+    step = state["step"] + 1
+    if cfg.schedule == "cosine":
+        lr = cosine_schedule(cfg, step)
+    elif cfg.schedule == "linear":
+        lr = linear_warmup(cfg, step)
+    else:
+        lr = torch.tensor(cfg.lr, dtype=torch.float32, device=step.device)
+    stepf = step.float()
+    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
+                                       device=step.device), stepf)
+    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
+                                       device=step.device), stepf)
+
+    def upd(p, g, m, v):
+        gf = g.float()
+        m2 = cfg.b1 * m + (1 - cfg.b1) * gf
+        v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(gf)
+        mhat = m2 / b1c
+        vhat = v2 / b2c
+        delta = (mhat / (torch.sqrt(vhat) + cfg.eps)
+                 + cfg.weight_decay * p.float())
+        return (p.float() - lr * delta).to(p.dtype), m2, v2
+
+    outs = [upd(*a) for a in zip(_leaves(params), _leaves(grads),
+                                 _leaves(state["m"]), _leaves(state["v"]))]
+    pick = lambda i: _rebuild(params, iter([o[i] for o in outs]))  # noqa: E731,E501
+    return pick(0), {"m": pick(1), "v": pick(2), "step": step}, {
+        "grad_norm": gnorm, "lr": lr}
+
+
+def adamw_step(cfg: AdamWConfig, params: Sequence[torch.Tensor],
+               state: dict) -> Tuple[dict, dict]:
+    """``adamw_update`` in place on tensors that carry their ``.grad``
+    (e.g. ``list(model.parameters())`` after ``loss.backward()``): each
+    parameter takes its new value and its grad is cleared. Returns
+    (new_state, metrics)."""
+    params = list(params)
+    missing = [i for i, p in enumerate(params) if p.grad is None]
+    if missing:
+        raise ValueError(f"parameters {missing} have no grad; run backward "
+                         f"first")
+    new, state, metrics = adamw_update(
+        cfg, [p.detach() for p in params], [p.grad for p in params], state)
+    with torch.no_grad():
+        for p, q in zip(params, new):
+            p.copy_(q)
+            p.grad = None
+    return state, metrics

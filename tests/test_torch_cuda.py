@@ -232,7 +232,7 @@ def _scatter_case(tgt, n, dtype, seed):
 
 
 @requires_cuda
-@pytest.mark.parametrize("n", [40, 128, 130])
+@pytest.mark.parametrize("n", [40, 128, 130, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scatter_add_kernel_hub_segment(n, dtype):
     """One target takes 5,000 of 6,000 slots (longer than any unit's
@@ -310,7 +310,7 @@ def _k1_both_forms(b, idx, val, what):
     return pack, scaled[b.dtype]
 
 
-K1_WIDTHS = [1, 3, 16, 40, 128, 130, 2048]
+K1_WIDTHS = [1, 3, 16, 40, 128, 130, 256, 2048]
 
 
 @requires_cuda
@@ -955,3 +955,237 @@ def test_lm_on_the_card_launches_k6_and_matches_the_cpu():
         assert launch_counts()["rmsnorm"] == before + 2 * cfg.n_layers + 1
         torch.testing.assert_close(step[:, 0].cpu(), want[:, j], rtol=1e-4,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the backward compositions (autograd) on the card
+# ---------------------------------------------------------------------------
+
+_WRAPPERS = [(K1, "gather_rows_cuda", "gather_rows_plain"),
+             (K1, "gather_rows_scaled_cuda", "gather_rows_scaled_plain"),
+             (K2, "scatter_add_rows_cuda", "scatter_add_rows_plain"),
+             (K34, "bsr_spmm_cuda", "bsr_spmm_plain"),
+             (K5, "bsr_sddmm_cuda", "bsr_sddmm_plain")]
+
+
+def _plain_on_the_card(monkeypatch):
+    """Route every kernel wrapper to its plain version (on the card's
+    tensors), so a run walks the plain composition."""
+    for mod, cuda, plain in _WRAPPERS:
+        fn = getattr(mod, plain)
+        monkeypatch.setattr(mod, cuda,
+                            lambda *a, bn=None, _fn=fn: _fn(*a))
+
+
+def _leaf(a):
+    return _cuda(np.asarray(a, np.float32)).requires_grad_()
+
+
+def _backward_cases(n, seed):
+    """Each op's forward + backward on card tensors: a function returning
+    the output and the gradients (everything its backward computes)."""
+    from repro_torch.core import local_backend, sparse
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    csrs = [sparse.random_sparse(96, 80, 0.05 + 0.02 * (p % 3), seed=p)
+            for p in range(P)]
+    piece = {k: v.cuda() for k, v in local_backend.CooBackend().prepare(
+        csrs).items()}
+    idx = _cuda(rng.integers(-1, 80, size=(P, 300)).astype(np.int32))
+    tgt = rng.integers(-1, 96, size=(P, 200)).astype(np.int32)
+    tgt[:, :120] = 5  # a hub row
+    perm, meta = (_cuda(a) for a in ops.stack_sorted_scatter(tgt))
+    cols, blocks = (_cuda(a) for a in _ell_with_pads(rng))
+
+    def upstream(out):
+        """A unit-scale gradient for ``out``, the same on every run."""
+        g = np.random.default_rng(seed + 1).standard_normal(tuple(out.shape))
+        return _cuda(g.astype(np.float32))
+
+    arrays = {"b": rng.standard_normal((P, 80, n)),
+              "c": rng.standard_normal((P, 96, n)),
+              "parts": rng.standard_normal((P, 200, n)),
+              "x": rng.standard_normal((P, 96, n)),
+              "x3": rng.standard_normal((P, 6, 8, n)),
+              "y3": rng.standard_normal((P, 7, 8, n))}
+
+    def pack():
+        b = _leaf(arrays["b"])
+        out = ops.pack_rows_op(b, idx)
+        out.backward(upstream(out))
+        return out, b.grad
+
+    def aggregate():
+        c, parts = _leaf(arrays["c"]), _leaf(arrays["parts"])
+        out = ops.scatter_add_rows_exec_op(c * 1.0, parts, perm, meta)
+        out.backward(upstream(out))
+        return out, c.grad, parts.grad
+
+    def coo():
+        b = _leaf(arrays["b"])
+        val = piece["val"].clone().requires_grad_()
+        out = ops.coo_accumulate_rows_op(
+            torch.zeros((P, 96, n), device=b.device), piece["col"], val,
+            piece["perm"], piece["meta"], b)
+        out.backward(upstream(out))
+        return out, b.grad, val.grad
+
+    def coo_sddmm():
+        x, y = _leaf(arrays["x"]), _leaf(arrays["b"])
+        val = piece["val"].clone().requires_grad_()
+        out = local_backend.coo_sddmm_op(dict(piece, val=val), x, y)
+        out.backward(upstream(out))
+        return out, x.grad, y.grad, val.grad
+
+    def sddmm():
+        bl = blocks.clone().requires_grad_()
+        x3, y3 = _leaf(arrays["x3"]), _leaf(arrays["y3"])
+        out = ops.bsr_sddmm_op(cols, bl, x3, y3)
+        out.backward(upstream(out))
+        return out, bl.grad, x3.grad, y3.grad
+
+    return {"pack": pack, "aggregate": aggregate, "coo": coo,
+            "coo_sddmm": coo_sddmm, "sddmm": sddmm}
+
+
+def _ell_with_pads(rng, mb=6, t=5, kb=7):
+    cols = np.full((P, mb, t), -1, np.int32)
+    for p in range(P):
+        for i in range(mb):
+            k = rng.integers(0, t + 1)
+            cols[p, i, :k] = rng.permutation(kb)[:k]
+    blocks = rng.standard_normal((P, mb, t, 8, 8)).astype(np.float32)
+    blocks *= rng.random(blocks.shape) < 0.4
+    blocks[cols < 0] = 0.0
+    return cols, blocks
+
+
+# the kernels each forward launches (the coo SDDMM is plain torch, as the
+# reference's) and each backward (K5's: K3 on both layouts + K5)
+FORWARD_LAUNCHES = {
+    "pack": {"gather_rows": 1},
+    "aggregate": {"scatter_add_rows": 1},
+    "coo": {"gather_rows_scaled": 1, "scatter_add_rows": 1},
+    "coo_sddmm": {},
+    "sddmm": {"bsr_sddmm": 1},
+}
+BACKWARD_LAUNCHES = {
+    "pack": {"scatter_add_rows": 1},
+    "aggregate": {"gather_rows": 1},
+    "coo": {"gather_rows_scaled": 1, "scatter_add_rows": 1},
+    "coo_sddmm": {"gather_rows_scaled": 2, "scatter_add_rows": 2},
+    "sddmm": {"bsr_spmm": 2, "bsr_sddmm": 1},
+}
+
+
+@requires_cuda
+@pytest.mark.parametrize("n", [40, 128, 256])
+@pytest.mark.parametrize("case", list(BACKWARD_LAUNCHES))
+def test_backward_composition_matches_plain_on_the_card(case, n,
+                                                        monkeypatch):
+    """Each backward on the card launches the port's kernels (counted) and
+    equals its plain composition on the same card tensors: bit for bit
+    through K1 / K2 / K5, within 1e-5 through K3 (its tolerance)."""
+    run = _backward_cases(n, seed=n)[case]
+    got = run()  # first use: builds the maps
+    torch.cuda.synchronize()
+    before = launch_counts()
+    again = run()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    for k in after:
+        want = (FORWARD_LAUNCHES[case].get(k, 0)
+                + BACKWARD_LAUNCHES[case].get(k, 0))
+        assert after[k] - before[k] == want, (k, before, after)
+    for a, b in zip(got, again):  # no atomics: run == run
+        assert torch.equal(a, b)
+    _plain_on_the_card(monkeypatch)
+    plain = _backward_cases(n, seed=n)[case]()
+    for a, b in zip(got, plain):
+        if case == "sddmm":
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(a, b)
+
+
+@requires_cuda
+@pytest.mark.parametrize("n", [40, 128, 256])
+@pytest.mark.parametrize("cfg", [dict(schedule=4, overlap=True),
+                                 dict(hier=(2, 4), schedule=1, overlap=True),
+                                 dict(replicate=2)],
+                         ids=["flat", "hier", "replicated"])
+def test_handle_grads_on_the_card_match_plain_and_dense(cfg, n,
+                                                        monkeypatch):
+    """dB of ½‖h(b)‖² through the coo handle on the card: K1 / K2 in the
+    backward, the same bits twice and as the plain composition, within
+    the executor tolerance of Aᵀ(A b) in float64 (2e-4 + 2e-4·|A|ᵀ|A||b|);
+    the backward's collectives carry the forward's rows on every axis."""
+    import repro_torch as T
+    from repro_torch.core import sparse
+
+    a = sparse.power_law_sparse(512, 512, 6000, 1.2, seed=2)
+    h = T.compile_spmm(a, 8, T.SpmmConfig(**cfg))
+    b = np.random.default_rng(n).standard_normal((512, n)).astype(np.float32)
+
+    def grad():
+        x = _cuda(b).requires_grad_()
+        c = h(x)
+        c.backward(c.detach())
+        torch.cuda.synchronize()
+        return x.grad
+
+    g = grad()
+    before = launch_counts()
+    g2 = grad()
+    after = launch_counts()
+    assert torch.equal(g, g2)
+    for k in ("gather_rows", "gather_rows_scaled", "scatter_add_rows"):
+        assert after[k] > before[k], k
+    for axis in ("x", "g", "l", "s", "r"):
+        assert h.comm.rows(axis, "bwd") == h.comm.rows(axis)
+    # the executor tolerance relative to the terms each entry sums
+    dense = a.to_dense().astype(np.float64)
+    scale = np.abs(dense).T @ (np.abs(dense) @ np.abs(b))
+    assert (np.abs(g.cpu().numpy() - dense.T @ (dense @ b))
+            <= 2e-4 + 2e-4 * scale).all()
+    _plain_on_the_card(monkeypatch)
+    assert torch.equal(grad(), g)
+
+
+@requires_cuda
+def test_bsr_sddmm_and_coo_fused_grads_on_the_card():
+    """The fused coo call and the bsr SDDMM differentiate on the card
+    within rtol 2e-3 / atol 2e-4 of float64; a bsr fused call under grad
+    raises."""
+    import repro_torch as T
+    from repro_torch.core import sparse
+
+    a = sparse.power_law_sparse(512, 512, 6000, 1.2, seed=2)
+    h = T.compile_fused(a, 8, T.SpmmConfig(kernel="fused", edge="leaky_relu",
+                                           backends=("coo", "bsr")))
+    rng = np.random.default_rng(0)
+    x, y = rng.standard_normal((2, 512, 16)).astype(np.float32)
+    b = rng.standard_normal((512, 40)).astype(np.float32)
+    xt, yt, bt = (_cuda(v).requires_grad_() for v in (x, y, b))
+    c = h(xt, yt, bt)
+    c.backward(c.detach())
+    ad = a.to_dense().astype(np.float64)
+    s = ad * (x.astype(np.float64) @ y.T.astype(np.float64))
+    e = np.where(s > 0, s, 0.2 * s)
+    cd = e @ b
+    de = cd @ b.T * ad * np.where(s > 0, 1.0, 0.2)
+    for got, want in ((bt.grad, e.T @ cd), (xt.grad, de @ y),
+                      (yt.grad, de.T @ x)):
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-3,
+                                   atol=2e-4)
+    with pytest.raises(NotImplementedError, match="no JVP"):
+        h(xt, yt, bt, backend="bsr")
+    xt.grad = yt.grad = None
+    vals = h(xt, yt, kernel="sddmm", backend="bsr", edge=None)
+    (0.5 * sum(v.square().sum() for v in vals.values())).backward()
+    w = ad * ad * (x.astype(np.float64) @ y.T.astype(np.float64))
+    np.testing.assert_allclose(xt.grad.cpu().numpy(), w @ y, rtol=2e-3,
+                               atol=2e-4)
+    np.testing.assert_allclose(yt.grad.cpu().numpy(), w.T @ x, rtol=2e-3,
+                               atol=2e-4)

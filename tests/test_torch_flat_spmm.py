@@ -30,6 +30,7 @@ from repro_torch.core import dist_spmm as t_dist  # noqa: E402
 from repro_torch.core import planner as t_plan  # noqa: E402
 from repro_torch.core import sparse as t_sparse  # noqa: E402
 from repro_torch.distributed.comm import LocalComm  # noqa: E402
+from repro_torch.kernels.ops import prepare_sorted_scatter  # noqa: E402
 
 BACKENDS = ("coo", "bsr")
 
@@ -148,7 +149,7 @@ def test_coo_pieces_carry_row_maps(K):
         for p in range(row.shape[0]):
             nnz = int(piece["meta"][p, -1])
             tgt = np.where(np.arange(row.shape[1]) < nnz, row[p], -1)
-            perm, meta = t_dist.prepare_sorted_scatter(tgt)
+            perm, meta = prepare_sorted_scatter(tgt)
             np.testing.assert_array_equal(piece["perm"][p].numpy(), perm,
                                           err_msg=name)
             np.testing.assert_array_equal(piece["meta"][p].numpy(), meta,
@@ -170,7 +171,7 @@ def test_coo_piece_with_maps_folds_every_stored_entry():
     piece = coo_piece_with_maps({k: torch.from_numpy(v) for k, v in
                                  (("row", row), ("col", col), ("val", val))})
     for p in range(2):
-        perm, meta = t_dist.prepare_sorted_scatter(row[p])
+        perm, meta = prepare_sorted_scatter(row[p])
         np.testing.assert_array_equal(piece["perm"][p].numpy(), perm)
         np.testing.assert_array_equal(piece["meta"][p].numpy(), meta)
         assert int(piece["meta"][p, -1]) == 3

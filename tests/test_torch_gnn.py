@@ -90,16 +90,18 @@ def test_gat_forward_matches_reference(backend):
         backends=backends, edge="leaky_relu", device="cpu")
     assert h.decisions == ref_h.decisions
     model = t_gnn.gat_from_numpy(params, NODES, device="cpu")
-    got = t_gnn.gat_forward(model, torch.from_numpy(feats),
-                            lambda q, k, v: h(q, k, v, backend=backend))
+    # inference: the bsr fused call has no gradient, as in the reference
+    with torch.no_grad():
+        got = t_gnn.gat_forward(model, torch.from_numpy(feats),
+                                lambda q, k, v: h(q, k, v, backend=backend))
+        # the module's forward is the same call
+        again = model(torch.from_numpy(feats),
+                      lambda q, k, v: h(q, k, v, backend=backend))
     assert got.shape == (NODES, CLASSES)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     np.testing.assert_allclose(got.numpy(),
                                _dense_forward(adj, params, feats), **TOL)
-    # the module's forward is the same call
-    assert torch.equal(model(torch.from_numpy(feats),
-                             lambda q, k, v: h(q, k, v, backend=backend)),
-                       got)
+    assert torch.equal(again, got)
 
 
 def test_gat_from_numpy_shapes():

@@ -31,6 +31,7 @@ from repro_torch.core import dist_spmm as t_dist  # noqa: E402
 from repro_torch.core import planner as t_plan  # noqa: E402
 from repro_torch.core import sparse as t_sparse  # noqa: E402
 from repro_torch.distributed.comm import LocalComm  # noqa: E402
+from repro_torch.kernels.ops import prepare_sorted_scatter  # noqa: E402
 from repro_torch.robustness.guards import NumericalFault  # noqa: E402
 
 P = 8
@@ -138,7 +139,7 @@ def test_fused_runs_reference_exec_arrays(power_law_matrix):
         row = got["row"].numpy()
         assert torch.equal(got["row"], t_ex.pieces["coo"][piece]["row"])
         for p in range(row.shape[0]):
-            perm, meta = t_dist.prepare_sorted_scatter(row[p])
+            perm, meta = prepare_sorted_scatter(row[p])
             np.testing.assert_array_equal(got["perm"][p].numpy(), perm)
             np.testing.assert_array_equal(got["meta"][p].numpy(), meta)
     args = [torch.from_numpy(v) for v in (x, y, b)]
@@ -258,9 +259,13 @@ def test_kernel_arity_and_guard_errors(power_law_matrix):
         h(x, np.ones((64, 4), np.float32), kernel="sddmm")
     with pytest.raises(ValueError, match="B has 32 rows"):
         h(x, y, np.ones((32, N), np.float32), kernel="fused")
-    # gradients wait for the autograd slice
-    with pytest.raises(NotImplementedError, match="open item 9"):
-        h(torch.from_numpy(x).requires_grad_(), y, b, kernel="fused")
+    # a coo fused call differentiates (the autograd slice lifted the
+    # refusal); a bsr SpMM phase has no gradient, as in the reference
+    xg = torch.from_numpy(x).requires_grad_()
+    assert h(xg, y, b, kernel="fused").grad_fn is not None
+    hb = T.compile_spmm(_port_csr(a), P, backends=("bsr",), device="cpu")
+    with pytest.raises(NotImplementedError, match="no JVP"):
+        hb(xg, y, b, kernel="fused")
     # a poisoned operand trips the sampled sweep of the sampled values
     bad = x.copy()
     bad[:, 0] = np.nan
