@@ -107,7 +107,33 @@ handle. Phases, each of which raises on a failed check:
    dispatch of one 8 × 128 prefill, ``compile_dispatch(cfg, tokens=1024,
    M=8)``, with decisions equal to the reference's, ``h(x)`` on x [1024,
    2048] float32 within 2e-4 of the dense dispatch and its K1/K2 calls
-   replayed exactly.
+   replayed exactly;
+8. lifecycle, on the two SpMM matrices, with an autotune cache in a
+   directory of ``build/`` that the phase makes and removes:
+   ``compile_spmm(uniform, 8, backends=("coo", "bsr"), hier="auto",
+   measure=True)`` and ``compile_spmm(power-law, 8, hier="auto",
+   measure=True)`` time the model's top 3 candidates on the card (every
+   candidate printed with its model and measured ms, the winner beside
+   the model-only decision; no candidate may be skipped), C within 2e-4
+   of scipy float64 and the logged rows == ``volume_rows_padded``; the
+   same two compiles again replay the cache (zero profile hooks, the
+   same decisions, C bit for bit); on uniform coo with a host B the
+   first call's ``total_allocation_size`` is strictly lower with
+   ``donate=True`` than without, C bit-identical, a caller's CUDA B
+   untouched; ``SpmmSession.build(power-law, 8, hier="auto",
+   p_ladder=(4, 8))`` runs 2 MWVC builds, each rung's decisions equal
+   the reference's (``EXPECT_LADDER``) and C is within 2e-4, and
+   ``on_resize(4)`` / ``on_resize(8)`` build nothing; a values-only
+   change refreshes in place (drift 0.0, no new memo entry, C == a cold
+   compile's bit for bit); 15% of the edges rewired hot-swaps to a
+   warmed handle (one MWVC build, the first call a memo hit); the bundle
+   round-trips bit for bit and a torn one fails naming the file;
+   ``nan_poison`` at the output raises ``NumericalFault``, a torn
+   autotune entry warns, re-profiles and is rewritten, and with no plan
+   ``check=False`` C == ``check="auto"`` C. The K1–K4 calls of one call
+   of each winner (the uniform one on both backends) and of the
+   refreshed handle are replayed against the plain versions (path
+   ``lifecycle`` in the kernels line).
 
 It prints the card's name and power limit, then one JSON line of kernel
 rows, then ``{"ok": true, "device": {...}}`` as its last line. Without a
@@ -284,6 +310,36 @@ EXPECT_REPL = {
                                     (1,))))),
     },
 }
+# the reference's rungs of SpmmSession.build(power-law, 8, SpmmConfig(
+# hier="auto"), p_ladder=(4, 8)) (the JAX package's session, CPU run)
+EXPECT_LADDER = {
+    "full": {
+        8: dict(strategy="hier", P=8, G=2, L=4, schedule_kind="bucketed",
+                schedule_K=1, overlap=True,
+                modeled_time_flat=0.0030354198400000003,
+                modeled_time_hier=0.00054682528, volume_rows=260413,
+                volume_rows_padded=180992, volume_rows_padded_single=450656,
+                pattern_nnz=1116853),
+        4: dict(strategy="flat", P=4, schedule_kind="bucketed", schedule_K=2,
+                overlap=True, modeled_time_flat=0.00011088500266666666,
+                modeled_time_hier=0.000983150304, volume_rows=170538,
+                volume_rows_padded=334756, volume_rows_padded_single=511248,
+                pattern_nnz=1116853),
+    },
+    "quick": {
+        8: dict(strategy="hier", P=8, G=2, L=4, schedule_kind="bucketed",
+                schedule_K=1, overlap=True,
+                modeled_time_flat=0.00037697924977777783,
+                modeled_time_hier=7.4449472e-05, volume_rows=27371,
+                volume_rows_padded=18448, volume_rows_padded_single=46144,
+                pattern_nnz=107248),
+        4: dict(strategy="flat", P=4, schedule_kind="bucketed", schedule_K=1,
+                overlap=True, modeled_time_flat=1.5631459555555556e-05,
+                modeled_time_hier=0.000120893184, volume_rows=17789,
+                volume_rows_padded=40704, volume_rows_padded_single=54272,
+                pattern_nnz=107248),
+    },
+}
 GAT_DIMS = dict(feat_dim=128, hidden=128, n_classes=40, n_layers=2,
                 att_dim=16)  # ogbn-arxiv's features and classes
 SDDMM_F = 128
@@ -346,6 +402,20 @@ def toolchain() -> str:
         triton_version = "not installed"
     return (f"torch {torch.__version__}, torch.version.cuda "
             f"{torch.version.cuda}, nvcc: {nvcc[-1]}, triton {triton_version}")
+
+
+def peak_allocated() -> int:
+    """The card's peak allocated bytes since the last ``reset_peak``, the
+    peaks that the handles' memory records reset away included."""
+    from repro_torch.launch import memory
+
+    return memory.peak_allocated()
+
+
+def reset_peak() -> None:
+    from repro_torch.launch import memory
+
+    memory.reset_peak()
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1810,7 +1880,7 @@ def train_cell(what: str, make_model, loss_fn, epochs: int, prep_s: float,
     log(f"  {what}: prep {prep_s:.2f} s, prep ratio (Tab. 3 protocol, "
         f"{epochs} epochs) {100 * prep_s / (prep_s + train_s):.1f}%; "
         f"{REPEAT_STEPS} steps repeated bit for bit; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"{peak_allocated() / 2 ** 30:.2f} GiB")
     return med
 
 
@@ -1931,7 +2001,7 @@ def train_phase(args, card, a_p, adj, cells, hf, gat_prep_s, b, b_host,
     del xs, ys, grads, tallies, s
 
     # GCN: 128 -> 256 -> 256 -> 40 on normalize_adjacency(power-law)
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     t0 = time.perf_counter()
     adj_g = normalize_adjacency(a_p)
     hg = compile_spmm(adj_g, P, device=dev)
@@ -1951,7 +2021,7 @@ def train_phase(args, card, a_p, adj, cells, hf, gat_prep_s, b, b_host,
     torch.cuda.empty_cache()
 
     # GAT: 128 -> 128 -> 40, att_dim 16, on the GAT graph's fused handle
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     paths["gat_step"], med_a = model_cell(
         "gat-train-arxiv", hf, lambda q, k, v: hf(q, k, v, backend="coo"),
         GAT_DIMS["n_layers"],
@@ -2344,6 +2414,376 @@ def lm_serving(args, card: str, dev: str = "cuda") -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the lifecycle — measured autotuning, the cache, memory and
+# donation, the session ladder, drift, the bundle, faults
+# ---------------------------------------------------------------------------
+
+
+class autotune_watch:
+    """Record, while active, every candidate ``core.autotune`` times (its
+    info and measured seconds) and the model-only decision each measured
+    overlay starts from (tier, schedule kind, K, overlap, modeled time)."""
+
+    def __enter__(self):
+        from repro_torch.core import autotune
+
+        self.mod, self.timed, self.model = autotune, [], []
+        self._profile = autotune.profile_candidate
+        self._decide = autotune.measured_decide
+
+        def profile(handle, b, backend, *, warmup, iters, info):
+            t = self._profile(handle, b, backend, warmup=warmup, iters=iters,
+                              info=info)
+            self.timed.append(dict(info, measured_time=t))
+            return t
+
+        def decide(a, P_, config, topo, *, plan, hier, hier_cand, schedule,
+                   decisions):
+            self.model.append(dict(
+                tier="hier" if hier is not None else "flat",
+                kind=schedule.kind,
+                K=schedule.K if schedule.kind == "bucketed" else None,
+                overlap=decisions["overlap"],
+                model_time=autotune.decision_modeled_time(decisions)))
+            return self._decide(a, P_, config, topo, plan=plan, hier=hier,
+                                hier_cand=hier_cand, schedule=schedule,
+                                decisions=decisions)
+
+        autotune.profile_candidate, autotune.measured_decide = profile, decide
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.profile_candidate = self._profile
+        self.mod.measured_decide = self._decide
+
+
+def rewire(a, frac: float, seed: int):
+    """``a`` with ``frac`` of its nonzeros moved to random columns of their
+    rows (duplicates summed): a pattern drift of about 2·frac / (1 + frac)
+    in Jaccard distance."""
+    from repro_torch.core.sparse import COOMatrix, csr_from_coo
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(a.shape[0], dtype=np.int32),
+                     np.diff(a.indptr))
+    cols = a.indices.copy()
+    moved = rng.choice(a.nnz, int(frac * a.nnz), replace=False)
+    cols[moved] = rng.integers(0, a.shape[1], moved.size, dtype=np.int32)
+    return csr_from_coo(COOMatrix(a.shape, rows, cols, a.data.copy()))
+
+
+def _winner(h) -> dict:
+    d = h.decisions
+    return dict(tier=h.strategy, kind=h.schedule.kind,
+                K=h.schedule.K if h.schedule.kind == "bucketed" else None,
+                overlap=h.overlap, backend=h.default_backend,
+                measured_ms=None if d.get("measured_time") is None
+                else 1e3 * d["measured_time"])
+
+
+def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
+    """Phase 8: the session lifecycle on the two SpMM matrices. Returns the
+    kernel rows of the ``lifecycle`` path (one call of each measured
+    winner — the uniform one on both backends — and of the refreshed
+    handle, replayed against the plain versions)."""
+    import shutil
+
+    from repro_torch import SpmmConfig, SpmmSession, compile_spmm
+    from repro_torch.core import autotune
+    from repro_torch.core.api import materialize_payload
+    from repro_torch.core.planner import plan_build_count
+    from repro_torch.kernels import ops
+    from repro_torch.robustness import Fault, NumericalFault, inject
+
+    t_phase = time.perf_counter()
+    expect = EXPECT_LADDER["quick" if args.quick else "full"]
+    scratch = os.path.join(ROOT, "build", "lifecycle")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    saved_env = {k: os.environ.pop(k, None)
+                 for k in (autotune.CACHE_ENV, autotune.MEASURE_ENV)}
+    os.environ[autotune.CACHE_ENV] = os.path.join(scratch, "autotune")
+    hooks = []
+    hook = autotune.register_profile_hook(hooks.append)
+    b = torch.from_numpy(b_host).cuda()
+    try:
+        ops.reset_launch_counts()
+
+        # 1. measured autotune, 2. the cache replay ---------------------
+        # the two hier="auto" cells, then the same matrices flat (hier
+        # None): with G = 2 the hier K sweep repeats one schedule, so the
+        # top 3 candidates of "auto" are all hier and the flat tier is
+        # timed by its own measured compile
+        cells = {"uniform": (a_u, dict(backends=("coo", "bsr"), hier="auto",
+                                       measure=True)),
+                 "power_law": (a_p, dict(hier="auto", measure=True)),
+                 "uniform_flat": (a_u, dict(backends=("coo", "bsr"),
+                                            measure=True)),
+                 "power_law_flat": (a_p, dict(measure=True))}
+        winners, timed = {}, {}
+        with warnings.catch_warnings(record=True) as caught, \
+                autotune_watch() as watch:
+            warnings.simplefilter("always")
+            for name, (a, cfg) in cells.items():
+                t0 = time.perf_counter()
+                n_timed = len(watch.timed)
+                h = compile_spmm(a, P, SpmmConfig(**cfg))
+                timed[name] = watch.timed[n_timed:]
+                log(f"lifecycle {name}: compile_spmm({cfg}) "
+                    f"{time.perf_counter() - t0:.1f} s: {h}")
+                winners[name] = h
+            skipped = [str(w.message) for w in caught
+                       if "autotune candidate" in str(w.message)]
+            if skipped:
+                raise AssertionError(f"lifecycle: autotune skipped a "
+                                     f"candidate: {skipped}")
+            model = list(watch.model)
+        if len(model) != len(cells) or not all(timed.values()):
+            raise AssertionError(f"lifecycle: {len(model)} measured overlays,"
+                                 f" timed {[len(t) for t in timed.values()]}")
+        cfg0 = SpmmConfig()
+        for (name, h), m in zip(winners.items(), model):
+            log(f"lifecycle {name} [{card}]: model-only decision "
+                f"{json.dumps(dict(m, model_time=1e3 * m['model_time']))} "
+                f"(alpha-beta model ms); measured winner "
+                f"{json.dumps(_winner(h))}")
+            for info in timed[name]:
+                log(f"  candidate [{card}]: tier {info['tier']}, "
+                    f"{info['kind']} K={info['K']}, overlap "
+                    f"{info['overlap']}, backend {info['backend']}: model "
+                    f"{1e3 * info['model_time']:.4f} ms (alpha-beta), "
+                    f"measured {1e3 * info['measured_time']:.4f} ms (median "
+                    f"of {cfg0.profile_iters} runs, N = {cfg0.n_dense_hint})")
+        for name in ("uniform", "power_law"):
+            best = {tier: min(timed[cell], key=lambda i: i["measured_time"])
+                    for tier, cell in (("hier", name),
+                                       ("flat", f"{name}_flat"))}
+            log(f"lifecycle {name} [{card}]: the card's fastest timed hier "
+                f"candidate {1e3 * best['hier']['measured_time']:.4f} ms, "
+                f"flat {1e3 * best['flat']['measured_time']:.4f} ms; the "
+                f"model picks {model[0 if name == 'uniform' else 1]['tier']}")
+        c_first = {}
+        for name, h in winners.items():
+            a = cells[name][0]
+            c_first[name] = h(b)
+            check_rows(h, f"lifecycle {name}")
+            log(f"  lifecycle {name}: max abs err vs scipy float64 "
+                f"{check_c(c_first[name], a, b_host, name):.3g} (tol 2e-4); "
+                f"rows == volume_rows_padded "
+                f"{h.plan.volume_rows_padded(h.schedule)}")
+        n_hooks = len(hooks)
+        for name in ("uniform", "power_law"):
+            a, cfg = cells[name]
+            t0 = time.perf_counter()
+            h2 = compile_spmm(a, P, SpmmConfig(**cfg))
+            h1 = winners[name]
+            same = {k: v for k, v in h2.decisions.items()
+                    if k != "decision_source"} == {
+                k: v for k, v in h1.decisions.items()
+                if k != "decision_source"}
+            if (len(hooks) != n_hooks or not same
+                    or h2.decisions["decision_source"] != "cache"
+                    or h1.decisions["decision_source"] != "measured"):
+                raise AssertionError(f"lifecycle {name}: the cache replay "
+                                     f"timed {len(hooks) - n_hooks} runs or "
+                                     f"changed its decisions")
+            if not torch.equal(h2(b), c_first[name]):
+                raise AssertionError(f"lifecycle {name}: the replayed "
+                                     f"handle's C differs")
+            log(f"  lifecycle {name}: cache replay in "
+                f"{time.perf_counter() - t0:.1f} s, 0 profile hooks, the "
+                f"same decisions (source 'cache'), C bit-identical")
+            del h2
+        del c_first, winners["uniform_flat"], winners["power_law_flat"]
+
+        # 3. memory per executable and donation -------------------------
+        hd = compile_spmm(a_u, P, SpmmConfig(backends=("coo",),
+                                             measure=False))
+        payload = hd.save_payload()
+        payload["config"] = dataclasses.replace(hd.config, donate=False)
+        hu = materialize_payload(payload, P)
+        cd, cu = hd(b_host), hu(b_host)  # first calls, on a host B
+        md = hd.stats()["total_allocation_size"]
+        mu = hu.stats()["total_allocation_size"]
+        if not (md and mu and md < mu):
+            raise AssertionError(f"lifecycle: total_allocation_size donated "
+                                 f"{md} vs not {mu}")
+        if not torch.equal(cd, cu):
+            raise AssertionError("lifecycle: donation changed C")
+        keep = b.clone()
+        if not (torch.equal(hd(b), cd) and torch.equal(b, keep)):
+            raise AssertionError("lifecycle: the caller's B was changed")
+        log(f"lifecycle memory [{card}]: uniform coo {hd}, first call on a "
+            f"host B allocates {md} B donated, {mu} B not "
+            f"({md / 2 ** 20:.2f} / {mu / 2 ** 20:.2f} MiB, B itself "
+            f"{b_host.nbytes / 2 ** 20:.2f} MiB); C bit-identical; a "
+            f"caller's CUDA B untouched")
+        del hd, hu, cd, cu, keep, payload
+
+        # 4. the ladder ---------------------------------------------------
+        cfg_l = SpmmConfig(hier="auto", measure=False)
+        n0 = plan_build_count()
+        t0 = time.perf_counter()
+        s = SpmmSession.build(a_p, P, cfg_l, p_ladder=(4, 8))
+        if plan_build_count() - n0 != 2:
+            raise AssertionError(f"lifecycle: the ladder ran "
+                                 f"{plan_build_count() - n0} MWVC builds")
+        log(f"lifecycle ladder: SpmmSession.build(power-law, p_ladder=(4, "
+            f"8)) {time.perf_counter() - t0:.1f} s, 2 MWVC builds")
+        n1 = plan_build_count()
+        h8 = s.handle()
+        for p in (8, 4, 8):
+            h = s.on_resize(p)
+            check_decisions(h, expect[p], {}, f"lifecycle rung P={p}")
+            c = h(b)
+            check_rows(h, f"lifecycle rung P={p}")
+            log(f"  rung P={p}: max abs err vs scipy float64 "
+                f"{check_c(c, a_p, b_host, f'rung {p}'):.3g} (tol 2e-4)")
+        if s.handle() is not h8 or plan_build_count() != n1:
+            raise AssertionError("lifecycle: on_resize re-planned")
+        log("  on_resize(4), on_resize(8): no MWVC build, rung 8's handle "
+            "kept")
+
+        # 5. values-only drift ------------------------------------------
+        rng = np.random.default_rng(5)
+        a_v = dataclasses.replace(a_p, data=(a_p.data * rng.uniform(
+            0.5, 1.5, a_p.nnz)).astype(np.float32))
+        lowerings = len(h8.lowerings)
+        drift = s.maybe_replan(a_v)
+        c_v = h8(b)
+        if (drift != (0.0, False) or s.handle() is not h8
+                or h8.values_refreshes != 1 or s.values_refreshes != 1
+                or len(h8.lowerings) != lowerings):
+            raise AssertionError(f"lifecycle: values-only drift {drift}, "
+                                 f"{h8.values_refreshes} refreshes, "
+                                 f"{len(h8.lowerings)} memo entries")
+        cold = compile_spmm(a_v, P, cfg_l)
+        if not torch.equal(c_v, cold(b)):
+            raise AssertionError("lifecycle: refreshed C != a cold compile's")
+        log(f"lifecycle values-only drift: (drift, replanned) {drift}, 1 "
+            f"refresh, {lowerings} memo entries kept, C == a cold compile's "
+            f"bit for bit, max abs err vs scipy float64 "
+            f"{check_c(c_v, a_v, b_host, 'refreshed'):.3g} (tol 2e-4)")
+        refreshed_call = lambda: h8(b)  # noqa: E731
+        del cold
+
+        # 6. pattern drift ----------------------------------------------
+        a_r = rewire(a_v, 0.15, seed=6)
+        keys = h8.cache_info()["keys"]
+        n2 = plan_build_count()
+        d, swapped = s.maybe_replan(a_r)
+        hn = s.handle()
+        hits = hn.cache_hits
+        c_r = hn(b)
+        if (not swapped or d <= cfg_l.drift_threshold or hn is h8
+                or hn.cache_info()["keys"] != keys
+                or hn.cache_hits != hits + 1
+                or plan_build_count() - n2 != 1):
+            raise AssertionError(f"lifecycle: pattern drift {d} swapped "
+                                 f"{swapped}, warmed {hn.cache_info()}, "
+                                 f"{plan_build_count() - n2} MWVC builds")
+        log(f"lifecycle pattern drift: 15% of the edges rewired, drift "
+            f"{d:.4f} > {cfg_l.drift_threshold}: hot swap to {hn}, warmed "
+            f"{len(keys)} memo entr(y/ies), the first call a hit, 1 MWVC "
+            f"build, max abs err vs scipy float64 "
+            f"{check_c(c_r, a_r, b_host, 'swapped'):.3g} (tol 2e-4)")
+
+        # 7. the bundle --------------------------------------------------
+        path = os.path.join(scratch, "bundle")
+        s.save(path)
+        loaded = SpmmSession.load(path, P)
+        if not torch.equal(loaded.handle()(b), c_r):
+            raise AssertionError("lifecycle: the loaded bundle's C differs")
+        del loaded
+        torn = os.path.join(scratch, "torn")
+        with inject([Fault(kind="torn_checkpoint", site="atomic_dir",
+                           file="rung", mode="truncate")]) as plan:
+            s.save(torn, include_operand=False)
+        try:
+            SpmmSession.load(torn, P)
+        except ValueError as e:
+            if "rung_P" not in str(e):
+                raise
+            log(f"lifecycle bundle: save / load C bit-identical; a torn "
+                f"save ({plan.fired('torn_checkpoint')} fault) fails to "
+                f"load: {str(e)[:90]}...")
+        else:
+            raise AssertionError("lifecycle: a torn bundle loaded")
+
+        # 8. faults ------------------------------------------------------
+        with inject([Fault(kind="nan_poison", site="output")]):
+            try:
+                hn(b)
+            except NumericalFault:
+                pass
+            else:
+                raise AssertionError("lifecycle: nan_poison went unseen")
+        if hn.stats()["numerical_faults"] != 1:
+            raise AssertionError("lifecycle: numerical_faults != 1")
+        cfg_c = SpmmConfig(measure=True, profile_topk=1)
+        cache_dir = os.environ[autotune.CACHE_ENV]
+        before = set(os.listdir(cache_dir))
+        with inject([Fault(kind="autotune_corrupt", site="autotune_cache",
+                           mode="empty")]) as plan:
+            compile_spmm(a_p, P, cfg_c)
+        (entry,) = [os.path.join(cache_dir, f)
+                    for f in set(os.listdir(cache_dir)) - before]
+        if plan.fired("autotune_corrupt") != 1 or os.path.getsize(entry):
+            raise AssertionError("lifecycle: the cache entry was not torn")
+        n_hooks = len(hooks)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            hc = compile_spmm(a_p, P, cfg_c)
+        if (not any("zero-byte entry" in str(w.message) for w in caught)
+                or len(hooks) == n_hooks or not os.path.getsize(entry)
+                or hc.decisions["decision_source"] != "measured"):
+            raise AssertionError("lifecycle: a torn cache entry was not "
+                                 "re-profiled and rewritten")
+        payload = hn.save_payload()
+        payload["config"] = dataclasses.replace(hn.config, check=False)
+        if not torch.equal(materialize_payload(payload, P)(b), hn(b)):
+            raise AssertionError("lifecycle: check=False C != check='auto'")
+        log(f"lifecycle faults: nan_poison at output raised NumericalFault "
+            f"(numerical_faults 1); a torn autotune entry warned, "
+            f"re-profiled ({len(hooks) - n_hooks} runs) and was rewritten; "
+            f"with no plan check=False C == check='auto' C bit for bit")
+        del hc, payload
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        log(f"lifecycle launches (the phase's counted run): "
+            f"{json.dumps(launches)}")
+        want = ["gather_rows", "gather_rows_scaled", "scatter_add_rows",
+                "bsr_spmm"]
+        if any(i["backend"] == "bsr" and i["overlap"]
+               for t in timed.values() for i in t):
+            want.append("bsr_spmm_acc")
+        if min(launches[k] for k in want) < 1:
+            raise AssertionError(f"lifecycle: a kernel was not launched "
+                                 f"({want}): {launches}")
+
+        # 9. the kernels of one call of each winner and of the refreshed
+        #    handle, against their plain versions
+        uni = winners["uniform"]
+        rec = record_kernel_calls(lambda: (
+            uni(b, backend="coo"), uni(b, backend="bsr"),
+            winners["power_law"](b), refreshed_call()))
+        paths = {k: {"lifecycle": (rec, launches)} for k in
+                 ("gather_rows", "gather_rows_scaled", "scatter_add_rows",
+                  "bsr_spmm", "bsr_spmm_acc") if rec[k]}
+        rows = replay_paths(paths)
+        del rec, winners, uni, s, h8, hn, c_v, c_r, refreshed_call
+    finally:
+        autotune.unregister_profile_hook(hook)
+        for k, v in saved_env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 8 lifecycle: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quick", action="store_true",
@@ -2541,7 +2981,7 @@ def main() -> int:
 
     # 5d. training: grads through every SpMM handle, GCN and GAT cells --
     # (each training cell resets the peak to report its own)
-    peak_before_5d = torch.cuda.max_memory_allocated()
+    peak_before_5d = peak_allocated()
     train_rows, _ = train_phase(
         args, card, a_p, adj,
         [(h, a_u, "uniform"), (hp, a_p, "power-law"),
@@ -2592,7 +3032,7 @@ def main() -> int:
                                  f"{muls}")
         log("profile power-law coo: no separate multiply kernel")
     log(f"peak device memory, phases 1-6: "
-        f"{max(peak_before_5d, torch.cuda.max_memory_allocated()) / 2 ** 30:.2f}"
+        f"{max(peak_before_5d, peak_allocated()) / 2 ** 30:.2f}"
         f" GiB")
 
     # 7. LM serving, after the SpMM phases' tensors are released ---------
@@ -2601,12 +3041,19 @@ def main() -> int:
          gat_cells, fused_fn, hru, hrp)
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     lm_paths = lm_serving(args, card)
     for k, extra in lm_paths.items():
         per_kernel.setdefault(k, {}).update(extra)
     log(f"peak device memory, phase 7: "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"{peak_allocated() / 2 ** 30:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the lifecycle: measured autotuning, the cache, donation, the
+    #    session ladder, drift, the bundle, faults --------------------------
+    for k, extra in lifecycle_phase(args, card, a_u, a_p, b_host).items():
+        per_kernel[k].update(extra)
 
     rows = [kernel_summary(k, per_kernel[k], card) for k in KERNELS]
     print(json.dumps({"kernels": rows}))

@@ -15,11 +15,23 @@ torch version beside it.
 
     hf = compile_fused(adj, 8, edge="leaky_relu")   # FusedMM (GAT layers)
     c = hf(q, k, v)   # leaky_relu(A ⊙ (q kᵀ)) @ v through one comm phase
+
+    hm = compile_spmm(a, 8, measure=True)   # timed candidates, cached
+    s = SpmmSession.build(a, 8, p_ladder=(4, 8))   # ladder + lifecycle
+    s.on_resize(4); s.maybe_replan(a_new)
 """
 from .core.api import (
     DistSpmm, SpmmConfig, compile_fused, compile_sddmm, compile_spmm,
 )
+from .core.session import SpmmSession
 from .distributed.topology import Topology, TopologyError
+from .robustness import (
+    Fault, FaultPlan, InjectedFault, NumericalFault,
+)
+
+# stamped into autotune cache keys (core.autotune)
+__version__ = "0.1.0"
 
 __all__ = ["DistSpmm", "SpmmConfig", "compile_spmm", "compile_sddmm",
-           "compile_fused", "Topology", "TopologyError"]
+           "compile_fused", "SpmmSession", "Topology", "TopologyError",
+           "Fault", "FaultPlan", "InjectedFault", "NumericalFault"]

@@ -1,11 +1,17 @@
 """SHIRO core for the port: host-side planning (copies of the reference's
 NumPy modules), the local backends, the flat and hierarchical SpMM /
-SDDMM / FusedMM executors, the replicated (1.5D) SpMM executor and the
-front door."""
+SDDMM / FusedMM executors, the replicated (1.5D) SpMM executor, the
+front door, measured autotuning and the session lifecycle."""
 from .api import (
     DistSpmm, SpmmConfig, compile_fused, compile_sddmm, compile_spmm,
     make_spmm_fn,
 )
+from .autotune import (
+    AutotuneCache, cache_key, decision_modeled_time, estimate_device_bytes,
+    get_cache, measured_decide, measurement_enabled, profile_candidate,
+    register_profile_hook, rung_device_bytes, unregister_profile_hook,
+)
+from .session import LadderRung, SpmmSession, StagedTopology
 from .comm_model import (
     NetworkSpec, TSUBAME_LIKE, choose_fused_schedule,
     choose_hier_fused_schedule, choose_hier_schedule, choose_schedule,
@@ -45,6 +51,11 @@ from .sparse import (
 __all__ = [
     "DistSpmm", "SpmmConfig", "compile_spmm", "compile_sddmm",
     "compile_fused", "make_spmm_fn",
+    "AutotuneCache", "cache_key", "decision_modeled_time",
+    "estimate_device_bytes", "get_cache", "measured_decide",
+    "measurement_enabled", "profile_candidate", "register_profile_hook",
+    "rung_device_bytes", "unregister_profile_hook",
+    "LadderRung", "SpmmSession", "StagedTopology",
     "NetworkSpec", "TSUBAME_LIKE", "choose_fused_schedule",
     "choose_hier_fused_schedule", "choose_hier_schedule",
     "choose_schedule", "modeled_time", "modeled_time_hier",

@@ -49,14 +49,19 @@ differentiable where the reference's are (``kernels.ops``): coo SpMM on
 every tier, coo and bsr SDDMM, coo FusedMM; a bsr SpMM or FusedMM call on
 an operand that requires grad raises, as the reference has no JVP for
 its K3 / K4. ``make_spmm_fn`` closes a handle or an exec plan over model
-code. Measured autotuning and sessions are later slices of the port: a
-config that asks for them raises ``NotImplementedError`` naming the
-ROADMAP item.
+code.
+
+``measure=True`` (or an autotune cache directory, ``REPRO_AUTOTUNE_CACHE``)
+overlays timed profiling on the model's choice (``core.autotune``):
+the model's top candidates run on the device and the fastest wins,
+cached on disk per (pattern, topology, versions, config).
+``compile_spmm`` is the one-rung form of ``core.session.SpmmSession``
+(P ladders, drift-triggered replans with warm hot swaps, values-only
+refreshes, bundle save / load).
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import os
 import pickle
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -66,7 +71,8 @@ import torch
 
 from ..distributed.comm import LocalComm
 from ..distributed.topology import Topology
-from ..robustness import guards
+from ..launch.memory import executable_memory
+from ..robustness import faults, guards
 from .comm_model import (
     NetworkSpec, choose_fused_schedule, choose_hier_fused_schedule,
     choose_hier_schedule, choose_schedule, modeled_time,
@@ -90,7 +96,7 @@ from .dist_spmm import (
 from .hierarchy import HierPlan, build_hier_plan
 from .local_backend import get_backend
 from .planner import SpmmPlan, Strategy, build_plan, replicate_plan
-from .sparse import CSRMatrix, PatternSnapshot, pattern_snapshot
+from .sparse import CSRMatrix, PatternSnapshot
 
 __all__ = ["SpmmConfig", "DistSpmm", "compile_spmm", "compile_sddmm",
            "compile_fused", "make_spmm_fn"]
@@ -100,12 +106,7 @@ _KERNELS = ("spmm", "sddmm", "fused")
 _UNSET = object()
 _SAVE_FORMAT = "repro_torch.DistSpmm"
 _SAVE_VERSION = 1
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, open item "
-        f"{item}); use the JAX package (repro) for it meanwhile")
+_KNOWN_VERSIONS = (1,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,9 +146,35 @@ class SpmmConfig:
     ``pad_to``         slot-count rounding forwarded to ``build_plan``.
     ``n_dense_hint``   dense column count the model evaluates at.
     ``k_max``          upper bound of the schedule-K sweep under "auto".
+    ``drift_threshold`` sparsity-pattern Jaccard distance above which a
+                       live operand no longer matches the planned
+                       snapshot: ``SpmmSession.maybe_replan`` re-plans
+                       past it, and ``h.stats()["drift"]`` reports the
+                       last measured value either way.
+    ``donate``         hand the handle's private copy of B (made when B
+                       is a numpy array, lives on another device or is
+                       not contiguous) to the executor, which releases
+                       it after its last read so the allocator can give
+                       its block to the partials or C (C bit-identical
+                       either way; a caller's tensor is never written or
+                       consumed). Applied on square operands of
+                       ``kernel="spmm"`` handles that are not replicated,
+                       and skipped for a B that requires grad.
+    ``measure``        timed candidate profiling on top of the α-β model:
+                       ``True`` times the model's top ``profile_topk``
+                       candidates on the device, ``False`` stays
+                       model-only, ``"auto"`` (default) measures iff an
+                       autotune cache directory is configured (env
+                       ``REPRO_AUTOTUNE_CACHE``); ``REPRO_MEASURE=0``/``1``
+                       overrides either way. See ``core.autotune``.
     ``memory_budget``  per-rank byte budget (None = no limit); the
                        ``replicate="auto"`` sweep drops candidates whose
-                       ``replicated_device_bytes`` exceed it.
+                       ``replicated_device_bytes`` exceed it, and
+                       ``SpmmSession.build`` skips ladder rungs whose
+                       estimated (or measured) allocation exceeds it.
+    ``profile_topk``   how many model-ranked candidates to time.
+    ``profile_iters``  timed runs per candidate (the median is kept).
+    ``profile_warmup`` discarded warmup runs per candidate.
     ``check``          ``"auto"``: validate B before the kernels, validate
                        the sparse values at plan time, sampled isfinite
                        sweep of each C; ``"full"``/``True``: sweep every
@@ -165,9 +192,6 @@ class SpmmConfig:
                        ``modeled_time_replicated`` beats the chosen flat
                        / hier time. Only ``kernel="spmm"``; c > 1 runs
                        staged (no ``overlap``).
-
-    ``measure=True`` (measured autotuning) is not ported yet and raises
-    ``NotImplementedError``.
     """
 
     strategy: Strategy = "joint"
@@ -182,8 +206,13 @@ class SpmmConfig:
     pad_to: int = 1
     n_dense_hint: int = 64
     k_max: int = 4
+    drift_threshold: float = 0.1
+    donate: bool = True
     measure: Union[str, bool] = "auto"
     memory_budget: Optional[int] = None
+    profile_topk: int = 3
+    profile_iters: int = 3
+    profile_warmup: int = 1
     check: Union[str, bool] = "auto"
     replicate: Union[int, str] = 1
 
@@ -204,11 +233,6 @@ class SpmmConfig:
                 or (isinstance(self.hier, tuple) and len(self.hier) == 2)):
             raise ValueError(f"hier must be None, 'auto' or a (G, L) tuple; "
                              f"got {self.hier!r}")
-        if self.measure is True:
-            raise _not_ported("measure=True (measured autotuning)", "11")
-        if self.measure not in ("auto", False):
-            raise ValueError(f"measure must be 'auto', True or False; "
-                             f"got {self.measure!r}")
         if self.check not in ("auto", "full", True, False):
             raise ValueError(f"check must be 'auto', 'full', True or False; "
                              f"got {self.check!r}")
@@ -225,6 +249,13 @@ class SpmmConfig:
         if not (self.net == "auto" or isinstance(self.net, NetworkSpec)):
             raise ValueError(f"net must be 'auto' or a NetworkSpec; "
                              f"got {self.net!r}")
+        if not (0.0 <= float(self.drift_threshold) <= 1.0):
+            raise ValueError(
+                f"drift_threshold is a Jaccard distance in [0, 1]; "
+                f"got {self.drift_threshold!r}")
+        if self.measure not in ("auto", True, False):
+            raise ValueError(f"measure must be 'auto', True or False; "
+                             f"got {self.measure!r}")
         if self.memory_budget is not None and int(self.memory_budget) <= 0:
             raise ValueError(
                 f"memory_budget is a per-rank byte count > 0 (or None); "
@@ -241,6 +272,12 @@ class SpmmConfig:
                 f"fused executors have no replicated tier yet "
                 f"(got kernel={self.kernel!r}, "
                 f"replicate={self.replicate!r})")
+        if int(self.profile_topk) < 1 or int(self.profile_iters) < 1 \
+                or int(self.profile_warmup) < 0:
+            raise ValueError(
+                f"profiling needs topk >= 1, iters >= 1, warmup >= 0; got "
+                f"topk={self.profile_topk!r} iters={self.profile_iters!r} "
+                f"warmup={self.profile_warmup!r}")
 
     def backend_names(self) -> Tuple[str, ...]:
         return tuple(get_backend(spec).name for spec in self.backends)
@@ -268,8 +305,11 @@ class DistSpmm:
     ``(n_cols, dtype, backend)`` for spmm, ``("sddmm", F, dx, dy, backend,
     edge)`` and ``("fused", F, N, dx, dy, db, backend, edge)`` for the
     siblings; the memo counts first uses (``lowerings``) and hits exactly
-    as the reference's AOT cache does. ``comm.log`` holds the last call's
-    collectives.
+    as the reference's AOT cache does, and the first call of each key
+    records its device memory (``launch.memory.executable_memory``). An
+    executable reads the handle's exec arrays at call time, so a
+    values-only ``refresh_values`` keeps every memo entry. ``comm.log``
+    holds the last call's collectives.
     """
 
     def __init__(self, *, config: SpmmConfig, plan: SpmmPlan,
@@ -286,11 +326,13 @@ class DistSpmm:
         self.topology = topology
         self.device = topology.device
         self.snapshot = snapshot
+        self.last_drift: float = 0.0
         self.decisions = dict(decisions)
         self.kernel = config.kernel
         self.edge = config.edge
         self.overlap = bool(self.decisions.get("overlap", False))
         self.default_backend = (config.default_backend
+                                or self.decisions.get("backend")
                                 or config.backend_names()[0])
         if self.default_backend not in self.ex.backends:
             raise ValueError(
@@ -304,11 +346,20 @@ class DistSpmm:
         else:
             self.comm = LocalComm(plan.P, 1 if hier is None else hier.G)
         self._executables: Dict[Tuple[Any, ...], Callable] = {}
+        # same keys -> executable_memory() profile of the key's first call
+        self._memory: Dict[Tuple[Any, ...], Dict[str, int]] = {}
         self.lowerings: List[Tuple[Any, ...]] = []
         self.cache_hits = 0
+        self.values_refreshes = 0
         self._check = guards.check_mode(config)
         self.calls = 0
         self.numerical_faults = 0
+        # B donation: only where C has B's exact geometry (square A), as
+        # the reference's; the sibling kernels take three operands and
+        # the replicated tier copies B to every lane, so neither donates
+        self._donate = (bool(config.donate) and self.kernel == "spmm"
+                        and not self.replicated
+                        and plan.shape[0] == plan.shape[1])
 
     @property
     def strategy(self) -> str:
@@ -337,24 +388,27 @@ class DistSpmm:
         self.lowerings.append(key)
         return fn
 
-    def _executable(self, n_cols: int, dtype: torch.dtype, backend: str
-                    ) -> Callable:
+    def _bound(self, fn: Callable, **kw) -> Callable:
+        """``fn(self.ex, *operands, comm, **kw)`` with the exec arrays read
+        at call time (a values refresh swaps them under the memo)."""
+        return lambda *args: fn(self.ex, *args, **kw)
+
+    def _executable(self, n_cols: int, dtype, backend: str) -> Callable:
         if self.replicated:
             fn = replicated_spmm
         else:
             fn = flat_spmm if self.hier is None else hier_spmm
         return self._memo(
             (int(n_cols), _dtype_name(dtype), backend),
-            lambda: functools.partial(fn, self.ex, backend=backend,
-                                      overlap=self.overlap))
+            lambda: self._bound(fn, backend=backend, overlap=self.overlap))
 
     def _sddmm_executable(self, n_feat: int, dtype_x, dtype_y, backend: str,
                           edge: Optional[str]) -> Callable:
         return self._memo(
             ("sddmm", int(n_feat), _dtype_name(dtype_x),
              _dtype_name(dtype_y), backend, edge),
-            lambda: functools.partial(
-                flat_sddmm if self.hier is None else hier_sddmm, self.ex,
+            lambda: self._bound(
+                flat_sddmm if self.hier is None else hier_sddmm,
                 backend=backend, edge=edge))
 
     def _fused_executable(self, n_feat: int, n_cols: int, dtype_x, dtype_y,
@@ -363,14 +417,22 @@ class DistSpmm:
         return self._memo(
             ("fused", int(n_feat), int(n_cols), _dtype_name(dtype_x),
              _dtype_name(dtype_y), _dtype_name(dtype_b), backend, edge),
-            lambda: functools.partial(
-                flat_fused if self.hier is None else hier_fused, self.ex,
+            lambda: self._bound(
+                flat_fused if self.hier is None else hier_fused,
                 backend=backend, edge=edge))
 
     def _as_operand(self, b) -> torch.Tensor:
         if not isinstance(b, torch.Tensor):
             b = torch.from_numpy(np.ascontiguousarray(b))
         return b.to(self.device).contiguous()
+
+    def _measured(self, key: Tuple[Any, ...], run: Callable[[], Any]):
+        """``run()``, recording its device memory on the key's first call
+        (operand copies included, as XLA's figure counts arguments)."""
+        if key in self._memory:
+            return run()
+        out, self._memory[key] = executable_memory(run, self.device)
+        return out
 
     def _resolve_call(self, kernel, edge) -> Tuple[str, Optional[str]]:
         """Per-call kernel/edge selection against the config defaults."""
@@ -450,11 +512,24 @@ class DistSpmm:
             guards.validate_dense_operand(
                 b, k_expected=self.plan.shape[1],
                 context=f"DistSpmm(P={self.P}) call")
-        b = self._as_operand(b)
-        fn = self._executable(b.shape[1], b.dtype, name)
+        key = (_width(b), _dtype_name(_operand_dtype(b)), name)
+        c = self._measured(key, lambda: self._run_spmm(b, name))
+        # chaos hook: nan_poison at site "output" stands in for a broken
+        # kernel — fires with or without check, as the real failure would
+        c = faults.maybe_poison_array(c, site="output")
+        return self._guarded(c, self._finite_c, f"backend={name!r}")
+
+    def _run_spmm(self, b, name: str) -> torch.Tensor:
+        b_dev = self._as_operand(b)
+        fn = self._executable(b_dev.shape[1], b_dev.dtype, name)
         self.comm.reset()
-        return self._guarded(fn(b, self.comm), self._finite_c,
-                             f"backend={name!r}")
+        if self._donate and b_dev is not b and not b_dev.requires_grad:
+            # the handle's private copy: hand the executor the only
+            # reference, so it can release B after its last read
+            held = [b_dev]
+            del b_dev
+            return fn(held, self.comm)
+        return fn(b_dev, self.comm)
 
     def _call_sddmm(self, x, y, *, name: str, edge: Optional[str]
                     ) -> Dict[str, torch.Tensor]:
@@ -463,11 +538,20 @@ class DistSpmm:
                 x, y, m_expected=self.plan.shape[0],
                 k_expected=self.plan.shape[1],
                 context=f"DistSpmm(P={self.P}) sddmm call")
-        x, y = self._as_operand(x), self._as_operand(y)
-        fn = self._sddmm_executable(x.shape[1], x.dtype, y.dtype, name, edge)
-        self.comm.reset()
-        return self._guarded(fn(x, y, self.comm),
-                             guards.sampled_finite_check_tree,
+        key = ("sddmm", _width(x), _dtype_name(_operand_dtype(x)),
+               _dtype_name(_operand_dtype(y)), name, edge)
+
+        def run():
+            xd, yd = self._as_operand(x), self._as_operand(y)
+            fn = self._sddmm_executable(xd.shape[1], xd.dtype, yd.dtype,
+                                        name, edge)
+            self.comm.reset()
+            return fn(xd, yd, self.comm)
+
+        vals = self._measured(key, run)
+        vals = {k: faults.maybe_poison_array(v, site="output")
+                for k, v in vals.items()}
+        return self._guarded(vals, guards.sampled_finite_check_tree,
                              f"sddmm backend={name!r}")
 
     def _call_fused(self, x, y, b, *, name: str, edge: Optional[str]
@@ -479,13 +563,104 @@ class DistSpmm:
                 k_expected=self.plan.shape[1], context=ctx)
             guards.validate_dense_operand(
                 b, k_expected=self.plan.shape[1], context=ctx)
-        x, y, b = (self._as_operand(x), self._as_operand(y),
-                   self._as_operand(b))
-        fn = self._fused_executable(x.shape[1], b.shape[1], x.dtype, y.dtype,
-                                    b.dtype, name, edge)
-        self.comm.reset()
-        return self._guarded(fn(x, y, b, self.comm), self._finite_c,
-                             f"fused backend={name!r}")
+        key = ("fused", _width(x), _width(b),
+               _dtype_name(_operand_dtype(x)), _dtype_name(_operand_dtype(y)),
+               _dtype_name(_operand_dtype(b)), name, edge)
+
+        def run():
+            xd, yd, bd = (self._as_operand(x), self._as_operand(y),
+                          self._as_operand(b))
+            fn = self._fused_executable(xd.shape[1], bd.shape[1], xd.dtype,
+                                        yd.dtype, bd.dtype, name, edge)
+            self.comm.reset()
+            return fn(xd, yd, bd, self.comm)
+
+        c = faults.maybe_poison_array(self._measured(key, run), site="output")
+        return self._guarded(c, self._finite_c, f"fused backend={name!r}")
+
+    # ----- lifecycle ---------------------------------------------------
+
+    def warm_from(self, other: "DistSpmm") -> int:
+        """Take on every executable ``other`` has served (the hot-swap
+        contract of ``SpmmSession.replan``): the first post-swap call of
+        each of those keys is a memo hit. Returns how many were warmed."""
+        warmed = 0
+        for key in list(other._executables):
+            if key[0] == "sddmm":
+                _, n_feat, dx, dy, backend, edge = key
+                if backend not in self.ex.backends:
+                    continue
+                self._sddmm_executable(n_feat, dx, dy, backend, edge)
+            elif key[0] == "fused":
+                _, n_feat, n_cols, dx, dy, db, backend, edge = key
+                if backend not in self.ex.backends:
+                    continue
+                self._fused_executable(n_feat, n_cols, dx, dy, db,
+                                       backend, edge)
+            else:
+                n_cols, dtype_name, backend = key
+                if backend not in self.ex.backends:
+                    continue
+                self._executable(n_cols, dtype_name, backend)
+            warmed += 1
+        return warmed
+
+    def refresh_values(self, *, plan: SpmmPlan, hier: Optional[HierPlan],
+                       schedule: Union[CommSchedule, ReplicatedSchedule],
+                       decisions: Dict[str, Any],
+                       snapshot: Optional[PatternSnapshot]) -> bool:
+        """Swap in same-pattern exec arrays, keeping every memo entry.
+
+        The values-only half of a replan: the sparsity pattern (and with
+        it the plan structure, schedule and layouts) is unchanged, only
+        the nonzero values moved. The new exec arrays are built from
+        ``plan``, compared with the old ones field by field (shape and
+        dtype), and moved onto the handle's device; the executables read
+        them at call time, so nothing is re-memoized. Returns False
+        without touching the handle when the geometry does not match
+        (the caller falls back to a full replan).
+        """
+        overlap = bool(decisions.get("overlap", False))
+        replicated = schedule.kind == "replicated"
+        if (overlap != self.overlap or replicated != self.replicated
+                or (hier is None) != (self.hier is None)):
+            return False
+        if replicated:
+            new_ex = replicated_exec_arrays(schedule.rplan,
+                                            backends=self.config.backends,
+                                            schedule=schedule)
+        elif hier is not None:
+            new_ex = hier_exec_arrays(hier, backends=self.config.backends,
+                                      schedule=schedule,
+                                      overlap_layouts=overlap)
+        else:
+            new_ex = flat_exec_arrays(plan, backends=self.config.backends,
+                                      schedule=schedule,
+                                      overlap_layouts=overlap)
+        old_leaves, new_leaves = _tensor_leaves(self.ex), _tensor_leaves(new_ex)
+        if (new_ex.backends != self.ex.backends
+                or [p for p, _ in old_leaves] != [p for p, _ in new_leaves]
+                or any(o.shape != n.shape or o.dtype != n.dtype
+                       for (_, o), (_, n) in zip(old_leaves, new_leaves))):
+            return False
+        self.plan, self.hier, self.schedule = plan, hier, schedule
+        self.decisions = dict(decisions)
+        self.ex = new_ex.to(self.device)
+        self.snapshot = snapshot
+        self.last_drift = 0.0
+        self.values_refreshes += 1
+        return True
+
+    def drift(self, a_new) -> float:
+        """Pattern drift of ``a_new`` vs the planned snapshot (Jaccard
+        distance in [0, 1]); recorded so ``stats()`` carries the last
+        observed value."""
+        if self.snapshot is None:
+            raise ValueError(
+                "this handle carries no pattern snapshot; recompile with "
+                "compile_spmm to enable drift detection")
+        self.last_drift = self.snapshot.drift(a_new)
+        return self.last_drift
 
     # ----- introspection ----------------------------------------------
 
@@ -513,6 +688,10 @@ class DistSpmm:
             volume_rows=plan.volume_rows(),
             volume_rows_padded=sched.volume_rows_padded(),
             cache=self.cache_info(),
+            drift=self.last_drift,
+            drift_threshold=self.config.drift_threshold,
+            donated_buffers=("b",) if self._donate else (),
+            values_refreshes=self.values_refreshes,
             check=self._check,
             calls=self.calls,
             numerical_faults=self.numerical_faults,
@@ -520,11 +699,17 @@ class DistSpmm:
             device=str(self.device),
         )
         out.setdefault("decision_source", "model")
+        out.setdefault("measured_time", None)
         out.setdefault("replicate", 1)
         if self.replicated:
             # plan.P is the lane width s; the handle spans c·s ranks
             out.update(P=sched.P, replicate=sched.c, replica_shards=sched.s,
                        schedule_K=sched.K)
+        # what the first calls measured wins over a profiling-time record
+        mem = [m["total_allocation_size"] for m in self._memory.values()
+               if m.get("total_allocation_size")]
+        out["total_allocation_size"] = (
+            max(mem) if mem else self.decisions.get("total_allocation_size"))
         if self.snapshot is not None:
             out["pattern_nnz"] = self.snapshot.nnz
             out["pattern_fingerprint"] = self.snapshot.fingerprint[:12]
@@ -560,18 +745,14 @@ class DistSpmm:
         bit-identical and MWVC never re-runs. TRUSTED INPUT ONLY:
         unpickling a file executes code from it.
         """
-        payload = {
-            "format": _SAVE_FORMAT,
-            "version": _SAVE_VERSION,
-            "config": self.config,
-            "plan": self.plan,
-            "hier": self.hier,
-            "schedule": self.schedule,
-            "decisions": self.decisions,
-            "snapshot": self.snapshot,
-        }
         with open(path, "wb") as f:
-            pickle.dump(payload, f)
+            pickle.dump(self.save_payload(), f)
+
+    def save_payload(self) -> Dict[str, Any]:
+        """The versioned host-side dict ``save`` pickles (also the
+        per-rung unit ``SpmmSession.save`` bundles)."""
+        return _payload(self.config, self.plan, self.hier, self.schedule,
+                        self.decisions, self.snapshot)
 
     @classmethod
     def load(cls, path: str, where: Union[Topology, int, None] = None, *,
@@ -581,25 +762,65 @@ class DistSpmm:
         if os.path.getsize(path) == 0:
             raise ValueError(f"{path!r} is empty (0 bytes); re-run "
                              f"compile_spmm(...).save()")
-        with open(path, "rb") as f:
-            payload = pickle.load(f)
+        try:
+            with open(path, "rb") as f:
+                payload = pickle.load(f)
+        except (EOFError, pickle.UnpicklingError) as e:
+            raise ValueError(
+                f"{path!r} is not a complete saved DistSpmm plan "
+                f"({type(e).__name__}: {e}) — the file was truncated or "
+                f"corrupted in transit; re-fetch it or re-run "
+                f"compile_spmm(...).save().") from None
         if not isinstance(payload, dict) or \
                 payload.get("format") != _SAVE_FORMAT:
             raise ValueError(f"{path!r} is not a saved repro_torch DistSpmm")
-        if payload.get("version") != _SAVE_VERSION:
-            raise ValueError(
-                f"{path!r} carries format version {payload.get('version')!r};"
-                f" this library reads version {_SAVE_VERSION}")
-        plan: SpmmPlan = payload["plan"]
-        schedule = payload["schedule"]
-        # a replicated handle's plan slot holds the s-shard base plan; the
-        # handle itself spans schedule.P = c·s ranks
-        want_p = (schedule.P if schedule.kind == "replicated" else plan.P)
-        topo = Topology.resolve(want_p if where is None else where, device,
-                                expect_p=want_p)
-        return _materialize(payload["config"], plan, payload.get("hier"),
-                            payload["schedule"], payload["decisions"], topo,
-                            snapshot=payload.get("snapshot"))
+        return materialize_payload(payload, where, device=device,
+                                   source=path)
+
+
+def _payload(config: SpmmConfig, plan: SpmmPlan, hier: Optional[HierPlan],
+             schedule, decisions: Dict[str, Any],
+             snapshot: Optional[PatternSnapshot]) -> Dict[str, Any]:
+    return {
+        "format": _SAVE_FORMAT,
+        "version": _SAVE_VERSION,
+        "config": config,
+        "plan": plan,
+        "hier": hier,
+        "schedule": schedule,
+        "decisions": decisions,
+        "snapshot": snapshot,
+    }
+
+
+def check_payload_version(payload: Dict[str, Any], source: str) -> None:
+    """Reject plan payloads this library version cannot rebuild."""
+    version = payload.get("version")
+    if version not in _KNOWN_VERSIONS:
+        raise ValueError(
+            f"{source!r} carries format version {version!r}; this library "
+            f"reads versions {_KNOWN_VERSIONS}. Re-run "
+            f"compile_spmm(...).save() (or SpmmSession.save) with the "
+            f"version that will load it; plans are cheap to regenerate "
+            f"from the operand matrix.")
+
+
+def materialize_payload(payload: Dict[str, Any],
+                        where: Union[Topology, int, None], *,
+                        device: Union[str, torch.device] = "cuda",
+                        source: str = "<payload>") -> DistSpmm:
+    """Version check + topology check + device prep for a saved plan."""
+    check_payload_version(payload, source)
+    plan: SpmmPlan = payload["plan"]
+    schedule = payload["schedule"]
+    # a replicated handle's plan slot holds the s-shard base plan; the
+    # handle itself spans schedule.P = c·s ranks
+    want_p = (schedule.P if schedule.kind == "replicated" else plan.P)
+    topo = Topology.resolve(want_p if where is None else where, device,
+                            expect_p=want_p)
+    return _materialize(payload["config"], plan, payload.get("hier"),
+                        schedule, payload["decisions"], topo,
+                        snapshot=payload.get("snapshot"))
 
 
 # ---------------------------------------------------------------------------
@@ -629,6 +850,21 @@ def _materialize(config: SpmmConfig, plan: SpmmPlan,
                     topology=topo, snapshot=snapshot)
 
 
+def _candidate_schedule(plan: SpmmPlan, hier: Optional[HierPlan],
+                        kind: str, K: Optional[int]) -> CommSchedule:
+    """Deterministically (re)build one candidate's schedule object.
+
+    Shared between the model sweep and ``core.autotune``: a cached
+    measured decision replays through here, so a cache hit reproduces
+    the exact schedule the profiled run used.
+    """
+    if hier is not None:
+        return (single_round_hier_schedule(hier) if kind == "single"
+                else build_hier_comm_schedule(hier, K=int(K)))
+    return (single_round_schedule(plan) if kind == "single"
+            else build_comm_schedule(plan, K=int(K)))
+
+
 def _schedule_fields(plan: SpmmPlan, hier: Optional[HierPlan],
                      schedule: CommSchedule, n_hint: int,
                      net: NetworkSpec) -> Dict[str, float]:
@@ -656,7 +892,13 @@ def _plan_and_tune(a: CSRMatrix, P: int, config: SpmmConfig, topo: Topology
                    ) -> Tuple[SpmmPlan, Optional[HierPlan],
                               Union[CommSchedule, ReplicatedSchedule],
                               Dict[str, Any]]:
-    """The offline pipeline: MWVC plan + every model decision (host only)."""
+    """The offline pipeline: MWVC plan + every autotune decision.
+
+    Host-side work, apart from the measured overlay at the end, which
+    times candidates on ``topo``'s device when measurement is enabled
+    and the plan targets this substrate (``topo.P == P``): ladder rungs
+    of another P stay model-only.
+    """
     net, n_hint = config.resolve_net(topo), config.n_dense_hint
     kernel = config.kernel
     plan = build_plan(a, P, config.strategy, pad_to=config.pad_to)
@@ -670,9 +912,13 @@ def _plan_and_tune(a: CSRMatrix, P: int, config: SpmmConfig, topo: Topology
 
     # ----- flat vs hierarchical ---------------------------------------
     hier: Optional[HierPlan] = None
+    hier_cand: Optional[HierPlan] = None
     if config.hier is not None:
-        gl = (topo.auto_grouping(net) if config.hier == "auto"
-              else (int(config.hier[0]), int(config.hier[1])))
+        if config.hier == "auto":
+            gl = (topo.auto_grouping(net) if topo.P == P
+                  else _ladder_grouping(P, net))
+        else:
+            gl = (int(config.hier[0]), int(config.hier[1]))
         if gl is not None:
             G, L = gl
             if G * L != P:
@@ -802,7 +1048,29 @@ def _plan_and_tune(a: CSRMatrix, P: int, config: SpmmConfig, topo: Topology
             decisions["replicate"] = c
             decisions["modeled_time_replicated"] = t_rep
             decisions["modeled_time_unreplicated"] = t_base
+
+    # ----- measured overlay (timed profiling / on-disk cache) ---------
+    # Only when measurement is enabled AND the plan targets THIS
+    # substrate: a ladder rung with P != topo.P is not timed. The
+    # profiler drives spmm calls, so sibling kernels stay model-only, and
+    # so do replicated rungs (their decision is a cross-tier model
+    # comparison already).
+    from . import autotune as _autotune
+
+    if (kernel == "spmm" and _autotune.measurement_enabled(config)
+            and decisions.get("replicate", 1) == 1 and topo.P == P):
+        plan, hier, schedule, decisions = _autotune.measured_decide(
+            a, P, config, topo, plan=plan, hier=hier,
+            hier_cand=hier_cand, schedule=schedule, decisions=decisions)
     return plan, hier, schedule, decisions
+
+
+def _ladder_grouping(P: int, net: NetworkSpec) -> Optional[Tuple[int, int]]:
+    """hier="auto" grouping for a ladder rung whose P differs from the
+    topology's: the structureless fallback sweep over P itself."""
+    from ..distributed.topology import fallback_grouping
+
+    return fallback_grouping(P, int(net.group_size))
 
 
 def compile_spmm(a: CSRMatrix, where: Union[Topology, int],
@@ -814,16 +1082,16 @@ def compile_spmm(a: CSRMatrix, where: Union[Topology, int],
     ``where``: a ``Topology`` or an int P (P ranks emulated on
     ``device``). ``config`` fields can also be passed as keyword
     overrides: ``compile_spmm(a, 8, backends=("coo", "bsr"))``.
+
+    This is the one-rung form of ``SpmmSession``: the session it builds
+    owns one ladder rung at the topology's P and is discarded after
+    handing out its handle. Keep the session instead
+    (``SpmmSession.build``) when the pattern drifts or the ranks resize.
     """
-    config = config or SpmmConfig()
-    if overrides:
-        config = dataclasses.replace(config, **overrides)
-    topo = Topology.resolve(where, device)
-    if guards.check_mode(config):
-        guards.validate_sparse_values(a, context="compile_spmm")
-    plan, hier, schedule, decisions = _plan_and_tune(a, topo.P, config, topo)
-    return _materialize(config, plan, hier, schedule, decisions, topo,
-                        snapshot=pattern_snapshot(a))
+    from .session import SpmmSession
+
+    return SpmmSession.build(a, where, config, device=device,
+                             **overrides).handle()
 
 
 def compile_sddmm(a: CSRMatrix, where: Union[Topology, int],
@@ -877,3 +1145,33 @@ def make_spmm_fn(ex: Union[DistSpmm, FlatExecPlan, HierExecPlan,
 
 def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
+
+
+def _operand_dtype(x) -> torch.dtype:
+    """The dtype ``DistSpmm._as_operand`` gives ``x`` (numpy's kept)."""
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    return torch.from_numpy(np.empty(0, np.asarray(x).dtype)).dtype
+
+
+def _width(x) -> int:
+    """Columns of a dense operand (a tensor, an array or nested lists)."""
+    return int(np.shape(x)[1])
+
+
+def _tensor_leaves(ex) -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) for every tensor of an exec plan, in field and key
+    order — what ``refresh_values`` compares old and new plans by."""
+    out: List[Tuple[str, torch.Tensor]] = []
+
+    def walk(obj, path):
+        if isinstance(obj, torch.Tensor):
+            out.append((path, obj))
+        elif isinstance(obj, dict):
+            for k in sorted(obj):
+                walk(obj[k], f"{path}/{k}")
+
+    for f in dataclasses.fields(ex):
+        if f.name != "meta":
+            walk(getattr(ex, f.name), f.name)
+    return out

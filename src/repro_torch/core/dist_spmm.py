@@ -661,6 +661,15 @@ def _exchange_segments(segments: Segments, shift: Callable, total: int,
     return out
 
 
+def _operand(b_global) -> torch.Tensor:
+    """The B tensor of an executor call. A one-element list hands the
+    executor the only reference (donation, ``SpmmConfig.donate``): the
+    list is emptied, and B's block returns to the allocator after the
+    executor's last read of it, free for the partials and C. B is never
+    written either way."""
+    return b_global.pop() if isinstance(b_global, list) else b_global
+
+
 def _rank_blocks(plan, comm: Optional[LocalComm], b: torch.Tensor,
                  groups: int = 1, name: str = "B", replicas: int = 1
                  ) -> Tuple[LocalComm, torch.Tensor]:
@@ -697,7 +706,8 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
     """Execute ``C = A @ B`` with the flat SHIRO schedule over P ranks.
 
     ``b_global``: [K, N] dense matrix on the plan's device, row-partitioned
-    into P equal blocks (rank p holds rows [p·K/P, (p+1)·K/P)).
+    into P equal blocks (rank p holds rows [p·K/P, (p+1)·K/P)), or a
+    one-element list holding it to donate it (``_operand``).
     ``comm`` logs the collectives (a fresh ``LocalComm`` when None).
     ``backend`` selects the local-compute substrate among the layouts the
     plan was built with (default: the plan's first backend).
@@ -709,7 +719,8 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
     P_ = plan.P
     be, pieces = plan.resolve_backend(backend)
     sched = plan.schedule
-    comm, b_loc = _rank_blocks(plan, comm, b_global)
+    comm, b_loc = _rank_blocks(plan, comm, _operand(b_global))
+    del b_global  # from here on b_loc holds B; dropped after its last read
     n = b_loc.shape[2]
 
     if sched.kind == "single":
@@ -724,6 +735,7 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
 
         # ③ local compute: diagonal + column-covered remote nonzeros
         c = be.compute(pieces["diag"], b_loc, m_local)
+        del b_loc
         c = c + be.compute(pieces["colp"],
                            recv_b.reshape(P_, P_ * plan.max_b, n), m_local)
 
@@ -749,6 +761,7 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
 
         # ③ local compute against the bucketed receive space
         c = be.compute(pieces["diag"], b_loc, m_local)
+        del b_loc
         c = c + be.compute(pieces["colp"], recv_b, m_local)
 
         # ④ aggregation of received partials
@@ -770,10 +783,12 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
 
         # ③ diagonal block
         c = be.compute(pieces["diag"], b_loc, m_local)
+        acc = b_loc.new_zeros((P_, m_local, n))
+        del b_loc
 
         # ④ consume B rounds in order: cumulative receive prefix +
         #   segment-accumulating compute (bit-identical to staged)
-        c = c + _colp_rounds(be, pieces, recv_b, b_loc, m_local)
+        c = c + _colp_rounds(be, pieces, recv_b, acc)
 
         # ⑤ per-round aggregation of received partials
         c = _aggregate_rounds(c, recv_c, plan.seg_agg)
@@ -788,13 +803,12 @@ def _need_overlap_layouts(plan, arrays_fn: str) -> None:
 
 
 def _colp_rounds(be: LocalSpmmBackend, pieces: Pieces,
-                 segs: Iterable[torch.Tensor], like: torch.Tensor,
-                 m_local: int) -> torch.Tensor:
+                 segs: Iterable[torch.Tensor], acc: torch.Tensor
+                 ) -> torch.Tensor:
     """The overlapped colp compute: each received segment joins the
     cumulative receive prefix, and segment i's piece ``colp@i``
     accumulates against it — the staged compute's addition chains.
-    ``like`` is the local B block [P, K/P, N] (shape of the result)."""
-    acc = like.new_zeros((like.shape[0], m_local, like.shape[2]))
+    ``acc`` is the zero [P, m_local, N] accumulator, in B's dtype."""
     prefix = None
     for i, seg in enumerate(segs):
         prefix = seg if prefix is None else torch.cat([prefix, seg], 1)
@@ -852,7 +866,8 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
     max_bg, max_cg = plan.max_bg, plan.max_cg
     be, pieces = plan.resolve_backend(backend)
     sched = plan.schedule
-    comm, b_loc = _rank_blocks(plan, comm, b_global, groups=G)
+    comm, b_loc = _rank_blocks(plan, comm, _operand(b_global), groups=G)
+    del b_global  # from here on b_loc holds B; dropped after its last read
     n = b_loc.shape[2]
 
     if sched.kind == "single":
@@ -878,6 +893,7 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         all_bg = comm.local_all_gather(recv_bg)
 
         c = be.compute(pieces["diag"], b_loc, m_local)
+        del b_loc
         c = c + be.compute(pieces["colp"],
                            all_bg.reshape(P_, L * G * max_bg, n), m_local)
         c = scatter_add_rows_exec_op(
@@ -912,6 +928,7 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         gathered = _hier_gathered(all_bg, plan.meta["bg_all"], R_bg)
 
         c = be.compute(pieces["diag"], b_loc, m_local)
+        del b_loc
         c = c + be.compute(pieces["colp"], gathered, m_local)
         c = scatter_add_rows_exec_op(c, recv_cg, plan.agg_perm,
                                      plan.agg_meta)
@@ -939,9 +956,11 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         # Stage II: own-group compute first, then gather and consume each
         # B slab as it lands
         c = be.compute(pieces["diag"], b_loc, m_local)
+        acc = b_loc.new_zeros((P_, m_local, n))
+        del b_loc
         gathered = (comm.local_all_gather(seg).reshape(P_, -1, n)
                     for seg in b_segs)
-        c = c + _colp_rounds(be, pieces, gathered, b_loc, m_local)
+        c = c + _colp_rounds(be, pieces, gathered, acc)
 
         # per-round aggregation of the inter-group partials
         c = _aggregate_rounds(c, c_segs, plan.seg_agg)
@@ -987,7 +1006,8 @@ def replicated_spmm(plan: ReplicatedExecPlan, b_global: torch.Tensor,
     m_local = plan.meta["m_local"]
     R_b, R_c = plan.meta["R_b"], plan.meta["R_c"]
     be, pieces = plan.resolve_backend(backend)
-    comm, b_loc = _rank_blocks(plan, comm, b_global, replicas=plan.c)
+    comm, b_loc = _rank_blocks(plan, comm, _operand(b_global),
+                               replicas=plan.c)
     n = b_loc.shape[2]
 
     # ① pack + lane-exchange B rows, one lane exchange per round

@@ -8,7 +8,10 @@ decides exactly as the reference does on a flat substrate. For the same
 reason ``hier="auto"`` groups the ranks by ``fallback_grouping``, the
 reference's guess for a substrate with no intrinsic (G, L) structure.
 ``replicated_mesh(c, s)`` lays the ranks out as the replicated tier's
-(c, s) replica × shard mesh.
+(c, s) replica × shard mesh. ``narrow(P)`` serves a smaller ladder rung
+on the same device, and ``fingerprint()`` names the substrate in the
+measured autotuner's cache keys (the device's name included, so an entry
+timed on another card misses).
 
 Entry points default to ``device="cuda"`` and raise when no CUDA device
 is present; pass ``device="cpu"`` to run the kernels' plain versions.
@@ -16,6 +19,8 @@ is present; pass ``device="cpu"`` to run the kernels' plain versions.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -126,8 +131,39 @@ class Topology:
 
         return TSUBAME_LIKE if default is None else default
 
+    def narrow(self, P: int) -> "Topology":
+        """The same substrate over the first ``P`` ranks: the elastic
+        path, where a ladder rung smaller than the fleet serves."""
+        P = int(P)
+        if P == self.P:
+            return self
+        if P > self.P:
+            raise TopologyError(
+                f"cannot narrow a {self.P}-rank topology to P={P}; grow "
+                f"events need a topology over the new fleet "
+                f"(Topology.local)")
+        if P < 1:
+            raise TopologyError(f"topology needs at least 1 rank, got {P}")
+        return dataclasses.replace(self, P=P)
+
     def describe(self) -> dict:
         """Stable summary for ``h.stats()``."""
         return {"kind": self.kind, "P": self.P, "tiers": None,
                 "n_hosts": 1,
                 "platform": "gpu" if self.device.type == "cuda" else "cpu"}
+
+    def device_kind(self) -> str:
+        """The card's name on CUDA (``torch.cuda.get_device_name``),
+        ``"cpu"`` otherwise."""
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return "cpu"
+
+    def fingerprint(self) -> str:
+        """Stable identity of the execution substrate (autotune cache
+        key): ``describe()`` plus the device kind, so measured timings
+        from another card never replay here."""
+        d = self.describe()
+        d["device_kind"] = self.device_kind()
+        blob = json.dumps(d, sort_keys=True, default=str)
+        return hashlib.sha1(blob.encode()).hexdigest()

@@ -13,7 +13,7 @@ every expert over every token as batched products over the stacked
 float32, so the logits are taken in float32 as JAX's type promotion
 does. What waits: the expert-parallel path (``_moe_ep``, shard_map
 all_to_all) for ROADMAP item 15 — a ``dist`` whose model axis is larger
-than 1 raises — and ``dispatch_session`` for item 12.
+than 1 raises — and ``dispatch_session`` for item 16.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ Port of the parts of ``repro/robustness/guards.py`` that
 ``SpmmConfig(check="auto")`` runs on every call and at plan time: the
 dense operands' shapes/dtypes (B; X and Y of the SDDMM and fused calls)
 are validated with an actionable error before any kernel sees them, the
-sparse operand's values must be finite, and each served output gets a
+sparse operand's values must be finite (and, on a values-only refresh,
+carry the planned pattern), and each served output gets a
 cheap SAMPLED ``isfinite`` sweep (corner + strided rows of every rank's
 block; every piece of an SDDMM result) that raises ``NumericalFault``
 naming the first bad element.
@@ -23,6 +24,7 @@ __all__ = [
     "validate_dense_operand",
     "validate_sddmm_operands",
     "validate_sparse_values",
+    "validate_pattern",
     "sampled_finite_check",
     "sampled_finite_check_tree",
 ]
@@ -110,6 +112,23 @@ def validate_sparse_values(a, *, context: str) -> None:
             f"nonzero value(s); first at data[{i}] = {data[i]!r} of "
             f"nnz={data.size}. Sanitize the operand (or set check=False "
             f"to plan anyway — every dependent C row will be poisoned).")
+
+
+def validate_pattern(snapshot_new, snapshot_expected, *,
+                     context: str) -> None:
+    """Pattern-digest validation: the operand being attached must carry
+    the exact sparsity pattern the plan was built for."""
+    if snapshot_expected is None or snapshot_new is None:
+        return
+    if snapshot_new.fingerprint != snapshot_expected.fingerprint:
+        raise ValueError(
+            f"{context}: operand pattern digest "
+            f"{snapshot_new.fingerprint[:12]} does not match the planned "
+            f"pattern {snapshot_expected.fingerprint[:12]} (shape "
+            f"{snapshot_new.shape} vs {snapshot_expected.shape}, nnz "
+            f"{snapshot_new.nnz} vs {snapshot_expected.nnz}); use "
+            f"SpmmSession.replan/maybe_replan for a drifted pattern "
+            f"instead of attaching mismatched values.")
 
 
 def _sample_rows(c: torch.Tensor, ranks: int, mode: Any):

@@ -128,14 +128,10 @@ def test_cuda_default_raises_without_cuda(monkeypatch, power_law_matrix):
     if isinstance(v, dict) else f"item{v}")
 def test_unported_options_raise(fields, item):
     """An option of an open ROADMAP item raises NotImplementedError naming
-    the item. Item 10 (replication) is ported: its options now build a
-    config that keeps them."""
-    if item == "10":
-        cfg = T.SpmmConfig(**fields)
-        assert all(getattr(cfg, k) == v for k, v in fields.items())
-        return
-    with pytest.raises(NotImplementedError, match=f"open item {item}"):
-        T.SpmmConfig(**fields)
+    the item. Items 10 (replication) and 11 (measured autotuning) are
+    ported: their options now build a config that keeps them."""
+    cfg = T.SpmmConfig(**fields)
+    assert all(getattr(cfg, k) == v for k, v in fields.items())
 
 
 # the reference's hier exec pieces pass through jax.tree_util, which

@@ -1189,3 +1189,122 @@ def test_bsr_sddmm_and_coo_fused_grads_on_the_card():
                                atol=2e-4)
     np.testing.assert_allclose(yt.grad.cpu().numpy(), w.T @ x, rtol=2e-3,
                                atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# measured autotuning, memory per executable, donation, values refresh
+# ---------------------------------------------------------------------------
+
+
+@requires_cuda
+def test_measured_autotune_times_real_launches_and_replays(tmp_path,
+                                                            monkeypatch):
+    import repro_torch as T
+    from repro_torch.core import autotune, sparse
+
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "atc"))
+    monkeypatch.delenv(autotune.MEASURE_ENV, raising=False)
+    a = sparse.power_law_sparse(1024, 1024, 12000, 1.2, seed=2)
+    cfg = T.SpmmConfig(backends=("coo", "bsr"), hier="auto", measure=True,
+                       n_dense_hint=32)
+    events = []
+    hook = autotune.register_profile_hook(events.append)
+    try:
+        before = sum(launch_counts().values())
+        h = T.compile_spmm(a, 8, cfg)
+        torch.cuda.synchronize()
+        assert events and sum(launch_counts().values()) > before
+        assert h.decisions["decision_source"] == "measured"
+        assert h.decisions["measured_time"] > 0
+        n, launched = len(events), sum(launch_counts().values())
+        h2 = T.compile_spmm(a, 8, cfg)
+        assert len(events) == n  # the cache replay times nothing
+        assert sum(launch_counts().values()) == launched
+    finally:
+        autotune.unregister_profile_hook(hook)
+    assert h2.decisions["decision_source"] == "cache"
+    assert {k: v for k, v in h2.decisions.items() if k != "decision_source"} \
+        == {k: v for k, v in h.decisions.items() if k != "decision_source"}
+    b = _cuda(np.random.default_rng(1).standard_normal((1024, 32))
+              .astype(np.float32))
+    assert torch.equal(h(b), h2(b))
+    np.testing.assert_allclose(h(b).cpu().numpy(),
+                               a.to_dense() @ b.cpu().numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+# (matrix, config, whether the first call's peak falls after B's last read)
+DONATION_CASES = {
+    # chip_smoke.py --quick's uniform cell: the peak is in the colp rounds
+    "uniform": (lambda sp: sp.random_sparse(16384, 16384, 7 / 16384, seed=0),
+                dict(), True),
+    # a power-law matrix's rowp products peak while B is still read: the
+    # figures then differ only by the allocator's reuse of freed blocks
+    "power-law-staged": (
+        lambda sp: sp.power_law_sparse(4096, 4096, 40000, 1.2, seed=3),
+        dict(schedule=2, overlap=False), False),
+    "hier": (lambda sp: sp.power_law_sparse(4096, 4096, 40000, 1.2, seed=3),
+             dict(hier=(2, 4), schedule=1, overlap=True), False),
+}
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", list(DONATION_CASES))
+def test_donation_lowers_memory_and_keeps_bits(case):
+    """Donation releases the handle's private copy of B after its last
+    read: the first call's allocation drops where the call's peak comes
+    later, and C keeps its bits."""
+    import dataclasses
+
+    import repro_torch as T
+    from repro_torch.core import sparse
+    from repro_torch.core.api import materialize_payload
+
+    make, cfg, strictly_lower = DONATION_CASES[case]
+    a = make(sparse)
+    hd = T.compile_spmm(a, 8, T.SpmmConfig(**cfg))
+    payload = hd.save_payload()
+    payload["config"] = dataclasses.replace(hd.config, donate=False)
+    hu = materialize_payload(payload, 8)
+    assert hd.stats()["donated_buffers"] == ("b",)
+    assert hu.stats()["donated_buffers"] == ()
+    b = np.random.default_rng(4).standard_normal((a.shape[1], 128)).astype(
+        np.float32)
+    cd, cu = hd(b), hu(b)  # first calls, on a host B: the copy is private
+    assert torch.equal(cd, cu)
+    md = hd.stats()["total_allocation_size"]
+    mu = hu.stats()["total_allocation_size"]
+    assert md > 0 and mu > 0
+    if strictly_lower:
+        assert md < mu and mu - md <= b.nbytes
+    # a caller's tensor on the card is never written nor consumed
+    bc = _cuda(b)
+    keep = bc.clone()
+    assert torch.equal(hd(bc), cd) and torch.equal(bc, keep)
+    assert torch.equal(hd(bc), cd)
+
+
+@requires_cuda
+def test_values_refresh_keeps_bits_of_a_cold_compile():
+    import dataclasses
+
+    import repro_torch as T
+    from repro_torch.core import sparse
+
+    a = sparse.power_law_sparse(1024, 1024, 12000, 1.2, seed=5)
+    s = T.SpmmSession.build(a, 8, T.SpmmConfig(backends=("coo", "bsr"),
+                                               hier="auto"), p_ladder=(4, 8))
+    h = s.handle()
+    b = _cuda(np.random.default_rng(6).standard_normal((1024, 48))
+              .astype(np.float32))
+    h(b), h(b, backend="bsr")
+    keys = h.cache_info()["keys"]
+    scale = np.random.default_rng(7).uniform(0.5, 1.5, a.nnz)
+    a2 = dataclasses.replace(a, data=(a.data * scale).astype(np.float32))
+    assert s.maybe_replan(a2) == (0.0, False)
+    assert s.handle() is h and h.values_refreshes == 1
+    cold = T.compile_spmm(a2, 8, T.SpmmConfig(backends=("coo", "bsr"),
+                                              hier="auto"))
+    for be in ("coo", "bsr"):
+        assert torch.equal(h(b, backend=be), cold(b, backend=be))
+    assert h.cache_info()["keys"] == keys
