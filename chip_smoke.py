@@ -133,7 +133,28 @@ handle. Phases, each of which raises on a failed check:
    ``check=False`` C == ``check="auto"`` C. The K1–K4 calls of one call
    of each winner (the uniform one on both backends) and of the
    refreshed handle are replayed against the plain versions (path
-   ``lifecycle`` in the kernels line).
+   ``lifecycle`` in the kernels line). Donation is measured on four
+   cases: the uniform cell and ``tests/test_torch_cuda.py``'s
+   ``DONATION_CASES`` (the reference's own power-law pin among them),
+   each strictly lower donated, with where each first call's peak falls
+   (the allocator's history);
+9. serving, on the same matrices: an ``SpmmWaveServer`` (max_batch 2,
+   host B) over ``SpmmSession.build(power-law, 8, hier="auto",
+   p_ladder=(4, 8))`` attached to an ``ElasticController`` serves census
+   8 -> 5 -> 8 (no MWVC build, rungs ``EXPECT_LADDER``), a 15% rewire
+   (hot swap) and two injected ``wave_error`` faults (retried, degraded
+   to rung 4: failed 2, retried 1, degraded 1, dropped 0), every
+   request's C == a cold compile's on its (P, pattern), then 16 timed
+   requests; ``SpmmFleet(Topology.local(8), group_sizes=(4, 4))`` admits
+   power-law, a second arxiv-size power-law graph and a 16,384-node one
+   in both orders (placements and scores == ``EXPECT_FLEET``), serves,
+   rebalances with one migration and no MWVC build, takes a drift replan
+   and rolls back an injected ``fleet_migrate_fail``, every C == a cold
+   compile's at P=4; the uniform matrix on the bsr backend migrates
+   between groups of 2 and 4 ranks (moved rows == the reference's, the
+   resharded slabs reassemble to the served B and C, C at both P == a
+   cold compile's). The K1–K4 calls of one call of each fleet tenant are
+   replayed against the plain versions (path ``fleet``).
 
 It prints the card's name and power limit, then one JSON line of kernel
 rows, then ``{"ok": true, "device": {...}}`` as its last line. Without a
@@ -340,6 +361,30 @@ EXPECT_LADDER = {
                 pattern_nnz=107248),
     },
 }
+# phase 9's fleet tenants: h1 is the power-law cell's matrix, h2 a second
+# arxiv-size power-law graph and lt a 16,384-node one; their pattern
+# fingerprints tie-break both heavies onto group 1 of two equal groups
+FLEET_H2_SEED = 1
+FLEET_LIGHT = dict(m=16_384, nnz=7 * 16_384, seed=0)
+# the reference's SpmmFleet on them (Topology.local(8) split (4, 4),
+# SpmmConfig(n_dense_hint=128), admitted in either order) and on the
+# uniform matrix (split (4, 2), backends=("bsr", "coo"), p_ladder=(2, 4)):
+# the JAX package's admit / group_loads / _best_move and ReshardSpec, CPU
+# run, host planning only
+EXPECT_FLEET = dict(
+    placements={"h1": 1, "h2": 1, "lt": 0},
+    scores={"h1": {0: (0.00010118016000000001, 167630980),
+                   1: (0.00010118016000000001, 167630980)},
+            "h2": {0: (0.00010135651555555556, 167838956),
+                   1: (0.00010135651555555556, 167838956)},
+            "lt": {0: (1.5578026666666666e-05, 19042432),
+                   1: (1.5578026666666666e-05, 19042432)}},
+    imbalance=(1.7143149634948447, 0.14122542821913406),
+    moves=[("h1", 0)], moved={"b_rows": 0, "c_rows": 0},
+    cross=dict(group=1, scores={0: (0.00011163264000000001, 210440308),
+                                1: (9.632384e-05, 255633044)},
+               P=(2, 4), moved={"b_rows": 127008, "c_rows": 127008}),
+)
 GAT_DIMS = dict(feat_dim=128, hidden=128, n_classes=40, n_layers=2,
                 att_dim=16)  # ogbn-arxiv's features and classes
 SDDMM_F = 128
@@ -2482,6 +2527,76 @@ def _winner(h) -> dict:
                 else 1e3 * d["measured_time"])
 
 
+# tests/test_torch_cuda.py's donation cases at their sizes: (matrix,
+# config, width of B); phase 8 measures them beside the uniform cell
+DONATION_CASES = {
+    "reference": (lambda sp: sp.power_law_sparse(64, 64, 400, 1.2, seed=2),
+                  dict(backends=("coo",), schedule=4, overlap=False,
+                       n_dense_hint=16), 16),
+    "power-law-staged": (
+        lambda sp: sp.power_law_sparse(4096, 4096, 40000, 1.2, seed=3),
+        dict(schedule=2, overlap=False), 128),
+    "hier": (lambda sp: sp.power_law_sparse(4096, 4096, 40000, 1.2, seed=3),
+             dict(hier=(2, 4), schedule=1, overlap=True), 128),
+}
+
+
+def first_call_peak(h, b_host: np.ndarray):
+    """``h(b_host)`` (a memo key's first call) under the allocator's
+    history: (C, the frames of ``repro_torch`` innermost first at the
+    moment the call's live bytes peak)."""
+    mem = torch.cuda.memory
+    torch.cuda.synchronize()
+    mem._record_memory_history(max_entries=1_000_000, stacks="python")
+    try:
+        c = h(b_host)
+        torch.cuda.synchronize()
+        snap = mem._snapshot()
+    finally:
+        mem._record_memory_history(enabled=None)
+    live = peak = 0
+    at = None
+    mine = set()  # blocks the call allocated: frees of older ones (garbage
+    # the handle's measurement collects first) do not count
+    for ev in snap["device_traces"][torch.cuda.current_device()]:
+        if ev["action"] == "alloc":
+            mine.add(ev["addr"])
+            live += ev["size"]
+            if live > peak:
+                peak, at = live, ev
+        elif ev["action"] == "free_completed" and ev["addr"] in mine:
+            mine.discard(ev["addr"])
+            live -= ev["size"]
+    frames = [f"{f['name']}:{f['line']}" for f in (at or {}).get(
+        "frames", []) if "repro_torch" in f["filename"]]
+    return c, " < ".join(frames[:6]) or "unknown"
+
+
+def donation_case(a, cfg: dict, b_host: np.ndarray) -> dict:
+    """The first call's ``total_allocation_size`` with and without
+    donation on a host B (the handle's private copy), where each call's
+    peak falls, and the checks: C bit-identical, a caller's CUDA B never
+    written."""
+    from repro_torch import SpmmConfig, compile_spmm
+    from repro_torch.core.api import materialize_payload
+
+    hd = compile_spmm(a, P, SpmmConfig(measure=False, **cfg))
+    payload = hd.save_payload()
+    payload["config"] = dataclasses.replace(hd.config, donate=False)
+    hu = materialize_payload(payload, P)
+    cd, at_d = first_call_peak(hd, b_host)
+    cu, at_u = first_call_peak(hu, b_host)
+    if hd.stats()["donated_buffers"] != ("b",) or not torch.equal(cd, cu):
+        raise AssertionError("donation changed C")
+    b = torch.from_numpy(b_host).cuda()
+    keep = b.clone()
+    if not (torch.equal(hd(b), cd) and torch.equal(b, keep)):
+        raise AssertionError("donation: the caller's B was changed")
+    return dict(handle=str(hd), donated=hd.stats()["total_allocation_size"],
+                **{"not": hu.stats()["total_allocation_size"]},
+                peak_donated=at_d, peak_not=at_u, c=cd)
+
+
 def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
     """Phase 8: the session lifecycle on the two SpMM matrices. Returns the
     kernel rows of the ``lifecycle`` path (one call of each measured
@@ -2598,28 +2713,29 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
         del c_first, winners["uniform_flat"], winners["power_law_flat"]
 
         # 3. memory per executable and donation -------------------------
-        hd = compile_spmm(a_u, P, SpmmConfig(backends=("coo",),
-                                             measure=False))
-        payload = hd.save_payload()
-        payload["config"] = dataclasses.replace(hd.config, donate=False)
-        hu = materialize_payload(payload, P)
-        cd, cu = hd(b_host), hu(b_host)  # first calls, on a host B
-        md = hd.stats()["total_allocation_size"]
-        mu = hu.stats()["total_allocation_size"]
-        if not (md and mu and md < mu):
-            raise AssertionError(f"lifecycle: total_allocation_size donated "
-                                 f"{md} vs not {mu}")
-        if not torch.equal(cd, cu):
-            raise AssertionError("lifecycle: donation changed C")
-        keep = b.clone()
-        if not (torch.equal(hd(b), cd) and torch.equal(b, keep)):
-            raise AssertionError("lifecycle: the caller's B was changed")
-        log(f"lifecycle memory [{card}]: uniform coo {hd}, first call on a "
-            f"host B allocates {md} B donated, {mu} B not "
-            f"({md / 2 ** 20:.2f} / {mu / 2 ** 20:.2f} MiB, B itself "
-            f"{b_host.nbytes / 2 ** 20:.2f} MiB); C bit-identical; a "
-            f"caller's CUDA B untouched")
-        del hd, hu, cd, cu, keep, payload
+        # the uniform coo cell at full size, then the small cases of
+        # tests/test_torch_cuda.py (the reference's own pin among them)
+        from repro_torch.core import sparse
+
+        cases = {"uniform coo": (lambda sp: a_u, dict(backends=("coo",)),
+                                 b_host)}
+        for name, (make, cfg, n) in DONATION_CASES.items():
+            cases[name] = (make, cfg, np.random.default_rng(4)
+                           .standard_normal((make(sparse).shape[1], n))
+                           .astype(np.float32))
+        for name, (make, cfg, bh) in cases.items():
+            d = donation_case(make(sparse), cfg, bh)
+            if not (0 < d["donated"] < d["not"]
+                    and d["not"] - d["donated"] <= bh.nbytes):
+                raise AssertionError(f"lifecycle {name}: the first call "
+                                     f"allocates {d}")
+            log(f"lifecycle memory {name} [{card}]: {d['handle']}, first "
+                f"call on a host B allocates {d['donated']} B donated, "
+                f"{d['not']} B not ({d['donated'] / 2 ** 20:.2f} / "
+                f"{d['not'] / 2 ** 20:.2f} MiB, B itself {bh.nbytes} B); "
+                f"peak donated at {d['peak_donated']}, not at "
+                f"{d['peak_not']}; C bit-identical; a caller's CUDA B "
+                f"untouched")
 
         # 4. the ladder ---------------------------------------------------
         cfg_l = SpmmConfig(hier="auto", measure=False)
@@ -2784,6 +2900,378 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serving waves and the fleet
+# ---------------------------------------------------------------------------
+
+
+def _timed(fn):
+    """(fn(), device ms by CUDA events, host wall ms) of one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+class ColdCompiles:
+    """One cold ``compile_spmm`` per distinct (pattern, P, config), its C
+    on the phase's B checked within 2e-4 of scipy float64 once."""
+
+    def __init__(self, b: torch.Tensor, b_host: np.ndarray):
+        self.b, self.b_host, self.c = b, b_host, {}
+
+    def __call__(self, a, tag: str, P_: int, cfg) -> torch.Tensor:
+        from repro_torch import compile_spmm
+
+        key = (tag, P_, cfg)
+        if key not in self.c:
+            c = compile_spmm(a, P_, cfg)(self.b)
+            log(f"  cold compile {tag} P={P_}: max abs err vs scipy float64 "
+                f"{check_c(c, a, self.b_host, f'{tag} P={P_}'):.3g} "
+                f"(tol 2e-4)")
+            self.c[key] = c
+        return self.c[key]
+
+
+def _same(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    if not (got.is_cuda and torch.equal(got, want)):
+        raise AssertionError(f"{what}: served C != the cold compile's")
+
+
+def wave_serving(args, card, a_p, a_r, b_host, cold) -> dict:
+    """Phase 9, part 1: an ``SpmmWaveServer`` over the power-law session
+    (ladder (4, 8)) attached to an ``ElasticController``, on a host B,
+    through census 8 -> 5 -> 8, a drift replan and two injected wave
+    faults. Returns the served handles' first-call memory."""
+    from repro_torch import (
+        ElasticController, SpmmConfig, SpmmRequest, SpmmSession,
+        SpmmWaveServer,
+    )
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.planner import plan_build_count
+    from repro_torch.robustness import Fault, inject
+
+    expect = EXPECT_LADDER["quick" if args.quick else "full"]
+    cfg = SpmmConfig(hier="auto", measure=False)
+    t0 = time.perf_counter()
+    s = SpmmSession.build(a_p, P, cfg, p_ladder=(4, 8))
+    ctl = ElasticController(get_smoke_config("qwen2-1.5b"), global_batch=8)
+    ctl.attach_spmm(s)
+    server = SpmmWaveServer(s, max_batch=2, backoff=0.0)
+    log(f"waves: SpmmSession.build(power-law, p_ladder=(4, 8)) "
+        f"{time.perf_counter() - t0:.1f} s, SpmmWaveServer(max_batch=2)")
+    rid = iter(range(10 ** 6))
+    memory = {}
+
+    def wave(a, tag, n=2):
+        reqs = [SpmmRequest(rid=next(rid), b=b_host) for _ in range(n)]
+        for r in reqs:
+            server.submit(r)
+        server.run()
+        h = s.handle()
+        check_rows(h, f"wave {tag} P={h.P}")
+        want = cold(a, tag, h.P, cfg)
+        for r in reqs:
+            _same(r.output, want, f"wave {tag} P={h.P} request {r.rid}")
+        memory.setdefault(f"{tag} P={h.P}",
+                          h.stats()["total_allocation_size"])
+        return h
+
+    builds = 0
+
+    def census(n):
+        nonlocal builds
+        n0 = plan_build_count()
+        ctl.on_census(n)
+        builds += plan_build_count() - n0
+
+    census(8)
+    check_decisions(wave(a_p, "power-law"), expect[8], {}, "wave rung P=8")
+    census(5)
+    check_decisions(wave(a_p, "power-law"), expect[4], {}, "wave rung P=4")
+    census(8)
+    wave(a_p, "power-law")
+    if builds or s.current_P != 8:
+        raise AssertionError(f"waves: the census changes ran {builds} "
+                             f"MWVC builds")
+    d, swapped = s.maybe_replan(a_r)
+    if not swapped:
+        raise AssertionError(f"waves: drift {d} did not replan")
+    wave(a_r, "rewired")
+    with inject([Fault(kind="wave_error", site="wave", times=2)]) as plan:
+        wave(a_r, "rewired")  # fails twice at P=8, served at rung 4
+    st = server.stats
+    got = (st.failed_waves, st.retried_waves, st.degraded_rungs,
+           st.dropped_waves, plan.fired("wave_error"), s.current_P)
+    if got != (2, 1, 1, 0, 2, 4):
+        raise AssertionError(f"waves: (failed, retried, degraded, dropped, "
+                             f"fired, P) {got}")
+    rungs = [e["rung"] for e in ctl.events if e["action"] == "spmm_rung"]
+    if rungs != [8, 4, 8]:
+        raise AssertionError(f"waves: the controller's rungs {rungs}")
+    log(f"waves: census 8 -> 5 -> 8 served rungs {rungs} with no MWVC "
+        f"build; 15% of the edges rewired, drift {d:.4f}: hot swap; "
+        f"wave_error x 2 at P=8: retried, degraded to rung 4 and served; "
+        f"every request's C == a cold compile's on its (P, pattern); "
+        f"server {json.dumps(dataclasses.asdict(st))}")
+
+    # requests per second on a host B at P = 8, each wave's H2D copy,
+    # donated private copy and closing synchronize included
+    s.on_resize(8)
+    n_req = 16
+    reqs = [SpmmRequest(rid=next(rid), b=b_host) for _ in range(n_req)]
+    for r in reqs:
+        server.submit(r)
+    _, dev_ms, host_ms = _timed(server.run)
+    want = cold(a_r, "rewired", 8, cfg)
+    for r in reqs:
+        _same(r.output, want, f"timed wave request {r.rid}")
+    # the same requests on the card's copy of B: no H2D copy, no private
+    # copy to donate
+    b = torch.from_numpy(b_host).cuda()
+    on_card = [SpmmRequest(rid=next(rid), b=b) for _ in range(n_req)]
+    for r in on_card:
+        server.submit(r)
+    _, dev_card, host_card = _timed(server.run)
+    for r in on_card:
+        _same(r.output, want, f"timed wave request {r.rid} (card B)")
+    log(f"waves [{card}]: {n_req} requests on a host B [{b_host.shape[0]}, "
+        f"{b_host.shape[1]}] float32 in {n_req // 2} waves at P=8: "
+        f"{dev_ms / n_req:.3f} ms per request (CUDA events), "
+        f"{host_ms / n_req:.3f} ms (host wall), "
+        f"{n_req / host_ms * 1e3:.1f} requests/s; on the card's B "
+        f"{dev_card / n_req:.3f} / {host_card / n_req:.3f} ms, "
+        f"{n_req / host_card * 1e3:.1f} requests/s")
+    if server.stats.dropped_waves:
+        raise AssertionError("waves: a wave was dropped")
+    return memory
+
+
+def fleet_serving(args, card, a_p, a_r, b, b_host, cold) -> dict:
+    """Phase 9, part 2: three tenants on ``SpmmFleet(Topology.local(8),
+    group_sizes=(4, 4))`` — placements in both admission orders, serving,
+    one rebalance migration, a drift replan, a rolled-back migration.
+    Returns {tenant: first-call memory}."""
+    from repro_torch import ReshardSpec, SpmmConfig, SpmmFleet, Topology
+    from repro_torch.core.planner import plan_build_count
+    from repro_torch.core.sparse import block_rows, power_law_sparse
+    from repro_torch.robustness import Fault, inject
+
+    m = a_p.shape[0]
+    lt = FLEET_LIGHT
+    t0 = time.perf_counter()
+    mats = {"h1": a_p,
+            "h2": power_law_sparse(m, m, NNZ_FULL if not args.quick
+                                   else 7 * m, 0.8, seed=FLEET_H2_SEED),
+            "lt": power_law_sparse(lt["m"], lt["m"], lt["nnz"], 0.8,
+                                   seed=lt["seed"])}
+    b_lt_host = np.random.default_rng(9).standard_normal(
+        (lt["m"], N_COLS)).astype(np.float32)
+    bs = {"h1": (b, b_host), "h2": (b, b_host),
+          "lt": (torch.from_numpy(b_lt_host).cuda(), b_lt_host)}
+    cold_lt = ColdCompiles(*bs["lt"])
+    cfg = SpmmConfig(n_dense_hint=N_COLS, measure=False)
+
+    def cold_of(name, a, tag):
+        return (cold_lt if name == "lt" else cold)(a, tag, 4, cfg)
+
+    placements = []
+    # the reversed order first: the fleet kept is admitted as pinned
+    for order in (("lt", "h2", "h1"), ("h1", "h2", "lt")):
+        fleet = SpmmFleet(Topology.local(P), group_sizes=(4, 4), config=cfg)
+        for name in order:
+            fleet.admit(name, mats[name])
+        placements.append(fleet.placements())
+    log(f"fleet: 3 tenants admitted twice (both orders) in "
+        f"{time.perf_counter() - t0:.1f} s: placements {placements[0]}")
+    scores = {n: t.scores for n, t in fleet.tenants.items()}
+    if placements[0] != placements[1]:
+        raise AssertionError(f"fleet: placements depend on the admission "
+                             f"order: {placements}")
+    if not args.quick and (placements[0] != EXPECT_FLEET["placements"]
+                           or scores != EXPECT_FLEET["scores"]):
+        raise AssertionError(f"fleet: placements {placements[0]}, scores "
+                             f"{scores} != the reference's")
+
+    live = {n: (n, mats[n]) for n in mats}  # tenant -> (tag, its pattern)
+
+    def serve(what):
+        for name in fleet.tenants:
+            fleet.submit(name, bs[name][0])
+        for name, (c,) in fleet.serve().items():
+            _same(c, cold_of(name, live[name][1], live[name][0]),
+                  f"fleet {what} {name}")
+
+    serve("admitted")
+    memory = {n: t.session.handle().stats()["total_allocation_size"]
+              for n, t in fleet.tenants.items()}
+    imb = fleet.imbalance()
+    n0 = plan_build_count()
+    moves, _, mig_ms = _timed(fleet.rebalance)
+    after = fleet.imbalance()
+    move = [e for e in fleet.events if e["action"] == "migrate"]
+    if plan_build_count() != n0 or len(moves) != 1 or len(move) != 1:
+        raise AssertionError(f"fleet: rebalance moved {moves} with "
+                             f"{plan_build_count() - n0} MWVC builds")
+    moved = {k: move[0][k] for k in ("b_rows", "c_rows")}
+    if not args.quick and ((imb, after) != EXPECT_FLEET["imbalance"]
+                           or moves != EXPECT_FLEET["moves"]
+                           or moved != EXPECT_FLEET["moved"]):
+        raise AssertionError(f"fleet: imbalance {imb} -> {after}, moves "
+                             f"{moves}, moved {moved} != the reference's")
+    name = moves[0][0]
+    tenant = fleet.tenants[name]
+    plan_ = tenant.session.handle().plan
+    spec_b = ReshardSpec.between(block_rows(plan_.shape[1], plan_.P),
+                                 block_rows(plan_.shape[1], plan_.P))
+    spec_c = ReshardSpec.between(plan_.bounds, plan_.bounds)
+    _, copy_ms, _ = _timed(lambda: (spec_b.apply(tenant.resident_b),
+                                    spec_c.apply(tenant.resident_c)))
+    log(f"fleet [{card}]: imbalance {imb:.4f} > {fleet.threshold} -> "
+        f"rebalance {moves} in {mig_ms:.1f} ms (host wall: stage, warm, "
+        f"reshard, commit; no MWVC build), imbalance {after:.4f}; moved "
+        f"rows {moved}; the reshard copies of B and C "
+        f"{copy_ms:.3f} ms (CUDA events)")
+    serve("migrated")
+
+    d, swapped = fleet.maybe_replan(name, a_r)
+    if not swapped:
+        raise AssertionError(f"fleet: drift {d} on {name} did not replan")
+    live[name] = ("rewired", a_r)
+    serve("drifted")
+
+    src = fleet.placements()[name]
+    with inject([Fault(kind="wave_error",
+                       site="fleet_migrate_fail")]) as plan:
+        ok = fleet.migrate(name, 1 - src)
+    if (ok or plan.fired("wave_error") != 1 or fleet.failed_migrations != 1
+            or fleet.placements()[name] != src):
+        raise AssertionError("fleet: fleet_migrate_fail did not roll back")
+    serve("rolled back")
+    st = fleet.stats()
+    dropped = {n: t["server"]["dropped_waves"]
+               for n, t in st["tenants"].items()}
+    if any(dropped.values()) or st["migrations"] != 1:
+        raise AssertionError(f"fleet: dropped waves {dropped}, "
+                             f"{st['migrations']} migrations")
+    log(f"fleet: drift {d:.4f} on {name}: hot swap; an injected "
+        f"fleet_migrate_fail rolled back and group {src} kept serving; "
+        f"every wave's C == a cold compile's at P=4; dropped_waves "
+        f"{dropped}")
+    return fleet, memory
+
+
+def cross_size_fleet(args, card, a_u, b, cold):
+    """Phase 9, part 3: the uniform matrix on ``SpmmFleet(Topology.local(8),
+    group_sizes=(4, 2))`` with the bsr backend (K3, and K4 in its
+    overlapped schedules) migrates between groups of 2 and 4 ranks: real
+    reshard routes, slabs that reassemble to the served B and C, and C at
+    the new P equal to a cold compile. Returns the fleet."""
+    from repro_torch import ReshardSpec, SpmmConfig, SpmmFleet, Topology
+    from repro_torch.core.sparse import block_rows
+
+    cfg = SpmmConfig(backends=("bsr", "coo"), n_dense_hint=N_COLS,
+                     measure=False)
+    expect = EXPECT_FLEET["cross"]
+    t0 = time.perf_counter()
+    fleet = SpmmFleet(Topology.local(P), group_sizes=(4, 2), config=cfg)
+    gi = fleet.admit("u", a_u, p_ladder=(2, 4))
+    tenant = fleet.tenants["u"]
+    old_P = tenant.session.current_P
+    log(f"cross-size fleet: uniform admitted to group {gi} (P={old_P}) in "
+        f"{time.perf_counter() - t0:.1f} s, scores {tenant.scores}")
+    if not args.quick and (gi != expect["group"]
+                           or tenant.scores != expect["scores"]):
+        raise AssertionError(f"cross-size fleet: group {gi}, scores "
+                             f"{tenant.scores} != the reference's")
+    fleet.submit("u", b)
+    (c_old,) = fleet.serve()["u"]
+    _same(c_old, cold(a_u, "uniform", old_P, cfg), f"cross-size P={old_P}")
+    ok, _, mig_ms = _timed(lambda: fleet.migrate("u", 1 - gi))
+    new_P = tenant.session.current_P
+    move = [e for e in fleet.events if e["action"] == "migrate"]
+    moved = {k: move[-1][k] for k in ("b_rows", "c_rows")} if move else {}
+    if not ok or not moved or min(moved.values()) <= 0:
+        raise AssertionError(f"cross-size fleet: migrated {ok}, {moved}")
+    if not args.quick and ((old_P, new_P) != expect["P"]
+                           or moved != expect["moved"]):
+        raise AssertionError(f"cross-size fleet: P {old_P} -> {new_P}, "
+                             f"moved {moved} != the reference's")
+    if not (torch.equal(torch.cat(tenant.resident_b), b)
+            and torch.equal(torch.cat(tenant.resident_c), c_old)):
+        raise AssertionError("cross-size fleet: the resharded slabs do not "
+                             "reassemble to the served B and C")
+    # the same routes backwards, timed: the resident slabs' device copies
+    back = ReshardSpec.between(block_rows(a_u.shape[0], new_P),
+                               block_rows(a_u.shape[0], old_P))
+    _, copy_ms, _ = _timed(lambda: (back.apply(tenant.resident_b),
+                                    back.apply(tenant.resident_c)))
+    fleet.submit("u", b)
+    (c_new,) = fleet.serve()["u"]
+    _same(c_new, cold(a_u, "uniform", new_P, cfg), f"cross-size P={new_P}")
+    if tenant.server.stats.dropped_waves:
+        raise AssertionError("cross-size fleet: a wave was dropped")
+    log(f"cross-size fleet [{card}]: P {old_P} -> {new_P} in {mig_ms:.1f} "
+        f"ms (host wall: stage, warm, reshard, commit); moved rows "
+        f"{moved}; one reshard of B and C by device copies "
+        f"{copy_ms:.3f} ms (CUDA events); the slabs reassemble to the "
+        f"served B and C; C at both P == a cold compile's; "
+        f"dropped_waves 0")
+    return fleet
+
+
+def serving_phase(args, card, a_u, a_p, b_host) -> dict:
+    """Phase 9: serving waves and the fleet. Returns the kernel rows of
+    the ``fleet`` path (one call of each fleet tenant's handle, replayed
+    against the plain versions)."""
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    b = torch.from_numpy(b_host).cuda()
+    cold = ColdCompiles(b, b_host)
+    a_r = rewire(a_p, 0.15, seed=6)
+    ops.reset_launch_counts()
+    memory = wave_serving(args, card, a_p, a_r, b_host, cold)
+    fleet, fleet_memory = fleet_serving(args, card, a_p, a_r, b, b_host,
+                                        cold)
+    cross = cross_size_fleet(args, card, a_u, b, cold)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"serving launches (the phase's counted run): "
+        f"{json.dumps(launches)}")
+    kernels = ("gather_rows", "gather_rows_scaled", "scatter_add_rows",
+               "bsr_spmm", "bsr_spmm_acc")
+    if min(launches[k] for k in kernels) < 1:
+        raise AssertionError(f"serving: a kernel was not launched: "
+                             f"{launches}")
+    memory.update({f"fleet {n}": v for n, v in fleet_memory.items()})
+    memory["cross-size u"] = cross.tenants["u"].session.handle().stats()[
+        "total_allocation_size"]
+    log(f"serving first-call memory [{card}]: "
+        + ", ".join(f"{k} {v} B ({v / 2 ** 20:.2f} MiB)"
+                    for k, v in memory.items()))
+
+    # the kernels of one call of each fleet tenant's handle
+    b_lt = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (FLEET_LIGHT["m"], N_COLS)).astype(np.float32)).cuda()
+    handles = [(fleet.tenants["h1"], b), (fleet.tenants["h2"], b),
+               (fleet.tenants["lt"], b_lt), (cross.tenants["u"], b)]
+    rec = record_kernel_calls(lambda: [t.session.handle()(x)
+                                       for t, x in handles])
+    missing = [k for k in kernels if not rec[k]]
+    if missing:
+        raise AssertionError(f"serving: no {missing} call recorded")
+    rows = replay_paths({k: {"fleet": (rec, launches)} for k in kernels})
+    del rec, handles, fleet, cross, cold, b, b_lt
+    log(f"phase 9 serving: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quick", action="store_true",
@@ -2807,6 +3295,7 @@ def main() -> int:
         gat_forward, gat_from_numpy, normalize_adjacency,
     )
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2828,6 +3317,7 @@ def main() -> int:
     b_host = rng.standard_normal((m, N_COLS), dtype=np.float32)
     b = torch.from_numpy(b_host).cuda()
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     # 2. uniform cell: plan, then record + replay the kernels ------------
     t0 = time.perf_counter()
     a_u = random_sparse(m, m, nnz / m ** 2, seed=0)
@@ -2966,12 +3456,14 @@ def main() -> int:
          sd_calls, paths, k1k2, coo_paths)
     gc.collect()
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     # 5b. the hierarchical tier: hier="auto" on the same matrices ---------
     hier_rows, hu, hph, hgf, hier_fused_fn = hier_phase(
         args, a_u, a_p, adj, b, b_host, model, feats, want, x128, y128)
     for k, extra in hier_rows.items():
         per_kernel[k].update(extra)
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     # 5c. the replicated tier: replicate="auto" on the SpMM matrices ------
     repl_rows, (hru, hrp) = repl_phase(args, a_u, a_p, b, b_host)
     for k, extra in repl_rows.items():
@@ -2979,6 +3471,7 @@ def main() -> int:
     del repl_rows
     gc.collect()
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     # 5d. training: grads through every SpMM handle, GCN and GAT cells --
     # (each training cell resets the peak to report its own)
     peak_before_5d = peak_allocated()
@@ -2993,6 +3486,7 @@ def main() -> int:
     del train_rows
     gc.collect()
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     # 6. timing --------------------------------------------------------
     # each hier and replicated cell beside the flat handle on the same
     # matrix, in turns
@@ -3035,6 +3529,7 @@ def main() -> int:
         f"{max(peak_before_5d, peak_allocated()) / 2 ** 30:.2f}"
         f" GiB")
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     # 7. LM serving, after the SpMM phases' tensors are released ---------
     del (h, hp, hf, model, feats, b, gat_out, vals, x128, y128, c_coo,
          c_bsr, c_hit, c_p, c_p2, hu, hph, hgf, hier_fused_fn, cells,
@@ -3050,11 +3545,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     # 8. the lifecycle: measured autotuning, the cache, donation, the
     #    session ladder, drift, the bundle, faults --------------------------
     for k, extra in lifecycle_phase(args, card, a_u, a_p, b_host).items():
         per_kernel[k].update(extra)
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    # 9. serving waves and the fleet, after phase 8's tensors are released
+    for k, extra in serving_phase(args, card, a_u, a_p, b_host).items():
+        per_kernel[k].update(extra)
+
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     rows = [kernel_summary(k, per_kernel[k], card) for k in KERNELS]
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")

@@ -19,6 +19,9 @@ torch version beside it.
     hm = compile_spmm(a, 8, measure=True)   # timed candidates, cached
     s = SpmmSession.build(a, 8, p_ladder=(4, 8))   # ladder + lifecycle
     s.on_resize(4); s.maybe_replan(a_new)
+
+    server = SpmmWaveServer(s, max_batch=2)   # waves across swaps
+    fleet = SpmmFleet(Topology.local(8), group_sizes=(4, 4))  # tenants
 """
 from .core.api import (
     DistSpmm, SpmmConfig, compile_fused, compile_sddmm, compile_spmm,
@@ -28,10 +31,16 @@ from .distributed.topology import Topology, TopologyError
 from .robustness import (
     Fault, FaultPlan, InjectedFault, NumericalFault,
 )
+from .serving import (
+    ReshardSpec, SpmmFleet, SpmmRequest, SpmmWaveServer, SpmmWaveStats,
+)
+from .train import ElasticController, MeshPlan, propose_mesh
 
 # stamped into autotune cache keys (core.autotune)
 __version__ = "0.1.0"
 
 __all__ = ["DistSpmm", "SpmmConfig", "compile_spmm", "compile_sddmm",
            "compile_fused", "SpmmSession", "Topology", "TopologyError",
-           "Fault", "FaultPlan", "InjectedFault", "NumericalFault"]
+           "Fault", "FaultPlan", "InjectedFault", "NumericalFault",
+           "SpmmRequest", "SpmmWaveServer", "SpmmWaveStats", "SpmmFleet",
+           "ReshardSpec", "ElasticController", "MeshPlan", "propose_mesh"]

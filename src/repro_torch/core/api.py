@@ -523,9 +523,10 @@ class DistSpmm:
         b_dev = self._as_operand(b)
         fn = self._executable(b_dev.shape[1], b_dev.dtype, name)
         self.comm.reset()
-        if self._donate and b_dev is not b and not b_dev.requires_grad:
+        if (self._donate and not _callers_memory(b_dev, b)
+                and not b_dev.requires_grad):
             # the handle's private copy: hand the executor the only
-            # reference, so it can release B after its last read
+            # reference, so it can reuse B's storage after its last read
             held = [b_dev]
             del b_dev
             return fn(held, self.comm)
@@ -1152,6 +1153,16 @@ def _operand_dtype(x) -> torch.dtype:
     if isinstance(x, torch.Tensor):
         return x.dtype
     return torch.from_numpy(np.empty(0, np.asarray(x).dtype)).dtype
+
+
+def _callers_memory(b_dev: torch.Tensor, b) -> bool:
+    """Whether the operand tensor ``b_dev`` made from ``b`` is the caller's
+    own memory: ``b`` itself, or, on the CPU, a tensor over the caller's
+    numpy array. Anything else is a copy only the handle holds."""
+    if isinstance(b, torch.Tensor):
+        return b_dev is b
+    return (b_dev.device.type == "cpu" and isinstance(b, np.ndarray)
+            and b_dev.data_ptr() == b.__array_interface__["data"][0])
 
 
 def _width(x) -> int:

@@ -719,23 +719,27 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
     P_ = plan.P
     be, pieces = plan.resolve_backend(backend)
     sched = plan.schedule
+    donated = isinstance(b_global, list)
     comm, b_loc = _rank_blocks(plan, comm, _operand(b_global))
     del b_global  # from here on b_loc holds B; dropped after its last read
     n = b_loc.shape[2]
 
+    # Every read of B comes first: ②'s partial C rows (row-based, Fig.
+    # 1(c): computed against the LOCAL B block), ①'s pack, and ③'s
+    # diagonal last (``_diag``). The collectives keep their order (B rows
+    # first), and each compute its addition chain.
     if sched.kind == "single":
-        # ① pack + exchange B rows (column-based comm, Fig. 1(b))
-        send_b = pack_rows_op(b_loc, plan.b_send_idx)  # [P, P, max_b, N]
-        recv_b = comm.all_to_all(send_b)
-
-        # ② remote computation (row-based, Fig. 1(c)): partial C rows for
-        #    every other rank, against the LOCAL B block
         partials = be.compute(pieces["rowp"], b_loc, P_ * plan.max_c)
+        send_b = pack_rows_op(b_loc, plan.b_send_idx)  # [P, P, max_b, N]
+        c = _diag(be, pieces["diag"], b_loc, m_local, donated)
+        del b_loc
+
+        # ① exchange B rows (column-based comm, Fig. 1(b)); ② exchange
+        #   the partials
+        recv_b = comm.all_to_all(send_b)
         recv_c = comm.all_to_all(partials.reshape(P_, P_, plan.max_c, n))
 
-        # ③ local compute: diagonal + column-covered remote nonzeros
-        c = be.compute(pieces["diag"], b_loc, m_local)
-        del b_loc
+        # ③ local compute: column-covered remote nonzeros
         c = c + be.compute(pieces["colp"],
                            recv_b.reshape(P_, P_ * plan.max_b, n), m_local)
 
@@ -746,22 +750,21 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
     elif not overlap:
         b_segments: Segments = plan.meta["b_segments"]
         c_segments: Segments = plan.meta["c_segments"]
-
-        # ① pack once, then one ppermute per scheduled shift — each padded
-        #   only to its round's slot ceiling
+        # partial C rows straight into the bucketed send space; B packed
+        # once
+        partials = be.compute(pieces["rowp"], b_loc, plan.meta["R_c"])
         send_b = pack_rows_op(b_loc, plan.b_send_idx)  # [P, R_b, N]
+        c = _diag(be, pieces["diag"], b_loc, m_local, donated)
+        del b_loc
+
+        # ① one ppermute per scheduled shift — each padded only to its
+        #   round's slot ceiling; ② the partials, shift by shift
         recv_b = _exchange_segments(b_segments, comm.shift, plan.meta["R_b"],
                                     _slice_fetch(send_b), send_b)
-
-        # ② partial C rows, computed straight into the bucketed send
-        #   space, then exchanged shift by shift
-        partials = be.compute(pieces["rowp"], b_loc, plan.meta["R_c"])
         recv_c = _exchange_segments(c_segments, comm.shift, plan.meta["R_c"],
                                     _slice_fetch(partials), partials)
 
         # ③ local compute against the bucketed receive space
-        c = be.compute(pieces["diag"], b_loc, m_local)
-        del b_loc
         c = c + be.compute(pieces["colp"], recv_b, m_local)
 
         # ④ aggregation of received partials
@@ -770,21 +773,20 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
         _need_overlap_layouts(plan, "flat_exec_arrays")
         b_segments = plan.meta["b_segments"]
         c_segments = plan.meta["c_segments"]
-
-        # ① pack once; every B round is issued up front
+        # ② per-round partial C rows, one rowp slice per round
+        partials = [be.compute(pieces[f"rowp@{i}"], b_loc, slot)
+                    for i, (_, _, slot) in enumerate(c_segments)]
         send_b = pack_rows_op(b_loc, plan.b_send_idx)  # [P, R_b, N]
+        c = _diag(be, pieces["diag"], b_loc, m_local, donated)
+        del b_loc
+        acc = torch.zeros_like(c)
+
+        # ① every B round is issued up front; ② each partial round
+        #   departs on its own shift (and its unsent slice is released)
         recv_b = [comm.shift(send_b[:, off:off + slot], d)
                   for d, off, slot in b_segments]
-
-        # ② per-round partial-C compute feeding its own round: round i
-        #   departs after only ITS rowp slice ran
-        recv_c = [comm.shift(be.compute(pieces[f"rowp@{i}"], b_loc, slot), d)
-                  for i, (d, off, slot) in enumerate(c_segments)]
-
-        # ③ diagonal block
-        c = be.compute(pieces["diag"], b_loc, m_local)
-        acc = b_loc.new_zeros((P_, m_local, n))
-        del b_loc
+        partials.reverse()
+        recv_c = [comm.shift(partials.pop(), d) for d, _, _ in c_segments]
 
         # ④ consume B rounds in order: cumulative receive prefix +
         #   segment-accumulating compute (bit-identical to staged)
@@ -793,6 +795,18 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
         # ⑤ per-round aggregation of received partials
         c = _aggregate_rounds(c, recv_c, plan.seg_agg)
     return c.reshape(P_ * m_local, n)
+
+
+def _diag(be: LocalSpmmBackend, piece: Dict[str, torch.Tensor],
+          b_loc: torch.Tensor, m_local: int, donated: bool) -> torch.Tensor:
+    """③'s diagonal block, B's last read. With B donated (square A) and
+    a backend that can (``compute_over``), C's accumulator takes B's own
+    storage once the gather has read it, the counterpart of XLA's
+    input/output alias: the call then never holds B and C at once."""
+    over = getattr(be, "compute_over", None)
+    if donated and over is not None and b_loc.shape[1] == m_local:
+        return over(piece, b_loc)
+    return be.compute(piece, b_loc, m_local)
 
 
 def _need_overlap_layouts(plan, arrays_fn: str) -> None:
@@ -866,21 +880,28 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
     max_bg, max_cg = plan.max_bg, plan.max_cg
     be, pieces = plan.resolve_backend(backend)
     sched = plan.schedule
+    donated = isinstance(b_global, list)
     comm, b_loc = _rank_blocks(plan, comm, _operand(b_global), groups=G)
     del b_global  # from here on b_loc holds B; dropped after its last read
     n = b_loc.shape[2]
 
+    # Every read of B comes first, as in ``flat_spmm``: the row-based
+    # partials, the pack of de-duplicated B rows, and the diagonal last
+    # (``_diag``); the collectives keep the order of Alg. 1.
+    partials = be.compute(pieces["rowp"], b_loc, G * L * max_cg)
+    send_bg = pack_rows_op(b_loc, plan.b_group_send_idx)
+    c = _diag(be, pieces["diag"], b_loc, m_local, donated)
+    del b_loc
+
     if sched.kind == "single":
         # Stage I.① (inter-group, column-based): ship de-duplicated B
         # rows once per destination group. Pairs (g, l) <-> (g', l).
-        send_bg = pack_rows_op(b_loc, plan.b_group_send_idx)  # [P, G, max_bg, N]
-        recv_bg = comm.group_all_to_all(send_bg)
+        recv_bg = comm.group_all_to_all(send_bg)  # send [P, G, max_bg, N]
 
-        # Stage I.① (intra-group, row-based): compute partials and
-        # pre-aggregate within the source group via reduce-scatter; each
-        # member ends up owning the aggregates for destinations that share
-        # its local rank (the "representative" of Fig. 6(e)).
-        partials = be.compute(pieces["rowp"], b_loc, G * L * max_cg)
+        # Stage I.① (intra-group, row-based): pre-aggregate the partials
+        # within the source group via reduce-scatter; each member ends up
+        # owning the aggregates for destinations that share its local
+        # rank (the "representative" of Fig. 6(e)).
         agg = comm.local_psum_scatter(
             partials.reshape(P_, G, L * max_cg, n), dim=1)  # [P, G, max_cg, N]
 
@@ -892,8 +913,6 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         # rows inside the destination group: [P, L(src), G(src), max_bg, N]
         all_bg = comm.local_all_gather(recv_bg)
 
-        c = be.compute(pieces["diag"], b_loc, m_local)
-        del b_loc
         c = c + be.compute(pieces["colp"],
                            all_bg.reshape(P_, L * G * max_bg, n), m_local)
         c = scatter_add_rows_exec_op(
@@ -904,7 +923,6 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
 
         # Stage I.① inter-group B fetch, one ppermute per group shift;
         # shift 0 (own group) is a wire-free local slice
-        send_bg = pack_rows_op(b_loc, plan.b_group_send_idx)  # [P, R_bg, N]
         recv_bg = _exchange_segments(
             plan.meta["bg_segments"], comm.group_shift, R_bg,
             _slice_fetch(send_bg), send_bg, local=plan.meta["local_b"])
@@ -912,7 +930,6 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         # Stage I.① intra-group pre-aggregation: rowp rows are laid out
         # shift-major — (dg·L + ld)·max_cg + slot — so the aggregated
         # tile for group shift dg sits at agg[:, dg]
-        partials = be.compute(pieces["rowp"], b_loc, G * L * max_cg)
         agg = comm.local_psum_scatter(
             partials.reshape(P_, G, L * max_cg, n), dim=1)  # [P, G, max_cg, N]
 
@@ -927,8 +944,6 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         all_bg = comm.local_all_gather(recv_bg)  # [P, L, R_bg, N]
         gathered = _hier_gathered(all_bg, plan.meta["bg_all"], R_bg)
 
-        c = be.compute(pieces["diag"], b_loc, m_local)
-        del b_loc
         c = c + be.compute(pieces["colp"], gathered, m_local)
         c = scatter_add_rows_exec_op(c, recv_cg, plan.agg_perm,
                                      plan.agg_meta)
@@ -937,7 +952,6 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
 
         # Stage I.① inter-group B fetch, issued round by round; the
         # shift-0 own-group segment never touches the wire
-        send_bg = pack_rows_op(b_loc, plan.b_group_send_idx)  # [P, R_bg, N]
         b_segs = []
         for dg, off, slot in plan.meta["bg_all"]:
             seg = send_bg[:, off:off + slot]
@@ -946,21 +960,16 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         # Stage I.① intra-group pre-aggregation, one reduce-scatter per
         # consumed group shift — round dg's inter-group C transfer
         # departs as soon as ITS tile is aggregated
-        partials = be.compute(pieces["rowp"], b_loc, G * L * max_cg)
         partials = partials.reshape(P_, G, L * max_cg, n)
         c_segs = []
         for dg, off, slot in plan.meta["cg_all"]:
             seg = comm.local_psum_scatter(partials[:, dg], dim=0)[:, :slot]
             c_segs.append(comm.group_shift(seg, dg) if dg else seg)
 
-        # Stage II: own-group compute first, then gather and consume each
-        # B slab as it lands
-        c = be.compute(pieces["diag"], b_loc, m_local)
-        acc = b_loc.new_zeros((P_, m_local, n))
-        del b_loc
+        # Stage II: gather and consume each B slab as it lands
         gathered = (comm.local_all_gather(seg).reshape(P_, -1, n)
                     for seg in b_segs)
-        c = c + _colp_rounds(be, pieces, gathered, acc)
+        c = c + _colp_rounds(be, pieces, gathered, torch.zeros_like(c))
 
         # per-round aggregation of the inter-group partials
         c = _aggregate_rounds(c, c_segs, plan.seg_agg)

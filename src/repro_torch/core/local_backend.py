@@ -36,8 +36,9 @@ import numpy as np
 import torch
 
 from ..kernels.ops import (
-    bsr_sddmm_op, bsr_spmm_acc_op, bsr_spmm_op, coo_accumulate_rows_op,
-    coo_col_maps, coo_fold_rows, slot_targets, stack_sorted_scatter,
+    bsr_sddmm_op, bsr_spmm_acc_op, bsr_spmm_op, coo_accumulate_over_op,
+    coo_accumulate_rows_op, coo_col_maps, coo_fold_rows, slot_targets,
+    stack_sorted_scatter,
 )
 from .sparse import CSRMatrix, ell_from_csr
 
@@ -322,6 +323,13 @@ class CooBackend:
     def compute(self, piece: Piece, b: torch.Tensor, m_out: int
                 ) -> torch.Tensor:
         return coo_spmm_local(piece, b, m_out)
+
+    def compute_over(self, piece: Piece, b: torch.Tensor) -> torch.Tensor:
+        """``compute(piece, b, b.shape[1])`` in ``b``'s own storage, for a
+        donated operand at its last read (the executors' diagonal): the
+        products are gathered first, then the fold lands in ``b``."""
+        return coo_accumulate_over_op(piece["col"], piece["val"],
+                                      piece["perm"], piece["meta"], b)
 
     def compute_segment(self, piece: Piece, b_prefix: torch.Tensor,
                         acc: torch.Tensor) -> torch.Tensor:

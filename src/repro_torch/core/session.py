@@ -3,9 +3,11 @@
 Port of ``repro/core/session.py``. The port emulates P ranks on one
 device, so a ladder rung of any P can always serve there: a smaller rung
 narrows the topology, a larger one grows a local topology on the same
-device. Rung payloads are the port's ``DistSpmm.save`` dicts, and the
-bundle goes through ``checkpoint.manager.atomic_dir`` with a per-file
-digest manifest, as in the reference.
+device — except on a carved group (``Topology.split``), where a larger
+rung raises the reference's ``TopologyError``. Rung payloads are the
+port's ``DistSpmm.save`` dicts, and the bundle goes through
+``checkpoint.manager.atomic_dir`` with a per-file digest manifest, as in
+the reference.
 
 A ``DistSpmm`` handle is frozen to one (P, sparsity pattern). Real
 deployments freeze neither: fleets grow and shrink (elastic training),
@@ -227,11 +229,20 @@ class SpmmSession:
     def _topology_for(self, P: int) -> Topology:
         """The substrate rung P serves on: the ranks are emulated on the
         session's device, so a smaller rung narrows the topology and a
-        larger one grows a local topology there."""
+        larger one grows a local topology there — unless the session
+        sits on a carved group (``Topology.split``), which it must not
+        escape."""
         if P == self.topology.P:
             return self.topology
         if P < self.topology.P:
             return self.topology.narrow(P)
+        if self.topology.group is not None:
+            raise TopologyError(
+                f"rung P={P} exceeds the session's sub-topology group "
+                f"(span={self.topology.group}, P={self.topology.P}); a "
+                f"grouped session must not escape onto the wider fleet — "
+                f"migrate it to a larger group (stage_topology/"
+                f"adopt_topology) instead")
         return Topology.local(P, self.topology.device)
 
     # ----- drift + replan ----------------------------------------------

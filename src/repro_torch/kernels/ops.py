@@ -62,6 +62,7 @@ __all__ = [
     "pack_rows_op",
     "scatter_add_rows_exec_op",
     "coo_accumulate_rows_op",
+    "coo_accumulate_over_op",
     "coo_fold_rows",
     "coo_col_maps",
     "slot_targets",
@@ -374,6 +375,21 @@ def coo_accumulate_rows_op(acc: torch.Tensor, col: torch.Tensor,
     if _needs_grad(acc, val, b):
         return _CooAccumulate.apply(acc, col, val, perm, meta, b)
     return _coo_accumulate(acc, col, val, perm, meta, b)
+
+
+def coo_accumulate_over_op(col: torch.Tensor, val: torch.Tensor,
+                           perm: torch.Tensor, meta: torch.Tensor,
+                           b: torch.Tensor) -> torch.Tensor:
+    """``coo_accumulate_rows_op`` on a zero accumulator, written over
+    ``b`` [P, m, n] itself once K1 has read it: K1's scaled form gathers
+    the products, then ``b`` is zeroed and K2 folds them into it — the
+    same chain, in ``b``'s storage. For an operand the caller owns and
+    reads no more (a donated B); no gradient flows through it."""
+    if _needs_grad(val, b):
+        raise RuntimeError("coo_accumulate_over_op overwrites its operand; "
+                           "it takes no gradient")
+    products = _gather_scaled(b, col, val, b.dtype)
+    return _fold(b.zero_(), products, perm, meta)
 
 
 def _refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:

@@ -5,11 +5,14 @@ XLA reports what a compiled executable pins per device (arguments,
 outputs, temporaries, minus donated aliases). An eager torch handle has
 no compiled program to ask, so the port measures instead:
 ``executable_memory(call, device)`` runs ``call()`` once and reports the
-peak bytes the caching allocator held during the call above what it held
-before — ``total_allocation_size`` here is "what this call allocates",
-its private operand copies included; other handles' tensors that were
-already alive are not counted. A donated operand copy that the executor
-releases after its last read lowers this figure.
+peak bytes the call's tensors requested above those requested before it
+(torch's ``requested_bytes`` statistic) — ``total_allocation_size`` here
+is "what this call allocates", its private operand copies included;
+other handles' tensors that were already alive are not counted. Like
+XLA's figure it counts the program's own bytes: the caching allocator's
+rounding, and the spare bytes of a cached block it hands out whole,
+depend on what earlier calls freed, and are left out. A donated operand
+copy, reused for C after its last read, lowers this figure.
 
 Measuring resets torch's peak statistic (``reset_peak_memory_stats``);
 ``peak_allocated`` / ``reset_peak`` carry the peak across those resets,
@@ -20,6 +23,7 @@ without memory stats.
 """
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, Tuple
 
 import torch
@@ -39,23 +43,28 @@ def _index(device) -> int:
 
 def executable_memory(call: Callable[[], Any], device
                       ) -> Tuple[Any, Dict[str, int]]:
-    """``(call(), profile)``: the peak bytes ``call`` allocates on
-    ``device`` (``total_allocation_size``), with the allocator's peak and
-    the bytes already allocated before it (``peak_allocated_bytes``,
-    ``allocated_before_bytes``); ``profile`` is ``{}`` off the card."""
+    """``(call(), profile)``: the peak bytes ``call``'s tensors request on
+    ``device`` above those requested before it (``total_allocation_size``),
+    with that peak and the bytes requested before it
+    (``peak_requested_bytes``, ``requested_before_bytes``); ``profile``
+    is ``{}`` off the card."""
     device = torch.device(device)
     if device.type != "cuda":
         return call(), {}
     idx = _index(device)
-    before = torch.cuda.memory_allocated(idx)
+    # earlier work's cyclic garbage, freed mid-call, would offset the
+    # call's own bytes: collect it first
+    gc.collect()
+    key = "requested_bytes.all."
+    before = torch.cuda.memory_stats(idx)[key + "current"]
     _carried[idx] = max(_carried.get(idx, 0),
                         torch.cuda.max_memory_allocated(idx))
     torch.cuda.reset_peak_memory_stats(idx)
     out = call()
-    peak = torch.cuda.max_memory_allocated(idx)
+    peak = torch.cuda.memory_stats(idx)[key + "peak"]
     return out, {"total_allocation_size": int(peak - before),
-                 "peak_allocated_bytes": int(peak),
-                 "allocated_before_bytes": int(before)}
+                 "peak_requested_bytes": int(peak),
+                 "requested_before_bytes": int(before)}
 
 
 def peak_allocated(device=None) -> int:

@@ -5,9 +5,10 @@ variables and their JSON are the reference's, so one ``REPRO_FAULTS``
 value drives both packages; ``maybe_poison_array`` poisons a torch
 tensor (a clone), and the fire sites this package has so far are
 ``autotune_cache`` (``core.autotune``), ``atomic_dir``
-(``checkpoint.manager``), ``operand`` (``core.session``) and ``output``
-(``DistSpmm`` calls). The worker, wave and migration sites come with
-the serving and multi-process slices.
+(``checkpoint.manager``), ``operand`` (``core.session``), ``output``
+(``DistSpmm`` calls), ``wave`` (``serving.scheduler.SpmmWaveServer``)
+and ``fleet_migrate_fail`` (``serving.fleet.SpmmFleet.migrate``). The
+worker sites come with the multi-process slice.
 
 At 128-GPU scale worker loss, slow links, torn writes and poisoned
 inputs are routine events; a fault-tolerance story that is never

@@ -365,7 +365,10 @@ def test_donation_never_changes_c(cfg, power_law_matrix, monkeypatch):
         return fn(ex, b, *args, **kw)
 
     monkeypatch.setattr(t_api, name, spy)
-    b = _b(seed=5)
+    # a non-contiguous view: each call makes a private contiguous copy,
+    # which a donating handle hands over (and a coo diagonal writes C into)
+    b = torch.from_numpy(_b(seed=5).T.copy()).T
+    keep = b.clone()
     outs = [compile_spmm(a, P, SpmmConfig(backends=("coo", "bsr"),
                                           donate=d, **cfg), device="cpu")
             for d in (True, False)]
@@ -373,6 +376,7 @@ def test_donation_never_changes_c(cfg, power_law_matrix, monkeypatch):
     assert donated == [True, True, False, False]
     assert torch.equal(cs[0][0], cs[1][0]) and torch.equal(cs[0][1],
                                                            cs[1][1])
+    assert torch.equal(b, keep)
 
 
 def test_donation_spares_the_callers_tensor(power_law_matrix, monkeypatch):
@@ -395,6 +399,29 @@ def test_donation_spares_the_callers_tensor(power_law_matrix, monkeypatch):
     assert donated == [False, True]
     assert torch.equal(b, keep) and torch.equal(bt, keep)
     assert torch.equal(c1, c2) and torch.equal(h(b), c1)
+
+
+def test_donation_spares_a_callers_numpy_array(power_law_matrix,
+                                               monkeypatch):
+    """On the CPU a numpy B becomes a tensor over the caller's own memory:
+    no copy is made, so nothing is donated and the array keeps its
+    values, though a donated coo diagonal writes C over its operand."""
+    a = _port_csr(power_law_matrix())
+    donated = []
+    orig = dist_spmm.flat_spmm
+
+    def spy(ex, b, *args, **kw):
+        donated.append(isinstance(b, list))
+        return orig(ex, b, *args, **kw)
+
+    monkeypatch.setattr(t_api, "flat_spmm", spy)
+    h = compile_spmm(a, P, SpmmConfig(schedule=2), device="cpu")
+    b = _b(seed=7)
+    keep = b.copy()
+    c = h(b)
+    assert donated == [False]
+    np.testing.assert_array_equal(b, keep)
+    assert torch.equal(h(torch.from_numpy(b.T.copy()).T.contiguous()), c)
     bg = torch.from_numpy(_b(seed=6).T.copy()).requires_grad_(True).T
     h(bg)                          # a B that requires grad: never donated
     assert donated[-1] is False

@@ -1233,34 +1233,39 @@ def test_measured_autotune_times_real_launches_and_replays(tmp_path,
                                rtol=2e-4, atol=2e-4)
 
 
-# (matrix, config, whether the first call's peak falls after B's last read)
+# (matrix, config, width of B). Each body reads B first (partials, pack,
+# then the diagonal, whose coo accumulator takes a donated B's storage),
+# so donation lowers the first call's allocation wherever its peak falls.
 DONATION_CASES = {
     # chip_smoke.py --quick's uniform cell: the peak is in the colp rounds
     "uniform": (lambda sp: sp.random_sparse(16384, 16384, 7 / 16384, seed=0),
-                dict(), True),
-    # a power-law matrix's rowp products peak while B is still read: the
-    # figures then differ only by the allocator's reuse of freed blocks
+                dict(), 128),
+    # a power-law matrix: the peak is in the diagonal's products
     "power-law-staged": (
         lambda sp: sp.power_law_sparse(4096, 4096, 40000, 1.2, seed=3),
-        dict(schedule=2, overlap=False), False),
+        dict(schedule=2, overlap=False), 128),
     "hier": (lambda sp: sp.power_law_sparse(4096, 4096, 40000, 1.2, seed=3),
-             dict(hier=(2, 4), schedule=1, overlap=True), False),
+             dict(hier=(2, 4), schedule=1, overlap=True), 128),
+    # the reference's own pin (tests/test_autotune.py, buffer donation)
+    "reference": (lambda sp: sp.power_law_sparse(64, 64, 400, 1.2, seed=2),
+                  dict(backends=("coo",), schedule=4, overlap=False,
+                       n_dense_hint=16), 16),
 }
 
 
 @requires_cuda
 @pytest.mark.parametrize("case", list(DONATION_CASES))
 def test_donation_lowers_memory_and_keeps_bits(case):
-    """Donation releases the handle's private copy of B after its last
-    read: the first call's allocation drops where the call's peak comes
-    later, and C keeps its bits."""
+    """Donation hands the executor the handle's private copy of B: the
+    first call's allocation drops by at most B's bytes, strictly, and C
+    keeps its bits."""
     import dataclasses
 
     import repro_torch as T
     from repro_torch.core import sparse
     from repro_torch.core.api import materialize_payload
 
-    make, cfg, strictly_lower = DONATION_CASES[case]
+    make, cfg, n = DONATION_CASES[case]
     a = make(sparse)
     hd = T.compile_spmm(a, 8, T.SpmmConfig(**cfg))
     payload = hd.save_payload()
@@ -1268,15 +1273,14 @@ def test_donation_lowers_memory_and_keeps_bits(case):
     hu = materialize_payload(payload, 8)
     assert hd.stats()["donated_buffers"] == ("b",)
     assert hu.stats()["donated_buffers"] == ()
-    b = np.random.default_rng(4).standard_normal((a.shape[1], 128)).astype(
+    b = np.random.default_rng(4).standard_normal((a.shape[1], n)).astype(
         np.float32)
     cd, cu = hd(b), hu(b)  # first calls, on a host B: the copy is private
     assert torch.equal(cd, cu)
     md = hd.stats()["total_allocation_size"]
     mu = hu.stats()["total_allocation_size"]
     assert md > 0 and mu > 0
-    if strictly_lower:
-        assert md < mu and mu - md <= b.nbytes
+    assert md < mu and mu - md <= b.nbytes
     # a caller's tensor on the card is never written nor consumed
     bc = _cuda(b)
     keep = bc.clone()
@@ -1308,3 +1312,73 @@ def test_values_refresh_keeps_bits_of_a_cold_compile():
     for be in ("coo", "bsr"):
         assert torch.equal(h(b, backend=be), cold(b, backend=be))
     assert h.cache_info()["keys"] == keys
+
+
+@requires_cuda
+def test_wave_server_outputs_stay_on_the_card():
+    """Waves on a host B: outputs are tensors on the card, equal to cold
+    compiles on the rung they were served on, through a retried wave
+    that degrades the ladder."""
+    import repro_torch as T
+    from repro_torch.core import sparse
+    from repro_torch.robustness import Fault, inject
+
+    a = sparse.power_law_sparse(1024, 1024, 12000, 1.2, seed=5)
+    cfg = T.SpmmConfig(hier="auto")
+    s = T.SpmmSession.build(a, 8, cfg, p_ladder=(4, 8))
+    server = T.SpmmWaveServer(s, max_batch=2, backoff=0.0)
+    b = np.random.default_rng(8).standard_normal((1024, 32)).astype(
+        np.float32)
+    reqs = [T.SpmmRequest(rid=i, b=b) for i in range(3)]
+    for r in reqs:
+        server.submit(r)
+    with inject([Fault(kind="wave_error", site="wave", times=2)]):
+        server.run()
+    st = server.stats
+    assert (st.waves, st.served, st.failed_waves, st.retried_waves,
+            st.degraded_rungs, st.dropped_waves) == (2, 3, 2, 1, 1, 0)
+    assert s.current_P == 4
+    cold4 = T.compile_spmm(a, 4, cfg)(b)
+    for r in reqs:
+        assert r.output.is_cuda and torch.equal(r.output, cold4)
+    s.on_resize(8)
+    r8 = T.SpmmRequest(rid=3, b=b)
+    server.submit(r8)
+    server.run()
+    assert torch.equal(r8.output, T.compile_spmm(a, 8, cfg)(b))
+    assert server.stats.swaps == 2 and server.stats.dropped_waves == 0
+
+
+@requires_cuda
+def test_fleet_cross_size_migration_on_the_card():
+    """A bsr tenant migrates between groups of 4 and 2 ranks: the resident
+    slabs are resharded by device copies and reassemble to the served B
+    and C, and serving at the new P equals a cold compile."""
+    import repro_torch as T
+    from repro_torch.core import sparse
+
+    a = sparse.random_sparse(2048, 2048, 8 / 2048, seed=1)
+    cfg = T.SpmmConfig(backends=("bsr", "coo"))
+    fleet = T.SpmmFleet(T.Topology.local(8), (4, 2), config=cfg)
+    fleet.admit("t", a, p_ladder=(2, 4))
+    dst = 1 - fleet.placements()["t"]
+    b = _cuda(np.random.default_rng(9).standard_normal((2048, 64))
+              .astype(np.float32))
+    fleet.submit("t", b)
+    (c_old,) = fleet.serve()["t"]
+    tenant = fleet.tenants["t"]
+    old_P = tenant.session.current_P
+    assert c_old.is_cuda and torch.equal(c_old,
+                                         T.compile_spmm(a, old_P, cfg)(b))
+    assert fleet.migrate("t", dst)
+    move = [e for e in fleet.events if e["action"] == "migrate"][-1]
+    assert move["b_rows"] > 0 and move["c_rows"] > 0
+    assert all(s.is_cuda for s in tenant.resident_b + tenant.resident_c)
+    assert torch.equal(torch.cat(tenant.resident_b), b)
+    assert torch.equal(torch.cat(tenant.resident_c), c_old)
+    new_P = tenant.session.current_P
+    assert new_P != old_P
+    fleet.submit("t", b)
+    (c_new,) = fleet.serve()["t"]
+    assert torch.equal(c_new, T.compile_spmm(a, new_P, cfg)(b))
+    assert tenant.server.stats.dropped_waves == 0
