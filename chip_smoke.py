@@ -154,7 +154,30 @@ handle. Phases, each of which raises on a failed check:
    between groups of 2 and 4 ranks (moved rows == the reference's, the
    resharded slabs reassemble to the served B and C, C at both P == a
    cold compile's). The K1–K4 calls of one call of each fleet tenant are
-   replayed against the plain versions (path ``fleet``).
+   replayed against the plain versions (path ``fleet``);
+10. expert-parallel LM, run right after phase 7 on its weights:
+   OLMoE-1B-7B (``capacity_factor`` 1.25 as published, ``--quick``:
+   olmoe-smoke) through ``_moe_ep`` with SHIRO's dedup on an emulated
+   (data 2, model 4) grid (``make_context(make_mesh((2, 4), ("data",
+   "model")))``): a prefill of 8 × 128 tokens (the dropped assignments
+   per layer printed; the log's activation rows == 2 exchanges ×
+   Dsz·M·M·cap a layer; K1 2·16, K2 2·16, K6 33 launches per forward
+   and per decode step) and ``ContinuousBatcher(..., dist=)``
+   serving phase 7's 12 requests twice with identical tokens; on a
+   float32 copy of the first 2 layers: EP == dense and shiro == classic
+   within 2e-4 at capacity 8.0 (no drops; the dedup fills fewer dispatch
+   rows), ``decode_step`` == ``forward`` and ``kv_seq_shard`` decode ==
+   unsharded decode within 2e-4, the model ranks' outputs and a repeat
+   bit-identical, and at capacity 1.25 the card == the port's CPU run
+   within 2e-4 with equal drops; then ``dispatch_session(cfg, 1024, 8)``
+   with decisions ``EXPECT_DISPATCH``, ``maybe_replan`` of a seed-1
+   routing == the reference's (``EXPECT_SESSION_REPLAN``, then
+   ``EXPECT_SESSION_DRIFTED``) and C within 2e-4 of the dense dispatch
+   before and after. Prefill, decode-step (CUDA events, host wall) and
+   batcher tokens/s beside the dense path's. Every K1 / K2 / K6 call of
+   one prefill and one decode step is checked against its plain version
+   as it runs (paths ``ep_prefill``, ``ep_decode``), and the session
+   handle's K1 / K2 calls are replayed (path ``dispatch_session``).
 
 It prints the card's name and power limit, then one JSON line of kernel
 rows, then ``{"ok": true, "device": {...}}`` as its last line. Without a
@@ -882,7 +905,10 @@ class KernelTally:
         self.bound_ms += b_ms
         self.by[b_by] += b_ms
 
-    def row(self, launches):
+    def row(self, launches, busy: bool = True):
+        """The kernel's JSON row; ``busy=False`` leaves out K6's profiler
+        busy times (phase 10's streamed calls: in one run the profiler
+        missed 7 of their K6 records in each of three sessions)."""
         name, runs = self.name, list(self.runs)
         if not self.n:
             raise AssertionError(f"{name}: no call recorded on the main path")
@@ -899,6 +925,7 @@ class KernelTally:
             row["pack_plus_multiply_ms"] = self.pair_ms
         if name == "rmsnorm":
             row["max_abs_err_vs_oracle"] = self.oracle_err
+        if name == "rmsnorm" and busy:
             row["kernel_busy_ms"] = kernel_busy_ms(runs, "rmsnorm_kernel")
             # the same launches all on the last call's input, which then
             # stays in L2: the busy time before each call's replay kept its
@@ -2263,10 +2290,11 @@ def check_finite(t: torch.Tensor, shape, what: str) -> None:
                              f"{tuple(shape)}) or non-finite values")
 
 
-def lm_serving(args, card: str, dev: str = "cuda") -> dict:
-    """Phase 7 on ``dev``. Returns kernel paths for the JSON rows: K6's
+def lm_serving(args, card: str, dev: str = "cuda"):
+    """Phase 7 on ``dev``. Returns (kernel paths for the JSON rows: K6's
     prefill, decode-step and float32-copy paths, and K1/K2's dispatch
-    path."""
+    path; the model's config; its weights, which phase 10 serves
+    again)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.dist_spmm import flat_spmm
     from repro_torch.kernels import ops
@@ -2374,7 +2402,7 @@ def lm_serving(args, card: str, dev: str = "cuda") -> dict:
     p32 = {k: v for k, v in params.items() if k != "layers"}
     p32["layers"] = TT._tree_map(lambda t: t[:n_l], params["layers"])
     p32 = TT._tree_map(lambda t: t.float(), p32)
-    del params, logits, cache
+    del logits, cache
     gc.collect()
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
         LM_F32["batch"], LM_F32["tokens"])).astype(np.int32)).to(dev)
@@ -2456,7 +2484,292 @@ def lm_serving(args, card: str, dev: str = "cuda") -> dict:
         "scatter_add_rows": {"dispatch": kernel_row(
             "scatter_add_rows", disp_calls["scatter_add_rows"],
             disp_launches["scatter_add_rows"])},
-    }
+    }, cfg, params
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the expert-parallel LM on an emulated (data, model) grid
+# ---------------------------------------------------------------------------
+
+EP_GRID = ((2, 4), ("data", "model"))  # the reference's moe_serve mesh
+EP_DISPATCH_DRIFT = 1  # the seed of the routing snapshot maybe_replan takes
+# the reference's dispatch_session(get_config("olmoe-1b-7b"), 1024, 8):
+# its first rung's decisions are EXPECT_DISPATCH; maybe_replan(
+# dispatch_matrix(cfg, 1024, 8, seed=1)) returns (1.0, True) (the slot
+# count moved: the pattern's shape changed) and swaps to these (JAX
+# package, CPU run)
+EXPECT_SESSION_REPLAN = (1.0, True)
+EXPECT_SESSION_DRIFTED = dict(
+    EXPECT_DISPATCH, shape=(8488, 1024),
+    modeled_time_schedule=5.2972799999999995e-05, volume_rows=4853,
+    volume_rows_padded=6440, volume_rows_padded_single=7360)
+
+
+def _dropped(rec) -> list:
+    return [int(r["dropped"]) for r in rec]
+
+
+def ep_phase(args, card: str, cfg, params, dev: str = "cuda") -> dict:
+    """Phase 10: phase 7's model through the expert-parallel MoE path
+    (``_moe_ep``) on an emulated (data 2, model 4) grid. Returns kernel
+    paths for the JSON rows: K1 / K2 / K6 on the EP prefill and decode
+    step, K1 / K2 on ``dispatch_session``'s handle."""
+    from repro_torch.core.dist_spmm import flat_spmm
+    from repro_torch.distributed.context import make_context
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+
+    t_phase = time.perf_counter()
+    dist = make_context(make_mesh(*EP_GRID))
+    M, dsz = dist.model_size, dist.batch_size_divisor
+    e_loc = cfg.n_experts // M
+    log(f"EP: {cfg.name} on the grid {dict(dist.mesh.shape)} (batch axes "
+        f"{dist.batch_axes}), {e_loc} experts a model rank, capacity_factor "
+        f"{cfg.capacity_factor}, shiro_dispatch {cfg.shiro_dispatch}, "
+        f"shiro_capacity {cfg.shiro_capacity}")
+    rng = np.random.default_rng(0)
+    B, S = LM_PREFILL
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)}
+    max_len = LM_SERVE["max_len"]
+    first = batch["tokens"][:, :1]
+    per_step = 2 * cfg.n_layers + 1
+    # a MoE layer: K1 packs the dispatch buffer and gathers every local
+    # expert's rows, K2 folds the combine and the return
+    want_launch = {"gather_rows": 2 * cfg.n_layers,
+                   "scatter_add_rows": 2 * cfg.n_layers, "rmsnorm": per_step}
+
+    # every kernel call of one EP prefill and one EP decode step, checked
+    # against its plain version and timed as it happens (the prefill's
+    # calls at full width would not fit on the card all at once)
+    pre_tally = stream_kernel_calls(
+        lambda: TT.forward(params, cfg, dist, batch))
+    cache = TT.init_decode_cache(cfg, B, max_len, device=dev)
+    dec_tally = stream_kernel_calls(
+        lambda: TT.decode_step(params, cfg, dist, first, cache))
+
+    # the main path, counted: one prefill, one decode step
+    dist.comm.reset()
+    ops.reset_launch_counts()
+    with TM.record_dispatch() as rec:
+        logits = TT.forward(params, cfg, dist, batch)
+    torch.cuda.synchronize()
+    pre_launches = ops.launch_counts()
+    check_finite(logits, (B, S, cfg.vocab_size), "EP prefill logits")
+    caps = {(r["cap"], r["cap_e"]) for r in rec}
+    if len(caps) != 1 or len(rec) != cfg.n_layers:
+        raise AssertionError(f"EP prefill: {len(rec)} MoE calls, "
+                             f"capacities {caps}")
+    (cap, cap_e), = caps
+    acts = [n for op, _, n in dist.comm.log if op == "all_to_all@model"]
+    if acts != [dsz * M * M * cap] * (2 * cfg.n_layers):
+        raise AssertionError(f"EP prefill: activation rows {acts[:4]}... "
+                             f"(want {2 * cfg.n_layers} x Dsz·M·M·cap = "
+                             f"{dsz * M * M * cap})")
+    log(f"EP prefill {B}x{S}: cap {cap}, cap_e {cap_e}; model-axis "
+        f"activation rows {dist.comm.rows('model')} = {2 * cfg.n_layers} "
+        f"exchanges x Dsz·M·M·cap ({dsz}·{M}·{M}·{cap}); index / gate rows "
+        f"{dist.comm.rows('model:meta')}; dispatch rows filled per layer "
+        f"{[int(r['sent']) for r in rec]}; dropped assignments per layer "
+        f"{_dropped(rec)} of {B * S * cfg.top_k}")
+    cache = TT.init_decode_cache(cfg, B, max_len, device=dev)
+    ops.reset_launch_counts()
+    step_logits, _ = TT.decode_step(params, cfg, dist, first, cache)
+    torch.cuda.synchronize()
+    dec_launches = ops.launch_counts()
+    check_finite(step_logits, (B, 1, cfg.vocab_size), "EP decode logits")
+    log(f"EP launches: prefill {json.dumps(pre_launches)}; one decode step "
+        f"(B={B}) {json.dumps(dec_launches)}")
+    for what, n in (("prefill", pre_launches), ("decode step", dec_launches)):
+        if {k: n[k] for k in want_launch} != want_launch or \
+                sum(n.values()) != sum(want_launch.values()):
+            raise AssertionError(f"EP {what}: launches {n}, want "
+                                 f"{want_launch}")
+
+    # the batcher under the grid: phase 7's 12 requests, twice
+    def serve():
+        reqs = lm_requests(Request, cfg.vocab_size)
+        batcher = ContinuousBatcher(cfg, params, LM_SERVE["max_batch"],
+                                    max_len, dist=dist)
+        for r in reqs:
+            batcher.submit(r)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = batcher.run()
+        torch.cuda.synchronize()
+        return reqs, stats, time.perf_counter() - t
+
+    ops.reset_launch_counts()
+    reqs, stats, wall = serve()
+    serve_launches = ops.launch_counts()
+    want_tokens = LM_SERVE["requests"] * LM_SERVE["new_tokens"]
+    if stats.served != LM_SERVE["requests"] or \
+            stats.generated_tokens != want_tokens:
+        raise AssertionError(f"EP batcher served {stats.served} requests and "
+                             f"{stats.generated_tokens} tokens")
+    if any(serve_launches[k] != n * stats.decode_steps
+           for k, n in want_launch.items()):
+        raise AssertionError(f"EP batcher: launches {serve_launches} over "
+                             f"{stats.decode_steps} steps")
+    reqs2, _, wall2 = serve()
+    if [r.output for r in reqs2] != [r.output for r in reqs]:
+        raise AssertionError("EP batcher: a second run gave other tokens")
+    log(f"EP batcher: served {stats.served}, {stats.generated_tokens} tokens "
+        f"in {stats.decode_steps} steps, launches "
+        f"{json.dumps(serve_launches)}; a second run gave identical outputs")
+    log(f"EP batcher tokens per second [{card}]: {want_tokens / wall:.1f} "
+        f"and {want_tokens / wall2:.1f} (host wall {wall:.3f} s, "
+        f"{wall2:.3f} s; phase 7 gives the dense path's)")
+    for fn, what in (
+            (lambda: TT.forward(params, cfg, dist, batch),
+             f"EP prefill {B}x{S}"),
+            (lambda: TT.forward(params, cfg, None, batch),
+             f"dense prefill {B}x{S}"),
+            (lambda: TT.decode_step(params, cfg, dist, first, cache),
+             f"EP decode step B={B}"),
+            (lambda: TT.decode_step(params, cfg, None, first, cache),
+             f"dense decode step B={B}")):
+        dev_ms, host_ms = median_ms(fn)
+        log(f"{what} [{card}]: median of 7: {dev_ms:.3f} ms device events, "
+            f"{host_ms:.3f} ms host wall")
+    if args.profile:
+        profile_cells([
+            (lambda: TT.forward(params, cfg, dist, batch),
+             f"EP prefill {B}x{S}"),
+            (lambda: TT.decode_step(params, cfg, dist, first, cache),
+             f"EP decode step B={B}")])
+    del logits, step_logits, cache
+
+    # a float32 copy of the first layers: EP against dense, shiro against
+    # classic, decode against forward, the card against the CPU
+    n_l = min(LM_F32["n_layers"], cfg.n_layers)
+    p32 = {k: v for k, v in params.items() if k != "layers"}
+    p32["layers"] = TT._tree_map(lambda t: t[:n_l], params["layers"])
+    p32 = TT._tree_map(lambda t: t.float(), p32)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        LM_F32["batch"], LM_F32["tokens"])).astype(np.int32)).to(dev)
+    f32 = {"tokens": toks}
+
+    def copy(**kw):
+        return dataclasses.replace(cfg, dtype="float32", n_layers=n_l, **kw)
+
+    wide = copy(capacity_factor=8.0)  # no assignment dropped
+    with TM.record_dispatch() as rec_s:
+        ep = TT.forward(p32, wide, dist, f32)
+    with TM.record_dispatch() as rec_c:
+        classic = TT.forward(p32, dataclasses.replace(
+            wide, shiro_dispatch=False), dist, f32)
+    if any(_dropped(rec_s) + _dropped(rec_c)):
+        raise AssertionError(f"capacity 8.0 dropped: {_dropped(rec_s)} "
+                             f"{_dropped(rec_c)}")
+    dense = TT.forward(p32, wide, None, f32)
+    log(f"float32 copy ({n_l} layers, {tuple(toks.shape)} tokens), "
+        f"capacity 8.0: EP vs dense: "
+        f"{check_close(ep, _host64(dense), 'EP vs dense')}")
+    log(f"  shiro vs classic: "
+        f"{check_close(ep, _host64(classic), 'shiro vs classic')}")
+    sent = [(int(a["sent"]), int(b["sent"])) for a, b in zip(rec_s, rec_c)]
+    if not all(s < c for s, c in sent):
+        raise AssertionError(f"the dedup sent no fewer rows: {sent}")
+    log(f"  dispatch rows filled per layer, shiro vs classic (the same "
+        f"routing): {sent}")
+    if not torch.equal(TT.forward(p32, wide, dist, f32), ep):
+        raise AssertionError("EP forward: a repeat differs")
+    steps = {}
+    for shard_kv in (False, True):
+        c32 = dataclasses.replace(wide, kv_seq_shard=shard_kv)
+        cache32 = TT.init_decode_cache(c32, toks.shape[0], toks.shape[1],
+                                       device=dev)
+        outs = []
+        for j in range(toks.shape[1]):
+            out, cache32 = TT.decode_step(p32, c32, dist, toks[:, j:j + 1],
+                                          cache32)
+            outs.append(out)
+        steps[shard_kv] = torch.cat(outs, dim=1)
+    log(f"  EP decode_step vs forward: "
+        f"{check_close(steps[False], _host64(ep), 'EP decode vs forward')}")
+    log(f"  kv_seq_shard decode vs unsharded decode: "
+        f"{check_close(steps[True], _host64(steps[False]), 'seq-shard')}")
+    # the M model ranks of one MoE layer, on its own input
+    lp = TT._layer(p32["layers"], 0)["moe"]
+    x = torch.randn((LM_F32["batch"], LM_F32["tokens"], cfg.d_model),
+                    generator=torch.Generator(dev).manual_seed(1),
+                    device=dev)
+    ranks = TM._moe_ep(lp, x, wide, dist, True, all_ranks=True)
+    if not all(torch.equal(ranks[m], ranks[0]) for m in range(1, M)):
+        raise AssertionError("EP: the model ranks' outputs differ")
+    log(f"  the {M} model ranks' outputs are bit-identical; a repeated "
+        f"forward is bit-identical")
+    # at the published capacity: the card against the port's CPU run
+    pub = copy()
+    with TM.record_dispatch() as rec_g:
+        got = TT.forward(p32, pub, dist, f32)
+    p_cpu = TT._tree_map(lambda t: t.cpu(), p32)
+    with TM.record_dispatch() as rec_h:
+        want = TT.forward(p_cpu, pub, dist, {"tokens": toks.cpu()})
+    if _dropped(rec_g) != _dropped(rec_h):
+        raise AssertionError(f"drops: card {_dropped(rec_g)}, CPU "
+                             f"{_dropped(rec_h)}")
+    log(f"  capacity {cfg.capacity_factor}: dropped per layer "
+        f"{_dropped(rec_g)} on the card and on the CPU; card vs CPU: "
+        f"{check_close(got, _host64(want), 'EP card vs CPU')}")
+    del p32, p_cpu, ep, classic, dense, got, want, steps, ranks
+    gc.collect()
+
+    # the drift-aware dispatch session over one prefill's routing
+    t0 = time.perf_counter()
+    sess = TM.dispatch_session(cfg, DISPATCH["tokens"], DISPATCH["M"],
+                               device=dev)
+    hd = sess.handle()
+    log(f"dispatch_session({cfg.name}, {DISPATCH['tokens']}, "
+        f"{DISPATCH['M']}) {time.perf_counter() - t0:.2f} s: {hd}")
+    if not args.quick:
+        check_decisions(hd, EXPECT_DISPATCH, {}, "dispatch_session")
+    xd = torch.from_numpy(rng.standard_normal(
+        (DISPATCH["tokens"], cfg.d_model), dtype=np.float32)).to(dev)
+    ds_calls = record_kernel_calls(
+        lambda: flat_spmm(hd.ex, xd, backend="coo", overlap=hd.overlap))
+    ops.reset_launch_counts()
+    c = hd(xd)
+    torch.cuda.synchronize()
+    ds_launches = ops.launch_counts()
+    if min(ds_launches[k] for k in ("gather_rows", "gather_rows_scaled",
+                                    "scatter_add_rows")) < 1:
+        raise AssertionError(f"dispatch_session: K1/K2 not launched: "
+                             f"{ds_launches}")
+    check_rows(hd, "dispatch_session")
+    for seed in (0, EP_DISPATCH_DRIFT):
+        a = TM.dispatch_matrix(cfg, DISPATCH["tokens"], DISPATCH["M"],
+                               seed=seed)
+        if seed:
+            got = sess.maybe_replan(a)
+            log(f"  maybe_replan(dispatch_matrix(seed={seed})): {got}")
+            if not args.quick and got != EXPECT_SESSION_REPLAN:
+                raise AssertionError(f"maybe_replan gave {got}, the "
+                                     f"reference {EXPECT_SESSION_REPLAN}")
+            if not args.quick:
+                check_decisions(sess.handle(), EXPECT_SESSION_DRIFTED, {},
+                                "dispatch_session (replanned)")
+            c = sess.handle()(xd)
+        dense = torch.zeros(a.shape, dtype=torch.float64, device=dev)
+        rows_ = np.repeat(np.arange(a.shape[0]), np.diff(a.indptr))
+        dense[torch.from_numpy(rows_).to(dev), torch.from_numpy(
+            a.indices.astype(np.int64)).to(dev)] = 1.0
+        log(f"  session C (routing seed {seed}) vs the dense dispatch in "
+            f"float64: {check_close(c, _host64(dense @ xd.double()), 'C')}")
+    log(f"phase 10 EP: {time.perf_counter() - t_phase:.1f} s")
+
+    paths = {}
+    for k in ("gather_rows", "scatter_add_rows", "rmsnorm"):
+        paths[k] = {"ep_prefill": pre_tally[k].row(pre_launches[k], False),
+                    "ep_decode": dec_tally[k].row(dec_launches[k], False)}
+    for k in ("gather_rows", "gather_rows_scaled", "scatter_add_rows"):
+        paths.setdefault(k, {})["dispatch_session"] = kernel_row(
+            k, ds_calls[k], ds_launches[k])
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -3537,11 +3850,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     reset_peak()
-    lm_paths = lm_serving(args, card)
+    lm_paths, lm_cfg, lm_params = lm_serving(args, card)
     for k, extra in lm_paths.items():
         per_kernel.setdefault(k, {}).update(extra)
     log(f"peak device memory, phase 7: "
         f"{peak_allocated() / 2 ** 30:.2f} GiB")
+
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    # 10. the expert-parallel LM on an emulated (data 2, model 4) grid,
+    #     on phase 7's weights
+    reset_peak()
+    for k, extra in ep_phase(args, card, lm_cfg, lm_params).items():
+        per_kernel[k].update(extra)
+    log(f"peak device memory, phase 10: "
+        f"{peak_allocated() / 2 ** 30:.2f} GiB")
+    del lm_params
     gc.collect()
     torch.cuda.empty_cache()
 

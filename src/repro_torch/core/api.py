@@ -99,7 +99,8 @@ from .planner import SpmmPlan, Strategy, build_plan, replicate_plan
 from .sparse import CSRMatrix, PatternSnapshot
 
 __all__ = ["SpmmConfig", "DistSpmm", "compile_spmm", "compile_sddmm",
-           "compile_fused", "make_spmm_fn"]
+           "compile_fused", "make_spmm_fn", "register_lowering_hook",
+           "unregister_lowering_hook"]
 
 _SCHEDULE_POLICIES = ("auto", "single")
 _KERNELS = ("spmm", "sddmm", "fused")
@@ -107,6 +108,22 @@ _UNSET = object()
 _SAVE_FORMAT = "repro_torch.DistSpmm"
 _SAVE_VERSION = 1
 _KNOWN_VERSIONS = (1,)
+
+# hooks called as hook(handle, key) each time a handle makes a NEW memo
+# entry — the port's counterpart of the reference's fresh lowering, and
+# the same keys: (n_cols, dtype_name, backend) for spmm calls and
+# "sddmm" / "fused"-tagged tuples for the sibling kernels
+_LOWERING_HOOKS: List[Callable[["DistSpmm", Tuple[Any, ...]], None]] = []
+
+
+def register_lowering_hook(fn: Callable) -> Callable:
+    """Install a callback fired on every new memo entry of a handle."""
+    _LOWERING_HOOKS.append(fn)
+    return fn
+
+
+def unregister_lowering_hook(fn: Callable) -> None:
+    _LOWERING_HOOKS.remove(fn)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -386,6 +403,8 @@ class DistSpmm:
         fn = make()
         self._executables[key] = fn
         self.lowerings.append(key)
+        for hook in list(_LOWERING_HOOKS):
+            hook(self, key)
         return fn
 
     def _bound(self, fn: Callable, **kw) -> Callable:

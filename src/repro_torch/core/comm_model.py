@@ -30,7 +30,10 @@ from .sparse import CSRMatrix, block_rows
 __all__ = [
     "NetworkSpec",
     "TSUBAME_LIKE",
+    "TPU_POD",
+    "AURORA_LIKE",
     "strategy_volumes",
+    "balance_stats",
     "modeled_time",
     "modeled_time_hier",
     "modeled_time_schedule",
@@ -63,6 +66,11 @@ class NetworkSpec:
 
 
 TSUBAME_LIKE = NetworkSpec("tsubame4", 450e9, 6.25e9, group_size=4)  # 25GB/s NIC / 4 GPUs
+# the reference's other named networks of the α-β model: constants of the
+# model, not measurements of any device (the port runs none of them)
+TPU_POD = NetworkSpec("tpu-v5e", 50e9, 6.25e9, group_size=256)
+# balanced tiers (§7.7)
+AURORA_LIKE = NetworkSpec("aurora", 15e9, 17e9, group_size=12)
 
 
 def strategy_volumes(
@@ -714,3 +722,18 @@ def replicated_device_bytes(rp, sched, n_dense: int, sz_dt: int = 4) -> int:
             + 2 * (sched.R_b + sched.R_c) # lane send + recv slabs
             + per(rp.base.volume_rows())) # gathered partials
     return rows * n * sz_dt + per(rp.base.volume_rows()) * 12
+
+
+def balance_stats(plan: SpmmPlan) -> Dict[str, float]:
+    """Fig. 9-style balance metrics on the pair-volume matrix."""
+    pm = plan.pair_matrix().astype(np.float64)
+    off = pm[~np.eye(plan.P, dtype=bool)]
+    if off.size == 0 or off.max() == 0:
+        return {"max": 0.0, "mean": 0.0, "imbalance": 1.0, "symmetry": 1.0}
+    sym = 1.0 - np.abs(pm - pm.T).sum() / max(pm.sum() * 2.0, 1.0)
+    return {
+        "max": float(off.max()),
+        "mean": float(off.mean()),
+        "imbalance": float(off.max() / max(off.mean(), 1e-12)),
+        "symmetry": float(sym),
+    }

@@ -22,10 +22,13 @@ import numpy as np
 __all__ = [
     "COOMatrix",
     "CSRMatrix",
+    "BSRMatrix",
     "PatternSnapshot",
     "pattern_snapshot",
     "coo_from_arrays",
     "csr_from_coo",
+    "csr_from_dense",
+    "bsr_from_csr",
     "ell_from_csr",
     "random_sparse",
     "power_law_sparse",
@@ -196,6 +199,39 @@ def pattern_snapshot(a: Union[CSRMatrix, COOMatrix]) -> PatternSnapshot:
                            hv.hexdigest())
 
 
+@dataclasses.dataclass(frozen=True)
+class BSRMatrix:
+    """Block-sparse row matrix with dense (bm, bk) blocks.
+
+    ``block_cols[r]`` is the block column of the r-th stored block and
+    ``block_indptr`` delimits the block rows. The port's bsr backend runs
+    the ELL form of it (``ell_from_csr``, K3 / K4); this is the
+    reference's host type, for code that builds blocks itself.
+    """
+
+    shape: Tuple[int, int]
+    block_shape: Tuple[int, int]
+    block_indptr: np.ndarray  # int32 [mb+1]
+    block_cols: np.ndarray  # int32 [nblocks]
+    blocks: np.ndarray  # float32 [nblocks, bm, bk]
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.block_cols.shape[0])
+
+    def to_dense(self) -> np.ndarray:
+        bm, bk = self.block_shape
+        out = np.zeros(self.shape, dtype=self.blocks.dtype)
+        mb = len(self.block_indptr) - 1
+        for br in range(mb):
+            for r in range(int(self.block_indptr[br]),
+                           int(self.block_indptr[br + 1])):
+                bc = int(self.block_cols[r])
+                out[br * bm:(br + 1) * bm, bc * bk:(bc + 1) * bk] = \
+                    self.blocks[r]
+        return out
+
+
 def coo_from_arrays(shape, row, col, val=None) -> COOMatrix:
     row = np.asarray(row, dtype=np.int32)
     col = np.asarray(col, dtype=np.int32)
@@ -225,6 +261,44 @@ def csr_from_coo(coo: COOMatrix) -> CSRMatrix:
     indptr = np.zeros(m + 1, dtype=np.int32)
     np.cumsum(counts, out=indptr[1:])
     return CSRMatrix(coo.shape, indptr, col.astype(np.int32), val.astype(np.float32))
+
+
+def csr_from_dense(a: np.ndarray) -> CSRMatrix:
+    row, col = np.nonzero(a)
+    return csr_from_coo(COOMatrix(
+        a.shape, row.astype(np.int32), col.astype(np.int32),
+        a[row, col].astype(np.float32)))
+
+
+def bsr_from_csr(a: CSRMatrix, block_shape: Tuple[int, int]) -> BSRMatrix:
+    """Convert CSR → BSR with zero-padded edge blocks."""
+    bm, bk = block_shape
+    m, k = a.shape
+    mb = (m + bm - 1) // bm
+    kb = (k + bk - 1) // bk
+    dense = a.to_dense()
+    padded = np.zeros((mb * bm, kb * bk), dtype=dense.dtype)
+    padded[:m, :k] = dense
+    block_indptr = [0]
+    block_cols = []
+    blocks = []
+    for br in range(mb):
+        tile_rows = padded[br * bm:(br + 1) * bm]
+        for bc in range(kb):
+            tile = tile_rows[:, bc * bk:(bc + 1) * bk]
+            if np.any(tile != 0):
+                block_cols.append(bc)
+                blocks.append(tile.copy())
+        block_indptr.append(len(block_cols))
+    blocks_arr = (np.stack(blocks) if blocks
+                  else np.zeros((0, bm, bk), dtype=np.float32))
+    return BSRMatrix(
+        (m, k),
+        (bm, bk),
+        np.asarray(block_indptr, dtype=np.int32),
+        np.asarray(block_cols, dtype=np.int32),
+        blocks_arr.astype(np.float32),
+    )
 
 
 def ell_from_csr(a: CSRMatrix, block_shape: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:

@@ -28,6 +28,17 @@ sums the lanes' C blocks into their chunks over the replica axis
 (``replica_psum_scatter``, op ``psum_scatter@r``). A ``torch.distributed``
 communicator with this API comes with the multi-process slice.
 
+``MeshComm`` runs the collectives of a NAMED grid — the reference's
+``make_mesh((2, 4), ("data", "model"))`` that ``DistContext`` wraps
+(``launch.mesh.EmulatedMesh``). A model's per-rank tensors stack as
+``[*lead, ...]`` with one dim per axis of a ``layout`` (the batch axes,
+then the model axis: ``[Dsz, M, ...]``), and a collective runs over one
+named axis of it: ``all_to_all`` (op ``all_to_all@<axis>``), ``pmax``
+and ``psum`` (ops ``pmax@<axis>`` / ``psum@<axis>``). ``rows(axis)``
+counts one axis; an exchange logged with ``meta=True`` (index and gate
+lists beside the activations) goes under ``<op>@<axis>:meta``, which
+``rows(axis)`` leaves out and ``rows(axis + ":meta")`` counts.
+
 Under autograd each collective's backward is its transpose — the
 all_to_all transposes back, a shift rolls back, a reduce-scatter's is an
 all_gather and the other way round, B's copy sums over its lanes — which
@@ -40,16 +51,51 @@ entries join the log when the backward runs, after the call's own.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["LocalComm"]
+__all__ = ["LocalComm", "MeshComm"]
 
 Pairs = Tuple[Tuple[int, int], ...]
 
 
-class LocalComm:
+class _CommLog:
+    """The log every emulated communicator keeps: ``(op, pairs, rows)``
+    per collective, and the backward's entries as its gradients arrive."""
+
+    def __init__(self):
+        self.log: List[Tuple[str, Pairs, int]] = []
+
+    def _record(self, op: str, pairs: Pairs, x: torch.Tensor,
+                out: torch.Tensor, rows: Optional[int] = None) -> None:
+        """Log ``op`` with ``rows`` (default: the rows of its operand
+        ``x``), and its backward when the gradient of ``out`` arrives."""
+        if rows is None:
+            rows = x.numel() // x.shape[-1] if x.dim() and x.shape[-1] else 0
+        self.log.append((op, pairs, int(rows)))
+        if out.requires_grad:
+            back = ("bwd:" + op, tuple((d, s) for s, d in pairs), int(rows))
+            out.register_hook(lambda g: self.log.append(back))
+
+    def _rows(self, on_axis, direction: str) -> int:
+        """The rows of the forward (``"fwd"``) or backward (``"bwd"``)
+        entries whose op (without its ``bwd:``) ``on_axis`` accepts."""
+        if direction not in ("fwd", "bwd"):
+            raise ValueError(f"direction must be 'fwd' or 'bwd', got "
+                             f"{direction!r}")
+        back = direction == "bwd"
+        return sum(r for op, _, r in self.log
+                   if op.startswith("bwd:") == back
+                   and on_axis(op[4:] if back else op))
+
+    def reset(self) -> None:
+        self.log.clear()
+
+
+class LocalComm(_CommLog):
     """Collectives on the leading rank axis of stacked ``[P, ...]`` tensors.
 
     ``groups`` is the group count G of the (G, L) grid the grid
@@ -68,18 +114,7 @@ class LocalComm:
         if self.C < 1 or self.P % self.C:
             raise ValueError(f"replicas={replicas} does not divide P={P}")
         self.S = self.P // self.C
-        self.log: List[Tuple[str, Pairs, int]] = []
-
-    def _record(self, op: str, pairs: Pairs, x: torch.Tensor,
-                out: torch.Tensor, rows: Optional[int] = None) -> None:
-        """Log ``op`` with ``rows`` (default: the rows of its operand
-        ``x``), and its backward when the gradient of ``out`` arrives."""
-        if rows is None:
-            rows = x.numel() // x.shape[-1] if x.dim() and x.shape[-1] else 0
-        self.log.append((op, pairs, int(rows)))
-        if out.requires_grad:
-            back = ("bwd:" + op, tuple((d, s) for s, d in pairs), int(rows))
-            out.register_hook(lambda g: self.log.append(back))
+        super().__init__()
 
     def rows(self, axis: Optional[str] = None, direction: str = "fwd") -> int:
         """Rows placed in collective operands since the last ``reset``:
@@ -88,22 +123,12 @@ class LocalComm:
         (inside the lanes) or ``"r"`` (replica axis) — by the forward
         collectives (``direction="fwd"``) or by their backward
         (``"bwd"``)."""
-        if direction not in ("fwd", "bwd"):
-            raise ValueError(f"direction must be 'fwd' or 'bwd', got "
-                             f"{direction!r}")
-
         def on(op: str) -> bool:
-            if op.startswith("bwd:") != (direction == "bwd"):
-                return False
-            op = op[4:] if direction == "bwd" else op
             if axis is None:
                 return True
             return op.endswith("@" + axis) if axis in ("g", "l", "s", "r") \
                 else "@" not in op
-        return sum(r for op, _, r in self.log if on(op))
-
-    def reset(self) -> None:
-        self.log.clear()
+        return self._rows(on, direction)
 
     def _check_lead(self, x: torch.Tensor, what: str) -> None:
         if x.shape[0] != self.P:
@@ -314,3 +339,85 @@ class LocalComm:
             (r * S + g, q * S + g) for g in range(S) for r in range(C)
             for q in range(C)), x, out)
         return out
+
+
+class MeshComm(_CommLog):
+    """Collectives over the named axes of an emulated grid.
+
+    ``shape`` maps each axis name to its size, in the grid's order. The
+    operands stack the ranks as ``[*lead, ...]``, one leading dim per axis
+    of ``layout`` (a tuple of axis names, each of the grid); a collective
+    over ``axis`` runs inside every combination of the other leading
+    indices, which is what the reference's collective over one mesh axis
+    does on every rank.
+    """
+
+    def __init__(self, shape: Dict[str, int]):
+        self.shape = {str(k): int(v) for k, v in dict(shape).items()}
+        super().__init__()
+
+    def rows(self, axis: Optional[str] = None, direction: str = "fwd") -> int:
+        """Rows placed in collective operands since the last ``reset``:
+        all of them, or those of one axis (``"model"``; ``"model:meta"``
+        for the metadata exchanges logged apart), forward or backward."""
+        return self._rows(lambda op: axis is None or op.endswith("@" + axis),
+                          direction)
+
+    def _axis_dim(self, x: torch.Tensor, layout: Sequence[str],
+                  axis: str) -> int:
+        lead = tuple(self.shape[a] for a in layout)
+        if tuple(x.shape[:len(lead)]) != lead:
+            raise ValueError(f"operand must lead with {lead} "
+                             f"({tuple(layout)}), got {tuple(x.shape)}")
+        return list(layout).index(axis)
+
+    def _pairs(self, layout: Sequence[str], axis: str) -> Pairs:
+        """The (src, dst) pairs of ranks (numbered in ``layout`` order)
+        that differ only in ``axis``."""
+        lead = tuple(self.shape[a] for a in layout)
+        ranks = np.arange(math.prod(lead)).reshape(lead)
+        groups = np.moveaxis(ranks, list(layout).index(axis), -1).reshape(
+            -1, self.shape[axis])
+        return tuple((int(s), int(d)) for g in groups for s in g for d in g)
+
+    def all_to_all(self, x: torch.Tensor, layout: Sequence[str], axis: str,
+                   meta: bool = False) -> torch.Tensor:
+        """Untiled all_to_all over ``axis``: ``jax.lax.all_to_all(x, axis,
+        0, 0, tiled=False)`` on every rank.
+
+        ``x`` is ``[*lead, A(dst), ...]``: each rank's operand holds one
+        slab per destination along ``axis`` (size A). Rank a receives
+        ``out[.., a, .., q] = x[.., q, .., a]`` — the source and destination
+        dims swapped."""
+        i = self._axis_dim(x, layout, axis)
+        n = len(layout)
+        if x.dim() <= n or x.shape[n] != self.shape[axis]:
+            raise ValueError(f"all_to_all over {axis!r} needs [{x.shape[:n]}"
+                             f", {self.shape[axis]}, ...], got "
+                             f"{tuple(x.shape)}")
+        out = x.transpose(i, n).contiguous()
+        op = f"all_to_all@{axis}" + (":meta" if meta else "")
+        self._record(op, self._pairs(layout, axis), x, out)
+        return out
+
+    def _reduce(self, x, layout, axis, op, fold):
+        i = self._axis_dim(x, layout, axis)
+        acc = x.select(i, 0)
+        for r in range(1, x.shape[i]):
+            acc = fold(acc, x.select(i, r))
+        out = acc.unsqueeze(i).expand(x.shape)
+        self._record(f"{op}@{axis}", self._pairs(layout, axis), x, out)
+        return out
+
+    def pmax(self, x: torch.Tensor, layout: Sequence[str],
+             axis: str) -> torch.Tensor:
+        """``jax.lax.pmax(x, axis)`` on every rank (exact in any order)."""
+        return self._reduce(x, layout, axis, "pmax", torch.maximum)
+
+    def psum(self, x: torch.Tensor, layout: Sequence[str],
+             axis: str) -> torch.Tensor:
+        """``jax.lax.psum(x, axis)`` on every rank: a left fold in
+        ascending rank along ``axis``, x[0] + x[1] + … — one fixed chain,
+        as the port's reduce-scatters fold."""
+        return self._reduce(x, layout, axis, "psum", torch.add)
+

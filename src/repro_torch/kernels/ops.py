@@ -59,6 +59,8 @@ from .scatter_add_rows import prepare_sorted_scatter, stack_sorted_scatter
 
 __all__ = [
     "on_card",
+    "gather_rows_op",
+    "scatter_add_rows_op",
     "pack_rows_op",
     "scatter_add_rows_exec_op",
     "coo_accumulate_rows_op",
@@ -340,6 +342,30 @@ def pack_rows_op(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if _needs_grad(b):
         return _Pack.apply(b, idx)
     return _pack(b, idx)
+
+
+def gather_rows_op(b: torch.Tensor, idx) -> torch.Tensor:
+    """The reference's ``gather_rows_op``: b [K, n], idx [S] (numpy or a
+    tensor) -> ``out[s] = b[idx[s]]`` [S, n], zeros where idx < 0, through
+    K1. Differentiable in ``b`` (the pack's backward, K2)."""
+    if not isinstance(idx, torch.Tensor):
+        idx = torch.from_numpy(np.ascontiguousarray(idx))
+    idx = idx.to(device=b.device, dtype=torch.int32)
+    return pack_rows_op(b[None], idx[None])[0]
+
+
+def scatter_add_rows_op(c: torch.Tensor, partials: torch.Tensor,
+                        tgt: np.ndarray) -> torch.Tensor:
+    """The reference's ``scatter_add_rows_op``: ``c[tgt[s]] += partials[s]``
+    (c [M, n], partials [S, n]) through K2, on a copy of ``c``. ``tgt`` is
+    a STATIC host map [S] (-1: no row), prepared on the host by
+    ``prepare_sorted_scatter`` as the reference does; each row folds its
+    slots in slot order, no atomics. Differentiable in ``c`` and
+    ``partials``."""
+    perm, meta = (torch.from_numpy(a[None]).to(c.device)
+                  for a in prepare_sorted_scatter(np.asarray(tgt)))
+    return scatter_add_rows_exec_op(c.clone()[None], partials[None], perm,
+                                    meta)[0]
 
 
 def scatter_add_rows_exec_op(c: torch.Tensor, partials: torch.Tensor,

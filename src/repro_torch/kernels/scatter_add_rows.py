@@ -20,7 +20,8 @@ import torch
 from . import build
 
 __all__ = ["LAUNCHES", "prepare_sorted_scatter", "stack_sorted_scatter",
-           "scatter_add_rows_cuda", "scatter_add_rows_plain"]
+           "sorted_scatter_maps", "scatter_add_rows_cuda",
+           "scatter_add_rows_plain"]
 
 LAUNCHES = {"scatter_add_rows": 0}
 
@@ -51,6 +52,26 @@ def stack_sorted_scatter(tgt: np.ndarray):
     maps = [prepare_sorted_scatter(t) for t in np.asarray(tgt)]
     return (np.stack([m[0] for m in maps]).astype(np.int32),
             np.stack([m[1] for m in maps]).astype(np.int32))
+
+
+def sorted_scatter_maps(tgt: torch.Tensor):
+    """``stack_sorted_scatter`` of a target map that lives on the device,
+    computed there: tgt [P, S] (-1 pads) -> (perm [P, S], meta [P, S+1]),
+    both int32, equal to the host version's. For a map the device makes
+    per call (the MoE combine's token map), with no trip to the host.
+    """
+    P, S = tgt.shape
+    tgt = tgt.long()
+    key = torch.where(tgt < 0, torch.iinfo(torch.int32).max, tgt)
+    perm = torch.sort(key, dim=1, stable=True).indices
+    tgt_sorted = torch.take_along_dim(tgt, perm, 1)
+    n_valid = (tgt >= 0).sum(1, keepdim=True)
+    last = torch.take_along_dim(tgt_sorted, (n_valid - 1).clamp(min=0), 1)
+    fill = torch.where(n_valid > 0, last, 0)
+    pads = torch.arange(S, device=tgt.device)[None, :] >= n_valid
+    tgt_sorted = torch.where(pads, fill, tgt_sorted)
+    meta = torch.cat([tgt_sorted, n_valid], 1).to(torch.int32)
+    return perm.to(torch.int32), meta
 
 
 def _check_shapes(c, partials, perm, meta) -> None:

@@ -15,11 +15,11 @@ layouts (weights ``[in, out]``, activations ``[B, S, D]``, heads
   float32 m / l / acc);
 * ``attention_decode`` writes the new token's K/V IN PLACE into the
   caller's cache at ``cache.length`` (the reference's
-  ``dynamic_update_slice``, which clamps the write into the cache).
-
-What waits: a ``dist`` context (``attention_decode_seqshard``, the
-``seq_shard`` branch) waits for ROADMAP item 15 and raises; ``layer_norm``
-(unused by these families) waits for item 17.
+  ``dynamic_update_slice``, which clamps the write into the cache);
+  with ``seq_shard`` and a ``DistContext`` whose model axis is larger
+  than 1 it runs ``attention_decode_seqshard``, flash-decoding over the
+  cache's length split into M contiguous slices, one per model rank,
+  combined by the grid's ``pmax`` / ``psum``.
 """
 from __future__ import annotations
 
@@ -33,23 +33,26 @@ import torch.nn.functional as F
 from ..kernels.ops import rmsnorm_op
 
 __all__ = [
-    "rms_norm", "rope", "flash_attention", "attention", "attention_decode",
-    "mlp", "init_attn_params", "init_mlp_params", "KVCache",
+    "rms_norm", "layer_norm", "rope", "flash_attention", "attention",
+    "attention_decode", "attention_decode_seqshard", "mlp",
+    "init_attn_params", "init_mlp_params", "KVCache",
 ]
-
-
-def no_dist(dist, what: str) -> None:
-    """Raise for a distribution context: the port runs one device so far."""
-    if dist is not None:
-        raise NotImplementedError(
-            f"{what} with a dist context (sharded / sequence-parallel "
-            f"execution) waits for ROADMAP item 15 (multi-process)")
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """``(x · rsqrt(mean(x²) + eps)).astype(x.dtype) · scale`` through K6."""
     return rmsnorm_op(x, scale, eps, round_before_gain=True)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """``((x - mean) · rsqrt(var + eps)).astype(x.dtype) · scale + bias``,
+    the statistics in float32 (plain torch: no TPU kernel backs it)."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -222,7 +225,6 @@ def attention_decode(
     Writes the new K/V into ``cache.k`` / ``cache.v`` IN PLACE at
     ``cache.length`` and returns them in a cache one token longer.
     """
-    no_dist(dist, "attention_decode (attention_decode_seqshard)")
     b, s, d = x.shape
     if s != 1:
         raise ValueError(f"attention_decode takes one token, got S={s}")
@@ -231,6 +233,11 @@ def attention_decode(
     q = _rope_heads(_split_heads(q, n_heads), pos, rope_theta)
     kn = _rope_heads(_split_heads(k, n_kv_heads), pos, rope_theta)
     vn = _split_heads(v, n_kv_heads)
+    if seq_shard and dist is not None and dist.model_size > 1:
+        out, new_cache = attention_decode_seqshard(
+            q, kn, vn, cache, dist=dist, n_heads=n_heads,
+            n_kv_heads=n_kv_heads)
+        return _merge_heads(out) @ params["wo"], new_cache
     smax = cache.k.shape[2]
     at = min(max(cache.length, 0), smax - 1)  # dynamic_update_slice clamps
     cache.k[:, :, at] = kn[:, :, 0].to(cache.k.dtype)
@@ -245,6 +252,89 @@ def attention_decode(
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
     y = _merge_heads(probs @ vv) @ params["wo"]
     return y, KVCache(cache.k, cache.v, cache.length + 1)
+
+
+def attention_decode_seqshard(
+    q: torch.Tensor,  # [B, H, 1, hd]
+    kn: torch.Tensor,  # [B, kvh, 1, hd] new-token K
+    vn: torch.Tensor,
+    cache: KVCache,  # k/v [B, kvh, Smax, hd], LENGTH split over model
+    *,
+    dist,
+    n_heads: int,
+    n_kv_heads: int,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Flash-decoding: the KV cache split along LENGTH over the model axis.
+
+    The reference's shard_map body on every rank at once: model rank r
+    owns the contiguous slice [r·s_loc, (r+1)·s_loc) of the cache (a
+    view of the caller's cache, written IN PLACE), writes the new K/V
+    only if ``cache.length`` falls in its range, computes PARTIAL softmax
+    statistics (m, l, acc) over its slice, and the partials combine with
+    ``pmax`` / ``psum`` over the model axis. The ranks stack as
+    ``[*batch_axes, M, B/Dsz, ...]``; every model rank ends with the same
+    output, and rank 0's is returned.
+    """
+    M = dist.model_size
+    b, kvh, smax, hd = cache.k.shape
+    if smax % M:
+        raise ValueError(f"the cache length {smax} is not divisible by the "
+                         f"model axis ({M} ranks)")
+    dsz = dist.batch_size_divisor
+    if b % dsz:
+        raise ValueError(f"batch {b} is not divisible by the batch axes "
+                         f"{dist.batch_axes} ({dsz} ranks)")
+    s_loc = smax // M
+    length = int(cache.length)
+    groups = n_heads // n_kv_heads
+    # the write lands on the one rank whose slice holds ``length`` (on
+    # none past the end: the reference gates it by ``in_range``)
+    if 0 <= length < smax:
+        cache.k[:, :, length] = kn[:, :, 0].to(cache.k.dtype)
+        cache.v[:, :, length] = vn[:, :, 0].to(cache.v.dtype)
+
+    lead = tuple(dist.axis_size(a) for a in dist.batch_axes) + (M,)
+    bl = b // dsz
+
+    def ranks(c):  # [B, kvh, Smax, hd] -> [*lead, B/Dsz, kvh, s_loc, hd]
+        v = c.reshape((dsz, bl, kvh, M, s_loc, hd)).permute(0, 3, 1, 2, 4, 5)
+        return v.reshape(lead + (bl, kvh, s_loc, hd))
+
+    kk = _repeat_kv_ranks(ranks(cache.k), groups)
+    vv = _repeat_kv_ranks(ranks(cache.v), groups)
+    q_ = q.reshape(lead[:-1] + (1, bl) + tuple(q.shape[1:]))
+    logits = (q_ @ kk.transpose(-1, -2)) / math.sqrt(float(hd))
+    logits = logits.to(torch.float32)  # [*lead, B/Dsz, H, 1, s_loc]
+    rank_start = (torch.arange(M, device=q.device) * s_loc).reshape(
+        (1,) * (len(lead) - 1) + (M, 1, 1, 1, 1))
+    pos = rank_start + torch.arange(s_loc, device=q.device)
+    neg = torch.tensor(-0.7 * torch.finfo(torch.float32).max,
+                       device=q.device)
+    logits = torch.where(pos <= length, logits, neg)
+    m_loc = logits.amax(-1)  # [*lead, B/Dsz, H, 1]
+    p = torch.exp(logits - m_loc[..., None])
+    l_loc = p.sum(-1)
+    acc_loc = p.to(vv.dtype) @ vv
+    # combine partials across the model axis (flash-decoding reduction)
+    comm, layout, m_ax = dist.comm, dist.layout, dist.model_axis
+    m_glob = comm.pmax(m_loc, layout, m_ax)
+    corr = torch.exp(m_loc - m_glob)
+    l_glob = comm.psum(l_loc * corr, layout, m_ax)
+    acc_glob = comm.psum(acc_loc * corr[..., None].to(acc_loc.dtype),
+                         layout, m_ax)
+    out = acc_glob / torch.clamp_min(l_glob[..., None], 1e-30).to(
+        acc_glob.dtype)
+    out = out.to(q.dtype).select(len(lead) - 1, 0)  # model rank 0
+    return out.reshape(q.shape), KVCache(cache.k, cache.v, cache.length + 1)
+
+
+def _repeat_kv_ranks(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """``_repeat_kv`` on the trailing [B, kvh, S, hd] dims."""
+    if groups == 1:
+        return k
+    *lead, kvh, s, hd = k.shape
+    return k.unsqueeze(-3).expand(*lead, kvh, groups, s, hd).reshape(
+        *lead, kvh * groups, s, hd)
 
 
 def mlp(params: dict, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:

@@ -1,31 +1,61 @@
-"""Mixture-of-Experts layer and the SHIRO-planned MoE dispatch.
+"""Mixture-of-Experts layer with SHIRO-planned expert-parallel dispatch.
 
 Port of ``repro/models/moe.py``. The token→expert exchange of expert
 parallelism is a distributed SpMM: the dispatch matrix (expert slots ×
-tokens) is sparse, the activations are the dense operand, and SHIRO's
-joint vertex cover fetches each (token, rank) column once — the MoE
-dedup, recovered from the sparsity pattern alone (``dispatch_matrix``,
-``compile_dispatch`` through the port's ``compile_spmm``).
+tokens) is sparse, the activations are the dense operand. SHIRO's two
+ideas map directly:
 
-``moe_layer`` runs the reference's single-device path ``_moe_dense``:
-every expert over every token as batched products over the stacked
-``[E, D, F]`` weights, combined by the top-k gates. The router is
-float32, so the logits are taken in float32 as JAX's type promotion
-does. What waits: the expert-parallel path (``_moe_ep``, shard_map
-all_to_all) for ROADMAP item 15 — a ``dist`` whose model axis is larger
-than 1 raises — and ``dispatch_session`` for item 16.
+* column-based redundancy — a token routed to two experts on the SAME
+  expert-parallel rank is classically sent twice; ``shiro_dispatch``
+  sends one activation row per (token, rank) with per-expert index and
+  gate lists;
+* row-based pre-aggregation — the expert outputs for one token are
+  weighted and summed on the expert rank into one partial row before the
+  return exchange, so the combine also moves one row per (token, rank).
+
+``moe_layer`` runs ``_moe_dense`` (every expert over every token, the
+single-device path) when there is no model axis to spread the experts
+over, and ``_moe_ep`` — the reference's shard_map body — otherwise. The
+port runs the ranks of the ``DistContext``'s grid on one device: x is
+viewed as ``[Dsz, 1, B/Dsz, S, D]`` and expanded over the M model ranks,
+every rank's routing, buffers and expert FFN run as batched tensor
+operations over the stacked ``[Dsz·M, ...]`` ranks, and the four
+all_to_alls on the model axis go through the grid's ``MeshComm`` (the
+activations as ``all_to_all@model``, the index and gate lists as
+``all_to_all@model:meta``). The dispatch buffer is packed by K1 from the
+token map, every local expert's rows are gathered by one K1 launch and
+run as one batched FFN, and both folds — the pre-aggregated combine and
+the return ``y[tok_map] += recv`` — are K2 over sorted maps made on the
+device: each row's partials fold in a fixed order (ascending expert;
+ascending (rank, slot)), no atomics. The reference's output is
+replicated over the model axis; model rank 0's is returned
+(``all_ranks=True`` returns every rank's).
+Inside ``record_dispatch()`` each expert-parallel call also records its
+capacities, the dispatch rows it fills and the assignments it drops.
+
+``dispatch_matrix`` / ``compile_dispatch`` / ``dispatch_session`` give
+the same exchange as SHIRO's sparse operand: its joint vertex cover
+fetches each (token, rank) column once — the MoE dedup, recovered from
+the sparsity pattern alone — through the port's ``compile_spmm`` and
+``SpmmSession``.
 """
 from __future__ import annotations
+
+import contextlib
+from typing import List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ops import pack_rows_op, scatter_add_rows_exec_op
+from ..kernels.scatter_add_rows import sorted_scatter_maps
 from .config import ModelConfig
 from .layers import normal
 
 __all__ = ["init_moe_params", "moe_layer", "moe_comm_rows",
-           "dispatch_matrix", "compile_dispatch"]
+           "dispatch_matrix", "compile_dispatch", "dispatch_session",
+           "record_dispatch"]
 
 
 def init_moe_params(gen: torch.Generator, cfg: ModelConfig,
@@ -61,12 +91,10 @@ def _expert_ffn(w1, w3, w2, x):
 def moe_layer(params: dict, x: torch.Tensor, cfg: ModelConfig,
               dist=None) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D]."""
-    model_size = 1 if dist is None else dist.model_size
-    if model_size > 1 and cfg.n_experts % model_size == 0:
-        raise NotImplementedError(
-            "moe_layer's expert-parallel path (_moe_ep, all_to_all over the "
-            "model axis) waits for ROADMAP item 15 (multi-process)")
-    return _moe_dense(params, x, cfg)
+    if dist is None or dist.model_size == 1 or \
+            cfg.n_experts % dist.model_size:
+        return _moe_dense(params, x, cfg)
+    return _moe_ep(params, x, cfg, dist, shiro=cfg.shiro_dispatch)
 
 
 def _moe_dense(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -84,6 +112,240 @@ def _moe_dense(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     outs = _expert_ffn(params["w1"], params["w3"], params["w2"], xt)  # [E,T,D]
     y = torch.einsum("te,etd->td", dense_gates.to(x.dtype), outs)
     return y.reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel path, every rank of the grid on one device
+# ---------------------------------------------------------------------------
+
+
+def _moe_ep(params: dict, x: torch.Tensor, cfg: ModelConfig, dist,
+            shiro: bool, all_ranks: bool = False) -> torch.Tensor:
+    """The reference's shard_map over the full grid: batch over the batch
+    axes, experts over the model axis. Returns model rank 0's y [B, S, D]
+    (``all_ranks``: every rank's, [M, B, S, D])."""
+    M = dist.model_size
+    e_loc = cfg.n_experts // M
+    b, s, d = x.shape
+    dsz = dist.batch_size_divisor
+    if b % dsz:
+        raise ValueError(f"batch {b} is not divisible by the batch axes "
+                         f"{dist.batch_axes} ({dsz} ranks)")
+    t_loc = (b // dsz) * s
+    # capacity per (src rank, dst rank) activation buffer
+    rows_per_token = cfg.top_k
+    if shiro and cfg.shiro_capacity:
+        # expected unique destination ranks per token under dedup:
+        # E[unique] = M*(1 - (1 - 1/M)^k) < k — SHIRO's dominance bound
+        # applied to buffer sizing. capacity_factor absorbs the variance;
+        # overflow falls back to token dropping.
+        rows_per_token = M * (1.0 - (1.0 - 1.0 / M) ** cfg.top_k)
+    cap = max(8, int(t_loc * rows_per_token / M * cfg.capacity_factor))
+    # per-expert index capacity
+    cap_e = max(8, int(t_loc * cfg.top_k / cfg.n_experts
+                       * cfg.capacity_factor))
+
+    # every rank of a data group holds that group's tokens (the batch is
+    # replicated over the model axis): [Dsz, M, t_loc, D]
+    xs = x.reshape(dsz, 1, t_loc, d).expand(dsz, M, t_loc, d)
+    y = _moe_ep_body(xs, params["router"], params["w1"], params["w3"],
+                     params["w2"], cfg=cfg, dist=dist, M=M, e_loc=e_loc,
+                     cap=cap, cap_e=cap_e, shiro=shiro)
+    y = y.reshape(dsz, M, b // dsz, s, d)
+    if all_ranks:
+        return y.transpose(0, 1).reshape(M, b, s, d)
+    return y[:, 0].reshape(b, s, d)
+
+
+def to_dispatch_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.astype(dtype)`` as the reference computes it. For
+    ``float8_e4m3fn`` a magnitude past the largest finite value's rounding
+    range (> 464), an infinity or a NaN gives NaN with x's sign (NaN for
+    a NaN), as XLA and ml_dtypes convert; torch's own cast may saturate
+    to ±448 instead, so those elements are set here."""
+    y = x.to(dtype)
+    if dtype != torch.float8_e4m3fn:
+        return y
+    over = ~(x.float().abs() <= 464.0)
+    nan = torch.where(x.float() < 0, 0xFF, 0x7F).to(torch.uint8)
+    return torch.where(over, nan, y.view(torch.uint8)).view(dtype)
+
+
+_RECORD: Optional[List[dict]] = None
+
+
+@contextlib.contextmanager
+def record_dispatch():
+    """Within the block, every expert-parallel MoE call appends one dict
+    to the list it yields: ``cap`` / ``cap_e`` (the buffer and per-expert
+    capacities), ``sent`` (dispatch rows filled: the (token, rank) pairs
+    under SHIRO's dedup, the assignments under the classic exchange) and
+    ``dropped`` (assignments no expert computes: over a buffer's or an
+    expert's capacity), both counted once per data group (model rank 0)
+    and kept on the device as 0-d tensors until read, so recording adds
+    no sync."""
+    global _RECORD
+    saved, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = saved
+
+
+def _rank_in_key(key: torch.Tensor, ok: torch.Tensor,
+                 n_keys: int) -> torch.Tensor:
+    """For each entry j of ``key`` [R, N] (values in [0, n_keys)) with
+    ``ok[j]``: how many ``ok`` entries of the same key come before it —
+    the reference's ``cumsum(one_hot(key) & ok) - 1`` read at the entry's
+    own key, without the [R, N, n_keys] one-hot. The value at an entry
+    that is not ``ok`` is unspecified (the callers never read it).
+
+    A stable sort groups the entries by key in their order (the not-ok
+    ones under a key of their own, past the rest); an entry's rank is its
+    sorted position less its key's first."""
+    R, N = key.shape
+    pos = torch.arange(N, device=key.device).expand(R, N)
+    sk, order = torch.sort(torch.where(ok, key, n_keys), dim=1, stable=True)
+    first = torch.ones_like(ok)
+    first[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    start = torch.cummax(torch.where(first, pos, 0), dim=1).values
+    return torch.empty_like(key).scatter_(1, order, pos - start)
+
+
+def _scatter_drop(size: int, tgt: torch.Tensor, ok: torch.Tensor,
+                  src: torch.Tensor, fill) -> torch.Tensor:
+    """``out [R, size] = fill``, then ``out[r, tgt[r, j]] = src[r, j]``
+    where ``ok`` — the reference's ``.at[].max`` / ``.at[].add(mode=
+    "drop")`` into a fresh buffer, whose kept targets are distinct, so
+    the one value a target receives is its result. Dropped entries land
+    in a slot of their own past ``size``, so no two writes ever meet."""
+    R, n = tgt.shape
+    spill = size + torch.arange(n, device=tgt.device)
+    idx = torch.where(ok, tgt, spill[None, :])
+    out = torch.full((R, size + n), fill, dtype=src.dtype, device=src.device)
+    return out.scatter(1, idx, src)[:, :size]
+
+
+def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
+                 cap_e, shiro):
+    """The reference's ``_moe_ep_body`` on every rank at once.
+
+    xs [Dsz, M, T, D] (rank (g, m) at xs[g, m]) -> y [Dsz·M, T, D]."""
+    dsz, _, t, d = xs.shape
+    R = dsz * M
+    dev = xs.device
+    k = cfg.top_k
+    xt = xs.reshape(R, t, d)
+    wide = torch.promote_types(xt.dtype, router.dtype)
+    gates, ids = _top_k_gates(xt.to(wide) @ router.to(wide), k)  # [R,T,K]
+    dst = ids // e_loc  # destination EP rank per assignment
+    le = ids % e_loc  # local expert on that rank
+
+    if shiro:
+        # --- column-based dedup: send each (token, rank) pair once -----
+        # first[i]: the first assignment of the token with i's rank (the
+        # first True of the row, argmax's documented tie-break)
+        first = (dst[..., :, None] == dst[..., None, :]).to(
+            torch.uint8).argmax(-1)  # [R, T, K]
+        dup = first != torch.arange(k, device=dev)
+        send_mask = ~dup  # the de-duplicated (token, rank) pairs
+    else:
+        send_mask = torch.ones((R, t, k), dtype=torch.bool, device=dev)
+
+    flat_dst = dst.reshape(R, t * k)
+    flat_tok = torch.arange(t, device=dev).repeat_interleave(k)
+    flat_tok = flat_tok[None, :].expand(R, t * k)
+    flat_send = send_mask.reshape(R, t * k)
+
+    # slot of each SENT pair within its destination-rank buffer
+    send_slot = _rank_in_key(flat_dst, flat_send, M)
+    send_ok = flat_send & (send_slot < cap)
+
+    # the token map [R, M·cap] (-1 where no token), then the activation
+    # send buffer [R, M·cap, D] packed from it by K1 — each slot holds at
+    # most one token, so the gather is the reference's scatter-add into
+    # zeros. Optional fp8 dispatch (cfg.moe_dispatch_dtype): expert
+    # compute casts back to x.dtype.
+    tok_map = _scatter_drop(M * cap, flat_dst * cap + send_slot, send_ok,
+                            flat_tok, -1)
+    buf = pack_rows_op(xt, tok_map.to(torch.int32))
+    if cfg.moe_dispatch_dtype != "none":
+        buf = to_dispatch_dtype(buf, getattr(torch, cfg.moe_dispatch_dtype))
+
+    # per-assignment: the slot its token occupies for its destination rank
+    # (for dups, the slot of the FIRST assignment with the same dst — what
+    # the reference's pairwise loop leaves, since every earlier match
+    # already holds that slot)
+    pair_slot = send_slot.reshape(R, t, k)
+    if shiro:
+        pair_slot = torch.take_along_dim(pair_slot, first, -1)
+    assign_slot = pair_slot.reshape(R, t * k)
+    assign_ok = assign_slot < cap
+    if not shiro:
+        assign_ok = assign_ok & flat_send
+
+    # per-(dst, local-expert) index/gate lists [R, M, e_loc, cap_e]
+    flat_le = le.reshape(R, t * k)
+    pair_key = flat_dst * e_loc + flat_le
+    exp_slot = _rank_in_key(pair_key, assign_ok, M * e_loc)
+    exp_ok = assign_ok & (exp_slot < cap_e)
+    ewid = pair_key * cap_e + exp_slot
+    size = M * e_loc * cap_e
+    exp_idx = _scatter_drop(size, ewid, exp_ok, assign_slot, -1)
+    exp_gate = _scatter_drop(size, ewid, exp_ok, gates.reshape(R, t * k),
+                             0.0)
+    if _RECORD is not None:
+        rank0 = slice(None, None, M)  # model rank 0 of each data group
+        _RECORD.append(dict(cap=cap, cap_e=cap_e,
+                            sent=send_ok[rank0].sum(),
+                            dropped=(~exp_ok[rank0]).sum()))
+
+    # ---- all_to_all on the model axis: activations + metadata ----------
+    comm, layout, m_ax = dist.comm, dist.layout, dist.model_axis
+    lead = tuple(dist.axis_size(a) for a in dist.batch_axes) + (M,)
+
+    def a2a(v, *rest, meta=False):
+        out = comm.all_to_all(v.reshape(lead + (M,) + rest), layout, m_ax,
+                              meta=meta)
+        return out.reshape((R, M) + rest)
+
+    recv_buf = a2a(buf, cap, d)  # [R, M(src), cap, D]
+    recv_idx = a2a(exp_idx, e_loc, cap_e, meta=True)  # [R, M, e_loc, cap_e]
+    recv_gate = a2a(exp_gate, e_loc, cap_e, meta=True)
+
+    # ---- expert compute + row-based pre-aggregated combine -------------
+    # every local expert of every rank at once: the index lists in
+    # (expert, source, slot) order, K1 gathers their rows, the FFN runs
+    # batched over the [M, e_loc] experts with each model rank's own
+    # weights, and K2 folds each buffer row's partials in ascending
+    # expert order — the reference's loop of combine adds
+    # (pre-aggregation: partials for the same token row sum HERE, before
+    # the return transfer)
+    flat_recv = recv_buf.reshape(R, M * cap, d).to(xs.dtype)
+    idx = recv_idx.transpose(1, 2)  # [R, e_loc, M(src), cap_e]
+    gate = recv_gate.transpose(1, 2)
+    src_base = (torch.arange(M, device=dev) * cap)[:, None]
+    tgt = torch.where(idx >= 0, src_base + idx, -1).reshape(R, -1)
+    n_e = M * cap_e
+    xin = pack_rows_op(flat_recv, tgt.to(torch.int32))  # [R, e_loc·n_e, D]
+    xe = xin.reshape(dsz, M, e_loc, n_e, d).permute(1, 2, 0, 3, 4).reshape(
+        M, e_loc, dsz * n_e, d)
+    w1r, w3r, w2r = (w.reshape((M, e_loc) + tuple(w.shape[1:]))
+                     for w in (w1, w3, w2))
+    ye = (F.silu(xe @ w1r) * (xe @ w3r)) @ w2r  # [M, e_loc, Dsz*M*cap_e, D]
+    yout = ye.reshape(M, e_loc, dsz, n_e, d).permute(2, 0, 1, 3, 4).reshape(
+        R, e_loc * n_e, d)
+    # a pad's row joins no fold (K2 stops at the valid slots)
+    yout = yout * gate.reshape(R, -1, 1).to(xs.dtype)
+    combine = torch.zeros((R, M * cap, d), dtype=xs.dtype, device=dev)
+    combine = scatter_add_rows_exec_op(combine, yout,
+                                       *sorted_scatter_maps(tgt))
+
+    # ---- return all_to_all + the fold into token order (K2) ------------
+    recv_comb = a2a(combine, cap, d).reshape(R, M * cap, d)
+    perm, meta = sorted_scatter_maps(tok_map)
+    y = torch.zeros((R, t, d), dtype=xs.dtype, device=dev)
+    return scatter_add_rows_exec_op(y, recv_comb, perm, meta)
 
 
 def _routing(cfg: ModelConfig, tokens: int, seed: int) -> np.ndarray:
@@ -150,6 +412,32 @@ def compile_dispatch(cfg: ModelConfig, tokens: int, M: int, where=None,
                         config or SpmmConfig(strategy="joint",
                                              schedule="auto"),
                         device=device)
+
+
+def dispatch_session(cfg: ModelConfig, tokens: int, M: int, where=None,
+                     config=None, seed: int = 0, *, device="cuda"):
+    """A drift-aware ``SpmmSession`` over the MoE dispatch SpMM.
+
+    MoE routing is the canonical drifting pattern: the dispatch matrix
+    is a function of the router's live decisions, so a distribution
+    shift strands the planned cover. Serve through the session and feed
+    each fresh routing snapshot to ``maybe_replan`` — below
+    ``drift_threshold`` the planned schedule keeps serving, past it MWVC
+    + the model's schedule choice re-run and the handle hot-swaps
+    between waves:
+
+        s = dispatch_session(cfg, T, M, device="cpu")
+        drift, swapped = s.maybe_replan(dispatch_matrix(cfg, T, M, seed=k))
+        y = s.handle()(x)
+    """
+    from ..core.api import SpmmConfig
+    from ..core.session import SpmmSession
+
+    a = dispatch_matrix(cfg, tokens, M, seed=seed)
+    return SpmmSession.build(a, M if where is None else where,
+                             config or SpmmConfig(strategy="joint",
+                                                  schedule="auto"),
+                             device=device)
 
 
 def moe_comm_rows(cfg: ModelConfig, tokens: int, M: int, seed: int = 0):

@@ -11,9 +11,16 @@ The decode cache is written IN PLACE (``DecodeCache.k`` / ``.v``,
 ``[L, B, kvh, Smax, hd]``); ``decode_step`` returns the same tensors in a
 cache one token longer.
 
+``forward``, ``lm_loss`` and ``decode_step`` take a ``DistContext``
+(``distributed.context``): the reference's sharding constraints become
+``shard``'s divisibility checks, MoE blocks run ``moe_layer(..., dist)``
+— the expert-parallel path over the grid's model axis — and
+``cfg.kv_seq_shard`` decodes against a cache split along its length
+over the model axis (``attention_decode_seqshard``).
+
 What waits: the ``ssm``, ``hybrid``, ``encdec``, ``vlm`` and ``audio``
-families and ``lm_loss`` (training) for ROADMAP item 17; a ``dist``
-context for item 15. Each raises ``NotImplementedError`` naming its item.
+families for ROADMAP item 17; each raises ``NotImplementedError``
+naming the item.
 """
 from __future__ import annotations
 
@@ -23,15 +30,16 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from ..distributed.context import check_dist, shard
 from .config import ModelConfig
 from .layers import (
     KVCache, attention, attention_decode, init_attn_params, init_mlp_params,
-    mlp, no_dist, normal, rms_norm,
+    mlp, normal, rms_norm,
 )
 from .moe import init_moe_params, moe_layer
 
 __all__ = [
-    "init_params", "forward", "DecodeCache", "init_decode_cache",
+    "init_params", "forward", "lm_loss", "DecodeCache", "init_decode_cache",
     "decode_step", "transformer_from_numpy",
 ]
 
@@ -43,7 +51,11 @@ def _check(cfg: ModelConfig, dist=None) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) waits for ROADMAP item 17; "
             f"the port runs {FAMILIES}")
-    no_dist(dist, "the transformer")
+    check_dist(dist)
+
+
+def _bspec(dist):
+    return None if dist is None else (dist.batch_axes, None, None)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -142,15 +154,19 @@ def transformer_from_numpy(params: dict, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def _block_apply(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _block_apply(lp: dict, x: torch.Tensor, cfg: ModelConfig,
+                 dist) -> torch.Tensor:
     """One causal decoder block: pre-norm attention, then pre-norm MLP/MoE."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + attention(lp["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                       rope_theta=cfg.rope_theta)
+    x = shard(x, dist, _bspec(dist))
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        return x + moe_layer(lp["moe"], h, cfg)
-    return x + mlp(lp["mlp"], h, cfg.mlp)
+        x = x + moe_layer(lp["moe"], h, cfg, dist)
+    else:
+        x = x + mlp(lp["mlp"], h, cfg.mlp)
+    return shard(x, dist, _bspec(dist))
 
 
 def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -162,10 +178,27 @@ def forward(params: dict, cfg: ModelConfig, dist,
     """Returns logits [B, S, V]; ``batch["tokens"]`` is [B, S] (int)."""
     _check(cfg, dist)
     x = params["embed"][batch["tokens"].long()].to(_dtype(cfg))
+    x = shard(x, dist, _bspec(dist))
     for i in range(cfg.n_layers):
-        x = _block_apply(_layer(params["layers"], i), x, cfg)
+        x = _block_apply(_layer(params["layers"], i), x, cfg, dist)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ _head(params, cfg)
+    logits = x @ _head(params, cfg)
+    return shard(logits, dist, None if dist is None else
+                 (dist.batch_axes, None, "model"))
+
+
+def lm_loss(params: dict, cfg: ModelConfig, dist,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy over 'tokens'."""
+    logits = forward(params, cfg, dist, batch)
+    tokens = batch["tokens"].long()
+    s = tokens.shape[1]
+    logits = logits[:, -s:, :]
+    tgt = tokens[:, 1:]
+    lg = logits[:, :-1].to(torch.float32)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.take_along_dim(lg, tgt[..., None], dim=-1)[..., 0]
+    return (logz - gold).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -201,16 +234,18 @@ def decode_step(params: dict, cfg: ModelConfig, dist,
     """
     _check(cfg, dist)
     h = params["embed"][token.long()].to(_dtype(cfg))
+    h = shard(h, dist, _bspec(dist))
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
         att, _ = attention_decode(
             lp["attn"], hn, KVCache(cache.k[i], cache.v[i], cache.length),
-            cfg.n_heads, cfg.n_kv_heads, rope_theta=cfg.rope_theta)
+            cfg.n_heads, cfg.n_kv_heads, rope_theta=cfg.rope_theta,
+            dist=dist, seq_shard=cfg.kv_seq_shard)
         h = h + att
         hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
         if "moe" in lp:
-            h = h + moe_layer(lp["moe"], hn, cfg)
+            h = h + moe_layer(lp["moe"], hn, cfg, dist)
         else:
             h = h + mlp(lp["mlp"], hn, cfg.mlp)
     x = rms_norm(h, params["final_norm"], cfg.norm_eps)

@@ -10,9 +10,10 @@ paged KV cache). Early-finished slots simply stop sampling, which the
 occupancy statistic makes visible.
 
 Each step is the port's ``decode_step`` on the device the params live on,
-one token for every slot; prompts are fed token by token (teacher
-forced), and the next token is the greedy argmax, which takes the FIRST
-maximum as ``jnp.argmax`` does.
+under the batcher's ``dist`` (a ``DistContext``: the MoE blocks run the
+expert-parallel path over its grid), one token for every slot; prompts
+are fed token by token (teacher forced), and the next token is the
+greedy argmax, which takes the FIRST maximum as ``jnp.argmax`` does.
 
 ``SpmmWaveServer`` applies the same wave discipline to SpMM serving over
 a hot-swappable ``DistSpmm`` / ``SpmmSession``: the handle is
@@ -33,8 +34,8 @@ from typing import Any, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..distributed.context import check_dist
 from ..models.config import ModelConfig
-from ..models.layers import no_dist
 from ..models.transformer import decode_step, init_decode_cache
 from ..robustness import faults
 
@@ -230,12 +231,13 @@ class ContinuousBatcher:
 
     def __init__(self, cfg: ModelConfig, params, max_batch: int,
                  max_len: int, dist=None, eos_token: Optional[int] = None):
-        no_dist(dist, "ContinuousBatcher")
+        check_dist(dist)
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
         self.max_batch = max_batch
         self.max_len = max_len
+        self.dist = dist
         self.eos = eos_token
         self.queue: Deque[Request] = deque()
         self.active: Dict[int, Request] = {}  # slot -> request
@@ -291,8 +293,8 @@ class ContinuousBatcher:
                     break
                 continue
             toks = torch.from_numpy(self._next_tokens(sampled)).to(self.device)
-            logits, self.cache = decode_step(self.params, self.cfg, None,
-                                             toks, self.cache)
+            logits, self.cache = decode_step(self.params, self.cfg,
+                                             self.dist, toks, self.cache)
             # torch.argmax returns the first maximal index, as jnp.argmax
             sampled = logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
             self.stats.decode_steps += 1

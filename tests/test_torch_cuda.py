@@ -1382,3 +1382,60 @@ def test_fleet_cross_size_migration_on_the_card():
     (c_new,) = fleet.serve()["t"]
     assert torch.equal(c_new, T.compile_spmm(a, new_P, cfg)(b))
     assert tenant.server.stats.dropped_waves == 0
+
+
+@requires_cuda
+def test_sorted_scatter_maps_on_the_card_equal_the_host():
+    rng = np.random.default_rng(4)
+    tgt = rng.integers(-1, 9, (4, 37)).astype(np.int32)
+    tgt[1] = -1
+    perm, meta = K2.sorted_scatter_maps(_cuda(tgt))
+    hp, hm = K2.stack_sorted_scatter(tgt)
+    assert np.array_equal(perm.cpu().numpy(), hp)
+    assert np.array_equal(meta.cpu().numpy(), hm)
+
+
+@requires_cuda
+def test_expert_parallel_lm_on_the_card_matches_the_cpu():
+    """olmoe-smoke (float32) on a (data 2, model 4) grid: the EP forward
+    and decode steps on the card equal the CPU's plain run within 1e-4,
+    with the same drops; each MoE layer launches K1 and K2 twice; the
+    model ranks agree bit for bit and a repeat is bit-identical."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.context import make_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+
+    cfg = get_smoke_config("olmoe-1b-7b")
+    dist = make_context(make_mesh((2, 4), ("data", "model")))
+    cpu = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = TT._tree_map(lambda t: t.cuda(), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 12)).astype(np.int32))
+    before = launch_counts()
+    with TM.record_dispatch() as rec_card:
+        got = TT.forward(card, cfg, dist, {"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    after = launch_counts()
+    for k in ("gather_rows", "scatter_add_rows"):
+        assert after[k] == before[k] + 2 * cfg.n_layers, k
+    with TM.record_dispatch() as rec_cpu:
+        want = TT.forward(cpu, cfg, dist, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert [int(r["dropped"]) for r in rec_card] == \
+        [int(r["dropped"]) for r in rec_cpu]
+    assert torch.equal(TT.forward(card, cfg, dist, {"tokens": toks.cuda()}),
+                       got)
+    x = torch.randn(4, 12, cfg.d_model, device="cuda")
+    lp = TT._layer(card["layers"], 0)["moe"]
+    ranks = TM._moe_ep(lp, x, cfg, dist, True, all_ranks=True)
+    assert all(torch.equal(ranks[m], ranks[0]) for m in range(1, 4))
+    cache = TT.init_decode_cache(cfg, 4, 12, device="cuda")
+    cache_cpu = TT.init_decode_cache(cfg, 4, 12, device="cpu")
+    for j in range(toks.shape[1]):
+        step, cache = TT.decode_step(card, cfg, dist,
+                                     toks[:, j:j + 1].cuda(), cache)
+        ref, cache_cpu = TT.decode_step(cpu, cfg, dist, toks[:, j:j + 1],
+                                        cache_cpu)
+        torch.testing.assert_close(step.cpu(), ref, rtol=1e-4, atol=1e-4)

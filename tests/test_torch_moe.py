@@ -66,16 +66,25 @@ def test_moe_layer_bf16_activations_use_a_float32_router():
 
 
 def test_moe_layer_expert_parallel_raises():
+    """A model axis that divides the experts runs the expert-parallel path
+    (``tests/test_torch_moe_ep.py`` holds it to the reference); one that
+    does not takes the dense path, as the reference's ``moe_layer`` does;
+    a batch that the batch axes cannot split raises."""
+    from repro_torch.distributed.context import make_context
+    from repro_torch.launch.mesh import make_mesh
+
     cfg = get_smoke_config("olmoe-1b-7b")
     _, tp = _params(jax_smoke("olmoe-1b-7b"), 0)
-    x = torch.zeros(1, 2, cfg.d_model)
+    x = torch.zeros(2, 2, cfg.d_model)
+    dist = make_context(make_mesh((2, 4), ("data", "model")))
+    assert TM.moe_layer(tp, x, cfg, dist).shape == x.shape
+    assert dist.comm.rows("model") > 0  # the all_to_alls ran
+    with pytest.raises(ValueError, match="not divisible"):
+        TM.moe_layer(tp, x[:1], cfg, dist)
 
     class Dist:
-        model_size = 4
+        model_size = 3  # does not divide the 8 experts: the dense path
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TM.moe_layer(tp, x, cfg, Dist())
-    Dist.model_size = 3  # does not divide the 8 experts: the dense path
     assert TM.moe_layer(tp, x, cfg, Dist()).shape == x.shape
 
 

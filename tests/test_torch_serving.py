@@ -117,7 +117,14 @@ def test_max_len_ends_a_request():
 
 
 def test_batcher_rejects_a_dist_context():
+    """A ``dist`` that is not a DistContext is refused; a DistContext is
+    taken (``tests/test_torch_dist_context.py`` serves through one)."""
+    from repro_torch.distributed.context import make_context
+    from repro_torch.launch.mesh import make_mesh
+
     cfg = get_smoke_config("smollm-135m")
     tp = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="DistContext"):
         TS.ContinuousBatcher(cfg, tp, 2, 8, dist=object())
+    dist = make_context(make_mesh((2, 4), ("data", "model")))
+    assert TS.ContinuousBatcher(cfg, tp, 2, 8, dist=dist).dist is dist

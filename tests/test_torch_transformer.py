@@ -147,8 +147,14 @@ def test_attention_decode_matches_reference():
         np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), **F32)
         np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), **F32)
         assert tc.length == int(jc.length)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TL.attention_decode(tp, torch.from_numpy(x), tc, h, kvh, dist=object())
+    # without seq_shard a dist plays no part, as in the reference
+    x = rng.standard_normal((b, 1, d)).astype(np.float32)
+    want, jc = RL.attention_decode(jp, jnp.asarray(x), jc, h, kvh,
+                                   dist=object())
+    got, tc = TL.attention_decode(tp, torch.from_numpy(x), tc, h, kvh,
+                                  dist=object())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), **F32)
 
 
 @pytest.mark.parametrize("kind", ["swiglu", "gelu"])
@@ -258,7 +264,9 @@ def test_unported_families_and_dist_raise():
         with pytest.raises(NotImplementedError, match="item 17"):
             TT.init_decode_cache(get_smoke_config(arch), 1, 4, device="cpu")
     cfg = get_smoke_config("smollm-135m")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # a DistContext runs (tests/test_torch_dist_context.py); anything
+    # else is refused
+    with pytest.raises(TypeError, match="DistContext"):
         TT.forward({}, cfg, object(), {"tokens": torch.zeros(1, 1)})
 
 
