@@ -178,6 +178,26 @@ handle. Phases, each of which raises on a failed check:
    one prefill and one decode step is checked against its plain version
    as it runs (paths ``ep_prefill``, ``ep_decode``), and the session
    handle's K1 / K2 calls are replayed (path ``dispatch_session``).
+11. SHIRO across two processes on the card, after phase 9: (a) the
+   launcher's smoke (``python -m repro_torch.launch.multiprocess --nproc
+   2 --local-devices 4``, every worker on ``cuda:0``); (b) two workers
+   (this script with ``--mp-worker DIR``, started by ``launch_local``)
+   of 4 ranks each compile mp-powerlaw-arxiv flat (coo), mp-powerlaw-arxiv
+   hier (``hier="auto"`` → the fleet's (2, 4)) and mp-uniform-arxiv hier
+   (bsr, overlapped: K3 / K4) on ``Topology.multiprocess()``, decisions
+   == ``EXPECT_MP``; each process's C rows ``torch.equal`` to the same
+   rows of a ``Topology.local(8)`` run of the same plan and within 2e-4
+   of scipy float64, rows per axis summed over the processes == the
+   emulated log's (== ``volume_rows_padded`` on the plan's axis), rows
+   across processes == ``plan_crossing_rows()``; h(b) median of 7 by
+   CUDA events and host wall beside its staging and gloo seconds; each
+   worker's K1–K4 calls of one h(b) replayed against the plain versions,
+   one process at a time (paths ``mp_flat``, ``mp_hier``,
+   ``mp_uniform_hier``); (c) ``--supervise`` drills: a ``worker_kill``
+   at ``stage:serve`` of rank 1 in epoch 0 recovers after one restart,
+   and kills in every epoch with ``--max-restarts 0`` degrade to one
+   process that serves rung 4; (a) and (c) run side by side before (b).
+   Every wait has a deadline (``MP_TIMEOUT``).
 
 It prints the card's name and power limit, then one JSON line of kernel
 rows, then ``{"ok": true, "device": {...}}`` as its last line. Without a
@@ -975,6 +995,7 @@ def kernel_summary(name: str, per_path: dict, card: str) -> dict:
         path: {key: r[key] for key in (
             "launches", "calls_per_h", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "host_us_per_launch",
+            "launches_per_worker",
             "pack_plus_multiply_ms", "max_abs_err_vs_oracle",
             "kernel_busy_ms", "kernel_busy_ms_one_input") if key in r}
         for path, r in per_path.items()}
@@ -3585,6 +3606,381 @@ def serving_phase(args, card, a_u, a_p, b_host) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 11: SHIRO across two processes on the one card
+# ---------------------------------------------------------------------------
+
+MP_NPROC, MP_LOCAL = 2, 4  # processes x ranks each: P = 8, tiers (2, 4)
+MP_TIMEOUT = 300  # seconds: every wait of the phase, collectives included
+MP_DEVICE = "cuda"  # every worker's ranks run on the card
+# the three handles each worker compiles on the fleet's Topology (hier=
+# "auto" resolves to the fleet's tiers; the uniform one runs K3 / K4)
+MP_CELLS = (("mp-powerlaw-arxiv flat", "power_law", "mp_flat",
+             dict(backends=("coo",))),
+            ("mp-powerlaw-arxiv hier", "power_law", "mp_hier",
+             dict(backends=("coo",), hier="auto")),
+            ("mp-uniform-arxiv hier", "uniform", "mp_uniform_hier",
+             dict(backends=("bsr",), hier="auto")))
+MP_KERNELS = {"power_law": ("gather_rows", "gather_rows_scaled",
+                            "scatter_add_rows"),
+              "uniform": ("gather_rows", "scatter_add_rows", "bsr_spmm",
+                          "bsr_spmm_acc")}
+# the reference's decisions with the fleet's derived NetworkSpec
+# (derived-gpu-2x4: 450 / 25 GB/s, group 4; the JAX package's
+# _plan_and_tune on the same matrices, CPU run), and the padded rows each
+# plan sends across the two processes (``DistSpmm.plan_crossing_rows``'s
+# count on the reference's schedule) beside its unpadded slow-tier rows
+# (B, C) and the flat plan's
+EXPECT_MP = {
+    "full": {
+        "mp-powerlaw-arxiv flat": dict(
+            strategy="flat", net="derived-gpu-2x4", schedule_kind="bucketed",
+            schedule_K=4, overlap=True,
+            modeled_time_flat=0.0008584470399999999, volume_rows=260413,
+            volume_rows_padded=827712, crossing_padded=468526,
+            slow_tier_rows=(18948, 116864),
+            slow_tier_rows_flat_plan=(18948, 116864)),
+        "mp-powerlaw-arxiv hier": dict(
+            strategy="hier", G=2, L=4, net="derived-gpu-2x4",
+            schedule_kind="bucketed", schedule_K=1, overlap=True,
+            modeled_time_flat=0.0008584470399999999,
+            modeled_time_hier=0.00016531743999999998, volume_rows=260413,
+            volume_rows_padded=180992, crossing_padded=180992,
+            slow_tier_rows=(14286, 85065),
+            slow_tier_rows_flat_plan=(18948, 116864)),
+        "mp-uniform-arxiv hier": dict(
+            strategy="hier", G=2, L=4, net="derived-gpu-2x4",
+            schedule_kind="bucketed", schedule_K=1, overlap=True,
+            modeled_time_flat=0.0009738389973333332,
+            modeled_time_hier=0.00028465350400000005, volume_rows=589422,
+            volume_rows_padded=204488, crossing_padded=204488,
+            slow_tier_rows=(55468, 147631),
+            slow_tier_rows_flat_plan=(63991, 272565)),
+    },
+    "quick": {
+        "mp-powerlaw-arxiv flat": dict(
+            strategy="flat", net="derived-gpu-2x4", schedule_kind="bucketed",
+            schedule_K=2, overlap=True,
+            modeled_time_flat=0.0001514330097777778, volume_rows=27371,
+            volume_rows_padded=100536, crossing_padded=54780,
+            slow_tier_rows=(2083, 12314),
+            slow_tier_rows_flat_plan=(2083, 12314)),
+        "mp-powerlaw-arxiv hier": dict(
+            strategy="hier", G=2, L=4, net="derived-gpu-2x4",
+            schedule_kind="bucketed", schedule_K=1, overlap=True,
+            modeled_time_flat=0.0001514330097777778,
+            modeled_time_hier=3.4847552000000004e-05, volume_rows=27371,
+            volume_rows_padded=18448, crossing_padded=18448,
+            slow_tier_rows=(1561, 8752),
+            slow_tier_rows_flat_plan=(2083, 12314)),
+        "mp-uniform-arxiv hier": dict(
+            strategy="hier", G=2, L=4, net="derived-gpu-2x4",
+            schedule_kind="bucketed", schedule_K=1, overlap=True,
+            modeled_time_flat=0.00015947451022222224,
+            modeled_time_hier=4.5766208000000004e-05, volume_rows=57748,
+            volume_rows_padded=20136, crossing_padded=20136,
+            slow_tier_rows=(5401, 14366),
+            slow_tier_rows_flat_plan=(6311, 26729)),
+    },
+}
+
+
+def slow_tier_rows(plan, L: int):
+    """(B rows, C rows) of a flat plan whose ranks sit in different
+    groups of L ranks (``HierPlan.inter_group_rows_flat``)."""
+    b = c = 0
+    for (p, q), pp in plan.pair_plans.items():
+        if p // L != q // L:
+            b += pp.col_ids.size
+            c += pp.row_ids.size
+    return b, c
+
+
+def check_c_rows(c: torch.Tensor, blocks, a, b_host: np.ndarray,
+                 what: str) -> float:
+    """The rows of C a process holds (``row_blocks``) within 2e-4 of
+    scipy's product in float64."""
+    import scipy.sparse as sp
+
+    a64 = sp.csr_matrix((a.data.astype(np.float64), a.indices, a.indptr),
+                        shape=a.shape)
+    b64 = b_host.astype(np.float64)
+    ref = np.concatenate([a64[s:e] @ b64 for s, e in blocks])
+    got = c.double().cpu().numpy()
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: C rows {got.shape} or values bad")
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4, err_msg=what)
+    return float(np.abs(got - ref).max())
+
+
+def mp_worker(args) -> None:
+    """One process of phase 11 (b): its span of the P = 8 ranks on the
+    card. Writes ``<dir>/rank<i>.json`` for the parent; any failed check
+    raises, and the process exits non-zero."""
+    import torch.distributed as dist
+
+    from repro_torch import SpmmConfig, compile_spmm
+    from repro_torch.core.api import _tensor_leaves, materialize_payload
+    from repro_torch.core.sparse import power_law_sparse, random_sparse
+    from repro_torch.distributed.topology import Topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch.multiprocess import initialize, shutdown
+
+    topo = initialize(timeout=MP_TIMEOUT)
+    me, (lo, hi) = topo.process_index, topo.span
+    if topo.device.type != MP_DEVICE or topo.tiers != (MP_NPROC, MP_LOCAL):
+        raise AssertionError(f"worker {me}: topology {topo}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = 16_384 if args.quick else M_FULL
+    nnz = 7 * m if args.quick else NNZ_FULL
+    b_host = np.random.default_rng(0).standard_normal((m, N_COLS),
+                                                      dtype=np.float32)
+    b_full = torch.from_numpy(b_host).to(topo.device)  # the emulated run's
+    b_dev = topo.put_global(b_host)  # this process's rows only
+    mats = {"power_law": power_law_sparse(m, m, nnz, 0.8, seed=0),
+            "uniform": random_sparse(m, m, nnz / m ** 2, seed=0)}
+    expect = EXPECT_MP["quick" if args.quick else "full"]
+    out = {"process": me, "span": [lo, hi], "device": str(topo.device),
+           "topology": topo.describe(), "cells": {}}
+    recorded = {}
+    for what, mat, path, fields in MP_CELLS:
+        t0 = time.perf_counter()
+        a = mats[mat]
+        h = compile_spmm(a, topo, SpmmConfig(**fields))
+        prep_s = time.perf_counter() - t0
+        log(f"[worker {me}] {what}: compile_spmm {prep_s:.1f} s: {h}")
+        st = h.stats()
+        want = expect[what]
+        got = {k: st.get(k) for k in want if k in st}
+        got["crossing_padded"] = h.plan_crossing_rows()
+        got["slow_tier_rows"] = (tuple(h.hier.inter_group_rows())
+                                 if h.hier is not None
+                                 else slow_tier_rows(h.plan, MP_LOCAL))
+        got["slow_tier_rows_flat_plan"] = slow_tier_rows(h.plan, MP_LOCAL)
+        if got != want:
+            raise AssertionError(f"worker {me} {what}: decisions {got} != "
+                                 f"{want}")
+        if any(t.device != topo.device for _, t in _tensor_leaves(h.ex)):
+            raise AssertionError(f"{what}: exec arrays off the card")
+        emu = materialize_payload(h.save_payload(),
+                                  Topology.local(P, topo.device))
+        # the kernel calls of one h(b), outside the counted run
+        recorded[path] = [record_kernel_calls(lambda: h(b_dev))]
+        ops.reset_launch_counts()
+        c = h(b_dev)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        recorded[path].append(launches)
+        missing = [k for k in MP_KERNELS[mat] if launches[k] < 1]
+        if missing or c.device != topo.device:
+            raise AssertionError(f"{what}: {missing} not launched "
+                                 f"({launches}) or C off the card")
+        axes = {str(ax): [h.comm.fleet_rows(ax), None]
+                for ax in (None, "x", "g", "l")}
+        crossing = h.comm.fleet_rows(crossing=True)
+        transport = h.comm.transport()
+        c_emu = emu(b_full)
+        for ax in axes:
+            axes[ax][1] = emu.comm.rows(None if ax == "None" else ax)
+        same = torch.equal(c, torch.cat([c_emu[s:e]
+                                         for s, e in h.row_blocks()]))
+        del emu, c_emu
+        vol_axis = "g" if h.strategy == "hier" else "None"
+        if not same or any(f != e for f, e in axes.values()) or \
+                axes[vol_axis][0] != st["volume_rows_padded"] or \
+                crossing != want["crossing_padded"]:
+            raise AssertionError(
+                f"worker {me} {what}: C == emulated {same}; rows (fleet, "
+                f"emulated) {axes} vs volume_rows_padded "
+                f"{st['volume_rows_padded']}; crossing {crossing} vs "
+                f"{want['crossing_padded']}")
+        err = check_c_rows(c, h.row_blocks(), a, b_host, what)
+        log(f"[worker {me}] {what}: checked at "
+            f"{time.perf_counter() - t0:.1f} s")
+        dev_ms, host_ms, stage_ms, gloo_ms = [], [], [], []
+        for _ in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            start.record()
+            h(b_dev)
+            end.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+            tr = h.comm.transport()
+            stage_ms.append(tr["stage_s"] * 1e3)
+            gloo_ms.append(tr["gloo_s"] * 1e3)
+        out["cells"][what] = {
+            "decisions": {k: list(v) if isinstance(v, tuple) else v
+                          for k, v in got.items()},
+            "row_blocks": h.row_blocks(), "prep_s": prep_s,
+            "rows": axes, "crossing_rows": crossing,
+            "crossing_bytes": crossing * N_COLS * 4,
+            "transport": transport, "max_abs_err": err,
+            "launches": {k: launches[k] for k in MP_KERNELS[mat]},
+            "ms": statistics.median(dev_ms),
+            "host_ms": statistics.median(host_ms),
+            "stage_ms": statistics.median(stage_ms),
+            "gloo_ms": statistics.median(gloo_ms)}
+    del b_full
+    torch.cuda.empty_cache()
+    # every recorded kernel call against its plain version, one process
+    # at a time (both share the card, and the replays are timed)
+    rows = {}
+    for turn in range(topo.n_hosts):
+        if turn == me:
+            t0 = time.perf_counter()
+            rows = replay_paths({
+                k: {path: recorded[path] for _, mat, path, _ in MP_CELLS
+                    if k in MP_KERNELS[mat]}
+                for k in ("gather_rows", "gather_rows_scaled",
+                          "scatter_add_rows", "bsr_spmm", "bsr_spmm_acc")})
+            log(f"[worker {me}] kernel calls replayed in "
+                f"{time.perf_counter() - t0:.1f} s")
+        dist.barrier()
+    out["kernels"] = rows
+    with open(os.path.join(args.mp_worker, f"rank{me}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown()
+
+
+def _launchers(runs):
+    """``python -m repro_torch.launch.multiprocess`` on the card once per
+    ``(flags, faults)`` of ``runs``, all at once, each waited for at most
+    ``MP_TIMEOUT`` seconds; their outputs are logged in turn. Returns
+    (stdout, seconds) per run; a launcher that fails raises."""
+    import tempfile
+
+    started = []
+    for flags, faults in runs:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        env.pop("REPRO_FAULTS_EPOCH", None)
+        if faults is not None:
+            env["REPRO_FAULTS"] = json.dumps(faults)
+        out = tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.multiprocess",
+             "--nproc", str(MP_NPROC), "--local-devices", str(MP_LOCAL),
+             "--device", MP_DEVICE, "--timeout", str(MP_TIMEOUT), *flags],
+            env=env, stdout=out, stderr=subprocess.STDOUT, text=True)
+        started.append((flags, proc, out, time.perf_counter()))
+    deadline = time.perf_counter() + MP_TIMEOUT + 30
+    results, failed = [], []
+    for flags, proc, out, t0 in started:
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed at the deadline"
+        secs = time.perf_counter() - t0
+        out.seek(0)
+        text = out.read()
+        out.close()
+        log(f"launcher {' '.join(flags) or '(no flags)'}:")
+        for line in text.splitlines():
+            if "hostname of the client socket" not in line:
+                log(f"  | {line}")
+        if rc != 0:
+            failed.append((flags, rc))
+        results.append((text, secs))
+    if failed:
+        raise AssertionError(f"launchers failed: {failed}")
+    return results
+
+
+def mp_phase(args, card: str) -> dict:
+    """Phase 11: (a) the reference's smoke across 2 processes × 4 ranks on
+    the card and (c) the supervisor's kill and degrade drills, the three
+    launchers side by side; then (b) the three mp-* handles at arxiv
+    scale in 2 workers (``mp_worker``), each process's C rows == the
+    emulated run's and within 2e-4 of float64, decisions ==
+    ``EXPECT_MP``, rows per axis == the emulated log's, rows across
+    processes == the plan's. Returns the kernel rows of the mp_* paths
+    (worker 0's numbers, the worst error of both)."""
+    import shutil
+
+    from repro_torch.launch.multiprocess import launch_local
+
+    t_phase = time.perf_counter()
+    # (a) and (c), all at once, before (b)'s timed calls
+    kill = {"kind": "worker_kill", "site": "stage:serve", "rank": 1,
+            "epoch": 0}
+    (smoke, secs_a), (killed, secs_k), (degraded, secs_d) = _launchers([
+        ((), None), (("--supervise", "--backoff", "0"), [kill]),
+        (("--supervise", "--max-restarts", "0", "--backoff", "0"),
+         [dict(kill, epoch=e) for e in range(3)])])
+    if f"multiprocess smoke: {MP_NPROC} processes x {MP_LOCAL} ranks on " \
+            f"{MP_DEVICE}  OK" not in smoke or \
+            smoke.count("replan hot-swap OK") != MP_NPROC:
+        raise AssertionError("mp (a): the smoke did not report OK")
+    log(f"mp (a): smoke across {MP_NPROC} processes x {MP_LOCAL} ranks on "
+        f"the card in {secs_a:.1f} s")
+    if f"recovered after 1 restart(s) (nproc={MP_NPROC})" not in killed:
+        raise AssertionError("mp (c): the kill drill did not recover")
+    log(f"mp (c): kill drill recovered after 1 restart in {secs_k:.1f} s")
+    rung = f"surviving rung P={(MP_NPROC - 1) * MP_LOCAL} of ladder"
+    if "recovered DEGRADED" not in degraded or rung not in degraded:
+        raise AssertionError("mp (c): the degrade drill did not serve the "
+                             "surviving rung")
+    log(f"mp (c): degrade drill served rung {(MP_NPROC - 1) * MP_LOCAL} "
+        f"in {secs_d:.1f} s (the three launchers ran side by side)")
+
+    # (b)
+    out_dir = os.path.join(ROOT, "build", "mp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    rc = launch_local(MP_NPROC, MP_LOCAL, timeout=MP_TIMEOUT, device=MP_DEVICE,
+                      argv=[sys.executable, os.path.abspath(__file__),
+                            "--mp-worker", out_dir]
+                      + (["--quick"] if args.quick else []))
+    if rc:
+        raise AssertionError(f"mp (b): a worker failed (exit {rc})")
+    res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+           for r in range(MP_NPROC)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"mp (b): {MP_NPROC} workers in {time.perf_counter() - t0:.1f} s, "
+        f"devices {[r['device'] for r in res]}, spans "
+        f"{[r['span'] for r in res]}")
+    for what, _, path, _ in MP_CELLS:
+        cells = [r["cells"][what] for r in res]
+        d = cells[0]
+        log(f"{what} decisions: {json.dumps(d['decisions'])}")
+        log(f"  rows (fleet, emulated) by axis {json.dumps(d['rows'])}; "
+            f"across processes {d['crossing_rows']} rows = "
+            f"{d['crossing_bytes']} B (plan: {d['decisions']['crossing_padded']}"
+            f" padded; slow tier {d['decisions']['slow_tier_rows']}, flat "
+            f"plan {d['decisions']['slow_tier_rows_flat_plan']} unpadded)")
+        for r, cell in zip(res, cells):
+            log(f"  worker {r['process']} rows {cell['row_blocks']}: C == "
+                f"emulated; max abs err vs scipy float64 "
+                f"{cell['max_abs_err']:.3g} (tol 2e-4); prep "
+                f"{cell['prep_s']:.1f} s; launches {cell['launches']}")
+            log(f"  h(b) {what} worker {r['process']} [{card}]: median of 7:"
+                f" {cell['ms']:.3f} ms device events, {cell['host_ms']:.3f}"
+                f" ms host wall; staging {cell['stage_ms']:.3f} ms "
+                f"({cell['stage_ms'] / cell['host_ms']:.1%}), gloo "
+                f"{cell['gloo_ms']:.3f} ms "
+                f"({cell['gloo_ms'] / cell['host_ms']:.1%}); "
+                f"{cell['transport']['exchanges']} exchanges, "
+                f"{cell['transport']['staged_bytes']} B staged")
+    rows = {}
+    for k, per_path in res[0]["kernels"].items():
+        for path, row in per_path.items():
+            other = [r["kernels"][k][path] for r in res[1:]]
+            row = dict(row, max_abs_err=max(
+                [row["max_abs_err"]] + [o["max_abs_err"] for o in other]),
+                launches_per_worker=[row["launches"]]
+                + [o["launches"] for o in other])
+            rows.setdefault(k, {})[path] = row
+
+    log(f"phase 11 multiprocess: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quick", action="store_true",
@@ -3595,11 +3991,17 @@ def main() -> int:
                              "h(b) per cell, one GAT forward per backend, "
                              "one training step per training cell, one LM "
                              "prefill and one decode step")
+    parser.add_argument("--mp-worker", metavar="DIR",
+                        help="run as one worker of phase 11 (b), writing "
+                             "its results under DIR (the phase starts it)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if args.mp_worker:
+        mp_worker(args)
+        return 0
     from repro_torch import SpmmConfig, compile_fused, compile_spmm
     from repro_torch.core.dist_spmm import flat_spmm
     from repro_torch.core.sparse import power_law_sparse, random_sparse
@@ -3879,6 +4281,14 @@ def main() -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     # 9. serving waves and the fleet, after phase 8's tensors are released
     for k, extra in serving_phase(args, card, a_u, a_p, b_host).items():
+        per_kernel[k].update(extra)
+
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    # 11. SHIRO across two processes on the card: the smoke, the mp-*
+    #     handles at arxiv scale, the supervisor's drills
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, extra in mp_phase(args, card).items():
         per_kernel[k].update(extra)
 
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")

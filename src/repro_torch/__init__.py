@@ -22,11 +22,19 @@ torch version beside it.
 
     server = SpmmWaveServer(s, max_batch=2)   # waves across swaps
     fleet = SpmmFleet(Topology.local(8), group_sizes=(4, 4))  # tenants
+
+Across processes (one worker each, ``torch.distributed`` over gloo):
+
+    python -m repro_torch.launch.multiprocess --nproc 2 --local-devices 4
+    topo = repro_torch.launch.multiprocess.initialize()  # in a worker
+    h = compile_spmm(a, topo, hier="auto")   # tiers (processes, local)
+    c = h(b)          # this process's rows of C: h.row_blocks()
 """
 from .core.api import (
     DistSpmm, SpmmConfig, compile_fused, compile_sddmm, compile_spmm,
 )
 from .core.session import SpmmSession
+from .distributed.comm import ProcessComm
 from .distributed.topology import Topology, TopologyError
 from .robustness import (
     Fault, FaultPlan, InjectedFault, NumericalFault,
@@ -43,4 +51,18 @@ __all__ = ["DistSpmm", "SpmmConfig", "compile_spmm", "compile_sddmm",
            "compile_fused", "SpmmSession", "Topology", "TopologyError",
            "Fault", "FaultPlan", "InjectedFault", "NumericalFault",
            "SpmmRequest", "SpmmWaveServer", "SpmmWaveStats", "SpmmFleet",
-           "ReshardSpec", "ElasticController", "MeshPlan", "propose_mesh"]
+           "ReshardSpec", "ElasticController", "MeshPlan", "propose_mesh",
+           "ProcessComm", "launch_local", "Supervisor", "SupervisorPolicy"]
+
+# the launcher's names load on first use: ``python -m
+# repro_torch.launch.multiprocess`` imports this package first, and the
+# module it runs must not be imported before it
+_LAUNCH = ("launch_local", "Supervisor", "SupervisorPolicy")
+
+
+def __getattr__(name):
+    if name in _LAUNCH:
+        from .launch import multiprocess
+
+        return getattr(multiprocess, name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -44,7 +44,14 @@ copies), so the decisions are the reference's:
 
 The P ranks are emulated on ONE device (``distributed.topology``): the
 handle's tensors live on ``device`` (default ``"cuda"``; raises without a
-card, ``device="cpu"`` runs the kernels' plain versions). Calls are
+card, ``device="cpu"`` runs the kernels' plain versions). On a
+``Topology.multiprocess`` fleet every process plans the same handle (the
+planner is deterministic host code), keeps only its span of the exec
+arrays on its device, takes its rows of each operand
+(``Topology.put_global``) and returns its rows of C, whose global row
+ranges ``h.row_blocks()`` names; the collectives run through a
+``ProcessComm``, and measured autotuning stays model-only there, as in
+the reference. Calls are
 differentiable where the reference's are (``kernels.ops``): coo SpMM on
 every tier, coo and bsr SDDMM, coo FusedMM; a bsr SpMM or FusedMM call on
 an operand that requires grad raises, as the reference has no JVP for
@@ -361,7 +368,7 @@ class DistSpmm:
         if self.replicated:
             self.comm = topology.replicated_mesh(schedule.c, schedule.s)
         else:
-            self.comm = LocalComm(plan.P, 1 if hier is None else hier.G)
+            self.comm = topology.comm(1 if hier is None else hier.G)
         self._executables: Dict[Tuple[Any, ...], Callable] = {}
         # same keys -> executable_memory() profile of the key's first call
         self._memory: Dict[Tuple[Any, ...], Dict[str, int]] = {}
@@ -440,10 +447,39 @@ class DistSpmm:
                 flat_fused if self.hier is None else hier_fused,
                 backend=backend, edge=edge))
 
-    def _as_operand(self, b) -> torch.Tensor:
-        if not isinstance(b, torch.Tensor):
-            b = torch.from_numpy(np.ascontiguousarray(b))
-        return b.to(self.device).contiguous()
+    def _as_operand(self, b, rows: int) -> torch.Tensor:
+        """A dense operand of ``rows`` rows on the handle's substrate:
+        whole on one device, this process's rows on a fleet."""
+        return self.topology.put_global(b, rows)
+
+    def _rows_for(self, x, rows: int) -> int:
+        """The rows a dense operand must have: ``rows``, or, on a fleet,
+        this process's share of them when ``x`` is a tensor of that
+        share (one handle's output fed to the next)."""
+        lo, hi = self.comm.span
+        share = rows * (hi - lo) // self.P
+        if self.topology.is_multiprocess and isinstance(x, torch.Tensor) \
+                and x.dim() == 2 and x.shape[0] == share:
+            return share
+        return rows
+
+    def row_blocks(self) -> List[Tuple[int, int]]:
+        """The global (start, stop) C rows a call returns, in the order it
+        returns them: [(0, M)] on one device; on a fleet this process's
+        span of the row blocks — one run on the flat and hier tiers, and
+        on the replicated tier each rank's chunk (rank (r, g) holds rows
+        g·m_local + r·m_local/c onward)."""
+        lo, hi = self.comm.span
+        M = self.plan.shape[0]
+        if (lo, hi) == (0, self.P):
+            return [(0, M)]
+        m_local = self.ex.meta["m_local"]
+        if not self.replicated:
+            return [(lo * m_local, hi * m_local)]
+        s, ch = self.schedule.s, m_local // self.schedule.c
+        return [((p % s) * m_local + (p // s) * ch,
+                 (p % s) * m_local + (p // s + 1) * ch)
+                for p in range(lo, hi)]
 
     def _measured(self, key: Tuple[Any, ...], run: Callable[[], Any]):
         """``run()``, recording its device memory on the key's first call
@@ -523,13 +559,35 @@ class DistSpmm:
                 raise
         return out
 
+    def plan_crossing_rows(self) -> int:
+        """The padded rows one call's collectives send between processes
+        on the handle's topology, B and C together — what
+        ``ProcessComm.fleet_rows(crossing=True)`` counts (0 on one
+        process): the plan's slow-tier traffic as it is really sent.
+        Flat and hier tiers (a hier shift d moves every rank by d·L)."""
+        if self.replicated:
+            raise NotImplementedError(
+                "plan_crossing_rows covers the flat and hier tiers")
+        P, s = self.P, self.schedule
+        w = P // self.topology.n_hosts
+        stride = 1 if self.hier is None else self.hier.L
+
+        def crossing(d: int) -> int:  # ranks whose shift-d peer is remote
+            return sum(q // w != (q + d * stride) % P // w for q in range(P))
+
+        if s.kind == "single":
+            return (s.max_b + s.max_c) * sum(crossing(d) for d in range(s.P))
+        return sum((s.slots_b[d - 1] + s.slots_c[d - 1]) * crossing(d)
+                   for d in range(1, s.P))
+
     def _finite_c(self, c, **kw) -> None:
-        guards.sampled_finite_check(c, ranks=self.P, **kw)
+        lo, hi = self.comm.span
+        guards.sampled_finite_check(c, ranks=hi - lo, **kw)
 
     def _call_spmm(self, b, name: str) -> torch.Tensor:
         if self._check:
             guards.validate_dense_operand(
-                b, k_expected=self.plan.shape[1],
+                b, k_expected=self._rows_for(b, self.plan.shape[1]),
                 context=f"DistSpmm(P={self.P}) call")
         key = (_width(b), _dtype_name(_operand_dtype(b)), name)
         c = self._measured(key, lambda: self._run_spmm(b, name))
@@ -539,7 +597,7 @@ class DistSpmm:
         return self._guarded(c, self._finite_c, f"backend={name!r}")
 
     def _run_spmm(self, b, name: str) -> torch.Tensor:
-        b_dev = self._as_operand(b)
+        b_dev = self._as_operand(b, self.plan.shape[1])
         fn = self._executable(b_dev.shape[1], b_dev.dtype, name)
         self.comm.reset()
         if (self._donate and not _callers_memory(b_dev, b)
@@ -555,14 +613,15 @@ class DistSpmm:
                     ) -> Dict[str, torch.Tensor]:
         if self._check:
             guards.validate_sddmm_operands(
-                x, y, m_expected=self.plan.shape[0],
-                k_expected=self.plan.shape[1],
+                x, y, m_expected=self._rows_for(x, self.plan.shape[0]),
+                k_expected=self._rows_for(y, self.plan.shape[1]),
                 context=f"DistSpmm(P={self.P}) sddmm call")
         key = ("sddmm", _width(x), _dtype_name(_operand_dtype(x)),
                _dtype_name(_operand_dtype(y)), name, edge)
 
         def run():
-            xd, yd = self._as_operand(x), self._as_operand(y)
+            xd = self._as_operand(x, self.plan.shape[0])
+            yd = self._as_operand(y, self.plan.shape[1])
             fn = self._sddmm_executable(xd.shape[1], xd.dtype, yd.dtype,
                                         name, edge)
             self.comm.reset()
@@ -579,17 +638,20 @@ class DistSpmm:
         if self._check:
             ctx = f"DistSpmm(P={self.P}) fused call"
             guards.validate_sddmm_operands(
-                x, y, m_expected=self.plan.shape[0],
-                k_expected=self.plan.shape[1], context=ctx)
+                x, y, m_expected=self._rows_for(x, self.plan.shape[0]),
+                k_expected=self._rows_for(y, self.plan.shape[1]),
+                context=ctx)
             guards.validate_dense_operand(
-                b, k_expected=self.plan.shape[1], context=ctx)
+                b, k_expected=self._rows_for(b, self.plan.shape[1]),
+                context=ctx)
         key = ("fused", _width(x), _width(b),
                _dtype_name(_operand_dtype(x)), _dtype_name(_operand_dtype(y)),
                _dtype_name(_operand_dtype(b)), name, edge)
 
         def run():
-            xd, yd, bd = (self._as_operand(x), self._as_operand(y),
-                          self._as_operand(b))
+            M, K = self.plan.shape
+            xd, yd, bd = (self._as_operand(x, M), self._as_operand(y, K),
+                          self._as_operand(b, K))
             fn = self._fused_executable(xd.shape[1], bd.shape[1], xd.dtype,
                                         yd.dtype, bd.dtype, name, edge)
             self.comm.reset()
@@ -657,6 +719,7 @@ class DistSpmm:
             new_ex = flat_exec_arrays(plan, backends=self.config.backends,
                                       schedule=schedule,
                                       overlap_layouts=overlap)
+        new_ex = _place(new_ex, self.topology)
         old_leaves, new_leaves = _tensor_leaves(self.ex), _tensor_leaves(new_ex)
         if (new_ex.backends != self.ex.backends
                 or [p for p, _ in old_leaves] != [p for p, _ in new_leaves]
@@ -665,7 +728,7 @@ class DistSpmm:
             return False
         self.plan, self.hier, self.schedule = plan, hier, schedule
         self.decisions = dict(decisions)
-        self.ex = new_ex.to(self.device)
+        self.ex = new_ex
         self.snapshot = snapshot
         self.last_drift = 0.0
         self.values_refreshes += 1
@@ -866,8 +929,16 @@ def _materialize(config: SpmmConfig, plan: SpmmPlan,
         ex = flat_exec_arrays(plan, backends=config.backends,
                               schedule=schedule, overlap_layouts=overlap)
     return DistSpmm(config=config, plan=plan, hier=hier, schedule=schedule,
-                    ex=ex.to(topo.device), decisions=decisions,
+                    ex=_place(ex, topo), decisions=decisions,
                     topology=topo, snapshot=snapshot)
+
+
+def _place(ex, topo: Topology):
+    """An exec plan on ``topo``: on a fleet, only this process's span of
+    it goes to the device."""
+    if topo.is_multiprocess:
+        ex = ex.span(*topo.span)
+    return ex.to(topo.device)
 
 
 def _candidate_schedule(plan: SpmmPlan, hier: Optional[HierPlan],
@@ -1074,11 +1145,13 @@ def _plan_and_tune(a: CSRMatrix, P: int, config: SpmmConfig, topo: Topology
     # substrate: a ladder rung with P != topo.P is not timed. The
     # profiler drives spmm calls, so sibling kernels stay model-only, and
     # so do replicated rungs (their decision is a cross-tier model
-    # comparison already).
+    # comparison already) and fleets of processes (each process would
+    # time, and could pick, on its own), as in the reference.
     from . import autotune as _autotune
 
     if (kernel == "spmm" and _autotune.measurement_enabled(config)
-            and decisions.get("replicate", 1) == 1 and topo.P == P):
+            and decisions.get("replicate", 1) == 1 and topo.P == P
+            and not topo.is_multiprocess):
         plan, hier, schedule, decisions = _autotune.measured_decide(
             a, P, config, topo, plan=plan, hier=hier,
             hier_cand=hier_cand, schedule=schedule, decisions=decisions)

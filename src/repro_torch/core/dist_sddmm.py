@@ -19,7 +19,10 @@ dataflow reversed:
 * diagonal nonzeros sample local X against local Y — no wire.
 
 The P ranks run in one process over stacked ``[P, ...]`` tensors, and
-every collective goes through a ``LocalComm``, which logs it.
+every collective goes through a ``LocalComm``, which logs it — or, on a
+fleet of processes, each process runs its span of the ranks on the
+plan's ``span`` and its ``ProcessComm`` (``x`` / ``y`` / ``b`` then hold
+the span's rows, as the results do).
 
 ``flat_sddmm`` / ``hier_sddmm`` return the sampled values in the
 backend's native piece layout ({"diag", "colp", "rowp"});
@@ -121,7 +124,7 @@ def _flat_gather_single(rows_loc: torch.Tensor, plan: FlatExecPlan,
     (one all_to_all)."""
     P_, _, w = rows_loc.shape
     send = pack_rows_op(rows_loc, plan.b_send_idx)  # [P, P, max_b, W]
-    return comm.all_to_all(send).reshape(P_, P_ * plan.max_b, w)
+    return comm.all_to_all(send).reshape(P_, plan.P * plan.max_b, w)
 
 
 def _flat_gather_bucketed(rows_loc: torch.Tensor, plan: FlatExecPlan,
@@ -144,7 +147,7 @@ def _flat_x_single(x_loc: torch.Tensor, plan: FlatExecPlan,
     """
     P_, _, f = x_loc.shape
     xs = pack_rows_op(x_loc, plan.c_recv_rows)  # [P, P, max_c, F]
-    return comm.all_to_all(xs).reshape(P_, P_ * plan.max_c, f)
+    return comm.all_to_all(xs).reshape(P_, plan.P * plan.max_c, f)
 
 
 def _flat_x_bucketed(x_loc: torch.Tensor, plan: FlatExecPlan,
@@ -375,7 +378,8 @@ def _fused(plan, x: torch.Tensor, y: torch.Tensor, b: torch.Tensor,
     K, n = b.shape
     if K != y.shape[0]:
         raise ValueError(f"B has {K} rows, Y has {y.shape[0]}")
-    b_loc = b.reshape(P_, K // P_, n)
+    w = y_loc.shape[0]  # the ranks on hand: P, or a process's span
+    b_loc = b.reshape(w, K // w, n)
 
     # ① + ②
     yb, f, dt = _concat_dense(y_loc, b_loc)
@@ -393,9 +397,9 @@ def _fused(plan, x: torch.Tensor, y: torch.Tensor, b: torch.Tensor,
         G, L, max_cg = plan.G, plan.L, plan.max_cg
         partials = be.compute(pc["rowp"], b_loc, G * L * max_cg)
         agg = comm.local_psum_scatter(
-            partials.reshape(P_, G, L * max_cg, n), dim=1)
+            partials.reshape(w, G, L * max_cg, n), dim=1)
         if plan.schedule.kind == "single":
-            recv_c = comm.group_all_to_all(agg).reshape(P_, G * max_cg, n)
+            recv_c = comm.group_all_to_all(agg).reshape(w, G * max_cg, n)
         else:
             recv_c = _exchange_segments(
                 plan.meta["cg_segments"], comm.group_shift,
@@ -403,8 +407,8 @@ def _fused(plan, x: torch.Tensor, y: torch.Tensor, b: torch.Tensor,
                 agg, local=plan.meta["local_c"])
     elif plan.schedule.kind == "single":
         partials = be.compute(pc["rowp"], b_loc, P_ * plan.max_c)
-        recv_c = comm.all_to_all(partials.reshape(P_, P_, plan.max_c, n))
-        recv_c = recv_c.reshape(P_, P_ * plan.max_c, n)
+        recv_c = comm.all_to_all(partials.reshape(w, P_, plan.max_c, n))
+        recv_c = recv_c.reshape(w, P_ * plan.max_c, n)
     else:
         partials = be.compute(pc["rowp"], b_loc, plan.meta["R_c"])
         recv_c = _exchange_segments(plan.meta["c_segments"], comm.shift,
@@ -413,7 +417,7 @@ def _fused(plan, x: torch.Tensor, y: torch.Tensor, b: torch.Tensor,
     c = be.compute(pc["diag"], b_loc, m_local)
     c = c + be.compute(pc["colp"], b_g, m_local)
     c = scatter_add_rows_exec_op(c, recv_c, plan.agg_perm, plan.agg_meta)
-    return c.reshape(P_ * m_local, n)
+    return c.reshape(w * m_local, n)
 
 
 def flat_fused(plan: FlatExecPlan, x: torch.Tensor, y: torch.Tensor,

@@ -31,6 +31,14 @@ on its own shift in one round), and the lanes' C blocks summed and split
 back over the replica axis in one reduce-scatter. Staged only, as in the
 reference.
 
+Across processes (``Topology.multiprocess``) each process runs the same
+executors on its contiguous span of the ranks: the exec plan cut to the
+span (``span(lo, hi)``; every index in it is rank-local, so a span needs
+no rebasing), B's rows of the span, and a ``distributed.comm.
+ProcessComm`` that moves the rows between processes. The executors take
+the count of ranks on hand from B's blocks; the global P stays the axis
+of destinations. Each returns the span's C rows.
+
 ``flat_exec_arrays`` / ``hier_exec_arrays`` / ``replicated_exec_arrays``
 build the exec plans from the host plans; ``flat_exec_from_numpy`` /
 ``hier_exec_from_numpy`` build them from plain arrays named like the
@@ -136,6 +144,31 @@ class _ExecPlanBase:
         move = lambda t: t.to(device)  # noqa: E731
         return dataclasses.replace(self, **{
             f.name: _map_tensors(getattr(self, f.name), move)
+            for f in dataclasses.fields(self) if f.name != "meta"})
+
+    @property
+    def rank_span(self) -> Tuple[int, int]:
+        """The (start, stop) ranks whose tensors the plan holds: all P,
+        or the span ``span`` cut."""
+        return self.meta.get("rank_span", (0, self.P))
+
+    def span(self, lo: int, hi: int):
+        """The plan of the ranks [lo, hi) only: every tensor (they all
+        lead with the rank axis) cut to its rows lo..hi−1 and copied, so
+        the whole plan's storage is not kept. Every index in an exec
+        plan is rank-local (a row of the rank's own B block, receive
+        space or C block), so nothing is rebased; the metadata keeps the
+        global P, the axis of destinations."""
+        lo, hi = int(lo), int(hi)
+        if (lo, hi) == self.rank_span:
+            return self
+        if self.rank_span != (0, self.P) or not 0 <= lo < hi <= self.P:
+            raise ValueError(f"cannot cut ranks [{lo}, {hi}) from a plan of "
+                             f"ranks {self.rank_span}")
+        cut = lambda t: t[lo:hi].clone()  # noqa: E731
+        return dataclasses.replace(self, meta=dict(self.meta,
+                                                   rank_span=(lo, hi)), **{
+            f.name: _map_tensors(getattr(self, f.name), cut)
             for f in dataclasses.fields(self) if f.name != "meta"})
 
     def resolve_backend(self, backend: Optional[BackendSpec]
@@ -670,28 +703,39 @@ def _operand(b_global) -> torch.Tensor:
     return b_global.pop() if isinstance(b_global, list) else b_global
 
 
-def _rank_blocks(plan, comm: Optional[LocalComm], b: torch.Tensor,
-                 groups: int = 1, name: str = "B", replicas: int = 1
-                 ) -> Tuple[LocalComm, torch.Tensor]:
-    """The comm (a fresh one on the plan's layout when None) and the
-    stacked local row blocks [P, K/P, N] of the operand ``b`` (called
-    ``name``). With ``replicas`` c > 1, ``b`` splits over s = P/c shards
-    and every lane gets the whole split — [P, K/s, N], one device copy
-    (``LocalComm.replicate``)."""
+def _rank_blocks(plan, comm, b: torch.Tensor, groups: int = 1,
+                 name: str = "B", replicas: int = 1
+                 ) -> Tuple[Any, torch.Tensor]:
+    """The comm (a fresh ``LocalComm`` on the plan's layout when None) and
+    the stacked row blocks [w, K/P, N] of the operand ``b`` (called
+    ``name``) for the w ranks the plan holds: all P, or a process's span
+    (``b`` then holds that span's rows and ``comm`` is its
+    ``ProcessComm``). With ``replicas`` c > 1 every lane gets B's whole
+    s = P/c shard split, [w, K/s, N] (``comm.replicate``)."""
     P_ = plan.P
     comm = comm if comm is not None else LocalComm(P_, groups, replicas)
     if comm.P != P_ or comm.G != groups or comm.C != replicas:
         raise ValueError(f"comm has P={comm.P}, G={comm.G}, c={comm.C}; "
                          f"the plan needs P={P_}, G={groups}, c={replicas}")
+    if tuple(comm.span) != tuple(plan.rank_span):
+        raise ValueError(f"comm runs ranks {comm.span}, the plan holds "
+                         f"ranks {plan.rank_span}")
     K, n = b.shape
-    shards = P_ // replicas
-    if K % shards:
-        raise ValueError(f"{name} has {K} rows, not divisible over "
-                         + (f"P={P_} ranks" if replicas == 1
-                            else f"s={shards} shards"))
-    if replicas == 1:
-        return comm, b.reshape(P_, K // P_, n)
-    return comm, comm.replicate(b.reshape(shards, K // shards, n))
+    if isinstance(comm, LocalComm):
+        shards = P_ // replicas
+        if K % shards:
+            raise ValueError(f"{name} has {K} rows, not divisible over "
+                             + (f"P={P_} ranks" if replicas == 1
+                                else f"s={shards} shards"))
+        if replicas == 1:
+            return comm, b.reshape(P_, K // P_, n)
+        return comm, comm.replicate(b.reshape(shards, K // shards, n))
+    w = comm.span[1] - comm.span[0]
+    if K % w:
+        raise ValueError(f"{name} has {K} rows, not divisible over this "
+                         f"process's {w} ranks")
+    blocks = b.reshape(w, K // w, n)
+    return comm, blocks if replicas == 1 else comm.replicate(blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -722,7 +766,7 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
     donated = isinstance(b_global, list)
     comm, b_loc = _rank_blocks(plan, comm, _operand(b_global))
     del b_global  # from here on b_loc holds B; dropped after its last read
-    n = b_loc.shape[2]
+    w, n = b_loc.shape[0], b_loc.shape[2]  # w: the ranks on hand
 
     # Every read of B comes first: ②'s partial C rows (row-based, Fig.
     # 1(c): computed against the LOCAL B block), ①'s pack, and ③'s
@@ -737,15 +781,15 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
         # ① exchange B rows (column-based comm, Fig. 1(b)); ② exchange
         #   the partials
         recv_b = comm.all_to_all(send_b)
-        recv_c = comm.all_to_all(partials.reshape(P_, P_, plan.max_c, n))
+        recv_c = comm.all_to_all(partials.reshape(w, P_, plan.max_c, n))
 
         # ③ local compute: column-covered remote nonzeros
         c = c + be.compute(pieces["colp"],
-                           recv_b.reshape(P_, P_ * plan.max_b, n), m_local)
+                           recv_b.reshape(w, P_ * plan.max_b, n), m_local)
 
         # ④ result aggregation: scatter received partial C rows
         c = scatter_add_rows_exec_op(
-            c, recv_c.reshape(P_, P_ * plan.max_c, n),
+            c, recv_c.reshape(w, P_ * plan.max_c, n),
             plan.agg_perm, plan.agg_meta)
     elif not overlap:
         b_segments: Segments = plan.meta["b_segments"]
@@ -794,7 +838,7 @@ def flat_spmm(plan: FlatExecPlan, b_global: torch.Tensor,
 
         # ⑤ per-round aggregation of received partials
         c = _aggregate_rounds(c, recv_c, plan.seg_agg)
-    return c.reshape(P_ * m_local, n)
+    return c.reshape(w * m_local, n)
 
 
 def _diag(be: LocalSpmmBackend, piece: Dict[str, torch.Tensor],
@@ -883,7 +927,7 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
     donated = isinstance(b_global, list)
     comm, b_loc = _rank_blocks(plan, comm, _operand(b_global), groups=G)
     del b_global  # from here on b_loc holds B; dropped after its last read
-    n = b_loc.shape[2]
+    w, n = b_loc.shape[0], b_loc.shape[2]  # w: the ranks on hand
 
     # Every read of B comes first, as in ``flat_spmm``: the row-based
     # partials, the pack of de-duplicated B rows, and the diagonal last
@@ -903,7 +947,7 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         # owning the aggregates for destinations that share its local
         # rank (the "representative" of Fig. 6(e)).
         agg = comm.local_psum_scatter(
-            partials.reshape(P_, G, L * max_cg, n), dim=1)  # [P, G, max_cg, N]
+            partials.reshape(w, G, L * max_cg, n), dim=1)  # [P, G, max_cg, N]
 
         # Stage II.② (inter-group, row-based): aggregated C rows cross the
         # slow tier once per source group.
@@ -914,9 +958,9 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         all_bg = comm.local_all_gather(recv_bg)
 
         c = c + be.compute(pieces["colp"],
-                           all_bg.reshape(P_, L * G * max_bg, n), m_local)
+                           all_bg.reshape(w, L * G * max_bg, n), m_local)
         c = scatter_add_rows_exec_op(
-            c, recv_cg.reshape(P_, G * max_cg, n),
+            c, recv_cg.reshape(w, G * max_cg, n),
             plan.agg_perm, plan.agg_meta)
     elif not overlap:
         R_bg, R_cg = plan.meta["R_bg"], plan.meta["R_cg"]
@@ -931,7 +975,7 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         # shift-major — (dg·L + ld)·max_cg + slot — so the aggregated
         # tile for group shift dg sits at agg[:, dg]
         agg = comm.local_psum_scatter(
-            partials.reshape(P_, G, L * max_cg, n), dim=1)  # [P, G, max_cg, N]
+            partials.reshape(w, G, L * max_cg, n), dim=1)  # [P, G, max_cg, N]
 
         # Stage II.② inter-group C transfer, bucketed per shift: the send
         # slab for shift dg is the pre-aggregated tile agg[:, dg]
@@ -960,20 +1004,20 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
         # Stage I.① intra-group pre-aggregation, one reduce-scatter per
         # consumed group shift — round dg's inter-group C transfer
         # departs as soon as ITS tile is aggregated
-        partials = partials.reshape(P_, G, L * max_cg, n)
+        partials = partials.reshape(w, G, L * max_cg, n)
         c_segs = []
         for dg, off, slot in plan.meta["cg_all"]:
             seg = comm.local_psum_scatter(partials[:, dg], dim=0)[:, :slot]
             c_segs.append(comm.group_shift(seg, dg) if dg else seg)
 
         # Stage II: gather and consume each B slab as it lands
-        gathered = (comm.local_all_gather(seg).reshape(P_, -1, n)
+        gathered = (comm.local_all_gather(seg).reshape(w, -1, n)
                     for seg in b_segs)
         c = c + _colp_rounds(be, pieces, gathered, torch.zeros_like(c))
 
         # per-round aggregation of the inter-group partials
         c = _aggregate_rounds(c, c_segs, plan.seg_agg)
-    return c.reshape(P_ * m_local, n)
+    return c.reshape(w * m_local, n)
 
 
 # ---------------------------------------------------------------------------
@@ -1006,7 +1050,9 @@ def replicated_spmm(plan: ReplicatedExecPlan, b_global: torch.Tensor,
     no nonzeros in the segment. After the lane-local compute and
     aggregation, the lanes' partial C blocks are summed and split over
     the replica axis (``replica_psum_scatter``). ``backend`` as in
-    ``flat_spmm``. Returns C [M, N] in global row order.
+    ``flat_spmm``. Returns C [M, N] in global row order; on a process's
+    span, its ranks' C chunks in rank order (rank (r, g) holds rows
+    g·m_local + r·m_local/c onward, ``ProcessComm.replica_psum_scatter``).
     """
     if overlap:
         raise ValueError(

@@ -231,10 +231,12 @@ class SpmmSession:
         session's device, so a smaller rung narrows the topology and a
         larger one grows a local topology there — unless the session
         sits on a carved group (``Topology.split``), which it must not
-        escape."""
+        escape, or on a fleet of processes, which serves its own P only
+        (``Topology.narrow`` raises for any other)."""
         if P == self.topology.P:
             return self.topology
-        if P < self.topology.P:
+        if P < self.topology.P or self.topology.is_multiprocess:
+            # a fleet of processes neither grows nor narrows in place
             return self.topology.narrow(P)
         if self.topology.group is not None:
             raise TopologyError(

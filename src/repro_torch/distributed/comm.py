@@ -25,8 +25,19 @@ replicated executor broadcasts B's s-way shards to every lane
 (``replicate``, op ``broadcast@r``), exchanges inside each lane with
 every lane on its own shift (``lane_shift``, op ``ppermute@s``), and
 sums the lanes' C blocks into their chunks over the replica axis
-(``replica_psum_scatter``, op ``psum_scatter@r``). A ``torch.distributed``
-communicator with this API comes with the multi-process slice.
+(``replica_psum_scatter``, op ``psum_scatter@r``).
+
+``ProcessComm`` has LocalComm's API over a ``torch.distributed`` process
+group: this process runs the contiguous span [lo, hi) of the P ranks,
+its operands lead with ``[hi - lo]`` (its ranks only), and every
+collective is its list of (src, dst) pairs over the global ranks. A pair
+inside the span is a tensor copy; the pairs that cross processes go in
+ONE ``all_to_all_single`` per collective (uneven splits, slabs in
+(src, dst) order), staged through pinned host memory when the operands
+live on a card. Reductions fold in LocalComm's order, so a fleet's C is
+the emulated run's bit for bit. ``rows`` counts this process's operand
+rows under LocalComm's axis names, ``fleet_rows`` sums them over the
+processes, and ``rows_crossing`` counts the rows that left this process.
 
 ``MeshComm`` runs the collectives of a NAMED grid — the reference's
 ``make_mesh((2, 4), ("data", "model"))`` that ``DistContext`` wraps
@@ -52,12 +63,13 @@ entries join the log when the backward runs, after the call's own.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["LocalComm", "MeshComm"]
+__all__ = ["LocalComm", "MeshComm", "ProcessComm"]
 
 Pairs = Tuple[Tuple[int, int], ...]
 
@@ -95,6 +107,30 @@ class _CommLog:
         self.log.clear()
 
 
+def _layout(comm, P: int, groups: int, replicas: int) -> None:
+    """Set a communicator's rank layouts: P ranks as a (G, L) grid and as
+    a (c, s) replica × shard layout."""
+    comm.P = int(P)
+    comm.G = int(groups)
+    if comm.G < 1 or comm.P % comm.G:
+        raise ValueError(f"groups={groups} does not divide P={P}")
+    comm.L = comm.P // comm.G
+    comm.C = int(replicas)
+    if comm.C < 1 or comm.P % comm.C:
+        raise ValueError(f"replicas={replicas} does not divide P={P}")
+    comm.S = comm.P // comm.C
+
+
+def _on_axis(axis: Optional[str]) -> Callable[[str], bool]:
+    """Whether an op of LocalComm's log belongs to ``axis`` (None: all)."""
+    def on(op: str) -> bool:
+        if axis is None:
+            return True
+        return op.endswith("@" + axis) if axis in ("g", "l", "s", "r") \
+            else "@" not in op
+    return on
+
+
 class LocalComm(_CommLog):
     """Collectives on the leading rank axis of stacked ``[P, ...]`` tensors.
 
@@ -105,16 +141,13 @@ class LocalComm(_CommLog):
     """
 
     def __init__(self, P: int, groups: int = 1, replicas: int = 1):
-        self.P = int(P)
-        self.G = int(groups)
-        if self.G < 1 or self.P % self.G:
-            raise ValueError(f"groups={groups} does not divide P={P}")
-        self.L = self.P // self.G
-        self.C = int(replicas)
-        if self.C < 1 or self.P % self.C:
-            raise ValueError(f"replicas={replicas} does not divide P={P}")
-        self.S = self.P // self.C
+        _layout(self, P, groups, replicas)
         super().__init__()
+
+    @property
+    def span(self) -> Tuple[int, int]:
+        """The ranks this communicator's operands hold: all P."""
+        return 0, self.P
 
     def rows(self, axis: Optional[str] = None, direction: str = "fwd") -> int:
         """Rows placed in collective operands since the last ``reset``:
@@ -123,12 +156,7 @@ class LocalComm(_CommLog):
         (inside the lanes) or ``"r"`` (replica axis) — by the forward
         collectives (``direction="fwd"``) or by their backward
         (``"bwd"``)."""
-        def on(op: str) -> bool:
-            if axis is None:
-                return True
-            return op.endswith("@" + axis) if axis in ("g", "l", "s", "r") \
-                else "@" not in op
-        return self._rows(on, direction)
+        return self._rows(_on_axis(axis), direction)
 
     def _check_lead(self, x: torch.Tensor, what: str) -> None:
         if x.shape[0] != self.P:
@@ -421,3 +449,380 @@ class MeshComm(_CommLog):
         as the port's reduce-scatters fold."""
         return self._reduce(x, layout, axis, "psum", torch.add)
 
+
+
+class ProcessComm(_CommLog):
+    """LocalComm's collectives over a ``torch.distributed`` process group.
+
+    ``P``, ``groups`` and ``replicas`` lay the global ranks out as
+    LocalComm's do. ``span`` = (lo, hi) is the run of ranks this process
+    holds; every process of the default process group holds an equal run
+    in process order, process i the ranks [i·w, (i+1)·w) with
+    w = hi - lo. Operands lead with [w] (this process's ranks) where
+    LocalComm's lead with [P]; results too, with one exception named at
+    ``replica_psum_scatter``.
+
+    Each collective is its (src, dst) pair list over the global ranks. A
+    pair inside the span is a tensor copy; the pairs that cross processes
+    go in ONE ``dist.all_to_all_single`` per collective, as bytes, with
+    uneven splits and the slabs in (src, dst) order on both sides. On a
+    card the buffer is staged explicitly: device → a pinned host buffer
+    (``copy_``), the exchange on the host (gloo: NCCL refuses two ranks
+    on one device), host → device (``copy_``). Reductions fold the
+    received slabs in LocalComm's order (ascending l, ascending r), so
+    every result equals the emulated one bit for bit.
+
+    The log keeps LocalComm's entries for this process's ranks: ``rows``
+    counts their operand rows and ``fleet_rows`` sums that over the
+    processes (the emulated LocalComm's count). ``rows_crossing`` counts
+    the rows this process sent to other processes; ``transport()`` the
+    bytes staged through the host and the host seconds spent staging and
+    exchanging. No collective here differentiates: autograd across
+    processes is left open (ROADMAP item 15).
+    """
+
+    def __init__(self, P: int, groups: int = 1, replicas: int = 1, *,
+                 span: Tuple[int, int]):
+        import torch.distributed as dist
+
+        _layout(self, P, groups, replicas)
+        self.n_proc = dist.get_world_size()
+        self.proc = dist.get_rank()
+        lo, hi = int(span[0]), int(span[1])
+        self.width = hi - lo
+        if self.width < 1 or self.width * self.n_proc != self.P \
+                or lo != self.proc * self.width:
+            raise ValueError(
+                f"span {span} is not process {self.proc}'s equal share of "
+                f"P={self.P} ranks over {self.n_proc} processes")
+        self.span = (lo, hi)
+        self._pinned: Dict[str, torch.Tensor] = {}
+        super().__init__()
+        self.reset()
+
+    def reset(self) -> None:
+        super().reset()
+        self.crossing: List[Tuple[str, int]] = []
+        self.staged_bytes = 0
+        self.stage_s = 0.0
+        self.gloo_s = 0.0
+        self.exchanges = 0
+
+    # ----- counters ------------------------------------------------------
+
+    def rows(self, axis: Optional[str] = None, direction: str = "fwd") -> int:
+        """Operand rows of this process's ranks since the last ``reset``,
+        all or one axis's, under LocalComm's axis names."""
+        return self._rows(_on_axis(axis), direction)
+
+    def rows_crossing(self, axis: Optional[str] = None) -> int:
+        """Rows this process sent to ranks of other processes."""
+        on = _on_axis(axis)
+        return sum(r for op, r in self.crossing if on(op))
+
+    def fleet_rows(self, axis: Optional[str] = None,
+                   crossing: bool = False) -> int:
+        """``rows(axis)`` (or ``rows_crossing(axis)``) summed over the
+        processes: a collective call every process makes."""
+        import torch.distributed as dist
+
+        n = self.rows_crossing(axis) if crossing else self.rows(axis)
+        t = torch.tensor([n], dtype=torch.int64)
+        dist.all_reduce(t)
+        return int(t.item())
+
+    def transport(self) -> Dict[str, float]:
+        """Since the last ``reset``: the cross-process exchanges, the
+        bytes staged between the card and the host (both ways), and the
+        host seconds of the staging copies and of the exchanges."""
+        return {"exchanges": self.exchanges,
+                "staged_bytes": self.staged_bytes,
+                "stage_s": self.stage_s, "gloo_s": self.gloo_s}
+
+    # ----- the one exchange ----------------------------------------------
+
+    def _owner(self, rank: int) -> int:
+        return rank // self.width
+
+    def _mine(self, rank: int) -> bool:
+        return self.span[0] <= rank < self.span[1]
+
+    def _host_buffer(self, kind: str, nbytes: int) -> torch.Tensor:
+        buf = self._pinned.get(kind)
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                              pin_memory=True)
+            self._pinned[kind] = buf
+        return buf[:nbytes]
+
+    def _route(self, op: str, pairs: Sequence[Tuple[int, int]],
+               take: Callable[[int, int], torch.Tensor],
+               slab_shape: Tuple[int, ...], like: torch.Tensor
+               ) -> Dict[Tuple[int, int], torch.Tensor]:
+        """Every slab a pair of ``pairs`` brings to this process's ranks:
+        {(src, dst): slab} for each dst in the span. ``take(src, dst)``
+        gives the slab a source of this process sends (every slab has
+        ``slab_shape``, the same on every process). Logs the rows sent
+        across processes under ``op``."""
+        import torch.distributed as dist
+
+        if like.requires_grad:
+            raise NotImplementedError(
+                "ProcessComm collectives take no gradient: autograd "
+                "across processes is left open (ROADMAP item 15); run "
+                "the call under torch.no_grad()")
+        got = {(s, d): take(s, d) for s, d in pairs
+               if self._mine(s) and self._mine(d)}
+        cross = [(s, d) for s, d in pairs
+                 if self._owner(s) != self._owner(d)]
+        numel = math.prod(slab_shape)
+        per_row = slab_shape[-1] if slab_shape and slab_shape[-1] else 0
+        send = sorted((p for p in cross if self._mine(p[0])),
+                      key=lambda p: (self._owner(p[1]), p))
+        self.crossing.append(
+            (op, len(send) * (numel // per_row if per_row else 0)))
+        if not cross or not numel:  # the same on every process
+            return got
+        recv = sorted((p for p in cross if self._mine(p[1])),
+                      key=lambda p: (self._owner(p[0]), p))
+        nbytes = numel * like.element_size()
+        in_splits = [0] * self.n_proc
+        for _, d in send:
+            in_splits[self._owner(d)] += nbytes
+        out_splits = [0] * self.n_proc
+        for s, _ in recv:
+            out_splits[self._owner(s)] += nbytes
+        slabs = [take(s, d).reshape(-1) for s, d in send]
+        buf = (torch.cat(slabs) if slabs
+               else like.new_empty(0)).view(torch.uint8)
+        n_in = len(recv) * nbytes
+        if buf.is_cuda:
+            torch.cuda.synchronize(buf.device)
+            t0 = time.perf_counter()
+            host_in = self._host_buffer("send", buf.numel())
+            host_in.copy_(buf)
+            host_out = self._host_buffer("recv", n_in)
+            t1 = time.perf_counter()
+            dist.all_to_all_single(host_out, host_in, out_splits, in_splits)
+            t2 = time.perf_counter()
+            out = torch.empty(n_in, dtype=torch.uint8, device=buf.device)
+            out.copy_(host_out)
+            t3 = time.perf_counter()
+            self.stage_s += (t1 - t0) + (t3 - t2)
+            self.gloo_s += t2 - t1
+            self.staged_bytes += buf.numel() + n_in
+        else:
+            out = torch.empty(n_in, dtype=torch.uint8)
+            t1 = time.perf_counter()
+            dist.all_to_all_single(out, buf, out_splits, in_splits)
+            self.gloo_s += time.perf_counter() - t1
+        self.exchanges += 1
+        vals = out.view(like.dtype).view((len(recv),) + tuple(slab_shape))
+        got.update(zip(recv, vals.unbind(0)))
+        return got
+
+    def _check_lead(self, x: torch.Tensor, what: str) -> None:
+        if x.shape[0] != self.width:
+            raise ValueError(f"{what} operand must lead with this process's "
+                             f"[{self.width}] ranks, got {tuple(x.shape)}")
+
+    def _mine_pairs(self, pairs) -> Pairs:
+        return tuple(p for p in pairs if self._mine(p[0]))
+
+    # ----- the flat axis ------------------------------------------------
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``LocalComm.all_to_all`` for this process's ranks: ``x`` is
+        [w(src), P(dst), ...], the result [w(dst), P(src), ...]."""
+        lo = self.span[0]
+        if x.shape[0] != self.width or x.dim() < 2 or x.shape[1] != self.P:
+            raise ValueError(f"all_to_all operand must lead with "
+                             f"[{self.width}, {self.P}], got "
+                             f"{tuple(x.shape)}")
+        pairs = [(q, p) for q in range(self.P) for p in range(self.P)]
+        got = self._route("all_to_all", pairs, lambda q, p: x[q - lo, p],
+                          tuple(x.shape[2:]), x)
+        out = torch.empty_like(x)
+        for (q, p), slab in got.items():
+            out[p - lo, q] = slab
+        self._record("all_to_all", self._mine_pairs(pairs), x, out)
+        return out
+
+    def ppermute(self, x: torch.Tensor,
+                 perm: Sequence[Tuple[int, int]],
+                 op: str = "ppermute") -> torch.Tensor:
+        """``LocalComm.ppermute``: rank ``src`` sends its slice to ``dst``;
+        ranks that no pair sends to receive zeros."""
+        perm = tuple((int(s), int(d)) for s, d in perm)
+        self._check_lead(x, "ppermute")
+        srcs = [s for s, _ in perm]
+        dsts = [d for _, d in perm]
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+            raise ValueError(f"ppermute needs a partial permutation, got "
+                             f"{perm}")
+        lo = self.span[0]
+        got = self._route(op, perm, lambda s, d: x[s - lo],
+                          tuple(x.shape[1:]), x)
+        out = torch.zeros_like(x)
+        for (_, d), slab in got.items():
+            out[d - lo] = slab
+        self._record(op, self._mine_pairs(perm), x, out)
+        return out
+
+    def shift(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        """ppermute over the shift-``d`` matching ``q -> (q + d) % P``."""
+        return self.ppermute(x, [(q, (q + d) % self.P)
+                                 for q in range(self.P)])
+
+    # ----- the (G, L) grid ----------------------------------------------
+
+    def group_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``LocalComm.group_all_to_all``: ``x`` is [w, G(dst), ...]; rank
+        (g', l) receives ``out[(g', l)][g] = x[(g, l)][g']``."""
+        G, L, lo = self.G, self.L, self.span[0]
+        self._check_lead(x, "group all_to_all")
+        if x.dim() < 2 or x.shape[1] != G:
+            raise ValueError(f"group all_to_all operand must be "
+                             f"[{self.width}, {G}, ...], got "
+                             f"{tuple(x.shape)}")
+        pairs = [(g * L + l, h * L + l) for g in range(G)
+                 for l in range(L) for h in range(G)]
+        got = self._route("all_to_all@g", pairs,
+                          lambda s, d: x[s - lo, d // L],
+                          tuple(x.shape[2:]), x)
+        out = torch.empty_like(x)
+        for (s, d), slab in got.items():
+            out[d - lo, s // L] = slab
+        self._record("all_to_all@g", self._mine_pairs(pairs), x, out)
+        return out
+
+    def group_shift(self, x: torch.Tensor, dg: int) -> torch.Tensor:
+        """ppermute over the group axis by shift ``dg``."""
+        return self.ppermute(
+            x, [(q, (q + dg * self.L) % self.P) for q in range(self.P)],
+            op="ppermute@g")
+
+    def _local_pairs(self) -> List[Tuple[int, int]]:
+        L = self.L
+        return [(g * L + a, g * L + b) for g in range(self.G)
+                for a in range(L) for b in range(L)]
+
+    def local_psum_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``LocalComm.local_psum_scatter``: rank (g, l) gets chunk l
+        (along per-rank dim ``dim``) of x[(g, 0)] + x[(g, 1)] + … , the
+        left fold in ascending l'."""
+        L, lo = self.L, self.span[0]
+        self._check_lead(x, "local psum_scatter")
+        rest = tuple(x.shape[1:])
+        if not 0 <= dim < len(rest) or rest[dim] % L:
+            raise ValueError(f"psum_scatter dim {dim} of per-rank shape "
+                             f"{rest} is not divisible by L={L}")
+        chunk = rest[dim] // L
+        pairs = self._local_pairs()
+        got = self._route(
+            "psum_scatter@l", pairs,
+            lambda s, d: x[s - lo].narrow(dim, (d % L) * chunk, chunk),
+            rest[:dim] + (chunk,) + rest[dim + 1:], x)
+        outs = []
+        for d in range(*self.span):
+            base = d - d % L
+            acc = got[(base, d)]
+            for a in range(1, L):
+                acc = acc + got[(base + a, d)]
+            outs.append(acc)
+        out = torch.stack(outs)
+        self._record("psum_scatter@l", self._mine_pairs(pairs), x, out)
+        return out
+
+    def local_all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``LocalComm.local_all_gather``: rank (g, l) gets
+        ``stack_l'(x[(g, l')])``, [w, L, ...]."""
+        L, lo = self.L, self.span[0]
+        self._check_lead(x, "local all_gather")
+        rest = tuple(x.shape[1:])
+        pairs = self._local_pairs()
+        got = self._route("all_gather@l", pairs, lambda s, d: x[s - lo],
+                          rest, x)
+        out = x.new_empty((self.width, L) + rest)
+        for (s, d), slab in got.items():
+            out[d - lo, s % L] = slab
+        self._record("all_gather@l", self._mine_pairs(pairs), x, out)
+        return out
+
+    # ----- the (c, s) replica x shard layout ------------------------------
+
+    def replicate(self, x: torch.Tensor) -> torch.Tensor:
+        """B's c-fold copy from its P-way row blocks: ``x`` is [w, K/P,
+        ...] (rank p's block at x[p - lo]); rank (r, g) gets shard g, the
+        blocks g·c … g·c + c − 1 joined, [w, c·K/P, ...] — what
+        ``LocalComm.replicate`` hands rank (r, g) from the s-way split.
+        Logged with the rows it writes, as LocalComm's."""
+        C, S, lo = self.C, self.S, self.span[0]
+        self._check_lead(x, "replicate")
+        rows = x.shape[1]
+        pairs = [(g * C + j, r * S + g) for r in range(C) for g in range(S)
+                 for j in range(C)]
+        got = self._route("broadcast@r", pairs, lambda s, d: x[s - lo],
+                          tuple(x.shape[1:]), x)
+        out = x.new_empty((self.width, C * rows) + tuple(x.shape[2:]))
+        for (s, d), slab in got.items():
+            j = s - (d % S) * C
+            out[d - lo, j * rows:(j + 1) * rows] = slab
+        self._record("broadcast@r", self._mine_pairs(pairs), out, out)
+        return out
+
+    def lane_shift(self, x: torch.Tensor, shifts: Sequence[int],
+                   lanes: Sequence[int]) -> torch.Tensor:
+        """``LocalComm.lane_shift``: lane r in ``lanes`` shifts by
+        ``shifts[r]`` inside its s ranks; other lanes receive zeros. The
+        log counts the rows of this process's sending ranks."""
+        C, S, lo = self.C, self.S, self.span[0]
+        self._check_lead(x, "lane shift")
+        lanes = tuple(int(r) for r in lanes)
+        if len(shifts) != C or len(set(lanes)) != len(lanes) or \
+                not all(0 <= r < C for r in lanes):
+            raise ValueError(f"lane shift needs one shift per lane ({C}) "
+                             f"and distinct lanes, got {tuple(shifts)} "
+                             f"over {lanes}")
+        pairs = [(r * S + g, r * S + (g + int(shifts[r])) % S)
+                 for r in lanes for g in range(S)]
+        got = self._route("ppermute@s", pairs, lambda s, d: x[s - lo],
+                          tuple(x.shape[1:]), x)
+        out = torch.zeros_like(x)
+        for (_, d), slab in got.items():
+            out[d - lo] = slab
+        mine = self._mine_pairs(pairs)
+        per_rank = x[0].numel() // x.shape[-1] if x.shape[-1] else 0
+        self._record("ppermute@s", mine, x, out, per_rank * len(mine))
+        return out
+
+    def replica_psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """Reduce-scatter over the replica axis: rank (r, g) gets chunk r
+        (rows / c of them) of x[(0, g)] + x[(1, g)] + … , the left fold in
+        ascending r'. Unlike LocalComm's [s, c, rows / c, ...] in (g, r)
+        order, the result is this process's ranks in rank order, [w,
+        rows / c, ...]: rank (r, g)'s chunk holds global rows
+        g·rows + r·rows / c onward."""
+        C, S, lo = self.C, self.S, self.span[0]
+        self._check_lead(x, "replica psum_scatter")
+        rest = tuple(x.shape[1:])
+        if not rest or rest[0] % C:
+            raise ValueError(f"replica psum_scatter needs c={C} | rows, got "
+                             f"per-rank shape {rest}")
+        chunk = rest[0] // C
+        pairs = [(r * S + g, q * S + g) for g in range(S) for r in range(C)
+                 for q in range(C)]
+        got = self._route(
+            "psum_scatter@r", pairs,
+            lambda s, d: x[s - lo, (d // S) * chunk:(d // S + 1) * chunk],
+            (chunk,) + rest[1:], x)
+        outs = []
+        for d in range(*self.span):
+            g = d % S
+            acc = got[(g, d)]
+            for r in range(1, C):
+                acc = acc + got[(r * S + g, d)]
+            outs.append(acc)
+        out = torch.stack(outs)
+        self._record("psum_scatter@r", self._mine_pairs(pairs), x, out)
+        return out

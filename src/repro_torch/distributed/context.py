@@ -73,17 +73,20 @@ class DistContext:
 def make_context(mesh, fsdp: bool = False) -> DistContext:
     """Build a DistContext from an ``EmulatedMesh`` or a Topology.
 
-    The port's Topology is a count of ranks on one device with no named
-    axes, so it cannot give a model its batch / model axes: it raises, as
-    the reference does for a Topology built without a mesh.
+    A Topology built from a mesh (``Topology.from_mesh``) gives its mesh,
+    as the reference's does; one without (``Topology.local``, a fleet of
+    processes) has no named axes to give a model its batch / model axes,
+    and raises.
     """
     from .topology import Topology, TopologyError
 
     if isinstance(mesh, Topology):
-        raise TopologyError(
-            "make_context needs named (data/model[/pod]) axes; build "
-            "the Topology from a mesh (Topology.from_mesh(make_"
-            "production_mesh())) instead of a bare device count")
+        if mesh.mesh is None:
+            raise TopologyError(
+                "make_context needs named (data/model[/pod]) axes; build "
+                "the Topology from a mesh (Topology.from_mesh(make_"
+                "production_mesh())) instead of a bare device count")
+        mesh = mesh.mesh
     names = mesh.axis_names
     if "pod" in names:
         batch = ("pod", "data")

@@ -1,17 +1,36 @@
 """Topology: the execution substrate a handle runs on.
 
-Port of ``repro/distributed/topology.py`` for this slice: P ranks
-emulated on ONE device (``Topology.local(P, device)``). The substrate has
-no tiers, so ``network()`` returns the model network unchanged (the
-paper's TSUBAME-like one by default) and ``SpmmConfig(net="auto")``
-decides exactly as the reference does on a flat substrate. For the same
-reason ``hier="auto"`` groups the ranks by ``fallback_grouping``, the
-reference's guess for a substrate with no intrinsic (G, L) structure.
-``replicated_mesh(c, s)`` lays the ranks out as the replicated tier's
-(c, s) replica × shard mesh. ``narrow(P)`` serves a smaller ladder rung
-on the same device, and ``fingerprint()`` names the substrate in the
-measured autotuner's cache keys (the device's name included, so an entry
-timed on another card misses).
+Port of ``repro/distributed/topology.py``. Three kinds of substrate:
+
+* ``Topology.local(P, device)``: P ranks emulated on ONE device. It has
+  no tiers, so ``network()`` returns the model network unchanged (the
+  paper's TSUBAME-like one by default) and ``SpmmConfig(net="auto")``
+  decides exactly as the reference does on a flat substrate; for the
+  same reason ``hier="auto"`` groups the ranks by ``fallback_grouping``,
+  the reference's guess for a substrate with no intrinsic (G, L)
+  structure.
+* ``Topology.from_mesh(mesh, device)``: the ranks of an ``EmulatedMesh``
+  (``launch.mesh``), still on one device; a two-axis mesh with both axes
+  >= 2 contributes its shape as intrinsic tiers, and ``make_context``
+  takes the topology for the mesh's named axes.
+* ``Topology.multiprocess(device=...)``: a ``torch.distributed`` fleet
+  (``launch.multiprocess.initialize``). Each process owns a contiguous
+  span of the P = processes × local ranks (``span``), runs the executors
+  on that span's exec arrays and exchanges rows with the other processes
+  through ``comm.ProcessComm``; the processes × local grid is the
+  intrinsic (G, L) structure, the process boundary its slow tier.
+
+With tiers, ``network()`` derives the reference's two-tier
+``NetworkSpec`` (``derived-{gpu,cpu}-GxL``, platform from the device)
+and ``auto_grouping`` returns the tiers. ``replicated_mesh(c, s)`` lays
+the ranks out as the replicated tier's (c, s) replica × shard mesh,
+``comm(groups, replicas)`` gives the communicator of a layout (a
+``LocalComm``, or a ``ProcessComm`` over this process's span), and
+``put_global(b)`` places an operand: on a fleet, only this process's
+rows. ``narrow(P)`` serves a smaller ladder rung on the same device, and
+``fingerprint()`` names the substrate in the measured autotuner's cache
+keys (the device's name included, so an entry timed on another card
+misses).
 
 ``subtopology(slice)`` / ``split(sizes)`` carve the ranks into GROUPS for
 the fleet (``serving.fleet``): a group is a contiguous span of the
@@ -26,12 +45,13 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Optional, Tuple, Union
+import os
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .comm import LocalComm
+from .comm import LocalComm, ProcessComm
 
 __all__ = ["Topology", "TopologyError", "fallback_grouping",
            "resolve_device"]
@@ -67,23 +87,44 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
     return dev
 
 
+# the reference's bandwidths of a derived two-tier network, by platform:
+# (fast tier, slow tier, name) in bytes/s — constants of the α-β model
+_DERIVED_NETS = {"gpu": (450e9, 25e9, "derived-gpu"),
+                 "cpu": (50e9, 10e9, "derived-cpu")}
+
+
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """P ranks emulated on one device.
+    """P ranks and the substrate they run on.
 
-    ``kind``    'local' (the only kind in this slice).
+    ``kind``    'local' (P ranks on one device), 'mesh' (the ranks of an
+                ``EmulatedMesh``, on one device) or 'multiprocess' (a
+                ``torch.distributed`` fleet; this process runs ``span``).
     ``P``       number of ranks.
-    ``device``  the torch device every rank's tensors live on.
+    ``device``  the torch device this process's ranks' tensors live on.
     ``group``   for a sub-topology carved out of a parent substrate, its
                 absolute (start, stop) rank span: it names a GROUP, not
                 the whole fleet, so the elastic grow path must not
                 silently escape it. None for a whole substrate.
+    ``tiers``   intrinsic (G, L) two-tier structure when the substrate
+                has one (a two-axis mesh's shape; processes × local
+                ranks); None for flat substrates.
+    ``n_hosts`` process count (1 unless 'multiprocess').
+    ``process_index``       this process's index in the fleet.
+    ``local_device_count``  ranks this process runs (a fleet's ranks
+                per process; None on one device, which runs all P).
+    ``mesh``    the adopted ``EmulatedMesh`` ('mesh' only).
     """
 
     kind: str
     P: int
     device: torch.device
     group: Optional[Tuple[int, int]] = None
+    tiers: Optional[Tuple[int, int]] = None
+    n_hosts: int = 1
+    process_index: int = 0
+    local_device_count: Optional[int] = None
+    mesh: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
     def local(cls, P: int, device: Union[str, torch.device, None] = "cuda"
@@ -93,6 +134,61 @@ class Topology:
         if P < 1:
             raise TopologyError(f"topology needs at least 1 rank, got {P}")
         return cls(kind="local", P=P, device=resolve_device(device))
+
+    @classmethod
+    def from_mesh(cls, mesh, device: Union[str, torch.device, None] = "cuda"
+                  ) -> "Topology":
+        """Adopt an ``EmulatedMesh``: its ranks, and its shape as structure.
+
+        A two-axis mesh with both axes >= 2 contributes its (G, L) shape
+        as intrinsic tiers — ``hier="auto"`` then groups along the mesh's
+        own axes instead of sweeping divisors of ``net.group_size``.
+        """
+        shape = tuple(int(n) for n in mesh.shape.values())
+        tiers = None
+        if len(shape) == 2 and shape[0] >= 2 and shape[1] >= 2:
+            tiers = shape
+        return cls(kind="mesh", P=int(mesh.size),
+                   device=resolve_device(device), tiers=tiers, mesh=mesh)
+
+    @classmethod
+    def multiprocess(cls, device: Union[str, torch.device, None] = "cuda"
+                     ) -> "Topology":
+        """The ``torch.distributed`` fleet (call after
+        ``launch.multiprocess.initialize``).
+
+        Each process runs ``local`` ranks (``REPRO_MP_LOCAL_DEVICES``,
+        which the launcher sets; 1 without it); P = processes × local,
+        process i running the ranks
+        [i·local, (i+1)·local). The processes × local grid is the
+        intrinsic (G, L) structure (the process boundary = slow tier)
+        when local >= 2. A CUDA fleet runs process i on
+        ``cuda:{i % torch.cuda.device_count()}`` — every process on
+        ``cuda:0`` of a one-card machine.
+        """
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) or \
+                dist.get_world_size() < 2:
+            raise TopologyError(
+                "Topology.multiprocess() needs an initialized "
+                "torch.distributed fleet with >= 2 processes; run under "
+                "repro_torch.launch.multiprocess (or call its initialize "
+                "yourself). For one process use Topology.local(P).")
+        n_proc, rank = int(dist.get_world_size()), int(dist.get_rank())
+        local = int(os.environ.get("REPRO_MP_LOCAL_DEVICES", "1"))
+        if local < 1:
+            raise TopologyError(f"a fleet needs >= 1 rank per process, "
+                                f"got {local}")
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda" and dev.index is None:
+            resolve_device(dev)  # raises without a card
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+        return cls(kind="multiprocess", P=n_proc * local,
+                   device=resolve_device(dev),
+                   tiers=(n_proc, local) if local >= 2 else None,
+                   n_hosts=n_proc, process_index=rank,
+                   local_device_count=local)
 
     @classmethod
     def resolve(cls, where: Union["Topology", int, None],
@@ -137,29 +233,72 @@ class Topology:
                 f"({want} ranks on the device)")
         return topo
 
-    def replicated_mesh(self, c: int, s: int) -> LocalComm:
-        """The (c, s) replica × shard layout of the ranks, as a
-        ``LocalComm(P, replicas=c)``: lane-major, lane r is the
+    # ----- structure ---------------------------------------------------
+
+    @property
+    def is_multiprocess(self) -> bool:
+        return self.kind == "multiprocess"
+
+    @property
+    def span(self) -> Tuple[int, int]:
+        """The (start, stop) ranks this process runs: all P of them on
+        one device, its own ``local_device_count`` on a fleet."""
+        if not self.is_multiprocess:
+            return 0, self.P
+        lo = self.process_index * self.local_device_count
+        return lo, lo + self.local_device_count
+
+    def comm(self, groups: int = 1, replicas: int = 1):
+        """The communicator of a rank layout on this substrate: a
+        ``LocalComm(P, groups, replicas)`` on one device, a
+        ``ProcessComm`` over this process's span on a fleet."""
+        if self.is_multiprocess:
+            return ProcessComm(self.P, groups, replicas, span=self.span)
+        return LocalComm(self.P, groups, replicas)
+
+    def replicated_mesh(self, c: int, s: int):
+        """The (c, s) replica × shard layout of the ranks, as the
+        communicator ``comm(replicas=c)``: lane-major, lane r is the
         contiguous rank range [r·s, (r+1)·s) and the replica axis strides
         s (the reference's ``Topology.replicated_mesh``)."""
         c, s = int(c), int(s)
         if c < 1 or s < 1 or self.P != c * s:
             raise TopologyError(
                 f"topology has {self.P} ranks, need c*s={c * s}")
-        return LocalComm(self.P, replicas=c)
+        return self.comm(replicas=c)
 
     def auto_grouping(self, net) -> Optional[Tuple[int, int]]:
-        """The (G, L) grouping ``hier="auto"`` evaluates: one device has no
-        tiers, so the largest L | P with 2 <= L <= ``net.group_size``."""
+        """The (G, L) grouping ``hier="auto"`` evaluates: intrinsic tiers
+        win (a two-axis mesh, a fleet of processes); otherwise the largest
+        L | P with 2 <= L <= ``net.group_size``."""
+        if self.tiers is not None:
+            G, L = self.tiers
+            if G >= 2 and L >= 2 and G * L == self.P:
+                return G, L
         return fallback_grouping(self.P, int(net.group_size))
 
     def network(self, default=None):
-        """The NetworkSpec ``net="auto"`` scores against: ``default`` (the
-        TSUBAME-like model network unless a caller overrides), since a
-        flat substrate carries no tiers."""
-        from ..core.comm_model import TSUBAME_LIKE
+        """The NetworkSpec ``net="auto"`` scores against.
 
-        return TSUBAME_LIKE if default is None else default
+        With tiers, the reference's derived two-tier spec: the outer axis
+        (between processes, between a mesh's groups) is the slow tier,
+        ``group_size`` the inner width, bandwidths by the device's
+        platform. A flat substrate carries no structural information, so
+        ``default`` (the TSUBAME-like model network unless a caller
+        overrides) comes back unchanged.
+        """
+        from ..core.comm_model import TSUBAME_LIKE, NetworkSpec
+
+        if self.tiers is None:
+            return TSUBAME_LIKE if default is None else default
+        G, L = self.tiers
+        bw_intra, bw_inter, name = _DERIVED_NETS[self.platform]
+        return NetworkSpec(f"{name}-{G}x{L}", bw_intra, bw_inter,
+                           group_size=L)
+
+    @property
+    def platform(self) -> str:
+        return "gpu" if self.device.type == "cuda" else "cpu"
 
     def narrow(self, P: int) -> "Topology":
         """The same substrate over the first ``P`` ranks: the elastic
@@ -171,10 +310,17 @@ class Topology:
             raise TopologyError(
                 f"cannot narrow a {self.P}-rank topology to P={P}; grow "
                 f"events need a topology over the new fleet "
-                f"(Topology.local)")
+                f"(Topology.local / Topology.multiprocess)")
         if P < 1:
             raise TopologyError(f"topology needs at least 1 rank, got {P}")
-        return dataclasses.replace(self, P=P)
+        if self.is_multiprocess:
+            raise TopologyError(
+                f"cannot narrow a {self.n_hosts}-process fleet of "
+                f"{self.P} ranks to P={P}: a rung below the fleet needs "
+                f"ranks re-spread over the processes, which ROADMAP item "
+                f"15 leaves open; relaunch with a smaller fleet (the "
+                f"supervisor's degrade path)")
+        return dataclasses.replace(self, P=P, tiers=None, mesh=None)
 
     def subtopology(self, rank_slice: slice) -> "Topology":
         """A same-kind topology over a contiguous span of the ranks.
@@ -185,6 +331,10 @@ class Topology:
         the full fleet, and ``fingerprint()`` is the carved span's, not
         the parent's.
         """
+        if self.is_multiprocess:
+            raise TopologyError(
+                "a multiprocess fleet cannot be carved into groups; carve "
+                "a Topology.local instead")
         start, stop, step = rank_slice.indices(self.P)
         if step != 1:
             raise TopologyError(
@@ -195,7 +345,8 @@ class Topology:
                 f"subtopology span [{start}:{stop}] of a {self.P}-device "
                 f"topology is empty")
         base = self.group[0] if self.group is not None else 0
-        return dataclasses.replace(self, P=stop - start,
+        return dataclasses.replace(self, P=stop - start, tiers=None,
+                                   mesh=None,
                                    group=(base + start, base + stop))
 
     def split(self, sizes: Tuple[int, ...]) -> Tuple["Topology", ...]:
@@ -224,8 +375,8 @@ class Topology:
         """Stable summary for ``h.stats()``; ``group`` only when carved,
         so a whole substrate's ``describe()`` / ``fingerprint()`` stay
         byte-stable (autotune cache keys)."""
-        d = {"kind": self.kind, "P": self.P, "tiers": None, "n_hosts": 1,
-             "platform": "gpu" if self.device.type == "cuda" else "cpu"}
+        d = {"kind": self.kind, "P": self.P, "tiers": self.tiers,
+             "n_hosts": self.n_hosts, "platform": self.platform}
         if self.group is not None:
             d["group"] = self.group
         return d
@@ -245,3 +396,44 @@ class Topology:
         d["device_kind"] = self.device_kind()
         blob = json.dumps(d, sort_keys=True, default=str)
         return hashlib.sha1(blob.encode()).hexdigest()
+
+    # ----- data placement ----------------------------------------------
+
+    def put_global(self, b, rows: Optional[int] = None) -> torch.Tensor:
+        """Place a dense operand [rows, N], row-partitioned over the P
+        ranks, on this substrate.
+
+        One device: the whole operand on ``device`` (a tensor already
+        there and contiguous passes through). A fleet: only this
+        process's rows, [span · rows / P, N], on its device — the full
+        operand is never placed on the device. A tensor that already is
+        this process's slab passes through (moved to the device if need
+        be), so one handle's output feeds the next; a full operand (a
+        numpy array or a tensor with ``rows`` rows) is cut on the host
+        side of its device and copied, so the result never shares memory
+        with the caller's. ``rows`` is the operand's global row count
+        (default: ``b``'s own).
+        """
+        if not self.is_multiprocess:
+            if not isinstance(b, torch.Tensor):
+                b = torch.from_numpy(np.ascontiguousarray(b))
+            return b.to(self.device).contiguous()
+        lo, hi = self.span
+        n_rows = int(b.shape[0])
+        rows = n_rows if rows is None else int(rows)
+        if rows % self.P:
+            raise TopologyError(f"{rows} rows do not split over P={self.P} "
+                                f"ranks")
+        per = rows // self.P
+        if isinstance(b, torch.Tensor) and n_rows == (hi - lo) * per \
+                and n_rows != rows:
+            return b.to(self.device).contiguous()
+        if n_rows != rows:
+            raise TopologyError(
+                f"operand has {n_rows} rows: neither the whole [{rows}, N] "
+                f"nor this process's [{(hi - lo) * per}, N] slab")
+        if isinstance(b, torch.Tensor):
+            return b[lo * per:hi * per].to(self.device, copy=True
+                                            ).contiguous()
+        return torch.from_numpy(np.array(b[lo * per:hi * per])).to(
+            self.device).contiguous()
