@@ -198,6 +198,39 @@ handle. Phases, each of which raises on a failed check:
    and kills in every epoch with ``--max-restarts 0`` degrade to one
    process that serves rung 4; (a) and (c) run side by side before (b).
    Every wait has a deadline (``MP_TIMEOUT``).
+12. training and the expert-parallel LM across the two processes, after
+   phase 11: two workers (this script with ``--mp-train-worker DIR``,
+   phase 11's ``launch_local``) of 4 ranks each on ``cuda:0``.
+   mp-gcn-train-arxiv (phase 5d's GCN, weights, features, labels and
+   AdamW on ``normalize_adjacency(power-law)``) flat and with
+   ``hier="auto"``, and mp-gat-train-arxiv (phase 5's GAT on the fused
+   handle, coo) on ``Topology.multiprocess()``: decisions ==
+   ``EXPECT_MP_TRAIN``; dB of ½‖h‖² on each process == the rows of a
+   ``Topology.local(8)`` run of the same plan bit for bit, the
+   backward's rows per axis == the forward's and its rows across
+   processes == the forward's == ``plan_crossing_rows()``; the first
+   step under the op watch, its loss and every gradient (summed over the
+   processes by ``reduce_grads``) within rtol 2e-3 / atol 2e-4 of the
+   emulated run's; 5 (GCN) / 3 (GAT) epochs on the fleet with the
+   parameters ``torch.equal`` on both processes after every step, and
+   the same epochs on ``Topology.local(8)`` with the losses within that
+   tolerance; per-epoch forward / backward / update by CUDA events, host
+   wall, gloo and staging. Then mp-olmoe-serve-ep: OLMoE-1B-7B as
+   published (phase 7's seed; each process the dense weights and the
+   experts of its 4 model ranks) on a (data 1, model 8) grid over the
+   fleet (``Topology.multiprocess(mesh=...)``, the model axis crossing
+   the processes): an 8 × 128 prefill, one ``decode_step`` and the
+   batcher's 12 requests, the same logits and tokens on both processes,
+   the log's activation rows == 2 · Dsz·M·M·cap a layer, the bf16
+   tokens beside the emulated (data 1, model 8) run's; on a float32 copy
+   of the first 2 layers the fleet == the emulated grid and
+   ``_moe_dense`` at capacity 8.0, the seq-shard decode == unsharded
+   (2e-4), the model ranks' outputs bit-identical across the processes,
+   the drops at 1.25 == the emulated run's. Each worker's K1 / K2 / K6
+   calls of one training step and of one prefill / decode step are
+   replayed against the plain versions one process at a time (paths
+   ``mp_gcn_step``, ``mp_gat_step``, ``mp_ep_prefill``,
+   ``mp_ep_decode``).
 
 It prints the card's name and power limit, then one JSON line of kernel
 rows, then ``{"ok": true, "device": {...}}`` as its last line. Without a
@@ -605,15 +638,30 @@ def _with_wrapped(fn, wrap):
             setattr(mod, attr, originals[k])
 
 
-def record_kernel_calls(fn):
+class _OnHost:
+    """A recorded tensor argument kept in host memory, and the device it
+    goes back to for its replay."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t, self.device = t.detach().to("cpu", copy=True), t.device
+
+    def back(self) -> torch.Tensor:
+        return self.t.to(self.device)
+
+
+def record_kernel_calls(fn, host: bool = False):
     """Run ``fn()`` with every kernel wrapper wrapped to keep a copy of
-    its arguments; returns {kernel: [(args, kwargs), ...]}."""
+    its arguments; returns {kernel: [(args, kwargs), ...]}. With ``host``
+    the copies wait in host memory (``_OnHost``) and go back to the card
+    one call at a time as they are replayed: a training step's or a
+    full-width prefill's calls would crowd the card."""
     calls = {k: [] for k in _kernel_targets()}
+    keep = _OnHost if host else (lambda a: a.clone())
 
     def wrap(kernel, orig):
         def recorded(*args, **kwargs):
             calls[kernel].append((
-                [a.clone() if isinstance(a, torch.Tensor) else a
+                [keep(a) if isinstance(a, torch.Tensor) else a
                  for a in args], dict(kwargs)))
             return orig(*args, **kwargs)
         return recorded
@@ -955,12 +1003,15 @@ class KernelTally:
         return row
 
 
-def kernel_row(name, calls, launches):
-    """Replay one kernel's recorded calls: error vs plain, times, bound."""
-    tally = KernelTally(name)
+def kernel_row(name, calls, launches, busy: bool = True):
+    """Replay one kernel's recorded calls: error vs plain, times, bound
+    (``busy``: see ``KernelTally.row``). Calls recorded to the host go
+    back to the card one at a time."""
+    tally = KernelTally(name, keep=8)
     for args, kw in calls:
-        tally.add(args, kw)
-    return tally.row(launches)
+        tally.add([a.back() if isinstance(a, _OnHost) else a for a in args],
+                  kw)
+    return tally.row(launches, busy)
 
 
 def replay_paths(paths: dict) -> dict:
@@ -3981,6 +4032,801 @@ def mp_phase(args, card: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 12: SHIRO training and the expert-parallel LM across two processes
+# ---------------------------------------------------------------------------
+
+MP_EPOCHS = {"gcn": 5, "gat": 3}  # cut from phase 5d's 200 / 50: see PERF.md
+# (what, graph, model, kernel path, config fields): the training handles
+# every worker compiles on the fleet (coo: a bsr SpMM takes no gradient)
+MP_TRAIN_CELLS = (
+    ("mp-gcn-train-arxiv flat", "power_law", "gcn", "mp_gcn_step", {}),
+    ("mp-gcn-train-arxiv hier", "power_law", "gcn", None,
+     dict(hier="auto")),
+    ("mp-gat-train-arxiv", "uniform", "gat", "mp_gat_step",
+     dict(kernel="fused", edge="leaky_relu")),
+)
+# the model axis crosses the process boundary: process i holds model
+# ranks 4i .. 4i + 3 of the one data group
+MP_EP_GRID = ((1, 8), ("data", "model"))
+# the reference's decisions for the training handles with the fleet's
+# derived NetworkSpec (derived-gpu-2x4: 450 / 25 GB/s, group 4) and tiers
+# (2, 4): the JAX package's _plan_and_tune on the same graphs, CPU run
+EXPECT_MP_TRAIN = {
+    "full": {
+        "mp-gcn-train-arxiv flat": dict(
+            strategy="flat", net="derived-gpu-2x4", schedule_kind="bucketed",
+            schedule_K=4, overlap=True,
+            modeled_time_flat=0.0008591244159999999,
+            modeled_time_schedule=0.00113947136, volume_rows=260413,
+            volume_rows_padded=827712),
+        "mp-gcn-train-arxiv hier": dict(
+            strategy="hier", G=2, L=4, net="derived-gpu-2x4",
+            schedule_kind="bucketed", schedule_K=1, overlap=True,
+            modeled_time_flat=0.0008591244159999999,
+            modeled_time_hier=0.000165994816,
+            modeled_time_schedule=0.00025166976, volume_rows=260413,
+            volume_rows_padded=180992),
+        "mp-gat-train-arxiv": dict(
+            strategy="flat", net="derived-gpu-2x4", schedule_kind="bucketed",
+            schedule_K=1, overlap=False,
+            modeled_time_flat=0.0009745163733333332,
+            modeled_time_schedule=0.0007972262400000001,
+            modeled_time_fused=0.0015844524800000001, volume_rows=589422,
+            volume_rows_padded=607208),
+    },
+    "quick": {
+        "mp-gcn-train-arxiv flat": dict(
+            strategy="flat", net="derived-gpu-2x4", schedule_kind="bucketed",
+            schedule_K=2, overlap=True,
+            modeled_time_flat=0.0001514985457777778,
+            modeled_time_schedule=0.00016868608, volume_rows=27371,
+            volume_rows_padded=100536),
+        "mp-gcn-train-arxiv hier": dict(
+            strategy="hier", G=2, L=4, net="derived-gpu-2x4",
+            schedule_kind="bucketed", schedule_K=1, overlap=True,
+            modeled_time_flat=0.0001514985457777778,
+            modeled_time_hier=3.4913088000000003e-05,
+            modeled_time_schedule=4.361344e-05, volume_rows=27371,
+            volume_rows_padded=18448),
+        "mp-gat-train-arxiv": dict(
+            strategy="flat", net="derived-gpu-2x4", schedule_kind="bucketed",
+            schedule_K=1, overlap=False,
+            modeled_time_flat=0.00015954004622222224,
+            modeled_time_schedule=0.00010006656,
+            modeled_time_fused=0.00019013312, volume_rows=57748,
+            volume_rows_padded=62552),
+    },
+}
+
+
+class _Gather:
+    """The fleet's host-side exchanges of phase 12: every process's copy
+    of a small numpy array, and files the processes hand each other
+    under the phase's directory."""
+
+    def __init__(self, out_dir: str, me: int, n: int):
+        self.dir, self.me, self.n = out_dir, me, n
+
+    def all(self, a) -> list:
+        import torch.distributed as dist
+
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        parts = [torch.empty_like(t) for _ in range(self.n)]
+        dist.all_gather(parts, t)
+        return [p.numpy() for p in parts]
+
+    def put(self, tag: str, **arrays) -> None:
+        np.savez(os.path.join(self.dir, f"{tag}.{self.me}.npz"), **arrays)
+
+    def get(self, tag: str, proc: int) -> dict:
+        return dict(np.load(os.path.join(self.dir, f"{tag}.{proc}.npz")))
+
+
+def _flat_params(params) -> np.ndarray:
+    return torch.cat([p.detach().reshape(-1).float() for p in params]
+                     ).cpu().numpy()
+
+
+def _fleet_step(model, loss_fn, fn, x, labels, h, params, cfg, state):
+    """One fleet training step: forward, backward, the gradients summed
+    over the processes (``reduce_grads``), AdamW. CUDA events around the
+    three parts, host wall, and the step's gloo and staging seconds
+    (each call resets the comm, so the forward's are read call by
+    call)."""
+    from repro_torch.optim.adamw import adamw_step
+
+    fwd_tr = []
+
+    def traced(*ops):
+        out = fn(*ops)
+        fwd_tr.append(h.comm.transport())
+        return out
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    loss = loss_fn(model, x, labels, _handle_like(fn, traced))
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    h.comm.reduce_grads(params)
+    state, _ = adamw_step(cfg, params, state)
+    ev[3].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    last = h.comm.transport()  # the last call's forward, every backward
+    tr = {k: sum(t[k] for t in fwd_tr[:-1]) + last[k]
+          for k in ("gloo_s", "stage_s", "exchanges", "staged_bytes")}
+    return state, loss.detach(), {
+        "fwd": ev[0].elapsed_time(ev[1]), "bwd": ev[1].elapsed_time(ev[2]),
+        "upd": ev[2].elapsed_time(ev[3]), "wall": wall,
+        "gloo": tr["gloo_s"] * 1e3, "stage": tr["stage_s"] * 1e3,
+        "exchanges": tr["exchanges"], "staged_bytes": tr["staged_bytes"]}
+
+
+def _handle_like(fn, call):
+    """``call`` carrying ``fn``'s handle as the models' losses look for
+    it (``DistSpmm.row_blocks`` / ``.handle``)."""
+    h = fn if hasattr(fn, "row_blocks") else fn.handle
+    call.handle = h
+    return call
+
+
+def _model_of(kind, n):
+    from repro_torch.models.gnn import (
+        gat_from_numpy, gat_loss, gcn_from_numpy, gcn_loss, gcn_params,
+    )
+
+    if kind == "gcn":
+        weights = gcn_params(GCN_DIMS, seed=0)
+        return (lambda: gcn_from_numpy(weights, n, device=MP_DEVICE),
+                gcn_loss, GCN_DIMS[0], GCN_DIMS[-1])
+    weights = gat_params(0)
+    return (lambda: gat_from_numpy(weights, n, device=MP_DEVICE), gat_loss,
+            GAT_DIMS["feat_dim"], GAT_DIMS["n_classes"])
+
+
+def _axes_of(h):
+    return ("x",) if h.strategy == "flat" else ("g", "l")
+
+
+def mp_train_cell(args, topo, gather, what, a, kind, path, fields,
+                  expect, recorded) -> dict:
+    """One training cell of phase 12 on the fleet, then (process 0) the
+    same plan on ``Topology.local(8)``: decisions, dB rows, the first
+    step's loss and gradients, parameters equal across the processes
+    after every step, the backward's rows, the op watch, per-epoch
+    times. Returns this process's report."""
+    from repro_torch import SpmmConfig, compile_spmm
+    from repro_torch.core import make_spmm_fn
+    from repro_torch.core.api import materialize_payload
+    from repro_torch.distributed.topology import Topology
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    me, (lo, hi) = topo.process_index, topo.span
+    epochs = MP_EPOCHS[kind]
+    t0 = time.perf_counter()
+    h = compile_spmm(a, topo, SpmmConfig(**fields))
+    prep_s = time.perf_counter() - t0
+    st = h.stats()
+    got = {k: st.get(k) for k in expect if k in st}
+    if got != expect:
+        raise AssertionError(f"worker {me} {what}: decisions {got} != "
+                             f"{expect}")
+    n = a.shape[0]
+    per = n // P
+    rows = slice(lo * per, hi * per)
+    fused = kind == "gat"
+    rng = np.random.default_rng(0)
+    # dB of ½‖h(operands)‖² on the fleet: this process's rows
+    widths = ((GAT_DIMS["att_dim"], GAT_DIMS["att_dim"], GAT_DIMS["hidden"])
+              if fused else (N_COLS,))
+    ops_host = [rng.standard_normal((n, w), dtype=np.float32) for w in widths]
+    xs = [topo.put_global(o).requires_grad_() for o in ops_host]
+    with library_watch() as watch:
+        c = h(*xs)
+        watch.stage = "backward"
+        c.backward(c.detach())
+        torch.cuda.synchronize()
+    watch.check(f"{what} dB")
+    axes = _axes_of(h)
+    db_rows = {ax: [h.comm.fleet_rows(ax, direction=d)
+                    for d in ("fwd", "bwd")] for ax in axes}
+    db_cross = [h.comm.fleet_rows(crossing=True, direction=d)
+                for d in ("fwd", "bwd")]
+    plan_cross = None if fused else h.plan_crossing_rows()
+    if any(f != b or f == 0 for f, b in db_rows.values()) or \
+            db_cross[0] != db_cross[1] or \
+            (plan_cross is not None and db_cross[0] != plan_cross):
+        raise AssertionError(f"{what} dB: rows (fwd, bwd) {db_rows}, "
+                             f"crossing {db_cross}, plan {plan_cross}")
+    gather.put(f"{path or what}-db",
+               **{f"d{i}": x.grad.cpu().numpy() for i, x in enumerate(xs)})
+    del c, xs
+
+    # the first step on the fleet: counted, recorded, watched
+    make_model, loss_fn, feat_dim, n_classes = _model_of(kind, n)
+    feats_host = np.random.default_rng(1).standard_normal(
+        (n, feat_dim), dtype=np.float32)
+    labels = torch.from_numpy(np.random.default_rng(2).integers(
+        0, n_classes, n)).to(topo.device)
+    x = topo.put_global(feats_host)  # this process's feature rows
+    fn = h if fused else make_spmm_fn(h)
+    model = make_model()
+    params = list(model.parameters())
+    calls = GAT_DIMS["n_layers"] if fused else len(GCN_DIMS) - 1
+    ops.reset_launch_counts()
+    box = {}
+
+    def first():
+        box["loss"] = loss_fn(model, x, labels, fn)
+        torch.cuda.synchronize()
+        box["fwd"] = ops.launch_counts()
+        watch.stage = "backward"
+        box["loss"].backward()
+
+    with library_watch() as watch:
+        if path is not None:
+            recorded[path] = (record_kernel_calls(first, host=True),
+                              None)
+        else:
+            first()
+            torch.cuda.synchronize()
+    watch.check(what)
+    total = ops.launch_counts()
+    if path is not None:  # the step's launches, counted as recorded
+        recorded[path] = (recorded[path][0], total)
+    fwd = box["fwd"]
+    bwd = {k: total[k] - fwd[k] for k in total}
+    coo = ("gather_rows", "gather_rows_scaled", "scatter_add_rows")
+    missing = [(k, d) for d, cnt in (("forward", fwd), ("backward", bwd))
+               for k in coo if cnt[k] < 1]
+    if missing:
+        raise AssertionError(f"{what}: not launched {missing}")
+    step_rows = {ax: [h.comm.fleet_rows(ax, direction=d)
+                      for d in ("fwd", "bwd")] for ax in axes}
+    step_cross = [h.comm.fleet_rows(crossing=True, direction=d)
+                  for d in ("fwd", "bwd")]
+    if any(b != calls * f or f == 0 for f, b in step_rows.values()) or \
+            step_cross[1] != calls * step_cross[0] or \
+            (plan_cross is not None and step_cross[0] != plan_cross):
+        raise AssertionError(f"{what}: step rows (fwd, bwd) {step_rows}, "
+                             f"crossing {step_cross} for {calls} calls")
+    h.comm.reduce_grads(params)
+    loss0 = float(h.comm.fold(box["loss"].detach()))
+    gather.put(f"{what}-grads",
+               **{f"g{i}": p.grad.cpu().numpy() for i, p in enumerate(params)})
+    opt_cfg = AdamWConfig(total_steps=epochs, **TRAIN_OPT)
+    state = adamw_init(params)
+    from repro_torch.optim.adamw import adamw_step
+
+    state, _ = adamw_step(opt_cfg, params, state)
+
+    def same_params(step):
+        mine = _flat_params(params)
+        if not all(np.array_equal(mine, o) for o in gather.all(mine)):
+            raise AssertionError(f"{what}: parameters differ across the "
+                                 f"processes after step {step}")
+
+    same_params(0)
+    losses, times = [loss0], []
+    for ep in range(1, epochs):
+        state, loss, t = _fleet_step(model, loss_fn, fn, x, labels, h, params,
+                                     opt_cfg, state)
+        losses.append(float(h.comm.fold(loss)))
+        times.append(t)
+        same_params(ep)
+    gather.put(f"{what}-losses", losses=np.asarray(losses))
+    del model, params, state, x, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    med = {k: statistics.median(t[k] for t in times) for k in times[0]}
+    out = {"decisions": {k: list(v) if isinstance(v, tuple) else v
+                         for k, v in got.items()},
+           "prep_s": prep_s, "rows": step_rows, "crossing": step_cross,
+           "db_rows": db_rows, "db_crossing": db_cross,
+           "plan_crossing": plan_cross, "losses": losses,
+           "launches": {"forward": {k: fwd[k] for k in coo},
+                        "backward": {k: bwd[k] for k in coo}},
+           "median": med, "epochs": epochs}
+
+    # process 0: the same plan on Topology.local(8), the same epochs
+    payload = h.save_payload()
+    del h, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+
+    dist.barrier()
+    if me == 0:
+        out["emulated"] = _emulated_cell(
+            gather, what, path, kind, payload, ops_host, feats_host, labels,
+            epochs)
+    dist.barrier()
+    return out
+
+
+def _emulated_cell(gather, what, path, kind, payload, ops_host, feats_host,
+                   labels, epochs) -> dict:
+    """Process 0's half of a cell: the fleet's plan on Topology.local(8)
+    on the card — dB, the first step, ``epochs`` steps — held against
+    every process's saved rows, gradients and losses."""
+    from repro_torch.core import make_spmm_fn
+    from repro_torch.core.api import materialize_payload
+    from repro_torch.distributed.topology import Topology
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_step
+
+    emu = materialize_payload(payload, Topology.local(P, MP_DEVICE))
+    n = feats_host.shape[0]
+    per = n // P
+    w = MP_LOCAL
+    xs = [torch.from_numpy(o).to(MP_DEVICE).requires_grad_()
+          for o in ops_host]
+    c = emu(*xs)
+    c.backward(c.detach())
+    for proc in range(MP_NPROC):
+        mine = gather.get(f"{path or what}-db", proc)
+        rows = slice(proc * w * per, (proc + 1) * w * per)
+        for i, x in enumerate(xs):
+            if not np.array_equal(mine[f"d{i}"], x.grad[rows].cpu().numpy()):
+                raise AssertionError(f"{what}: worker {proc}'s dB rows != "
+                                     f"the emulated run's (operand {i})")
+    del c, xs
+    make_model, loss_fn, _, _ = _model_of(kind, n)
+    fn = emu if kind == "gat" else make_spmm_fn(emu)
+    feats = torch.from_numpy(feats_host).to(MP_DEVICE)
+    model = make_model()
+    params = list(model.parameters())
+    loss = loss_fn(model, feats, labels, fn)
+    loss.backward()
+    worst = 0.0
+    for proc in range(MP_NPROC):
+        grads = gather.get(f"{what}-grads", proc)
+        for i, p in enumerate(params):
+            g, e = grads[f"g{i}"].astype(np.float64), _host64(p.grad)
+            np.testing.assert_allclose(g, e, err_msg=f"{what} grad {i}",
+                                       **GRAD_TOL)
+            worst = max(worst, float((np.abs(g - e) / (
+                GRAD_TOL["atol"] + GRAD_TOL["rtol"] * np.abs(e))).max()))
+    cfg = AdamWConfig(total_steps=epochs, **TRAIN_OPT)
+    state = adamw_init(params)
+    emu_losses, times = [loss.item()], []
+    state, _ = adamw_step(cfg, params, state)
+    for _ in range(1, epochs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss = loss_fn(model, feats, labels, fn)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        state, _ = adamw_step(cfg, params, state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        times.append({"fwd": ev[0].elapsed_time(ev[1]),
+                      "bwd": ev[1].elapsed_time(ev[2]),
+                      "upd": ev[2].elapsed_time(ev[3]),
+                      "wall": (time.perf_counter() - t0) * 1e3})
+        emu_losses.append(loss.item())
+    for proc in range(MP_NPROC):
+        np.testing.assert_allclose(
+            gather.get(f"{what}-losses", proc)["losses"], emu_losses,
+            err_msg=f"{what}: losses of worker {proc}", **GRAD_TOL)
+    if not emu_losses[-1] < emu_losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {emu_losses}")
+    del emu, model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": emu_losses, "grad_err_over_tol": worst,
+            "median": {k: statistics.median(t[k] for t in times)
+                       for k in times[0]}}
+
+
+def mp_ep_cell(args, topo, gather, recorded) -> dict:
+    """The expert-parallel LM of phase 12 on a (data 1, model 8) grid over
+    the fleet: OLMoE-1B-7B as published (``--quick``: olmoe-smoke) with
+    phase 7's random weights, each process keeping the dense weights and
+    its model ranks' experts. Returns this process's report."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed.context import make_context
+    from repro_torch.distributed.topology import Topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+
+    me = topo.process_index
+    dev = topo.device
+    cfg = get_smoke_config(LM_ARCH) if args.quick else get_config(LM_ARCH)
+    ftopo = Topology.multiprocess(device=MP_DEVICE,
+                                  mesh=make_mesh(*MP_EP_GRID))
+    fdist = make_context(ftopo)
+    edist = make_context(make_mesh(*MP_EP_GRID))
+    M, dsz = fdist.model_size, fdist.batch_size_divisor
+    ng, nm, _, m_lo = fdist.local_grid
+    out = {"grid": dict(fdist.mesh.shape), "span": list(fdist.span),
+           "model_ranks": [m_lo, m_lo + nm]}
+    rng = np.random.default_rng(0)
+    B, S = LM_PREFILL
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)}
+    first = batch["tokens"][:, :1]
+    max_len = LM_SERVE["max_len"]
+    per_step = 2 * cfg.n_layers + 1
+
+    t0 = time.perf_counter()
+    full = TT.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    if me == 0:  # the emulated grid's bf16 tokens, on all the experts
+        cache = TT.init_decode_cache(cfg, B, max_len, device=dev)
+        emu_pre = TT.forward(full, cfg, edist, batch)
+        emu_dec, _ = TT.decode_step(full, cfg, edist, first, cache)
+        out["emulated_tokens"] = [emu_pre[:, -1].argmax(-1).tolist(),
+                                  emu_dec[:, -1].argmax(-1).tolist()]
+        del emu_pre, emu_dec
+        del cache
+    params = TT.shard_experts(full, cfg, fdist)
+    moe = params["layers"]["moe"]
+    for k in ("w1", "w3", "w2"):
+        moe[k] = moe[k].clone()  # the experts alone, not views of them all
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = sum(t.numel() * t.element_size() for t in _leaves(params))
+    out["weights_gb"] = held / 1e9
+    log(f"[worker {me}] EP: {cfg.name} on {dict(fdist.mesh.shape)} ranks "
+        f"{fdist.span}, model ranks {m_lo}..{m_lo + nm - 1}: "
+        f"{held / 1e9:.2f} GB of weights on the card, init "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the kernel calls of one prefill and one decode step, outside the
+    # counted runs, to the host
+    pre_calls = record_kernel_calls(
+        lambda: TT.forward(params, cfg, fdist, batch), host=True)
+    cache = TT.init_decode_cache(cfg, B, max_len, device=dev)
+    dec_calls = record_kernel_calls(
+        lambda: TT.decode_step(params, cfg, fdist, first, cache), host=True)
+
+    # the main path, counted: one prefill, one decode step
+    want_launch = {"gather_rows": 2 * cfg.n_layers,
+                   "scatter_add_rows": 2 * cfg.n_layers, "rmsnorm": per_step}
+    fdist.comm.reset()
+    ops.reset_launch_counts()
+    with TM.record_dispatch() as rec:
+        logits = TT.forward(params, cfg, fdist, batch)
+    torch.cuda.synchronize()
+    pre_launches = ops.launch_counts()
+    check_finite(logits, (B, S, cfg.vocab_size), "fleet EP prefill logits")
+    (cap, cap_e), = {(r["cap"], r["cap_e"]) for r in rec}
+    acts = fdist.comm.fleet_rows("model")
+    if acts != 2 * cfg.n_layers * dsz * M * M * cap:
+        raise AssertionError(f"fleet EP prefill: activation rows {acts}, want"
+                             f" {2 * cfg.n_layers} x Dsz·M·M·cap")
+    cross = fdist.comm.fleet_rows("model", crossing=True)
+    transport = fdist.comm.transport()
+    tokens = logits[:, -1].argmax(-1)
+    cache = TT.init_decode_cache(cfg, B, max_len, device=dev)
+    ops.reset_launch_counts()
+    step_logits, _ = TT.decode_step(params, cfg, fdist, first, cache)
+    torch.cuda.synchronize()
+    dec_launches = ops.launch_counts()
+    check_finite(step_logits, (B, 1, cfg.vocab_size), "fleet EP decode")
+    recorded["mp_ep_prefill"] = (pre_calls, pre_launches)
+    recorded["mp_ep_decode"] = (dec_calls, dec_launches)
+    for name, cnt in (("prefill", pre_launches), ("decode", dec_launches)):
+        if {k: cnt[k] for k in want_launch} != want_launch or \
+                sum(cnt.values()) != sum(want_launch.values()):
+            raise AssertionError(f"fleet EP {name}: launches {cnt}, want "
+                                 f"{want_launch}")
+    mine = np.concatenate([logits[:, -1].float().cpu().numpy().ravel(),
+                           step_logits.float().cpu().numpy().ravel()])
+    if not all(np.array_equal(mine, o) for o in gather.all(mine)):
+        raise AssertionError("fleet EP: the processes' logits differ")
+    out.update(cap=cap, cap_e=cap_e, activation_rows=acts,
+               crossing_rows=cross,
+               crossing_bytes=cross * cfg.d_model * 2,
+               transport=transport, prefill_launches=pre_launches,
+               decode_launches=dec_launches,
+               dropped=[int(r["dropped"]) for r in rec],
+               tokens=[tokens.tolist(),
+                       step_logits[:, -1].argmax(-1).tolist()])
+    del logits, step_logits
+
+    # the batcher: phase 7's 12 requests
+    reqs = lm_requests(Request, cfg.vocab_size)
+    batcher = ContinuousBatcher(cfg, params, LM_SERVE["max_batch"], max_len,
+                                dist=fdist)
+    for r in reqs:
+        batcher.submit(r)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stats = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    want_tokens = LM_SERVE["requests"] * LM_SERVE["new_tokens"]
+    if stats.served != LM_SERVE["requests"] or \
+            stats.generated_tokens != want_tokens:
+        raise AssertionError(f"fleet EP batcher: served {stats.served}, "
+                             f"{stats.generated_tokens} tokens")
+    outs = np.asarray([t for r in reqs for t in r.output], np.int64)
+    if not all(np.array_equal(outs, o) for o in gather.all(outs)):
+        raise AssertionError("fleet EP batcher: the processes' tokens differ")
+    out["batcher"] = {"served": stats.served, "tokens": want_tokens,
+                      "steps": stats.decode_steps, "wall_s": wall,
+                      "tokens_per_s": want_tokens / wall,
+                      "outputs_digest": int(outs.sum())}
+
+    # medians of 3 (a fleet prefill moves GBs through the host)
+    for fn, key in ((lambda: TT.forward(params, cfg, fdist, batch),
+                     "prefill"),
+                    (lambda: TT.decode_step(params, cfg, fdist, first, cache),
+                     "decode")):
+        fdist.comm.reset()
+        out[f"{key}_ms"] = median_ms(fn, reps=3)
+        tr = fdist.comm.transport()
+        out[f"{key}_gloo_ms"] = tr["gloo_s"] * 1e3 / 3
+        out[f"{key}_stage_ms"] = tr["stage_s"] * 1e3 / 3
+    del cache, batcher, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f32"] = mp_ep_f32(args, cfg, fdist, edist, me, gather, dev)
+    return out
+
+
+def mp_ep_f32(args, cfg, fdist, edist, me, gather, dev) -> dict:
+    """A float32 copy of the first 2 layers (all experts drawn, each
+    process keeping its own): the fleet against the emulated grid and
+    ``_moe_dense`` at capacity 8.0, the sequence-sharded decode against
+    the unsharded one, every model rank's output equal, the drops at the
+    published capacity equal the emulated run's."""
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+
+    n_l = min(LM_F32["n_layers"], cfg.n_layers)
+    c2 = dataclasses.replace(cfg, n_layers=n_l)
+    full = TT.init_params(c2, torch.Generator(dev).manual_seed(0),
+                          device=dev)  # the first layers of phase 7's draw
+    full = TT._tree_map(lambda t: t.float(), full)
+    mine = TT.shard_experts(full, cfg, fdist)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        LM_F32["batch"], LM_F32["tokens"])).astype(np.int32)).to(dev)
+    f32 = {"tokens": toks}
+
+    def copy(**kw):
+        return dataclasses.replace(c2, dtype="float32", **kw)
+
+    wide = copy(capacity_factor=8.0)
+    fleet = TT.forward(mine, wide, fdist, f32)
+    emu = TT.forward(full, wide, edist, f32)
+    dense = TT.forward(full, wide, None, f32)
+    res = {"vs_emulated": check_close(fleet, _host64(emu),
+                                      "fleet EP vs emulated"),
+           "vs_dense": check_close(fleet, _host64(dense),
+                                   "fleet EP vs _moe_dense")}
+    steps = {}
+    for shard_kv in (False, True):
+        c32 = dataclasses.replace(wide, kv_seq_shard=shard_kv)
+        cache = TT.init_decode_cache(c32, toks.shape[0], toks.shape[1],
+                                     device=dev)
+        outs = []
+        for j in range(toks.shape[1]):
+            o, cache = TT.decode_step(mine, c32, fdist, toks[:, j:j + 1],
+                                      cache)
+            outs.append(o)
+        steps[shard_kv] = torch.cat(outs, dim=1)
+    res["seq_shard"] = check_close(steps[True], _host64(steps[False]),
+                                   "fleet seq-shard decode")
+    res["decode_vs_forward"] = check_close(steps[False], _host64(fleet),
+                                           "fleet decode vs forward")
+    lp = TT._layer(mine["layers"], 0)["moe"]
+    x = torch.randn((LM_F32["batch"], LM_F32["tokens"], cfg.d_model),
+                    generator=torch.Generator(dev).manual_seed(1),
+                    device=dev)
+    ranks = TM._moe_ep(lp, x, wide, fdist, True, all_ranks=True)
+    first = ranks[0].cpu().numpy()
+    if not all(torch.equal(r, ranks[0]) for r in ranks) or \
+            not all(np.array_equal(first, o) for o in gather.all(first)):
+        raise AssertionError("fleet EP: the model ranks' outputs differ")
+    pub = copy()
+    with TM.record_dispatch() as rf:
+        TT.forward(mine, pub, fdist, f32)
+    with TM.record_dispatch() as re_:
+        TT.forward(full, pub, edist, f32)
+    drops = [int(sum(x)) for x in zip(*gather.all(np.asarray(
+        [int(r["dropped"]) for r in rf], np.int64)))]
+    if drops != [int(r["dropped"]) for r in re_]:
+        raise AssertionError(f"fleet drops {drops} != emulated "
+                             f"{[int(r['dropped']) for r in re_]}")
+    res["dropped"] = drops
+    del full, mine, fleet, emu, dense, steps, ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mp_train_worker(args) -> None:
+    """One process of phase 12: the training cells, then the EP LM, then
+    each recorded kernel call replayed against its plain version, one
+    process at a time. Writes ``<dir>/rank<i>.json``; any failed check
+    raises, and the process exits non-zero."""
+    import torch.distributed as dist
+
+    from repro_torch.core.sparse import power_law_sparse, random_sparse
+    from repro_torch.launch.multiprocess import initialize, shutdown
+    from repro_torch.models.gnn import normalize_adjacency
+
+    t_start = time.perf_counter()
+    out_dir = args.mp_train_worker
+    topo = initialize(timeout=MP_TIMEOUT)
+    me = topo.process_index
+    if topo.device.type != MP_DEVICE or topo.tiers != (MP_NPROC, MP_LOCAL):
+        raise AssertionError(f"worker {me}: topology {topo}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gather = _Gather(out_dir, me, topo.n_hosts)
+    m = 16_384 if args.quick else M_FULL
+    nnz = 7 * m if args.quick else NNZ_FULL
+    graphs = {"power_law": normalize_adjacency(
+                  power_law_sparse(m, m, nnz, 0.8, seed=0)),
+              "uniform": normalize_adjacency(
+                  random_sparse(m, m, nnz / m ** 2, seed=0))}
+    expect = EXPECT_MP_TRAIN["quick" if args.quick else "full"]
+    out = {"process": me, "span": list(topo.span), "cells": {}}
+    recorded = {}
+    for what, graph, kind, path, fields in MP_TRAIN_CELLS:
+        t0 = time.perf_counter()
+        out["cells"][what] = mp_train_cell(
+            args, topo, gather, what, graphs[graph], kind, path, fields,
+            expect[what], recorded)
+        log(f"[worker {me}] {what}: {time.perf_counter() - t0:.1f} s")
+    del graphs
+    gc.collect()
+    t0 = time.perf_counter()
+    out["ep"] = mp_ep_cell(args, topo, gather, recorded)
+    log(f"[worker {me}] EP: {time.perf_counter() - t0:.1f} s")
+    # every recorded call against its plain version, one process at a time
+    kernels = {"mp_gcn_step": ("gather_rows", "gather_rows_scaled",
+                               "scatter_add_rows"),
+               "mp_gat_step": ("gather_rows", "gather_rows_scaled",
+                               "scatter_add_rows"),
+               "mp_ep_prefill": ("gather_rows", "scatter_add_rows",
+                                 "rmsnorm"),
+               "mp_ep_decode": ("gather_rows", "scatter_add_rows",
+                                "rmsnorm")}
+    rows = {}
+    for turn in range(topo.n_hosts):
+        if turn == me:
+            t0 = time.perf_counter()
+            for path, names in kernels.items():
+                calls, launches = recorded.pop(path)
+                for k in names:
+                    rows.setdefault(k, {})[path] = kernel_row(
+                        k, calls[k], launches[k], busy=False)
+                del calls
+                gc.collect()
+                torch.cuda.empty_cache()
+            log(f"[worker {me}] kernel calls replayed in "
+                f"{time.perf_counter() - t0:.1f} s")
+        dist.barrier()
+    out["kernels"] = rows
+    out["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{me}.json"), "w") as f:
+        json.dump(out, f, default=lambda o: o.item())  # numpy scalars
+    shutdown()
+
+
+def mp_train_phase(args, card: str) -> dict:
+    """Phase 12: training and the EP LM across 2 processes × 4 ranks on
+    the card (``mp_train_worker``). Logs each cell's checks and times
+    and returns the kernel rows of the mp_gcn_step, mp_gat_step,
+    mp_ep_prefill and mp_ep_decode paths (worker 0's numbers, the worst
+    error of both)."""
+    import shutil
+
+    from repro_torch.launch.multiprocess import launch_local
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "mp_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    rc = launch_local(MP_NPROC, MP_LOCAL, timeout=MP_TIMEOUT,
+                      device=MP_DEVICE,
+                      argv=[sys.executable, os.path.abspath(__file__),
+                            "--mp-train-worker", out_dir]
+                      + (["--quick"] if args.quick else []))
+    if rc:
+        raise AssertionError(f"phase 12: a worker failed (exit {rc})")
+    res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+           for r in range(MP_NPROC)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for what, _, kind, _, _ in MP_TRAIN_CELLS:
+        cells = [r["cells"][what] for r in res]
+        d, emu = cells[0], cells[0]["emulated"]
+        log(f"{what} decisions (== the reference's): "
+            f"{json.dumps(d['decisions'])}; prep {d['prep_s']:.1f} s")
+        log(f"  dB of ½‖h‖²: every process's rows == the emulated run's; "
+            f"rows (fwd, bwd) {d['db_rows']}, across processes "
+            f"{d['db_crossing']} (plan {d['plan_crossing']})")
+        log(f"  first step: loss {d['losses'][0]:.6f} (emulated "
+            f"{emu['losses'][0]:.6f}); every gradient within rtol 2e-3 / "
+            f"atol 2e-4 of the emulated run's (max err / tol "
+            f"{emu['grad_err_over_tol']:.3g}); rows a step (fwd, bwd) "
+            f"{d['rows']}, across processes {d['crossing']}; launches "
+            f"{json.dumps(d['launches'])}; op watch clean")
+        log(f"  {d['epochs']} epochs: losses "
+            f"{[round(x, 6) for x in d['losses']]} (emulated "
+            f"{[round(x, 6) for x in emu['losses']]}); "
+            f"parameters equal on both processes after every step")
+        for r, cell in zip(res, cells):
+            md = cell["median"]
+            log(f"  {what} worker {r['process']} [{card}]: per epoch "
+                f"(median of {cell['epochs'] - 1}) forward {md['fwd']:.3f} "
+                f"ms, backward {md['bwd']:.3f} ms, update {md['upd']:.3f} ms"
+                f" by CUDA events, {md['wall']:.3f} ms host wall; gloo "
+                f"{md['gloo']:.3f} ms, staging {md['stage']:.3f} ms, "
+                f"{md['exchanges']:.0f} exchanges, {md['staged_bytes']:.0f} B"
+                f" staged")
+        me_ = emu["median"]
+        log(f"  {what} on Topology.local(8) [{card}]: forward "
+            f"{me_['fwd']:.3f} ms, backward {me_['bwd']:.3f} ms, update "
+            f"{me_['upd']:.3f} ms, {me_['wall']:.3f} ms host wall")
+    ep = [r["ep"] for r in res]
+    e = ep[0]
+    log(f"mp-olmoe-serve-ep: grid {e['grid']}, worker spans "
+        f"{[x['span'] for x in ep]}, model ranks "
+        f"{[x['model_ranks'] for x in ep]}; weights on the card "
+        f"{[round(x['weights_gb'], 2) for x in ep]} GB")
+    log(f"  prefill {LM_PREFILL[0]}x{LM_PREFILL[1]}: cap {e['cap']}, cap_e "
+        f"{e['cap_e']}; activation rows {e['activation_rows']} = 2·L·Dsz·M·M"
+        f"·cap; across processes {e['crossing_rows']} rows = "
+        f"{e['crossing_bytes']} B; dropped per layer {e['dropped']}; "
+        f"launches {json.dumps(e['prefill_launches'])} / decode "
+        f"{json.dumps(e['decode_launches'])}; logits equal on both processes")
+    same = e["tokens"] == e["emulated_tokens"]
+    log(f"  bf16 tokens (prefill's last position, one decode step) == the "
+        f"emulated (data 1, model 8) run's: {same}")
+    b = e["batcher"]
+    log(f"  batcher: served {b['served']}, {b['tokens']} tokens in "
+        f"{b['steps']} steps, the same tokens on both processes; "
+        f"{b['tokens_per_s']:.2f} tokens/s [{card}] ({b['wall_s']:.2f} s "
+        f"host wall)")
+    for r, x in zip(res, ep):
+        for key in ("prefill", "decode"):
+            dev_ms, host_ms = x[f"{key}_ms"]
+            log(f"  EP {key} worker {r['process']} [{card}]: median of 3: "
+                f"{dev_ms:.3f} ms device events, {host_ms:.3f} ms host wall;"
+                f" gloo {x[f'{key}_gloo_ms']:.3f} ms, staging "
+                f"{x[f'{key}_stage_ms']:.3f} ms")
+    f = e["f32"]
+    log(f"  float32 copy: fleet vs emulated (data 1, model 8) "
+        f"{f['vs_emulated']}; vs _moe_dense at capacity 8.0 "
+        f"{f['vs_dense']}; seq-shard decode vs unsharded {f['seq_shard']}; "
+        f"decode vs forward {f['decode_vs_forward']}; dropped at the "
+        f"published capacity {f['dropped']} == the emulated run's; the "
+        f"model ranks' outputs bit-identical across the processes")
+    rows = {}
+    for k, per_path in res[0]["kernels"].items():
+        for path, row in per_path.items():
+            other = [r["kernels"][k][path] for r in res[1:]]
+            rows.setdefault(k, {})[path] = dict(
+                row, max_abs_err=max([row["max_abs_err"]]
+                                     + [o["max_abs_err"] for o in other]),
+                launches_per_worker=[row["launches"]]
+                + [o["launches"] for o in other])
+    log(f"phase 12 training and EP across processes: "
+        f"{time.perf_counter() - t_phase:.1f} s (workers "
+        f"{[round(r['seconds'], 1) for r in res]} s)")
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quick", action="store_true",
@@ -3994,6 +4840,9 @@ def main() -> int:
     parser.add_argument("--mp-worker", metavar="DIR",
                         help="run as one worker of phase 11 (b), writing "
                              "its results under DIR (the phase starts it)")
+    parser.add_argument("--mp-train-worker", metavar="DIR",
+                        help="run as one worker of phase 12, writing its "
+                             "results under DIR (the phase starts it)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4001,6 +4850,9 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     if args.mp_worker:
         mp_worker(args)
+        return 0
+    if args.mp_train_worker:
+        mp_train_worker(args)
         return 0
     from repro_torch import SpmmConfig, compile_fused, compile_spmm
     from repro_torch.core.dist_spmm import flat_spmm
@@ -4289,6 +5141,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for k, extra in mp_phase(args, card).items():
+        per_kernel[k].update(extra)
+
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    # 12. training (GCN, GAT) and the expert-parallel LM across the two
+    #     processes
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, extra in mp_train_phase(args, card).items():
         per_kernel[k].update(extra)
 
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")

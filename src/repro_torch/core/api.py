@@ -52,11 +52,12 @@ arrays on its device, takes its rows of each operand
 ranges ``h.row_blocks()`` names; the collectives run through a
 ``ProcessComm``, and measured autotuning stays model-only there, as in
 the reference. Calls are
-differentiable where the reference's are (``kernels.ops``): coo SpMM on
-every tier, coo and bsr SDDMM, coo FusedMM; a bsr SpMM or FusedMM call on
-an operand that requires grad raises, as the reference has no JVP for
-its K3 / K4. ``make_spmm_fn`` closes a handle or an exec plan over model
-code.
+differentiable where the reference's are (``kernels.ops``), on one
+device and on a fleet alike (the crossing exchanges' backward runs in
+reverse across the processes, ``ProcessComm``): coo SpMM on every tier,
+coo and bsr SDDMM, coo FusedMM; a bsr SpMM or FusedMM call on an operand
+that requires grad raises, as the reference has no JVP for its K3 / K4.
+``make_spmm_fn`` closes a handle or an exec plan over model code.
 
 ``measure=True`` (or an autotune cache directory, ``REPRO_AUTOTUNE_CACHE``)
 overlays timed profiling on the model's choice (``core.autotune``):
@@ -1218,16 +1219,21 @@ def make_spmm_fn(ex: Union[DistSpmm, FlatExecPlan, HierExecPlan,
     """Close a SHIRO executor over its plan for model code (``H -> Â·H``).
 
     Preferred form: pass a ``DistSpmm`` handle (it owns its comm and its
-    executable memo). A raw ``FlatExecPlan`` / ``HierExecPlan`` /
-    ``ReplicatedExecPlan`` runs its executor (staged) with ``comm`` (a
-    fresh ``LocalComm`` on the plan's layout per call when None). The
-    closure is differentiable wherever the executor is.
+    executable memo; the closure carries it as ``.handle``). A raw
+    ``FlatExecPlan`` / ``HierExecPlan`` / ``ReplicatedExecPlan`` runs its
+    executor (staged) with ``comm`` (a fresh ``LocalComm`` on the plan's
+    layout per call when None). The closure is differentiable wherever
+    the executor is.
     """
     if isinstance(ex, DistSpmm):
         if comm is not None:
             raise TypeError("a DistSpmm handle owns its comm; pass comm= "
                             "only with a raw exec plan")
-        return lambda h: ex(h, backend=backend)
+
+        def spmm(h):
+            return ex(h, backend=backend)
+        spmm.handle = ex  # the models' losses read a fleet's rows off it
+        return spmm
     fn = {FlatExecPlan: flat_spmm, HierExecPlan: hier_spmm,
           ReplicatedExecPlan: replicated_spmm}.get(type(ex))
     if fn is None:

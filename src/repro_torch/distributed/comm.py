@@ -38,6 +38,13 @@ live on a card. Reductions fold in LocalComm's order, so a fleet's C is
 the emulated run's bit for bit. ``rows`` counts this process's operand
 rows under LocalComm's axis names, ``fleet_rows`` sums them over the
 processes, and ``rows_crossing`` counts the rows that left this process.
+Under autograd the exchange is one ``torch.autograd.Function``
+(``_Exchange``) whose backward sends every received slab's gradient back
+to its source in one reversed exchange, so the fleet's input gradients
+are the emulated run's too; ``reduce_grads`` / ``fold`` sum a replicated
+parameter's gradients (or a loss) over the processes in process order.
+``ProcessMeshComm`` runs MeshComm's collectives the same way, over a
+named grid spread across the processes.
 
 ``MeshComm`` runs the collectives of a NAMED grid — the reference's
 ``make_mesh((2, 4), ("data", "model"))`` that ``DistContext`` wraps
@@ -62,14 +69,15 @@ entries join the log when the backward runs, after the call's own.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["LocalComm", "MeshComm", "ProcessComm"]
+__all__ = ["LocalComm", "MeshComm", "ProcessComm", "ProcessMeshComm"]
 
 Pairs = Tuple[Tuple[int, int], ...]
 
@@ -388,8 +396,11 @@ class MeshComm(_CommLog):
         """Rows placed in collective operands since the last ``reset``:
         all of them, or those of one axis (``"model"``; ``"model:meta"``
         for the metadata exchanges logged apart), forward or backward."""
-        return self._rows(lambda op: axis is None or op.endswith("@" + axis),
-                          direction)
+        return self._rows(self._axis_filter(axis), direction)
+
+    @staticmethod
+    def _axis_filter(axis: Optional[str]) -> Callable[[str], bool]:
+        return lambda op: axis is None or op.endswith("@" + axis)
 
     def _axis_dim(self, x: torch.Tensor, layout: Sequence[str],
                   axis: str) -> int:
@@ -451,7 +462,335 @@ class MeshComm(_CommLog):
 
 
 
-class ProcessComm(_CommLog):
+_SEQ = itertools.count()  # this process's cross-process exchanges, in order
+
+
+class _Route(NamedTuple):
+    """One collective's crossing traffic as this process sees it: bytes
+    to (``in_splits``) and from (``out_splits``) each process, the rows
+    it receives, the slabs' dtype, and the exchange's forward number."""
+
+    in_splits: Tuple[int, ...]
+    out_splits: Tuple[int, ...]
+    recv_rows: int
+    dtype: torch.dtype
+    seq: int
+
+
+def _tie(out: torch.Tensor, token: torch.Tensor) -> None:
+    """Make ``out`` depend on the empty ``token`` under autograd at no
+    cost: an in-place copy of zero elements, which joins the token's node
+    to ``out``'s graph."""
+    out.narrow(0, 0, 0).copy_(token.reshape((0,) + (1,) * (out.dim() - 1)))
+
+
+class _Exchange(torch.autograd.Function):
+    """A collective's crossing slabs through the process group, and back.
+
+    Forward: ``buf`` (this process's outgoing slabs, in buffer order)
+    goes out in one exchange and the received slabs come back, in the
+    forward's receive order. Backward: the gradient of every received
+    slab goes back to the slab's source over the reversed pairs, in one
+    exchange staged the same way, and lands in ``buf``'s layout. ``like``
+    (the collective's operand) makes the node exist on a process that
+    sends nothing. The second output, an empty token, is tied into the
+    collective's result (``_tie``), so a process that receives nothing
+    still reaches the backward exchange: every process enters every one,
+    and each first checks that all are at the same exchange."""
+
+    @staticmethod
+    def forward(ctx, comm, op, route, like, buf):
+        ctx.comm, ctx.op, ctx.route = comm, op, route
+        vals = comm._exchange(buf, route)
+        return vals, vals.new_empty(0)
+
+    @staticmethod
+    def backward(ctx, g, _token):
+        comm, route = ctx.comm, ctx.route
+        comm._check_order(route, ctx.op)
+        dbuf = comm._exchange(g.contiguous(), route, back=True)
+        comm.crossing.append(("bwd:" + ctx.op, route.recv_rows))
+        return (None, None, None, None,
+                dbuf if ctx.needs_input_grad[4] else None)
+
+
+class _FanOut(torch.autograd.Function):
+    """``n`` uses of one slab whose gradients sum as the emulated
+    communicators' broadcasts sum theirs: an ``expand``'s backward is a
+    ``sum`` over the copies' dim, so the uses' gradients are stacked in
+    use order and summed over that dim — the same reduction, the same
+    bits (a left fold up to four copies, torch's blocked sum past it)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return torch.stack(gs).sum(0), None
+
+
+class _Fleet:
+    """The exchange every communicator over a ``torch.distributed``
+    process group shares: this process's span of the ranks, the one
+    ``all_to_all_single`` per collective (staged through pinned host
+    memory on a card), its autograd (``_Exchange``) and its counters.
+    Each process of the default group holds an equal run of the ranks in
+    process order, process i the ranks [i·w, (i+1)·w)."""
+
+    def _join(self, P: int, span: Tuple[int, int]) -> None:
+        import torch.distributed as dist
+
+        self.n_proc = dist.get_world_size()
+        self.proc = dist.get_rank()
+        lo, hi = int(span[0]), int(span[1])
+        self.width = hi - lo
+        if self.width < 1 or self.width * self.n_proc != P \
+                or lo != self.proc * self.width:
+            raise ValueError(
+                f"span {span} is not process {self.proc}'s equal share of "
+                f"P={P} ranks over {self.n_proc} processes")
+        self.span = (lo, hi)
+        self._pinned: Dict[str, torch.Tensor] = {}
+
+    def reset(self) -> None:
+        super().reset()
+        self.crossing: List[Tuple[str, int]] = []
+        self.staged_bytes = 0
+        self.stage_s = 0.0
+        self.gloo_s = 0.0
+        self.exchanges = 0
+        self.bwd_exchanges = 0
+        self._token: Optional[torch.Tensor] = None
+
+    # ----- counters ------------------------------------------------------
+
+    def rows_crossing(self, axis: Optional[str] = None,
+                      direction: str = "fwd") -> int:
+        """Rows this process sent to ranks of other processes, by the
+        forward collectives (``"fwd"``) or by their backward (``"bwd"``:
+        the gradients of the slabs this process received)."""
+        if direction not in ("fwd", "bwd"):
+            raise ValueError(f"direction must be 'fwd' or 'bwd', got "
+                             f"{direction!r}")
+        on, back = self._axis_filter(axis), direction == "bwd"
+        return sum(r for op, r in self.crossing
+                   if op.startswith("bwd:") == back
+                   and on(op[4:] if back else op))
+
+    def fleet_rows(self, axis: Optional[str] = None, crossing: bool = False,
+                   direction: str = "fwd") -> int:
+        """``rows(axis, direction)`` (or ``rows_crossing``) summed over
+        the processes: a collective call every process makes."""
+        import torch.distributed as dist
+
+        n = (self.rows_crossing(axis, direction) if crossing
+             else self.rows(axis, direction))
+        t = torch.tensor([n], dtype=torch.int64)
+        dist.all_reduce(t)
+        return int(t.item())
+
+    def transport(self) -> Dict[str, float]:
+        """Since the last ``reset``: the cross-process exchanges (forward
+        and backward; ``bwd_exchanges`` the backward's), the bytes staged
+        between the card and the host (both ways), and the host seconds
+        of the staging copies and of the exchanges."""
+        return {"exchanges": self.exchanges,
+                "bwd_exchanges": self.bwd_exchanges,
+                "staged_bytes": self.staged_bytes,
+                "stage_s": self.stage_s, "gloo_s": self.gloo_s}
+
+    # ----- the one exchange ----------------------------------------------
+
+    def _owner(self, rank: int) -> int:
+        return rank // self.width
+
+    def _mine(self, rank: int) -> bool:
+        return self.span[0] <= rank < self.span[1]
+
+    def _mine_pairs(self, pairs) -> Pairs:
+        return tuple(p for p in pairs if self._mine(p[0]))
+
+    def _check_lead(self, x: torch.Tensor, what: str) -> None:
+        if x.shape[0] != self.width:
+            raise ValueError(f"{what} operand must lead with this process's "
+                             f"[{self.width}] ranks, got {tuple(x.shape)}")
+
+    def _host_buffer(self, kind: str, nbytes: int) -> torch.Tensor:
+        buf = self._pinned.get(kind)
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                              pin_memory=True)
+            self._pinned[kind] = buf
+        return buf[:nbytes]
+
+    def _exchange(self, data: torch.Tensor, route: _Route,
+                  back: bool = False) -> torch.Tensor:
+        """``data`` (contiguous, slabs in buffer order) through one
+        ``all_to_all_single``; the bytes received, as ``route.dtype``,
+        1-D. ``back`` runs the reversed exchange. On a card the bytes go
+        device → pinned host → exchange → device; the forward and the
+        backward each stage through host buffers of their own."""
+        import torch.distributed as dist
+
+        in_splits, out_splits = route.in_splits, route.out_splits
+        if back:
+            in_splits, out_splits = out_splits, in_splits
+        n_in = sum(out_splits)
+        raw = data.reshape(-1).view(torch.uint8)
+        kind = "bwd" if back else "fwd"
+        if raw.is_cuda:
+            torch.cuda.synchronize(raw.device)
+            t0 = time.perf_counter()
+            host_in = self._host_buffer("send:" + kind, raw.numel())
+            host_in.copy_(raw)
+            host_out = self._host_buffer("recv:" + kind, n_in)
+            t1 = time.perf_counter()
+            dist.all_to_all_single(host_out, host_in, list(out_splits),
+                                   list(in_splits))
+            t2 = time.perf_counter()
+            out = torch.empty(n_in, dtype=torch.uint8, device=raw.device)
+            out.copy_(host_out)
+            t3 = time.perf_counter()
+            self.stage_s += (t1 - t0) + (t3 - t2)
+            self.gloo_s += t2 - t1
+            self.staged_bytes += raw.numel() + n_in
+        else:
+            out = torch.empty(n_in, dtype=torch.uint8)
+            t1 = time.perf_counter()
+            dist.all_to_all_single(out, raw, list(out_splits),
+                                   list(in_splits))
+            self.gloo_s += time.perf_counter() - t1
+        self.exchanges += 1
+        self.bwd_exchanges += int(back)
+        return out.view(route.dtype)
+
+    def _check_order(self, route: _Route, op: str) -> None:
+        """Before a backward exchange: every process must be reversing
+        the same forward exchange. Raises on a mismatch (instead of
+        pairing the wrong exchanges or waiting for one that never
+        comes)."""
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        mine = torch.tensor([route.seq], dtype=torch.int64)
+        seqs = [torch.zeros_like(mine) for _ in range(self.n_proc)]
+        dist.all_gather(seqs, mine)
+        self.gloo_s += time.perf_counter() - t0
+        seen = [int(s) for s in seqs]
+        if any(s != route.seq for s in seen):
+            raise RuntimeError(
+                f"backward exchanges out of order across processes: "
+                f"process {self.proc} reverses forward exchange "
+                f"{route.seq} ({op}), the processes are at {seen}")
+
+    def _route(self, op: str, pairs: Sequence[Tuple[int, int]],
+               take: Callable[[int, int], torch.Tensor],
+               slab_shape: Tuple[int, ...], like: torch.Tensor
+               ) -> Dict[Tuple[int, int], torch.Tensor]:
+        """Every slab a pair of ``pairs`` brings to this process's ranks:
+        {(src, dst): slab} for each dst in the span. ``take(src, dst)``
+        gives the slab a source of this process sends (every slab has
+        ``slab_shape``, the same on every process). Logs the rows sent
+        across processes under ``op``. Under autograd (``like`` requires
+        grad) the crossing slabs go through ``_Exchange``, whose token the
+        collective's ``_record`` ties into its result."""
+        got = {(s, d): take(s, d) for s, d in pairs
+               if self._mine(s) and self._mine(d)}
+        cross = [(s, d) for s, d in pairs
+                 if self._owner(s) != self._owner(d)]
+        numel = math.prod(slab_shape)
+        per_row = slab_shape[-1] if slab_shape and slab_shape[-1] else 0
+        rows = numel // per_row if per_row else 0
+        send = sorted((p for p in cross if self._mine(p[0])),
+                      key=lambda p: (self._owner(p[1]), p))
+        self.crossing.append((op, len(send) * rows))
+        if not cross or not numel:  # the same on every process
+            return got
+        recv = sorted((p for p in cross if self._mine(p[1])),
+                      key=lambda p: (self._owner(p[0]), p))
+        nbytes = numel * like.element_size()
+        in_splits = [0] * self.n_proc
+        for _, d in send:
+            in_splits[self._owner(d)] += nbytes
+        out_splits = [0] * self.n_proc
+        for s, _ in recv:
+            out_splits[self._owner(s)] += nbytes
+        route = _Route(tuple(in_splits), tuple(out_splits),
+                       len(recv) * rows, like.dtype, next(_SEQ))
+        slabs = [take(s, d).reshape(-1) for s, d in send]
+        buf = torch.cat(slabs) if slabs else like.new_empty(0)
+        if torch.is_grad_enabled() and like.requires_grad:
+            vals, self._token = _Exchange.apply(self, op, route, like, buf)
+        else:
+            vals = self._exchange(buf, route)
+        vals = vals.view((len(recv),) + tuple(slab_shape))
+        got.update(zip(recv, vals.unbind(0)))
+        return got
+
+    def _fanned(self, pairs: Sequence[Tuple[int, int]],
+                slab: Callable[[int], torch.Tensor], like: torch.Tensor
+                ) -> Callable[[int, int], torch.Tensor]:
+        """``take(src, dst)`` for a collective that sends the same slab of
+        a source to several destinations: under autograd each use is an
+        output of ``_FanOut``, so the uses' gradients sum in ascending
+        destination order, as the emulated broadcast sums them."""
+        if not (torch.is_grad_enabled() and like.requires_grad):
+            return lambda s, d: slab(s)
+        dests: Dict[int, List[int]] = {}
+        for s, d in pairs:
+            if self._mine(s):
+                dests.setdefault(s, []).append(d)
+        uses = {}
+        for s, ds in dests.items():
+            ds = sorted(ds)
+            views = _FanOut.apply(slab(s), len(ds)) if len(ds) > 1 \
+                else (slab(s),)
+            uses.update(((s, d), v) for d, v in zip(ds, views))
+        return lambda s, d: uses[(s, d)]
+
+    def _record(self, op: str, pairs: Pairs, x: torch.Tensor,
+                out: torch.Tensor, rows: Optional[int] = None) -> None:
+        if self._token is not None:
+            _tie(out, self._token)
+            self._token = None
+        super()._record(op, pairs, x, out, rows)
+
+    def fold(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the processes in ascending process order,
+        the left fold t₀ + t₁ + … — the same bits on every process — on
+        ``t``'s device. One all_gather through the host."""
+        import torch.distributed as dist
+
+        host = t.detach().to("cpu", copy=True).contiguous()
+        parts = [torch.empty_like(host) for _ in range(self.n_proc)]
+        t0 = time.perf_counter()
+        dist.all_gather(parts, host)
+        self.gloo_s += time.perf_counter() - t0
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        return acc.to(t.device)
+
+    def reduce_grads(self, params: Sequence[torch.Tensor]) -> None:
+        """Replace every parameter's ``.grad`` by its sum over the
+        processes (``fold``: ascending process order, so every process
+        holds the same bits and a replicated parameter stays bit-identical
+        after the optimizer step). One exchange per gradient dtype."""
+        params = [p for p in params if p.grad is not None]
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for p in params:
+            by_dtype.setdefault(p.grad.dtype, []).append(p)
+        for group in by_dtype.values():
+            total = self.fold(torch.cat([p.grad.reshape(-1) for p in group]))
+            off = 0
+            for p in group:
+                n = p.grad.numel()
+                p.grad = total[off:off + n].view(p.grad.shape)
+                off += n
+
+
+class ProcessComm(_Fleet, _CommLog):
     """LocalComm's collectives over a ``torch.distributed`` process group.
 
     ``P``, ``groups`` and ``replicas`` lay the global ranks out as
@@ -472,162 +811,31 @@ class ProcessComm(_CommLog):
     received slabs in LocalComm's order (ascending l, ascending r), so
     every result equals the emulated one bit for bit.
 
-    The log keeps LocalComm's entries for this process's ranks: ``rows``
+    Every collective differentiates: the in-span copies and the folds
+    through torch, the crossing slabs through ``_Exchange``, whose
+    backward sends each received slab's gradient back to its source in
+    one reversed exchange. The log keeps LocalComm's entries for this
+    process's ranks, the backward's ``bwd:`` entries included: ``rows``
     counts their operand rows and ``fleet_rows`` sums that over the
     processes (the emulated LocalComm's count). ``rows_crossing`` counts
-    the rows this process sent to other processes; ``transport()`` the
-    bytes staged through the host and the host seconds spent staging and
-    exchanging. No collective here differentiates: autograd across
-    processes is left open (ROADMAP item 15).
+    the rows this process sent to other processes, forward or backward;
+    ``transport()`` the exchanges, the bytes staged through the host and
+    the host seconds spent staging and exchanging.
     """
 
     def __init__(self, P: int, groups: int = 1, replicas: int = 1, *,
                  span: Tuple[int, int]):
-        import torch.distributed as dist
-
         _layout(self, P, groups, replicas)
-        self.n_proc = dist.get_world_size()
-        self.proc = dist.get_rank()
-        lo, hi = int(span[0]), int(span[1])
-        self.width = hi - lo
-        if self.width < 1 or self.width * self.n_proc != self.P \
-                or lo != self.proc * self.width:
-            raise ValueError(
-                f"span {span} is not process {self.proc}'s equal share of "
-                f"P={self.P} ranks over {self.n_proc} processes")
-        self.span = (lo, hi)
-        self._pinned: Dict[str, torch.Tensor] = {}
+        self._join(self.P, span)
         super().__init__()
         self.reset()
 
-    def reset(self) -> None:
-        super().reset()
-        self.crossing: List[Tuple[str, int]] = []
-        self.staged_bytes = 0
-        self.stage_s = 0.0
-        self.gloo_s = 0.0
-        self.exchanges = 0
-
-    # ----- counters ------------------------------------------------------
+    _axis_filter = staticmethod(_on_axis)
 
     def rows(self, axis: Optional[str] = None, direction: str = "fwd") -> int:
         """Operand rows of this process's ranks since the last ``reset``,
         all or one axis's, under LocalComm's axis names."""
         return self._rows(_on_axis(axis), direction)
-
-    def rows_crossing(self, axis: Optional[str] = None) -> int:
-        """Rows this process sent to ranks of other processes."""
-        on = _on_axis(axis)
-        return sum(r for op, r in self.crossing if on(op))
-
-    def fleet_rows(self, axis: Optional[str] = None,
-                   crossing: bool = False) -> int:
-        """``rows(axis)`` (or ``rows_crossing(axis)``) summed over the
-        processes: a collective call every process makes."""
-        import torch.distributed as dist
-
-        n = self.rows_crossing(axis) if crossing else self.rows(axis)
-        t = torch.tensor([n], dtype=torch.int64)
-        dist.all_reduce(t)
-        return int(t.item())
-
-    def transport(self) -> Dict[str, float]:
-        """Since the last ``reset``: the cross-process exchanges, the
-        bytes staged between the card and the host (both ways), and the
-        host seconds of the staging copies and of the exchanges."""
-        return {"exchanges": self.exchanges,
-                "staged_bytes": self.staged_bytes,
-                "stage_s": self.stage_s, "gloo_s": self.gloo_s}
-
-    # ----- the one exchange ----------------------------------------------
-
-    def _owner(self, rank: int) -> int:
-        return rank // self.width
-
-    def _mine(self, rank: int) -> bool:
-        return self.span[0] <= rank < self.span[1]
-
-    def _host_buffer(self, kind: str, nbytes: int) -> torch.Tensor:
-        buf = self._pinned.get(kind)
-        if buf is None or buf.numel() < nbytes:
-            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8,
-                              pin_memory=True)
-            self._pinned[kind] = buf
-        return buf[:nbytes]
-
-    def _route(self, op: str, pairs: Sequence[Tuple[int, int]],
-               take: Callable[[int, int], torch.Tensor],
-               slab_shape: Tuple[int, ...], like: torch.Tensor
-               ) -> Dict[Tuple[int, int], torch.Tensor]:
-        """Every slab a pair of ``pairs`` brings to this process's ranks:
-        {(src, dst): slab} for each dst in the span. ``take(src, dst)``
-        gives the slab a source of this process sends (every slab has
-        ``slab_shape``, the same on every process). Logs the rows sent
-        across processes under ``op``."""
-        import torch.distributed as dist
-
-        if like.requires_grad:
-            raise NotImplementedError(
-                "ProcessComm collectives take no gradient: autograd "
-                "across processes is left open (ROADMAP item 15); run "
-                "the call under torch.no_grad()")
-        got = {(s, d): take(s, d) for s, d in pairs
-               if self._mine(s) and self._mine(d)}
-        cross = [(s, d) for s, d in pairs
-                 if self._owner(s) != self._owner(d)]
-        numel = math.prod(slab_shape)
-        per_row = slab_shape[-1] if slab_shape and slab_shape[-1] else 0
-        send = sorted((p for p in cross if self._mine(p[0])),
-                      key=lambda p: (self._owner(p[1]), p))
-        self.crossing.append(
-            (op, len(send) * (numel // per_row if per_row else 0)))
-        if not cross or not numel:  # the same on every process
-            return got
-        recv = sorted((p for p in cross if self._mine(p[1])),
-                      key=lambda p: (self._owner(p[0]), p))
-        nbytes = numel * like.element_size()
-        in_splits = [0] * self.n_proc
-        for _, d in send:
-            in_splits[self._owner(d)] += nbytes
-        out_splits = [0] * self.n_proc
-        for s, _ in recv:
-            out_splits[self._owner(s)] += nbytes
-        slabs = [take(s, d).reshape(-1) for s, d in send]
-        buf = (torch.cat(slabs) if slabs
-               else like.new_empty(0)).view(torch.uint8)
-        n_in = len(recv) * nbytes
-        if buf.is_cuda:
-            torch.cuda.synchronize(buf.device)
-            t0 = time.perf_counter()
-            host_in = self._host_buffer("send", buf.numel())
-            host_in.copy_(buf)
-            host_out = self._host_buffer("recv", n_in)
-            t1 = time.perf_counter()
-            dist.all_to_all_single(host_out, host_in, out_splits, in_splits)
-            t2 = time.perf_counter()
-            out = torch.empty(n_in, dtype=torch.uint8, device=buf.device)
-            out.copy_(host_out)
-            t3 = time.perf_counter()
-            self.stage_s += (t1 - t0) + (t3 - t2)
-            self.gloo_s += t2 - t1
-            self.staged_bytes += buf.numel() + n_in
-        else:
-            out = torch.empty(n_in, dtype=torch.uint8)
-            t1 = time.perf_counter()
-            dist.all_to_all_single(out, buf, out_splits, in_splits)
-            self.gloo_s += time.perf_counter() - t1
-        self.exchanges += 1
-        vals = out.view(like.dtype).view((len(recv),) + tuple(slab_shape))
-        got.update(zip(recv, vals.unbind(0)))
-        return got
-
-    def _check_lead(self, x: torch.Tensor, what: str) -> None:
-        if x.shape[0] != self.width:
-            raise ValueError(f"{what} operand must lead with this process's "
-                             f"[{self.width}] ranks, got {tuple(x.shape)}")
-
-    def _mine_pairs(self, pairs) -> Pairs:
-        return tuple(p for p in pairs if self._mine(p[0]))
 
     # ----- the flat axis ------------------------------------------------
 
@@ -741,7 +949,8 @@ class ProcessComm(_CommLog):
         self._check_lead(x, "local all_gather")
         rest = tuple(x.shape[1:])
         pairs = self._local_pairs()
-        got = self._route("all_gather@l", pairs, lambda s, d: x[s - lo],
+        got = self._route("all_gather@l", pairs,
+                          self._fanned(pairs, lambda s: x[s - lo], x),
                           rest, x)
         out = x.new_empty((self.width, L) + rest)
         for (s, d), slab in got.items():
@@ -762,7 +971,8 @@ class ProcessComm(_CommLog):
         rows = x.shape[1]
         pairs = [(g * C + j, r * S + g) for r in range(C) for g in range(S)
                  for j in range(C)]
-        got = self._route("broadcast@r", pairs, lambda s, d: x[s - lo],
+        got = self._route("broadcast@r", pairs,
+                          self._fanned(pairs, lambda s: x[s - lo], x),
                           tuple(x.shape[1:]), x)
         out = x.new_empty((self.width, C * rows) + tuple(x.shape[2:]))
         for (s, d), slab in got.items():
@@ -825,4 +1035,84 @@ class ProcessComm(_CommLog):
             outs.append(acc)
         out = torch.stack(outs)
         self._record("psum_scatter@r", self._mine_pairs(pairs), x, out)
+        return out
+
+
+class ProcessMeshComm(_Fleet, MeshComm):
+    """``MeshComm``'s collectives over a ``torch.distributed`` process
+    group.
+
+    The grid's ranks are numbered row-major in its axis order (the
+    reference's process-major device order), and this process runs the
+    contiguous ``span`` [lo, hi) of them, process i the ranks [i·w,
+    (i+1)·w). Operands lead with this process's [w] ranks where
+    MeshComm's lead with ``[*lead]``; ``layout`` must name the grid's
+    axes in its order. A pair of ranks inside the span is a tensor copy,
+    the pairs that cross processes go through ProcessComm's one exchange
+    (``_Fleet._route``), and ``pmax`` / ``psum`` fold in ascending rank
+    along the axis, as MeshComm's ``_reduce`` does, so every result is
+    the emulated one bit for bit. The log holds MeshComm's entries for
+    this process's ranks (``rows("model")``, ``rows("model:meta")``);
+    ``fleet_rows`` sums them over the processes. Every collective
+    differentiates, as ProcessComm's do.
+    """
+
+    def __init__(self, shape: Dict[str, int], *, span: Tuple[int, int]):
+        MeshComm.__init__(self, shape)
+        self._join(math.prod(self.shape.values()), span)
+        self.reset()
+
+    def _coord(self, layout: Sequence[str], axis: str
+               ) -> Callable[[int], int]:
+        """A global rank's index along ``axis``; ``layout`` must be the
+        grid's axis order (the ranks' numbering)."""
+        if tuple(layout) != tuple(self.shape):
+            raise ValueError(f"a fleet grid's operands stack its ranks in "
+                             f"its axis order {tuple(self.shape)}, got "
+                             f"layout {tuple(layout)}")
+        stride = math.prod(list(self.shape.values())[
+            list(self.shape).index(axis) + 1:])
+        size = self.shape[axis]
+        return lambda r: (r // stride) % size
+
+    def all_to_all(self, x: torch.Tensor, layout: Sequence[str], axis: str,
+                   meta: bool = False) -> torch.Tensor:
+        """``MeshComm.all_to_all`` for this process's ranks: ``x`` is
+        [w, A(dst), ...]; rank d receives ``out[d][a_s] = x[s][a_d]`` from
+        every rank s of its group along ``axis``."""
+        coord, lo = self._coord(layout, axis), self.span[0]
+        self._check_lead(x, "all_to_all")
+        if x.dim() < 2 or x.shape[1] != self.shape[axis]:
+            raise ValueError(f"all_to_all over {axis!r} needs [{self.width}, "
+                             f"{self.shape[axis]}, ...], got "
+                             f"{tuple(x.shape)}")
+        op = f"all_to_all@{axis}" + (":meta" if meta else "")
+        pairs = self._pairs(layout, axis)
+        got = self._route(op, pairs, lambda s, d: x[s - lo, coord(d)],
+                          tuple(x.shape[2:]), x)
+        out = torch.empty_like(x)
+        for (s, d), slab in got.items():
+            out[d - lo, coord(s)] = slab
+        self._record(op, self._mine_pairs(pairs), x, out)
+        return out
+
+    def _reduce(self, x, layout, axis, op, fold):
+        coord, lo = self._coord(layout, axis), self.span[0]
+        self._check_lead(x, op)
+        pairs = self._pairs(layout, axis)
+        got = self._route(f"{op}@{axis}", pairs,
+                          self._fanned(pairs, lambda s: x[s - lo], x),
+                          tuple(x.shape[1:]), x)
+        members: Dict[int, List[int]] = {}
+        for s, d in pairs:  # d's group, in ascending rank along the axis
+            members.setdefault(d, []).append(s)
+        outs = []
+        for d in range(*self.span):
+            srcs = sorted(members[d], key=coord)
+            acc = got[(srcs[0], d)]
+            for s in srcs[1:]:
+                acc = fold(acc, got[(s, d)])
+            outs.append(acc)
+        out = torch.stack(outs)
+        self._record(f"{op}@{axis}", self._mine_pairs(pairs), x, out)
         return out

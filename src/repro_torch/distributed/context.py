@@ -18,12 +18,22 @@ Axis roles:
 what the reference's sharding constraint would: every sharded dim
 divides by its axes' size. ``logical_to_spec`` returns a plain tuple of
 axis names (there is no ``PartitionSpec``).
+
+A context over a fleet's grid (``Topology.multiprocess(mesh=...)``)
+runs this process's ``span`` of the ranks: per-rank tensors lead with
+its [w] ranks (``lead``), a batch holds its data groups' rows
+(``local_batch``, ``local_rows``; ``gather_batch`` rebuilds the whole
+batch on every process), and the grid's collectives cross processes
+(``comm.ProcessMeshComm``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Optional, Tuple
+
+import numpy as np
+import torch
 
 from ..launch.mesh import EmulatedMesh
 from .comm import MeshComm
@@ -69,23 +79,110 @@ class DistContext:
         """The grid's communicator (its log counts the collectives)."""
         return self.mesh.comm
 
+    # ----- the ranks this process runs ----------------------------------
+
+    @property
+    def is_fleet(self) -> bool:
+        """Whether the grid runs over a process group (``Topology.
+        multiprocess(mesh=...)``): this process then runs ``span``."""
+        return self.mesh.is_fleet
+
+    @property
+    def span(self) -> Tuple[int, int]:
+        """The grid's ranks this process runs, row-major in the layout:
+        all of them on one device, a contiguous run on a fleet."""
+        return self.mesh.span
+
+    @property
+    def lead(self) -> Tuple[int, ...]:
+        """The leading dims of the per-rank tensors this process stacks:
+        one per layout axis on one device, this process's [w] ranks on a
+        fleet."""
+        if self.is_fleet:
+            return (self.span[1] - self.span[0],)
+        return tuple(self.axis_size(a) for a in self.layout)
+
+    @property
+    def local_grid(self) -> Tuple[int, int, int, int]:
+        """This process's ranks as a block of the (batch groups, model)
+        grid: (groups, model ranks per group, first group, first model
+        rank). All of it on one device; on a fleet the span must hold
+        whole groups or a run inside one."""
+        lo, hi = self.span
+        return _block(lo, hi - lo, self.model_size)
+
+    def local_rows(self, n: int) -> Tuple[int, int]:
+        """The rows [start, stop) of an n-row batch that this process's
+        data groups hold (all n on one device)."""
+        dsz = self.batch_size_divisor
+        if n % dsz:
+            raise ValueError(f"batch {n} is not divisible by the batch axes "
+                             f"{self.batch_axes} ({dsz} ranks)")
+        ng, _, g_lo, _ = self.local_grid
+        per = n // dsz
+        return g_lo * per, (g_lo + ng) * per
+
+    def local_batch(self, x):
+        """``x``'s batch rows (dim 0) that this process holds."""
+        if not self.is_fleet:
+            return x
+        lo, hi = self.local_rows(x.shape[0])
+        return x[lo:hi]
+
+    def gather_batch(self, local: np.ndarray, n: int) -> np.ndarray:
+        """The whole n-row batch from every process's ``local`` rows
+        (``local_batch`` of it): each data group's rows as the processes
+        holding it give them (the same bits on each), the same result on
+        every process. The identity on one device."""
+        if not self.is_fleet:
+            return local
+        import torch.distributed as dist
+
+        local = np.ascontiguousarray(local)
+        t = torch.from_numpy(local)
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, t)
+        out = np.empty((n,) + local.shape[1:], local.dtype)
+        w, per = self.span[1] - self.span[0], n // self.batch_size_divisor
+        for proc, part in enumerate(parts):
+            ng, _, g_lo, _ = _block(proc * w, w, self.model_size)
+            out[g_lo * per:(g_lo + ng) * per] = part.numpy()
+        return out
+
+
+def _block(lo: int, w: int, M: int) -> Tuple[int, int, int, int]:
+    """Ranks [lo, lo + w) of a (groups, M) grid as (groups, model ranks
+    per group, first group, first model rank)."""
+    if w % M and M % w:
+        raise ValueError(
+            f"a span of {w} ranks neither holds whole model groups nor "
+            f"falls inside one ({M} model ranks); pick a grid whose model "
+            f"axis and ranks per process divide one another")
+    if w >= M:
+        return w // M, M, lo // M, 0
+    return 1, w, lo // M, lo % M
+
 
 def make_context(mesh, fsdp: bool = False) -> DistContext:
     """Build a DistContext from an ``EmulatedMesh`` or a Topology.
 
-    A Topology built from a mesh (``Topology.from_mesh``) gives its mesh,
-    as the reference's does; one without (``Topology.local``, a fleet of
-    processes) has no named axes to give a model its batch / model axes,
-    and raises.
+    A Topology built from a mesh (``Topology.from_mesh``, or a fleet's
+    ``Topology.multiprocess(mesh=...)``, whose grid runs across the
+    processes) gives its mesh, as the reference's does; one without
+    (``Topology.local``, a fleet with no grid) has no named axes to give
+    a model its batch / model axes, and raises.
     """
     from .topology import Topology, TopologyError
 
     if isinstance(mesh, Topology):
         if mesh.mesh is None:
+            hint = ("Topology.multiprocess(mesh=make_mesh((1, P), "
+                    "('data', 'model')))" if mesh.is_multiprocess else
+                    "Topology.from_mesh(make_production_mesh())")
             raise TopologyError(
-                "make_context needs named (data/model[/pod]) axes; build "
-                "the Topology from a mesh (Topology.from_mesh(make_"
-                "production_mesh())) instead of a bare device count")
+                f"make_context needs named (data/model[/pod]) axes; this "
+                f"{mesh.kind!r} topology has none: build it over a grid, "
+                f"{hint}")
         mesh = mesh.mesh
     names = mesh.axis_names
     if "pod" in names:
@@ -125,6 +222,8 @@ def shard(x, dist: Optional[DistContext], spec):
         return x
     for dim, entry in enumerate(spec):
         n = math.prod(dist.axis_size(a) for a in _axes(entry))
+        if dist.is_fleet and _axes(entry) == tuple(dist.batch_axes):
+            n = dist.local_grid[0]  # this process's data groups
         if x.shape[dim] % n:
             raise ValueError(
                 f"dim {dim} of shape {tuple(x.shape)} is not divisible by "

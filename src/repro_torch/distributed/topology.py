@@ -18,7 +18,9 @@ Port of ``repro/distributed/topology.py``. Three kinds of substrate:
   span of the P = processes × local ranks (``span``), runs the executors
   on that span's exec arrays and exchanges rows with the other processes
   through ``comm.ProcessComm``; the processes × local grid is the
-  intrinsic (G, L) structure, the process boundary its slow tier.
+  intrinsic (G, L) structure, the process boundary its slow tier. With
+  ``mesh=`` the fleet's ranks also form a named grid, which
+  ``make_context`` takes for a model's batch / model axes.
 
 With tiers, ``network()`` derives the reference's two-tier
 ``NetworkSpec`` (``derived-{gpu,cpu}-GxL``, platform from the device)
@@ -113,7 +115,8 @@ class Topology:
     ``process_index``       this process's index in the fleet.
     ``local_device_count``  ranks this process runs (a fleet's ranks
                 per process; None on one device, which runs all P).
-    ``mesh``    the adopted ``EmulatedMesh`` ('mesh' only).
+    ``mesh``    the adopted ``EmulatedMesh`` ('mesh'; on a fleet, the
+                grid ``multiprocess(mesh=...)`` names, over the processes).
     """
 
     kind: str
@@ -152,8 +155,8 @@ class Topology:
                    device=resolve_device(device), tiers=tiers, mesh=mesh)
 
     @classmethod
-    def multiprocess(cls, device: Union[str, torch.device, None] = "cuda"
-                     ) -> "Topology":
+    def multiprocess(cls, device: Union[str, torch.device, None] = "cuda",
+                     mesh=None) -> "Topology":
         """The ``torch.distributed`` fleet (call after
         ``launch.multiprocess.initialize``).
 
@@ -165,6 +168,13 @@ class Topology:
         when local >= 2. A CUDA fleet runs process i on
         ``cuda:{i % torch.cuda.device_count()}`` — every process on
         ``cuda:0`` of a one-card machine.
+
+        ``mesh`` (an ``EmulatedMesh`` of P ranks, e.g. ``make_mesh((1, 8),
+        ("data", "model"))``) names the fleet's ranks as a grid: its ranks
+        are the grid's row-major indices, process i holding [i·local,
+        (i+1)·local), and ``make_context`` takes the topology for the
+        grid's named axes, whose collectives then run across the
+        processes (``comm.ProcessMeshComm``).
         """
         import torch.distributed as dist
 
@@ -184,11 +194,23 @@ class Topology:
         if dev.type == "cuda" and dev.index is None:
             resolve_device(dev)  # raises without a card
             dev = torch.device("cuda", rank % torch.cuda.device_count())
+        fleet_mesh = None
+        if mesh is not None:
+            from ..launch.mesh import EmulatedMesh
+
+            if int(mesh.size) != n_proc * local:
+                raise TopologyError(
+                    f"mesh {dict(mesh.shape)} has {mesh.size} ranks; the "
+                    f"fleet has {n_proc} processes x {local} = "
+                    f"{n_proc * local}")
+            fleet_mesh = EmulatedMesh(
+                tuple(mesh.shape.values()), mesh.axis_names,
+                span=(rank * local, (rank + 1) * local))
         return cls(kind="multiprocess", P=n_proc * local,
                    device=resolve_device(dev),
                    tiers=(n_proc, local) if local >= 2 else None,
                    n_hosts=n_proc, process_index=rank,
-                   local_device_count=local)
+                   local_device_count=local, mesh=fleet_mesh)
 
     @classmethod
     def resolve(cls, where: Union["Topology", int, None],

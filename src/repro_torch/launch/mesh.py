@@ -20,7 +20,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
-from ..distributed.comm import MeshComm
+from ..distributed.comm import MeshComm, ProcessMeshComm
 
 __all__ = ["EmulatedMesh", "make_production_mesh", "make_mesh",
            "make_spmm_mesh"]
@@ -32,10 +32,15 @@ class EmulatedMesh:
     ``shape`` maps each axis name to its size in the grid's order (as
     ``jax.sharding.Mesh.shape`` does), ``axis_names`` lists the names and
     ``size`` is the number of ranks. ``comm`` runs and logs the
-    collectives over the named axes.
+    collectives over the named axes. With ``span`` the grid runs over the
+    ``torch.distributed`` fleet (``Topology.multiprocess(mesh=...)``):
+    its ranks are numbered row-major in the axis order, this process
+    holds the ranks [lo, hi) of ``span``, and ``comm`` is a
+    ``ProcessMeshComm``.
     """
 
-    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 span: Optional[Tuple[int, int]] = None):
         shape = tuple(int(n) for n in shape)
         axes = tuple(str(a) for a in axes)
         if len(shape) != len(axes) or len(set(axes)) != len(axes):
@@ -45,13 +50,24 @@ class EmulatedMesh:
             raise ValueError(f"mesh axis sizes must be >= 1, got {shape}")
         self.axis_names: Tuple[str, ...] = axes
         self.shape = dict(zip(axes, shape))
-        self.comm = MeshComm(self.shape)
+        self.span = (0, self.size) if span is None else \
+            (int(span[0]), int(span[1]))
+        self.comm = MeshComm(self.shape) if span is None else \
+            ProcessMeshComm(self.shape, span=self.span)
+
+    @property
+    def is_fleet(self) -> bool:
+        """Whether the grid runs over a process group (this process holds
+        ``span`` of its ranks)."""
+        return isinstance(self.comm, ProcessMeshComm)
 
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
 
     def __repr__(self) -> str:
+        if self.is_fleet:
+            return f"EmulatedMesh({self.shape}, span={self.span})"
         return f"EmulatedMesh({self.shape})"
 
 

@@ -13,7 +13,13 @@ softmax). Requires a square adjacency (Q/K/V all index the same nodes).
 
 Both forwards are differentiable through the handles (coo, on every tier;
 see ``kernels.ops``), so ``gcn_loss`` / ``gat_loss`` train with
-``loss.backward()`` and ``optim.adamw``. A caller that only infers runs
+``loss.backward()`` and ``optim.adamw``. On a ``Topology.multiprocess``
+fleet the same calls train across processes: each process holds the
+dense weights whole, its rows of the features and of C, and a loss that
+is its share of the global mean (its rows' terms over N); after
+``backward()`` the handle's ``comm.reduce_grads(params)`` sums the
+weight gradients over the processes in process order, so every process
+steps to the same bits. A caller that only infers runs
 under ``torch.no_grad()`` (a bsr SpMM or fused call under grad raises, as
 the reference has no JVP for it).
 
@@ -202,19 +208,44 @@ def gcn_forward(model: GCN, feats: torch.Tensor, spmm_fn: SpmmFn
     return h
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _fleet_handle(fn):
+    """The handle behind ``fn`` (a ``DistSpmm``, or ``make_spmm_fn``'s
+    closure over one) when it runs on a fleet of processes; else None."""
+    h = fn if hasattr(fn, "row_blocks") else getattr(fn, "handle", None)
+    if h is not None and h.topology.is_multiprocess:
+        return h
+    return None
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, fleet=None
+          ) -> torch.Tensor:
     """mean(logsumexp(logits) - logits[label]) in float32 or wider; the
-    gold logit through a one-hot product (exact: one nonzero term)."""
+    gold logit through a one-hot product (exact: one nonzero term).
+
+    On a fleet (``fleet``: the handle whose C rows ``logits`` are) the
+    mean is over the GLOBAL node count: this process's share, the sum of
+    its rows' terms over N, with the labels of the rows
+    ``fleet.row_blocks()`` names (``labels`` whole, or those rows
+    already). The shares' sum over the processes is the loss, and each
+    process's ``backward()`` of its share gives the gradient of that sum
+    (the exchanges carry the other processes' parts)."""
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    if fleet is not None and labels.shape[0] != logits.shape[0]:
+        labels = torch.cat([labels[s:e] for s, e in fleet.row_blocks()])
     logz = torch.logsumexp(logits, dim=-1)
     onehot = F.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype)
-    return torch.mean(logz - (logits * onehot).sum(-1))
+    terms = logz - (logits * onehot).sum(-1)
+    if fleet is None:
+        return torch.mean(terms)
+    return terms.sum() / fleet.plan.shape[0]
 
 
 def gcn_loss(model: GCN, feats: torch.Tensor, labels: torch.Tensor,
              spmm_fn: SpmmFn) -> torch.Tensor:
-    """Mean cross-entropy of the GCN's logits against ``labels``."""
-    return _xent(gcn_forward(model, feats, spmm_fn), labels)
+    """Mean cross-entropy of the GCN's logits against ``labels`` (on a
+    fleet, this process's share of it: ``_xent``)."""
+    return _xent(gcn_forward(model, feats, spmm_fn), labels,
+                 _fleet_handle(spmm_fn))
 
 
 # ---------------------------------------------------------------------------
@@ -294,5 +325,7 @@ def gat_forward(model: GAT, feats: torch.Tensor, fused_fn: FusedFn
 
 def gat_loss(model: GAT, feats: torch.Tensor, labels: torch.Tensor,
              fused_fn: FusedFn) -> torch.Tensor:
-    """Mean cross-entropy of the GAT's logits against ``labels``."""
-    return _xent(gat_forward(model, feats, fused_fn), labels)
+    """Mean cross-entropy of the GAT's logits against ``labels`` (on a
+    fleet, this process's share of it: ``_xent``)."""
+    return _xent(gat_forward(model, feats, fused_fn), labels,
+                 _fleet_handle(fused_fn))

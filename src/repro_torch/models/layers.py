@@ -266,24 +266,26 @@ def attention_decode_seqshard(
 ) -> Tuple[torch.Tensor, KVCache]:
     """Flash-decoding: the KV cache split along LENGTH over the model axis.
 
-    The reference's shard_map body on every rank at once: model rank r
-    owns the contiguous slice [r·s_loc, (r+1)·s_loc) of the cache (a
-    view of the caller's cache, written IN PLACE), writes the new K/V
-    only if ``cache.length`` falls in its range, computes PARTIAL softmax
-    statistics (m, l, acc) over its slice, and the partials combine with
-    ``pmax`` / ``psum`` over the model axis. The ranks stack as
-    ``[*batch_axes, M, B/Dsz, ...]``; every model rank ends with the same
-    output, and rank 0's is returned.
+    The reference's shard_map body on every rank this process runs at
+    once: model rank r owns the contiguous slice [r·s_loc, (r+1)·s_loc)
+    of the cache (a view of the caller's cache, written IN PLACE), writes
+    the new K/V only if ``cache.length`` falls in its range, computes
+    PARTIAL softmax statistics (m, l, acc) over its slice, and the
+    partials combine with ``pmax`` / ``psum`` over the model axis. The
+    ranks stack as the grid's ``[data groups, model ranks, B/Dsz, ...]``
+    (on a fleet, this process's block of them, over its batch rows, with
+    the combine across processes); every model rank ends with the same
+    output, and the first one's is returned.
     """
     M = dist.model_size
     b, kvh, smax, hd = cache.k.shape
     if smax % M:
         raise ValueError(f"the cache length {smax} is not divisible by the "
                          f"model axis ({M} ranks)")
-    dsz = dist.batch_size_divisor
-    if b % dsz:
+    ng, nm, _, m_lo = dist.local_grid
+    if b % ng:
         raise ValueError(f"batch {b} is not divisible by the batch axes "
-                         f"{dist.batch_axes} ({dsz} ranks)")
+                         f"{dist.batch_axes} ({ng} groups on these ranks)")
     s_loc = smax // M
     length = int(cache.length)
     groups = n_heads // n_kv_heads
@@ -293,38 +295,43 @@ def attention_decode_seqshard(
         cache.k[:, :, length] = kn[:, :, 0].to(cache.k.dtype)
         cache.v[:, :, length] = vn[:, :, 0].to(cache.v.dtype)
 
-    lead = tuple(dist.axis_size(a) for a in dist.batch_axes) + (M,)
-    bl = b // dsz
+    bl = b // ng
 
-    def ranks(c):  # [B, kvh, Smax, hd] -> [*lead, B/Dsz, kvh, s_loc, hd]
-        v = c.reshape((dsz, bl, kvh, M, s_loc, hd)).permute(0, 3, 1, 2, 4, 5)
-        return v.reshape(lead + (bl, kvh, s_loc, hd))
+    def ranks(c):  # [B, kvh, Smax, hd] -> [ng, nm, B/ng, kvh, s_loc, hd]
+        v = c.reshape((ng, bl, kvh, M, s_loc, hd))[:, :, :, m_lo:m_lo + nm]
+        return v.permute(0, 3, 1, 2, 4, 5)
 
     kk = _repeat_kv_ranks(ranks(cache.k), groups)
     vv = _repeat_kv_ranks(ranks(cache.v), groups)
-    q_ = q.reshape(lead[:-1] + (1, bl) + tuple(q.shape[1:]))
+    q_ = q.reshape((ng, 1, bl) + tuple(q.shape[1:]))
     logits = (q_ @ kk.transpose(-1, -2)) / math.sqrt(float(hd))
-    logits = logits.to(torch.float32)  # [*lead, B/Dsz, H, 1, s_loc]
-    rank_start = (torch.arange(M, device=q.device) * s_loc).reshape(
-        (1,) * (len(lead) - 1) + (M, 1, 1, 1, 1))
+    logits = logits.to(torch.float32)  # [ng, nm, B/ng, H, 1, s_loc]
+    rank_start = ((m_lo + torch.arange(nm, device=q.device)) * s_loc
+                  ).reshape(1, nm, 1, 1, 1, 1)
     pos = rank_start + torch.arange(s_loc, device=q.device)
     neg = torch.tensor(-0.7 * torch.finfo(torch.float32).max,
                        device=q.device)
     logits = torch.where(pos <= length, logits, neg)
-    m_loc = logits.amax(-1)  # [*lead, B/Dsz, H, 1]
+    m_loc = logits.amax(-1)  # [ng, nm, B/ng, H, 1]
     p = torch.exp(logits - m_loc[..., None])
     l_loc = p.sum(-1)
     acc_loc = p.to(vv.dtype) @ vv
-    # combine partials across the model axis (flash-decoding reduction)
-    comm, layout, m_ax = dist.comm, dist.layout, dist.model_axis
-    m_glob = comm.pmax(m_loc, layout, m_ax)
+    # combine partials across the model axis (flash-decoding reduction),
+    # the ranks stacked as the grid's communicator takes them
+    comm, layout, m_ax, lead = dist.comm, dist.layout, dist.model_axis, \
+        dist.lead
+
+    def combine(reduce, t):
+        out = reduce(t.reshape(lead + tuple(t.shape[2:])), layout, m_ax)
+        return out.reshape(t.shape)
+
+    m_glob = combine(comm.pmax, m_loc)
     corr = torch.exp(m_loc - m_glob)
-    l_glob = comm.psum(l_loc * corr, layout, m_ax)
-    acc_glob = comm.psum(acc_loc * corr[..., None].to(acc_loc.dtype),
-                         layout, m_ax)
+    l_glob = combine(comm.psum, l_loc * corr)
+    acc_glob = combine(comm.psum, acc_loc * corr[..., None].to(acc_loc.dtype))
     out = acc_glob / torch.clamp_min(l_glob[..., None], 1e-30).to(
         acc_glob.dtype)
-    out = out.to(q.dtype).select(len(lead) - 1, 0)  # model rank 0
+    out = out.to(q.dtype)[:, 0]  # the first model rank of each group
     return out.reshape(q.shape), KVCache(cache.k, cache.v, cache.length + 1)
 
 

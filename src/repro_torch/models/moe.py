@@ -19,7 +19,9 @@ over, and ``_moe_ep`` — the reference's shard_map body — otherwise. The
 port runs the ranks of the ``DistContext``'s grid on one device: x is
 viewed as ``[Dsz, 1, B/Dsz, S, D]`` and expanded over the M model ranks,
 every rank's routing, buffers and expert FFN run as batched tensor
-operations over the stacked ``[Dsz·M, ...]`` ranks, and the four
+operations over the stacked ``[Dsz·M, ...]`` ranks (on a fleet's grid,
+``Topology.multiprocess(mesh=...)``, over this process's span of them,
+with x its batch rows and the experts of its model ranks), and the four
 all_to_alls on the model axis go through the grid's ``MeshComm`` (the
 activations as ``all_to_all@model``, the index and gate lists as
 ``all_to_all@model:meta``). The dispatch buffer is packed by K1 from the
@@ -53,7 +55,7 @@ from ..kernels.scatter_add_rows import sorted_scatter_maps
 from .config import ModelConfig
 from .layers import normal
 
-__all__ = ["init_moe_params", "moe_layer", "moe_comm_rows",
+__all__ = ["init_moe_params", "moe_layer", "moe_comm_rows", "local_experts",
            "dispatch_matrix", "compile_dispatch", "dispatch_session",
            "record_dispatch"]
 
@@ -121,17 +123,21 @@ def _moe_dense(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _moe_ep(params: dict, x: torch.Tensor, cfg: ModelConfig, dist,
             shiro: bool, all_ranks: bool = False) -> torch.Tensor:
-    """The reference's shard_map over the full grid: batch over the batch
-    axes, experts over the model axis. Returns model rank 0's y [B, S, D]
-    (``all_ranks``: every rank's, [M, B, S, D])."""
+    """The reference's shard_map over the grid: batch over the batch
+    axes, experts over the model axis, on the ranks this process runs
+    (all of the grid on one device; its span on a fleet, whose ``x`` is
+    this process's batch rows, ``dist.local_batch``). Returns model rank
+    0's y [B, S, D] — on a fleet the first model rank of each data group
+    it holds — or, with ``all_ranks``, every model rank's it runs,
+    [M', B, S, D]."""
     M = dist.model_size
     e_loc = cfg.n_experts // M
     b, s, d = x.shape
-    dsz = dist.batch_size_divisor
-    if b % dsz:
+    ng, nm, _, m_lo = dist.local_grid
+    if b % ng:
         raise ValueError(f"batch {b} is not divisible by the batch axes "
-                         f"{dist.batch_axes} ({dsz} ranks)")
-    t_loc = (b // dsz) * s
+                         f"{dist.batch_axes} ({ng} groups on these ranks)")
+    t_loc = (b // ng) * s
     # capacity per (src rank, dst rank) activation buffer
     rows_per_token = cfg.top_k
     if shiro and cfg.shiro_capacity:
@@ -146,15 +152,34 @@ def _moe_ep(params: dict, x: torch.Tensor, cfg: ModelConfig, dist,
                        * cfg.capacity_factor))
 
     # every rank of a data group holds that group's tokens (the batch is
-    # replicated over the model axis): [Dsz, M, t_loc, D]
-    xs = x.reshape(dsz, 1, t_loc, d).expand(dsz, M, t_loc, d)
-    y = _moe_ep_body(xs, params["router"], params["w1"], params["w3"],
-                     params["w2"], cfg=cfg, dist=dist, M=M, e_loc=e_loc,
-                     cap=cap, cap_e=cap_e, shiro=shiro)
-    y = y.reshape(dsz, M, b // dsz, s, d)
+    # replicated over the model axis): [ng, nm, t_loc, D]
+    xs = x.reshape(ng, 1, t_loc, d).expand(ng, nm, t_loc, d)
+    w1, w3, w2 = (local_experts(params[k], cfg, dist) for k in
+                  ("w1", "w3", "w2"))
+    y = _moe_ep_body(xs, params["router"], w1, w3, w2, cfg=cfg, dist=dist,
+                     M=M, e_loc=e_loc, cap=cap, cap_e=cap_e, shiro=shiro)
+    y = y.reshape(ng, nm, b // ng, s, d)
     if all_ranks:
-        return y.transpose(0, 1).reshape(M, b, s, d)
+        return y.transpose(0, 1).reshape(nm, b, s, d)
     return y[:, 0].reshape(b, s, d)
+
+
+def local_experts(w, cfg: ModelConfig, dist, dim: int = 0):
+    """The experts of the model ranks this process runs, along ``dim`` of
+    ``w`` (a tensor or a numpy array): all of them on one device; on a
+    fleet the run of experts of its model ranks, cut from a whole ``w``
+    or ``w`` itself when it holds just those
+    (``transformer.shard_experts``)."""
+    _, nm, _, m_lo = dist.local_grid
+    e_loc = cfg.n_experts // dist.model_size
+    if w.shape[dim] == nm * e_loc:
+        return w
+    if w.shape[dim] != cfg.n_experts:
+        raise ValueError(f"expert weights hold {w.shape[dim]} experts: "
+                         f"neither all {cfg.n_experts} nor the {nm * e_loc} "
+                         f"of model ranks {m_lo}..{m_lo + nm - 1}")
+    cut = [slice(None)] * dim + [slice(m_lo * e_loc, (m_lo + nm) * e_loc)]
+    return w[tuple(cut)]
 
 
 def to_dispatch_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -228,11 +253,15 @@ def _scatter_drop(size: int, tgt: torch.Tensor, ok: torch.Tensor,
 
 def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
                  cap_e, shiro):
-    """The reference's ``_moe_ep_body`` on every rank at once.
+    """The reference's ``_moe_ep_body`` on every rank this process runs
+    at once.
 
-    xs [Dsz, M, T, D] (rank (g, m) at xs[g, m]) -> y [Dsz·M, T, D]."""
-    dsz, _, t, d = xs.shape
-    R = dsz * M
+    xs [ng, nm, T, D] (rank (g, m) at xs[g - g0, m - m0]: ng data groups
+    of nm model ranks, the whole [Dsz, M] grid on one device) and the
+    experts of those nm model ranks, [nm·e_loc, ...] -> y [ng·nm, T, D]."""
+    ng, nm, t, d = xs.shape
+    m_lo = dist.local_grid[3]
+    R = ng * nm
     dev = xs.device
     k = cfg.top_k
     xt = xs.reshape(R, t, d)
@@ -295,14 +324,16 @@ def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
     exp_gate = _scatter_drop(size, ewid, exp_ok, gates.reshape(R, t * k),
                              0.0)
     if _RECORD is not None:
-        rank0 = slice(None, None, M)  # model rank 0 of each data group
+        # model rank 0 of each data group (on a fleet, on the process
+        # that holds it: the others count nothing)
+        rank0 = slice(None, None, nm) if m_lo == 0 else slice(0, 0)
         _RECORD.append(dict(cap=cap, cap_e=cap_e,
                             sent=send_ok[rank0].sum(),
                             dropped=(~exp_ok[rank0]).sum()))
 
     # ---- all_to_all on the model axis: activations + metadata ----------
-    comm, layout, m_ax = dist.comm, dist.layout, dist.model_axis
-    lead = tuple(dist.axis_size(a) for a in dist.batch_axes) + (M,)
+    comm, layout, m_ax, lead = dist.comm, dist.layout, dist.model_axis, \
+        dist.lead
 
     def a2a(v, *rest, meta=False):
         out = comm.all_to_all(v.reshape(lead + (M,) + rest), layout, m_ax,
@@ -316,11 +347,12 @@ def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
     # ---- expert compute + row-based pre-aggregated combine -------------
     # every local expert of every rank at once: the index lists in
     # (expert, source, slot) order, K1 gathers their rows, the FFN runs
-    # batched over the [M, e_loc] experts with each model rank's own
-    # weights, and K2 folds each buffer row's partials in ascending
-    # expert order — the reference's loop of combine adds
-    # (pre-aggregation: partials for the same token row sum HERE, before
-    # the return transfer)
+    # batched over the [nm, e_loc] experts with each model rank's own
+    # weights, one data group at a time (each expert's product is [n_e,
+    # D] @ [D, F] on any grid and any span), and K2 folds each buffer
+    # row's partials in ascending expert order — the reference's loop of
+    # combine adds (pre-aggregation: partials for the same token row sum
+    # HERE, before the return transfer)
     flat_recv = recv_buf.reshape(R, M * cap, d).to(xs.dtype)
     idx = recv_idx.transpose(1, 2)  # [R, e_loc, M(src), cap_e]
     gate = recv_gate.transpose(1, 2)
@@ -328,13 +360,11 @@ def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
     tgt = torch.where(idx >= 0, src_base + idx, -1).reshape(R, -1)
     n_e = M * cap_e
     xin = pack_rows_op(flat_recv, tgt.to(torch.int32))  # [R, e_loc·n_e, D]
-    xe = xin.reshape(dsz, M, e_loc, n_e, d).permute(1, 2, 0, 3, 4).reshape(
-        M, e_loc, dsz * n_e, d)
-    w1r, w3r, w2r = (w.reshape((M, e_loc) + tuple(w.shape[1:]))
+    xe = xin.reshape(ng, nm, e_loc, n_e, d)
+    w1r, w3r, w2r = (w.reshape((nm, e_loc) + tuple(w.shape[1:]))
                      for w in (w1, w3, w2))
-    ye = (F.silu(xe @ w1r) * (xe @ w3r)) @ w2r  # [M, e_loc, Dsz*M*cap_e, D]
-    yout = ye.reshape(M, e_loc, dsz, n_e, d).permute(2, 0, 1, 3, 4).reshape(
-        R, e_loc * n_e, d)
+    ye = [(F.silu(xg @ w1r) * (xg @ w3r)) @ w2r for xg in xe]
+    yout = (torch.stack(ye) if ng > 1 else ye[0]).reshape(R, e_loc * n_e, d)
     # a pad's row joins no fold (K2 stops at the valid slots)
     yout = yout * gate.reshape(R, -1, 1).to(xs.dtype)
     combine = torch.zeros((R, M * cap, d), dtype=xs.dtype, device=dev)

@@ -16,7 +16,11 @@ cache one token longer.
 ``shard``'s divisibility checks, MoE blocks run ``moe_layer(..., dist)``
 — the expert-parallel path over the grid's model axis — and
 ``cfg.kv_seq_shard`` decodes against a cache split along its length
-over the model axis (``attention_decode_seqshard``).
+over the model axis (``attention_decode_seqshard``). Over a fleet's grid
+(``Topology.multiprocess(mesh=...)``) each process runs its rows of the
+batch on its ranks, the grid's collectives cross processes, and
+``transformer_from_numpy(..., dist=)`` / ``shard_experts`` keep only the
+experts of its model ranks.
 
 What waits: the ``ssm``, ``hybrid``, ``encdec``, ``vlm`` and ``audio``
 families for ROADMAP item 17; each raises ``NotImplementedError``
@@ -36,11 +40,11 @@ from .layers import (
     KVCache, attention, attention_decode, init_attn_params, init_mlp_params,
     mlp, normal, rms_norm,
 )
-from .moe import init_moe_params, moe_layer
+from .moe import init_moe_params, local_experts, moe_layer
 
 __all__ = [
     "init_params", "forward", "lm_loss", "DecodeCache", "init_decode_cache",
-    "decode_step", "transformer_from_numpy",
+    "decode_step", "transformer_from_numpy", "shard_experts",
 ]
 
 FAMILIES = ("dense", "moe")
@@ -129,14 +133,17 @@ def _set_layer(layers: dict, i: int, blk: dict) -> None:
 
 
 def transformer_from_numpy(params: dict, cfg: ModelConfig,
-                           device="cuda") -> Dict[str, Any]:
+                           device="cuda", dist=None) -> Dict[str, Any]:
     """The reference ``init_params`` tree, as numpy arrays, in the port.
 
     bfloat16 arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
     rejects) go through a ``uint16`` view and ``.view(torch.bfloat16)``,
-    so the bits carry over exactly.
+    so the bits carry over exactly. With a fleet's ``dist`` only the
+    experts of this process's model ranks go to the device (the dense
+    weights whole), as the reference's expert sharding holds them.
     """
-    _check(cfg)
+    _check(cfg, dist)
+    params = shard_experts(params, cfg, dist)
 
     def leaf(a) -> torch.Tensor:
         a = np.array(a)  # a writable copy: torch.from_numpy shares memory
@@ -147,6 +154,18 @@ def transformer_from_numpy(params: dict, cfg: ModelConfig,
         return t.to(device)
 
     return _tree_map(leaf, params)
+
+
+def shard_experts(params: dict, cfg: ModelConfig, dist) -> dict:
+    """``params`` (numpy or tensors) with each MoE block's stacked expert
+    weights ``[L, E, ...]`` cut to the experts of the model ranks this
+    process runs on a fleet's grid; every other leaf as it is."""
+    if cfg.family != "moe" or dist is None or not dist.is_fleet:
+        return params
+    moe = {k: (local_experts(v, cfg, dist, dim=1)
+               if k in ("w1", "w3", "w2") else v)
+           for k, v in params["layers"]["moe"].items()}
+    return {**params, "layers": {**params["layers"], "moe": moe}}
 
 
 # ---------------------------------------------------------------------------
@@ -175,9 +194,13 @@ def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def forward(params: dict, cfg: ModelConfig, dist,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Returns logits [B, S, V]; ``batch["tokens"]`` is [B, S] (int)."""
+    """Returns logits [B, S, V]; ``batch["tokens"]`` is [B, S] (int). On
+    a fleet's grid the batch is whole and the logits are this process's
+    rows of it (``dist.local_rows``)."""
     _check(cfg, dist)
-    x = params["embed"][batch["tokens"].long()].to(_dtype(cfg))
+    tokens = batch["tokens"] if dist is None else \
+        dist.local_batch(batch["tokens"])
+    x = params["embed"][tokens.long()].to(_dtype(cfg))
     x = shard(x, dist, _bspec(dist))
     for i in range(cfg.n_layers):
         x = _block_apply(_layer(params["layers"], i), x, cfg, dist)
@@ -230,16 +253,23 @@ def decode_step(params: dict, cfg: ModelConfig, dist,
                 ) -> Tuple[torch.Tensor, DecodeCache]:
     """One new token: token [B, 1] -> (logits [B, 1, V], updated cache).
 
-    Writes the token's K/V into ``cache.k`` / ``cache.v`` in place.
+    Writes the token's K/V into ``cache.k`` / ``cache.v`` in place. On a
+    fleet's grid ``token`` and the cache are the whole batch's, and the
+    step runs (and writes, and returns the logits of) this process's rows
+    of it.
     """
     _check(cfg, dist)
+    ck, cv = cache.k, cache.v
+    if dist is not None and dist.is_fleet:
+        lo, hi = dist.local_rows(token.shape[0])
+        token, ck, cv = token[lo:hi], ck[:, lo:hi], cv[:, lo:hi]
     h = params["embed"][token.long()].to(_dtype(cfg))
     h = shard(h, dist, _bspec(dist))
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
         att, _ = attention_decode(
-            lp["attn"], hn, KVCache(cache.k[i], cache.v[i], cache.length),
+            lp["attn"], hn, KVCache(ck[i], cv[i], cache.length),
             cfg.n_heads, cfg.n_kv_heads, rope_theta=cfg.rope_theta,
             dist=dist, seq_shard=cfg.kv_seq_shard)
         h = h + att

@@ -13,7 +13,10 @@ Each step is the port's ``decode_step`` on the device the params live on,
 under the batcher's ``dist`` (a ``DistContext``: the MoE blocks run the
 expert-parallel path over its grid), one token for every slot; prompts
 are fed token by token (teacher forced), and the next token is the
-greedy argmax, which takes the FIRST maximum as ``jnp.argmax`` does.
+greedy argmax, which takes the FIRST maximum as ``jnp.argmax`` does. On
+a fleet's grid each process decodes its rows of the batch and the
+sampled tokens are gathered (``DistContext.gather_batch``), so every
+process holds the same slots, tokens and outputs.
 
 ``SpmmWaveServer`` applies the same wave discipline to SpMM serving over
 a hot-swappable ``DistSpmm`` / ``SpmmSession``: the handle is
@@ -297,6 +300,8 @@ class ContinuousBatcher:
                                              self.dist, toks, self.cache)
             # torch.argmax returns the first maximal index, as jnp.argmax
             sampled = logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
+            if self.dist is not None:  # a fleet's rows -> the whole batch
+                sampled = self.dist.gather_batch(sampled, self.max_batch)
             self.stats.decode_steps += 1
             self.stats.occupancy_sum += len(self.active) / self.max_batch
 
