@@ -14,7 +14,8 @@ matrix (coo and bsr) and a power-law one (coo: its ELL form would need
 ~86 GB), then GAT inference on the uniform graph through the FusedMM
 handle. Phases, each of which raises on a failed check:
 
-1. build: nvcc builds K1–K6 from ``src/repro_torch/csrc``;
+1. build: nvcc builds K1–K6 and K6's backward from
+   ``src/repro_torch/csrc``;
 2. kernels: every kernel's calls on each path are recorded and replayed
    against the kernel's plain torch version on the same inputs (K1 in
    both forms — the pack and the scaled coo gather — K2, K5 and K6 bit
@@ -112,7 +113,9 @@ handle. Phases, each of which raises on a failed check:
    directory of ``build/`` that the phase makes and removes:
    ``compile_spmm(uniform, 8, backends=("coo", "bsr"), hier="auto",
    measure=True)`` and ``compile_spmm(power-law, 8, hier="auto",
-   measure=True)`` time the model's top 3 candidates on the card (every
+   measure=True)`` — on a quarter of the two matrices (``LIFE_SCALE``:
+   the same generators and seeds at 42,336 nodes; the rest of the phase
+   at full size) — time the model's top 3 candidates on the card (every
    candidate printed with its model and measured ms, the winner beside
    the model-only decision; no candidate may be skipped), C within 2e-4
    of scipy float64 and the logged rows == ``volume_rows_padded``; the
@@ -231,6 +234,29 @@ handle. Phases, each of which raises on a failed check:
    replayed against the plain versions one process at a time (paths
    ``mp_gcn_step``, ``mp_gat_step``, ``mp_ep_prefill``,
    ``mp_ep_decode``).
+13. LM training, after phase 12. (a) olmoe-train: OLMoE-1B-7B at its
+   published width, cut to 2 of its 16 layers (1.05 B parameters; all
+   16 with AdamW's float32 moments would not fit the card), bf16, random
+   weights (``torch.Generator("cuda")`` seed 0), one 8 × 128
+   ``SyntheticLM`` batch (seed 0): every leaf's first-step gradient
+   finite and non-zero through ``_moe_dense`` and through ``_moe_ep`` on
+   the (data 2, model 4) grid at capacity 1.25; one step's K1 / K2 / K6
+   / K6-backward calls recorded and replayed against the plain versions
+   (paths ``train_dense``, ``train_ep``); one step each under the op
+   watch (no index_add / scatter_add / accumulating index_put / plain
+   version); 5 ``make_train_step`` steps each way on the repeated batch,
+   counted from 0, the loss falling, no backward map built on the host,
+   then the same 5 again timed forward / backward / update and equal bit
+   for bit; on a float32 copy (2 × 128 tokens) the first-step grads
+   within rtol 2e-3 / atol 2e-4 of a float64 run (the plain versions),
+   the EP grads at capacity 8.0 within 2e-4 of ``_moe_dense``'s and
+   ``microbatches=2``'s first moments within the same tolerances of one
+   batch's. (b) smollm-train: ``launch/train.py --arch smollm-135m
+   --full`` (all 30 layers, remat) at 8 × 256, 30 steps with checkpoints
+   at 10, 20 and 30; the step-30 checkpoint deleted, the run resumed
+   from 20 to 30 ends ``torch.equal`` to the uninterrupted run; a step
+   timed forward / backward / update; the watchdog's events and peak
+   memory.
 
 It prints the card's name and power limit, then one JSON line of kernel
 rows, then ``{"ok": true, "device": {...}}`` as its last line. Without a
@@ -497,6 +523,10 @@ KERNELS = {
                   "src/repro/kernels/sddmm.py:72"),
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:33"),
+    # K6's backward: the reference differentiates its jnp rms_norm
+    # (models/layers.py:26-28) through XLA; no Pallas backward exists
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:33"),
 }
 
 
@@ -620,7 +650,8 @@ def _kernel_targets():
             "bsr_spmm": (bsr_spmm, "bsr_spmm_cuda"),
             "bsr_spmm_acc": (bsr_spmm, "bsr_spmm_acc_cuda"),
             "bsr_sddmm": (sddmm, "bsr_sddmm_cuda"),
-            "rmsnorm": (rmsnorm, "rmsnorm_cuda")}
+            "rmsnorm": (rmsnorm, "rmsnorm_cuda"),
+            "rmsnorm_bwd": (rmsnorm, "rmsnorm_bwd_cuda")}
 
 
 def _with_wrapped(fn, wrap):
@@ -876,6 +907,27 @@ def replay_call(name, args, kw):
         es = x.element_size()
         nbytes = 2 * x.numel() * es + g.numel() * es  # read x, g; write y
         flops = 4.0 * x.numel()  # square-add, scale, gain (+ rounding)
+    elif name == "rmsnorm_bwd":
+        x, g, dy, eps = args
+        rbg = kw["round_before_gain"]
+        out = torch.cat([t.reshape(-1) for t in k6.rmsnorm_bwd_cuda(
+            x, g, dy, eps, round_before_gain=rbg)])
+        ref = torch.cat([t.reshape(-1) for t in k6.rmsnorm_bwd_plain(
+            x, g, dy, eps, round_before_gain=rbg)])
+        if not torch.equal(out, ref):  # one chain, fixed fold orders
+            raise AssertionError("rmsnorm_bwd kernel != plain version")
+        run = lambda: k6.rmsnorm_bwd_cuda(x, g, dy, eps, round_before_gain=rbg)  # noqa: E731,E501
+        plain = lambda: k6.rmsnorm_bwd_plain(x, g, dy, eps, round_before_gain=rbg)  # noqa: E731,E501
+        # the library's RMSNorm backward alone: F.rms_norm's graph built
+        # once, each call one autograd backward through it
+        xl = x.detach().requires_grad_(True)
+        gl = g.detach().requires_grad_(True)
+        yl = F.rms_norm(xl, (x.shape[-1],), weight=gl, eps=eps)
+        lib = lambda: torch.autograd.grad(yl, (xl, gl), dy, retain_graph=True)  # noqa: E731,E501
+        es = x.element_size()
+        # read x, dy, g; write dx, dg (the float32 partials are scratch)
+        nbytes = 3 * x.numel() * es + 2 * g.numel() * es
+        flops = 10.0 * x.numel()
     elif name == "bsr_sddmm":
         cols, blocks, x3, y3 = args
         out = k5.bsr_sddmm_cuda(cols, blocks, x3, y3)
@@ -1784,7 +1836,9 @@ PLAIN_VERSIONS = (("gather_rows", "gather_rows_plain"),
                   ("scatter_add_rows", "scatter_add_rows_plain"),
                   ("bsr_spmm", "bsr_spmm_plain"),
                   ("bsr_spmm", "bsr_spmm_acc_plain"),
-                  ("sddmm", "bsr_sddmm_plain"))
+                  ("sddmm", "bsr_sddmm_plain"),
+                  ("rmsnorm", "rmsnorm_plain"),
+                  ("rmsnorm", "rmsnorm_bwd_plain"))
 
 
 class library_watch:
@@ -2323,20 +2377,30 @@ def profile_cells(cells) -> None:
 # ---------------------------------------------------------------------------
 
 
-class plain_rmsnorm:
-    """Within the block, K6's wrapper runs the plain version on the card
-    (for the float64 reference run, which the kernel does not take)."""
+class plain_kernels:
+    """Within the block, the K1 / K2 / K6 wrappers (K6's backward
+    included) run their plain versions on the card: the float64 reference
+    runs, which the kernels do not take."""
+
+    NAMES = (("gather_rows", "gather_rows_cuda", "gather_rows_plain"),
+             ("scatter_add_rows", "scatter_add_rows_cuda",
+              "scatter_add_rows_plain"),
+             ("rmsnorm", "rmsnorm_cuda", "rmsnorm_plain"),
+             ("rmsnorm", "rmsnorm_bwd_cuda", "rmsnorm_bwd_plain"))
 
     def __enter__(self):
-        from repro_torch.kernels import rmsnorm
+        import importlib
 
-        self.saved = rmsnorm.rmsnorm_cuda
-        rmsnorm.rmsnorm_cuda = rmsnorm.rmsnorm_plain
+        self.saved = []
+        for mod_name, cuda, plain in self.NAMES:
+            mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+            self.saved.append((mod, cuda, getattr(mod, cuda)))
+            setattr(mod, cuda, getattr(mod, plain))
+        return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import rmsnorm
-
-        rmsnorm.rmsnorm_cuda = self.saved
+        for mod, cuda, fn in self.saved:
+            setattr(mod, cuda, fn)
 
 
 def lm_requests(Request, vocab: int, seed: int = 0):
@@ -2497,7 +2561,7 @@ def lm_serving(args, card: str, dev: str = "cuda"):
     check_finite(fwd32, (*toks.shape, cfg.vocab_size), "float32 logits")
     cfg64 = dataclasses.replace(cfg32, dtype="float64")
     p64 = TT._tree_map(lambda t: t.double(), p32)
-    with plain_rmsnorm():
+    with plain_kernels():
         fwd64 = TT.forward(p64, cfg64, None, {"tokens": toks})
     want = _host64(fwd64)
     log(f"float32 copy ({n_l} layers, {toks.shape[0]}x{toks.shape[1]} "
@@ -2982,11 +3046,32 @@ def donation_case(a, cfg: dict, b_host: np.ndarray) -> dict:
                 peak_donated=at_d, peak_not=at_u, c=cd)
 
 
+# phase 8's measured-autotune cells (steps 1-2, and the torn autotune
+# entry of step 8) run on a quarter of the arxiv cell: nodes and edges
+# / 4, the same generators and seeds (cut to keep the script in its time
+# limit; every candidate is planned and prepared on the host)
+LIFE_SCALE = 4
+
+
+def life_matrices(args):
+    """The uniform and power-law matrices of phase 8's measured cells and
+    their B (host), at 1 / LIFE_SCALE of phases 3-4's size."""
+    from repro_torch.core.sparse import power_law_sparse, random_sparse
+
+    m = (16_384 if args.quick else M_FULL) // LIFE_SCALE
+    nnz = (7 * 16_384 if args.quick else NNZ_FULL) // LIFE_SCALE
+    b_host = np.random.default_rng(0).standard_normal(
+        (m, N_COLS), dtype=np.float32)
+    return (random_sparse(m, m, nnz / m ** 2, seed=0),
+            power_law_sparse(m, m, nnz, 0.8, seed=0), b_host)
+
+
 def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
-    """Phase 8: the session lifecycle on the two SpMM matrices. Returns the
-    kernel rows of the ``lifecycle`` path (one call of each measured
-    winner — the uniform one on both backends — and of the refreshed
-    handle, replayed against the plain versions)."""
+    """Phase 8: the session lifecycle on the two SpMM matrices (its
+    measured-autotune cells on a quarter of them, ``life_matrices``).
+    Returns the kernel rows of the ``lifecycle`` path (one call of each
+    measured winner — the uniform one on both backends — and of the
+    refreshed handle, replayed against the plain versions)."""
     import shutil
 
     from repro_torch import SpmmConfig, SpmmSession, compile_spmm
@@ -3015,12 +3100,17 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
         # None): with G = 2 the hier K sweep repeats one schedule, so the
         # top 3 candidates of "auto" are all hier and the flat tier is
         # timed by its own measured compile
-        cells = {"uniform": (a_u, dict(backends=("coo", "bsr"), hier="auto",
-                                       measure=True)),
-                 "power_law": (a_p, dict(hier="auto", measure=True)),
-                 "uniform_flat": (a_u, dict(backends=("coo", "bsr"),
-                                            measure=True)),
-                 "power_law_flat": (a_p, dict(measure=True))}
+        # on a quarter of the arxiv cell (LIFE_SCALE): every candidate is
+        # planned and prepared on the host, so these cells cost the most
+        # of the phase
+        a_uq, a_pq, bq_host = life_matrices(args)
+        bq = torch.from_numpy(bq_host).cuda()
+        cells = {"uniform": (a_uq, dict(backends=("coo", "bsr"),
+                                        hier="auto", measure=True)),
+                 "power_law": (a_pq, dict(hier="auto", measure=True)),
+                 "uniform_flat": (a_uq, dict(backends=("coo", "bsr"),
+                                             measure=True)),
+                 "power_law_flat": (a_pq, dict(measure=True))}
         winners, timed = {}, {}
         with warnings.catch_warnings(record=True) as caught, \
                 autotune_watch() as watch:
@@ -3066,10 +3156,10 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
         c_first = {}
         for name, h in winners.items():
             a = cells[name][0]
-            c_first[name] = h(b)
+            c_first[name] = h(bq)
             check_rows(h, f"lifecycle {name}")
             log(f"  lifecycle {name}: max abs err vs scipy float64 "
-                f"{check_c(c_first[name], a, b_host, name):.3g} (tol 2e-4); "
+                f"{check_c(c_first[name], a, bq_host, name):.3g} (tol 2e-4); "
                 f"rows == volume_rows_padded "
                 f"{h.plan.volume_rows_padded(h.schedule)}")
         n_hooks = len(hooks)
@@ -3088,7 +3178,7 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
                 raise AssertionError(f"lifecycle {name}: the cache replay "
                                      f"timed {len(hooks) - n_hooks} runs or "
                                      f"changed its decisions")
-            if not torch.equal(h2(b), c_first[name]):
+            if not torch.equal(h2(bq), c_first[name]):
                 raise AssertionError(f"lifecycle {name}: the replayed "
                                      f"handle's C differs")
             log(f"  lifecycle {name}: cache replay in "
@@ -3227,7 +3317,7 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
         before = set(os.listdir(cache_dir))
         with inject([Fault(kind="autotune_corrupt", site="autotune_cache",
                            mode="empty")]) as plan:
-            compile_spmm(a_p, P, cfg_c)
+            compile_spmm(a_pq, P, cfg_c)
         (entry,) = [os.path.join(cache_dir, f)
                     for f in set(os.listdir(cache_dir)) - before]
         if plan.fired("autotune_corrupt") != 1 or os.path.getsize(entry):
@@ -3235,7 +3325,7 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
         n_hooks = len(hooks)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            hc = compile_spmm(a_p, P, cfg_c)
+            hc = compile_spmm(a_pq, P, cfg_c)
         if (not any("zero-byte entry" in str(w.message) for w in caught)
                 or len(hooks) == n_hooks or not os.path.getsize(entry)
                 or hc.decisions["decision_source"] != "measured"):
@@ -3267,13 +3357,13 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
         #    handle, against their plain versions
         uni = winners["uniform"]
         rec = record_kernel_calls(lambda: (
-            uni(b, backend="coo"), uni(b, backend="bsr"),
-            winners["power_law"](b), refreshed_call()))
+            uni(bq, backend="coo"), uni(bq, backend="bsr"),
+            winners["power_law"](bq), refreshed_call()))
         paths = {k: {"lifecycle": (rec, launches)} for k in
                  ("gather_rows", "gather_rows_scaled", "scatter_add_rows",
                   "bsr_spmm", "bsr_spmm_acc") if rec[k]}
         rows = replay_paths(paths)
-        del rec, winners, uni, s, h8, hn, c_v, c_r, refreshed_call
+        del rec, winners, uni, s, h8, hn, c_v, c_r, refreshed_call, bq
     finally:
         autotune.unregister_profile_hook(hook)
         for k, v in saved_env.items():
@@ -4827,6 +4917,410 @@ def mp_train_phase(args, card: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: LM training — OLMoE-1B-7B dense and expert-parallel, smollm-135m
+# through the training launcher
+# ---------------------------------------------------------------------------
+
+TRAIN_LM = dict(arch="olmoe-1b-7b", layers=2, batch=8, seq=128, steps=5)
+# AdamW of the 5 steps on one repeated batch (the reference launcher's lr)
+TRAIN_LM_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=5,
+                    schedule="constant")
+TRAIN_LM_F32 = dict(batch=2, seq=128)  # the float32 / float64 grads' batch
+TRAIN_LM_EP_EXACT = 8.0  # the EP capacity at which nothing drops
+SMOLLM_TRAIN = dict(batch=8, seq=256, steps=30, ckpt_every=10)
+
+
+class host_map_watch:
+    """Counts the backward maps built on the host (``ops._cached``)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.built, self.orig = [], ops._cached
+
+        def counted(key, kind, build):
+            self.built.append(kind)
+            return self.orig(key, kind, build)
+
+        ops._cached = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops._cached = self.orig
+
+
+def _events(n: int):
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def split_train_step(cfg, dist, opt, params, state, batch):
+    """``make_train_step``'s step (one microbatch) with CUDA events around
+    its forward (``lm_loss``), backward and AdamW update and the host wall
+    around the whole: (params, state, metrics, {fwd, bwd, upd, wall} ms)."""
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.optim.adamw import _leaves, _rebuild, adamw_update
+
+    ev = _events(4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
+    loss = lm_loss(_rebuild(params, iter(leaves)), cfg, dist, batch)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, leaves)
+    ev[2].record()
+    params, state, metrics = adamw_update(
+        opt, params, _rebuild(params, iter(grads)), state)
+    ev[3].record()
+    torch.cuda.synchronize()
+    metrics["loss"] = loss.detach()
+    ms = {k: ev[i].elapsed_time(ev[i + 1])
+          for i, k in enumerate(("fwd", "bwd", "upd"))}
+    ms["wall"] = (time.perf_counter() - t0) * 1e3
+    return params, state, metrics, ms
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_names(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1]
+
+
+def check_all_grads(grads, what: str) -> None:
+    """Every leaf's gradient finite and not all zero."""
+    from repro_torch.optim.adamw import _leaves
+
+    bad = [n for n, g in zip(_leaf_names(grads), _leaves(grads))
+           if not bool(torch.isfinite(g).all()) or not bool(g.abs().sum() > 0)]
+    if bad:
+        raise AssertionError(f"{what}: non-finite or all-zero gradient for "
+                             f"{bad}")
+
+
+def train_lm_cell(what, cfg, dist, params, batch, card):
+    """Five ``make_train_step`` steps on one repeated batch, counted from
+    0 (every K1 / K2 / K6 / K6-backward launch; no backward map built on
+    the host), then the same five through ``split_train_step`` timed:
+    both end on the same parameters bit for bit, and the loss falls.
+    Returns (launches, losses, the split medians, the last params)."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import AdamWConfig, _leaves, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    opt = AdamWConfig(**TRAIN_LM_OPT)
+    step = make_train_step(cfg, dist, opt)
+    p, state, losses = params, adamw_init(params), []
+    ops.reset_launch_counts()
+    with host_map_watch() as maps:
+        for _ in range(TRAIN_LM["steps"]):
+            p, state, m = step(p, state, batch)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    log(f"{what}: 5 steps' launches {json.dumps(launches)}; losses "
+        f"{[round(x, 4) for x in losses]}; host-built backward maps "
+        f"{len(maps.built)}")
+    want = ("gather_rows", "scatter_add_rows", "rmsnorm", "rmsnorm_bwd")
+    if min(launches[k] for k in want) < 1 or maps.built:
+        raise AssertionError(f"{what}: a kernel was not launched or a map "
+                             f"was built on the host: {launches}, "
+                             f"{maps.built}")
+    per_step = 2 * cfg.n_layers + 1
+    if launches["rmsnorm_bwd"] != TRAIN_LM["steps"] * per_step:
+        raise AssertionError(f"{what}: K6's backward launched "
+                             f"{launches['rmsnorm_bwd']} times (want "
+                             f"{TRAIN_LM['steps']} x {per_step})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {losses}")
+    first = p
+    p, state, times = params, adamw_init(params), []
+    for _ in range(TRAIN_LM["steps"]):
+        p, state, m, ms = split_train_step(cfg, dist, opt, p, state, batch)
+        times.append(ms)
+    for a, b in zip(_leaves(first), _leaves(p)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: two 5-step runs differ")
+    med = {k: statistics.median(t[k] for t in times[1:]) for k in times[0]}
+    tokens = batch["tokens"].numel()
+    log(f"{what} [{card}]: two 5-step runs bit-identical; a step (median of "
+        f"steps 2-5): forward {med['fwd']:.3f} ms, backward "
+        f"{med['bwd']:.3f} ms, update {med['upd']:.3f} ms (CUDA events), "
+        f"host wall {med['wall']:.3f} ms; {tokens / med['wall'] * 1e3:.1f} "
+        f"tokens/s")
+    return launches, losses, med, p
+
+
+def watched_step(what, cfg, dist, params, batch):
+    """One forward + backward inside ``library_watch``: no index_add /
+    scatter_add / accumulating index_put / plain version, and backward
+    ops seen."""
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.optim.adamw import _leaves, _rebuild
+
+    leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
+    with library_watch() as watch:
+        loss = lm_loss(_rebuild(params, iter(leaves)), cfg, dist, batch)
+        torch.cuda.synchronize()
+        watch.stage = "backward"
+        torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+    watch.check(what)
+    log(f"{what}: op watch clean ({sum(watch.seen.values())} ops, "
+        f"{sum(n for (st, _), n in watch.seen.items() if st == 'backward')} "
+        f"in the backward)")
+
+
+def recorded_grads(cfg, dist, params, batch):
+    """The kernel calls of one forward + backward, their arguments kept in
+    host memory until each is replayed (``record_kernel_calls``): the
+    replays run outside autograd, after the counted runs."""
+    from repro_torch.train.steps import loss_and_grads
+
+    return record_kernel_calls(
+        lambda: loss_and_grads(params, cfg, dist, batch), host=True)
+
+
+def check_grad_close(got, want, what: str, rtol: float, atol: float) -> float:
+    """Every leaf within rtol / atol; returns the worst error over its
+    tolerance (<= 1 passes)."""
+    from repro_torch.optim.adamw import _leaves
+
+    worst = 0.0
+    for name, g, w in zip(_leaf_names(got), _leaves(got), _leaves(want)):
+        g, w = g.double(), w.double()
+        over = ((g - w).abs() / (atol + rtol * w.abs())).max().item()
+        if not over <= 1.0:
+            raise AssertionError(f"{what}: {name} off by {over:.3g}x its "
+                                 f"tolerance")
+        worst = max(worst, over)
+    return worst
+
+
+def train_lm_f32(cfg, dist, params, dev: str) -> None:
+    """The float32 checks on a copy of the model: first-step grads within
+    rtol 2e-3 / atol 2e-4 of a float64 run (the plain versions), the EP
+    grads at capacity 8.0 within 2e-4 of the dense path's, and
+    ``microbatches=2``'s step within the same tolerances of one batch (its
+    first moments, 0.1 x the accumulated grads)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = TT._tree_map(lambda t: t.float(), params)
+    toks = SyntheticLM(cfg.vocab_size, TRAIN_LM_F32["seq"],
+                       TRAIN_LM_F32["batch"], seed=0).batch(0)["tokens"]
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    loss32, g32 = loss_and_grads(p32, cfg32, None, batch)
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    p64 = TT._tree_map(lambda t: t.double(), p32)
+    with plain_kernels():
+        loss64, g64 = loss_and_grads(p64, cfg64, None, batch)
+    del p64
+    worst = check_grad_close(g32, g64, "float32 grads vs float64",
+                             **GRAD_TOL)
+    log(f"  float32 copy ({cfg.n_layers} layers, {toks.shape[0]}x"
+        f"{toks.shape[1]}): loss {float(loss32):.6f} vs float64 "
+        f"{float(loss64):.6f}; first-step grads within rtol 2e-3 / atol "
+        f"2e-4 of float64 (worst {worst:.3g} of the tolerance)")
+    del g64
+    ep_cfg = dataclasses.replace(cfg32, capacity_factor=TRAIN_LM_EP_EXACT)
+    with host_map_watch() as maps:
+        _, gep = loss_and_grads(p32, ep_cfg, dist, batch)
+    worst = check_grad_close(gep, g32, "EP vs dense (capacity 8.0)",
+                             rtol=2e-4, atol=2e-4)
+    if maps.built:
+        raise AssertionError(f"EP grads built maps on the host: {maps.built}")
+    log(f"  float32 EP at capacity {TRAIN_LM_EP_EXACT} vs _moe_dense: "
+        f"grads within 2e-4 (worst {worst:.3g} of the tolerance)")
+    del gep, g32
+    opt = AdamWConfig(**TRAIN_LM_OPT)
+    outs = []
+    for mb in (1, 2):
+        _, st, m = make_train_step(cfg32, None, opt, microbatches=mb)(
+            p32, adamw_init(p32), batch)
+        outs.append((st["m"], float(m["loss"]), float(m["grad_norm"])))
+        del st
+    worst = check_grad_close(outs[1][0], outs[0][0], "microbatches=2",
+                             rtol=GRAD_TOL["rtol"],
+                             atol=GRAD_TOL["atol"] * (1 - 0.9))
+    for i, k in ((1, "loss"), (2, "grad_norm")):
+        if not abs(outs[1][i] - outs[0][i]) <= GRAD_TOL["rtol"] * abs(
+                outs[0][i]):
+            raise AssertionError(f"microbatches=2: {k} {outs[1][i]} vs "
+                                 f"{outs[0][i]}")
+    log(f"  microbatches=2 vs 1: loss {outs[1][1]:.6f} / {outs[0][1]:.6f}, "
+        f"grad_norm {outs[1][2]:.6f} / {outs[0][2]:.6f}, first moments "
+        f"within tolerance (worst {worst:.3g})")
+
+
+def smollm_train(args, card, dev: str = "cuda") -> dict:
+    """Phase 13b: ``launch/train.py --arch smollm-135m --full`` on the
+    card, 30 steps at 8 x 256 with checkpoints at 10, 20 and 30; the
+    step-30 checkpoint deleted, the run resumed from 20 to 30 ends with
+    the parameters of the uninterrupted run, ``torch.equal``."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as LT
+    from repro_torch.optim.adamw import _leaves
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "phase13_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    c = SMOLLM_TRAIN
+    seq = 16 if args.quick else c["seq"]
+    run = ["--arch", "smollm-135m", "--device", dev, "--batch",
+           str(c["batch"]), "--seq", str(seq), "--steps", str(c["steps"]),
+           "--ckpt-every", str(c["ckpt_every"]), "--ckpt-dir", root] + \
+        ([] if args.quick else ["--full"])
+    ckpt = CheckpointManager(root)
+    try:
+        whole = LT.main(run)
+        t1 = time.perf_counter()
+        steps = ckpt.all_steps()
+        shutil.rmtree(ckpt._step_dir(c["steps"]))
+        resumed = LT.main(run)
+        t2 = time.perf_counter()
+        steps_after = ckpt.all_steps()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    start = c["steps"] - c["ckpt_every"]
+    want = list(range(c["ckpt_every"], c["steps"] + 1, c["ckpt_every"]))
+    if whole["last_step"] != c["steps"] or \
+            resumed["last_step"] != c["steps"] or \
+            resumed["history"][0]["step"] != start or \
+            steps != want or steps_after != want:
+        raise AssertionError(f"smollm-train: steps {whole['last_step']}, "
+                             f"{resumed['last_step']} (resumed history "
+                             f"{resumed['history']}), checkpoints {steps}, "
+                             f"{steps_after}")
+    for a, b in zip(_leaves(resumed["params"]), _leaves(whole["params"])):
+        if not torch.equal(a, b):
+            raise AssertionError("smollm-train: the resumed run's params "
+                                 "differ from the uninterrupted run's")
+    losses = [h["loss"] for h in whole["history"] + resumed["history"]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"smollm-train: non-finite loss {losses}")
+    events = whole["straggler_events"] + resumed["straggler_events"]
+    log(f"smollm-train [{card}]: {c['steps']} steps (checkpoints {steps}), "
+        f"the last deleted and the run resumed from {start}: == the "
+        f"uninterrupted run, bit for bit; logged losses "
+        f"{[round(x, 4) for x in losses]}; straggler events {events}; "
+        f"host seconds: whole {t1 - t0:.1f}, resume {t2 - t1:.1f} "
+        f"(checkpoints included)")
+    return whole
+
+
+def train_lm_phase(args, card: str, dev: str = "cuda") -> dict:
+    """Phase 13: LM training on the card. Returns the kernel paths for
+    the JSON rows ({kernel: {path: row}})."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.context import make_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.train.steps import loss_and_grads
+
+    t_phase = time.perf_counter()
+    reset_peak()
+    base = get_smoke_config(TRAIN_LM["arch"]) if args.quick else \
+        get_config(TRAIN_LM["arch"])
+    cfg = dataclasses.replace(base, n_layers=TRAIN_LM["layers"])
+    params = TT.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"olmoe-train: {cfg.name} at its published width, {cfg.n_layers} "
+        f"of {base.n_layers} layers ({cfg.dtype}, d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, remat {cfg.remat}): "
+        f"{n_params:,} parameters, random (torch.Generator({dev!r}) seed 0)")
+    toks = SyntheticLM(cfg.vocab_size, TRAIN_LM["seq"], TRAIN_LM["batch"],
+                       seed=0).batch(0)["tokens"]
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    dist = make_context(make_mesh(*EP_GRID))
+
+    # every leaf's first-step gradient, dense and EP (the detached K6
+    # left the norm gains and the earlier layers without one)
+    for what, d in (("dense", None), ("EP", dist)):
+        _, grads = loss_and_grads(params, cfg, d, batch)
+        check_all_grads(grads, f"olmoe-train {what}")
+        del grads
+    log("olmoe-train: every leaf's gradient finite and non-zero, dense and "
+        "EP")
+
+    # the kernel calls of one step, replayed against the plain versions
+    # below
+    dense_calls = recorded_grads(cfg, None, params, batch)
+    ep_calls = recorded_grads(cfg, dist, params, batch)
+    for what, d in (("olmoe-train dense", None), ("olmoe-train EP", dist)):
+        watched_step(what, cfg, d, params, batch)
+
+    # the counted runs, twice each, timed
+    dense_n, _, dense_ms, _ = train_lm_cell("olmoe-train dense", cfg, None,
+                                            params, batch, card)
+    ep_n, _, ep_ms, _ = train_lm_cell("olmoe-train EP", cfg, dist, params,
+                                      batch, card)
+    train_lm_f32(cfg, dist, params, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"peak device memory, phase 13a: "
+        f"{peak_allocated() / 2 ** 30:.2f} GiB")
+
+    t0 = time.perf_counter()
+    reset_peak()
+    whole = smollm_train(args, card, dev)
+    scfg = get_smoke_config("smollm-135m") if args.quick else \
+        get_config("smollm-135m")
+    sbatch = {"tokens": torch.from_numpy(SyntheticLM(
+        scfg.vocab_size, 16 if args.quick else SMOLLM_TRAIN["seq"],
+        SMOLLM_TRAIN["batch"]).batch(0)["tokens"]).to(dev)}
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    p, st, times = whole["params"], adamw_init(whole["params"]), []
+    for _ in range(3):
+        p, st, _, ms = split_train_step(scfg, None, AdamWConfig(), p, st,
+                                        sbatch)
+        times.append(ms)
+    med = {k: statistics.median(t[k] for t in times[1:]) for k in times[0]}
+    log(f"smollm-train [{card}]: a step (median of steps 2-3, "
+        f"{scfg.n_layers} layers, remat {scfg.remat}): forward "
+        f"{med['fwd']:.3f} ms, backward {med['bwd']:.3f} ms, update "
+        f"{med['upd']:.3f} ms (CUDA events), host wall {med['wall']:.3f} "
+        f"ms; {sbatch['tokens'].numel() / med['wall'] * 1e3:.1f} tokens/s; "
+        f"peak device memory {peak_allocated() / 2 ** 30:.2f} GiB; phase "
+        f"13b {time.perf_counter() - t0:.1f} s")
+    del whole, p, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every recorded call against its plain version; launches: the 5
+    # counted steps' (the replays are not counted)
+    rows = {}
+    for path, calls, n in (("train_dense", dense_calls, dense_n),
+                           ("train_ep", ep_calls, ep_n)):
+        for k, c in calls.items():
+            if c:
+                rows.setdefault(k, {})[path] = kernel_row(k, c, n[k],
+                                                          busy=False)
+    del dense_calls, ep_calls
+    for k in ("rmsnorm", "rmsnorm_bwd"):
+        r = rows[k]["train_dense"]
+        log(f"K6 {'backward' if k.endswith('bwd') else 'forward'} on "
+            f"train_dense [{card}]: {r['ms']:.4f} ms a step over "
+            f"{r['calls_per_h']} calls, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), library ({'F.rms_norm autograd backward' if k.endswith('bwd') else 'F.rms_norm'}) "
+            f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    log(f"phase 13 LM training: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quick", action="store_true",
@@ -4920,7 +5414,7 @@ def main() -> int:
     launches = ops.launch_counts()
     log(f"uniform main path launches: {json.dumps(launches)}")
     if min(launches[k] for k in KERNELS
-           if k not in ("bsr_sddmm", "rmsnorm")) < 1:
+           if k not in ("bsr_sddmm", "rmsnorm", "rmsnorm_bwd")) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     if h.cache_info()["lowerings"] != 2 or h.cache_info()["hits"] != 1:
         raise AssertionError(f"cache: {h.cache_info()}")
@@ -5150,6 +5644,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     for k, extra in mp_train_phase(args, card).items():
         per_kernel[k].update(extra)
+
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    # 13. LM training: OLMoE-1B-7B (2 layers) dense and expert-parallel,
+    #     smollm-135m through the training launcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, extra in train_lm_phase(args, card).items():
+        per_kernel.setdefault(k, {}).update(extra)
 
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     rows = [kernel_summary(k, per_kernel[k], card) for k in KERNELS]

@@ -34,12 +34,18 @@ versions, one composition on both:
   ``dY`` K3 on the transposed ELL layout of ``blocks ⊙ g``
   (``sddmm.transpose_ell``), ``dblocks`` K5 of ``g``;
 * K3 / K4 have no gradient in the reference (``repro/kernels/ops.py:52,
-  63`` carry no JVP): they raise under grad.
+  63`` carry no JVP): they raise under grad;
+* K6 (RMSNorm) — backward: K6's own backward kernel pair
+  (``rmsnorm.rmsnorm_bwd_cuda``: ``dx``, and ``dg`` folded from per-block
+  partials in a fixed order), on the CPU its plain version.
 
 The maps are static per plan: each is built on the host the first time a
 gradient needs it and cached beside the plan tensor it derives from, on
-that tensor's device, for as long as the tensor lives. A call that needs
-no gradient takes the op's direct path and pays nothing for any of this.
+that tensor's device, for as long as the tensor lives. A caller whose
+index changes every call (the expert-parallel MoE's routing) hands its
+own device-made maps instead (``maps=`` / ``targets=``): then nothing
+goes to the host. A call that needs no gradient takes the op's direct
+path and pays nothing for any of this.
 The two in-place ops declare what they write (``ctx.mark_dirty``).
 """
 from __future__ import annotations
@@ -236,22 +242,23 @@ def _k5(cols, blocks, x3, y3):
 
 class _Pack(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, b, idx):
-        ctx.idx, ctx.b_shape = idx, b.shape
+    def forward(ctx, b, idx, maps):
+        ctx.idx, ctx.b_shape, ctx.maps = idx, b.shape, maps
         return _pack(b, idx)
 
     @staticmethod
     def backward(ctx, g):
         P_, K, n = ctx.b_shape
-        perm, meta = _fold_maps(ctx.idx)
+        perm, meta = ctx.maps if ctx.maps is not None else \
+            _fold_maps(ctx.idx)
         db = g.new_zeros((P_, K, n))
-        return _fold(db, g.reshape(P_, -1, n), perm, meta), None
+        return _fold(db, g.reshape(P_, -1, n), perm, meta), None, None
 
 
 class _Aggregate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, c, partials, perm, meta):
-        ctx.maps = (perm, meta)
+    def forward(ctx, c, partials, perm, meta, targets):
+        ctx.maps, ctx.targets = (perm, meta), targets
         ctx.mark_dirty(c)
         return _fold(c, partials, perm, meta)
 
@@ -259,8 +266,27 @@ class _Aggregate(torch.autograd.Function):
     def backward(ctx, g):
         dpartials = None
         if ctx.needs_input_grad[1]:
-            dpartials = _pack(g, slot_targets(*ctx.maps))
-        return g, dpartials, None, None
+            tgt = ctx.targets if ctx.targets is not None else \
+                slot_targets(*ctx.maps)
+            dpartials = _pack(g, tgt)
+        return g, dpartials, None, None, None
+
+
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, eps, round_before_gain):
+        ctx.save_for_backward(x, g)
+        ctx.eps, ctx.rbg = eps, round_before_gain
+        return _rmsnorm(x, g, eps, round_before_gain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g = ctx.saved_tensors
+        fn = _rms.rmsnorm_bwd_cuda if on_card(x, g, dy) \
+            else _rms.rmsnorm_bwd_plain
+        dx, dg = fn(x, g, dy, ctx.eps, round_before_gain=ctx.rbg)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dg if ctx.needs_input_grad[1] else None, None, None)
 
 
 class _CooAccumulate(torch.autograd.Function):
@@ -331,16 +357,20 @@ class _BsrSddmm(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def pack_rows_op(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def pack_rows_op(b: torch.Tensor, idx: torch.Tensor,
+                 maps=None) -> torch.Tensor:
     """Comm-buffer pack: ``out[p, ..., s, :] = b[p, idx[p, ..., s]]``.
 
     ``b`` is [P, K, n]; ``idx`` [P, ...] may carry layout axes after the
     rank (e.g. [P, P, max_b] in the single-round schedule); the gather
     runs on the flattened slot axis and the result is reshaped back.
-    Slots with ``idx < 0`` (plan padding) come back zeroed.
+    Slots with ``idx < 0`` (plan padding) come back zeroed. ``maps``, the
+    sorted-scatter maps (perm, meta) of ``idx`` flattened to [P, S] on its
+    device, serve the backward's fold when given (an index made per
+    call); else they are built on the host once per ``idx`` tensor.
     """
     if _needs_grad(b):
-        return _Pack.apply(b, idx)
+        return _Pack.apply(b, idx, maps)
     return _pack(b, idx)
 
 
@@ -369,15 +399,18 @@ def scatter_add_rows_op(c: torch.Tensor, partials: torch.Tensor,
 
 
 def scatter_add_rows_exec_op(c: torch.Tensor, partials: torch.Tensor,
-                             perm: torch.Tensor, meta: torch.Tensor
-                             ) -> torch.Tensor:
+                             perm: torch.Tensor, meta: torch.Tensor,
+                             targets=None) -> torch.Tensor:
     """Result aggregation ``c[p, tgt[p, s]] += partials[p, s]``, IN PLACE.
 
-    ``perm`` / ``meta`` are the host-prepared sorted-scatter maps
-    (``prepare_sorted_scatter``, once per plan). Returns ``c``.
+    ``perm`` / ``meta`` are the sorted-scatter maps of ``tgt``
+    (``prepare_sorted_scatter`` once per plan, or ``sorted_scatter_maps``
+    on the device). ``targets``, ``tgt`` itself [P, S] int32 (-1 pads) on
+    the device, serves the backward's pack when given; else it is rebuilt
+    on the host once per ``perm`` tensor. Returns ``c``.
     """
     if _needs_grad(c, partials):
-        return _Aggregate.apply(c, partials, perm, meta)
+        return _Aggregate.apply(c, partials, perm, meta, targets)
     return _fold(c, partials, perm, meta)
 
 
@@ -469,8 +502,15 @@ def rmsnorm_op(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
 
     ``round_before_gain`` says where the rounding to x's dtype falls (see
     ``kernels.rmsnorm``): ``False`` as ``rmsnorm_pallas``, ``True`` as the
-    model's ``rms_norm``.
+    model's ``rms_norm``. Under grad (x or g requires it) the call runs
+    as ``_RmsNorm``, whose backward is K6's backward kernel pair.
     """
+    if _needs_grad(x, g):
+        return _RmsNorm.apply(x, g, eps, round_before_gain)
+    return _rmsnorm(x, g, eps, round_before_gain)
+
+
+def _rmsnorm(x, g, eps, round_before_gain):
     # the LM runs this 2·L + 1 times a step, so a CUDA x goes straight to
     # the wrapper, which checks g's device itself. The wrapper is looked up
     # on its module at call time, so a recorder that replaces it sees the

@@ -29,7 +29,11 @@ token map, every local expert's rows are gathered by one K1 launch and
 run as one batched FFN, and both folds — the pre-aggregated combine and
 the return ``y[tok_map] += recv`` — are K2 over sorted maps made on the
 device: each row's partials fold in a fixed order (ascending expert;
-ascending (rank, slot)), no atomics. The reference's output is
+ascending (rank, slot)), no atomics. Under grad the same device maps
+serve the backward (each K1 pack's is a K2 fold over its index's sorted
+maps, each K2 fold's a K1 pack by its targets), so a training step
+builds no map on the host; the router learns through the gates, each
+model rank's experts through their rows. The reference's output is
 replicated over the model axis; model rank 0's is returned
 (``all_ranks=True`` returns every rank's).
 Inside ``record_dispatch()`` each expert-parallel call also records its
@@ -296,8 +300,12 @@ def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
     # zeros. Optional fp8 dispatch (cfg.moe_dispatch_dtype): expert
     # compute casts back to x.dtype.
     tok_map = _scatter_drop(M * cap, flat_dst * cap + send_slot, send_ok,
-                            flat_tok, -1)
-    buf = pack_rows_op(xt, tok_map.to(torch.int32))
+                            flat_tok, -1).to(torch.int32)
+    # its sorted maps serve the return fold below and, under grad, the
+    # pack's backward: made here on the device, so a training step sends
+    # no map to the host
+    tok_maps = sorted_scatter_maps(tok_map)
+    buf = pack_rows_op(xt, tok_map, maps=tok_maps)
     if cfg.moe_dispatch_dtype != "none":
         buf = to_dispatch_dtype(buf, getattr(torch, cfg.moe_dispatch_dtype))
 
@@ -357,9 +365,11 @@ def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
     idx = recv_idx.transpose(1, 2)  # [R, e_loc, M(src), cap_e]
     gate = recv_gate.transpose(1, 2)
     src_base = (torch.arange(M, device=dev) * cap)[:, None]
-    tgt = torch.where(idx >= 0, src_base + idx, -1).reshape(R, -1)
+    tgt = torch.where(idx >= 0, src_base + idx, -1).reshape(R, -1).to(
+        torch.int32)
+    tgt_maps = sorted_scatter_maps(tgt)
     n_e = M * cap_e
-    xin = pack_rows_op(flat_recv, tgt.to(torch.int32))  # [R, e_loc·n_e, D]
+    xin = pack_rows_op(flat_recv, tgt, maps=tgt_maps)  # [R, e_loc·n_e, D]
     xe = xin.reshape(ng, nm, e_loc, n_e, d)
     w1r, w3r, w2r = (w.reshape((nm, e_loc) + tuple(w.shape[1:]))
                      for w in (w1, w3, w2))
@@ -368,14 +378,13 @@ def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
     # a pad's row joins no fold (K2 stops at the valid slots)
     yout = yout * gate.reshape(R, -1, 1).to(xs.dtype)
     combine = torch.zeros((R, M * cap, d), dtype=xs.dtype, device=dev)
-    combine = scatter_add_rows_exec_op(combine, yout,
-                                       *sorted_scatter_maps(tgt))
+    combine = scatter_add_rows_exec_op(combine, yout, *tgt_maps,
+                                       targets=tgt)
 
     # ---- return all_to_all + the fold into token order (K2) ------------
     recv_comb = a2a(combine, cap, d).reshape(R, M * cap, d)
-    perm, meta = sorted_scatter_maps(tok_map)
     y = torch.zeros((R, t, d), dtype=xs.dtype, device=dev)
-    return scatter_add_rows_exec_op(y, recv_comb, perm, meta)
+    return scatter_add_rows_exec_op(y, recv_comb, *tok_maps, targets=tok_map)
 
 
 def _routing(cfg: ModelConfig, tokens: int, seed: int) -> np.ndarray:

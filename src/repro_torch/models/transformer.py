@@ -22,6 +22,13 @@ batch on its ranks, the grid's collectives cross processes, and
 ``transformer_from_numpy(..., dist=)`` / ``shard_experts`` keep only the
 experts of its model ranks.
 
+Training: ``lm_loss`` differentiates on both devices — every RMSNorm's
+backward is K6's backward kernel pair, the embedding's K2 (``_embed``),
+the EP MoE's backward runs K1 / K2 over device maps — and with
+``cfg.remat`` each block runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint``), its activations recomputed in the
+backward.
+
 What waits: the ``ssm``, ``hybrid``, ``encdec``, ``vlm`` and ``audio``
 families for ROADMAP item 17; each raises ``NotImplementedError``
 naming the item.
@@ -33,8 +40,11 @@ from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..distributed.context import check_dist, shard
+from ..kernels.ops import pack_rows_op
+from ..kernels.scatter_add_rows import sorted_scatter_maps
 from .config import ModelConfig
 from .layers import (
     KVCache, attention, attention_decode, init_attn_params, init_mlp_params,
@@ -75,6 +85,72 @@ def _tree_map(fn: Callable, tree):
 def _layer(layers: dict, i: int) -> dict:
     """Layer i's params from the stacked ``[L, ...]`` tree (views)."""
     return _tree_map(lambda a: a[i], layers)
+
+
+def _unstack(layers: dict, n: int) -> list:
+    """Every layer's params from the stacked ``[L, ...]`` tree, as views
+    made by one ``unbind`` per leaf: under grad each leaf's backward is
+    one ``stack`` of its layers' grads (indexing layer by layer would
+    build a zero ``[L, ...]`` gradient per layer and add them)."""
+    per = _tree_map(torch.unbind, layers)
+
+    def pick(tree, i):
+        if isinstance(tree, dict):
+            return {k: pick(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    return [pick(per, i) for i in range(n)]
+
+
+def _needs_grad(lp: dict, x: torch.Tensor) -> bool:
+    """Whether a block's output takes part in a gradient: grad mode on,
+    and x or one of the block's params requiring grad."""
+    if not torch.is_grad_enabled():
+        return False
+    if x.requires_grad:
+        return True
+    leaves = [lp]
+    while leaves:
+        t = leaves.pop()
+        if isinstance(t, dict):
+            leaves.extend(t.values())
+        elif t.requires_grad:
+            return True
+    return False
+
+
+class _Pick(torch.autograd.Function):
+    """``take_along_dim(lg, tgt[..., None], -1)[..., 0]`` whose backward
+    writes each row's one gradient into zeros (``scatter``: one target a
+    row, so nothing accumulates; ``gather``'s own backward is a
+    ``scatter_add``)."""
+
+    @staticmethod
+    def forward(ctx, lg, tgt):
+        ctx.save_for_backward(tgt)
+        ctx.like = (lg.shape, lg.dtype)
+        return torch.take_along_dim(lg, tgt[..., None], dim=-1)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tgt,) = ctx.saved_tensors
+        shape, dtype = ctx.like
+        out = torch.zeros(shape, dtype=dtype, device=g.device)
+        return out.scatter_(-1, tgt[..., None], g[..., None].to(dtype)), None
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
+           ) -> torch.Tensor:
+    """``embed[tokens]`` in the model's dtype. Under grad the lookup is
+    K1's pack and its backward K2's fold of the rows into their tokens
+    over sorted maps made on the device — the embedding's gradient in a
+    fixed order, no atomics."""
+    emb = params["embed"]
+    if not (torch.is_grad_enabled() and emb.requires_grad):
+        return emb[tokens.long()].to(_dtype(cfg))
+    idx = tokens.reshape(1, -1).to(torch.int32)
+    rows = pack_rows_op(emb[None], idx, maps=sorted_scatter_maps(idx))
+    return rows.reshape(tuple(tokens.shape) + (emb.shape[1],)).to(_dtype(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +276,16 @@ def forward(params: dict, cfg: ModelConfig, dist,
     _check(cfg, dist)
     tokens = batch["tokens"] if dist is None else \
         dist.local_batch(batch["tokens"])
-    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    x = _embed(params, tokens, cfg)
     x = shard(x, dist, _bspec(dist))
-    for i in range(cfg.n_layers):
-        x = _block_apply(_layer(params["layers"], i), x, cfg, dist)
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        if cfg.remat and _needs_grad(lp, x):
+            # the reference's jax.checkpoint around each block; a block
+            # draws no random numbers, so no RNG state is kept for it
+            x = checkpoint(_block_apply, lp, x, cfg, dist,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block_apply(lp, x, cfg, dist)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
     return shard(logits, dist, None if dist is None else
@@ -220,7 +302,7 @@ def lm_loss(params: dict, cfg: ModelConfig, dist,
     tgt = tokens[:, 1:]
     lg = logits[:, :-1].to(torch.float32)
     logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.take_along_dim(lg, tgt[..., None], dim=-1)[..., 0]
+    gold = _Pick.apply(lg, tgt)
     return (logz - gold).mean()
 
 
@@ -265,8 +347,7 @@ def decode_step(params: dict, cfg: ModelConfig, dist,
         token, ck, cv = token[lo:hi], ck[:, lo:hi], cv[:, lo:hi]
     h = params["embed"][token.long()].to(_dtype(cfg))
     h = shard(h, dist, _bspec(dist))
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
         att, _ = attention_decode(
             lp["attn"], hn, KVCache(ck[i], cv[i], cache.length),

@@ -41,11 +41,15 @@ class AdamWConfig:
     schedule: str = "cosine"  # cosine | linear | constant
 
 
-def _leaves(tree: Any) -> List[torch.Tensor]:
+def _leaves(tree: Any, is_leaf: Callable[[Any], bool] = None) -> List[Any]:
+    """The leaves of ``tree`` in flattening order; a node for which
+    ``is_leaf`` holds is one leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+        return [x for k in sorted(tree) for x in _leaves(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in _leaves(t)]
+        return [x for t in tree for x in _leaves(t, is_leaf)]
     return [tree]
 
 

@@ -1,8 +1,8 @@
-"""Training-side policy on the port: the elastic controller.
-
-``MeshPlan``, ``propose_mesh`` and ``ElasticController`` (port of
-``repro/train/elastic.py``). The trainer and its steps are ROADMAP item
-17.
+"""Training on the port: the elastic controller (``MeshPlan``,
+``propose_mesh``, ``ElasticController``; port of ``repro/train/
+elastic.py``), the LM's steps (``train.steps``: ``make_train_step``,
+``make_prefill_step``, ``make_decode_step``) and the fault-tolerant loop
+(``train.trainer``: ``TrainerConfig``, ``Trainer``).
 """
 from .elastic import ElasticController, MeshPlan, propose_mesh
 

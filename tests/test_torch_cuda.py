@@ -887,6 +887,104 @@ def test_rmsnorm_kernel_strided_x():
                                              round_before_gain=True))
 
 
+# K6's backward: rows around the 8-row blocks of its dg partials, up to
+# 4096 (the LM steps' 1024 and 2048 rows included); the smollm and OLMoE
+# widths and a narrow one
+RMS_BWD_ROWS = [1, 3, 8, 9, 130, 1024, 4096]
+
+
+@requires_cuda
+@pytest.mark.parametrize("rows", RMS_BWD_ROWS)
+@pytest.mark.parametrize("d", [64, 576, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("round_before_gain", [False, True])
+def test_rmsnorm_bwd_kernel_matches_plain(rows, d, dtype, round_before_gain):
+    rng = np.random.default_rng(rows * d)
+    x, dy = (_cuda(rng.standard_normal((rows, d)).astype(np.float32)).to(
+        dtype) for _ in range(2))
+    g = _cuda(rng.standard_normal(d).astype(np.float32)).to(dtype)
+    before = launch_counts()["rmsnorm_bwd"]
+    dx, dg = K6.rmsnorm_bwd_cuda(x, g, dy, 1e-5,
+                                 round_before_gain=round_before_gain)
+    torch.cuda.synchronize()
+    assert launch_counts()["rmsnorm_bwd"] == before + 1
+    assert dx.dtype == dtype and dg.dtype == dtype
+    # the plain version repeats the kernel's chain: the same bits, and a
+    # second launch gives them again (no atomics)
+    pdx, pdg = K6.rmsnorm_bwd_plain(x, g, dy, 1e-5,
+                                    round_before_gain=round_before_gain)
+    assert torch.equal(dx, pdx) and torch.equal(dg, pdg)
+    dx2, dg2 = K6.rmsnorm_bwd_cuda(x, g, dy, 1e-5,
+                                   round_before_gain=round_before_gain)
+    assert torch.equal(dx2, dx) and torch.equal(dg2, dg)
+
+
+@requires_cuda
+def test_rmsnorm_bwd_kernel_odd_operands():
+    """A width off the 16-byte path, a strided dy, a 3-d x: the plain
+    version's bits; float64 and widths past the kernel's raise."""
+    x = torch.randn((2, 5, 50), device="cuda")
+    g = torch.randn(50, device="cuda")
+    dy = torch.randn((2, 50, 5), device="cuda").transpose(1, 2)
+    assert not dy.is_contiguous()
+    dx, dg = K6.rmsnorm_bwd_cuda(x, g, dy, round_before_gain=True)
+    pdx, pdg = K6.rmsnorm_bwd_plain(x, g, dy, round_before_gain=True)
+    assert dx.shape == x.shape
+    assert torch.equal(dx, pdx) and torch.equal(dg, pdg)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K6.rmsnorm_bwd_cuda(x.double(), g.double(), dy.double())
+    big = torch.randn((2, K6.BWD_MAX_D + 8), device="cuda")
+    with pytest.raises(ValueError, match="D <="):
+        K6.rmsnorm_bwd_cuda(big, big[0], big)
+
+
+@requires_cuda
+@pytest.mark.parametrize("d", [12_272, 12_280, K6.BWD_MAX_D])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel_at_its_widest(d, dtype):
+    """Widths up to BWD_MAX_D, where the block's shared memory passes the
+    48 KB default (from D = 12,280 on): the plain version's bits."""
+    rng = np.random.default_rng(d)
+    x, dy = (_cuda(rng.standard_normal((19, d)).astype(np.float32)).to(
+        dtype) for _ in range(2))
+    g = _cuda(rng.standard_normal(d).astype(np.float32)).to(dtype)
+    dx, dg = K6.rmsnorm_bwd_cuda(x, g, dy, 1e-5, round_before_gain=True)
+    pdx, pdg = K6.rmsnorm_bwd_plain(x, g, dy, 1e-5, round_before_gain=True)
+    assert torch.equal(dx, pdx) and torch.equal(dg, pdg)
+
+
+@requires_cuda
+def test_lm_loss_backward_on_the_card_runs_k6_backward():
+    """olmoe-smoke (float32) on the (data 2, model 4) grid: lm_loss's
+    grads on the card launch K6's backward 2·L + 1 times, reach every
+    leaf, and equal the CPU's plain run within 1e-4; two backward runs
+    give the same bits."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.context import make_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.train.steps import loss_and_grads
+
+    cfg = get_smoke_config("olmoe-1b-7b")
+    dist = make_context(make_mesh((2, 4), ("data", "model")))
+    cpu = TT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = TT._tree_map(lambda t: t.cuda(), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 16)).astype(np.int32))
+    before = launch_counts()["rmsnorm_bwd"]
+    loss, grads = loss_and_grads(card, cfg, dist, {"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    assert launch_counts()["rmsnorm_bwd"] == before + 2 * cfg.n_layers + 1
+    _, again = loss_and_grads(card, cfg, dist, {"tokens": toks.cuda()})
+    want_loss, want = loss_and_grads(cpu, cfg, dist, {"tokens": toks})
+    torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-5, atol=1e-5)
+    for got, ref, rep in zip(_leaves(grads), _leaves(want), _leaves(again)):
+        assert bool(got.abs().sum() > 0)
+        assert torch.equal(got, rep)
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
 @requires_cuda
 def test_raw_stream_handle_is_the_current_stream():
     from repro_torch.kernels import build
