@@ -256,7 +256,12 @@ handle. Phases, each of which raises on a failed check:
    at 10, 20 and 30; the step-30 checkpoint deleted, the run resumed
    from 20 to 30 ends ``torch.equal`` to the uninterrupted run; a step
    timed forward / backward / update; the watchdog's events and peak
-   memory.
+   memory; one more step's K1 / K2 / K6 / K6-backward calls recorded and
+   replayed (path ``train_smollm``, 2048 rows of 576). On every train
+   path K6 and its backward also give their profiler busy time, each
+   kernel of the backward pair by its own name, and the replays hold the
+   forward's saved r (y unchanged, r the plain version's) and the
+   backward with and without it.
 
 It prints the card's name and power limit, then one JSON line of kernel
 rows, then ``{"ok": true, "device": {...}}`` as its last line. Without a
@@ -270,6 +275,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -530,6 +536,14 @@ KERNELS = {
 }
 
 
+# the kernels whose profiler busy time a row reports: {kernel row: the
+# substrings of its device kernels' names}. K6's backward is a pair (its
+# rows, then the fold of the dg partials); "rmsnorm_kernel" names no
+# backward kernel.
+BUSY_KERNELS = {"rmsnorm": ("rmsnorm_kernel",),
+                "rmsnorm_bwd": ("rmsnorm_bwd", "rmsnorm_dg")}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -598,18 +612,32 @@ def host_us_per_launch(runs, n: int = 200) -> float:
     return wall / n * 1e6
 
 
-def kernel_busy_ms(fns, key: str, reps: int = 5, sessions: int = 3) -> float:
-    """Device time of the kernels named ``*key*`` under torch.profiler,
-    per pass over ``fns`` (each one launch of the kernel, called ``reps``
-    times): the kernel's own time, without the host time between launches
-    that CUDA events count. A profiler session can lose its device records
-    (all of them, in a short session), so a session counts only when it
-    saw every launch; up to ``sessions`` are tried, each four times as long
-    as the one before, before this fails."""
+def _kernel_base(key: str) -> str:
+    """A profiler kernel key's function name without namespace, template
+    arguments or parameters (``void ns::k<..>(..)`` -> ``k``)."""
+    m = re.search(r"(\w+)(?:<|\()", key)
+    return m.group(1) if m else key
+
+
+def kernel_busy_ms(fns, keys, reps: int = 5, sessions: int = 4):
+    """Device time of the kernels whose names hold one of ``keys``, under
+    torch.profiler, per pass over ``fns`` (each one call that launches
+    each of those kernels once, called ``reps`` times): ({kernel: ms},
+    the share of the launches whose records the counted session kept).
+    One entry per kernel function, the kernel's own time, without the
+    host time between launches that CUDA events count. A profiler session
+    can lose device records (all of them, or a share: 10 of 25, 0 of 100
+    and 367 of 400 in three sessions of one run of this script), so a
+    session counts when it saw every launch of every kernel; up to
+    ``sessions`` are tried, each four times as long as the one before.
+    Each key names one kernel function. When no session saw every launch,
+    the most complete one counts if it kept at least half of each
+    kernel's launches: each kernel's mean over the records it kept, times
+    its launches in a pass. Otherwise this fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    seen = []
+    seen, best = [], None
     for attempt in range(sessions):
         if attempt:
             reps *= 4
@@ -621,15 +649,32 @@ def kernel_busy_ms(fns, key: str, reps: int = 5, sessions: int = 3) -> float:
                 for fn in fns:
                     fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and key in e.key]
-        count = sum(e.count for e in events)
-        us = sum(e.self_device_time_total for e in events)
-        if count == want and us > 0:
-            return us / 1e3 / reps
-        seen.append(f"{count} of {want}")
-        log(f"profiler session {attempt + 1} saw {seen[-1]} {key} launches")
-    raise AssertionError(f"the profiler saw {', '.join(seen)} {key} "
+        by = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and any(
+                    k in e.key for k in keys):
+                n, us = by.get(_kernel_base(e.key), (0, 0.0))
+                by[_kernel_base(e.key)] = (n + e.count,
+                                           us + e.self_device_time_total)
+        # one kernel function a key, each at most once a call, each with a
+        # record of its own time
+        kept = min((n for n, _ in by.values()), default=0) / want
+        if len(by) == len(keys) and all(
+                n <= want and us > 0 for n, us in by.values()) and (
+                best is None or kept > best[0]):
+            best = (kept, {k: us / n * len(fns) / 1e3
+                           for k, (n, us) in sorted(by.items())})
+        if best is not None and best[0] == 1.0:
+            return best[1], 1.0
+        seen.append(f"{ {k: n for k, (n, _) in by.items()} } of {want}")
+        log(f"profiler session {attempt + 1} saw {seen[-1]} {keys} "
+            f"launches")
+    if best is not None and best[0] >= 0.5:
+        log(f"profiler: no session saw every {keys} launch; the mean over "
+            f"the records of the most complete one ({best[0]:.3f} of its "
+            f"launches) counts")
+        return best[1], best[0]
+    raise AssertionError(f"the profiler saw {', '.join(seen)} {keys} "
                          f"launches in {sessions} sessions")
 
 
@@ -693,7 +738,9 @@ def record_kernel_calls(fn, host: bool = False):
         def recorded(*args, **kwargs):
             calls[kernel].append((
                 [keep(a) if isinstance(a, torch.Tensor) else a
-                 for a in args], dict(kwargs)))
+                 for a in args],
+                {k: keep(a) if isinstance(a, torch.Tensor) else a
+                 for k, a in kwargs.items()}))
             return orig(*args, **kwargs)
         return recorded
 
@@ -901,23 +948,41 @@ def replay_call(name, args, kw):
         out = k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg)
         ref = k6.rmsnorm_plain(x, g, eps, round_before_gain=rbg)
         oracle = check_rmsnorm(out, ref, x, g, eps, rbg)
-        run = lambda: k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg)  # noqa: E731,E501
-        plain = lambda: k6.rmsnorm_plain(x, g, eps, round_before_gain=rbg)  # noqa: E731,E501
+        # under grad the call also writes r for the backward: y the same
+        # bits as without, r the plain version's
+        opt = {"return_r": True} if kw.get("return_r") else {}
+        if opt:
+            y, r = k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg, **opt)
+            _, pr = k6.rmsnorm_plain(x, g, eps, round_before_gain=rbg, **opt)
+            if not (torch.equal(y, out) and torch.equal(r, pr)):
+                raise AssertionError("rmsnorm kernel writing r: y or r != "
+                                     "the launch without r / the plain r")
+        run = lambda: k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg, **opt)  # noqa: E731,E501
+        plain = lambda: k6.rmsnorm_plain(x, g, eps, round_before_gain=rbg, **opt)  # noqa: E731,E501
         lib = lambda: F.rms_norm(x, (x.shape[-1],), weight=g, eps=eps)  # noqa: E731,E501
         es = x.element_size()
-        nbytes = 2 * x.numel() * es + g.numel() * es  # read x, g; write y
+        # read x, g; write y (and r, one float32 a row)
+        nbytes = 2 * x.numel() * es + g.numel() * es + (
+            x.numel() // x.shape[-1] * 4 if opt else 0)
         flops = 4.0 * x.numel()  # square-add, scale, gain (+ rounding)
     elif name == "rmsnorm_bwd":
         x, g, dy, eps = args
         rbg = kw["round_before_gain"]
+        # the forward's saved r, as the main path passes it
+        opt = {"r": kw["r"]} if kw.get("r") is not None else {}
         out = torch.cat([t.reshape(-1) for t in k6.rmsnorm_bwd_cuda(
-            x, g, dy, eps, round_before_gain=rbg)])
+            x, g, dy, eps, round_before_gain=rbg, **opt)])
         ref = torch.cat([t.reshape(-1) for t in k6.rmsnorm_bwd_plain(
-            x, g, dy, eps, round_before_gain=rbg)])
+            x, g, dy, eps, round_before_gain=rbg, **opt)])
         if not torch.equal(out, ref):  # one chain, fixed fold orders
             raise AssertionError("rmsnorm_bwd kernel != plain version")
-        run = lambda: k6.rmsnorm_bwd_cuda(x, g, dy, eps, round_before_gain=rbg)  # noqa: E731,E501
-        plain = lambda: k6.rmsnorm_bwd_plain(x, g, dy, eps, round_before_gain=rbg)  # noqa: E731,E501
+        if opt and not torch.equal(out, torch.cat([
+                t.reshape(-1) for t in k6.rmsnorm_bwd_cuda(
+                    x, g, dy, eps, round_before_gain=rbg)])):
+            raise AssertionError("rmsnorm_bwd kernel: the saved r and r "
+                                 "formed in the forward's chain differ")
+        run = lambda: k6.rmsnorm_bwd_cuda(x, g, dy, eps, round_before_gain=rbg, **opt)  # noqa: E731,E501
+        plain = lambda: k6.rmsnorm_bwd_plain(x, g, dy, eps, round_before_gain=rbg, **opt)  # noqa: E731,E501
         # the library's RMSNorm backward alone: F.rms_norm's graph built
         # once, each call one autograd backward through it
         xl = x.detach().requires_grad_(True)
@@ -925,8 +990,10 @@ def replay_call(name, args, kw):
         yl = F.rms_norm(xl, (x.shape[-1],), weight=gl, eps=eps)
         lib = lambda: torch.autograd.grad(yl, (xl, gl), dy, retain_graph=True)  # noqa: E731,E501
         es = x.element_size()
-        # read x, dy, g; write dx, dg (the float32 partials are scratch)
-        nbytes = 3 * x.numel() * es + 2 * g.numel() * es
+        # read x, dy, g (and r); write dx, dg (the float32 partials are
+        # scratch)
+        nbytes = 3 * x.numel() * es + 2 * g.numel() * es + (
+            x.numel() // x.shape[-1] * 4 if opt else 0)
         flops = 10.0 * x.numel()
     elif name == "bsr_sddmm":
         cols, blocks, x3, y3 = args
@@ -1026,9 +1093,10 @@ class KernelTally:
         self.by[b_by] += b_ms
 
     def row(self, launches, busy: bool = True):
-        """The kernel's JSON row; ``busy=False`` leaves out K6's profiler
-        busy times (phase 10's streamed calls: in one run the profiler
-        missed 7 of their K6 records in each of three sessions)."""
+        """The kernel's JSON row; ``busy=False`` leaves out the profiler
+        busy times of K6 and its backward (``BUSY_KERNELS``; phase 10's
+        streamed calls: in one run the profiler missed 7 of their K6
+        records in each of three sessions)."""
         name, runs = self.name, list(self.runs)
         if not self.n:
             raise AssertionError(f"{name}: no call recorded on the main path")
@@ -1045,13 +1113,20 @@ class KernelTally:
             row["pack_plus_multiply_ms"] = self.pair_ms
         if name == "rmsnorm":
             row["max_abs_err_vs_oracle"] = self.oracle_err
-        if name == "rmsnorm" and busy:
-            row["kernel_busy_ms"] = kernel_busy_ms(runs, "rmsnorm_kernel")
+        if name in BUSY_KERNELS and busy:
+            # each kernel of the call by its own name, and their sum
+            by, kept = kernel_busy_ms(runs, BUSY_KERNELS[name])
+            row["kernel_busy_ms"] = sum(by.values())
+            row["kernel_busy_ms_by_kernel"] = by
+            row["kernel_busy_calls"] = len(runs)  # the last <= 8 calls
             # the same launches all on the last call's input, which then
             # stays in L2: the busy time before each call's replay kept its
             # own input
-            row["kernel_busy_ms_one_input"] = kernel_busy_ms(
-                [runs[-1]] * len(runs), "rmsnorm_kernel")
+            one, kept_one = kernel_busy_ms([runs[-1]] * len(runs),
+                                           BUSY_KERNELS[name])
+            row["kernel_busy_ms_one_input"] = sum(one.values())
+            # below 1 where no profiler session kept every record
+            row["kernel_busy_records_kept"] = [kept, kept_one]
         return row
 
 
@@ -1062,7 +1137,8 @@ def kernel_row(name, calls, launches, busy: bool = True):
     tally = KernelTally(name, keep=8)
     for args, kw in calls:
         tally.add([a.back() if isinstance(a, _OnHost) else a for a in args],
-                  kw)
+                  {k: a.back() if isinstance(a, _OnHost) else a
+                   for k, a in kw.items()})
     return tally.row(launches, busy)
 
 
@@ -1087,8 +1163,11 @@ def kernel_summary(name: str, per_path: dict, card: str) -> dict:
             + (f"; library = index_select + mul; the former K1 pack + "
                f"multiply {r['pack_plus_multiply_ms']:.4f} ms"
                if "pack_plus_multiply_ms" in r else "")
-            + (f" (vs the oracle {r['max_abs_err_vs_oracle']:.3g}); kernels "
-               f"busy {r['kernel_busy_ms']:.4f} ms (torch.profiler; "
+            + (f" (vs the oracle {r['max_abs_err_vs_oracle']:.3g})"
+               if "max_abs_err_vs_oracle" in r else "")
+            + (f"; kernels busy {r['kernel_busy_ms']:.4f} ms over its last "
+               f"{r['kernel_busy_calls']} calls (torch.profiler; "
+               f"{json.dumps(r['kernel_busy_ms_by_kernel'])}; "
                f"{r['kernel_busy_ms_one_input']:.4f} ms with the last "
                f"call's input in every launch)"
                if "kernel_busy_ms" in r else ""))
@@ -1100,7 +1179,9 @@ def kernel_summary(name: str, per_path: dict, card: str) -> dict:
             "bound_ms", "bound_by", "library_ms", "host_us_per_launch",
             "launches_per_worker",
             "pack_plus_multiply_ms", "max_abs_err_vs_oracle",
-            "kernel_busy_ms", "kernel_busy_ms_one_input") if key in r}
+            "kernel_busy_ms", "kernel_busy_ms_by_kernel", "kernel_busy_calls",
+            "kernel_busy_ms_one_input", "kernel_busy_records_kept")
+            if key in r}
         for path, r in per_path.items()}
     return row
 
@@ -5224,6 +5305,7 @@ def train_lm_phase(args, card: str, dev: str = "cuda") -> dict:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.distributed.context import make_context
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as TT
     from repro_torch.train.steps import loss_and_grads
@@ -5296,6 +5378,13 @@ def train_lm_phase(args, card: str, dev: str = "cuda") -> dict:
         f"ms; {sbatch['tokens'].numel() / med['wall'] * 1e3:.1f} tokens/s; "
         f"peak device memory {peak_allocated() / 2 ** 30:.2f} GiB; phase "
         f"13b {time.perf_counter() - t0:.1f} s")
+    # one more step, counted from 0, its kernel calls recorded (path
+    # train_smollm: 2048 rows of 576)
+    ops.reset_launch_counts()
+    smollm_calls = record_kernel_calls(lambda: split_train_step(
+        scfg, None, AdamWConfig(), p, st, sbatch), host=True)
+    smollm_n = ops.launch_counts()
+    log(f"smollm-train: one step's launches {json.dumps(smollm_n)}")
     del whole, p, st
     gc.collect()
     torch.cuda.empty_cache()
@@ -5303,20 +5392,27 @@ def train_lm_phase(args, card: str, dev: str = "cuda") -> dict:
     # every recorded call against its plain version; launches: the 5
     # counted steps' (the replays are not counted)
     rows = {}
-    for path, calls, n in (("train_dense", dense_calls, dense_n),
-                           ("train_ep", ep_calls, ep_n)):
+    paths = (("train_dense", dense_calls, dense_n),
+             ("train_ep", ep_calls, ep_n),
+             ("train_smollm", smollm_calls, smollm_n))
+    for path, calls, n in paths:
         for k, c in calls.items():
             if c:
-                rows.setdefault(k, {})[path] = kernel_row(k, c, n[k],
-                                                          busy=False)
-    del dense_calls, ep_calls
+                rows.setdefault(k, {})[path] = kernel_row(k, c, n[k])
+    del dense_calls, ep_calls, smollm_calls
     for k in ("rmsnorm", "rmsnorm_bwd"):
-        r = rows[k]["train_dense"]
-        log(f"K6 {'backward' if k.endswith('bwd') else 'forward'} on "
-            f"train_dense [{card}]: {r['ms']:.4f} ms a step over "
-            f"{r['calls_per_h']} calls, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), library ({'F.rms_norm autograd backward' if k.endswith('bwd') else 'F.rms_norm'}) "
-            f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        for path, _, _ in paths:
+            r = rows[k][path]
+            log(f"K6 {'backward' if k.endswith('bwd') else 'forward'} on "
+                f"{path} [{card}]: {r['ms']:.4f} ms a step over "
+                f"{r['calls_per_h']} calls, busy "
+                f"{r['kernel_busy_ms'] / r['kernel_busy_calls']:.5f} ms a "
+                f"call {json.dumps(r['kernel_busy_ms_by_kernel'])} over "
+                f"{r['kernel_busy_calls']}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+                f"({'F.rms_norm autograd backward' if k.endswith('bwd') else 'F.rms_norm'}) "
+                f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"host {r['host_us_per_launch']:.2f} us a call")
     log(f"phase 13 LM training: {time.perf_counter() - t_phase:.1f} s")
     return rows
 

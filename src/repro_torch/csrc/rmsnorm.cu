@@ -32,7 +32,9 @@
 // forms r, and the row is read again, scaled, multiplied by the gain and
 // stored with 16-byte stores. A row whose width or pointers do not allow
 // 16-byte access takes the same elements in the same order, one at a time.
-// Making it fast (several rows per block for decode's 8-row batches, fusing
+// Under grad thread 0 also stores r, one float32 a row, where a pointer is
+// passed (the backward reads it instead of summing the squares again);
+// with no output pointer the kernel stops there. Making it fast (several rows per block for decode's 8-row batches, fusing
 // the residual add) is later work.
 #include "common.cuh"
 
@@ -84,7 +86,7 @@ __device__ __forceinline__ void store_from_f32(T* __restrict__ p, long long j, l
 template <typename T, bool kVecIO, bool kRoundBeforeGain>
 __global__ void __launch_bounds__(kRmsThreads)
     rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ y,
-                   long long D, float eps) {
+                   float* __restrict__ r_out, long long D, float eps) {
   constexpr int N = Vec16<T>::N;
   const T* xr = x + (long long)blockIdx.x * D;
   T* yr = y + (long long)blockIdx.x * D;
@@ -110,8 +112,10 @@ __global__ void __launch_bounds__(kRmsThreads)
 #pragma unroll
     for (int w = 0; w < kRmsThreads / 32; ++w) total = __fadd_rn(total, warp_ss[w]);
     r_shared = __frsqrt_rn(__fadd_rn(__fdiv_rn(total, (float)D), eps));
+    if (r_out != nullptr) r_out[blockIdx.x] = r_shared;  // under grad: for the backward
   }
   __syncthreads();
+  if (y == nullptr) return;  // r alone (the backward's, when none was saved)
   const float r = r_shared;
 
   for (long long j = (long long)threadIdx.x * N; j < D; j += step) {
@@ -129,17 +133,17 @@ __global__ void __launch_bounds__(kRmsThreads)
 }
 
 template <typename T, bool kRoundBeforeGain>
-int launch_rmsnorm(const void* x, const void* g, void* y, long long rows, long long D, float eps,
-                   cudaStream_t st) {
+int launch_rmsnorm(const void* x, const void* g, void* y, float* r, long long rows, long long D,
+                   float eps, cudaStream_t st) {
   constexpr int N = Vec16<T>::N;
   const bool vec = D % N == 0 && ((uintptr_t)x | (uintptr_t)g | (uintptr_t)y) % 16 == 0;
   const dim3 grid((unsigned)rows), block(kRmsThreads);
   if (vec) {
     rmsnorm_kernel<T, true, kRoundBeforeGain>
-        <<<grid, block, 0, st>>>((const T*)x, (const T*)g, (T*)y, D, eps);
+        <<<grid, block, 0, st>>>((const T*)x, (const T*)g, (T*)y, r, D, eps);
   } else {
     rmsnorm_kernel<T, false, kRoundBeforeGain>
-        <<<grid, block, 0, st>>>((const T*)x, (const T*)g, (T*)y, D, eps);
+        <<<grid, block, 0, st>>>((const T*)x, (const T*)g, (T*)y, r, D, eps);
   }
   return (int)cudaGetLastError();
 }
@@ -147,59 +151,227 @@ int launch_rmsnorm(const void* x, const void* g, void* y, long long rows, long l
 
 // ---------------------------------------------------------------------------
 // The backward (no TPU kernel: the reference differentiates its jnp
-// rms_norm, models/layers.py:26-28, through XLA). Given dy, with
-// r = rsqrt(mean(x²) + eps) formed by the forward's chain and xn = x·r
-// (rounded to T first when kRoundBeforeGain):
+// rms_norm, models/layers.py:26-28, through XLA). Given dy and the
+// forward's r = rsqrt(mean(x²) + eps) (one float32 a row, written by the
+// forward under grad; formed here by the forward's kernel when not
+// passed), with xn = x·r (rounded to T first when kRoundBeforeGain):
 //   dg = Σ_rows dy·xn,   dxn = dy·g,   dx = r·dxn − x·r³·(Σ_d dxn·x)/D,
-// every product and sum float32 and explicitly rounded, dx rounded once to
-// T. One 256-thread block takes a fixed block of kBwdRows rows, one row
-// after another, with the forward's element layout (thread t takes the
-// elements s·256·N + t·N + i), so r and each row's Σ dxn·x fold in the
-// forward's order. dg needs no atomics: each thread adds dy·xn of its own
-// columns for the block's rows in ascending row order into shared memory
-// it alone touches, the block writes them as one float32 partial row, and
-// a second launch folds the partial rows in ascending block order. Two
-// runs give the same bits; kernels/rmsnorm.py's rmsnorm_bwd_plain repeats
-// the chain.
+// every product and sum float32 and explicitly rounded, dx rounded once
+// to T. kernels/rmsnorm.py's rmsnorm_bwd_plain repeats the chain.
 //
-// Bound on the card: memory bytes — x and dy read, dx written, the float32
-// partials written and read once (D·4 bytes per kBwdRows rows), ~10
-// operations an element.
-constexpr int kBwdRows = 8;
+// Bound on the card: memory bytes — x and dy read once, dx written once,
+// g, r and dg; ~10 operations an element, far below the ridge. So the
+// design reads each byte once and keeps many bytes in flight:
+//
+// * Rows in parallel. A row belongs to a group of kLanes lanes (a power
+//   of two from 32 to 256, the smallest whose lanes hold the row in at
+//   most kBwdHeld 16-byte chunks each); a 256-thread block runs 256 /
+//   kLanes rows at once over a contiguous chunk of rows, a multiple of
+//   the groups. Lane l owns chunks c = 0, 1, …: elements (c·kLanes + l)·N
+//   + i, the same columns in every row, so its slice of g and its dg
+//   sums stay in registers.
+// * One read. A row's x and dy are loaded once, 16 bytes a load, into
+//   registers (the next row's loads issued before this row's folds), and
+//   serve both the Σ dxn·x pass and the dx pass.
+// * Folds. Σ dxn·x: each lane adds its elements in (c, i) order, xor
+//   butterflies fold the warp, and the group's warps add in order from 0
+//   through shared memory. dg: each lane adds its rows in ascending order
+//   (one accumulator per column it owns), the groups' sums are added in
+//   ascending group order into one float32 partial row per block, and a
+//   second launch folds the partial rows in ascending block order, a
+//   thread a column, from tiles of partial rows that a block loads at
+//   once into shared memory. No atomics: the same bits every run.
+// * The grid: rows / 132 rows a block, rounded up to the groups (a
+//   partial row a block, so about one block per SM: more blocks write
+//   and fold more partial rows, fewer stream fewer bytes at once).
+// * Widths past what the lanes hold (more than 256 · kBwdHeld chunks:
+//   bfloat16 D > 8192, float32 D > 4096) take rmsnorm_bwd_wide_kernel:
+//   one row at a time on the 256 lanes with the same element layout,
+//   the dg sums in shared memory, x and dy read again from L2 for dx.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdHeld = 4;    // 16-byte chunks of a row a lane holds
+constexpr int kDgThreads = 256;  // the dg fold's block
+constexpr int kDgCols = 32;      // columns a fold block takes
+constexpr int kDgRows = 128;     // partial rows a fold block loads at once
 
-// The forward's fold of one value per thread: xor butterflies within each
-// warp, then the 8 warp sums added in order by thread 0; every thread gets
-// the total.
-__device__ __forceinline__ float block_sum_256(float v, float* warp_buf, float* out) {
+// 16 bytes of a row, raw, from element j on: one load where the row
+// allows it, else one element at a time, zeros past the row's end.
+template <typename T, bool kVecIO>
+__device__ __forceinline__ uint4 load_raw(const T* __restrict__ p, long long j, long long D) {
+  constexpr int N = Vec16<T>::N;
+  if constexpr (kVecIO) {
+    if (j < D) return *reinterpret_cast<const uint4*>(p + j);
+    return make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_buf[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kRmsThreads / 32; ++w) total = __fadd_rn(total, warp_buf[w]);
-    *out = total;
+    for (int i = 0; i < N; ++i) e[i] = j + i < D ? p[j + i] : from_f32<T>(0.0f);
+    return raw;
   }
-  __syncthreads();
-  const float total = *out;
-  __syncthreads();  // warp_buf and *out are reused by the next fold
-  return total;
 }
 
-template <typename T, bool kVecIO, bool kRoundBeforeGain>
-__global__ void __launch_bounds__(kRmsThreads)
-    rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ dy,
-                       T* __restrict__ dx, float* __restrict__ partial, long long rows,
-                       long long D, float eps) {
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& raw, int i) {
+  return to_f32(reinterpret_cast<const T*>(&raw)[i]);
+}
+
+// One row's Σ dxn·x from the lanes' sums: xor butterflies in each warp,
+// then (kWarps > 1) the group's warp sums added in order from 0 through
+// buf (alternate buffers on alternate calls: one barrier a call). Every
+// thread of the block must call it.
+template <int kWarps>
+__device__ __forceinline__ float group_sum(float v, float* buf) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if constexpr (kWarps == 1) {
+    return v;
+  } else {
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) buf[warp] = v;
+    __syncthreads();
+    const int lead = warp - warp % kWarps;
+    float total = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total = __fadd_rn(total, buf[lead + w]);
+    return total;
+  }
+}
+
+template <typename T, int kLanes, bool kVecIO, bool kRoundBeforeGain>
+__global__ void __launch_bounds__(kBwdThreads)
+    rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                            const T* __restrict__ dy, const float* __restrict__ r_row,
+                            T* __restrict__ dx, float* __restrict__ partial, long long rows,
+                            long long D, long long chunk) {
   constexpr int N = Vec16<T>::N;
-  extern __shared__ float dg_acc[];  // [D]: thread t owns its own columns
-  __shared__ float warp_buf[kRmsThreads / 32];
-  __shared__ float total_buf;
-  const long long step = (long long)kRmsThreads * N;
-  const long long first = (long long)blockIdx.x * kBwdRows;
-  const long long last = first + kBwdRows < rows ? first + kBwdRows : rows;
+  constexpr int C = kBwdHeld;
+  constexpr int kGroups = kBwdThreads / kLanes;
+  extern __shared__ float dg_groups[];  // [kGroups][D], when kGroups > 1
+  __shared__ float warp_buf[2][kBwdThreads / 32];
+  const int grp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const long long first = (long long)blockIdx.x * chunk;
+  const long long last = first + chunk < rows ? first + chunk : rows;
+
+  uint4 graw[C];
+  float acc[C][N];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    graw[c] = load_raw<T, kVecIO>(g, (long long)(c * kLanes + lane) * N, D);
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[c][i] = 0.0f;
+  }
+
+  uint4 xr[C], dyr[C];
+  long long row = first + grp;
+  if (row < last) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const long long j = (long long)(c * kLanes + lane) * N;
+      xr[c] = load_raw<T, kVecIO>(x + row * D, j, D);
+      dyr[c] = load_raw<T, kVecIO>(dy + row * D, j, D);
+    }
+  }
+  for (long long it = 0; first + it * kGroups < last; ++it, row += kGroups) {
+    const bool live = row < last;
+    // the next row's loads, ahead of this row's folds
+    uint4 xn_raw[C], dyn_raw[C];
+    const long long next = row + kGroups;
+    if (next < last) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const long long j = (long long)(c * kLanes + lane) * N;
+        xn_raw[c] = load_raw<T, kVecIO>(x + next * D, j, D);
+        dyn_raw[c] = load_raw<T, kVecIO>(dy + next * D, j, D);
+      }
+    }
+    float dot = 0.0f, r = 0.0f;
+    if (live) {
+      r = r_row[row];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if ((long long)(c * kLanes + lane) * N < D) {
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            const float dxn = __fmul_rn(elem<T>(dyr[c], i), elem<T>(graw[c], i));
+            dot = __fadd_rn(dot, __fmul_rn(dxn, elem<T>(xr[c], i)));
+          }
+        }
+      }
+    }
+    dot = group_sum<kLanes / 32>(dot, warp_buf[it & 1]);
+    if (live) {
+      const float cc = __fmul_rn(__fmul_rn(__fmul_rn(r, r), r), __fdiv_rn(dot, (float)D));
+      T* dxr = dx + row * D;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const long long j = (long long)(c * kLanes + lane) * N;
+        if (j < D) {
+          float o[N];
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            const float xv = elem<T>(xr[c], i), dv = elem<T>(dyr[c], i);
+            float xn = __fmul_rn(xv, r);
+            if constexpr (kRoundBeforeGain) xn = to_f32(from_f32<T>(xn));
+            acc[c][i] = __fadd_rn(acc[c][i], __fmul_rn(dv, xn));
+            o[i] = __fsub_rn(__fmul_rn(r, __fmul_rn(dv, elem<T>(graw[c], i))),
+                             __fmul_rn(xv, cc));
+          }
+          store_from_f32<T, N, kVecIO>(dxr, j, D, o);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      xr[c] = xn_raw[c];
+      dyr[c] = dyn_raw[c];
+    }
+  }
+
+  // the groups' sums in ascending group order: one partial row a block
+  float* pr = partial + (long long)blockIdx.x * D;
+  if constexpr (kGroups == 1) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const long long j = (long long)(c * kLanes + lane) * N;
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (j + i < D) pr[j + i] = __fadd_rn(0.0f, acc[c][i]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const long long j = (long long)(c * kLanes + lane) * N;
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (j + i < D) dg_groups[grp * D + j + i] = acc[c][i];
+    }
+    __syncthreads();
+    for (long long j = threadIdx.x; j < D; j += kBwdThreads) {
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kGroups; ++k) s = __fadd_rn(s, dg_groups[k * D + j]);
+      pr[j] = s;
+    }
+  }
+}
+
+// Widths past the held lanes: 256 lanes a row, one row after another, the
+// held kernel's element layout and chains (chunk c of lane l: elements
+// (c·256 + l)·N + i); each thread's dg sums in shared memory only it
+// touches; x, dy and g read again (from L2) for the dx pass.
+template <typename T, bool kVecIO, bool kRoundBeforeGain>
+__global__ void __launch_bounds__(kBwdThreads)
+    rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                            const T* __restrict__ dy, const float* __restrict__ r_row,
+                            T* __restrict__ dx, float* __restrict__ partial, long long rows,
+                            long long D, long long chunk) {
+  constexpr int N = Vec16<T>::N;
+  extern __shared__ float dg_acc[];  // [D]
+  __shared__ float warp_buf[2][kBwdThreads / 32];
+  const long long step = (long long)kBwdThreads * N;
+  const long long first = (long long)blockIdx.x * chunk;
+  const long long last = first + chunk < rows ? first + chunk : rows;
 
   for (long long j = (long long)threadIdx.x * N; j < D; j += step)
 #pragma unroll
@@ -209,44 +381,33 @@ __global__ void __launch_bounds__(kRmsThreads)
   for (long long row = first; row < last; ++row) {
     const T* xr = x + row * D;
     const T* dyr = dy + row * D;
-    T* dxr = dx + row * D;
-
-    float ss = 0.0f;
-    for (long long j = (long long)threadIdx.x * N; j < D; j += step) {
-      float v[N];
-      load_f32<T, N, kVecIO>(xr, j, D, v);
-#pragma unroll
-      for (int i = 0; i < N; ++i) ss = __fadd_rn(ss, __fmul_rn(v[i], v[i]));
-    }
-    const float total = block_sum_256(ss, warp_buf, &total_buf);
-    const float r = __frsqrt_rn(__fadd_rn(__fdiv_rn(total, (float)D), eps));
-
+    const float r = r_row[row];
     float dot = 0.0f;
     for (long long j = (long long)threadIdx.x * N; j < D; j += step) {
-      float v[N], gv[N], dv[N];
-      load_f32<T, N, kVecIO>(xr, j, D, v);
-      load_f32<T, N, kVecIO>(g, j, D, gv);
-      load_f32<T, N, kVecIO>(dyr, j, D, dv);
+      const uint4 xv = load_raw<T, kVecIO>(xr, j, D), dv = load_raw<T, kVecIO>(dyr, j, D),
+                  gv = load_raw<T, kVecIO>(g, j, D);
 #pragma unroll
       for (int i = 0; i < N; ++i) {
-        float xn = __fmul_rn(v[i], r);
-        if constexpr (kRoundBeforeGain) xn = to_f32(from_f32<T>(xn));
-        dot = __fadd_rn(dot, __fmul_rn(__fmul_rn(dv[i], gv[i]), v[i]));
-        if (j + i < D) dg_acc[j + i] = __fadd_rn(dg_acc[j + i], __fmul_rn(dv[i], xn));
+        const float dxn = __fmul_rn(elem<T>(dv, i), elem<T>(gv, i));
+        dot = __fadd_rn(dot, __fmul_rn(dxn, elem<T>(xv, i)));
       }
     }
-    const float dsum = block_sum_256(dot, warp_buf, &total_buf);
-    const float c = __fmul_rn(__fmul_rn(__fmul_rn(r, r), r), __fdiv_rn(dsum, (float)D));
-
+    dot = group_sum<kBwdThreads / 32>(dot, warp_buf[row & 1]);
+    const float cc = __fmul_rn(__fmul_rn(__fmul_rn(r, r), r), __fdiv_rn(dot, (float)D));
+    T* dxr = dx + row * D;
     for (long long j = (long long)threadIdx.x * N; j < D; j += step) {
-      float v[N], gv[N], dv[N];
-      load_f32<T, N, kVecIO>(xr, j, D, v);
-      load_f32<T, N, kVecIO>(g, j, D, gv);
-      load_f32<T, N, kVecIO>(dyr, j, D, dv);
+      const uint4 xv = load_raw<T, kVecIO>(xr, j, D), dv = load_raw<T, kVecIO>(dyr, j, D),
+                  gv = load_raw<T, kVecIO>(g, j, D);
+      float o[N];
 #pragma unroll
-      for (int i = 0; i < N; ++i)
-        v[i] = __fsub_rn(__fmul_rn(r, __fmul_rn(dv[i], gv[i])), __fmul_rn(v[i], c));
-      store_from_f32<T, N, kVecIO>(dxr, j, D, v);
+      for (int i = 0; i < N; ++i) {
+        const float xf = elem<T>(xv, i), df = elem<T>(dv, i);
+        float xn = __fmul_rn(xf, r);
+        if constexpr (kRoundBeforeGain) xn = to_f32(from_f32<T>(xn));
+        if (j + i < D) dg_acc[j + i] = __fadd_rn(dg_acc[j + i], __fmul_rn(df, xn));
+        o[i] = __fsub_rn(__fmul_rn(r, __fmul_rn(df, elem<T>(gv, i))), __fmul_rn(xf, cc));
+      }
+      store_from_f32<T, N, kVecIO>(dxr, j, D, o);
     }
   }
 
@@ -254,86 +415,176 @@ __global__ void __launch_bounds__(kRmsThreads)
   for (long long j = (long long)threadIdx.x * N; j < D; j += step)
 #pragma unroll
     for (int i = 0; i < N; ++i)
-      if (j + i < D) pr[j + i] = dg_acc[j + i];
+      if (j + i < D) pr[j + i] = __fadd_rn(0.0f, dg_acc[j + i]);
 }
 
 // dg[j] = 0 + partial[0, j] + partial[1, j] + …, in ascending block order.
+// A block takes kDgCols columns: its 256 threads load a tile of up to
+// kDgRows partial rows at once (a warp a row, 128 coalesced bytes), and
+// one thread a column adds the tile's rows in order from shared memory,
+// so the chain waits on one L2 round trip per tile, not per row.
 template <typename T>
-__global__ void rmsnorm_dg_fold_kernel(const float* __restrict__ partial, T* __restrict__ dg,
-                                       long long blocks, long long D) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= D) return;
+__global__ void __launch_bounds__(kDgThreads)
+    rmsnorm_bwd_dg_kernel(const float* __restrict__ partial, T* __restrict__ dg,
+                          long long blocks, long long D) {
+  __shared__ float tile[kDgRows][kDgCols];
+  const long long j0 = (long long)blockIdx.x * kDgCols;
+  const int col = threadIdx.x % kDgCols;
+  const long long j = j0 + col;
   float total = 0.0f;
-  for (long long b = 0; b < blocks; ++b) total = __fadd_rn(total, partial[b * D + j]);
-  dg[j] = from_f32<T>(total);
+  for (long long b0 = 0; b0 < blocks; b0 += kDgRows) {
+    for (int i = threadIdx.x / kDgCols; i < kDgRows; i += kDgThreads / kDgCols)
+      tile[i][col] = b0 + i < blocks && j < D ? __ldcg(partial + (b0 + i) * D + j) : 0.0f;
+    __syncthreads();
+    if (threadIdx.x < kDgCols) {
+      const int n = blocks - b0 < kDgRows ? (int)(blocks - b0) : kDgRows;
+#pragma unroll 8
+      for (int i = 0; i < n; ++i) total = __fadd_rn(total, tile[i][col]);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < kDgCols && j < D) dg[j] = from_f32<T>(total);
+}
+
+template <typename T, bool kVecIO, bool kRoundBeforeGain>
+int launch_bwd_rows(const T* x, const T* g, const T* dy, const float* r, T* dx, float* partial,
+                    long long rows, long long D, int lanes, long long chunk, long long blocks,
+                    cudaStream_t st) {
+  const dim3 grid((unsigned)blocks), block(kBwdThreads);
+  const size_t groups_smem = (size_t)(kBwdThreads / lanes) * D * sizeof(float);
+  switch (lanes) {
+    case 32:
+      rmsnorm_bwd_rows_kernel<T, 32, kVecIO, kRoundBeforeGain>
+          <<<grid, block, groups_smem, st>>>(x, g, dy, r, dx, partial, rows, D, chunk);
+      break;
+    case 64:
+      rmsnorm_bwd_rows_kernel<T, 64, kVecIO, kRoundBeforeGain>
+          <<<grid, block, groups_smem, st>>>(x, g, dy, r, dx, partial, rows, D, chunk);
+      break;
+    case 128:
+      rmsnorm_bwd_rows_kernel<T, 128, kVecIO, kRoundBeforeGain>
+          <<<grid, block, groups_smem, st>>>(x, g, dy, r, dx, partial, rows, D, chunk);
+      break;
+    case 256:
+      rmsnorm_bwd_rows_kernel<T, 256, kVecIO, kRoundBeforeGain>
+          <<<grid, block, 0, st>>>(x, g, dy, r, dx, partial, rows, D, chunk);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kVecIO, bool kRoundBeforeGain>
+int launch_bwd_wide(const T* x, const T* g, const T* dy, const float* r, T* dx, float* partial,
+                    long long rows, long long D, long long chunk, long long blocks,
+                    cudaStream_t st) {
+  auto kernel = rmsnorm_bwd_wide_kernel<T, kVecIO, kRoundBeforeGain>;
+  const size_t smem = (size_t)D * sizeof(float);
+  // past 48 KB of shared memory a block must opt in: dg_acc plus the
+  // static warp_buf (64 B) pass it from D = 12,273 on
+  if (smem > 47 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+    if (rc) return rc;
+  }
+  kernel<<<(unsigned)blocks, kBwdThreads, smem, st>>>(x, g, dy, r, dx, partial, rows, D, chunk);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool kRoundBeforeGain>
-int launch_rmsnorm_bwd(const void* x, const void* g, const void* dy, void* dx, float* partial,
-                       void* dg, long long rows, long long D, float eps, cudaStream_t st) {
+int launch_rmsnorm_bwd(const void* x_, const void* g_, const void* dy_, const float* r, void* dx_,
+                       void* dg, float* work, long long rows, long long D, int lanes,
+                       long long chunk, float eps, cudaStream_t st) {
   constexpr int N = Vec16<T>::N;
+  const T *x = (const T*)x_, *g = (const T*)g_, *dy = (const T*)dy_;
+  T* dx = (T*)dx_;
+  const long long blocks = ceil_div(rows, chunk);
+  float* partial = work;
+  int rc = 0;
+  if (r == nullptr) {  // r in the forward's chain, by the forward's kernel
+    float* r_work = work + blocks * D;
+    rc = launch_rmsnorm<T, kRoundBeforeGain>(x_, g_, nullptr, r_work, rows, D, eps, st);
+    if (rc) return rc;
+    r = r_work;
+  }
   const bool vec = D % N == 0 &&
                    ((uintptr_t)x | (uintptr_t)g | (uintptr_t)dy | (uintptr_t)dx) % 16 == 0;
-  const long long blocks = ceil_div(rows, kBwdRows);
-  const size_t smem = (size_t)D * sizeof(float);
-  const dim3 grid((unsigned)blocks), block(kRmsThreads);
-  auto kernel = vec ? rmsnorm_bwd_kernel<T, true, kRoundBeforeGain>
-                    : rmsnorm_bwd_kernel<T, false, kRoundBeforeGain>;
-  // past 48 KB of shared memory a block must opt in: dg_acc plus the
-  // static warp_buf / total_buf (36 B) pass it from D = 12,280 on
-  int rc = 0;
-  if (smem > 47 * 1024)
-    rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+  const bool held = ceil_div(ceil_div(D, N), lanes) <= kBwdHeld;
+  if (held) {
+    rc = vec ? launch_bwd_rows<T, true, kRoundBeforeGain>(x, g, dy, r, dx, partial, rows, D, lanes,
+                                                          chunk, blocks, st)
+             : launch_bwd_rows<T, false, kRoundBeforeGain>(x, g, dy, r, dx, partial, rows, D,
+                                                           lanes, chunk, blocks, st);
+  } else {
+    rc = vec ? launch_bwd_wide<T, true, kRoundBeforeGain>(x, g, dy, r, dx, partial, rows, D, chunk,
+                                                          blocks, st)
+             : launch_bwd_wide<T, false, kRoundBeforeGain>(x, g, dy, r, dx, partial, rows, D,
+                                                           chunk, blocks, st);
+  }
   if (rc) return rc;
-  kernel<<<grid, block, smem, st>>>((const T*)x, (const T*)g, (const T*)dy, (T*)dx, partial,
-                                    rows, D, eps);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  rmsnorm_dg_fold_kernel<T><<<(unsigned)ceil_div(D, 256), 256, 0, st>>>(partial, (T*)dg, blocks,
-                                                                        D);
+  rmsnorm_bwd_dg_kernel<T><<<(unsigned)ceil_div(D, kDgCols), kDgThreads, 0, st>>>(
+      partial, (T*)dg, blocks, D);
   return (int)cudaGetLastError();
 }
 }  // namespace repro_torch
 
-extern "C" int repro_rmsnorm(const void* x, const void* g, void* y, long long rows, long long D,
-                             float eps, int dtype, int round_before_gain, void* stream) {
+// y = rmsnorm(x, g); r, when not null, gets each row's r (float32 [rows])
+// for the backward.
+extern "C" int repro_rmsnorm(const void* x, const void* g, void* y, void* r, long long rows,
+                             long long D, float eps, int dtype, int round_before_gain,
+                             void* stream) {
   using namespace repro_torch;
-  if (rows < 1 || rows > 2147483647LL || D < 1) return (int)cudaErrorInvalidConfiguration;
+  if (rows < 1 || rows > 2147483647LL || D < 1 || y == nullptr)
+    return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
+  float* rr = (float*)r;
   if (dtype == kFloat32) {
-    return round_before_gain ? launch_rmsnorm<float, true>(x, g, y, rows, D, eps, st)
-                             : launch_rmsnorm<float, false>(x, g, y, rows, D, eps, st);
+    return round_before_gain ? launch_rmsnorm<float, true>(x, g, y, rr, rows, D, eps, st)
+                             : launch_rmsnorm<float, false>(x, g, y, rr, rows, D, eps, st);
   }
   if (dtype == kBFloat16) {
     return round_before_gain
-               ? launch_rmsnorm<__nv_bfloat16, true>(x, g, y, rows, D, eps, st)
-               : launch_rmsnorm<__nv_bfloat16, false>(x, g, y, rows, D, eps, st);
+               ? launch_rmsnorm<__nv_bfloat16, true>(x, g, y, rr, rows, D, eps, st)
+               : launch_rmsnorm<__nv_bfloat16, false>(x, g, y, rr, rows, D, eps, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward: dx [rows, D] and dg [D] (x's and g's dtype) from x, g and
-// dy; partial is float32 scratch of ceil(rows / 8) · D elements. D up to
-// 12,288 (its float32 dg accumulators take 48 KB of shared memory, with
-// the static buffers past the default limit: the launch opts in).
-extern "C" int repro_rmsnorm_bwd(const void* x, const void* g, const void* dy, void* dx,
-                                 void* partial, void* dg, long long rows, long long D, float eps,
-                                 int dtype, int round_before_gain, void* stream) {
+// The backward: dx [rows, D] and dg [D] (x's and g's dtype) from x, g, dy
+// and r (float32 [rows], the forward's; null: formed here in the
+// forward's chain). work is float32 scratch of ceil(rows / chunk) · D
+// elements, plus rows more when r is null. lanes (32, 64, 128 or 256) and
+// chunk (rows a block, a multiple of 256 / lanes) are
+// kernels/rmsnorm.py's _bwd_layout, which the plain version follows; D up
+// to 12,288 (the wide kernel's float32 dg sums: 48 KB of shared memory).
+extern "C" int repro_rmsnorm_bwd(const void* x, const void* g, const void* dy, const void* r,
+                                 void* dx, void* dg, void* work, long long rows, long long D,
+                                 int lanes, long long chunk, float eps, int dtype,
+                                 int round_before_gain, void* stream) {
   using namespace repro_torch;
-  if (rows < 1 || D < 1 || ceil_div(rows, kBwdRows) > 2147483647LL || D > 12288)
+  const int n = dtype == kFloat32 ? 4 : 8;
+  const bool lanes_ok = lanes == 32 || lanes == 64 || lanes == 128 || lanes == 256;
+  if (rows < 1 || D < 1 || D > 12288 || chunk < 1 || !lanes_ok ||
+      chunk % (kBwdThreads / lanes) != 0 || rows > 2147483647LL ||
+      (lanes < 256 && ceil_div(ceil_div(D, n), lanes) > kBwdHeld))
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
-  float* p = (float*)partial;
+  const float* rr = (const float*)r;
+  float* w = (float*)work;
   if (dtype == kFloat32) {
     return round_before_gain
-               ? launch_rmsnorm_bwd<float, true>(x, g, dy, dx, p, dg, rows, D, eps, st)
-               : launch_rmsnorm_bwd<float, false>(x, g, dy, dx, p, dg, rows, D, eps, st);
+               ? launch_rmsnorm_bwd<float, true>(x, g, dy, rr, dx, dg, w, rows, D, lanes, chunk,
+                                                 eps, st)
+               : launch_rmsnorm_bwd<float, false>(x, g, dy, rr, dx, dg, w, rows, D, lanes, chunk,
+                                                  eps, st);
   }
   if (dtype == kBFloat16) {
     return round_before_gain
-               ? launch_rmsnorm_bwd<__nv_bfloat16, true>(x, g, dy, dx, p, dg, rows, D, eps, st)
-               : launch_rmsnorm_bwd<__nv_bfloat16, false>(x, g, dy, dx, p, dg, rows, D, eps, st);
+               ? launch_rmsnorm_bwd<__nv_bfloat16, true>(x, g, dy, rr, dx, dg, w, rows, D, lanes,
+                                                         chunk, eps, st)
+               : launch_rmsnorm_bwd<__nv_bfloat16, false>(x, g, dy, rr, dx, dg, w, rows, D, lanes,
+                                                          chunk, eps, st);
   }
   return (int)cudaErrorInvalidValue;
 }

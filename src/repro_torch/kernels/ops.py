@@ -37,7 +37,8 @@ versions, one composition on both:
   63`` carry no JVP): they raise under grad;
 * K6 (RMSNorm) — backward: K6's own backward kernel pair
   (``rmsnorm.rmsnorm_bwd_cuda``: ``dx``, and ``dg`` folded from per-block
-  partials in a fixed order), on the CPU its plain version.
+  partials in a fixed order) on the r that the forward's launch saved, on
+  the CPU its plain version.
 
 The maps are static per plan: each is built on the host the first time a
 gradient needs it and cached beside the plan tensor it derives from, on
@@ -275,16 +276,18 @@ class _Aggregate(torch.autograd.Function):
 class _RmsNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, eps, round_before_gain):
-        ctx.save_for_backward(x, g)
+        # the forward's launch also writes r for the backward
+        y, r = _rmsnorm(x, g, eps, round_before_gain, return_r=True)
+        ctx.save_for_backward(x, g, r)
         ctx.eps, ctx.rbg = eps, round_before_gain
-        return _rmsnorm(x, g, eps, round_before_gain)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, g = ctx.saved_tensors
+        x, g, r = ctx.saved_tensors
         fn = _rms.rmsnorm_bwd_cuda if on_card(x, g, dy) \
             else _rms.rmsnorm_bwd_plain
-        dx, dg = fn(x, g, dy, ctx.eps, round_before_gain=ctx.rbg)
+        dx, dg = fn(x, g, dy, ctx.eps, round_before_gain=ctx.rbg, r=r)
         return (dx if ctx.needs_input_grad[0] else None,
                 dg if ctx.needs_input_grad[1] else None, None, None)
 
@@ -510,14 +513,16 @@ def rmsnorm_op(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
     return _rmsnorm(x, g, eps, round_before_gain)
 
 
-def _rmsnorm(x, g, eps, round_before_gain):
+def _rmsnorm(x, g, eps, round_before_gain, return_r=False):
     # the LM runs this 2·L + 1 times a step, so a CUDA x goes straight to
     # the wrapper, which checks g's device itself. The wrapper is looked up
     # on its module at call time, so a recorder that replaces it sees the
-    # call.
+    # call. return_r (under grad): (y, r), r for the backward.
     if x.is_cuda:
         return _rms.rmsnorm_cuda(x, g, eps,
-                                 round_before_gain=round_before_gain)
+                                 round_before_gain=round_before_gain,
+                                 return_r=return_r)
     on_card(x, g)  # raises unless g is on the CPU too
     return _rms.rmsnorm_plain(x, g, eps,
-                              round_before_gain=round_before_gain)
+                              round_before_gain=round_before_gain,
+                              return_r=return_r)

@@ -30,17 +30,29 @@ plain torch (the same order of the sum of squares, a correctly rounded
 kernel's reference on the card. ``kernels.ref.rmsnorm_ref`` is the
 oracle: the same function with torch's own reduction order.
 
+Under grad the forward also returns r = rsqrt(mean(x²) + eps), one
+float32 a row (``return_r=True``: the kernel stores it where the wrapper
+passes a pointer; ``rmsnorm_plain`` returns ``_kernel_r``'s), and the
+backward reads it instead of summing the squares again.
+
 **The backward** (no TPU kernel: the reference differentiates its jnp
 ``rms_norm`` through XLA). ``rmsnorm_bwd_cuda`` launches the kernel pair
-of ``csrc/rmsnorm.cu`` — a block of 256 threads per ``BWD_ROWS`` rows,
-row by row with the forward's layout (so r and the row sums fold in the
-forward's order), each block's ``dg`` as one float32 partial row, then a
-fold of the partial rows in ascending block order: no atomics, the same
-bits every run — and counts the call in ``LAUNCHES["rmsnorm_bwd"]``.
+of ``csrc/rmsnorm.cu`` — rows in parallel: a row on a group of
+``lanes`` threads (``_bwd_layout``: 32 to 256, each lane holding at most
+four 16-byte chunks of the row, the same columns in every row, so its
+slice of g and its ``dg`` sums stay in registers), 256 / lanes rows at
+once in a block of 256 threads over a contiguous chunk of rows, x and dy
+read once; each block's ``dg`` as one float32 partial row (its groups'
+sums added in group order), then a fold of the partial rows in ascending
+block order: no atomics, the same bits every run — and counts the call
+in ``LAUNCHES["rmsnorm_bwd"]``. Without a saved r it forms r in the
+forward's chain first (the forward's kernel, in the same call).
 ``rmsnorm_bwd_plain`` repeats its chain in plain torch.
 ``kernels.ops.rmsnorm_op`` takes the pair under grad (``_RmsNorm``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -61,33 +73,37 @@ def _check(x: torch.Tensor, g: torch.Tensor) -> None:
         raise TypeError(f"rmsnorm gain dtype {g.dtype} != x dtype {x.dtype}")
 
 
-_THREADS = 256  # the kernel's block: one row per block
+_THREADS = 256  # the kernels' block: the forward's one row, the backward's
+# 256 / lanes rows
 
 
-def _chain_sum(terms: torch.Tensor, n: int) -> torch.Tensor:
+def _chain_sum(terms: torch.Tensor, n: int,
+               threads: int = _THREADS) -> torch.Tensor:
     """Each row's sum of ``terms`` [R, D] (float32, each term already
-    rounded) in the kernel's order: thread t of 256 folds the terms of its
-    n = 16 / element_size elements per step (step s: elements s·256·n +
-    t·n + i), the 8 warps fold their 32 lanes by xor butterflies (16, 8,
-    4, 2, 1) and the 8 warp sums are added in order. Every step is one
-    float32 rounding, as in the kernel. Returns [R] float32."""
+    rounded) in the kernels' order: lane t of ``threads`` (the forward:
+    one 256-thread block a row; the backward: a group of ``lanes``) folds
+    the terms of its n = 16 / element_size elements per step (step s:
+    elements s·threads·n + t·n + i), each warp folds its 32 lanes by xor
+    butterflies (16, 8, 4, 2, 1) and the warp sums are added in order
+    from 0. Every step is one float32 rounding, as in the kernels.
+    Returns [R] float32."""
     rows, d = terms.shape
     f32 = dict(dtype=torch.float32, device=terms.device)
-    span = _THREADS * n
+    span = threads * n
     steps = -(-d // span)
     tf = torch.zeros((rows, steps * span), **f32)  # zeros add nothing
     tf[:, :d] = terms
-    tf = tf.view(rows, steps, _THREADS, n)
-    ss = torch.zeros((rows, _THREADS), **f32)
+    tf = tf.view(rows, steps, threads, n)
+    ss = torch.zeros((rows, threads), **f32)
     for s in range(steps):
         for i in range(n):
             ss = ss + tf[:, s, :, i]
-    lanes = ss.view(rows, _THREADS // 32, 32)
+    lanes = ss.view(rows, threads // 32, 32)
     lane = torch.arange(32, device=terms.device)
     for off in (16, 8, 4, 2, 1):
         lanes = lanes + lanes[..., lane ^ off]
     total = torch.zeros((rows,), **f32)
-    for w in range(_THREADS // 32):
+    for w in range(threads // 32):
         total = total + lanes[:, w, 0]
     return total
 
@@ -105,26 +121,38 @@ def _kernel_r(x2: torch.Tensor, eps: float) -> torch.Tensor:
     return (1.0 / torch.sqrt(arg.double())).float()[:, None]
 
 
+def _ref_r(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """r for dtypes the kernels do not take (float64): x's own dtype,
+    torch's reduction order, as ``rmsnorm_ref`` and ``_bwd_ref``."""
+    return torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+
+
 def rmsnorm_plain(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
-                  round_before_gain: bool = False) -> torch.Tensor:
+                  round_before_gain: bool = False, return_r: bool = False):
     """The kernel's function in plain torch, step by step: the same float32
     chain as ``csrc/rmsnorm.cu``, so the two give the same bits. Dtypes the
-    kernel does not take (float64) get the oracle ``rmsnorm_ref``."""
+    kernel does not take (float64) get the oracle ``rmsnorm_ref``. With
+    ``return_r``: ``(y, r)``, r [...] float32 (the backward's;
+    ``_kernel_r``)."""
     _check(x, g)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        return rmsnorm_ref(x, g, eps, round_before_gain=round_before_gain)
     d = x.shape[-1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        y = rmsnorm_ref(x, g, eps, round_before_gain=round_before_gain)
+        return (y, _ref_r(x, eps)[..., 0]) if return_r else y
     x2 = x.reshape(-1, d)
-    y = x2.float() * _kernel_r(x2, eps)
+    r = _kernel_r(x2, eps)
+    y = x2.float() * r
     if round_before_gain:
         y = y.to(x.dtype).float()
-    return (y * g.float()).to(x.dtype).reshape(x.shape)
+    y = (y * g.float()).to(x.dtype).reshape(x.shape)
+    return (y, r.reshape(x.shape[:-1])) if return_r else y
 
 
 def rmsnorm_cuda(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
-                 round_before_gain: bool = False) -> torch.Tensor:
-    """The K6 kernel on the card: x [..., D], g [D] -> y like x. Only a
-    strided x or g is copied (made contiguous) first."""
+                 round_before_gain: bool = False, return_r: bool = False):
+    """The K6 kernel on the card: x [..., D], g [D] -> y like x (with
+    ``return_r``: ``(y, r)``, r [...] float32, stored by the same launch).
+    Only a strided x or g is copied (made contiguous) first."""
     if not (x.is_cuda and g.device == x.device):
         raise ValueError("rmsnorm_cuda needs x and g on one CUDA device")
     _check(x, g)
@@ -134,24 +162,46 @@ def rmsnorm_cuda(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
     if not g.is_contiguous():
         g = g.contiguous()
     out = torch.empty_like(x)
+    r = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device) \
+        if return_r else None
     n = x.numel()
     if n == 0:
-        return out
+        return (out, r) if return_r else out
     d = g.shape[0]
     rc = build.library().repro_rmsnorm(
-        x.data_ptr(), g.data_ptr(), out.data_ptr(), n // d, d, eps, code,
+        x.data_ptr(), g.data_ptr(), out.data_ptr(),
+        r.data_ptr() if return_r else None, n // d, d, eps, code,
         round_before_gain, build.stream_of(x))
     build.check(rc, "rmsnorm")
     LAUNCHES["rmsnorm"] += 1
-    return out
+    return (out, r) if return_r else out
 
 
 # ---------------------------------------------------------------------------
 # the backward
 # ---------------------------------------------------------------------------
 
-BWD_ROWS = 8  # rows per thread block of the backward: one dg partial each
-BWD_MAX_D = 12_288  # the block's float32 dg accumulators: 48 KB (opted in)
+BWD_MAX_D = 12_288  # the wide kernel's float32 dg sums: 48 KB (opted in)
+BWD_HELD = 4  # 16-byte chunks of a row one lane holds in registers
+BWD_SMS = 132  # the blocks a backward aims at: one per SM of an H100
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_layout(rows: int, d: int, element_size: int) -> tuple:
+    """The backward kernel's layout, which fixes its fold orders:
+    ``(lanes, groups, chunk)``. A row goes to ``lanes`` threads, the
+    smallest power of two from 32 to 256 whose lanes hold it in at most
+    ``BWD_HELD`` 16-byte chunks each (wider rows: 256 lanes, the wide
+    kernel); a 256-thread block runs ``groups`` = 256 / lanes rows at once
+    over ``chunk`` contiguous rows, a multiple of ``groups`` near rows /
+    ``BWD_SMS`` (one dg partial row a block)."""
+    nvec = -(-d // (16 // element_size))
+    lanes = 32
+    while lanes < _THREADS and -(-nvec // lanes) > BWD_HELD:
+        lanes *= 2
+    groups = _THREADS // lanes
+    chunk = -(-(-(-rows // BWD_SMS)) // groups) * groups
+    return lanes, groups, chunk
 
 
 def _check_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor) -> None:
@@ -161,11 +211,12 @@ def _check_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor) -> None:
                          f"{x.dtype}; got {tuple(dy.shape)} {dy.dtype}")
 
 
-def _bwd_ref(x, g, dy, eps, round_before_gain):
+def _bwd_ref(x, g, dy, eps, round_before_gain, r=None):
     """The backward's formulas in x's own dtype (float64 on the float64
-    reference runs), torch's own reduction order."""
+    reference runs), torch's own reduction order; r [...] as
+    ``rmsnorm_plain`` returns it, or formed here."""
     d = x.shape[-1]
-    r = torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    r = _ref_r(x, eps) if r is None else r[..., None]
     xn = x * r
     if round_before_gain:
         xn = xn.to(x.dtype)
@@ -176,51 +227,73 @@ def _bwd_ref(x, g, dy, eps, round_before_gain):
 
 
 def rmsnorm_bwd_plain(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
-                      eps: float = 1e-5, *, round_before_gain: bool = False
-                      ) -> tuple:
+                      eps: float = 1e-5, *, round_before_gain: bool = False,
+                      r=None) -> tuple:
     """The backward kernel's function in plain torch, step by step:
     ``(dx, dg)`` for ``y = rmsnorm(x, g)`` and the cotangent ``dy``, with
-    the kernel's float32 chain (``csrc/rmsnorm.cu``): r and each row's
-    ``Σ dxn·x`` in the forward's order (``_chain_sum``), ``dx = r·dxn −
-    x·(r·r·r)·(Σ/D)``, and ``dg`` as ``BWD_ROWS``-row partials folded in
-    ascending row order, then in ascending block order. Dtypes the kernel
-    does not take (float64) get the same formulas in their own dtype."""
+    the kernel's float32 chain (``csrc/rmsnorm.cu``): r as passed (the
+    forward's, [...] float32) or else in the forward's order
+    (``_kernel_r``); each row's ``Σ dxn·x`` in the layout of
+    ``_bwd_layout``'s lanes (``_chain_sum``); ``dx = r·dxn −
+    x·(r·r·r)·(Σ/D)``; ``dg`` summed per group over its rows of a chunk in
+    ascending order, the groups added in order into one partial row a
+    chunk, the partials in ascending chunk order. Dtypes the kernel does
+    not take (float64) get the same formulas in their own dtype."""
     _check_bwd(x, g, dy)
     if x.dtype not in (torch.float32, torch.bfloat16):
-        return _bwd_ref(x, g, dy, eps, round_before_gain)
+        return _bwd_ref(x, g, dy, eps, round_before_gain, r)
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
     rows = x2.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     xf, dyf, gf = x2.float(), dy.reshape(-1, d).float(), g.float()
-    r = _kernel_r(x2, eps)  # [R, 1]
+    r = _kernel_r(x2, eps) if r is None else r.reshape(-1, 1).float()
     xn = xf * r
     if round_before_gain:
         xn = xn.to(x.dtype).float()
     dxn = dyf * gf
-    dot = _chain_sum(dxn * xf, 16 // x.element_size())[:, None]
+    lanes, groups, chunk = _bwd_layout(rows, d, x.element_size())
+    dot = _chain_sum(dxn * xf, 16 // x.element_size(), lanes)[:, None]
     c = ((r * r) * r) * (dot / torch.tensor(float(d), **f32))
     dx = (r * dxn - xf * c).to(x.dtype).reshape(x.shape)
-    blocks = -(-rows // BWD_ROWS)
-    prod = torch.zeros((blocks * BWD_ROWS, d), **f32)  # zeros add nothing
+    blocks = -(-rows // chunk)
+    prod = torch.zeros((blocks * chunk, d), **f32)  # zeros add nothing
     prod[:rows] = dyf * xn
-    prod = prod.view(blocks, BWD_ROWS, d)
+    prod = prod.view(blocks, chunk // groups, groups, d)
+    acc = torch.zeros((blocks, groups, d), **f32)
+    for it in range(chunk // groups):
+        acc = acc + prod[:, it]
     part = torch.zeros((blocks, d), **f32)
-    for i in range(BWD_ROWS):
-        part = part + prod[:, i]
+    for k in range(groups):
+        part = part + acc[:, k]
     dg = torch.zeros((d,), **f32)
     for b in range(blocks):
         dg = dg + part[b]
     return dx, dg.to(g.dtype)
 
 
+_WORK: dict = {}  # (device index, stream) -> the backward's float32 scratch
+
+
+def _workspace(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` float32 of scratch for launches on ``stream``,
+    kept between calls (the stream orders its uses); grown as needed."""
+    key = (device.index, stream)
+    w = _WORK.get(key)
+    if w is None or w.numel() < n:
+        w = _WORK[key] = torch.empty(n, dtype=torch.float32, device=device)
+    return w
+
+
 def rmsnorm_bwd_cuda(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
-                     eps: float = 1e-5, *, round_before_gain: bool = False
-                     ) -> tuple:
+                     eps: float = 1e-5, *, round_before_gain: bool = False,
+                     r=None) -> tuple:
     """K6's backward on the card: ``(dx, dg)`` (x's and g's dtype) from x
-    [..., D], g [D] and dy like x. Two launches of ``csrc/rmsnorm.cu`` (the
-    rows, then the fold of the dg partials) counted as one call in
-    ``LAUNCHES["rmsnorm_bwd"]``; D up to ``BWD_MAX_D``."""
+    [..., D], g [D], dy like x and, when given, the forward's r [...]
+    float32 (else formed in the forward's chain in the same call). One
+    call of ``csrc/rmsnorm.cu`` (the rows, then the fold of the dg
+    partials) counted in ``LAUNCHES["rmsnorm_bwd"]``; D up to
+    ``BWD_MAX_D``."""
     if not (x.is_cuda and g.device == x.device and dy.device == x.device):
         raise ValueError("rmsnorm_bwd_cuda needs x, g and dy on one CUDA "
                          "device")
@@ -229,18 +302,33 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
     d = g.shape[0]
     if d > BWD_MAX_D:
         raise ValueError(f"rmsnorm_bwd kernel takes D <= {BWD_MAX_D}, got {d}")
-    x, g, dy = (t if t.is_contiguous() else t.contiguous() for t in (x, g, dy))
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not g.is_contiguous():
+        g = g.contiguous()
+    if not dy.is_contiguous():
+        dy = dy.contiguous()
     dx = torch.empty_like(x)
     rows = x.numel() // d
     if rows == 0:
         return dx, torch.zeros_like(g)
+    if r is not None:
+        if r.dtype != torch.float32 or r.numel() != rows or \
+                r.device != x.device:
+            raise ValueError(f"rmsnorm_bwd takes r as float32 [{rows}] on "
+                             f"x's device; got {r.dtype} {tuple(r.shape)}")
+        if not r.is_contiguous():
+            r = r.contiguous()
+    lanes, _, chunk = _bwd_layout(rows, d, x.element_size())
+    stream = build.stream_of(x)
+    work = _workspace(x.device, stream, -(-rows // chunk) * d
+                      + (0 if r is not None else rows))
     dg = torch.empty_like(g)
-    partial = torch.empty((-(-rows // BWD_ROWS), d), dtype=torch.float32,
-                          device=x.device)
     rc = build.library().repro_rmsnorm_bwd(
-        x.data_ptr(), g.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dg.data_ptr(), rows, d, eps, code,
-        round_before_gain, build.stream_of(x))
+        x.data_ptr(), g.data_ptr(), dy.data_ptr(),
+        r.data_ptr() if r is not None else None, dx.data_ptr(),
+        dg.data_ptr(), work.data_ptr(), rows, d, lanes, chunk, eps, code,
+        round_before_gain, stream)
     build.check(rc, "rmsnorm_bwd")
     LAUNCHES["rmsnorm_bwd"] += 1
     return dx, dg

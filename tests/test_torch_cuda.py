@@ -887,15 +887,41 @@ def test_rmsnorm_kernel_strided_x():
                                              round_before_gain=True))
 
 
-# K6's backward: rows around the 8-row blocks of its dg partials, up to
-# 4096 (the LM steps' 1024 and 2048 rows included); the smollm and OLMoE
-# widths and a narrow one
-RMS_BWD_ROWS = [1, 3, 8, 9, 130, 1024, 4096]
+# K6's backward: rows around its group edges (9), the first chunk edges
+# (132 · groups rows for 1, 2, 4 and 8 groups), up to 4096 (the LM steps'
+# 1024 and 2048 rows included); the smollm and OLMoE widths, a narrow one,
+# and widths the lanes hold at 256 lanes (bfloat16 4104) or not (float32
+# 4104, 8200: the wide kernel)
+RMS_BWD_ROWS = [1, 3, 8, 9, 130, 131, 133, 264, 265, 528, 529, 1024, 1056,
+                1057, 4096]
+
+
+def _k6_bwd_both_ways(x, g, dy, rbg):
+    """K6's backward with the forward's saved r and without it: both the
+    plain version's bits (which repeats the kernel's chain) and each
+    other's; a second launch gives them again (no atomics). Returns the
+    launch's (dx, dg)."""
+    _, r = K6.rmsnorm_cuda(x, g, 1e-5, round_before_gain=rbg, return_r=True)
+    before = launch_counts()["rmsnorm_bwd"]
+    dx, dg = K6.rmsnorm_bwd_cuda(x, g, dy, 1e-5, round_before_gain=rbg, r=r)
+    torch.cuda.synchronize()
+    assert launch_counts()["rmsnorm_bwd"] == before + 1
+    assert dx.dtype == x.dtype and dg.dtype == g.dtype
+    pdx, pdg = K6.rmsnorm_bwd_plain(x, g, dy, 1e-5, round_before_gain=rbg,
+                                    r=r)
+    assert torch.equal(dx, pdx) and torch.equal(dg, pdg)
+    for saved in (None, r):
+        dx2, dg2 = K6.rmsnorm_bwd_cuda(x, g, dy, 1e-5, round_before_gain=rbg,
+                                       r=saved)
+        assert torch.equal(dx2, dx) and torch.equal(dg2, dg)
+    pdx, pdg = K6.rmsnorm_bwd_plain(x, g, dy, 1e-5, round_before_gain=rbg)
+    assert torch.equal(dx, pdx) and torch.equal(dg, pdg)
+    return dx, dg
 
 
 @requires_cuda
 @pytest.mark.parametrize("rows", RMS_BWD_ROWS)
-@pytest.mark.parametrize("d", [64, 576, 2048])
+@pytest.mark.parametrize("d", [64, 576, 2048, 4104, 8200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("round_before_gain", [False, True])
 def test_rmsnorm_bwd_kernel_matches_plain(rows, d, dtype, round_before_gain):
@@ -903,20 +929,31 @@ def test_rmsnorm_bwd_kernel_matches_plain(rows, d, dtype, round_before_gain):
     x, dy = (_cuda(rng.standard_normal((rows, d)).astype(np.float32)).to(
         dtype) for _ in range(2))
     g = _cuda(rng.standard_normal(d).astype(np.float32)).to(dtype)
-    before = launch_counts()["rmsnorm_bwd"]
-    dx, dg = K6.rmsnorm_bwd_cuda(x, g, dy, 1e-5,
-                                 round_before_gain=round_before_gain)
+    _k6_bwd_both_ways(x, g, dy, round_before_gain)
+
+
+@requires_cuda
+@pytest.mark.parametrize("lead,d", RMS_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("round_before_gain", [False, True])
+def test_rmsnorm_kernel_writes_r_without_changing_y(lead, d, dtype,
+                                                    round_before_gain):
+    """Under grad the forward's launch also stores r: y is the launch
+    without an r pointer's, bit for bit, and r the plain version's."""
+    rng = np.random.default_rng(d + len(lead))
+    x = _cuda(rng.standard_normal(lead + (d,)).astype(np.float32)).to(dtype)
+    g = _cuda(rng.standard_normal(d).astype(np.float32)).to(dtype)
+    y = K6.rmsnorm_cuda(x, g, 1e-5, round_before_gain=round_before_gain)
+    before = launch_counts()["rmsnorm"]
+    y2, r = K6.rmsnorm_cuda(x, g, 1e-5, round_before_gain=round_before_gain,
+                            return_r=True)
     torch.cuda.synchronize()
-    assert launch_counts()["rmsnorm_bwd"] == before + 1
-    assert dx.dtype == dtype and dg.dtype == dtype
-    # the plain version repeats the kernel's chain: the same bits, and a
-    # second launch gives them again (no atomics)
-    pdx, pdg = K6.rmsnorm_bwd_plain(x, g, dy, 1e-5,
-                                    round_before_gain=round_before_gain)
-    assert torch.equal(dx, pdx) and torch.equal(dg, pdg)
-    dx2, dg2 = K6.rmsnorm_bwd_cuda(x, g, dy, 1e-5,
-                                   round_before_gain=round_before_gain)
-    assert torch.equal(dx2, dx) and torch.equal(dg2, dg)
+    assert launch_counts()["rmsnorm"] == before + 1
+    assert torch.equal(y2, y)
+    assert r.dtype == torch.float32 and r.shape == lead
+    _, pr = K6.rmsnorm_plain(x, g, 1e-5, round_before_gain=round_before_gain,
+                             return_r=True)
+    assert torch.equal(r, pr)
 
 
 @requires_cuda
@@ -931,8 +968,17 @@ def test_rmsnorm_bwd_kernel_odd_operands():
     pdx, pdg = K6.rmsnorm_bwd_plain(x, g, dy, round_before_gain=True)
     assert dx.shape == x.shape
     assert torch.equal(dx, pdx) and torch.equal(dg, pdg)
+    # a saved r of x's leading shape, and one strided
+    _, r = K6.rmsnorm_cuda(x, g, return_r=True)
+    assert r.shape == (2, 5)
+    for saved in (r, r.t().contiguous().t()):
+        dx2, dg2 = K6.rmsnorm_bwd_cuda(x, g, dy, round_before_gain=True,
+                                       r=saved)
+        assert torch.equal(dx2, dx) and torch.equal(dg2, dg)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K6.rmsnorm_bwd_cuda(x.double(), g.double(), dy.double())
+    with pytest.raises(ValueError, match="takes r as float32"):
+        K6.rmsnorm_bwd_cuda(x, g, dy, r=r[:1])
     big = torch.randn((2, K6.BWD_MAX_D + 8), device="cuda")
     with pytest.raises(ValueError, match="D <="):
         K6.rmsnorm_bwd_cuda(big, big[0], big)
@@ -942,15 +988,14 @@ def test_rmsnorm_bwd_kernel_odd_operands():
 @pytest.mark.parametrize("d", [12_272, 12_280, K6.BWD_MAX_D])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_bwd_kernel_at_its_widest(d, dtype):
-    """Widths up to BWD_MAX_D, where the block's shared memory passes the
-    48 KB default (from D = 12,280 on): the plain version's bits."""
+    """Widths up to BWD_MAX_D, where the wide kernel's shared memory
+    passes the 48 KB default (from D = 12,273 on): the plain version's
+    bits, with and without a saved r."""
     rng = np.random.default_rng(d)
     x, dy = (_cuda(rng.standard_normal((19, d)).astype(np.float32)).to(
         dtype) for _ in range(2))
     g = _cuda(rng.standard_normal(d).astype(np.float32)).to(dtype)
-    dx, dg = K6.rmsnorm_bwd_cuda(x, g, dy, 1e-5, round_before_gain=True)
-    pdx, pdg = K6.rmsnorm_bwd_plain(x, g, dy, 1e-5, round_before_gain=True)
-    assert torch.equal(dx, pdx) and torch.equal(dg, pdg)
+    _k6_bwd_both_ways(x, g, dy, True)
 
 
 @requires_cuda

@@ -164,6 +164,34 @@ def test_microbatches_match_one_batch_on_the_port():
     assert abs(float(m1["loss"]) - float(m2["loss"])) < 1e-5
 
 
+def test_microbatches_must_divide_the_batch_on_the_port():
+    """The port's chosen semantics (ROADMAP's Reference contract): a batch
+    that does not divide by ``microbatches`` raises."""
+    cfg = get_smoke_config("smollm-135m")
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    step = make_train_step(cfg, None, AdamWConfig(lr=1e-3), microbatches=2)
+    with pytest.raises(ValueError, match="not divisible by 2 microbatches"):
+        step(params, adamw_init(params), {"tokens": _tokens(cfg, (5, 16))})
+
+
+def test_reference_microbatches_drop_the_batch_tail():
+    """Where the port raises, the reference's ``mb_slice`` takes
+    n // microbatches rows a slice and drops the rest: its step on 5 rows
+    at ``microbatches=2`` is its step on the first 4."""
+    rcfg = ref_smoke("smollm-135m")
+    params = RT.init_params(jax.random.PRNGKey(0), rcfg)
+    toks = _tokens(rcfg, (5, 16))
+    step = jax.jit(ref_train_step(rcfg, None, RAdamW(lr=1e-3),
+                                  microbatches=2))
+    _, _, m5 = step(params, ref_adamw_init(params),
+                    {"tokens": jnp.asarray(toks)})
+    _, _, m4 = step(params, ref_adamw_init(params),
+                    {"tokens": jnp.asarray(toks[:4])})
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m5[k]), float(m4[k]), rtol=1e-6,
+                                   err_msg=k)
+
+
 def test_dense_step_on_the_grid_equals_unsharded():
     """test_system.py's config on the emulated (data 2, model 4) grid:
     one step's loss, params and moments equal the unsharded step's bit
@@ -306,8 +334,13 @@ def test_norm_grads_flow_past_a_forward_without_grad_fn(monkeypatch):
     toks = {"tokens": torch.from_numpy(_tokens(cfg))}
     _, want = loss_and_grads(params, cfg, None, toks)
     plain = K6.rmsnorm_plain
-    monkeypatch.setattr(K6, "rmsnorm_plain",
-                        lambda *a, **k: plain(*a, **k).detach())
+
+    def opaque(*a, **k):  # y (and, under grad, r) without a grad_fn
+        out = plain(*a, **k)
+        return tuple(t.detach() for t in out) if isinstance(out, tuple) \
+            else out.detach()
+
+    monkeypatch.setattr(K6, "rmsnorm_plain", opaque)
     _, got = loss_and_grads(params, cfg, None, toks)
     for g, w in zip(_leaves(got), _leaves(want)):
         assert bool(g.abs().sum() > 0)
@@ -387,8 +420,11 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-@pytest.mark.parametrize("rows,d", [(4, 32), (128, 64), (16, 128), (3, 48),
-                                    (37, 576)])
+@pytest.mark.parametrize("rows,d", [
+    (4, 32), (128, 64), (16, 128), (3, 48), (37, 576),
+    # the backward's layout: group edges (9 rows on 4 or 8 groups), the LM
+    # widths, and 8200, past the rows the lanes hold (the wide kernel)
+    (133, 576), (9, 2048), (5, 8200)])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 @pytest.mark.parametrize("round_before_gain", [False, True])
 def test_rmsnorm_backward_matches_jax_grad(rows, d, dtype, round_before_gain):
@@ -426,6 +462,48 @@ def test_rmsnorm_backward_matches_jax_grad(rows, d, dtype, round_before_gain):
         assert (dg.double() - truth).abs().max() <= jax_err + 1e-3
 
 
+@pytest.mark.parametrize("rows,d", [(1057, 40), (529, 1024), (265, 2048)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("round_before_gain", [False, True])
+def test_rmsnorm_backward_chunk_edges_match_jax_grad(rows, d, dtype,
+                                                     round_before_gain):
+    """Row counts just past the backward's chunk edges (132 · groups rows:
+    1056 at 32 lanes, 528 at 64, 264 at 128), where a chunk of rows grows
+    by one group: float32 dx and dg within 1e-5 of ``jax.vjp``; bfloat16
+    dx within 6e-2 of it, and dg no further from the float64 sum of its
+    own terms than JAX's bfloat16 grad. (The float32 copies' vjp does not
+    round x·r to bfloat16; over hundreds of rows that rounding moves dg by
+    more than 6e-2 on the previous chain as on this one: 0.098 at 529 rows
+    of 1024.)"""
+    rng = np.random.default_rng(rows * d)
+    x = jnp.asarray(rng.standard_normal((rows, d)), dtype)
+    g = jnp.asarray(rng.standard_normal(d), dtype)
+    dy = jnp.asarray(rng.standard_normal((rows, d)), dtype)
+    fn = RL.rms_norm if round_before_gain else _pallas_chain
+    f32 = jnp.float32
+    _, vjp = jax.vjp(lambda a, b: fn(a, b, 1e-5), x.astype(f32),
+                     g.astype(f32))
+    want_dx, want_dg = vjp(dy.astype(f32))
+    dx, dg = K6.rmsnorm_bwd_plain(_t(x), _t(g), _t(dy), 1e-5,
+                                  round_before_gain=round_before_gain)
+    if dtype == jnp.float32:
+        for got, want in ((dx, want_dx), (dg, want_dg)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=1e-5)
+        return
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(want_dx, np.float32),
+                               rtol=6e-2, atol=6e-2)
+    _, vjp16 = jax.vjp(lambda a, b: fn(a, b, 1e-5), x, g)
+    xf = _t(x).double()
+    xn = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-5)
+    if round_before_gain:
+        xn = xn.to(torch.bfloat16).double()
+    truth = (_t(dy).double() * xn).sum(0)
+    jax_err = (_t(vjp16(dy)[1]).double() - truth).abs().max()
+    assert (dg.double() - truth).abs().max() <= jax_err + 1e-3
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_op_under_grad_runs_the_backward_pair(dtype):
     """``rmsnorm_op`` under grad is ``_RmsNorm``: the forward's bits are
@@ -451,11 +529,13 @@ def test_rmsnorm_op_under_grad_runs_the_backward_pair(dtype):
 
 
 def test_rmsnorm_bwd_plain_folds_dg_in_blocks_of_rows():
-    """dg's chain: rows folded in blocks of ``BWD_ROWS`` (ascending rows),
-    the blocks' partials in ascending order; float32 row counts around a
-    block's edge agree with a float64 sum within float32 rounding."""
+    """dg's chain: each chunk of rows (``_bwd_layout``) folded by groups
+    (ascending rows), the groups in order into one partial, the partials
+    in ascending order; float32 row counts around the group and chunk
+    edges (8 groups of 32 lanes at D = 40; chunks of 8 up to 1056 rows,
+    then 16) agree with a float64 sum within float32 rounding."""
     rng = np.random.default_rng(0)
-    for rows in (1, 7, 8, 9, 17):
+    for rows in (1, 7, 8, 9, 17, 1055, 1056, 1057, 2113):
         x = torch.from_numpy(rng.standard_normal((rows, 40)).astype(
             np.float32))
         g = torch.from_numpy(rng.standard_normal(40).astype(np.float32))

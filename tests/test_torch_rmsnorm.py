@@ -141,6 +141,159 @@ def test_plain_r_is_the_kernels_chain(d, dtype):
         assert got[row] == f(1.0 / np.sqrt(np.float64(arg))), row
 
 
+@pytest.mark.parametrize("rows,d,dtype", SHAPES + [
+    (7, 50, np.float32), (5, 1001, jnp.bfloat16)])
+@pytest.mark.parametrize("round_before_gain", [False, True])
+def test_plain_returns_the_kernels_r(rows, d, dtype, round_before_gain):
+    """``return_r``: y the same bits as without it, r [rows] float32 ==
+    ``_kernel_r`` (the forward's chain), for a 3-d x too."""
+    x, g = (_t(a) for a in _inputs(rows, d, dtype))
+    y = K6.rmsnorm_plain(x, g, round_before_gain=round_before_gain)
+    y2, r = K6.rmsnorm_plain(x, g, round_before_gain=round_before_gain,
+                             return_r=True)
+    assert torch.equal(y2, y)
+    assert r.dtype == torch.float32 and r.shape == (rows,)
+    assert torch.equal(r, K6._kernel_r(x, 1e-5)[:, 0])
+    y3, r3 = K6.rmsnorm_plain(x[None], g, return_r=True,
+                              round_before_gain=round_before_gain)
+    assert torch.equal(y3[0], y) and torch.equal(r3[0], r)
+
+
+# (rows, d, dtype): the LM training shapes, rows around the chunk and
+# group edges of _bwd_layout, widths the lanes hold at 256 lanes and past
+# them (the wide kernel)
+BWD_CASES = [(1024, 2048, torch.bfloat16), (2048, 576, torch.bfloat16),
+             (133, 576, torch.float32), (1057, 40, torch.float32),
+             (529, 2048, torch.float32), (3, 4104, torch.bfloat16),
+             (3, 4104, torch.float32), (5, 8200, torch.bfloat16),
+             (7, 50, torch.bfloat16)]
+
+
+def _bwd_inputs(rows, d, dtype, seed=0):
+    rng = np.random.default_rng(seed + rows * d)
+    x, dy = (torch.from_numpy(rng.standard_normal((rows, d)).astype(
+        np.float32)).to(dtype) for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(dtype)
+    return x, g, dy
+
+
+def test_bwd_layout_fixes_lanes_groups_and_chunks():
+    """``_bwd_layout``: the smallest lane count whose lanes hold a row in
+    four 16-byte chunks, 256 / lanes rows at once, chunks a multiple of
+    the groups near rows / 132; the LM training shapes fill 128 blocks."""
+    L = K6._bwd_layout
+    assert L(1024, 2048, 2) == (64, 4, 8)  # olmoe-train: 128 blocks
+    assert L(2048, 576, 2) == (32, 8, 16)  # smollm-train: 128 blocks
+    assert L(1024, 2048, 4) == (128, 2, 8)
+    assert L(1, 40, 4) == (32, 8, 8)
+    assert [L(n, 40, 4)[2] for n in (1056, 1057, 2112, 2113)] == \
+        [8, 16, 16, 24]
+    assert [L(n, 1024, 4)[2] for n in (528, 529)] == [4, 8]  # 64 lanes
+    assert [L(n, 8192, 2)[2] for n in (132, 133)] == [1, 2]  # 256 lanes
+    held = 256 * K6.BWD_HELD  # 16-byte chunks the lanes of a block hold
+    for es in (2, 4):
+        n = 16 // es
+        assert L(1, held * n, es)[0] == 256
+        assert L(1, held * n // 2, es)[0] == 128
+        assert L(1, held * n + n, es)[:2] == (256, 1)  # the wide kernel
+
+
+@pytest.mark.parametrize("lanes", [32, 64, 128, 256])
+@pytest.mark.parametrize("d,dtype", [(40, torch.float32),
+                                     (576, torch.bfloat16),
+                                     (2050, torch.float32)])
+def test_bwd_row_sum_is_the_lanes_chain(lanes, d, dtype):
+    """``_chain_sum`` with the backward's lanes against a literal walk of
+    them in float32: lane t adds its elements (c·lanes + t)·n + i in (c,
+    i) order, xor butterflies fold each warp, the warp sums are added in
+    order from 0 — the same bits."""
+    x = _bwd_inputs(3, d, dtype)[0].float()
+    n = 16 // torch.empty((), dtype=dtype).element_size()
+    got = K6._chain_sum(x * x, n, lanes).numpy()
+    f = np.float32
+    for row in range(x.shape[0]):
+        t2 = (x[row] * x[row]).numpy()
+        ss = np.zeros(lanes, f)
+        for t in range(lanes):
+            for j in range(t * n, d, lanes * n):
+                for i in range(n):
+                    ss[t] = f(ss[t] + (t2[j + i] if j + i < d else f(0)))
+        for off in (16, 8, 4, 2, 1):
+            idx = np.arange(lanes)
+            ss = (ss + ss[(idx // 32) * 32 + ((idx % 32) ^ off)]).astype(f)
+        total = f(0)
+        for w in range(lanes // 32):
+            total = f(total + ss[32 * w])
+        assert got[row] == total, row
+
+
+@pytest.mark.parametrize("rows,d", [(1, 40), (9, 40), (133, 40),
+                                    (1057, 40), (30, 2048)])
+def test_bwd_plain_dg_is_the_groups_and_chunks_chain(rows, d):
+    """dg against a literal walk of the kernel's fold: each group adds its
+    rows of a chunk (first + it·groups + k) in ascending order from 0, the
+    groups are added in order from 0 into the chunk's partial row, the
+    partials in ascending chunk order from 0 — the same bits."""
+    x, g, dy = _bwd_inputs(rows, d, torch.float32)
+    _, dg = K6.rmsnorm_bwd_plain(x, g, dy, round_before_gain=True)
+    lanes, groups, chunk = K6._bwd_layout(rows, d, 4)
+    prod = (dy * (x * K6._kernel_r(x, 1e-5))).numpy()
+    f = np.float32
+    want = np.zeros(d, f)
+    for first in range(0, rows, chunk):
+        part = np.zeros(d, f)
+        for k in range(groups):
+            acc = np.zeros(d, f)
+            for row in range(first + k, min(first + chunk, rows), groups):
+                acc = (acc + prod[row]).astype(f)
+            part = (part + acc).astype(f)
+        want = (want + part).astype(f)
+    assert np.array_equal(dg.numpy(), want)
+
+
+@pytest.mark.parametrize("rows,d,dtype", BWD_CASES, ids=str)
+@pytest.mark.parametrize("round_before_gain", [False, True])
+def test_bwd_plain_with_saved_r_equals_without(rows, d, dtype,
+                                               round_before_gain):
+    """The forward's r handed to the backward gives the bits of the
+    backward that forms r itself in the forward's chain."""
+    x, g, dy = _bwd_inputs(rows, d, dtype)
+    _, r = K6.rmsnorm_plain(x, g, round_before_gain=round_before_gain,
+                            return_r=True)
+    want = K6.rmsnorm_bwd_plain(x, g, dy, round_before_gain=round_before_gain)
+    got = K6.rmsnorm_bwd_plain(x, g, dy, round_before_gain=round_before_gain,
+                               r=r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("rows,d,dtype", [(133, 576, torch.bfloat16),
+                                          (1057, 40, torch.float32),
+                                          (3, 4104, torch.float32)], ids=str)
+def test_rmsnorm_op_backward_on_cpu_is_the_plain_chain(rows, d, dtype):
+    """``_RmsNorm`` on the CPU: the forward hands its r to the backward,
+    whose dx and dg are ``rmsnorm_bwd_plain``'s bits."""
+    x, g, dy = _bwd_inputs(rows, d, dtype)
+    xa, ga = x.clone().requires_grad_(), g.clone().requires_grad_()
+    y = ops.rmsnorm_op(xa.view(1, rows, d), ga, 1e-5, round_before_gain=True)
+    assert torch.equal(y.detach()[0], K6.rmsnorm_plain(
+        x, g, 1e-5, round_before_gain=True))
+    y.backward(dy.view(1, rows, d))
+    dx, dg = K6.rmsnorm_bwd_plain(x, g, dy, 1e-5, round_before_gain=True)
+    assert torch.equal(xa.grad, dx) and torch.equal(ga.grad, dg)
+
+
+def test_plain_float64_r_and_backward_take_the_saved_r():
+    """float64 (the reference runs): r in x's dtype, and the backward with
+    it equals the backward without it."""
+    x, g, dy = (torch.randn(4, 24, dtype=torch.float64) for _ in range(3))
+    g = g[0]
+    _, r = K6.rmsnorm_plain(x, g, return_r=True)
+    assert r.dtype == torch.float64 and r.shape == (4,)
+    want = K6.rmsnorm_bwd_plain(x, g, dy)
+    got = K6.rmsnorm_bwd_plain(x, g, dy, r=r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("rows,d,dtype", SHAPES)
 def test_the_flag_only_matters_below_float32(rows, d, dtype):
     x, g = (_t(a) for a in _inputs(rows, d, dtype))
