@@ -20,12 +20,14 @@ handle. Phases, each of which raises on a failed check:
    against the kernel's plain torch version on the same inputs (K1 in
    both forms — the pack and the scaled coo gather — K2, K5 and K6 bit
    for bit, float32 1e-5 for K3/K4), and again at
-   ``tests/test_kernels.py``'s sweeps (bfloat16 6e-2) and, for K5, on
-   sparse blocks at the GAT pieces' shapes; each is timed beside its
-   bound, its plain version and one PyTorch library call for the same
-   function (for K1's scaled form, ``index_select`` then ``mul``, and the
-   former K1 pack + multiply pair beside it), and its wrapper's host time
-   per launch is taken over 200 back-to-back calls;
+   ``tests/test_kernels.py``'s sweeps (bfloat16 6e-2), for K5 on
+   sparse blocks at the GAT pieces' shapes, and for K6 at the LM's
+   shapes and each of its kernels' layouts (y and r bit for bit, both
+   chains, the backward with r formed == with r saved); each is timed
+   beside its bound, its plain version and one PyTorch library call for
+   the same function (for K1's scaled form, ``index_select`` then
+   ``mul``, and the former K1 pack + multiply pair beside it), and its
+   wrapper's host time per launch is taken over 200 back-to-back calls;
 3. main path, uniform: C within 2e-4 of scipy in float64, the model's
    decisions, collective rows == ``volume_rows_padded``, staged C
    bit-identical to overlapped (bsr and coo), two ``h(b)`` calls
@@ -98,7 +100,7 @@ handle. Phases, each of which raises on a failed check:
    ``torch.Generator("cuda").manual_seed(0)``; ``--quick``: olmoe-smoke)
    through the port's transformer: a prefill ``forward`` of 8 prompts ×
    128 tokens, then ``ContinuousBatcher(max_batch=8, max_len=128)``
-   serving 12 requests (prompts of 32–64 tokens, 16 new tokens each: two
+   serving 12 requests (prompts of 8–16 tokens, 16 new tokens each: two
    waves), twice, with identical outputs; every RMSNorm is K6 (2·16 + 1
    launches per forward and per decode step), and the K6 calls of one
    prefill and one decode step are replayed against the plain version
@@ -261,7 +263,9 @@ handle. Phases, each of which raises on a failed check:
    path K6 and its backward also give their profiler busy time, each
    kernel of the backward pair by its own name, and the replays hold the
    forward's saved r (y unchanged, r the plain version's) and the
-   backward with and without it.
+   backward with and without it. Every K6 row with busy time also gives
+   ``F.rms_norm``'s on the same calls' inputs, and a K6 row of calls
+   under grad the wrapper's host time without r beside the time with it.
 
 It prints the card's name and power limit, then one JSON line of kernel
 rows, then ``{"ok": true, "device": {...}}`` as its last line. Without a
@@ -499,8 +503,10 @@ SDDMM_F = 128
 
 LM_ARCH = "olmoe-1b-7b"  # the config the repo calls SHIRO-first-class
 LM_PREFILL = (8, 128)  # prompts x tokens of the prefill forward
-LM_SERVE = dict(max_batch=8, max_len=128, requests=12, prompt=(32, 64),
-                new_tokens=16)  # more requests than slots: two waves
+# more requests than slots: two waves; prompts of 8-16 tokens (32-64
+# before the script outgrew its time limit: each prompt token is a step)
+LM_SERVE = dict(max_batch=8, max_len=128, requests=12, prompt=(8, 16),
+                new_tokens=16)
 LM_F32 = dict(n_layers=2, batch=2, tokens=16)  # the float32 / float64 copy
 DISPATCH = dict(tokens=1024, M=8)  # one 8 x 128 prefill's MoE dispatch
 # the reference's dispatch decisions (repro.models.moe.compile_dispatch(
@@ -537,9 +543,11 @@ KERNELS = {
 
 
 # the kernels whose profiler busy time a row reports: {kernel row: the
-# substrings of its device kernels' names}. K6's backward is a pair (its
-# rows, then the fold of the dg partials); "rmsnorm_kernel" names no
-# backward kernel.
+# substrings of its device kernels' names}. K6's forward is one kernel a
+# call: rmsnorm_kernel_rows where the lanes hold the row, rmsnorm_kernel
+# (the wide one) past that, so a path of one width finds the one it
+# launched. K6's backward is a pair (its rows, then the fold of the dg
+# partials); "rmsnorm_kernel" names no backward kernel.
 BUSY_KERNELS = {"rmsnorm": ("rmsnorm_kernel",),
                 "rmsnorm_bwd": ("rmsnorm_bwd", "rmsnorm_dg")}
 
@@ -676,6 +684,45 @@ def kernel_busy_ms(fns, keys, reps: int = 5, sessions: int = 4):
         return best[1], best[0]
     raise AssertionError(f"the profiler saw {', '.join(seen)} {keys} "
                          f"launches in {sessions} sessions")
+
+
+# F.rms_norm's device kernel on the card (torch 2.11): the name
+# ``library_busy_ms`` falls back on when no profiler session kept a record
+LIBRARY_KERNELS = ("vectorized_layer_norm_kernel",)
+
+
+def library_busy_ms(fns, sessions: int = 4) -> float:
+    """Device time of a library call (``fns``: calls of it, as
+    ``kernel_busy_ms`` takes them) per pass over ``fns``, under
+    torch.profiler: its kernels' names are read from the first of up to
+    ``sessions`` sessions (each four times as long as the one before)
+    that kept any of their records (else ``LIBRARY_KERNELS``), then timed
+    as ``kernel_busy_ms`` times the port's kernels (one launch of each a
+    call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names, reps = None, 5
+    for attempt in range(sessions):
+        if attempt:
+            reps *= 4
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        names = tuple(sorted({_kernel_base(e.key)
+                              for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA
+                              and e.count}))
+        if names:
+            break
+        log(f"profiler session {attempt + 1} kept no record of the library "
+            f"call's kernels")
+    by, _ = kernel_busy_ms(fns, names or LIBRARY_KERNELS)
+    return sum(by.values())
 
 
 # ---------------------------------------------------------------------------
@@ -957,7 +1004,8 @@ def replay_call(name, args, kw):
             if not (torch.equal(y, out) and torch.equal(r, pr)):
                 raise AssertionError("rmsnorm kernel writing r: y or r != "
                                      "the launch without r / the plain r")
-        run = lambda: k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg, **opt)  # noqa: E731,E501
+        with_r = bool(opt)  # the same call shape as the run without r
+        run = lambda: k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg, return_r=with_r)  # noqa: E731,E501
         plain = lambda: k6.rmsnorm_plain(x, g, eps, round_before_gain=rbg, **opt)  # noqa: E731,E501
         lib = lambda: F.rms_norm(x, (x.shape[-1],), weight=g, eps=eps)  # noqa: E731,E501
         es = x.element_size()
@@ -1072,6 +1120,9 @@ class KernelTally:
         self.err = self.ms = self.plain_ms = self.lib_ms = 0.0
         self.bound_ms = self.oracle_err = self.pair_ms = 0.0
         self.runs = collections.deque(maxlen=keep)
+        # K6: its library calls, and under grad the same calls without r
+        self.libs = collections.deque(maxlen=keep)
+        self.runs_without_r = collections.deque(maxlen=keep)
         self.by = {"bytes": 0.0, "operations": 0.0}
 
     def add(self, args, kw):
@@ -1083,6 +1134,16 @@ class KernelTally:
                                        .max()) if out.numel() else 0.0)
         self.ms += time_ms(run)
         self.runs.append(run)
+        if self.name == "rmsnorm":
+            self.libs.append(lib)  # F.rms_norm, for its busy time
+            if kw.get("return_r"):
+                from repro_torch.kernels import rmsnorm as k6
+
+                x, g, eps = args
+                rbg = kw["round_before_gain"]
+                self.runs_without_r.append(
+                    lambda: k6.rmsnorm_cuda(x, g, eps, round_before_gain=rbg,
+                                            return_r=False))
         # warm from the check
         self.plain_ms += time_ms(plain, iters=1, warmup=0)
         self.lib_ms += time_ms(lib)
@@ -1113,6 +1174,9 @@ class KernelTally:
             row["pack_plus_multiply_ms"] = self.pair_ms
         if name == "rmsnorm":
             row["max_abs_err_vs_oracle"] = self.oracle_err
+        if self.runs_without_r:
+            row["host_us_per_launch_without_r"] = host_us_per_launch(
+                list(self.runs_without_r))
         if name in BUSY_KERNELS and busy:
             # each kernel of the call by its own name, and their sum
             by, kept = kernel_busy_ms(runs, BUSY_KERNELS[name])
@@ -1127,6 +1191,9 @@ class KernelTally:
             row["kernel_busy_ms_one_input"] = sum(one.values())
             # below 1 where no profiler session kept every record
             row["kernel_busy_records_kept"] = [kept, kept_one]
+            if name == "rmsnorm":
+                # F.rms_norm's device time on the same calls' inputs
+                row["library_busy_ms"] = library_busy_ms(list(self.libs))
         return row
 
 
@@ -1170,7 +1237,11 @@ def kernel_summary(name: str, per_path: dict, card: str) -> dict:
                f"{json.dumps(r['kernel_busy_ms_by_kernel'])}; "
                f"{r['kernel_busy_ms_one_input']:.4f} ms with the last "
                f"call's input in every launch)"
-               if "kernel_busy_ms" in r else ""))
+               if "kernel_busy_ms" in r else "")
+            + (f"; library busy {r['library_busy_ms']:.4f} ms over the same "
+               f"calls" if "library_busy_ms" in r else "")
+            + (f"; host {r['host_us_per_launch_without_r']:.2f} us a launch "
+               f"without r" if "host_us_per_launch_without_r" in r else ""))
     row = dict(next(iter(per_path.values())))
     row["max_abs_err"] = max(r["max_abs_err"] for r in per_path.values())
     row["paths"] = {
@@ -1180,7 +1251,8 @@ def kernel_summary(name: str, per_path: dict, card: str) -> dict:
             "launches_per_worker",
             "pack_plus_multiply_ms", "max_abs_err_vs_oracle",
             "kernel_busy_ms", "kernel_busy_ms_by_kernel", "kernel_busy_calls",
-            "kernel_busy_ms_one_input", "kernel_busy_records_kept")
+            "kernel_busy_ms_one_input", "kernel_busy_records_kept",
+            "library_busy_ms", "host_us_per_launch_without_r")
             if key in r}
         for path, r in per_path.items()}
     return row
@@ -1211,6 +1283,7 @@ def sweep_checks() -> None:
     """``tests/test_kernels.py``'s sweeps, with 2 stacked ranks."""
     from repro_torch.kernels import bsr_spmm as k34
     from repro_torch.kernels import gather_rows as k1
+    from repro_torch.kernels import rmsnorm as k6
     from repro_torch.kernels import scatter_add_rows as k2
     from repro_torch.kernels import sddmm as k5
 
@@ -1314,12 +1387,46 @@ def sweep_checks() -> None:
                 raise AssertionError("bsr_sddmm: a stored zero or a pad "
                                      "did not give +0.0")
         del cols_d, blk, x3, y3, out
+    # K6 at the LM's shapes (smollm-train 2048 x 576; prefill and
+    # olmoe-train 1024 x 2048; decode 8 x 2048) and each layout of its
+    # kernels (32 to 256 lanes a row, the wide kernel, one element at a
+    # time): y, and y and r from the r-storing launch, the plain
+    # version's bits in both chains; the backward without a saved r (its
+    # r from the forward's kernel) == the one with it
+    bf, f32 = torch.bfloat16, torch.float32
+    k6_shapes = [(2048, 576, bf), (1024, 2048, bf), (8, 2048, bf),
+                 (7, 1536, bf), (1, 576, f32), (513, 4096, f32),
+                 (3, 4100, f32), (2, 8192, bf), (2, 8200, bf), (5, 50, bf)]
+    for rows, d, dtype in k6_shapes:
+        x = torch.randn((rows, d), device=dev, generator=gen).to(dtype)
+        g = torch.randn(d, device=dev, generator=gen).to(dtype)
+        dy = torch.randn((rows, d), device=dev, generator=gen).to(dtype)
+        for rbg in (False, True):
+            y = k6.rmsnorm_cuda(x, g, 1e-5, round_before_gain=rbg)
+            y2, r = k6.rmsnorm_cuda(x, g, 1e-5, round_before_gain=rbg,
+                                    return_r=True)
+            py, pr = k6.rmsnorm_plain(x, g, 1e-5, round_before_gain=rbg,
+                                      return_r=True)
+            if not (torch.equal(y, py) and torch.equal(y2, py)
+                    and torch.equal(r, pr)):
+                raise AssertionError(f"rmsnorm sweep {(rows, d, dtype, rbg)}"
+                                     f" differs from plain")
+            saved = k6.rmsnorm_bwd_cuda(x, g, dy, 1e-5, round_before_gain=rbg,
+                                        r=r)
+            formed = k6.rmsnorm_bwd_cuda(x, g, dy, 1e-5,
+                                         round_before_gain=rbg)
+            if not all(torch.equal(a, b) for a, b in zip(saved, formed)):
+                raise AssertionError(f"rmsnorm_bwd sweep {(rows, d, dtype)}:"
+                                     f" r formed != the saved r")
     log(f"sweeps: K1 exact (both forms, f32 and bf16 b, n up to 2048), "
         f"K2 exact, K3/K4 max abs err "
         f"f32 {worst['f32']:.3g} (tol 1e-5), bf16 {worst['bf16']:.3g} "
         f"(tol 6e-2); K5 == plain bit for bit (F 1, 16, 33, 128, t = 0, "
         f"all-pad rows; sparse blocks at [{P}, 2646, 18] and [{P}, 7566, "
-        f"25], F = 16, stored zeros and pads +0.0), f32 and bf16 inputs")
+        f"25], F = 16, stored zeros and pads +0.0), f32 and bf16 inputs; "
+        f"K6 y and r == plain bit for bit at "
+        f"{[(r_, d_) for r_, d_, _ in k6_shapes]}, both chains, and its "
+        f"backward with r formed == with r saved")
 
 
 # ---------------------------------------------------------------------------
@@ -2485,7 +2592,7 @@ class plain_kernels:
 
 
 def lm_requests(Request, vocab: int, seed: int = 0):
-    """LM_SERVE's requests: prompts of 32-64 tokens from numpy ``seed``."""
+    """LM_SERVE's requests: prompts of 8-16 tokens from numpy ``seed``."""
     rng = np.random.default_rng(seed)
     lo, hi = LM_SERVE["prompt"]
     return [Request(rid=i, prompt=rng.integers(0, vocab, int(n)).astype(

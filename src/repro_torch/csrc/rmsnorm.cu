@@ -19,28 +19,49 @@
 // contraction): the plain version in kernels/rmsnorm.py repeats the same
 // chain in float32 and gets the same bits.
 //
-// Bound on the card: memory bytes. A row is read twice (the second read
-// hits L1/L2) and written once; the arithmetic is ~4 operations per
-// element, far below the float32 ridge. chip_smoke.py prints the bound of
-// each call (one read of x and g, one write of y, over 3.35 TB/s).
+// The chain of the sum of squares is that of one 256-thread block a row
+// (rmsnorm_kernel below): chunk c of a row (its N = 16 / sizeof(T)
+// elements c·N … c·N + N − 1) belongs to thread t = c mod 256 at step
+// s = c div 256; each thread adds its elements in ascending (s, i) from
+// 0, xor butterflies (16 … 1) fold each warp, and the 8 warp sums are
+// added in ascending warp order from 0. r = __frsqrt_rn(total / D + eps).
 //
-// Design: the TPU kernel kept a (128-row x D) tile in VMEM per grid step.
-// Here one thread block of 256 threads takes one row: each thread loads 16
-// bytes per step (4 float32 or 8 bfloat16; D = 2048 in bfloat16 is one load
-// per thread), accumulates its squares in float32, the 8 warps reduce with
-// xor shuffles and one shared-memory pass over the 8 warp sums, thread 0
-// forms r, and the row is read again, scaled, multiplied by the gain and
-// stored with 16-byte stores. A row whose width or pointers do not allow
-// 16-byte access takes the same elements in the same order, one at a time.
-// Under grad thread 0 also stores r, one float32 a row, where a pointer is
-// passed (the backward reads it instead of summing the squares again);
-// with no output pointer the kernel stops there. Making it fast (several rows per block for decode's 8-row batches, fusing
-// the residual add) is later work.
+// Bound on the card: memory bytes — x and g read once, y (and r) written
+// once; ~4 operations an element, far below the float32 ridge.
+// chip_smoke.py prints the bound of each call (over 3.35 TB/s).
+//
+// Design (rmsnorm_kernel_rows): the TPU kernel kept a (128-row x D) tile
+// in VMEM per grid step. Here rows run in parallel, each read once:
+// * A row goes to a group of kLanes lanes: at least kernels/rmsnorm.py's
+//   _fwd_layout (the smallest power of two from 32 to 256 whose lanes
+//   hold the row in at most kHeld 16-byte chunks each: 32 at smollm's
+//   D = 576, 64 at OLMoE's 2048 in bfloat16), more for few rows (the
+//   launcher below). Lane l holds chunks c ≡ l (mod kLanes), kChunks of
+//   them (a template parameter: registers for the chunks it has).
+// * One read: a row's chunks and g's are loaded once, 16 bytes a load,
+//   into registers, and serve both the sum of squares and y.
+// * The 256-thread chain, bit for bit: lane l stands for the threads
+//   t = l + m·kLanes, keeping one float32 sum for each, added in the same
+//   (s, i) order. Because kLanes >= 32, the block's warp q + m·kLanes/32
+//   is 32 consecutive lanes of the group's warp q: one xor butterfly per
+//   such virtual warp, then the virtual warps' sums in ascending order
+//   (through shared memory across the group's warps; in registers at 32
+//   lanes). A virtual warp that holds no chunk sums to an exact +0.0 (a
+//   sum of squares is never negative), so it is skipped.
+// Rows wider than the lanes hold (bfloat16 D > 8192, float32 D > 4096)
+// take rmsnorm_kernel: one 256-thread block a row, the row read twice;
+// so do rows whose width or pointers do not allow 16-byte access (the
+// same elements in the same order, one at a time). Under grad both
+// kernels also store r, one float32 a row, where a pointer is passed
+// (the backward reads it instead of summing the squares again); given no
+// output, rmsnorm_kernel stops there (the backward's r when none was
+// saved).
 #include "common.cuh"
 
 namespace repro_torch {
 
-constexpr int kRmsThreads = 256;
+constexpr int kRmsThreads = 256;  // the chain's block; the rows kernel's largest
+constexpr int kHeld = 4;          // 16-byte chunks of a row a lane holds (both directions)
 
 template <typename T>
 struct Vec16 {
@@ -80,9 +101,32 @@ __device__ __forceinline__ void store_from_f32(T* __restrict__ p, long long j, l
   }
 }
 
-// Thread t takes elements [s·256·N + t·N, s·256·N + t·N + N) of step s, in
-// that order, whatever the access width: the addition chain depends only
-// on D and the dtype, and kernels/rmsnorm.py's plain version repeats it.
+// 16 bytes of a row, raw, from element j on: one load where the row
+// allows it, else one element at a time, zeros past the row's end.
+template <typename T, bool kVecIO>
+__device__ __forceinline__ uint4 load_raw(const T* __restrict__ p, long long j, long long D) {
+  constexpr int N = Vec16<T>::N;
+  if constexpr (kVecIO) {
+    if (j < D) return *reinterpret_cast<const uint4*>(p + j);
+    return make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) e[i] = j + i < D ? p[j + i] : from_f32<T>(0.0f);
+    return raw;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& raw, int i) {
+  return to_f32(reinterpret_cast<const T*>(&raw)[i]);
+}
+
+// Rows wider than the lanes hold: one 256-thread block a row, the head
+// comment's chain literally (thread t takes elements s·256·N + t·N + i,
+// whatever the access width); thread 0 forms r, and the row is read
+// again (from L1/L2) for y.
 template <typename T, bool kVecIO, bool kRoundBeforeGain>
 __global__ void __launch_bounds__(kRmsThreads)
     rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ y,
@@ -132,22 +176,163 @@ __global__ void __launch_bounds__(kRmsThreads)
   }
 }
 
-template <typename T, bool kRoundBeforeGain>
-int launch_rmsnorm(const void* x, const void* g, void* y, float* r, long long rows, long long D,
-                   float eps, cudaStream_t st) {
+// The rows kernel (the file's head comment): a row on a group of kLanes
+// lanes, each lane holding kChunks 16-byte chunks of it, blockDim /
+// kLanes rows a block.
+template <typename T, int kLanes, int kChunks, bool kRoundBeforeGain>
+__global__ void __launch_bounds__(kRmsThreads)
+    rmsnorm_kernel_rows(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ y,
+                        float* __restrict__ r_out, long long rows, long long D, float eps) {
   constexpr int N = Vec16<T>::N;
-  const bool vec = D % N == 0 && ((uintptr_t)x | (uintptr_t)g | (uintptr_t)y) % 16 == 0;
-  const dim3 grid((unsigned)rows), block(kRmsThreads);
-  if (vec) {
-    rmsnorm_kernel<T, true, kRoundBeforeGain>
-        <<<grid, block, 0, st>>>((const T*)x, (const T*)g, (T*)y, r, D, eps);
-  } else {
-    rmsnorm_kernel<T, false, kRoundBeforeGain>
-        <<<grid, block, 0, st>>>((const T*)x, (const T*)g, (T*)y, r, D, eps);
+  constexpr int kVirt = kRmsThreads / kLanes;        // the 256 threads a lane stands for
+  constexpr int V = kChunks < kVirt ? kChunks : kVirt;  // of those, the ones its chunks reach
+  constexpr int kWarps = kLanes / 32;                // real warps of a group
+  __shared__ float warp_sums[kRmsThreads / 32][V];
+  const int grp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int q = lane >> 5;  // the group's warp
+  const long long nvec = (D + N - 1) / N;
+  const long long row = (long long)blockIdx.x * (blockDim.x / kLanes) + grp;
+  const bool live = row < rows;  // a spare group of the last block still meets the barrier
+
+  // chunk k of the lane is chunk c = k·kLanes + lane of the row: the
+  // 256-thread block's thread lane + (k mod kVirt)·kLanes at step k div kVirt
+  uint4 xr[kChunks], gr[kChunks];
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k)
+      xr[k] = load_raw<T, true>(x + row * D, (long long)(k * kLanes + lane) * N, D);
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k)
+      gr[k] = load_raw<T, true>(g, (long long)(k * kLanes + lane) * N, D);
   }
+  float vs[V];
+#pragma unroll
+  for (int m = 0; m < V; ++m) vs[m] = 0.0f;
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      if (k * kLanes + lane < nvec) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const float v = elem<T>(xr[k], i);
+          vs[k % kVirt] = __fadd_rn(vs[k % kVirt], __fmul_rn(v, v));
+        }
+      }
+    }
+    // virtual warp (q, m) is the block's warp q + m·kWarps: 32 consecutive
+    // lanes of the group's warp q; it holds a chunk when its first lane
+    // does (a warp-uniform test)
+#pragma unroll
+    for (int m = 0; m < V; ++m) {
+      if (32 * q + m * kLanes < nvec) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          vs[m] = __fadd_rn(vs[m], __shfl_xor_sync(0xffffffffu, vs[m], off));
+      }
+    }
+  }
+  // the 8 warp sums in ascending warp order q + m·kWarps
+  float total = 0.0f;
+  if constexpr (kWarps == 1) {
+#pragma unroll
+    for (int m = 0; m < V; ++m) total = __fadd_rn(total, vs[m]);
+  } else {
+    if ((lane & 31) == 0) {
+#pragma unroll
+      for (int m = 0; m < V; ++m) warp_sums[threadIdx.x >> 5][m] = vs[m];
+    }
+    __syncthreads();
+    const int lead = grp * kWarps;
+#pragma unroll
+    for (int m = 0; m < V; ++m)
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) total = __fadd_rn(total, warp_sums[lead + w][m]);
+  }
+  const float r = __frsqrt_rn(__fadd_rn(__fdiv_rn(total, (float)D), eps));
+  if (!live) return;
+  if (r_out != nullptr && lane == 0) r_out[row] = r;  // under grad: for the backward
+  T* yr = y + row * D;
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const long long j = (long long)(k * kLanes + lane) * N;
+    if (j < D) {
+      float o[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        float s = __fmul_rn(elem<T>(xr[k], i), r);
+        if constexpr (kRoundBeforeGain) s = to_f32(from_f32<T>(s));
+        o[i] = __fmul_rn(s, elem<T>(gr[k], i));
+      }
+      store_from_f32<T, N, true>(yr, j, D, o);
+    }
+  }
+}
+
+// Lanes a row: at least the passed floor (the fewest that hold the row in
+// kHeld chunks each), doubled while a lane would hold more than
+// kFwdChunks chunks or rows · lanes stays under kFwdThreads: few rows get
+// fewer chunks a lane, so a shorter chain a thread; many rows fewer lanes,
+// so fewer folds. Blocks of 128 threads (256 at 256 lanes). Chosen from
+// variants timed on an H100 at the LM's shapes (PERF.md).
+constexpr long long kFwdChunks = 3;
+constexpr long long kFwdThreads = 1LL << 16;
+
+template <typename T, int kLanes, int kChunks, bool kRoundBeforeGain>
+int launch_rows(const T* x, const T* g, T* y, float* r, long long rows, long long D, float eps,
+                cudaStream_t st) {
+  constexpr int kGroups = kLanes < 128 ? 128 / kLanes : 1;
+  rmsnorm_kernel_rows<T, kLanes, kChunks, kRoundBeforeGain>
+      <<<(unsigned)ceil_div(rows, kGroups), kGroups * kLanes, 0, st>>>(x, g, y, r, rows, D, eps);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int kLanes, bool kRoundBeforeGain>
+int launch_rows_held(const T* x, const T* g, T* y, float* r, long long rows, long long D,
+                     long long chunks, float eps, cudaStream_t st) {
+  switch (chunks) {
+    case 1: return launch_rows<T, kLanes, 1, kRoundBeforeGain>(x, g, y, r, rows, D, eps, st);
+    case 2: return launch_rows<T, kLanes, 2, kRoundBeforeGain>(x, g, y, r, rows, D, eps, st);
+    case 3: return launch_rows<T, kLanes, 3, kRoundBeforeGain>(x, g, y, r, rows, D, eps, st);
+    case 4: return launch_rows<T, kLanes, 4, kRoundBeforeGain>(x, g, y, r, rows, D, eps, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// lanes: _fwd_layout's (32, 64, 128 or 256). The wide kernel takes rows
+// the lanes do not hold (more than kHeld chunks a lane at 256 lanes),
+// rows without 16-byte access (D % N != 0 or an unaligned pointer: one
+// element at a time), and r alone (y null: the backward's, when none was
+// saved).
+template <typename T, bool kRoundBeforeGain>
+int launch_rmsnorm(const void* x_, const void* g_, void* y_, float* r, long long rows,
+                   long long D, int lanes, float eps, cudaStream_t st) {
+  constexpr int N = Vec16<T>::N;
+  const T *x = (const T*)x_, *g = (const T*)g_;
+  T* y = (T*)y_;
+  const bool vec = D % N == 0 && ((uintptr_t)x | (uintptr_t)g | (uintptr_t)y) % 16 == 0;
+  const long long nvec = ceil_div(D, N);
+  if (y == nullptr || !vec || ceil_div(nvec, lanes) > kHeld) {
+    if (vec) {
+      rmsnorm_kernel<T, true, kRoundBeforeGain><<<(unsigned)rows, kRmsThreads, 0, st>>>(
+          x, g, y, r, D, eps);
+    } else {
+      rmsnorm_kernel<T, false, kRoundBeforeGain><<<(unsigned)rows, kRmsThreads, 0, st>>>(
+          x, g, y, r, D, eps);
+    }
+    return (int)cudaGetLastError();
+  }
+  while (lanes < kRmsThreads && (ceil_div(nvec, lanes) > kFwdChunks || rows * lanes < kFwdThreads))
+    lanes *= 2;
+  const long long chunks = ceil_div(nvec, lanes);
+  switch (lanes) {
+    case 32: return launch_rows_held<T, 32, kRoundBeforeGain>(x, g, y, r, rows, D, chunks, eps, st);
+    case 64: return launch_rows_held<T, 64, kRoundBeforeGain>(x, g, y, r, rows, D, chunks, eps, st);
+    case 128: return launch_rows_held<T, 128, kRoundBeforeGain>(x, g, y, r, rows, D, chunks, eps, st);
+    case 256: return launch_rows_held<T, 256, kRoundBeforeGain>(x, g, y, r, rows, D, chunks, eps, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // The backward (no TPU kernel: the reference differentiates its jnp
@@ -165,7 +350,7 @@ int launch_rmsnorm(const void* x, const void* g, void* y, float* r, long long ro
 //
 // * Rows in parallel. A row belongs to a group of kLanes lanes (a power
 //   of two from 32 to 256, the smallest whose lanes hold the row in at
-//   most kBwdHeld 16-byte chunks each); a 256-thread block runs 256 /
+//   most kHeld 16-byte chunks each); a 256-thread block runs 256 /
 //   kLanes rows at once over a contiguous chunk of rows, a multiple of
 //   the groups. Lane l owns chunks c = 0, 1, …: elements (c·kLanes + l)·N
 //   + i, the same columns in every row, so its slice of g and its dg
@@ -184,37 +369,14 @@ int launch_rmsnorm(const void* x, const void* g, void* y, float* r, long long ro
 // * The grid: rows / 132 rows a block, rounded up to the groups (a
 //   partial row a block, so about one block per SM: more blocks write
 //   and fold more partial rows, fewer stream fewer bytes at once).
-// * Widths past what the lanes hold (more than 256 · kBwdHeld chunks:
+// * Widths past what the lanes hold (more than 256 · kHeld chunks:
 //   bfloat16 D > 8192, float32 D > 4096) take rmsnorm_bwd_wide_kernel:
 //   one row at a time on the 256 lanes with the same element layout,
 //   the dg sums in shared memory, x and dy read again from L2 for dx.
 constexpr int kBwdThreads = 256;
-constexpr int kBwdHeld = 4;    // 16-byte chunks of a row a lane holds
 constexpr int kDgThreads = 256;  // the dg fold's block
 constexpr int kDgCols = 32;      // columns a fold block takes
 constexpr int kDgRows = 128;     // partial rows a fold block loads at once
-
-// 16 bytes of a row, raw, from element j on: one load where the row
-// allows it, else one element at a time, zeros past the row's end.
-template <typename T, bool kVecIO>
-__device__ __forceinline__ uint4 load_raw(const T* __restrict__ p, long long j, long long D) {
-  constexpr int N = Vec16<T>::N;
-  if constexpr (kVecIO) {
-    if (j < D) return *reinterpret_cast<const uint4*>(p + j);
-    return make_uint4(0u, 0u, 0u, 0u);
-  } else {
-    uint4 raw;
-    T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < N; ++i) e[i] = j + i < D ? p[j + i] : from_f32<T>(0.0f);
-    return raw;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ float elem(const uint4& raw, int i) {
-  return to_f32(reinterpret_cast<const T*>(&raw)[i]);
-}
 
 // One row's Σ dxn·x from the lanes' sums: xor butterflies in each warp,
 // then (kWarps > 1) the group's warp sums added in order from 0 through
@@ -245,7 +407,7 @@ __global__ void __launch_bounds__(kBwdThreads)
                             T* __restrict__ dx, float* __restrict__ partial, long long rows,
                             long long D, long long chunk) {
   constexpr int N = Vec16<T>::N;
-  constexpr int C = kBwdHeld;
+  constexpr int C = kHeld;
   constexpr int kGroups = kBwdThreads / kLanes;
   extern __shared__ float dg_groups[];  // [kGroups][D], when kGroups > 1
   __shared__ float warp_buf[2][kBwdThreads / 32];
@@ -504,13 +666,14 @@ int launch_rmsnorm_bwd(const void* x_, const void* g_, const void* dy_, const fl
   int rc = 0;
   if (r == nullptr) {  // r in the forward's chain, by the forward's kernel
     float* r_work = work + blocks * D;
-    rc = launch_rmsnorm<T, kRoundBeforeGain>(x_, g_, nullptr, r_work, rows, D, eps, st);
+    rc = launch_rmsnorm<T, kRoundBeforeGain>(x_, g_, nullptr, r_work, rows, D, lanes, eps,
+                                              st);
     if (rc) return rc;
     r = r_work;
   }
   const bool vec = D % N == 0 &&
                    ((uintptr_t)x | (uintptr_t)g | (uintptr_t)dy | (uintptr_t)dx) % 16 == 0;
-  const bool held = ceil_div(ceil_div(D, N), lanes) <= kBwdHeld;
+  const bool held = ceil_div(ceil_div(D, N), lanes) <= kHeld;
   if (held) {
     rc = vec ? launch_bwd_rows<T, true, kRoundBeforeGain>(x, g, dy, r, dx, partial, rows, D, lanes,
                                                           chunk, blocks, st)
@@ -530,23 +693,28 @@ int launch_rmsnorm_bwd(const void* x_, const void* g_, const void* dy_, const fl
 }  // namespace repro_torch
 
 // y = rmsnorm(x, g); r, when not null, gets each row's r (float32 [rows])
-// for the backward.
+// for the backward. lanes (32, 64, 128 or 256) is kernels/rmsnorm.py's
+// _fwd_layout: lanes that hold the row in at most kHeld 16-byte chunks
+// each, or 256 for rows wider than that (the wide kernel).
 extern "C" int repro_rmsnorm(const void* x, const void* g, void* y, void* r, long long rows,
-                             long long D, float eps, int dtype, int round_before_gain,
+                             long long D, int lanes, float eps, int dtype, int round_before_gain,
                              void* stream) {
   using namespace repro_torch;
-  if (rows < 1 || rows > 2147483647LL || D < 1 || y == nullptr)
+  const int n = dtype == kFloat32 ? 4 : 8;
+  const bool lanes_ok = lanes == 32 || lanes == 64 || lanes == 128 || lanes == 256;
+  if (rows < 1 || rows > 2147483647LL || D < 1 || y == nullptr || !lanes_ok ||
+      (lanes < 256 && ceil_div(ceil_div(D, n), lanes) > kHeld))
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
   float* rr = (float*)r;
   if (dtype == kFloat32) {
-    return round_before_gain ? launch_rmsnorm<float, true>(x, g, y, rr, rows, D, eps, st)
-                             : launch_rmsnorm<float, false>(x, g, y, rr, rows, D, eps, st);
+    return round_before_gain ? launch_rmsnorm<float, true>(x, g, y, rr, rows, D, lanes, eps, st)
+                             : launch_rmsnorm<float, false>(x, g, y, rr, rows, D, lanes, eps, st);
   }
   if (dtype == kBFloat16) {
     return round_before_gain
-               ? launch_rmsnorm<__nv_bfloat16, true>(x, g, y, rr, rows, D, eps, st)
-               : launch_rmsnorm<__nv_bfloat16, false>(x, g, y, rr, rows, D, eps, st);
+               ? launch_rmsnorm<__nv_bfloat16, true>(x, g, y, rr, rows, D, lanes, eps, st)
+               : launch_rmsnorm<__nv_bfloat16, false>(x, g, y, rr, rows, D, lanes, eps, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -567,7 +735,7 @@ extern "C" int repro_rmsnorm_bwd(const void* x, const void* g, const void* dy, c
   const bool lanes_ok = lanes == 32 || lanes == 64 || lanes == 128 || lanes == 256;
   if (rows < 1 || D < 1 || D > 12288 || chunk < 1 || !lanes_ok ||
       chunk % (kBwdThreads / lanes) != 0 || rows > 2147483647LL ||
-      (lanes < 256 && ceil_div(ceil_div(D, n), lanes) > kBwdHeld))
+      (lanes < 256 && ceil_div(ceil_div(D, n), lanes) > kHeld))
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
   const float* rr = (const float*)r;

@@ -62,7 +62,7 @@ _SIGNATURES = {
                            _I64, _I64, _I64, _I32, _I32, _P],
     "repro_bsr_sddmm": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I64,
                         _I64, _I32, _P],
-    "repro_rmsnorm": [_P, _P, _P, _P, _I64, _I64, _F32, _I32, _I32, _P],
+    "repro_rmsnorm": [_P, _P, _P, _P, _I64, _I64, _I32, _F32, _I32, _I32, _P],
     "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I64,
                           _F32, _I32, _I32, _P],
 }

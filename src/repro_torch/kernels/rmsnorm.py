@@ -16,14 +16,23 @@ parameter of the kernel):
 
 In float32 the two are the same chain. The reduction is float32 in both.
 
-``rmsnorm_cuda`` launches the kernel (``csrc/rmsnorm.cu``: one 256-thread
-block per row, 16-byte loads, float32 sum of squares by warp shuffles,
-``__frsqrt_rn``) on CUDA tensors and counts the launch in ``LAUNCHES``.
+``rmsnorm_cuda`` launches the kernel (``csrc/rmsnorm.cu``) on CUDA
+tensors and counts the launch in ``LAUNCHES``. Rows run in parallel: a
+row on a group of at least ``_fwd_layout``'s lanes (32 to 256, each lane
+holding at most four 16-byte chunks of the row, the same columns in
+every row; the launch doubles them for few rows), read once into
+registers; the sum of squares keeps the chain of one 256-thread block a
+row (each lane keeps one sum for each of the block's threads it stands
+for, one xor butterfly per warp of that block, the 8 warp sums in
+order), so the bits do not depend on the lanes. Rows wider than the
+lanes hold, and rows without 16-byte access (a width not a multiple of
+16 bytes, an unaligned view), take one 256-thread block a row.
 The kernel is busy about 3 µs a launch at the LM prefill's 1024 bfloat16
 rows of 2048 on an H100, so the wrapper's host time is the cost to keep
 down: one pass of checks, no reshape or copy for contiguous operands
-(the kernel takes x as numel / D rows of D), one allocation, and the
-shared lean launch path of ``kernels.build``.
+(the kernel takes x as numel / D rows of D), one allocation (y's; r
+under grad comes from a batch, ``_new_r``), and the shared lean launch
+path of ``kernels.build``.
 ``rmsnorm_plain`` repeats the kernel's float32 chain step by step in
 plain torch (the same order of the sum of squares, a correctly rounded
 ``rsqrt``), so the two agree bit for bit; it runs on the CPU and is the
@@ -148,11 +157,53 @@ def rmsnorm_plain(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
     return (y, r.reshape(x.shape[:-1])) if return_r else y
 
 
+HELD = 4  # 16-byte chunks of a row one lane holds in registers
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_layout(d: int, element_size: int) -> int:
+    """The lanes a row of ``d`` elements of ``element_size`` bytes goes
+    to: the smallest power of two from 32 to 256 whose lanes hold it in
+    at most ``HELD`` 16-byte chunks each; 256 for wider rows (bfloat16
+    D > 8192, float32 D > 4096), which the wide kernels take, a row a
+    256-thread block. Both directions take it: the backward's bits
+    depend on it (``_chain_sum(…, lanes)``); the forward's do not (the
+    256-thread chain on any lanes), and its launch doubles the lanes
+    while a lane would hold more than 3 chunks or rows · lanes < 2**16,
+    so that few rows get fewer chunks a lane."""
+    nvec = -(-d // (16 // element_size))
+    lanes = 32
+    while lanes < _THREADS and -(-nvec // lanes) > HELD:
+        lanes *= 2
+    return lanes
+
+
+R_BATCH = 64  # r tensors one allocation makes (``_new_r``)
+_R_VIEWS: dict = {}  # stream -> (x's shape, device index, r tensors not handed out)
+
+
+def _new_r(x: torch.Tensor, stream: int) -> torch.Tensor:
+    """A fresh float32 tensor of x's leading shape for one launch's r on
+    ``stream``. One allocation on that stream makes ``R_BATCH`` of them
+    (disjoint views of it, each handed out once), so a launch pays a list
+    pop and not an allocation (7–12 µs of host time on an H100's host,
+    ``scripts/torch_rmsnorm_fwd_sweep.py --host-parts``); the allocation
+    lives while any of its views does."""
+    made = _R_VIEWS.get(stream)
+    shape, dev = x.shape, x.get_device()
+    if made is None or made[0] != shape or made[1] != dev or not made[2]:
+        batch = torch.empty((R_BATCH,) + shape[:-1], dtype=torch.float32,
+                            device=x.device)
+        made = _R_VIEWS[stream] = (shape, dev, list(batch.unbind(0)))
+    return made[2].pop()
+
+
 def rmsnorm_cuda(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
                  round_before_gain: bool = False, return_r: bool = False):
     """The K6 kernel on the card: x [..., D], g [D] -> y like x (with
-    ``return_r``: ``(y, r)``, r [...] float32, stored by the same launch).
-    Only a strided x or g is copied (made contiguous) first."""
+    ``return_r``: ``(y, r)``, r [...] float32, stored by the same launch;
+    r from ``_new_r``). Only a strided x or g is copied (made contiguous)
+    first."""
     if not (x.is_cuda and g.device == x.device):
         raise ValueError("rmsnorm_cuda needs x and g on one CUDA device")
     _check(x, g)
@@ -162,16 +213,17 @@ def rmsnorm_cuda(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
     if not g.is_contiguous():
         g = g.contiguous()
     out = torch.empty_like(x)
-    r = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device) \
-        if return_r else None
+    stream = build.stream_of(x)
+    r = _new_r(x, stream) if return_r else None
     n = x.numel()
     if n == 0:
         return (out, r) if return_r else out
     d = g.shape[0]
     rc = build.library().repro_rmsnorm(
         x.data_ptr(), g.data_ptr(), out.data_ptr(),
-        r.data_ptr() if return_r else None, n // d, d, eps, code,
-        round_before_gain, build.stream_of(x))
+        r.data_ptr() if return_r else None, n // d, d,
+        _fwd_layout(d, x.element_size()), eps, code, round_before_gain,
+        stream)
     build.check(rc, "rmsnorm")
     LAUNCHES["rmsnorm"] += 1
     return (out, r) if return_r else out
@@ -182,23 +234,17 @@ def rmsnorm_cuda(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5, *,
 # ---------------------------------------------------------------------------
 
 BWD_MAX_D = 12_288  # the wide kernel's float32 dg sums: 48 KB (opted in)
-BWD_HELD = 4  # 16-byte chunks of a row one lane holds in registers
 BWD_SMS = 132  # the blocks a backward aims at: one per SM of an H100
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_layout(rows: int, d: int, element_size: int) -> tuple:
     """The backward kernel's layout, which fixes its fold orders:
-    ``(lanes, groups, chunk)``. A row goes to ``lanes`` threads, the
-    smallest power of two from 32 to 256 whose lanes hold it in at most
-    ``BWD_HELD`` 16-byte chunks each (wider rows: 256 lanes, the wide
-    kernel); a 256-thread block runs ``groups`` = 256 / lanes rows at once
-    over ``chunk`` contiguous rows, a multiple of ``groups`` near rows /
+    ``(lanes, groups, chunk)``. A row goes to ``_fwd_layout``'s lanes;
+    a 256-thread block runs ``groups`` = 256 / lanes rows at once over
+    ``chunk`` contiguous rows, a multiple of ``groups`` near rows /
     ``BWD_SMS`` (one dg partial row a block)."""
-    nvec = -(-d // (16 // element_size))
-    lanes = 32
-    while lanes < _THREADS and -(-nvec // lanes) > BWD_HELD:
-        lanes *= 2
+    lanes = _fwd_layout(d, element_size)
     groups = _THREADS // lanes
     chunk = -(-(-(-rows // BWD_SMS)) // groups) * groups
     return lanes, groups, chunk

@@ -833,6 +833,13 @@ RMS_SHAPES = [
     # and widths that take the one-element access path (D % 8 != 0)
     ((4,), 32), ((128,), 64), ((16,), 128), ((3,), 48), ((8,), 2048),
     ((1024,), 2048), ((2, 3), 64), ((5,), 50), ((2,), 1001),
+    # the configs' widths from smollm's 576 to 8192 on 32 to 256 lanes a
+    # row and 1 to 4 chunks a lane, at 1, 7 and 2048 rows (few rows get
+    # more lanes), and 4100 (the wide kernel: one element at a time in
+    # bfloat16, past what the lanes hold in float32)
+    ((1,), 576), ((7,), 576), ((2048,), 576), ((7,), 1536), ((2048,), 1536),
+    ((1,), 4096), ((7,), 4096), ((1,), 8192), ((7,), 8192), ((2048,), 8192),
+    ((3,), 4100),
 ]
 
 
@@ -954,6 +961,95 @@ def test_rmsnorm_kernel_writes_r_without_changing_y(lead, d, dtype,
     _, pr = K6.rmsnorm_plain(x, g, 1e-5, round_before_gain=round_before_gain,
                              return_r=True)
     assert torch.equal(r, pr)
+
+
+@requires_cuda
+@pytest.mark.parametrize("d,dtype", [(576, torch.bfloat16),
+                                     (2048, torch.bfloat16),
+                                     (1536, torch.float32),
+                                     (4100, torch.float32)], ids=str)
+@pytest.mark.parametrize("round_before_gain", [False, True])
+def test_rmsnorm_kernel_unaligned_view_writes_r(d, dtype, round_before_gain):
+    """A view one element past an aligned start takes the wide kernel's
+    one-element path (the rows kernel takes 16-byte access only): y and
+    r the plain version's bits, the chain of the aligned launch."""
+    rows = 9
+    buf = torch.randn(rows * d + 1, device="cuda").to(dtype)
+    x = buf[1:].view(rows, d)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    g = torch.randn(d + 1, device="cuda").to(dtype)[1:]
+    y, r = K6.rmsnorm_cuda(x, g, 1e-5, round_before_gain=round_before_gain,
+                           return_r=True)
+    py, pr = K6.rmsnorm_plain(x, g, 1e-5, round_before_gain=round_before_gain,
+                              return_r=True)
+    assert torch.equal(y, py) and torch.equal(r, pr)
+
+
+@requires_cuda
+@pytest.mark.parametrize("rows,d,dtype", [(2048, 576, torch.bfloat16),
+                                          (1024, 2048, torch.bfloat16),
+                                          (8, 2048, torch.bfloat16),
+                                          (7, 1536, torch.float32),
+                                          (3, 4100, torch.float32)], ids=str)
+@pytest.mark.parametrize("round_before_gain", [False, True])
+def test_rmsnorm_bwd_without_saved_r_equals_with_it(rows, d, dtype,
+                                                    round_before_gain):
+    """Without a saved r the backward's C call forms r with the forward's
+    kernel (its r-only mode, on the forward's lanes): dx and dg are the
+    bits of the backward handed the forward's r."""
+    rng = np.random.default_rng(rows + d)
+    x, dy = (_cuda(rng.standard_normal((rows, d)).astype(np.float32)).to(
+        dtype) for _ in range(2))
+    g = _cuda(rng.standard_normal(d).astype(np.float32)).to(dtype)
+    _, r = K6.rmsnorm_cuda(x, g, 1e-5, round_before_gain=round_before_gain,
+                           return_r=True)
+    with_r = K6.rmsnorm_bwd_cuda(x, g, dy, 1e-5,
+                                 round_before_gain=round_before_gain, r=r)
+    without = K6.rmsnorm_bwd_cuda(x, g, dy, 1e-5,
+                                  round_before_gain=round_before_gain)
+    assert all(torch.equal(a, b) for a, b in zip(with_r, without))
+
+
+@requires_cuda
+def test_rmsnorm_r_of_each_launch_is_its_own():
+    """Under grad r comes from a batch of tensors (``_new_r``): more launches
+    than a batch holds, each r keeps its own launch's values after the
+    later launches, and each equals the plain version's."""
+    xs = [torch.randn((3, 4, 576), device="cuda", dtype=torch.bfloat16)
+          for _ in range(K6.R_BATCH + 3)]
+    g = torch.randn(576, device="cuda", dtype=torch.bfloat16)
+    rs = [K6.rmsnorm_cuda(x, g, 1e-5, round_before_gain=True,
+                          return_r=True)[1] for x in xs]
+    torch.cuda.synchronize()
+    assert len({r.data_ptr() for r in rs}) == len(rs)
+    for x, r in zip(xs, rs):
+        _, pr = K6.rmsnorm_plain(x, g, 1e-5, round_before_gain=True,
+                                 return_r=True)
+        assert r.shape == (3, 4) and torch.equal(r, pr)
+
+
+@requires_cuda
+def test_rmsnorm_c_entry_refuses_lanes_that_do_not_hold_the_row():
+    """The C entry validates ``_fwd_layout``'s lanes: a count that is not
+    32, 64, 128 or 256, or fewer lanes than hold the row in four chunks
+    each, is refused before any launch."""
+    from repro_torch.kernels import build
+
+    x = torch.randn((4, 8192), device="cuda", dtype=torch.bfloat16)
+    g = torch.randn(8192, device="cuda", dtype=torch.bfloat16)
+    y = torch.empty_like(x)
+    lib = build.library()
+    for lanes in (0, 48, 32, 128):
+        rc = lib.repro_rmsnorm(x.data_ptr(), g.data_ptr(), y.data_ptr(), None,
+                               4, 8192, lanes, 1e-5, 1, 1,
+                               build.stream_of(x))
+        assert rc != 0, lanes
+    assert K6._fwd_layout(8192, 2) == 256
+    rc = lib.repro_rmsnorm(x.data_ptr(), g.data_ptr(), y.data_ptr(), None, 4,
+                           8192, 256, 1e-5, 1, 1, build.stream_of(x))
+    assert rc == 0
+    assert torch.equal(y, K6.rmsnorm_plain(x, g, 1e-5,
+                                           round_before_gain=True))
 
 
 @requires_cuda

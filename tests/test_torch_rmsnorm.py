@@ -81,7 +81,11 @@ def two_rounding_step(x: torch.Tensor, g: torch.Tensor,
     return bf16_ulp(inter) * g.float().abs()
 
 
-@pytest.mark.parametrize("rows,d,dtype", SHAPES)
+# and smollm's width and d_ff at the rows of a few tokens
+PARITY_SHAPES = SHAPES + [(16, 576, jnp.bfloat16), (8, 1536, jnp.bfloat16)]
+
+
+@pytest.mark.parametrize("rows,d,dtype", PARITY_SHAPES)
 def test_ref_matches_pallas_kernel(rows, d, dtype):
     x, g = _inputs(rows, d, dtype)
     want = _t(rmsnorm_pallas(x, g, interpret=True, br=8))
@@ -90,7 +94,7 @@ def test_ref_matches_pallas_kernel(rows, d, dtype):
     assert_rms_close(K6.rmsnorm_plain(_t(x), _t(g)), got)
 
 
-@pytest.mark.parametrize("rows,d,dtype", SHAPES)
+@pytest.mark.parametrize("rows,d,dtype", PARITY_SHAPES)
 def test_ref_round_before_gain_matches_model_rms_norm(rows, d, dtype):
     x, g = _inputs(rows, d, dtype)
     want = _t(jax_rms_norm(x, g))
@@ -139,6 +143,123 @@ def test_plain_r_is_the_kernels_chain(d, dtype):
             total = f(total + ss[32 * w])
         arg = f(f(total / f(d)) + f(1e-5))
         assert got[row] == f(1.0 / np.sqrt(np.float64(arg))), row
+
+
+FWD_WIDTHS = (50, 576, 1001, 1536, 2048, 4096, 8192)
+
+
+def test_fwd_layout_fixes_lanes():
+    """``_fwd_layout``: the smallest power of two from 32 to 256 whose
+    lanes hold a row in four 16-byte chunks each (8 bfloat16 or 4 float32
+    elements a chunk); 256 past that, where the wide kernel takes the row
+    (bfloat16 D > 8192, float32 D > 4096)."""
+    L = K6._fwd_layout
+    assert [L(d, 2) for d in FWD_WIDTHS] == [32, 32, 32, 64, 64, 128, 256]
+    assert [L(d, 4) for d in FWD_WIDTHS] == [32, 64, 64, 128, 128, 256, 256]
+
+    def wide(d, es):
+        return -(-(-(-d // (16 // es))) // L(d, es)) > K6.HELD
+
+    assert [d for d in FWD_WIDTHS + (4100, 8200) if wide(d, 2)] == [8200]
+    assert [d for d in FWD_WIDTHS + (4100, 8200) if wide(d, 4)] == \
+        [8192, 4100, 8200]
+    assert not wide(4096, 4) and L(4097, 4) == 256 and wide(4097, 4)
+    assert not wide(8192, 2) and wide(8193, 2)
+    # the backward takes the same lanes
+    for d in FWD_WIDTHS:
+        for es in (2, 4):
+            assert K6._bwd_layout(1024, d, es)[0] == L(d, es)
+
+
+def _lane_group_r(x: torch.Tensor, lanes: int, eps: float = 1e-5):
+    """r per row of x [R, D] as the rows kernel forms it on ``lanes``
+    lanes a row, walked in float32: lane l holds chunks c = k·lanes + l
+    (k < 4) and keeps one sum for each of the 256-thread block's threads
+    t = l + m·lanes it stands for (chunk c: thread c mod 256, step c div
+    256), adding its squares in (step, element) order; one xor butterfly
+    per virtual warp q + m·lanes/32 (32 consecutive lanes of the group's
+    warp q) that holds a chunk; the 8 warp sums in ascending order, the
+    empty ones skipped."""
+    f = np.float32
+    n = 16 // x.element_size()
+    rows, d = x.shape
+    nvec = -(-d // n)
+    assert -(-nvec // lanes) <= K6.HELD
+    virt = 256 // lanes
+    v = min(K6.HELD, virt)
+    xs = x.float().numpy()
+    out = np.zeros(rows, f)
+    for row in range(rows):
+        vs = np.zeros((lanes, v), f)  # [lane, virtual thread m]
+        for lane in range(lanes):
+            for k in range(K6.HELD):
+                c = k * lanes + lane
+                if c >= nvec:
+                    continue
+                t, s = c % 256, c // 256
+                assert (t, s) == (lane + (k % virt) * lanes, k // virt)
+                for i in range(n):
+                    e = xs[row, c * n + i] if c * n + i < d else f(0)
+                    vs[lane, k % virt] = f(vs[lane, k % virt] + f(e * e))
+        warps = lanes // 32
+        wsum = np.zeros((warps, v), f)
+        idx = np.arange(32)
+        for q in range(warps):
+            for m in range(v):
+                if 32 * q + m * lanes >= nvec:
+                    continue  # holds no chunk: +0.0
+                w = vs[32 * q:32 * q + 32, m].copy()
+                for off in (16, 8, 4, 2, 1):
+                    w = (w + w[idx ^ off]).astype(f)
+                assert (w == w[0]).all()
+                wsum[q, m] = w[0]
+        total = f(0)
+        for m in range(v):
+            for q in range(warps):  # block warp q + m·warps, ascending
+                total = f(total + wsum[q, m])
+        arg = f(f(total / f(d)) + f(eps))
+        out[row] = f(1.0 / np.sqrt(np.float64(arg)))
+    return out
+
+
+LANE_CASES = [(lanes, d, dtype) for lanes in (32, 64, 128, 256)
+              for d in FWD_WIDTHS for dtype in (np.float32, jnp.bfloat16)
+              if -(-(-(-d // (4 if dtype == np.float32 else 8))) // lanes)
+              <= 4]
+
+
+@pytest.mark.parametrize("lanes,d,dtype", LANE_CASES, ids=str)
+def test_lane_groups_keep_the_256_thread_r(lanes, d, dtype):
+    """The rows kernel's sum of squares on any lanes that hold the row is
+    the 256-thread block's chain: the walk of ``_lane_group_r`` gives
+    ``_kernel_r``'s r bit for bit, for rows of ordinary, large and tiny
+    magnitudes."""
+    x = _t(_inputs(3, d, dtype)[0])
+    x[1] *= 1e4
+    x[2] *= 1e-3
+    want = K6._kernel_r(x, 1e-5)[:, 0].numpy()
+    assert np.array_equal(_lane_group_r(x, lanes), want)
+
+
+def test_new_r_hands_out_each_tensor_once():
+    """``_new_r``: float32 tensors of x's leading shape, R_BATCH from one
+    allocation, no two of them sharing an element; another shape or
+    stream gets its own batch, and the batch lives on in the views
+    handed out."""
+    K6._R_VIEWS.clear()
+    x = torch.zeros((2, 3, 8), dtype=torch.bfloat16)
+    rs = [K6._new_r(x, 7) for _ in range(K6.R_BATCH + 1)]
+    assert all(r.shape == (2, 3) and r.dtype == torch.float32 for r in rs)
+    spans = sorted((r.data_ptr(), r.data_ptr() + r.numel() * 4) for r in rs)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    for i, r in enumerate(rs):
+        r.fill_(float(i))
+    assert all(bool((r == i).all()) for i, r in enumerate(rs))
+    other = K6._new_r(torch.zeros((5, 8)), 7)
+    assert other.shape == (5,)
+    assert K6._new_r(x, 8).data_ptr() not in {r.data_ptr() for r in rs}
+    K6._R_VIEWS.clear()
+    assert bool((rs[0] == 0).all()) and bool((rs[-1] == K6.R_BATCH).all())
 
 
 @pytest.mark.parametrize("rows,d,dtype", SHAPES + [
@@ -190,7 +311,7 @@ def test_bwd_layout_fixes_lanes_groups_and_chunks():
         [8, 16, 16, 24]
     assert [L(n, 1024, 4)[2] for n in (528, 529)] == [4, 8]  # 64 lanes
     assert [L(n, 8192, 2)[2] for n in (132, 133)] == [1, 2]  # 256 lanes
-    held = 256 * K6.BWD_HELD  # 16-byte chunks the lanes of a block hold
+    held = 256 * K6.HELD  # 16-byte chunks the lanes of a block hold
     for es in (2, 4):
         n = 16 // es
         assert L(1, held * n, es)[0] == 256
