@@ -143,15 +143,18 @@ handle. Phases, each of which raises on a failed check:
    ``DONATION_CASES`` (the reference's own power-law pin among them),
    each strictly lower donated, with where each first call's peak falls
    (the allocator's history);
-9. serving, on the same matrices: an ``SpmmWaveServer`` (max_batch 2,
-   host B) over ``SpmmSession.build(power-law, 8, hier="auto",
-   p_ladder=(4, 8))`` attached to an ``ElasticController`` serves census
-   8 -> 5 -> 8 (no MWVC build, rungs ``EXPECT_LADDER``), a 15% rewire
+9. serving, on a quarter of arxiv (phase 8's measured cells' matrices,
+   ``LIFE_SCALE``, to keep the script inside its limit): an
+   ``SpmmWaveServer`` (max_batch 2, host B) over ``SpmmSession.build(
+   power-law, 8, hier="auto", p_ladder=(4, 8))`` attached to an
+   ``ElasticController`` serves census 8 -> 5 -> 8 (no MWVC build, rungs
+   ``EXPECT_SERVE_LADDER``, from ``scripts/reference_phase9_pins.py``),
+   a 15% rewire
    (hot swap) and two injected ``wave_error`` faults (retried, degraded
    to rung 4: failed 2, retried 1, degraded 1, dropped 0), every
    request's C == a cold compile's on its (P, pattern), then 16 timed
    requests; ``SpmmFleet(Topology.local(8), group_sizes=(4, 4))`` admits
-   power-law, a second arxiv-size power-law graph and a 16,384-node one
+   power-law, a second power-law graph of its size and a 16,384-node one
    in both orders (placements and scores == ``EXPECT_FLEET``), serves,
    rebalances with one migration and no MWVC build, takes a drift replan
    and rolls back an injected ``fleet_migrate_fail``, every C == a cold
@@ -235,7 +238,25 @@ handle. Phases, each of which raises on a failed check:
    calls of one training step and of one prefill / decode step are
    replayed against the plain versions one process at a time (paths
    ``mp_gcn_step``, ``mp_gat_step``, ``mp_ep_prefill``,
-   ``mp_ep_decode``).
+   ``mp_ep_decode``). First of all (while the host holds no recorded
+   calls), the LM train step on the fleet's grid, ``MP_LM_CASES``:
+   OLMoE-1B-7B at its published width cut to 1 layer (dense: its MoE
+   swapped for a SwiGLU MLP of d_ff) on (data 2, model 4) and EP at
+   capacity 1.25 on (data 2, model 4) and on (data 1, model 8), 3
+   ``make_train_step`` steps each on one ``SyntheticLM`` 8 × 128 batch
+   (``lm_loss`` this process's share, ``fold_leaves``, AdamW with the
+   grid's ``GradShards``), a bit digest of every parameter after each
+   step and the last step's parameters saved; one more step split by
+   CUDA events into forward / backward / fold / update beside the host
+   wall, gloo and staging seconds, the fold's bytes and the activation
+   rows across; peak memory per process. Worker 0's K1 / K2 / K6 /
+   K6-backward calls of one step are replayed (paths
+   ``mp_lm_train_dense``, ``mp_lm_train_ep``, ``mp_lm_train_ep_cross``).
+   After the workers exit, the emulated twin runs the same steps on
+   ``make_mesh`` of each grid in this process: each step's loss, grad
+   norm and every parameter a worker holds within ``MP_LM_TWIN_TOL``
+   and reported ``torch.equal`` or not; the dense case's first loss
+   within 5e-3 of the unsharded port's.
 13. LM training, after phase 12. (a) olmoe-train: OLMoE-1B-7B at its
    published width, cut to 2 of its 16 layers (1.05 B parameters; all
    16 with AdamW's float32 moments would not fit the card), bf16, random
@@ -266,6 +287,20 @@ handle. Phases, each of which raises on a failed check:
    backward with and without it. Every K6 row with busy time also gives
    ``F.rms_norm``'s on the same calls' inputs, and a K6 row of calls
    under grad the wrapper's host time without r beside the time with it.
+14. falcon-mamba-7b serving, last: the SSM family as published (64
+   layers, d_model 4096, d_inner 8192, state 16, chunk 128, vocab 65024,
+   bf16, 7.27 B parameters; ``--quick``: its smoke config), random
+   weights (``torch.Generator("cuda")`` seed 0): an 8 × 256 prefill (two
+   scan chunks, h carried), one decode step, the batcher's 12 requests
+   (``LM_SERVE``) with 65 K6 launches a step; prefill and decode-step
+   times (CUDA events, host wall), tokens/s, peak memory; a float32 copy
+   of the first 2 layers: decode == forward and forward == a float64
+   run of the plain versions (2e-4). K6's calls of the prefill, the step
+   and the batcher's last 8 steps are replayed with profiler busy time
+   beside ``F.rms_norm``'s (paths ``ssm_prefill``, ``ssm_step``,
+   ``ssm_batcher``).
+
+Every phase's seconds are printed as it ends.
 
 It prints the card's name and power limit, then one JSON line of kernel
 rows, then ``{"ok": true, "device": {...}}`` as its last line. Without a
@@ -278,6 +313,7 @@ import collections
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -473,29 +509,61 @@ EXPECT_LADDER = {
                 pattern_nnz=107248),
     },
 }
-# phase 9's fleet tenants: h1 is the power-law cell's matrix, h2 a second
-# arxiv-size power-law graph and lt a 16,384-node one; their pattern
-# fingerprints tie-break both heavies onto group 1 of two equal groups
+# phase 9 runs on a quarter of arxiv (LIFE_SCALE: phase 8's measured
+# cells' matrices): the reference's rungs of SpmmSession.build(power-law
+# quarter, 8, SpmmConfig(hier="auto"), p_ladder=(4, 8)) there
+# (scripts/reference_phase9_pins.py: the JAX package's session, CPU run)
+EXPECT_SERVE_LADDER = {
+    "full": {
+        8: dict(strategy="hier", P=8, G=2, L=4, schedule_kind="bucketed",
+                schedule_K=1, overlap=True,
+                modeled_time_flat=0.0008363829013333333,
+                modeled_time_hier=0.000155923168, volume_rows=67604,
+                volume_rows_padded=45904, volume_rows_padded_single=115712,
+                pattern_nnz=275818),
+        4: dict(strategy="flat", P=4, schedule_kind="bucketed", schedule_K=1,
+                overlap=True, modeled_time_flat=3.0229052444444446e-05,
+                modeled_time_hier=0.000268717728, volume_rows=44066,
+                volume_rows_padded=99144, volume_rows_padded_single=132192,
+                pattern_nnz=275818),
+    },
+    "quick": {
+        8: dict(strategy="hier", P=8, G=2, L=4, schedule_kind="bucketed",
+                schedule_K=1, overlap=True,
+                modeled_time_flat=0.00015025640888888893,
+                modeled_time_hier=3.444848e-05, volume_rows=7229,
+                volume_rows_padded=4776, volume_rows_padded_single=12096,
+                pattern_nnz=26301),
+        4: dict(strategy="flat", P=4, schedule_kind="bucketed", schedule_K=1,
+                overlap=True, modeled_time_flat=8.454272e-06,
+                modeled_time_hier=4.6159872e-05, volume_rows=4667,
+                volume_rows_padded=10284, volume_rows_padded_single=13712,
+                pattern_nnz=26301),
+    },
+}
+# phase 9's fleet tenants: h1 is the quarter power-law matrix, h2 a second
+# one of that size and lt a 16,384-node one (--quick: 1,024 nodes, below
+# its heavies); their pattern fingerprints place all three on group 0
 FLEET_H2_SEED = 1
 FLEET_LIGHT = dict(m=16_384, nnz=7 * 16_384, seed=0)
+FLEET_LIGHT_QUICK = dict(m=1024, nnz=7 * 1024, seed=0)
 # the reference's SpmmFleet on them (Topology.local(8) split (4, 4),
 # SpmmConfig(n_dense_hint=128), admitted in either order) and on the
-# uniform matrix (split (4, 2), backends=("bsr", "coo"), p_ladder=(2, 4)):
-# the JAX package's admit / group_loads / _best_move and ReshardSpec, CPU
-# run, host planning only
+# quarter uniform matrix (split (4, 2), backends=("bsr", "coo"),
+# p_ladder=(2, 4)): scripts/reference_phase9_pins.py (the JAX package's
+# admit / rebalance / migrate and ReshardSpec, CPU run, host planning)
 EXPECT_FLEET = dict(
-    placements={"h1": 1, "h2": 1, "lt": 0},
-    scores={"h1": {0: (0.00010118016000000001, 167630980),
-                   1: (0.00010118016000000001, 167630980)},
-            "h2": {0: (0.00010135651555555556, 167838956),
-                   1: (0.00010135651555555556, 167838956)},
+    placements={"h1": 0, "h2": 0, "lt": 0},
+    scores={"h1": {0: (3.220096e-05, 47410796), 1: (3.220096e-05, 47410796)},
+            "h2": {0: (3.2187306666666665e-05, 47406368),
+                   1: (3.2187306666666665e-05, 47406368)},
             "lt": {0: (1.5578026666666666e-05, 19042432),
                    1: (1.5578026666666666e-05, 19042432)}},
-    imbalance=(1.7143149634948447, 0.14122542821913406),
-    moves=[("h1", 0)], moved={"b_rows": 0, "c_rows": 0},
-    cross=dict(group=1, scores={0: (0.00011163264000000001, 210440308),
-                                1: (9.632384e-05, 255633044)},
-               P=(2, 4), moved={"b_rows": 127008, "c_rows": 127008}),
+    imbalance=(2.0, 0.38927334717027434),
+    moves=[("h1", 1)], moved={"b_rows": 0, "c_rows": 0},
+    cross=dict(group=0, scores={0: (3.133056e-05, 53001896),
+                                1: (4.496568888888889e-05, 79993644)},
+               P=(4, 2), moved={"b_rows": 31752, "c_rows": 31752}),
 )
 GAT_DIMS = dict(feat_dim=128, hidden=128, n_classes=40, n_layers=2,
                 att_dim=16)  # ogbn-arxiv's features and classes
@@ -575,6 +643,29 @@ def toolchain() -> str:
         triton_version = "not installed"
     return (f"torch {torch.__version__}, torch.version.cuda "
             f"{torch.version.cuda}, nvcc: {nvcc[-1]}, triton {triton_version}")
+
+
+def host_rss_gb() -> float:
+    """This process's resident host memory (Linux ``/proc``), GB."""
+    with open("/proc/self/status") as f:
+        kb = next(int(line.split()[1]) for line in f
+                  if line.startswith("VmRSS:"))
+    return kb / 1e6
+
+
+def release_host_memory() -> None:
+    """Hand freed host memory back: Python's garbage, torch's cache of
+    pinned blocks and the C heap's free pages (glibc ``malloc_trim``)."""
+    import ctypes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_host_emptyCache"):
+        torch._C._host_emptyCache()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
 
 
 def peak_allocated() -> int:
@@ -3619,7 +3710,7 @@ def wave_serving(args, card, a_p, a_r, b_host, cold) -> dict:
     from repro_torch.core.planner import plan_build_count
     from repro_torch.robustness import Fault, inject
 
-    expect = EXPECT_LADDER["quick" if args.quick else "full"]
+    expect = EXPECT_SERVE_LADDER["quick" if args.quick else "full"]
     cfg = SpmmConfig(hier="auto", measure=False)
     t0 = time.perf_counter()
     s = SpmmSession.build(a_p, P, cfg, p_ladder=(4, 8))
@@ -3726,11 +3817,11 @@ def fleet_serving(args, card, a_p, a_r, b, b_host, cold) -> dict:
     from repro_torch.robustness import Fault, inject
 
     m = a_p.shape[0]
-    lt = FLEET_LIGHT
+    lt = FLEET_LIGHT_QUICK if args.quick else FLEET_LIGHT
+    nnz = (7 * 16_384 if args.quick else NNZ_FULL) // LIFE_SCALE
     t0 = time.perf_counter()
     mats = {"h1": a_p,
-            "h2": power_law_sparse(m, m, NNZ_FULL if not args.quick
-                                   else 7 * m, 0.8, seed=FLEET_H2_SEED),
+            "h2": power_law_sparse(m, m, nnz, 0.8, seed=FLEET_H2_SEED),
             "lt": power_law_sparse(lt["m"], lt["m"], lt["nnz"], 0.8,
                                    seed=lt["seed"])}
     b_lt_host = np.random.default_rng(9).standard_normal(
@@ -3920,8 +4011,9 @@ def serving_phase(args, card, a_u, a_p, b_host) -> dict:
                     for k, v in memory.items()))
 
     # the kernels of one call of each fleet tenant's handle
+    lt = FLEET_LIGHT_QUICK if args.quick else FLEET_LIGHT
     b_lt = torch.from_numpy(np.random.default_rng(9).standard_normal(
-        (FLEET_LIGHT["m"], N_COLS)).astype(np.float32)).cuda()
+        (lt["m"], N_COLS)).astype(np.float32)).cuda()
     handles = [(fleet.tenants["h1"], b), (fleet.tenants["h2"], b),
                (fleet.tenants["lt"], b_lt), (cross.tenants["u"], b)]
     rec = record_kernel_calls(lambda: [t.session.handle()(x)
@@ -4327,6 +4419,26 @@ MP_TRAIN_CELLS = (
 # the model axis crosses the process boundary: process i holds model
 # ranks 4i .. 4i + 3 of the one data group
 MP_EP_GRID = ((1, 8), ("data", "model"))
+# the LM train step on the fleet: OLMoE-1B-7B at its published width cut
+# to 1 layer (two processes that each hold every whole leaf share the
+# card: ~16 GB a process with AdamW's float32 moments, old and new), one
+# SyntheticLM batch (seed 0), 3 steps of each case on 2 processes x 4
+# ranks; (path, grid, MoE): "dense" swaps the MoE for a SwiGLU MLP of the
+# config's d_ff, the EP cases run _moe_ep at the published capacity
+MP_LM_TRAIN = dict(layers=1, batch=8, seq=128, steps=3)
+MP_LM_CASES = (("mp_lm_train_dense", (2, 4), False),
+               ("mp_lm_train_ep", (2, 4), True),
+               ("mp_lm_train_ep_cross", (1, 8), True))
+MP_LM_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=3,
+                 schedule="constant", grad_clip=1.0)
+# the fleet vs its emulated twin in bf16 where the fleet's sums cannot
+# follow the emulated order (two data groups: each group's weight
+# gradients are products over its own rows, folded after): relative loss
+# and grad norm; the parameters' absolute error: an AdamW step moves a
+# weight by at most ~2·lr here, so two runs whose gradients round apart
+# end at most 3 steps × 2 × 2·lr = 3.6e-3 apart, plus one bf16 ulp of the
+# largest weights (9.8e-4 below 0.25)
+MP_LM_TWIN_TOL = dict(loss=1e-3, grad_norm=1e-2, param=5e-3)
 # the reference's decisions for the training handles with the fleet's
 # derived NetworkSpec (derived-gpu-2x4: 450 / 25 GB/s, group 4) and tiers
 # (2, 4): the JAX package's _plan_and_tune on the same graphs, CPU run
@@ -4931,11 +5043,244 @@ def mp_ep_f32(args, cfg, fdist, edist, me, gather, dev) -> dict:
     return res
 
 
+def mp_lm_config(args, moe: bool):
+    """Phase 12's LM train config: OLMoE-1B-7B (``--quick``: its smoke
+    config) cut to ``MP_LM_TRAIN["layers"]``; ``moe`` False gives the
+    dense family at the same widths (a SwiGLU MLP of d_ff)."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    base = get_smoke_config(LM_ARCH) if args.quick else get_config(LM_ARCH)
+    cfg = dataclasses.replace(base, n_layers=MP_LM_TRAIN["layers"])
+    return cfg if moe else dataclasses.replace(cfg, family="dense")
+
+
+def mp_lm_batch(cfg, dev):
+    from repro_torch.data.pipeline import SyntheticLM
+
+    toks = SyntheticLM(cfg.vocab_size, MP_LM_TRAIN["seq"],
+                       MP_LM_TRAIN["batch"], seed=0).batch(0)["tokens"]
+    return {"tokens": torch.from_numpy(toks).to(dev)}
+
+
+def bits_digest(t: torch.Tensor) -> int:
+    """A position-weighted sum of ``t``'s bit patterns: equal tensors give
+    equal digests (any change of a bit or a position almost surely
+    changes it)."""
+    v = t.detach().reshape(-1)
+    v = v.view({2: torch.int16, 4: torch.int32}[v.element_size()])
+    total = 0
+    for lo in range(0, v.numel(), 1 << 25):
+        part = v[lo:lo + (1 << 25)].to(torch.int64)
+        w = torch.arange(lo, lo + part.numel(), device=v.device) % 65521 + 1
+        total += int((part * w).sum())
+    return total
+
+
+def mp_lm_train_cell(args, topo, recorded, out_dir) -> dict:
+    """Phase 12's LM train step on the fleet, each of ``MP_LM_CASES``:
+    random weights (``torch.Generator`` seed 0 on the card; this process
+    keeps its model ranks' experts), one kernel-recorded step (worker 0
+    keeps the calls), ``MP_LM_TRAIN["steps"]`` counted
+    ``make_train_step`` steps with every parameter's bit digest after
+    each, the last step's parameters saved for the emulated twin, then
+    one more step split by CUDA events. Returns this process's report."""
+    from repro_torch.distributed.context import make_context
+    from repro_torch.distributed.topology import Topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import AdamWConfig, _leaves, adamw_init
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    me, dev = topo.process_index, topo.device
+    opt = AdamWConfig(**MP_LM_OPT)
+    out = {}
+    for path, grid, moe in MP_LM_CASES:
+        t0 = time.perf_counter()
+        cfg = mp_lm_config(args, moe)
+        fdist = make_context(Topology.multiprocess(
+            device=MP_DEVICE, mesh=make_mesh(grid, ("data", "model"))))
+        batch = mp_lm_batch(cfg, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_peak()
+        full = TT.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                              device=dev)
+        params = TT.shard_experts(full, cfg, fdist)
+        if moe:
+            m = params["layers"]["moe"]
+            for k in ("w1", "w3", "w2"):
+                m[k] = m[k].clone()  # the experts alone, not views of all
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, nm, _, m_lo = fdist.local_grid
+        e_loc = cfg.n_experts // fdist.model_size if moe else 0
+        # one step's kernel calls, outside the counted runs (every process
+        # runs it: its exchanges are collective; worker 0 keeps them)
+        calls = record_kernel_calls(
+            lambda: loss_and_grads(params, cfg, fdist, batch), host=True)
+        if me != 0:
+            del calls
+        sources = fdist.grad_sources(params, cfg)
+        step = make_train_step(cfg, fdist, opt)
+        p, state, steps = params, adamw_init(params), []
+        fdist.comm.reset()
+        ops.reset_launch_counts()
+        for _ in range(MP_LM_TRAIN["steps"]):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p, state, met = step(p, state, batch)
+            torch.cuda.synchronize()
+            steps.append({"wall_ms": (time.perf_counter() - t1) * 1e3,
+                          "loss": float(met["loss"]),
+                          "grad_norm": float(met["grad_norm"]),
+                          "digests": [bits_digest(t) for t in _leaves(p)]})
+        launches = ops.launch_counts()
+        tr = fdist.comm.transport()
+        cross = {d: fdist.comm.fleet_rows(None, crossing=True, direction=d)
+                 for d in ("fwd", "bwd")}
+        want = ("gather_rows", "scatter_add_rows", "rmsnorm", "rmsnorm_bwd")
+        if min(launches[k] for k in want) < 1:
+            raise AssertionError(f"{path}: a kernel of the path was not "
+                                 f"launched: {launches}")
+        for st in steps:
+            if not math.isfinite(st["loss"]) or not st["grad_norm"] > 0:
+                raise AssertionError(f"{path}: step {st}")
+        *_, ms = split_train_step(cfg, fdist, opt, p, state, batch,
+                                  sources)
+        # for the twin, outside every timed step, on disk before the next
+        # case starts (its dirty pages would stall that case's host)
+        with open(os.path.join(out_dir, f"{path}.{me}.pt"), "wb") as f:
+            torch.save([t.cpu() for t in _leaves(p)], f)
+            f.flush()
+            os.fsync(f.fileno())
+        if me == 0:
+            recorded[path] = (calls, launches)
+        out[path] = {
+            "grid": list(grid), "span": list(fdist.span),
+            "counts_rows": fdist.counts_rows,
+            "experts": [m_lo * e_loc, (m_lo + nm) * e_loc] if moe else None,
+            "params": sum(t.numel() for t in _leaves(params)),
+            "steps": steps, "launches": launches, "split_ms": ms,
+            "transport": tr, "crossing_rows": cross,
+            "crossing_bytes": (cross["fwd"] + cross["bwd"]) * cfg.d_model
+            * torch.tensor([], dtype=getattr(torch, cfg.dtype)).element_size(),
+            "peak_gb": peak_allocated() / 1e9,
+            "seconds": time.perf_counter() - t0}
+        log(f"[worker {me}] {path}: {out[path]['seconds']:.1f} s, peak "
+            f"{out[path]['peak_gb']:.2f} GB")
+        del p, state, params, step, met
+        release_host_memory()
+    return out
+
+
+def mp_lm_twin(args, res, out_dir, card: str, dev: str = "cuda") -> None:
+    """The emulated twin of phase 12's LM train step, in the phase's own
+    process after the workers exit: the same weights, batch and steps on
+    ``make_mesh`` of each case's grid. Every step's loss and grad norm and
+    every parameter each worker holds (bit digests after every step, the
+    saved parameters after the last) are held within ``MP_LM_TWIN_TOL``
+    and reported ``torch.equal`` or not (the CPU tests hold one data group
+    over the fleet equal); the dense case's first loss within 5e-3 of the
+    unsharded port's (the reference's ``tests/test_system.py`` bound; the
+    EP cases drop tokens at the published capacity, so theirs is logged)."""
+    from repro_torch.distributed.context import make_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import AdamWConfig, _leaves, adamw_init
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    opt = AdamWConfig(**MP_LM_OPT)
+
+    def held(leaf, name, rng):
+        if rng is None or "moe/w" not in name:
+            return leaf
+        return leaf[:, rng[0]:rng[1]]
+
+    for path, grid, moe in MP_LM_CASES:
+        t0 = time.perf_counter()
+        cfg = mp_lm_config(args, moe)
+        edist = make_context(make_mesh(grid, ("data", "model")))
+        batch = mp_lm_batch(cfg, dev)
+        params = TT.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+        unsharded = float(loss_and_grads(params, cfg, None, batch)[0])
+        names = list(_leaf_names(params))
+        step = make_train_step(cfg, edist, opt)
+        p, state = params, adamw_init(params)
+        cases = [r["lm_train"][path] for r in res]
+        worst = dict(loss=0.0, grad_norm=0.0, param=0.0)
+        equal = []  # (step, worker): loss, norm and every parameter
+        firsts = []  # (step, worker): loss equal, norm equal, params equal
+        for i in range(MP_LM_TRAIN["steps"]):
+            p, state, met = step(p, state, batch)
+            loss, norm = float(met["loss"]), float(met["grad_norm"])
+            for q, c in enumerate(cases):
+                st = c["steps"][i]
+                dl = abs(st["loss"] - loss) / abs(loss)
+                dn = abs(st["grad_norm"] - norm) / norm
+                worst["loss"] = max(worst["loss"], dl)
+                worst["grad_norm"] = max(worst["grad_norm"], dn)
+                digests = [bits_digest(held(t, n, c["experts"]))
+                           for t, n in zip(_leaves(p), names)]
+                equal.append(dl == 0 and dn == 0
+                             and digests == st["digests"])
+                firsts.append((i + 1, q, dl == 0, dn == 0,
+                               digests == st["digests"]))
+        for q, c in enumerate(cases):
+            saved = torch.load(os.path.join(out_dir, f"{path}.{q}.pt"))
+            for t, n, s_ in zip(_leaves(p), names, saved):
+                want, got = held(t, n, c["experts"]), s_.to(dev)
+                worst["param"] = max(worst["param"], float(
+                    (want.float() - got.float()).abs().max()))
+                equal[-len(cases) + q] &= bool(torch.equal(want, got))
+        if not all(worst[k] <= MP_LM_TWIN_TOL[k] for k in worst):
+            raise AssertionError(f"{path}: fleet vs emulated twin {worst} "
+                                 f"past {MP_LM_TWIN_TOL}")
+        first = cases[0]["steps"][0]["loss"]
+        if not moe and not abs(first - unsharded) < 5e-3:
+            raise AssertionError(f"{path}: first loss {first} vs the "
+                                 f"unsharded port's {unsharded}")
+        c = cases[0]
+        log(f"{path}: {cfg.name} {cfg.family} ({c['params']:,} parameters "
+            f"on worker 0) on {dict(edist.mesh.shape)} over "
+            f"{MP_NPROC} x {MP_LOCAL} ranks; losses "
+            f"{[x['loss'] for x in c['steps']]}, grad norms "
+            f"{[x['grad_norm'] for x in c['steps']]}; vs the emulated twin: "
+            f"loss, grad norm and every parameter torch.equal at "
+            f"{sum(equal)} of {len(equal)} (step, worker) pairs; worst "
+            f"relative loss {worst['loss']:.3g}, grad norm "
+            f"{worst['grad_norm']:.3g}, parameter abs {worst['param']:.3g} "
+            f"(limits {MP_LM_TWIN_TOL}); first loss {first:.6f} vs "
+            f"unsharded {unsharded:.6f}; counting processes "
+            f"{[x['counts_rows'] for x in cases]}; (step, worker, loss, "
+            f"norm, digests equal) {firsts}; twin "
+            f"{time.perf_counter() - t0:.1f} s")
+        for q, x in enumerate(cases):
+            ms, tr = x["split_ms"], x["transport"]
+            log(f"  {path} worker {q} [{card}]: steps' host wall "
+                f"{[round(s_['wall_ms'], 3) for s_ in x['steps']]} ms; a "
+                f"step by CUDA events: forward {ms['fwd']:.3f}, backward "
+                f"{ms['bwd']:.3f}, fold {ms['fold']:.3f}, update "
+                f"{ms['upd']:.3f} ms, host wall {ms['wall']:.3f} ms; 3 "
+                f"steps' gloo {tr['gloo_s']:.3f} s, staging "
+                f"{tr['stage_s']:.3f} s, fold {tr['fold_bytes']} B sent, "
+                f"exchanges {tr['exchanges']} ({tr['bwd_exchanges']} "
+                f"backward), {x['crossing_bytes']} B of activation rows "
+                f"across; launches {json.dumps(x['launches'])}; peak "
+                f"{x['peak_gb']:.2f} GB; worker {x['seconds']:.1f} s")
+        del p, state, params, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def mp_train_worker(args) -> None:
-    """One process of phase 12: the training cells, then the EP LM, then
-    each recorded kernel call replayed against its plain version, one
-    process at a time. Writes ``<dir>/rank<i>.json``; any failed check
-    raises, and the process exits non-zero."""
+    """One process of phase 12: the LM train step (worker 0 replays its
+    calls at once), the training cells, the EP LM, then each recorded
+    kernel call replayed against its plain version, one process at a
+    time. Writes ``<dir>/rank<i>.json``; any failed check raises, and the
+    process exits non-zero."""
     import torch.distributed as dist
 
     from repro_torch.core.sparse import power_law_sparse, random_sparse
@@ -4950,6 +5295,24 @@ def mp_train_worker(args) -> None:
         raise AssertionError(f"worker {me}: topology {topo}")
     torch.backends.cuda.matmul.allow_tf32 = False
     gather = _Gather(out_dir, me, topo.n_hosts)
+    # the LM train step first, while the host holds no recorded calls of
+    # the cells below (a GCN step's alone fill ~10 GB of host memory), and
+    # worker 0's calls of it replayed at once (worker 1 waits at the
+    # cells' first collective), so none is held through the cells
+    lm_recorded, rows = {}, {}
+    lm_train = mp_lm_train_cell(args, topo, lm_recorded, out_dir)
+    t0 = time.perf_counter()
+    for path in list(lm_recorded):
+        calls, launches = lm_recorded.pop(path)
+        for k in ("gather_rows", "scatter_add_rows", "rmsnorm",
+                  "rmsnorm_bwd"):
+            rows.setdefault(k, {})[path] = kernel_row(
+                k, calls[k], launches[k], busy=False)
+        del calls
+    release_host_memory()
+    log(f"[worker {me}] LM train calls replayed in "
+        f"{time.perf_counter() - t0:.1f} s; host RSS {host_rss_gb():.1f} GB")
+    recorded = {}
     m = 16_384 if args.quick else M_FULL
     nnz = 7 * m if args.quick else NNZ_FULL
     graphs = {"power_law": normalize_adjacency(
@@ -4957,8 +5320,8 @@ def mp_train_worker(args) -> None:
               "uniform": normalize_adjacency(
                   random_sparse(m, m, nnz / m ** 2, seed=0))}
     expect = EXPECT_MP_TRAIN["quick" if args.quick else "full"]
-    out = {"process": me, "span": list(topo.span), "cells": {}}
-    recorded = {}
+    out = {"process": me, "span": list(topo.span), "cells": {},
+           "lm_train": lm_train}
     for what, graph, kind, path, fields in MP_TRAIN_CELLS:
         t0 = time.perf_counter()
         out["cells"][what] = mp_train_cell(
@@ -4979,7 +5342,7 @@ def mp_train_worker(args) -> None:
                                  "rmsnorm"),
                "mp_ep_decode": ("gather_rows", "scatter_add_rows",
                                 "rmsnorm")}
-    rows = {}
+    log(f"[worker {me}] host RSS before the replays {host_rss_gb():.1f} GB")
     for turn in range(topo.n_hosts):
         if turn == me:
             t0 = time.perf_counter()
@@ -5024,7 +5387,6 @@ def mp_train_phase(args, card: str) -> dict:
         raise AssertionError(f"phase 12: a worker failed (exit {rc})")
     res = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
            for r in range(MP_NPROC)]
-    shutil.rmtree(out_dir, ignore_errors=True)
     for what, _, kind, _, _ in MP_TRAIN_CELLS:
         cells = [r["cells"][what] for r in res]
         d, emu = cells[0], cells[0]["emulated"]
@@ -5093,12 +5455,22 @@ def mp_train_phase(args, card: str) -> dict:
     rows = {}
     for k, per_path in res[0]["kernels"].items():
         for path, row in per_path.items():
-            other = [r["kernels"][k][path] for r in res[1:]]
+            other = [r["kernels"][k][path] for r in res[1:]
+                     if path in r["kernels"].get(k, {})]
+            launches = [row["launches"]] + [o["launches"] for o in other]
+            if path in res[0]["lm_train"]:  # replayed on worker 0 alone
+                launches = [r["lm_train"][path]["launches"][k] for r in res]
             rows.setdefault(k, {})[path] = dict(
                 row, max_abs_err=max([row["max_abs_err"]]
                                      + [o["max_abs_err"] for o in other]),
-                launches_per_worker=[row["launches"]]
-                + [o["launches"] for o in other])
+                launches_per_worker=launches)
+    t_twin = time.perf_counter()
+    mp_lm_twin(args, res, out_dir, card)
+    cases_s = [round(sum(c["seconds"] for c in r["lm_train"].values()), 1)
+               for r in res]
+    log(f"phase 12 LM train twin: {time.perf_counter() - t_twin:.1f} s; "
+        f"the LM train cases on the workers {cases_s} s")
+    shutil.rmtree(out_dir, ignore_errors=True)
     log(f"phase 12 training and EP across processes: "
         f"{time.perf_counter() - t_phase:.1f} s (workers "
         f"{[round(r['seconds'], 1) for r in res]} s)")
@@ -5144,14 +5516,17 @@ def _events(n: int):
     return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
 
 
-def split_train_step(cfg, dist, opt, params, state, batch):
+def split_train_step(cfg, dist, opt, params, state, batch, sources=None):
     """``make_train_step``'s step (one microbatch) with CUDA events around
     its forward (``lm_loss``), backward and AdamW update and the host wall
-    around the whole: (params, state, metrics, {fwd, bwd, upd, wall} ms)."""
+    around the whole: (params, state, metrics, {fwd, bwd, upd, wall} ms).
+    On a fleet (``sources``: ``dist.grad_sources``) the fold of the
+    gradients and the loss is timed too ("fold")."""
     from repro_torch.models.transformer import lm_loss
     from repro_torch.optim.adamw import _leaves, _rebuild, adamw_update
 
-    ev = _events(4)
+    keys = ("fwd", "bwd") + (("fold",) if sources else ()) + ("upd",)
+    ev = _events(len(keys) + 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ev[0].record()
@@ -5160,13 +5535,17 @@ def split_train_step(cfg, dist, opt, params, state, batch):
     ev[1].record()
     grads = torch.autograd.grad(loss, leaves)
     ev[2].record()
+    if sources:
+        grads = dist.comm.fold_leaves(list(grads), sources)
+        loss = dist.comm.fold(loss.detach())
+        ev[3].record()
     params, state, metrics = adamw_update(
-        opt, params, _rebuild(params, iter(grads)), state)
-    ev[3].record()
+        opt, params, _rebuild(params, iter(grads)), state,
+        None if dist is None else dist.grad_shards(params, cfg))
+    ev[-1].record()
     torch.cuda.synchronize()
     metrics["loss"] = loss.detach()
-    ms = {k: ev[i].elapsed_time(ev[i + 1])
-          for i, k in enumerate(("fwd", "bwd", "upd"))}
+    ms = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(keys)}
     ms["wall"] = (time.perf_counter() - t0) * 1e3
     return params, state, metrics, ms
 
@@ -5524,6 +5903,194 @@ def train_lm_phase(args, card: str, dev: str = "cuda") -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: falcon-mamba-7b serving — the SSM family at full width
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "falcon-mamba-7b"
+SSM_PREFILL = (8, 256)  # two of the config's 128-token chunks: h carried
+
+
+def k6_launch_lanes(rows: int, d: int, element_size: int) -> int:
+    """The lanes a row of K6's forward launch gets (``rmsnorm_kernel_rows``;
+    the C launcher's rule): ``_fwd_layout``'s, doubled while a lane would
+    hold more than 3 16-byte chunks or rows · lanes < 2**16, at most 256."""
+    from repro_torch.kernels.rmsnorm import _fwd_layout
+
+    nvec = -(-d // (16 // element_size))
+    lanes = _fwd_layout(d, element_size)
+    while lanes < 256 and (-(-nvec // lanes) > 3 or rows * lanes < 1 << 16):
+        lanes *= 2
+    return lanes
+
+
+def ssm_phase(args, card: str, dev: str = "cuda") -> dict:
+    """Phase 14: falcon-mamba-7b (``--quick``: its smoke config) as
+    published with random weights: an 8 × 256 prefill (two scan chunks),
+    one decode step, the batcher's 12 requests, a float32 copy of the
+    first 2 layers against float64 (forward; decode == forward), every
+    K6 call replayed. Returns K6's rows of the ssm_prefill, ssm_step and
+    ssm_batcher paths."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rmsnorm import _fwd_layout
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+
+    t_phase = time.perf_counter()
+    reset_peak()
+    cfg = get_smoke_config(SSM_ARCH) if args.quick else get_config(SSM_ARCH)
+    params = TT.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"SSM: {cfg.name} ({cfg.dtype}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, state {cfg.ssm_state}, conv "
+        f"{cfg.ssm_conv}, chunk {cfg.ssm_chunk}, Mamba{cfg.ssm_version}, "
+        f"vocab {cfg.vocab_size}): {n_params:,} parameters "
+        f"({n_params * 2 / 1e9:.2f} GB), random (torch.Generator({dev!r}) "
+        f"seed 0), init {time.perf_counter() - t_phase:.1f} s")
+    per_step = cfg.n_layers + 1  # ln1 per layer, the final norm
+    rng = np.random.default_rng(0)
+    B, S = SSM_PREFILL
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)}
+    first = batch["tokens"][:, :1]
+    max_len = LM_SERVE["max_len"]
+    for rows in (B * S, B):
+        log(f"K6 at [{rows}, {cfg.d_model}] {cfg.dtype}: "
+            f"{k6_launch_lanes(rows, cfg.d_model, 2)} lanes a row "
+            f"(_fwd_layout: {_fwd_layout(cfg.d_model, 2)}), "
+            f"{-(-cfg.d_model // 8)} 16-byte chunks a row")
+
+    with torch.no_grad():
+        pre_calls = record_kernel_calls(
+            lambda: TT.forward(params, cfg, None, batch))
+        cache = TT.init_decode_cache(cfg, B, max_len, device=dev)
+        dec_calls = record_kernel_calls(
+            lambda: TT.decode_step(params, cfg, None, first, cache))
+
+        ops.reset_launch_counts()
+        logits = TT.forward(params, cfg, None, batch)
+        torch.cuda.synchronize()
+        pre_launches = ops.launch_counts()
+        check_finite(logits, (B, S, cfg.vocab_size), "ssm prefill logits")
+        cache = TT.init_decode_cache(cfg, B, max_len, device=dev)
+        ops.reset_launch_counts()
+        step_logits, cache = TT.decode_step(params, cfg, None, first, cache)
+        torch.cuda.synchronize()
+        dec_launches = ops.launch_counts()
+        check_finite(step_logits, (B, 1, cfg.vocab_size), "ssm decode")
+        if not bool((cache.ssm_h[:, :, 0].abs().sum() > 0)):
+            raise AssertionError("ssm decode: the recurrent state is zero")
+    log(f"ssm prefill {B}x{S} launches: {json.dumps(pre_launches)}; one "
+        f"decode step (B={B}): {json.dumps(dec_launches)}")
+    for what, n in (("ssm prefill", pre_launches),
+                    ("ssm decode step", dec_launches)):
+        if n["rmsnorm"] != per_step or sum(n.values()) != per_step:
+            raise AssertionError(f"{what}: K6 launched {n['rmsnorm']} times "
+                                 f"(want {cfg.n_layers} + 1 = {per_step}) "
+                                 f"or another kernel ran: {n}")
+    del logits, step_logits
+
+    # the batcher: LM_SERVE's 12 requests through 8 slots, its calls kept
+    reqs = lm_requests(Request, cfg.vocab_size)
+    batcher = ContinuousBatcher(cfg, params, LM_SERVE["max_batch"], max_len)
+    for r in reqs:
+        batcher.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve_launches = ops.launch_counts()
+    want_tokens = LM_SERVE["requests"] * LM_SERVE["new_tokens"]
+    if stats.served != LM_SERVE["requests"] or \
+            stats.generated_tokens != want_tokens or \
+            serve_launches["rmsnorm"] != per_step * stats.decode_steps:
+        raise AssertionError(f"ssm batcher: served {stats.served}, "
+                             f"{stats.generated_tokens} tokens, launches "
+                             f"{serve_launches} over {stats.decode_steps} "
+                             f"steps")
+    log(f"ssm batcher [{card}]: served {stats.served}, generated "
+        f"{stats.generated_tokens} tokens in {stats.decode_steps} decode "
+        f"steps ({want_tokens / wall:.1f} tokens/s, host wall {wall:.3f} s),"
+        f" launches {json.dumps(serve_launches)}")
+    # one wave's K6 calls (the last 8 steps'), for the rows
+    again = lm_requests(Request, cfg.vocab_size)[:LM_SERVE["max_batch"]]
+    b2 = ContinuousBatcher(cfg, params, LM_SERVE["max_batch"], max_len)
+    for r in again:
+        b2.submit(r)
+    serve_calls = record_kernel_calls(b2.run)
+    if [r.output for r in again] != [r.output for r in
+                                     reqs[:LM_SERVE["max_batch"]]]:
+        raise AssertionError("ssm batcher: a second run of the first wave "
+                             "gave other tokens")
+    serve_calls = {k: v[-8 * per_step:] for k, v in serve_calls.items()}
+
+    with torch.no_grad():
+        for fn, what in ((lambda: TT.forward(params, cfg, None, batch),
+                          f"ssm prefill {B}x{S}"),
+                         (lambda: TT.decode_step(params, cfg, None, first,
+                                                 cache),
+                          f"ssm decode step B={B}")):
+            dev_ms, host_ms = median_ms(fn)
+            tok = B * S if "prefill" in what else B
+            log(f"{what} [{card}]: median of 7: {dev_ms:.3f} ms device "
+                f"events, {host_ms:.3f} ms host wall "
+                f"({tok / host_ms * 1e3:.1f} tokens/s)")
+    log(f"peak device memory, phase 14 (weights, prefill, batcher): "
+        f"{peak_allocated() / 2 ** 30:.2f} GiB")
+    del cache, batcher, b2
+
+    # a float32 copy of the first layers: decode == forward, both == float64
+    n_l = min(LM_F32["n_layers"], cfg.n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=n_l)
+    p32 = {k: v for k, v in params.items() if k != "layers"}
+    p32["layers"] = TT._tree_map(lambda t: t[:n_l], params["layers"])
+    p32 = TT._tree_map(lambda t: t.float(), p32)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        LM_F32["batch"], LM_F32["tokens"])).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        fwd32 = TT.forward(p32, cfg32, None, {"tokens": toks})
+        cache32 = TT.init_decode_cache(cfg32, toks.shape[0], toks.shape[1],
+                                      device=dev)
+        steps = []
+        for j in range(toks.shape[1]):
+            out, cache32 = TT.decode_step(p32, cfg32, None, toks[:, j:j + 1],
+                                          cache32)
+            steps.append(out)
+        dec32 = torch.cat(steps, dim=1)
+        check_finite(fwd32, (*toks.shape, cfg.vocab_size), "ssm float32")
+        cfg64 = dataclasses.replace(cfg32, dtype="float64")
+        p64 = TT._tree_map(lambda t: t.double(), p32)
+        with plain_kernels():
+            fwd64 = TT.forward(p64, cfg64, None, {"tokens": toks})
+    want = _host64(fwd64)
+    log(f"ssm float32 copy ({n_l} layers, {toks.shape[0]}x{toks.shape[1]} "
+        f"tokens, chunk {cfg.ssm_chunk}): decode_step vs forward: "
+        f"{check_close(dec32, _host64(fwd32), 'ssm decode vs forward')}")
+    log(f"  forward vs the float64 plain run: "
+        f"{check_close(fwd32, want, 'ssm forward vs float64')}")
+    del p32, p64, fwd64, fwd32, dec32, cache32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = {"ssm_prefill": kernel_row("rmsnorm", pre_calls["rmsnorm"],
+                                      pre_launches["rmsnorm"]),
+            "ssm_step": kernel_row("rmsnorm", dec_calls["rmsnorm"],
+                                   dec_launches["rmsnorm"]),
+            "ssm_batcher": kernel_row("rmsnorm", serve_calls["rmsnorm"],
+                                      serve_launches["rmsnorm"])}
+    log(f"phase 14 falcon-mamba serving: {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    return {"rmsnorm": rows}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quick", action="store_true",
@@ -5560,6 +6127,15 @@ def main() -> int:
     )
 
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def mark(done: str) -> None:
+        """Log the elapsed seconds and those of the phase just done."""
+        now = time.perf_counter()
+        log(f"elapsed {now - t_start:.1f} s; {done}: {now - marks[-1]:.1f} s;"
+            f" host RSS {host_rss_gb():.1f} GB")
+        marks.append(now)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -5581,7 +6157,7 @@ def main() -> int:
     b_host = rng.standard_normal((m, N_COLS), dtype=np.float32)
     b = torch.from_numpy(b_host).cuda()
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phase 1 (build)")
     # 2. uniform cell: plan, then record + replay the kernels ------------
     t0 = time.perf_counter()
     a_u = random_sparse(m, m, nnz / m ** 2, seed=0)
@@ -5720,14 +6296,14 @@ def main() -> int:
          sd_calls, paths, k1k2, coo_paths)
     gc.collect()
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phases 2-5 (kernels, SpMM cells, GAT)")
     # 5b. the hierarchical tier: hier="auto" on the same matrices ---------
     hier_rows, hu, hph, hgf, hier_fused_fn = hier_phase(
         args, a_u, a_p, adj, b, b_host, model, feats, want, x128, y128)
     for k, extra in hier_rows.items():
         per_kernel[k].update(extra)
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phase 5b")
     # 5c. the replicated tier: replicate="auto" on the SpMM matrices ------
     repl_rows, (hru, hrp) = repl_phase(args, a_u, a_p, b, b_host)
     for k, extra in repl_rows.items():
@@ -5735,7 +6311,7 @@ def main() -> int:
     del repl_rows
     gc.collect()
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phase 5c")
     # 5d. training: grads through every SpMM handle, GCN and GAT cells --
     # (each training cell resets the peak to report its own)
     peak_before_5d = peak_allocated()
@@ -5750,7 +6326,7 @@ def main() -> int:
     del train_rows
     gc.collect()
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phase 5d")
     # 6. timing --------------------------------------------------------
     # each hier and replicated cell beside the flat handle on the same
     # matrix, in turns
@@ -5793,7 +6369,7 @@ def main() -> int:
         f"{max(peak_before_5d, peak_allocated()) / 2 ** 30:.2f}"
         f" GiB")
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phase 6")
     # 7. LM serving, after the SpMM phases' tensors are released ---------
     del (h, hp, hf, model, feats, b, gat_out, vals, x128, y128, c_coo,
          c_bsr, c_hit, c_p, c_p2, hu, hph, hgf, hier_fused_fn, cells,
@@ -5807,7 +6383,7 @@ def main() -> int:
     log(f"peak device memory, phase 7: "
         f"{peak_allocated() / 2 ** 30:.2f} GiB")
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phase 7")
     # 10. the expert-parallel LM on an emulated (data 2, model 4) grid,
     #     on phase 7's weights
     reset_peak()
@@ -5819,7 +6395,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phase 10")
     # 8. the lifecycle: measured autotuning, the cache, donation, the
     #    session ladder, drift, the bundle, faults --------------------------
     for k, extra in lifecycle_phase(args, card, a_u, a_p, b_host).items():
@@ -5827,12 +6403,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
-    # 9. serving waves and the fleet, after phase 8's tensors are released
-    for k, extra in serving_phase(args, card, a_u, a_p, b_host).items():
+    mark("phase 8")
+    # 9. serving waves and the fleet, after phase 8's tensors are
+    #    released: on a quarter of arxiv (phase 8's measured cells'
+    #    matrices, LIFE_SCALE)
+    a_uq, a_pq, b_hq = life_matrices(args)
+    for k, extra in serving_phase(args, card, a_uq, a_pq, b_hq).items():
         per_kernel[k].update(extra)
+    del a_uq, a_pq, b_hq
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phase 9")
     # 11. SHIRO across two processes on the card: the smoke, the mp-*
     #     handles at arxiv scale, the supervisor's drills
     gc.collect()
@@ -5840,15 +6420,14 @@ def main() -> int:
     for k, extra in mp_phase(args, card).items():
         per_kernel[k].update(extra)
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phase 11")
     # 12. training (GCN, GAT) and the expert-parallel LM across the two
     #     processes
-    gc.collect()
-    torch.cuda.empty_cache()
+    release_host_memory()
     for k, extra in mp_train_phase(args, card).items():
-        per_kernel[k].update(extra)
+        per_kernel.setdefault(k, {}).update(extra)
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phase 12")
     # 13. LM training: OLMoE-1B-7B (2 layers) dense and expert-parallel,
     #     smollm-135m through the training launcher
     gc.collect()
@@ -5856,7 +6435,15 @@ def main() -> int:
     for k, extra in train_lm_phase(args, card).items():
         per_kernel.setdefault(k, {}).update(extra)
 
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    mark("phase 13")
+    # 14. falcon-mamba-7b serving: the SSM family at full width, after
+    #     every earlier phase's weights are released
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, extra in ssm_phase(args, card).items():
+        per_kernel.setdefault(k, {}).update(extra)
+
+    mark("phase 14")
     rows = [kernel_summary(k, per_kernel[k], card) for k in KERNELS]
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")

@@ -5,14 +5,19 @@ trees (a parent unpacked beside the checkout, and the checkout) can be
 measured in one call.
 
     cd TREE && python3 /path/to/scripts/torch_chip_phases.py TAG \\
-        [--phases 3 7 13] [--json PATH]
+        [--phases 3 7 13] [--quick] [--json PATH]
 
 Phase 3: the kernel sweeps against the plain versions (``sweep_checks``);
 7: LM serving, whose K6 rows (prefill, decode step, float32 copy) it
-prints (``lm_serving``); 13: LM training, whose K1 / K2 / K6 /
-K6-backward rows it prints (``train_lm_phase``). Each row as
-``chip_smoke.py`` prints it, tagged TAG; with ``--json`` all rows to
-PATH. Needs one CUDA card.
+prints (``lm_serving``); 9: serving waves and the fleet
+(``serving_phase``: on a quarter of arxiv where the tree's
+``chip_smoke.py`` pins that size, ``EXPECT_SERVE_LADDER``, else at full
+size); 12: training and the LM across two processes
+(``mp_train_phase``); 13: LM training, whose K1 / K2 / K6 / K6-backward
+rows it prints (``train_lm_phase``); 14: falcon-mamba serving
+(``ssm_phase``). Each row as ``chip_smoke.py`` prints it, tagged TAG;
+with ``--json`` all rows to PATH; ``--quick`` for ``chip_smoke.py
+--quick``'s sizes. Needs one CUDA card.
 """
 import argparse
 import json
@@ -20,14 +25,31 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
+
+
+def serve_matrices(cs, run):
+    """Phase 9's (uniform, power-law, host B) at the size the tree's
+    ``chip_smoke.py`` pins for it."""
+    if hasattr(cs, "EXPECT_SERVE_LADDER"):
+        return cs.life_matrices(run)
+    from repro_torch.core.sparse import power_law_sparse, random_sparse
+
+    m = 16_384 if run.quick else cs.M_FULL
+    nnz = 7 * m if run.quick else cs.NNZ_FULL
+    b_host = np.random.default_rng(0).standard_normal(
+        (m, cs.N_COLS), dtype=np.float32)
+    return (random_sparse(m, m, nnz / m ** 2, seed=0),
+            power_law_sparse(m, m, nnz, 0.8, seed=0), b_host)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tag")
     ap.add_argument("--phases", type=int, nargs="+", default=[3, 7, 13],
-                    choices=[3, 7, 13])
+                    choices=[3, 7, 9, 12, 13, 14])
+    ap.add_argument("--quick", action="store_true")
     ap.add_argument("--json", metavar="PATH")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -46,7 +68,7 @@ def main() -> int:
     build.library()
     cs.log(f"[{args.tag}] card: {card}; build {time.perf_counter() - t0:.1f}"
            f" s")
-    run = argparse.Namespace(quick=False, profile=False)
+    run = argparse.Namespace(quick=args.quick, profile=False)
     rows = {}
     for phase in args.phases:
         t0 = time.perf_counter()
@@ -55,6 +77,12 @@ def main() -> int:
             got = {}
         elif phase == 7:
             got, _, _ = cs.lm_serving(run, card)
+        elif phase == 9:
+            got = cs.serving_phase(run, card, *serve_matrices(cs, run))
+        elif phase == 12:
+            got = cs.mp_train_phase(run, card)
+        elif phase == 14:
+            got = cs.ssm_phase(run, card)
         else:
             got = cs.train_lm_phase(run, card)
         cs.log(f"[{args.tag}] phase {phase} {time.perf_counter() - t0:.1f} s")

@@ -561,6 +561,7 @@ class _Fleet:
         self.gloo_s = 0.0
         self.exchanges = 0
         self.bwd_exchanges = 0
+        self.fold_bytes = 0
         self._token: Optional[torch.Tensor] = None
 
     # ----- counters ------------------------------------------------------
@@ -593,12 +594,14 @@ class _Fleet:
     def transport(self) -> Dict[str, float]:
         """Since the last ``reset``: the cross-process exchanges (forward
         and backward; ``bwd_exchanges`` the backward's), the bytes staged
-        between the card and the host (both ways), and the host seconds
-        of the staging copies and of the exchanges."""
+        between the card and the host (both ways), the host seconds of
+        the staging copies and of the exchanges, and the bytes this
+        process sent to ``fold_leaves``."""
         return {"exchanges": self.exchanges,
                 "bwd_exchanges": self.bwd_exchanges,
                 "staged_bytes": self.staged_bytes,
-                "stage_s": self.stage_s, "gloo_s": self.gloo_s}
+                "stage_s": self.stage_s, "gloo_s": self.gloo_s,
+                "fold_bytes": self.fold_bytes}
 
     # ----- the one exchange ----------------------------------------------
 
@@ -772,22 +775,62 @@ class _Fleet:
             acc = acc + part
         return acc.to(t.device)
 
+    def fold_leaves(self, leaves: Sequence[torch.Tensor],
+                    sources: Sequence[Sequence[Sequence[int]]]
+                    ) -> List[torch.Tensor]:
+        """A functional gradient tree's leaves summed over processes:
+        leaf i becomes the left fold, in the order of ``sources[i][q]``
+        for this process q, of those processes' leaf i (a process's own
+        list may name another process alone: its leaf is then that one's
+        copy). ``sources[i]`` holds every process's list, so every
+        process knows which leaves cross: those go, per dtype, through
+        one all_gather on the host; a leaf that every process keeps as it
+        is stays on its device untouched. Every process that sums the
+        same list gets the same bits."""
+        import torch.distributed as dist
+
+        out = list(leaves)
+        cross = [i for i, per in enumerate(sources)
+                 if any(list(srcs) != [q] for q, srcs in enumerate(per))]
+        by_dtype: Dict[torch.dtype, List[int]] = {}
+        for i in cross:
+            by_dtype.setdefault(leaves[i].dtype, []).append(i)
+        for idx in by_dtype.values():
+            host = torch.empty(sum(leaves[i].numel() for i in idx),
+                               dtype=leaves[idx[0]].dtype)
+            off = 0
+            for i in idx:  # each leaf straight into its slice
+                n = leaves[i].numel()
+                host[off:off + n].copy_(leaves[i].detach().reshape(-1))
+                off += n
+            parts = [torch.empty_like(host) for _ in range(self.n_proc)]
+            t0 = time.perf_counter()
+            dist.all_gather(parts, host)
+            self.gloo_s += time.perf_counter() - t0
+            self.fold_bytes += host.numel() * host.element_size()
+            off = 0
+            for i in idx:
+                n = leaves[i].numel()
+                srcs = sources[i][self.proc]
+                acc = parts[srcs[0]][off:off + n]
+                for q in srcs[1:]:
+                    acc = acc + parts[q][off:off + n]
+                out[i] = acc.reshape(leaves[i].shape).to(leaves[i].device)
+                off += n
+        return out
+
     def reduce_grads(self, params: Sequence[torch.Tensor]) -> None:
         """Replace every parameter's ``.grad`` by its sum over the
-        processes (``fold``: ascending process order, so every process
-        holds the same bits and a replicated parameter stays bit-identical
-        after the optimizer step). One exchange per gradient dtype."""
+        processes (``fold_leaves`` with every process a source:
+        ascending process order, so every process holds the same bits
+        and a replicated parameter stays bit-identical after the
+        optimizer step). One exchange per gradient dtype."""
         params = [p for p in params if p.grad is not None]
-        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
-        for p in params:
-            by_dtype.setdefault(p.grad.dtype, []).append(p)
-        for group in by_dtype.values():
-            total = self.fold(torch.cat([p.grad.reshape(-1) for p in group]))
-            off = 0
-            for p in group:
-                n = p.grad.numel()
-                p.grad = total[off:off + n].view(p.grad.shape)
-                off += n
+        every = [list(range(self.n_proc))] * self.n_proc
+        summed = self.fold_leaves([p.grad for p in params],
+                                  [every] * len(params))
+        for p, g in zip(params, summed):
+            p.grad = g
 
 
 class ProcessComm(_Fleet, _CommLog):

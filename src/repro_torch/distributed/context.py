@@ -25,12 +25,21 @@ its [w] ranks (``lead``), a batch holds its data groups' rows
 (``local_batch``, ``local_rows``; ``gather_batch`` rebuilds the whole
 batch on every process), and the grid's collectives cross processes
 (``comm.ProcessMeshComm``).
+
+What a train step needs of the grid: which processes hold each data
+group (``group_processes``), whether this process counts its rows in the
+loss (``counts_rows``: it holds model rank 0 of its data groups, the
+rank whose output the emulated grid returns), which slice of each
+parameter it holds (``leaf_shards``: the MoE experts are split over the
+model ranks, every other leaf is whole) and whose gradients make each
+leaf's sum (``grad_sources``); ``GradShards`` sums a gradient tree's
+squares in one order on the emulated grid and on a fleet.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +48,7 @@ from ..launch.mesh import EmulatedMesh
 from .comm import MeshComm
 
 __all__ = ["DistContext", "make_context", "shard", "logical_to_spec",
-           "check_dist"]
+           "check_dist", "GradShards"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +158,178 @@ class DistContext:
             out[g_lo * per:(g_lo + ng) * per] = part.numpy()
         return out
 
+
+    # ----- what a train step needs of the grid ---------------------------
+
+    @property
+    def n_processes(self) -> int:
+        """The processes the grid runs over (1 on one device)."""
+        return self.comm.n_proc if self.is_fleet else 1
+
+    def process_grid(self, q: int) -> Tuple[int, int, int, int]:
+        """Process q's ``local_grid``: (groups, model ranks per group,
+        first group, first model rank)."""
+        w = self.span[1] - self.span[0]
+        return _block(q * w, w, self.model_size)
+
+    def group_processes(self) -> List[List[int]]:
+        """For each data group (the batch axes' ranks, ascending), the
+        processes that hold its rows, ascending: one on one device or
+        when a process holds whole groups, several when a group's model
+        ranks are split over processes."""
+        out: List[List[int]] = [[] for _ in range(self.batch_size_divisor)]
+        for q in range(self.n_processes):
+            ng, _, g_lo, _ = self.process_grid(q)
+            for g in range(g_lo, g_lo + ng):
+                out[g].append(q)
+        return out
+
+    @property
+    def counts_rows(self) -> bool:
+        """Whether this process's rows count in the loss: each data
+        group's once, by the process holding its model rank 0. The other
+        processes of the group run the same forward and backward with a
+        zero share (their exchanges pair up with the counting process's;
+        their expert shards receive its gradients)."""
+        return self.local_grid[3] == 0
+
+    def leaf_shards(self, params: Any, cfg
+                    ) -> List[Optional[Tuple[int, int]]]:
+        """For each leaf of ``params`` (``optim.adamw._leaves`` order):
+        None where every process holds it whole, else (dim, M) — the MoE
+        experts, split along ``dim`` over the M model ranks; this process
+        holds the model ranks of ``local_grid``."""
+        out = []
+        for path in _leaf_paths(params):
+            expert = (cfg.family == "moe" and len(path) == 3
+                      and path[:2] == ("layers", "moe")
+                      and path[2] in ("w1", "w3", "w2"))
+            out.append((1, self.model_size) if expert else None)
+        return out
+
+    def grad_sources(self, params: Any, cfg) -> List[List[List[int]]]:
+        """For each leaf, and for each process q, the processes whose
+        gradient of that leaf q sums: in ascending data group, the first
+        process of the group that holds q's slice of the leaf (for a
+        whole leaf, the group's counting process), each process once.
+        Every process computes every process's lists."""
+        groups = self.group_processes()
+
+        def m_range(q):
+            _, nm, _, m_lo = self.process_grid(q)
+            return m_lo, m_lo + nm
+
+        out = []
+        for split in self.leaf_shards(params, cfg):
+            per = []
+            for q in range(self.n_processes):
+                srcs: List[int] = []
+                for members in groups:
+                    hold = [r for r in members
+                            if split is None or m_range(r) == m_range(q)]
+                    if not hold:
+                        raise ValueError(
+                            f"no process of a data group holds process "
+                            f"{q}'s slice {m_range(q)} of a sharded leaf")
+                    if hold[0] not in srcs:
+                        srcs.append(hold[0])
+                per.append(srcs)
+            out.append(per)
+        return out
+
+    def grad_shards(self, params: Any, cfg) -> "GradShards":
+        return GradShards(self, self.leaf_shards(params, cfg))
+
+
+class GradShards:
+    """The sum of a gradient tree's squares in one order wherever the
+    tree lives: every whole leaf's sum of squares, and a sharded leaf's
+    as a left fold of its M model-rank chunks' sums in ascending rank;
+    the leaves' sums then folded in flattening order. On the emulated
+    grid every chunk is here; on a fleet each process sums the chunks of
+    its model ranks, and one all_gather brings the others' (any holder
+    of a chunk has the same folded gradient). So the norm is the same
+    bits on the emulated grid and on every process of a fleet whose
+    folded gradients are the emulated ones."""
+
+    def __init__(self, dist: DistContext,
+                 shards: Sequence[Optional[Tuple[int, int]]]):
+        self.dist = dist
+        self.shards = list(shards)
+
+    @staticmethod
+    def _sq(t: torch.Tensor) -> torch.Tensor:
+        return torch.sum(torch.square(t.contiguous().float()))
+
+    def sum_squares(self, leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+        if len(leaves) != len(self.shards):
+            raise ValueError(f"{len(leaves)} leaves for {len(self.shards)} "
+                             f"shard entries")
+        _, nm, _, m_lo = self.dist.local_grid
+        sums: List[Any] = []
+        local = []  # this process's chunk sums, leaf by leaf
+        for x, split in zip(leaves, self.shards):
+            if split is None:
+                sums.append(self._sq(x))
+                continue
+            dim, M = split
+            size = x.shape[dim] // nm
+            chunks = [self._sq(x.narrow(dim, i * size, size))
+                      for i in range(nm)]
+            local.extend(chunks)
+            sums.append(None)
+        if local:
+            every = self._all_chunks(torch.stack(local))
+            k = 0
+            for i, split in enumerate(self.shards):
+                if split is None:
+                    continue
+                acc = every[k][0]
+                for c in every[k][1:]:
+                    acc = acc + c
+                sums[i] = acc
+                k += 1
+        total = sums[0]
+        for s in sums[1:]:
+            total = total + s
+        return total
+
+    def _all_chunks(self, local: torch.Tensor) -> List[List[torch.Tensor]]:
+        """Every sharded leaf's M chunk sums in model-rank order, from
+        ``local`` (this process's [n_sharded · nm] sums)."""
+        n_leaves = sum(s is not None for s in self.shards)
+        M = self.dist.model_size
+        if not self.dist.is_fleet:
+            v = local.reshape(n_leaves, M)
+            return [list(v[i].unbind()) for i in range(n_leaves)]
+        import torch.distributed as tdist
+
+        host = local.detach().to("cpu", copy=True)
+        parts = [torch.empty_like(host) for _ in range(self.dist.n_processes)]
+        tdist.all_gather(parts, host)
+        nm = self.dist.local_grid[1]
+        owner = {}  # model rank -> (process, its index there)
+        for q in range(self.dist.n_processes):
+            _, _, _, m_lo = self.dist.process_grid(q)
+            for j in range(nm):
+                owner.setdefault(m_lo + j, (q, j))
+        every = torch.stack([torch.stack([
+            parts[owner[m][0]].reshape(n_leaves, nm)[i, owner[m][1]]
+            for m in range(M)]) for i in range(n_leaves)]).to(local.device)
+        return [list(every[i].unbind()) for i in range(n_leaves)]
+
+
+def _leaf_paths(tree: Any, keys: Tuple[str, ...] = ()
+                ) -> List[Tuple[str, ...]]:
+    """The key paths of ``tree``'s leaves in ``optim.adamw._leaves``
+    order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k],
+                                                             keys + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree)
+                for p in _leaf_paths(t, keys + (str(i),))]
+    return [keys]
 
 def _block(lo: int, w: int, M: int) -> Tuple[int, int, int, int]:
     """Ranks [lo, lo + w) of a (groups, M) grid as (groups, model ranks

@@ -1,7 +1,7 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
 Port of ``repro/launch/train.py``, with the reference's flags and
-printout. It trains the smoke variant of a dense or moe arch (``--full``:
+printout. It trains the smoke variant of a dense, moe or ssm arch (``--full``:
 the published config; the other families raise, ROADMAP item 17) with the real optimizer, checkpointing, resume
 and the straggler watchdog, on the card unless ``--device cpu``. Weights
 are random (``torch.Generator(device)`` seed 0), the data ``SyntheticLM``.

@@ -1,8 +1,8 @@
 """Model configuration for every assigned architecture family.
 
 A copy of ``repro/models/config.py`` (pure data, no JAX in it), so the
-port imports nothing of the JAX package. The port runs the ``dense``
-and ``moe`` families so far (ROADMAP item 17 holds the rest).
+port imports nothing of the JAX package. The port runs the ``dense``,
+``moe`` and ``ssm`` families so far (ROADMAP item 17 holds the rest).
 
 One frozen dataclass covers dense / GQA transformers, MoE, Mamba1/Mamba2
 SSMs, the zamba2 hybrid, the seamless enc-dec, and the modality-stub

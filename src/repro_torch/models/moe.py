@@ -270,7 +270,14 @@ def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
     k = cfg.top_k
     xt = xs.reshape(R, t, d)
     wide = torch.promote_types(xt.dtype, router.dtype)
-    gates, ids = _top_k_gates(xt.to(wide) @ router.to(wide), k)  # [R,T,K]
+    # one [T, D] @ [D, E] product a rank: the same shapes however many
+    # ranks this process runs, so a fleet's logits are the emulated
+    # grid's bit for bit (one product over all ranks' rows may take
+    # another kernel, and so another order, on the card)
+    rw = router.to(wide)
+    gates, ids = _top_k_gates(torch.stack([x_r.to(wide) @ rw
+                                           for x_r in xt.unbind(0)]),
+                              k)  # [R, T, K]
     dst = ids // e_loc  # destination EP rank per assignment
     le = ids % e_loc  # local expert on that rank
 

@@ -1,4 +1,4 @@
-"""LM assembly for the dense and MoE families: prefill and decode.
+"""LM assembly for the dense, MoE and SSM families: prefill and decode.
 
 Port of ``repro/models/transformer.py``. Params are nested dicts with the
 reference's names and its stacked ``[L, ...]`` layer tensors, so a tree
@@ -29,14 +29,17 @@ the EP MoE's backward runs K1 / K2 over device maps — and with
 reference's ``jax.checkpoint``), its activations recomputed in the
 backward.
 
-What waits: the ``ssm``, ``hybrid``, ``encdec``, ``vlm`` and ``audio``
-families for ROADMAP item 17; each raises ``NotImplementedError``
-naming the item.
+The ``ssm`` family (falcon-mamba) runs ``ln1`` → K6 → ``ssm.mamba_block``
+with a residual in each block, and decodes from the recurrent state
+(``DecodeCache.ssm_h`` / ``.ssm_conv``, written in place like k / v).
+
+What waits: the ``hybrid``, ``encdec``, ``vlm`` and ``audio`` families
+for ROADMAP item 17; each raises ``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,13 +54,17 @@ from .layers import (
     mlp, normal, rms_norm,
 )
 from .moe import init_moe_params, local_experts, moe_layer
+from .ssm import (
+    SSMState, init_mamba_params, init_ssm_state, mamba_block,
+    mamba_block_decode,
+)
 
 __all__ = [
     "init_params", "forward", "lm_loss", "DecodeCache", "init_decode_cache",
     "decode_step", "transformer_from_numpy", "shard_experts",
 ]
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm")
 
 
 def _check(cfg: ModelConfig, dist=None) -> None:
@@ -161,6 +168,9 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
 def _init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     dt = _dtype(cfg)
     d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"ln1": torch.ones((d,), dtype=dt, device=device),
+                "ssm": init_mamba_params(gen, cfg, dt, device)}
     blk = {
         "ln1": torch.ones((d,), dtype=dt, device=device),
         "attn": init_attn_params(gen, d, cfg.n_heads, cfg.n_kv_heads,
@@ -251,7 +261,12 @@ def shard_experts(params: dict, cfg: ModelConfig, dist) -> dict:
 
 def _block_apply(lp: dict, x: torch.Tensor, cfg: ModelConfig,
                  dist) -> torch.Tensor:
-    """One causal decoder block: pre-norm attention, then pre-norm MLP/MoE."""
+    """One causal decoder block: pre-norm attention, then pre-norm MLP/MoE;
+    an SSM block: pre-norm Mamba."""
+    if "ssm" in lp:
+        x = x + mamba_block(lp["ssm"], rms_norm(x, lp["ln1"], cfg.norm_eps),
+                            cfg)
+        return shard(x, dist, _bspec(dist))
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + attention(lp["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                       rope_theta=cfg.rope_theta)
@@ -294,16 +309,34 @@ def forward(params: dict, cfg: ModelConfig, dist,
 
 def lm_loss(params: dict, cfg: ModelConfig, dist,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Mean next-token cross-entropy over 'tokens'."""
+    """Mean next-token cross-entropy over 'tokens'.
+
+    With a grid the mean is a left fold over the data groups, ascending,
+    of each group's sum of token terms over the global token count (each
+    group's sum one reduction of its rows). On a fleet's grid this
+    process returns its share of that: its data groups' terms if it
+    counts their rows (``dist.counts_rows``), else zero times them (the
+    same graph, so its backward runs every exchange). The shares summed
+    over the processes in ascending order are the emulated grid's loss
+    bit for bit wherever each group's terms are."""
     logits = forward(params, cfg, dist, batch)
-    tokens = batch["tokens"].long()
+    whole = batch["tokens"]
+    tokens = (whole if dist is None else dist.local_batch(whole)).long()
     s = tokens.shape[1]
     logits = logits[:, -s:, :]
     tgt = tokens[:, 1:]
     lg = logits[:, :-1].to(torch.float32)
     logz = torch.logsumexp(lg, dim=-1)
-    gold = _Pick.apply(lg, tgt)
-    return (logz - gold).mean()
+    terms = logz - _Pick.apply(lg, tgt)
+    if dist is None:
+        return terms.mean()
+    n = whole.shape[0] * (s - 1)  # the global token count
+    ng = dist.local_grid[0]
+    loss = None
+    for part in terms.reshape(ng, -1).unbind(0):
+        share = part.clone().sum() / n
+        loss = share if loss is None else loss + share
+    return loss if not dist.is_fleet or dist.counts_rows else loss * 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -313,21 +346,32 @@ def lm_loss(params: dict, cfg: ModelConfig, dist,
 
 @dataclasses.dataclass
 class DecodeCache:
-    """Decode state of the dense / MoE families: k, v [L, B, kvh, Smax, hd]
-    and the shared clock ``length`` (a host integer)."""
+    """Decode state; the fields a family does not use are None. Dense /
+    MoE: k, v [L, B, kvh, Smax, hd]; SSM: ssm_h [L, B, ...] (float32) and
+    ssm_conv [L, B, cw - 1, di]; the shared clock ``length`` (a host
+    integer)."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: Optional[torch.Tensor] = None
+    v: Optional[torch.Tensor] = None
     length: int = 0
+    ssm_h: Optional[torch.Tensor] = None
+    ssm_conv: Optional[torch.Tensor] = None
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> DecodeCache:
     _check(cfg)
+    dt = _dtype(cfg)
+    if cfg.family == "ssm":
+        st = init_ssm_state(cfg, batch, dt, device)
+        return DecodeCache(
+            ssm_h=st.h.new_zeros((cfg.n_layers,) + tuple(st.h.shape)),
+            ssm_conv=st.conv.new_zeros((cfg.n_layers,)
+                                       + tuple(st.conv.shape)))
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     return DecodeCache(
-        k=torch.zeros(shape, dtype=_dtype(cfg), device=device),
-        v=torch.zeros(shape, dtype=_dtype(cfg), device=device))
+        k=torch.zeros(shape, dtype=dt, device=device),
+        v=torch.zeros(shape, dtype=dt, device=device))
 
 
 def decode_step(params: dict, cfg: ModelConfig, dist,
@@ -335,12 +379,14 @@ def decode_step(params: dict, cfg: ModelConfig, dist,
                 ) -> Tuple[torch.Tensor, DecodeCache]:
     """One new token: token [B, 1] -> (logits [B, 1, V], updated cache).
 
-    Writes the token's K/V into ``cache.k`` / ``cache.v`` in place. On a
-    fleet's grid ``token`` and the cache are the whole batch's, and the
-    step runs (and writes, and returns the logits of) this process's rows
-    of it.
+    Writes the token's K/V (SSM: the new recurrent and conv state) into
+    the cache's tensors in place. On a fleet's grid ``token`` and the
+    cache are the whole batch's, and the step runs (and writes, and
+    returns the logits of) this process's rows of it.
     """
     _check(cfg, dist)
+    if cfg.family == "ssm":
+        return _decode_ssm(params, cfg, dist, token, cache)
     ck, cv = cache.k, cache.v
     if dist is not None and dist.is_fleet:
         lo, hi = dist.local_rows(token.shape[0])
@@ -360,5 +406,27 @@ def decode_step(params: dict, cfg: ModelConfig, dist,
         else:
             h = h + mlp(lp["mlp"], hn, cfg.mlp)
     x = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return x @ _head(params, cfg), DecodeCache(cache.k, cache.v,
-                                               cache.length + 1)
+    return x @ _head(params, cfg), dataclasses.replace(
+        cache, length=cache.length + 1)
+
+
+def _decode_ssm(params: dict, cfg: ModelConfig, dist, token: torch.Tensor,
+                cache: DecodeCache) -> Tuple[torch.Tensor, DecodeCache]:
+    """The SSM family's step: each layer's ``mamba_block_decode`` from its
+    state, the new state copied into ``cache.ssm_h`` / ``.ssm_conv``."""
+    sh, sc = cache.ssm_h, cache.ssm_conv
+    if dist is not None and dist.is_fleet:
+        lo, hi = dist.local_rows(token.shape[0])
+        token, sh, sc = token[lo:hi], sh[:, lo:hi], sc[:, lo:hi]
+    h = params["embed"][token.long()].to(_dtype(cfg))
+    h = shard(h, dist, _bspec(dist))
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        out, new = mamba_block_decode(lp["ssm"], hn, SSMState(sh[i], sc[i]),
+                                      cfg)
+        sh[i].copy_(new.h)
+        sc[i].copy_(new.conv)
+        h = h + out
+    x = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return x @ _head(params, cfg), dataclasses.replace(
+        cache, length=cache.length + 1)

@@ -84,15 +84,25 @@ def adamw_init(params: Any) -> dict:
                                 device=_device(params))}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, shards=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32 (leaf sums
-    added in flattening order)."""
+    added in flattening order).
+
+    ``shards`` (``distributed.context.GradShards``, from a grid's
+    ``dist.grad_shards(params, cfg)``) sums the MoE experts' squares
+    chunk by chunk over the model ranks, ascending, and on a fleet
+    gathers the chunks other processes hold: each leaf of the global
+    model counted once, in the same order on the emulated grid and on
+    every process of a fleet."""
+    if shards is not None:
+        return torch.sqrt(shards.sum_squares(_leaves(tree)))
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in _leaves(tree)))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Any, max_norm: float, shards=None
+                        ) -> Tuple[Any, torch.Tensor]:
+    norm = global_norm(grads, shards)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return _map(lambda g: g * scale.to(g.dtype), grads), norm
 
@@ -113,15 +123,16 @@ def linear_warmup(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: dict
-                 ) -> tuple:
+def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
+                 shards=None) -> tuple:
     """Returns (new_params, new_state, metrics) — the reference's update:
-    clip by the global norm, bias-corrected moments in float32, decoupled
-    weight decay, the schedule's learning rate at the new step."""
+    clip by the global norm (``global_norm``'s ``shards`` on a grid),
+    bias-corrected moments in float32, decoupled weight decay, the
+    schedule's learning rate at the new step."""
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shards)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, shards)
     step = state["step"] + 1
     if cfg.schedule == "cosine":
         lr = cosine_schedule(cfg, step)

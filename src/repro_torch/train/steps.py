@@ -10,6 +10,19 @@ the batch is cut along its first dim into that many equal slices; the
 gradients accumulate in float32 in slice order, and loss and gradients
 are divided by their number, as the reference's ``lax.scan`` does.
 
+With a grid (``dist``) the global norm that AdamW clips by sums the MoE
+experts' squares over the model ranks in one order (``GradShards``). On
+a fleet's grid (``Topology.multiprocess(mesh=...)``) every process gets
+the whole batch and runs its rows: ``lm_loss`` is its share of the
+global mean (each data group's rows counted once), the microbatches
+accumulate locally, then ``ProcessMeshComm.fold_leaves`` sums each
+leaf's gradient over the data groups in ascending order (a whole leaf
+from each group's counting process, an expert shard from the process of
+each group that holds it; the experts of other model ranks stay where
+they are), the loss shares fold the same way, and every process runs
+the same AdamW update on its leaves. The expert-parallel layer's
+backward crosses processes through ``_Exchange``.
+
 The step is functional like the reference's: ``params`` is not changed
 in place, and new parameter and state trees come back. A batch of numpy
 arrays moves to the parameters' device first.
@@ -57,11 +70,10 @@ def loss_and_grads(params: Any, cfg: ModelConfig,
 def make_train_step(cfg: ModelConfig, dist: Optional[DistContext],
                     opt_cfg: AdamWConfig, microbatches: int = 1):
     """Returns train_step(params, opt_state, batch) -> (params, state,
-    metrics); metrics: ``loss``, ``grad_norm``, ``lr`` (0-d tensors)."""
-    if dist is not None and dist.is_fleet:
-        raise NotImplementedError(
-            "the train step on a fleet's grid is ROADMAP item 15's rest: "
-            "lm_loss there sees this process's rows only")
+    metrics); metrics: ``loss``, ``grad_norm``, ``lr`` (0-d tensors; on a
+    fleet the global values, the same on every process)."""
+    fleet = dist is not None and dist.is_fleet
+    layout = {}  # per params structure: (GradShards, fold sources)
 
     def train_step(params, opt_state, batch):
         batch = to_device(batch, _device_of(params))
@@ -84,8 +96,20 @@ def make_train_step(cfg: ModelConfig, dist: Optional[DistContext],
                 loss = loss + li
             loss = loss / microbatches
             grads = _rebuild(params, iter(a / microbatches for a in acc))
+        shards = sources = None
+        if dist is not None:
+            key = tuple(tuple(p.shape) for p in _leaves(params))
+            if key not in layout:
+                layout[key] = (dist.grad_shards(params, cfg),
+                               dist.grad_sources(params, cfg)
+                               if fleet else None)
+            shards, sources = layout[key]
+        if fleet:
+            grads = _rebuild(params, iter(dist.comm.fold_leaves(
+                _leaves(grads), sources)))
+            loss = dist.comm.fold(loss)
         new_params, new_state, metrics = adamw_update(
-            opt_cfg, params, grads, opt_state)
+            opt_cfg, params, grads, opt_state, shards)
         metrics["loss"] = loss
         return new_params, new_state, metrics
 

@@ -840,6 +840,8 @@ RMS_SHAPES = [
     ((1,), 576), ((7,), 576), ((2048,), 576), ((7,), 1536), ((2048,), 1536),
     ((1,), 4096), ((7,), 4096), ((1,), 8192), ((7,), 8192), ((2048,), 8192),
     ((3,), 4100),
+    # falcon-mamba-7b's d_model at its prefill (8 × 256 rows) and decode
+    ((2048,), 4096), ((8,), 4096),
 ]
 
 
@@ -928,7 +930,7 @@ def _k6_bwd_both_ways(x, g, dy, rbg):
 
 @requires_cuda
 @pytest.mark.parametrize("rows", RMS_BWD_ROWS)
-@pytest.mark.parametrize("d", [64, 576, 2048, 4104, 8200])
+@pytest.mark.parametrize("d", [64, 576, 2048, 4096, 4104, 8200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("round_before_gain", [False, True])
 def test_rmsnorm_bwd_kernel_matches_plain(rows, d, dtype, round_before_gain):
@@ -1678,3 +1680,33 @@ def test_expert_parallel_lm_on_the_card_matches_the_cpu():
         ref, cache_cpu = TT.decode_step(cpu, cfg, dist, toks[:, j:j + 1],
                                         cache_cpu)
         torch.testing.assert_close(step.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+@requires_cuda
+@pytest.mark.parametrize("changes", [{}, dict(ssm_fused_proj=True),
+                                     dict(ssm_version=2, ssm_heads=4)],
+                         ids=["v1", "v1_fused", "v2"])
+def test_mamba_block_on_the_card_matches_cpu(changes):
+    """``mamba_block`` (two chunks, h carried) and one decode step in
+    float32 on the card within 1e-4 / 1e-5 of the CPU run."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import ssm as TS
+
+    cfg = dataclasses.replace(get_smoke_config("falcon-mamba-7b"), **changes)
+    cpu = TS.init_mamba_params(torch.Generator().manual_seed(0), cfg,
+                               torch.float32, device="cpu")
+    card = {k: v.cuda() for k, v in cpu.items()}
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32))
+    got = TS.mamba_block(card, x.cuda(), cfg)
+    want = TS.mamba_block(cpu, x, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    st = TS.init_ssm_state(cfg, 2, torch.float32, device="cpu")
+    st = TS.SSMState(torch.rand_like(st.h), torch.rand_like(st.conv))
+    out, new = TS.mamba_block_decode(card, x[:, :1].cuda(), TS.SSMState(
+        st.h.cuda(), st.conv.cuda()), cfg)
+    ref, ref_new = TS.mamba_block_decode(cpu, x[:, :1], st, cfg)
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(new.h.cpu(), ref_new.h, rtol=1e-4, atol=1e-5)
