@@ -12,11 +12,14 @@ Phase 3: the kernel sweeps against the plain versions (``sweep_checks``);
 prints (``lm_serving``); 9: serving waves and the fleet
 (``serving_phase``: on a quarter of arxiv where the tree's
 ``chip_smoke.py`` pins that size, ``EXPECT_SERVE_LADDER``, else at full
-size); 12: training and the LM across two processes
+size); 11: SHIRO across two processes (``mp_phase``); 12: training and
+the LM across two processes
 (``mp_train_phase``); 13: LM training, whose K1 / K2 / K6 / K6-backward
 rows it prints (``train_lm_phase``); 14: falcon-mamba serving
-(``ssm_phase``). Each row as ``chip_smoke.py`` prints it, tagged TAG;
-with ``--json`` all rows to PATH; ``--quick`` for ``chip_smoke.py
+(``family_serve`` on ``SSM_CELL``); 15: the hybrid, encdec and prefix
+families (zamba2, seamless, llava) and zamba2's train check
+(``family_phase``). Each row as ``chip_smoke.py`` prints it, tagged
+TAG; with ``--json`` all rows to PATH; ``--quick`` for ``chip_smoke.py
 --quick``'s sizes. Needs one CUDA card.
 """
 import argparse
@@ -48,7 +51,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tag")
     ap.add_argument("--phases", type=int, nargs="+", default=[3, 7, 13],
-                    choices=[3, 7, 9, 12, 13, 14])
+                    choices=[3, 7, 9, 11, 12, 13, 14, 15])
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--json", metavar="PATH")
     args = ap.parse_args()
@@ -79,10 +82,14 @@ def main() -> int:
             got, _, _ = cs.lm_serving(run, card)
         elif phase == 9:
             got = cs.serving_phase(run, card, *serve_matrices(cs, run))
+        elif phase == 11:
+            got = cs.mp_phase(run, card)
         elif phase == 12:
             got = cs.mp_train_phase(run, card)
         elif phase == 14:
-            got = cs.ssm_phase(run, card)
+            got = {"rmsnorm": cs.family_serve(run, card, *cs.SSM_CELL)[0]}
+        elif phase == 15:
+            got = cs.family_phase(run, card)
         else:
             got = cs.train_lm_phase(run, card)
         cs.log(f"[{args.tag}] phase {phase} {time.perf_counter() - t0:.1f} s")

@@ -1,5 +1,7 @@
 """Launch-side helpers of the port: per-executable memory
-(``launch.memory``), the emulated named grids (``launch.mesh``) and the
+(``launch.memory``), the emulated named grids (``launch.mesh``), the
+shape suite and abstract trees on the ``meta`` device (``launch.specs``),
+the training launcher (``launch.train``) and the
 multi-process fleet (``launch.multiprocess``: ``initialize``,
 ``launch_local``, ``worker_smoke``, ``Supervisor``; run it with ``python
 -m repro_torch.launch.multiprocess``, which is why its names load on

@@ -1,32 +1,70 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
 Port of ``repro/launch/train.py``, with the reference's flags and
-printout. It trains the smoke variant of a dense, moe or ssm arch (``--full``:
-the published config; the other families raise, ROADMAP item 17) with the real optimizer, checkpointing, resume
-and the straggler watchdog, on the card unless ``--device cpu``. Weights
-are random (``torch.Generator(device)`` seed 0), the data ``SyntheticLM``.
+printout. It trains the smoke variant of any arch (``--full``: the
+published config) with the real optimizer, checkpointing, resume and the
+straggler watchdog, on the card unless ``--device cpu``. Weights are
+random (``torch.Generator(device)`` seed 0), the data ``SyntheticLM``
+with the reference's per-family inputs at every step (``FamilyInputs``):
+``enc_embeds`` for the encdec family, ``prefix_embeds`` for an arch
+with a frontend, each ``np.random.default_rng(step).standard_normal(
+(batch, frontend_len, d_model))`` in float32.
 
 One difference from the reference: the trainer is given the data
 source, so a resumed run's stream starts at the step it resumes from
-(the pipeline's batches are a function of the step) and the run
-continues the one it was cut from; the reference restarts the stream at
-batch 0.
+(the pipeline's batches, embeddings included, are a function of the
+step) and the run continues the one it was cut from; the reference
+restarts the stream at batch 0.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import tempfile
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..configs import ARCHS, get_config, get_smoke_config
 from ..data.pipeline import SyntheticLM
+from ..models.config import ModelConfig
 from ..models.transformer import init_params
 from ..optim.adamw import AdamWConfig
 from ..train.trainer import Trainer, TrainerConfig
+
+
+@dataclasses.dataclass
+class FamilyInputs:
+    """A data source (``batch(step, shard, n_shards)``) whose batches also
+    carry the reference launcher's per-family input of that step: for the
+    encdec family ``enc_embeds``, for an arch with a frontend
+    ``prefix_embeds``, each ``default_rng(step).standard_normal((batch,
+    frontend_len, d_model))`` as float32 (a shard: its rows of it); other
+    families' batches pass through."""
+
+    source: Any
+    cfg: ModelConfig
+    batch_size: int
+
+    @property
+    def key(self) -> Optional[str]:
+        if self.cfg.family == "encdec":
+            return "enc_embeds"
+        return "prefix_embeds" if self.cfg.frontend is not None else None
+
+    def batch(self, step: int, shard: int = 0, n_shards: int = 1
+              ) -> Dict[str, np.ndarray]:
+        out = self.source.batch(step, shard, n_shards)
+        if self.key is not None:
+            whole = np.random.default_rng(step).standard_normal(
+                (self.batch_size, self.cfg.frontend_len, self.cfg.d_model)
+            ).astype(np.float32)
+            rows = self.batch_size // n_shards
+            out[self.key] = whole[shard * rows:(shard + 1) * rows]
+        return out
 
 
 def parse(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -64,7 +102,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             tempfile.gettempdir(), f"repro_torch_ckpt_{args.arch}"),
         microbatches=args.microbatches,
     )
-    data = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
+    data = FamilyInputs(SyntheticLM(cfg.vocab_size, args.seq, args.batch),
+                        cfg, args.batch)
     params = init_params(cfg, torch.Generator(args.device).manual_seed(0),
                          device=args.device)
     trainer = Trainer(cfg, opt, tcfg)

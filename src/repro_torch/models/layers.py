@@ -356,9 +356,12 @@ def mlp(params: dict, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
-           device) -> torch.Tensor:
-    """N(0, 1)·scale drawn in float32 on ``device``, cast to ``dtype``."""
+def normal(gen: Optional[torch.Generator], shape, scale: float,
+           dtype: torch.dtype, device) -> torch.Tensor:
+    """N(0, 1)·scale drawn in float32 on ``device``, cast to ``dtype``; on
+    the ``meta`` device nothing is drawn (``gen`` may be None)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
 

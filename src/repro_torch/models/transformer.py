@@ -33,8 +33,27 @@ The ``ssm`` family (falcon-mamba) runs ``ln1`` → K6 → ``ssm.mamba_block``
 with a residual in each block, and decodes from the recurrent state
 (``DecodeCache.ssm_h`` / ``.ssm_conv``, written in place like k / v).
 
-What waits: the ``hybrid``, ``encdec``, ``vlm`` and ``audio`` families
-for ROADMAP item 17; each raises ``NotImplementedError`` naming the item.
+The ``hybrid`` family (zamba2) runs ``n_layers // attn_every`` groups,
+each a run of SSM blocks followed by ``shared_attn``: ONE dense block
+whose weights every group applies (its gradient sums the uses; it runs
+outside remat, as the reference's ``jax.checkpoint`` wraps only the
+scanned blocks; layers past the last whole group are not run). Its
+decode cache holds the SSM state and ``shared_k`` / ``shared_v``
+``[n_groups, B, kvh, Smax, hd]``. The ``encdec`` family (seamless)
+encodes ``enc_embeds @ adapter`` with non-causal blocks and a final norm
+(``_encode``); its decoder blocks add cross-attention on ``ln3`` over
+the encoder's output when it is given (``forward`` always; ``decode_step``
+when its ``enc_out`` is passed — the reference's ``ContinuousBatcher``
+passes none). ``vlm`` / ``audio`` (llava) put ``prefix_embeds @ adapter``
+before the token embeddings, so the logits are ``[B, P + S, V]``; they
+decode as the dense family, the prefix never entering the cache. Every
+config with a ``frontend`` has the ``adapter`` ``[d, d]``. On a fleet's
+grid these four families raise ``NotImplementedError`` naming ROADMAP
+item 15: their extra batch inputs are not cut to a process's rows.
+
+``init_params(cfg, None, device="meta")`` and ``init_decode_cache(...,
+device="meta")`` build the trees without drawing or allocating
+(``launch/specs.py``).
 """
 from __future__ import annotations
 
@@ -64,15 +83,25 @@ __all__ = [
     "decode_step", "transformer_from_numpy", "shard_experts",
 ]
 
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio")
+# the families whose extra inputs (encoder frames, a modality prefix) or
+# shared block a fleet's grid does not run yet
+NOT_ON_A_FLEET = ("hybrid", "encdec", "vlm", "audio")
+# the block kind of each family's stacked layers
+_LAYER_KIND = {"dense": "dense", "vlm": "dense", "audio": "dense",
+               "moe": "moe", "ssm": "ssm", "hybrid": "ssm",
+               "encdec": "cross"}
 
 
 def _check(cfg: ModelConfig, dist=None) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) waits for ROADMAP item 17; "
-            f"the port runs {FAMILIES}")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
     check_dist(dist)
+    if dist is not None and dist.is_fleet and cfg.family in NOT_ON_A_FLEET:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) on a fleet's grid waits "
+            f"for ROADMAP item 15: its batch inputs are not cut to a "
+            f"process's rows")
 
 
 def _bspec(dist):
@@ -165,10 +194,11 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
 # ---------------------------------------------------------------------------
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, device,
+                kind: str) -> dict:
     dt = _dtype(cfg)
     d = cfg.d_model
-    if cfg.family == "ssm":
+    if kind == "ssm":
         return {"ln1": torch.ones((d,), dtype=dt, device=device),
                 "ssm": init_mamba_params(gen, cfg, dt, device)}
     blk = {
@@ -177,19 +207,37 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
                                  cfg.head_dim, cfg.qkv_bias, dt, device),
         "ln2": torch.ones((d,), dtype=dt, device=device),
     }
-    if cfg.family == "moe":
+    if kind == "moe":
         blk["moe"] = init_moe_params(gen, cfg, dt, device)
     else:
         blk["mlp"] = init_mlp_params(gen, d, cfg.d_ff, cfg.mlp, dt, device)
+    if kind == "cross":
+        blk["ln3"] = torch.ones((d,), dtype=dt, device=device)
+        blk["cross"] = init_attn_params(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                        cfg.head_dim, cfg.qkv_bias, dt,
+                                        device)
     return blk
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+def _init_stack(gen: torch.Generator, cfg: ModelConfig, device, kind: str,
+                n: int) -> dict:
+    """n blocks drawn one at a time into stacked ``[n, ...]`` tensors."""
+    first = _init_block(gen, cfg, device, kind)
+    layers = _tree_map(lambda a: a.new_empty((n,) + a.shape), first)
+    for i in range(n):
+        _set_layer(layers, i, first if i == 0 else
+                   _init_block(gen, cfg, device, kind))
+    return layers
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device="cuda") -> Dict[str, Any]:
     """Random weights with the reference's shapes, dtypes and scales.
 
     ``generator`` lives on ``device``. The layers are drawn one at a time
     into the stacked tensors, so the peak is the model plus one layer.
+    On ``device="meta"`` nothing is drawn or allocated (``generator`` may
+    be None): the tree's shapes and dtypes alone.
     """
     _check(cfg)
     dt = _dtype(cfg)
@@ -200,13 +248,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(generator, (d, v), 0.02, dt, device)
-    first = _init_block(generator, cfg, device)
-    layers = _tree_map(lambda a: a.new_empty((cfg.n_layers,) + a.shape),
-                       first)
-    for i in range(cfg.n_layers):
-        _set_layer(layers, i, first if i == 0 else
-                   _init_block(generator, cfg, device))
-    params["layers"] = layers
+    params["layers"] = _init_stack(generator, cfg, device,
+                                   _LAYER_KIND[cfg.family], cfg.n_layers)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_block(generator, cfg, device, "dense")
+    if cfg.family == "encdec":
+        params["encoder"] = {
+            "layers": _init_stack(generator, cfg, device, "dense",
+                                  cfg.n_enc_layers),
+            "norm": torch.ones((d,), dtype=dt, device=device),
+        }
+    if cfg.frontend is not None:
+        params["adapter"] = normal(generator, (d, d), d ** -0.5, dt, device)
     return params
 
 
@@ -259,18 +312,26 @@ def shard_experts(params: dict, cfg: ModelConfig, dist) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _block_apply(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-                 dist) -> torch.Tensor:
-    """One causal decoder block: pre-norm attention, then pre-norm MLP/MoE;
-    an SSM block: pre-norm Mamba."""
+def _block_apply(lp: dict, x: torch.Tensor, cfg: ModelConfig, dist,
+                 kind: str = "dense",
+                 enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decoder block: pre-norm attention (causal unless ``kind`` is
+    "enc", the encoder's), pre-norm cross-attention over ``enc_out`` (a
+    "cross" block given one), then pre-norm MLP/MoE; an SSM block:
+    pre-norm Mamba."""
     if "ssm" in lp:
         x = x + mamba_block(lp["ssm"], rms_norm(x, lp["ln1"], cfg.norm_eps),
                             cfg)
         return shard(x, dist, _bspec(dist))
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + attention(lp["attn"], h, cfg.n_heads, cfg.n_kv_heads,
-                      rope_theta=cfg.rope_theta)
+                      causal=(kind != "enc"), rope_theta=cfg.rope_theta)
     x = shard(x, dist, _bspec(dist))
+    if kind == "cross" and enc_out is not None:
+        h = rms_norm(x, lp["ln3"], cfg.norm_eps)
+        x = x + attention(lp["cross"], h, cfg.n_heads, cfg.n_kv_heads,
+                          kv_input=enc_out, causal=False)
+        x = shard(x, dist, _bspec(dist))
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
         x = x + moe_layer(lp["moe"], h, cfg, dist)
@@ -283,24 +344,72 @@ def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _run_blocks(blocks: list, x: torch.Tensor, cfg: ModelConfig, dist,
+                kind: str, enc_out: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """``blocks`` in order (the reference's ``_scan_layers``), each under
+    ``torch.utils.checkpoint`` with ``cfg.remat`` when it takes part in a
+    gradient."""
+    for lp in blocks:
+        if cfg.remat and _needs_grad(lp, x):
+            # the reference's jax.checkpoint around each block; a block
+            # draws no random numbers, so no RNG state is kept for it
+            x = checkpoint(_block_apply, lp, x, cfg, dist, kind, enc_out,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block_apply(lp, x, cfg, dist, kind, enc_out)
+    return x
+
+
+def _encode(params: dict, cfg: ModelConfig, dist,
+            enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The encdec family's encoder: ``enc_embeds`` [B, Se, D] through the
+    adapter, the non-causal blocks (RoPE on) and the encoder's norm —
+    what ``forward`` attends to, and what a caller hands ``decode_step``
+    as ``enc_out``."""
+    _check(cfg, dist)
+    adapter = params["adapter"]
+    e = torch.as_tensor(enc_embeds, device=adapter.device).to(_dtype(cfg)) \
+        @ adapter
+    e = shard(e, dist, _bspec(dist))
+    enc = params["encoder"]
+    e = _run_blocks(_unstack(enc["layers"], cfg.n_enc_layers), e, cfg, dist,
+                    "enc")
+    return rms_norm(e, enc["norm"], cfg.norm_eps)
+
+
 def forward(params: dict, cfg: ModelConfig, dist,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Returns logits [B, S, V]; ``batch["tokens"]`` is [B, S] (int). On
-    a fleet's grid the batch is whole and the logits are this process's
-    rows of it (``dist.local_rows``)."""
+    """Returns logits [B, S_total, V]; ``batch["tokens"]`` is [B, S]
+    (int). A frontend arch's ``batch["prefix_embeds"]`` [B, P, D] goes
+    before the tokens (S_total = P + S); the encdec family's
+    ``batch["enc_embeds"]`` [B, Se, D] feeds its encoder. On a fleet's
+    grid the batch is whole and the logits are this process's rows of it
+    (``dist.local_rows``)."""
     _check(cfg, dist)
     tokens = batch["tokens"] if dist is None else \
         dist.local_batch(batch["tokens"])
     x = _embed(params, tokens, cfg)
     x = shard(x, dist, _bspec(dist))
-    for lp in _unstack(params["layers"], cfg.n_layers):
-        if cfg.remat and _needs_grad(lp, x):
-            # the reference's jax.checkpoint around each block; a block
-            # draws no random numbers, so no RNG state is kept for it
-            x = checkpoint(_block_apply, lp, x, cfg, dist,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _block_apply(lp, x, cfg, dist)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _encode(params, cfg, dist, batch["enc_embeds"])
+    elif cfg.frontend is not None and "prefix_embeds" in batch:
+        adapter = params["adapter"]
+        pre = torch.as_tensor(batch["prefix_embeds"], device=adapter.device
+                              ).to(_dtype(cfg)) @ adapter
+        x = shard(torch.cat([pre, x], dim=1), dist, _bspec(dist))
+    blocks = _unstack(params["layers"], cfg.n_layers)
+    if cfg.family == "hybrid":
+        per = cfg.attn_every
+        for g in range(cfg.n_layers // per):
+            x = _run_blocks(blocks[g * per:(g + 1) * per], x, cfg, dist,
+                            "ssm")
+            # the one shared block, outside remat as in the reference
+            x = _block_apply(params["shared_attn"], x, cfg, dist)
+    else:
+        x = _run_blocks(blocks, x, cfg, dist, _LAYER_KIND[cfg.family],
+                        enc_out)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
     return shard(logits, dist, None if dist is None else
@@ -347,8 +456,12 @@ def lm_loss(params: dict, cfg: ModelConfig, dist,
 @dataclasses.dataclass
 class DecodeCache:
     """Decode state; the fields a family does not use are None. Dense /
-    MoE: k, v [L, B, kvh, Smax, hd]; SSM: ssm_h [L, B, ...] (float32) and
-    ssm_conv [L, B, cw - 1, di]; the shared clock ``length`` (a host
+    MoE / encdec / vlm / audio: k, v [L, B, kvh, Smax, hd]; SSM and
+    hybrid: ssm_h [L, B, ...] (float32) and ssm_conv [L, B, cw - 1, di];
+    hybrid: shared_k, shared_v [n_groups, B, kvh, Smax, hd], the shared
+    block's cache of each group; cross_k / cross_v: the reference's
+    fields for the encdec's cross K / V, which it never fills (each step
+    recomputes them from ``enc_out``); the shared clock ``length`` (a host
     integer)."""
 
     k: Optional[torch.Tensor] = None
@@ -356,58 +469,101 @@ class DecodeCache:
     length: int = 0
     ssm_h: Optional[torch.Tensor] = None
     ssm_conv: Optional[torch.Tensor] = None
+    shared_k: Optional[torch.Tensor] = None
+    shared_v: Optional[torch.Tensor] = None
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> DecodeCache:
     _check(cfg)
     dt = _dtype(cfg)
-    if cfg.family == "ssm":
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    c = DecodeCache()
+    if cfg.family in ("dense", "moe", "vlm", "audio", "encdec"):
+        shape = (cfg.n_layers, batch, kvh, max_len, hd)
+        c.k = torch.zeros(shape, dtype=dt, device=device)
+        c.v = torch.zeros(shape, dtype=dt, device=device)
+    if cfg.is_ssm:
         st = init_ssm_state(cfg, batch, dt, device)
-        return DecodeCache(
-            ssm_h=st.h.new_zeros((cfg.n_layers,) + tuple(st.h.shape)),
-            ssm_conv=st.conv.new_zeros((cfg.n_layers,)
-                                       + tuple(st.conv.shape)))
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return DecodeCache(
-        k=torch.zeros(shape, dtype=dt, device=device),
-        v=torch.zeros(shape, dtype=dt, device=device))
+        c.ssm_h = st.h.new_zeros((cfg.n_layers,) + tuple(st.h.shape))
+        c.ssm_conv = st.conv.new_zeros((cfg.n_layers,)
+                                       + tuple(st.conv.shape))
+    if cfg.family == "hybrid":
+        shape = (cfg.n_layers // cfg.attn_every, batch, kvh, max_len, hd)
+        c.shared_k = torch.zeros(shape, dtype=dt, device=device)
+        c.shared_v = torch.zeros(shape, dtype=dt, device=device)
+    return c
 
 
 def decode_step(params: dict, cfg: ModelConfig, dist,
                 token: torch.Tensor, cache: DecodeCache,
+                enc_out: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, DecodeCache]:
     """One new token: token [B, 1] -> (logits [B, 1, V], updated cache).
 
     Writes the token's K/V (SSM: the new recurrent and conv state) into
-    the cache's tensors in place. On a fleet's grid ``token`` and the
-    cache are the whole batch's, and the step runs (and writes, and
-    returns the logits of) this process's rows of it.
+    the cache's tensors in place. The encdec family attends to
+    ``enc_out`` [B, Se, D] (``_encode``'s output) in every decoder block,
+    its K / V recomputed each step; without it the decoder runs with no
+    cross-attention, as the reference's does. On a fleet's grid
+    ``token`` and the cache are the whole batch's, and the step runs (and
+    writes, and returns the logits of) this process's rows of it.
     """
     _check(cfg, dist)
     if cfg.family == "ssm":
         return _decode_ssm(params, cfg, dist, token, cache)
+    if cfg.family == "hybrid":
+        return _decode_hybrid(params, cfg, dist, token, cache)
     ck, cv = cache.k, cache.v
     if dist is not None and dist.is_fleet:
         lo, hi = dist.local_rows(token.shape[0])
         token, ck, cv = token[lo:hi], ck[:, lo:hi], cv[:, lo:hi]
     h = params["embed"][token.long()].to(_dtype(cfg))
     h = shard(h, dist, _bspec(dist))
+    if cfg.family != "encdec":
+        enc_out = None
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        att, _ = attention_decode(
-            lp["attn"], hn, KVCache(ck[i], cv[i], cache.length),
-            cfg.n_heads, cfg.n_kv_heads, rope_theta=cfg.rope_theta,
-            dist=dist, seq_shard=cfg.kv_seq_shard)
-        h = h + att
-        hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
-        if "moe" in lp:
-            h = h + moe_layer(lp["moe"], hn, cfg, dist)
-        else:
-            h = h + mlp(lp["mlp"], hn, cfg.mlp)
+        h = _dense_decode_block(lp, h, ck[i], cv[i], cache.length, cfg, dist,
+                                cfg.kv_seq_shard, enc_out)
     x = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return x @ _head(params, cfg), dataclasses.replace(
         cache, length=cache.length + 1)
+
+
+def _dense_decode_block(lp: dict, h: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, length: int, cfg: ModelConfig,
+                        dist=None, seq_shard: bool = False,
+                        enc_out: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """One attention block's step against its cache (k, v), which it
+    writes in place at ``length``: self-attention, cross-attention on
+    ``ln3`` over ``enc_out`` when given, then the MLP (or MoE layer)."""
+    hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    att, _ = attention_decode(
+        lp["attn"], hn, KVCache(k, v, length), cfg.n_heads, cfg.n_kv_heads,
+        rope_theta=cfg.rope_theta, dist=dist, seq_shard=seq_shard)
+    h = h + att
+    if enc_out is not None:
+        hn = rms_norm(h, lp["ln3"], cfg.norm_eps)
+        h = h + attention(lp["cross"], hn, cfg.n_heads, cfg.n_kv_heads,
+                          kv_input=enc_out, causal=False)
+    hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
+    if "moe" in lp:
+        return h + moe_layer(lp["moe"], hn, cfg, dist)
+    return h + mlp(lp["mlp"], hn, cfg.mlp)
+
+
+def _ssm_decode_block(lp: dict, h: torch.Tensor, sh: torch.Tensor,
+                      sc: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One SSM block's step from its state (sh, sc), which it overwrites
+    with the new state; returns the block's output."""
+    hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    out, new = mamba_block_decode(lp["ssm"], hn, SSMState(sh, sc), cfg)
+    sh.copy_(new.h)
+    sc.copy_(new.conv)
+    return h + out
 
 
 def _decode_ssm(params: dict, cfg: ModelConfig, dist, token: torch.Tensor,
@@ -421,12 +577,29 @@ def _decode_ssm(params: dict, cfg: ModelConfig, dist, token: torch.Tensor,
     h = params["embed"][token.long()].to(_dtype(cfg))
     h = shard(h, dist, _bspec(dist))
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        out, new = mamba_block_decode(lp["ssm"], hn, SSMState(sh[i], sc[i]),
-                                      cfg)
-        sh[i].copy_(new.h)
-        sc[i].copy_(new.conv)
-        h = h + out
+        h = _ssm_decode_block(lp, h, sh[i], sc[i], cfg)
+    x = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return x @ _head(params, cfg), dataclasses.replace(
+        cache, length=cache.length + 1)
+
+
+def _decode_hybrid(params: dict, cfg: ModelConfig, dist,
+                   token: torch.Tensor, cache: DecodeCache
+                   ) -> Tuple[torch.Tensor, DecodeCache]:
+    """The hybrid family's step: each group's SSM layers from their state,
+    then the shared block against the group's ``shared_k`` / ``shared_v``
+    (both written in place). The shared attention takes no ``dist`` and
+    no sequence sharding, as in the reference."""
+    h = params["embed"][token.long()].to(_dtype(cfg))
+    h = shard(h, dist, _bspec(dist))
+    layers = _unstack(params["layers"], cfg.n_layers)
+    sp, per = params["shared_attn"], cfg.attn_every
+    for g in range(cfg.n_layers // per):
+        for i in range(g * per, (g + 1) * per):
+            h = _ssm_decode_block(layers[i], h, cache.ssm_h[i],
+                                  cache.ssm_conv[i], cfg)
+        h = _dense_decode_block(sp, h, cache.shared_k[g], cache.shared_v[g],
+                                cache.length, cfg)
     x = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return x @ _head(params, cfg), dataclasses.replace(
         cache, length=cache.length + 1)

@@ -842,6 +842,10 @@ RMS_SHAPES = [
     ((3,), 4100),
     # falcon-mamba-7b's d_model at its prefill (8 × 256 rows) and decode
     ((2048,), 4096), ((8,), 4096),
+    # zamba2-2.7b's d_model (320 16-byte chunks a bfloat16 row: not a whole
+    # number a lane at 128 lanes) and seamless-m4t-medium's, at their
+    # prefills and decode
+    ((2048,), 2560), ((8,), 2560), ((1024,), 1024), ((8,), 1024),
 ]
 
 
@@ -930,7 +934,7 @@ def _k6_bwd_both_ways(x, g, dy, rbg):
 
 @requires_cuda
 @pytest.mark.parametrize("rows", RMS_BWD_ROWS)
-@pytest.mark.parametrize("d", [64, 576, 2048, 4096, 4104, 8200])
+@pytest.mark.parametrize("d", [64, 576, 1024, 2048, 2560, 4096, 4104, 8200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("round_before_gain", [False, True])
 def test_rmsnorm_bwd_kernel_matches_plain(rows, d, dtype, round_before_gain):
@@ -1710,3 +1714,46 @@ def test_mamba_block_on_the_card_matches_cpu(changes):
     ref, ref_new = TS.mamba_block_decode(cpu, x[:, :1], st, cfg)
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(new.h.cpu(), ref_new.h, rtol=1e-4, atol=1e-5)
+
+
+def _attention64(q, k, v, causal):
+    """Dense softmax attention in float64 (GQA: kv heads repeated), the
+    oracle of ``flash_attention``."""
+    q, k, v = (t.double() for t in (q, k, v))
+    g = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(g, dim=1) for t in (k, v))
+    logits = (q @ k.transpose(-1, -2)) / q.shape[-1] ** 0.5
+    if causal:
+        s, sk = q.shape[2], k.shape[2]
+        mask = torch.ones((s, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - s)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.softmax(logits, -1) @ v
+
+
+@requires_cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kv_chunk", [1024, 256])
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    (torch.float32, 2e-4, 2e-4), (torch.bfloat16, 1e-2, 1e-2)], ids=str)
+def test_flash_attention_on_the_card_matches_float64(causal, dtype, rtol,
+                                                     atol, kv_chunk):
+    """``flash_attention`` at 1024 × 1024 (two q chunks; GQA 8 / 2 heads)
+    on the card: the encoder's non-causal and the decoder's causal path,
+    with one kv chunk (the model's) and with four (the online softmax
+    rescales m / l / acc between them), within rtol / atol of a float64
+    oracle on the same inputs. bf16 rounds the logits and p to bf16, as
+    the reference does: a logit near 4 moves by up to 2**-6, so a row of
+    few keys is off by up to ~8e-3 (0.0078 at one kv chunk, causal, an
+    H100); the float32 cases hold the rescaling to 2e-4."""
+    from repro_torch.models.layers import flash_attention
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    q = torch.randn((2, 8, 1024, 64), generator=gen, device="cuda")
+    k, v = (torch.randn((2, 2, 1024, 64), generator=gen, device="cuda")
+            for _ in range(2))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    out = flash_attention(q, k, v, causal=causal, kv_chunk=kv_chunk)
+    assert out.is_cuda and out.dtype == dtype and out.shape == q.shape
+    want = _attention64(q, k, v, causal)
+    torch.testing.assert_close(out.double(), want, rtol=rtol, atol=atol)
