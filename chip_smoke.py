@@ -256,11 +256,25 @@ handle. Phases, each of which raises on a failed check:
    rows across; peak memory per process. Worker 0's K1 / K2 / K6 /
    K6-backward calls of one step are replayed (paths
    ``mp_lm_train_dense``, ``mp_lm_train_ep``, ``mp_lm_train_ep_cross``).
+   Then (``MP_FAMILY_CASES``, each model released before the next) the
+   hybrid, encdec, vlm and audio families at their published widths cut
+   in depth — zamba2-2.7b's first group (6 Mamba2 layers and the shared
+   block), seamless-m4t-medium's 1 + 1 layers over its 1024 frames,
+   llava-next-mistral-7b's 1 layer over 576 patches + 448 tokens, and
+   llava's path with the audio frontend — each on (data 1, model 8) and
+   (data 2, model 4): ``forward``, one ``decode_step`` (the encdec's with
+   the encoder's output) and 2 ``make_train_step`` steps on 8 prompts,
+   the last position's logits, bit digests and the parameters kept.
    After the workers exit, the emulated twin runs the same steps on
    ``make_mesh`` of each grid in this process: each step's loss, grad
    norm and every parameter a worker holds within ``MP_LM_TWIN_TOL``
    and reported ``torch.equal`` or not; the dense case's first loss
-   within 5e-3 of the unsharded port's.
+   within 5e-3 of the unsharded port's; the families on (data 1, model
+   8) ``torch.equal`` to the twin in every result, on (data 2, model 4)
+   the logits within ``MP_FAMILY_ROWS_TOL``, the steps' losses, the first
+   step's grad norm and the parameters within ``MP_LM_TWIN_TOL``, and the
+   first step's folded gradient within ``MP_FAMILY_GRAD_TOL`` of the
+   twin's, leaf by leaf (the second step's grad norm is logged).
 13. LM training, after phase 12. (a) olmoe-train: OLMoE-1B-7B at its
    published width, cut to 2 of its 16 layers (1.05 B parameters; all
    16 with AdamW's float32 moments would not fit the card), bf16, random
@@ -331,6 +345,22 @@ handle. Phases, each of which raises on a failed check:
    norm-wise (``FAMILY_TRAIN_F32``: float32 itself is ~1e-3 off there),
    the element-wise error over rtol 2e-3 / atol 2e-4 logged; one step's
    K1 / K2 / K6 / K6-backward calls replayed (path ``hybrid_train``).
+   The families' frames and patches are placed in the model's dtype, as
+   the dry run's stand-ins are.
+16. the dry run against the card, last: ``launch/dryrun.py``'s
+   accounting of phase 13's olmoe-train (dense) and smollm-train steps
+   and phase 15's zamba2, seamless and llava prefills, traced on the
+   meta device in this process on a (data 1, model 1) grid at the shape
+   each phase ran: argument bytes equal to the bytes of the tensors the
+   phase placed on the card (else the phase fails); arguments + temp
+   (and + outputs) beside the peak each measured step requested above
+   its start, its arguments added; the traced flops over the step's
+   measured time as TFLOP/s; the roofline's bound (H100 datasheet
+   constants) over the measured time. Then ``run_cell`` as the CLI runs
+   it for qwen2-1.5b and olmoe-1b-7b × decode_32k on the (16, 16) grid
+   (the olmoe cell's expert-parallel exchange traced), records and
+   seconds printed; the kernels' launch counts the same after the meta
+   traces as before them.
 
 Every phase's seconds are printed as it ends.
 
@@ -2731,6 +2761,37 @@ def _leaves(tree):
         yield tree
 
 
+def tensor_bytes(*trees) -> int:
+    """The bytes of every tensor leaf of ``trees`` (dicts of tensors)."""
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in _leaves(tree) if isinstance(t, torch.Tensor))
+
+
+# the steps phases 13 and 15 measure, which phase 16 holds the dry run
+# against: {cell: dict(cfg, shape (launch.specs.ShapeSpec), placed (the
+# bytes of the step's arguments on the card), peak (the peak bytes the
+# step requests above its start, its arguments added), ms (the step's
+# device time: CUDA events), how (which measured time))}
+MEASURED = {}
+
+
+def measure_step(cell, cfg, seq: int, batch: int, mode: str, run,
+                 args_before: int):
+    """``run()`` under ``launch.memory.executable_memory``, recorded in
+    ``MEASURED[cell]``: ``run`` returns (its result, the step's device
+    ms, how that time was taken, the bytes of the step's arguments on the
+    card); ``args_before`` are the bytes of those arguments that existed
+    before ``run`` (the rest it makes itself). Returns the result."""
+    from repro_torch.launch.memory import executable_memory
+    from repro_torch.launch.specs import ShapeSpec
+
+    (out, ms, how, placed), mem = executable_memory(run, "cuda")
+    MEASURED[cell] = dict(
+        cfg=cfg, shape=ShapeSpec(cell, seq, batch, mode), placed=placed,
+        peak=mem["total_allocation_size"] + args_before, ms=ms, how=how)
+    return out
+
+
 def check_finite(t: torch.Tensor, shape, what: str) -> None:
     if tuple(t.shape) != tuple(shape) or not bool(torch.isfinite(t).all()):
         raise AssertionError(f"{what}: shape {tuple(t.shape)} (want "
@@ -4471,6 +4532,39 @@ MP_LM_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=3,
 # end at most 3 steps × 2 × 2·lr = 3.6e-3 apart, plus one bf16 ulp of the
 # largest weights (9.8e-4 below 0.25)
 MP_LM_TWIN_TOL = dict(loss=1e-3, grad_norm=1e-2, param=5e-3)
+# the hybrid, encdec, vlm and audio families on the fleet's grid after the
+# LM cases, at their published widths cut in depth, each released before
+# the next: (path, arch, config changes, tokens a prompt). zamba2: its
+# first group (attn_every Mamba2 layers, then the shared block); seamless:
+# 1 + 1 layers over its 1024 frames; llava: 1 layer, 448 tokens after its
+# 576 patches (1024 positions); audio: llava's path with the audio
+# frontend, as the CPU tests build it. Each runs forward, one decode step
+# and MP_FAMILY["steps"] make_train_step steps on every grid of
+# MP_FAMILY_GRIDS, against an emulated twin in the phase's process
+MP_FAMILY_CASES = (
+    ("mp_family_hybrid", "zamba2-2.7b", {}, 128),
+    ("mp_family_encdec", "seamless-m4t-medium",
+     dict(n_layers=1, n_enc_layers=1), 128),
+    ("mp_family_vlm", "llava-next-mistral-7b", dict(n_layers=1), 448),
+    ("mp_family_audio", "llava-next-mistral-7b",
+     dict(n_layers=1, family="audio", frontend="audio"), 448))
+MP_FAMILY_GRIDS = ((1, 8), (2, 4))
+MP_FAMILY = dict(batch=8, steps=2, max_len=16)
+# (data 2, model 4): each process's forward and decode products run over
+# its own rows in bf16, the emulated grid's over both groups' at once; the
+# last position's logits held to this share of their largest magnitude (a
+# few bf16 roundings, 2^-8 each, through the cut model); the train steps
+# to MP_LM_TWIN_TOL, but for the second step's grad norm: after one AdamW
+# step, which turns the folded gradient's last-bit differences into whole
+# ±lr moves of small entries, zamba2's group's second grad norm moves ~6%
+# (PERF.md §6). The fold itself is held instead: the first step's folded
+# gradient against the twin's, leaf by leaf
+MP_FAMILY_ROWS_TOL = 2e-2
+# ||fleet - twin|| / ||twin|| of each leaf of that first-step gradient:
+# bf16's sums over two data groups read up to 1.0e-2 on an H100 (seamless's
+# encoder wq, PERF.md §6), a fold that drops or doubles one group's half
+# of the batch ~0.5 and more; the limit sits between, 5x the reading
+MP_FAMILY_GRAD_TOL = 5e-2
 # the reference's decisions for the training handles with the fleet's
 # derived NetworkSpec (derived-gpu-2x4: 450 / 25 GB/s, group 4) and tiers
 # (2, 4), on phase 12's quarter of arxiv (``life_matrices``' size):
@@ -5309,6 +5403,294 @@ def mp_lm_twin(args, res, out_dir, card: str, dev: str = "cuda") -> None:
         torch.cuda.empty_cache()
 
 
+def mp_family_config(args, arch: str, changes: dict):
+    """A case of MP_FAMILY_CASES: the published config (``--quick``: the
+    smoke config) cut in depth; the hybrid to its first group."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    base = get_smoke_config(arch) if args.quick else get_config(arch)
+    if base.family == "hybrid":
+        changes = dict(changes, n_layers=base.attn_every)
+    return dataclasses.replace(base, **changes)
+
+
+def mp_family_inputs(args, path: str, dev):
+    """A case's config, weights (``torch.Generator`` seed 0 on the card),
+    whole batch (numpy seed 0: tokens and the family's frames or patches)
+    and the encoder's output (the encdec's, else None)."""
+    from repro_torch.models import transformer as TT
+
+    _, arch, changes, tokens = next(c for c in MP_FAMILY_CASES
+                                    if c[0] == path)
+    cfg = mp_family_config(args, arch, changes)
+    batch = _family_inputs(cfg, MP_FAMILY["batch"],
+                           min(tokens, 16) if args.quick else tokens,
+                           np.random.default_rng(0), dev)
+    params = TT.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    enc = None
+    if cfg.family == "encdec":
+        with torch.no_grad():
+            enc = TT._encode(params, cfg, None, batch["enc_embeds"])
+    return cfg, params, batch, enc
+
+
+def mp_family_cell(args, topo, out_dir) -> dict:
+    """Phase 12's families on the fleet's grid: for each case of
+    MP_FAMILY_CASES and each grid of MP_FAMILY_GRIDS, ``forward`` and one
+    ``decode_step`` (this process's rows; the last position's logits
+    saved for the twin, bit digests of all), then MP_FAMILY["steps"]
+    ``make_train_step`` steps with every parameter's digest after each
+    (worker 0 saves the last step's parameters where the twin holds them
+    to a tolerance). Returns this process's report."""
+    from repro_torch.distributed.context import make_context
+    from repro_torch.distributed.topology import Topology
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import AdamWConfig, _leaves, adamw_init
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    me, dev = topo.process_index, topo.device
+    opt = AdamWConfig(**MP_LM_OPT)
+    out = {}
+    for path, *_ in MP_FAMILY_CASES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_peak()
+        cfg, params, batch, enc = mp_family_inputs(args, path, dev)
+        B = MP_FAMILY["batch"]
+        for grid in MP_FAMILY_GRIDS:
+            t0 = time.perf_counter()
+            name = f"{path}_{grid[0]}x{grid[1]}"
+            fdist = make_context(Topology.multiprocess(
+                device=MP_DEVICE, mesh=make_mesh(grid, ("data", "model"))))
+            lo, hi = fdist.local_rows(B)
+            with torch.no_grad():
+                logits = TT.forward(params, cfg, fdist, batch)
+                cache = TT.init_decode_cache(cfg, B, MP_FAMILY["max_len"],
+                                             device=dev)
+                step_logits, cache = TT.decode_step(
+                    params, cfg, fdist, batch["tokens"][:, :1], cache, enc)
+            check_finite(step_logits, (hi - lo, 1, cfg.vocab_size),
+                         f"{name} decode")
+            if not bool(torch.isfinite(logits).all()) or \
+                    logits.shape[0] != hi - lo:
+                raise AssertionError(f"{name} forward: {logits.shape}")
+            torch.save({"forward": logits[:, -1].cpu(),
+                        "decode": step_logits[:, -1].cpu()},
+                       os.path.join(out_dir, f"{name}.rows.{me}.pt"))
+            digests = {"forward": bits_digest(logits),
+                       "decode": bits_digest(step_logits)}
+            del logits, step_logits, cache
+            if grid[0] > 1:
+                # the first step's gradient, folded over the data groups
+                # (every process takes part in the fold), for the twin's
+                # leaf-by-leaf reading
+                _, grads = loss_and_grads(params, cfg, fdist, batch)
+                folded = fdist.comm.fold_leaves(
+                    _leaves(grads), fdist.grad_sources(params, cfg))
+                if me == 0:
+                    torch.save([g.cpu() for g in folded], os.path.join(
+                        out_dir, f"{name}.grads.pt"))
+                del grads, folded
+            step = make_train_step(cfg, fdist, opt)
+            p, state, steps = params, adamw_init(params), []
+            for _ in range(MP_FAMILY["steps"]):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                p, state, met = step(p, state, batch)
+                torch.cuda.synchronize()
+                steps.append({"wall_ms": (time.perf_counter() - t1) * 1e3,
+                              "loss": float(met["loss"]),
+                              "grad_norm": float(met["grad_norm"]),
+                              "digests": [bits_digest(t)
+                                          for t in _leaves(p)]})
+            if me == 0 and grid[0] > 1:
+                with open(os.path.join(out_dir, f"{name}.params.pt"),
+                          "wb") as f:
+                    torch.save([t.cpu() for t in _leaves(p)], f)
+            out[name] = {"grid": list(grid), "span": list(fdist.span),
+                         "rows": [lo, hi], "digests": digests,
+                         "steps": steps,
+                         "params": sum(t.numel() for t in _leaves(params)),
+                         "peak_gb": peak_allocated() / 1e9,
+                         "seconds": time.perf_counter() - t0}
+            del p, state, step, met
+        log(f"[worker {me}] {path}: "
+            f"{sum(out[k]['seconds'] for k in out if k.startswith(path)):.1f}"
+            f" s, peak {peak_allocated() / 1e9:.2f} GB")
+        del params, batch, enc
+        release_host_memory()
+    return out
+
+
+def mp_family_twin(args, res, out_dir, card: str, dev: str = "cuda") -> None:
+    """The emulated twin of phase 12's families, in the phase's own process
+    after the workers exit: the same weights, batch and steps on
+    ``make_mesh`` of each grid. Where one data group spans the fleet
+    ((data 1, model 8)) every worker's forward and decode rows, each
+    step's loss and grad norm and every parameter after each step are
+    ``torch.equal`` to the twin's; else the last position's logits within
+    MP_FAMILY_ROWS_TOL of their largest magnitude, every step's loss, the
+    first step's grad norm and the last parameters within MP_LM_TWIN_TOL,
+    the first step's folded gradient within MP_FAMILY_GRAD_TOL of the
+    twin's leaf by leaf (``family_grad_check``; the second step's grad
+    norm, which AdamW's first update makes move, is logged), and the two
+    workers' parameters equal to each other's after every step."""
+    from repro_torch.distributed.context import make_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import AdamWConfig, _leaves, adamw_init
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    opt = AdamWConfig(**MP_LM_OPT)
+    B = MP_FAMILY["batch"]
+    failed = []
+    for path, *_ in MP_FAMILY_CASES:
+        t_case = time.perf_counter()
+        cfg, params, batch, enc = mp_family_inputs(args, path, dev)
+        for grid in MP_FAMILY_GRIDS:
+            t0 = time.perf_counter()
+            name = f"{path}_{grid[0]}x{grid[1]}"
+            exact = grid[0] == 1
+            edist = make_context(make_mesh(grid, ("data", "model")))
+            cases = [r["families"][name] for r in res]
+            with torch.no_grad():
+                logits = TT.forward(params, cfg, edist, batch)
+                cache = TT.init_decode_cache(cfg, B, MP_FAMILY["max_len"],
+                                             device=dev)
+                step_logits, _ = TT.decode_step(
+                    params, cfg, edist, batch["tokens"][:, :1], cache, enc)
+            rows_err, rows_equal = 0.0, []
+            for q, c in enumerate(cases):
+                lo, hi = c["rows"]
+                saved = torch.load(os.path.join(out_dir,
+                                                f"{name}.rows.{q}.pt"))
+                for key, want in (("forward", logits[lo:hi]),
+                                  ("decode", step_logits[lo:hi])):
+                    last = want[:, -1].float().cpu()
+                    err = float((last - saved[key].float()).abs().max()) / \
+                        float(last.abs().max())
+                    rows_err = max(rows_err, err)
+                    rows_equal.append(
+                        bits_digest(want) == c["digests"][key]
+                        and torch.equal(want[:, -1].cpu(), saved[key]))
+            del logits, step_logits, cache
+            step = make_train_step(cfg, edist, opt)
+            p, state = params, adamw_init(params)
+            worst = dict(loss=0.0, grad_norm=0.0, param=0.0)
+            later_norm = 0.0  # the steps after the first: logged
+            equal = []  # (step, worker): loss, norm and every parameter
+            twin_steps = []
+            for i in range(MP_FAMILY["steps"]):
+                p, state, met = step(p, state, batch)
+                loss, norm = float(met["loss"]), float(met["grad_norm"])
+                twin_steps.append((round(loss, 6), round(norm, 5)))
+                digests = [bits_digest(t) for t in _leaves(p)]
+                for c in cases:
+                    st = c["steps"][i]
+                    dl = abs(st["loss"] - loss) / abs(loss)
+                    dn = abs(st["grad_norm"] - norm) / norm
+                    worst["loss"] = max(worst["loss"], dl)
+                    if i == 0:
+                        worst["grad_norm"] = max(worst["grad_norm"], dn)
+                    else:
+                        later_norm = max(later_norm, dn)
+                    equal.append(dl == 0 and dn == 0
+                                 and st["digests"] == digests)
+                if any(c["steps"][i]["digests"] != cases[0]["steps"][i][
+                        "digests"] for c in cases):
+                    raise AssertionError(f"{name} step {i + 1}: the workers' "
+                                         f"parameters differ")
+            steps_seen = [[(round(x["steps"][i]["loss"], 6),
+                            round(x["steps"][i]["grad_norm"], 5))
+                           for i in range(MP_FAMILY["steps"])]
+                          for x in cases]
+            if not exact:
+                saved = torch.load(os.path.join(out_dir,
+                                                f"{name}.params.pt"))
+                for t, s_ in zip(_leaves(p), saved):
+                    worst["param"] = max(worst["param"], float(
+                        (t.float() - s_.to(dev).float()).abs().max()))
+                log(f"  {name} steps (loss, grad norm): twin "
+                    f"{twin_steps}, workers {steps_seen}")
+                worst["grad_leaf"] = family_grad_check(
+                    cfg, params, batch, edist, out_dir, name, dev)
+            tol = dict(MP_LM_TWIN_TOL, grad_leaf=MP_FAMILY_GRAD_TOL)
+            if exact and not (all(rows_equal) and all(equal)):
+                failed.append(f"{name}: not torch.equal to the emulated "
+                              f"twin: rows {rows_equal}, steps {equal}, "
+                              f"worst {worst}")
+            if not exact and not (
+                    rows_err <= MP_FAMILY_ROWS_TOL
+                    and all(worst[k] <= tol[k] for k in worst)):
+                failed.append(f"{name}: fleet vs emulated twin rows "
+                              f"{rows_err:.3g} (limit {MP_FAMILY_ROWS_TOL}),"
+                              f" {worst} (limits {tol})")
+            c = cases[0]
+            log(f"{name}: {cfg.name} {cfg.family} ({cfg.n_layers} layers"
+                + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers
+                   else "")
+                + f", {c['params']:,} parameters) on {dict(edist.mesh.shape)}"
+                f" over {MP_NPROC} x {MP_LOCAL} ranks, rows "
+                f"{[x['rows'] for x in cases]}; forward and decode rows "
+                f"torch.equal {sum(rows_equal)} of {len(rows_equal)}, worst "
+                f"last-position error {rows_err:.3g} of the largest logit; "
+                f"steps' losses {[x['loss'] for x in c['steps']]}, grad "
+                f"norms {[x['grad_norm'] for x in c['steps']]}; loss, grad "
+                f"norm and every parameter torch.equal at {sum(equal)} of "
+                f"{len(equal)} (step, worker) pairs; worst relative loss "
+                f"{worst['loss']:.3g}, first grad norm "
+                f"{worst['grad_norm']:.3g} (later {later_norm:.3g}, "
+                f"logged), first gradient's worst leaf "
+                f"{worst.get('grad_leaf', 0.0):.3g}, parameter abs "
+                f"{worst['param']:.3g}; worker seconds "
+                f"{[round(x['seconds'], 1) for x in cases]}, steps' host wall"
+                f" {[[round(s_['wall_ms'], 1) for s_ in x['steps']] for x in cases]}"
+                f" ms [{card}], peak {[round(x['peak_gb'], 2) for x in cases]}"
+                f" GB; twin {time.perf_counter() - t0:.1f} s")
+            del p, state, step, met
+        del params, batch, enc
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{path} twin: {time.perf_counter() - t_case:.1f} s")
+    if failed:
+        raise AssertionError("phase 12 families: " + "; ".join(failed))
+
+
+def family_grad_check(cfg, params, batch, edist, out_dir, name,
+                      dev) -> float:
+    """Where a (data 2, model 4) fleet's first-step gradient (folded over
+    the data groups, saved by worker 0) leaves the emulated twin's, leaf
+    by leaf: logs the norms and the leaves most off, and returns the
+    largest ||fleet - twin|| / ||twin|| of a leaf."""
+    from repro_torch.optim.adamw import _leaves
+    from repro_torch.train.steps import loss_and_grads
+
+    names = list(_leaf_names(params))
+    _, eg = loss_and_grads(params, cfg, edist, batch)
+    fg = torch.load(os.path.join(out_dir, f"{name}.grads.pt"))
+
+    def norm(ts):
+        return math.sqrt(sum(float(t.float().square().sum()) for t in ts))
+
+    rel = []
+    for n, e, f in zip(names, _leaves(eg), fg):
+        e = e.float()
+        rel.append((float((f.to(dev).float() - e).norm()
+                          / e.norm().clamp(min=1e-30)), n))
+    ne, nf = norm(_leaves(eg)), norm(fg)
+    rel.sort(reverse=True)
+    log(f"  {name} first-step gradient: norm fleet {nf:.6g}, twin {ne:.6g}"
+        f" (relative {abs(nf - ne) / ne:.3g}); leaves most off the twin "
+        f"||f - e|| / ||e|| (limit {MP_FAMILY_GRAD_TOL}): "
+        f"{[(n, round(r, 4)) for r, n in rel[:4]]}")
+    del eg, fg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rel[0][0]
+
+
 def mp_train_worker(args) -> None:
     """One process of phase 12: the LM train step (worker 0 replays its
     calls at once), the training cells, the EP LM, then each recorded
@@ -5346,6 +5728,12 @@ def mp_train_worker(args) -> None:
     release_host_memory()
     log(f"[worker {me}] LM train calls replayed in "
         f"{time.perf_counter() - t0:.1f} s; host RSS {host_rss_gb():.1f} GB")
+    # the hybrid, encdec, vlm and audio families on the fleet's grid, each
+    # model released before the next
+    t0 = time.perf_counter()
+    families = mp_family_cell(args, topo, out_dir)
+    log(f"[worker {me}] families: {time.perf_counter() - t0:.1f} s; host "
+        f"RSS {host_rss_gb():.1f} GB")
     recorded = {}
     # the cells on a quarter of arxiv (LIFE_SCALE, as phases 8 and 9: the
     # same generators and seeds; cut to keep the script in its limit)
@@ -5357,7 +5745,7 @@ def mp_train_worker(args) -> None:
                   random_sparse(m, m, nnz / m ** 2, seed=0))}
     expect = EXPECT_MP_TRAIN["quick" if args.quick else "full"]
     out = {"process": me, "span": list(topo.span), "cells": {},
-           "lm_train": lm_train}
+           "lm_train": lm_train, "families": families}
     for what, graph, kind, path, fields in MP_TRAIN_CELLS:
         t0 = time.perf_counter()
         out["cells"][what] = mp_train_cell(
@@ -5506,6 +5894,11 @@ def mp_train_phase(args, card: str) -> dict:
                for r in res]
     log(f"phase 12 LM train twin: {time.perf_counter() - t_twin:.1f} s; "
         f"the LM train cases on the workers {cases_s} s")
+    t_twin = time.perf_counter()
+    mp_family_twin(args, res, out_dir, card)
+    log(f"phase 12 families twin: {time.perf_counter() - t_twin:.1f} s; "
+        f"the families on the workers "
+        f"{[round(sum(c['seconds'] for c in r['families'].values()), 1) for r in res]} s")
     shutil.rmtree(out_dir, ignore_errors=True)
     log(f"phase 12 training and EP across processes: "
         f"{time.perf_counter() - t_phase:.1f} s (workers "
@@ -5605,11 +5998,12 @@ def check_all_grads(grads, what: str) -> None:
                              f"{bad}")
 
 
-def train_lm_cell(what, cfg, dist, params, batch, card):
+def train_lm_cell(what, cfg, dist, params, batch, card, measure=None):
     """Five ``make_train_step`` steps on one repeated batch, counted from
     0 (every K1 / K2 / K6 / K6-backward launch; no backward map built on
     the host), then the same five through ``split_train_step`` timed:
     both end on the same parameters bit for bit, and the loss falls.
+    With ``measure`` the timed five are phase 16's cell of that name.
     Returns (launches, losses, the split medians, the last params)."""
     from repro_torch.kernels import ops
     from repro_torch.optim.adamw import AdamWConfig, _leaves, adamw_init
@@ -5641,14 +6035,30 @@ def train_lm_cell(what, cfg, dist, params, batch, card):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{what}: the loss did not fall: {losses}")
     first = p
-    p, state, times = params, adamw_init(params), []
-    for _ in range(TRAIN_LM["steps"]):
-        p, state, m, ms = split_train_step(cfg, dist, opt, p, state, batch)
-        times.append(ms)
+    del state, m
+
+    def timed():
+        p, state, times = params, adamw_init(params), []
+        placed = tensor_bytes(params, state, batch)
+        for _ in range(TRAIN_LM["steps"]):
+            p, state, m, ms = split_train_step(cfg, dist, opt, p, state,
+                                               batch)
+            times.append(ms)
+        med = {k: statistics.median(t[k] for t in times[1:])
+               for k in times[0]}
+        return ((p, med), med["fwd"] + med["bwd"] + med["upd"],
+                "median of steps 2-5, forward + backward + update by CUDA "
+                "events", placed)
+
+    if measure:
+        p, med = measure_step(measure, cfg, batch["tokens"].shape[1],
+                              batch["tokens"].shape[0], "train", timed,
+                              tensor_bytes(params, batch))
+    else:
+        (p, med), *_ = timed()
     for a, b in zip(_leaves(first), _leaves(p)):
         if not torch.equal(a, b):
             raise AssertionError(f"{what}: two 5-step runs differ")
-    med = {k: statistics.median(t[k] for t in times[1:]) for k in times[0]}
     tokens = batch["tokens"].numel()
     log(f"{what} [{card}]: two 5-step runs bit-identical; a step (median of "
         f"steps 2-5): forward {med['fwd']:.3f} ms, backward "
@@ -5884,7 +6294,8 @@ def train_lm_phase(args, card: str, dev: str = "cuda") -> dict:
 
     # the counted runs, twice each, timed
     dense_n, _, dense_ms, _ = train_lm_cell("olmoe-train dense", cfg, None,
-                                            params, batch, card)
+                                            params, batch, card,
+                                            measure="olmoe_train")
     ep_n, _, ep_ms, _ = train_lm_cell("olmoe-train EP", cfg, dist, params,
                                       batch, card)
     train_lm_f32(cfg, dist, params, dev)
@@ -5904,12 +6315,23 @@ def train_lm_phase(args, card: str, dev: str = "cuda") -> dict:
         SMOLLM_TRAIN["batch"]).batch(0)["tokens"]).to(dev)}
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
-    p, st, times = whole["params"], adamw_init(whole["params"]), []
-    for _ in range(3):
-        p, st, _, ms = split_train_step(scfg, None, AdamWConfig(), p, st,
-                                        sbatch)
-        times.append(ms)
-    med = {k: statistics.median(t[k] for t in times[1:]) for k in times[0]}
+    def timed():
+        p, st, times = whole["params"], adamw_init(whole["params"]), []
+        placed = tensor_bytes(p, st, sbatch)
+        for _ in range(3):
+            p, st, _, ms = split_train_step(scfg, None, AdamWConfig(), p, st,
+                                            sbatch)
+            times.append(ms)
+        med = {k: statistics.median(t[k] for t in times[1:])
+               for k in times[0]}
+        return ((p, st, med), med["fwd"] + med["bwd"] + med["upd"],
+                "median of steps 2-3, forward + backward + update by CUDA "
+                "events", placed)
+
+    p, st, med = measure_step(
+        "smollm_train", scfg, sbatch["tokens"].shape[1],
+        sbatch["tokens"].shape[0], "train", timed,
+        tensor_bytes(whole["params"], sbatch))
     log(f"smollm-train [{card}]: a step (median of steps 2-3, "
         f"{scfg.n_layers} layers, remat {scfg.remat}): forward "
         f"{med['fwd']:.3f} ms, backward {med['bwd']:.3f} ms, update "
@@ -5988,6 +6410,8 @@ FAMILY_CELLS = (("zamba2-2.7b", "hybrid", 256),
                 ("seamless-m4t-medium", "encdec", 128),
                 ("llava-next-mistral-7b", "vlm", 448))
 FAMILY_BATCH = 8
+# the families whose prefill phase 16 holds the dry run against
+DRYRUN_PREFILLS = ("hybrid", "encdec", "vlm")
 # zamba2's float32 copy and its train check: the first 12 layers, 2
 # groups of attn_every 6, so the shared block is applied twice
 HYBRID_CUT = 12
@@ -6040,13 +6464,16 @@ class flash_watch:
 
 def _family_inputs(cfg, b: int, s: int, rng, dev: str) -> dict:
     """Tokens [b, s] and the family's frames / patches [b, frontend_len,
-    d_model] (float32, from ``rng``), on ``dev``."""
+    d_model] (drawn in float32 from ``rng``, placed in the model's dtype,
+    as ``launch/specs.py``'s stand-ins are: the forward's cast to it
+    rounds the same), on ``dev``."""
     out = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)}
     if cfg.frontend is not None:
         key = "enc_embeds" if cfg.family == "encdec" else "prefix_embeds"
         out[key] = torch.from_numpy(rng.standard_normal(
-            (b, cfg.frontend_len, cfg.d_model), dtype=np.float32)).to(dev)
+            (b, cfg.frontend_len, cfg.d_model), dtype=np.float32)).to(
+                dev, getattr(torch, cfg.dtype))
     return out
 
 
@@ -6216,7 +6643,20 @@ def family_serve(args, card: str, arch: str, path: str, tokens: int,
                 (lambda: TT.decode_step(params, cfg, None, first, cache,
                                         enc_out),
                  f"{path} decode step B={B}", B)):
-            dev_ms, host_ms = median_ms(fn)
+            if what.startswith(f"{path} prefill") and path in DRYRUN_PREFILLS:
+                # phase 16's cell: the timed prefills' peak beside them
+                placed = tensor_bytes(params, batch)
+
+                def timed(fn=fn):
+                    dev_ms, host_ms = median_ms(fn)
+                    return ((dev_ms, host_ms), dev_ms,
+                            "median of 7 by CUDA events", placed)
+
+                dev_ms, host_ms = measure_step(f"{path}_prefill", cfg,
+                                               P_ + S, B, "prefill", timed,
+                                               placed)
+            else:
+                dev_ms, host_ms = median_ms(fn)
             log(f"{what} [{card}]: median of 7: {dev_ms:.3f} ms device "
                 f"events, {host_ms:.3f} ms host wall "
                 f"({tok / host_ms * 1e3:.1f} tokens/s)")
@@ -6434,6 +6874,91 @@ def family_phase(args, card: str, dev: str = "cuda") -> dict:
     log(f"phase 15 hybrid / encdec / prefix families: "
         f"{time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the dry run (launch/dryrun.py) against the card
+# ---------------------------------------------------------------------------
+
+# phase 16's cells, in the order they print: MEASURED's keys
+DRYRUN_CELLS = ("olmoe_train", "smollm_train", "hybrid_prefill",
+                "encdec_prefill", "vlm_prefill")
+# run_cell unchanged on the production (16, 16) grid, with probes: a
+# dense cell and one whose expert-parallel exchange the trace logs
+DRYRUN_GRID_CELLS = (("qwen2-1.5b", "decode_32k"),
+                     ("olmoe-1b-7b", "decode_32k"))
+
+
+def dryrun_phase(args, card: str) -> None:
+    """Phase 16: ``launch/dryrun.py``'s accounting of each step phases 13
+    and 15 measured (``MEASURED``), traced on the meta device in this
+    process on a (data 1, model 1) grid at the shape the phase ran, full
+    depth: its argument bytes equal to the bytes of the tensors the phase
+    placed on the card (any difference fails); arguments + temp (and +
+    outputs: the port's step keeps its inputs while it builds its
+    outputs, where the reference donates them) beside the peak the step
+    requested above its start with its arguments; the traced flops over
+    the measured time as TFLOP/s; the roofline's bound (H100 datasheet
+    constants) over the measured time. Then ``run_cell`` as the CLI runs
+    it for ``DRYRUN_GRID_CELLS``, records and seconds printed."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as TD
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    launches = ops.launch_counts()
+    missing = [c for c in DRYRUN_CELLS if c not in MEASURED]
+    if missing:
+        raise AssertionError(f"phase 16: no measured step for {missing}")
+    grid = make_mesh((1, 1), ("data", "model"))
+    for cell in DRYRUN_CELLS:
+        m = MEASURED[cell]
+        cfg, shape = m["cfg"], m["shape"]
+        t0 = time.perf_counter()
+        rec = TD.account(cfg, shape, grid, probes=False)
+        mem, cost, roof = rec["memory"], rec["cost"], rec["roofline"]
+        args_b = mem["argument_size_in_bytes"]
+        if args_b != m["placed"]:
+            raise AssertionError(
+                f"phase 16 {cell}: the dry run's argument bytes {args_b:,.0f}"
+                f" != the {m['placed']:,} bytes the phase placed on the card")
+        temp = mem["temp_size_in_bytes"]
+        out_b = mem["output_size_in_bytes"]
+        secs = m["ms"] / 1e3
+        log(f"dry run vs card, {cell} ({cfg.name}, {cfg.n_layers} layers, "
+            f"{shape.mode} {shape.global_batch} x {shape.seq_len}) [{card}]:"
+            f" argument bytes {args_b:,.0f} == placed {m['placed']:,}; "
+            f"arguments + temp {(args_b + temp) / 2 ** 30:.3f} GiB, + "
+            f"outputs {(args_b + temp + out_b) / 2 ** 30:.3f} GiB vs the "
+            f"step's peak {m['peak'] / 2 ** 30:.3f} GiB (ratio "
+            f"{(args_b + temp) / m['peak']:.3f} / "
+            f"{(args_b + temp + out_b) / m['peak']:.3f}); traced flops "
+            f"{cost['flops']:.6g} over the measured {m['ms']:.3f} ms "
+            f"({m['how']}): {cost['flops'] / secs / 1e12:.2f} TFLOP/s; "
+            f"bytes accessed {cost['bytes accessed']:.6g}; bound "
+            f"{roof['bound_time'] * 1e3:.3f} ms ({roof['bottleneck']}; "
+            f"compute {roof['compute'] * 1e3:.3f}, memory "
+            f"{roof['memory'] * 1e3:.3f} ms), bound / measured "
+            f"{roof['bound_time'] / secs:.3f}; kernels reached (meta "
+            f"calls) {json.dumps(rec['kernel_calls'])}; traced in "
+            f"{time.perf_counter() - t0:.1f} s")
+    traced = {}
+    for arch, shape_name in DRYRUN_GRID_CELLS:
+        t0 = time.perf_counter()
+        rec = TD.run_cell(arch, shape_name)
+        if rec["status"] != "run":
+            raise AssertionError(f"phase 16 {arch} {shape_name}: {rec}")
+        traced[arch] = rec["collectives"]["traced"]["total"]
+        log(f"dry run {arch} x {shape_name} on the (16, 16) grid "
+            f"({time.perf_counter() - t0:.1f} s; meta-device trace, "
+            f"datasheet constants, not measured): {json.dumps(rec)}")
+    if not traced["olmoe-1b-7b"] > 0:
+        raise AssertionError(f"phase 16: the EP cell traced no collective: "
+                             f"{traced}")
+    if ops.launch_counts() != launches:
+        raise AssertionError("phase 16: a meta trace moved the kernels' "
+                             "launch counts")
+    log(f"phase 16 dry run: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -6798,6 +7323,11 @@ def main() -> int:
         per_kernel.setdefault(k, {}).update(extra)
 
     mark("phase 15")
+    # 16. the dry run's accounting against phases 13 and 15's steps, and
+    #     two cells on the production grid
+    dryrun_phase(args, card)
+
+    mark("phase 16")
     rows = [kernel_summary(k, per_kernel[k], card) for k in KERNELS]
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")

@@ -84,10 +84,15 @@ Pairs = Tuple[Tuple[int, int], ...]
 
 class _CommLog:
     """The log every emulated communicator keeps: ``(op, pairs, rows)``
-    per collective, and the backward's entries as its gradients arrive."""
+    per collective, and the backward's entries as its gradients arrive.
+    ``nbytes`` runs beside ``log``, one entry each: the bytes of the rows
+    (rows × the operand's row width × its element size), which
+    ``launch.hlo_analysis.collective_bytes`` reads; a backward entry
+    carries its forward's."""
 
     def __init__(self):
         self.log: List[Tuple[str, Pairs, int]] = []
+        self.nbytes: List[int] = []
 
     def _record(self, op: str, pairs: Pairs, x: torch.Tensor,
                 out: torch.Tensor, rows: Optional[int] = None) -> None:
@@ -95,10 +100,16 @@ class _CommLog:
         ``x``), and its backward when the gradient of ``out`` arrives."""
         if rows is None:
             rows = x.numel() // x.shape[-1] if x.dim() and x.shape[-1] else 0
-        self.log.append((op, pairs, int(rows)))
+        width = x.shape[-1] if x.dim() else 1
+        nbytes = int(rows) * int(width) * x.element_size()
+        self._append((op, pairs, int(rows)), nbytes)
         if out.requires_grad:
             back = ("bwd:" + op, tuple((d, s) for s, d in pairs), int(rows))
-            out.register_hook(lambda g: self.log.append(back))
+            out.register_hook(lambda g: self._append(back, nbytes))
+
+    def _append(self, entry: Tuple[str, Pairs, int], nbytes: int) -> None:
+        self.log.append(entry)
+        self.nbytes.append(nbytes)
 
     def _rows(self, on_axis, direction: str) -> int:
         """The rows of the forward (``"fwd"``) or backward (``"bwd"``)
@@ -113,6 +124,7 @@ class _CommLog:
 
     def reset(self) -> None:
         self.log.clear()
+        self.nbytes.clear()
 
 
 def _layout(comm, P: int, groups: int, replicas: int) -> None:

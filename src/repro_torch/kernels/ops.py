@@ -48,6 +48,18 @@ own device-made maps instead (``maps=`` / ``targets=``): then nothing
 goes to the host. A call that needs no gradient takes the op's direct
 path and pays nothing for any of this.
 The two in-place ops declare what they write (``ctx.mark_dirty``).
+
+**The meta device** is a planning stand-in, not a device: the dry run
+(``launch/dryrun.py``) runs a step's shapes on it and nothing else. A
+meta operand takes a path of its own, which returns each op's output
+with the kernel's shape and dtype (``new_empty``; the in-place folds
+return their target) and builds no map that depends on the data: the
+backward maps, like the device maps ``sorted_scatter_maps`` makes, are
+empty tensors of their known sizes. A meta call launches nothing, so
+``launch_counts`` does not move: it adds one call, and the bytes of its
+operands and its output, to its kernel's entry in ``meta_calls()``, so
+a plan can say which kernels a step reaches and what they move.
+``on_card`` keeps its contract: a meta operand there raises.
 """
 from __future__ import annotations
 
@@ -83,6 +95,7 @@ __all__ = [
     "stack_sorted_scatter",
     "launch_counts",
     "reset_launch_counts",
+    "meta_calls",
 ]
 
 _COUNTERS = (_gather.LAUNCHES, _scatter.LAUNCHES, _bsr.LAUNCHES,
@@ -116,6 +129,42 @@ def on_card(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {dev}")
 
 
+# ---------------------------------------------------------------------------
+# the meta route: shapes only
+# ---------------------------------------------------------------------------
+
+_META_CALLS: Dict[str, Dict[str, int]] = {}
+
+
+def meta_calls() -> Dict[str, Dict[str, int]]:
+    """The kernels' calls on meta operands so far, by kernel name: each
+    ``{"calls": n, "bytes": b}``, b the bytes of their operands and
+    outputs. A copy; nothing resets it (a reader takes differences)."""
+    return {k: dict(v) for k, v in _META_CALLS.items()}
+
+
+def _on_meta(*tensors: torch.Tensor) -> bool:
+    """Whether the operands are meta tensors: the first says, and then
+    the others must be too (else ``on_card`` checks their devices). One
+    attribute read on the kernels' path."""
+    if not tensors[0].is_meta:
+        return False
+    if not all(t.is_meta for t in tensors[1:]):
+        raise ValueError(f"operands on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    return True
+
+
+def _meta_call(kernel: str, out, *operands: torch.Tensor):
+    """``out`` (a meta tensor or a tuple of them) as kernel ``kernel``'s
+    result on meta operands: one meta call and its bytes recorded."""
+    outs = out if isinstance(out, tuple) else (out,)
+    rec = _META_CALLS.setdefault(kernel, {"calls": 0, "bytes": 0})
+    rec["calls"] += 1
+    rec["bytes"] += sum(t.numel() * t.element_size() for t in operands + outs)
+    return out
+
+
 def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -146,8 +195,17 @@ def _host(t: torch.Tensor) -> np.ndarray:
 def _fold_maps(idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sorted-scatter maps of an index array [P, ...] (-1 pads): the
     K2 fold of its slots into the rows they name."""
+    if idx.is_meta:
+        return _empty_maps(idx.reshape(idx.shape[0], -1))
     return _cached(idx, "fold", lambda: stack_sorted_scatter(
         _host(idx).reshape(idx.shape[0], -1)))
+
+
+def _empty_maps(tgt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sorted-scatter maps' shapes for a target map [P, S] on meta."""
+    P_, S = tgt.shape
+    return (tgt.new_empty((P_, S), dtype=torch.int32),
+            tgt.new_empty((P_, S + 1), dtype=torch.int32))
 
 
 def _slot_targets_np(perm: np.ndarray, meta: np.ndarray) -> np.ndarray:
@@ -163,6 +221,8 @@ def slot_targets(perm: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
     """The target row of every slot that sorted-scatter maps fold, [P, S]
     int32: ``tgt[perm[s]] = meta[s]`` for ``s < n_valid``, -1 for the
     pads (which join no row)."""
+    if perm.is_meta:
+        return perm.new_empty(perm.shape, dtype=torch.int32)
     return _cached(perm, "targets", lambda: (
         _slot_targets_np(_host(perm), _host(meta)),))[0]
 
@@ -173,6 +233,8 @@ def coo_col_maps(col: torch.Tensor, perm: torch.Tensor, meta: torch.Tensor
     column. An entry that joins no row (a pad of ``perm`` / ``meta``, the
     maps of its ``row`` array) joins no column either; a piece whose pads
     join rows (``coo_piece_with_maps``) keeps them in its columns too."""
+    if col.is_meta:
+        return _empty_maps(col)
     def build():
         tgt = _slot_targets_np(_host(perm), _host(meta))
         return stack_sorted_scatter(np.where(tgt >= 0, _host(col), -1))
@@ -191,6 +253,9 @@ def _pack(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     # call time, so a recorder that replaces it sees the call)
     if idx.is_cuda:
         out = _gather.gather_rows_cuda(b, flat)
+    elif _on_meta(b, idx):
+        out = _meta_call("gather_rows", b.new_empty(
+            (b.shape[0], flat.shape[1], b.shape[-1])), b, flat)
     else:
         on_card(b, idx)  # raises unless b is on the CPU too
         out = _gather.gather_rows_plain(b, flat)
@@ -198,12 +263,18 @@ def _pack(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _fold(c, partials, perm, meta):
+    if _on_meta(c, partials, perm, meta):
+        _scatter._check_shapes(c, partials, perm, meta)
+        return _meta_call("scatter_add_rows", c, c, partials, perm, meta)
     fn = _scatter.scatter_add_rows_cuda if on_card(c, partials, perm, meta) \
         else _scatter.scatter_add_rows_plain
     return fn(c, partials, perm, meta)
 
 
 def _gather_scaled(b, idx, val, out_dtype):
+    if _on_meta(b, idx, val):
+        return _meta_call("gather_rows_scaled", b.new_empty(
+            tuple(idx.shape) + (b.shape[-1],), dtype=out_dtype), b, idx, val)
     fn = _gather.gather_rows_scaled_cuda if on_card(b, idx, val) \
         else _gather.gather_rows_scaled_plain
     return fn(b, idx, val, out_dtype)
@@ -225,12 +296,18 @@ def coo_fold_rows(src: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
 
 
 def _k3(cols, blocks, b, m_out, bn):
+    if _on_meta(cols, blocks, b):
+        return _meta_call("bsr_spmm", b.new_empty(
+            (b.shape[0], m_out, b.shape[-1])), cols, blocks, b)
     if on_card(cols, blocks, b):
         return _bsr.bsr_spmm_cuda(cols, blocks, b, m_out, bn=bn)
     return _bsr.bsr_spmm_plain(cols, blocks, b, m_out)
 
 
 def _k5(cols, blocks, x3, y3):
+    if _on_meta(cols, blocks, x3, y3):
+        return _meta_call("bsr_sddmm", blocks.new_empty(
+            blocks.shape, dtype=torch.float32), cols, blocks, x3, y3)
     if on_card(cols, blocks, x3, y3):
         return _sddmm.bsr_sddmm_cuda(cols, blocks, x3, y3)
     return _sddmm.bsr_sddmm_plain(cols, blocks, x3, y3)
@@ -285,6 +362,12 @@ class _RmsNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, g, r = ctx.saved_tensors
+        if _on_meta(x, g, dy):
+            dx, dg = _meta_call("rmsnorm_bwd", (x.new_empty(x.shape),
+                                                  g.new_empty(g.shape)),
+                                  x, g, dy, r)
+            return (dx if ctx.needs_input_grad[0] else None,
+                    dg if ctx.needs_input_grad[1] else None, None, None)
         fn = _rms.rmsnorm_bwd_cuda if on_card(x, g, dy) \
             else _rms.rmsnorm_bwd_plain
         dx, dg = fn(x, g, dy, ctx.eps, round_before_gain=ctx.rbg, r=r)
@@ -482,6 +565,8 @@ def bsr_spmm_acc_op(block_cols: torch.Tensor, blocks: torch.Tensor,
     ``bsr_spmm_op`` over the whole piece. Raises under grad, as K3.
     """
     _refuse_grad("bsr_spmm_acc (K4)", blocks, b, acc)
+    if _on_meta(block_cols, blocks, b, acc):
+        return _meta_call("bsr_spmm_acc", acc, block_cols, blocks, b, acc)
     if on_card(block_cols, blocks, b, acc):
         return _bsr.bsr_spmm_acc_cuda(block_cols, blocks, b, acc, bn=bn)
     return _bsr.bsr_spmm_acc_plain(block_cols, blocks, b, acc)
@@ -522,6 +607,11 @@ def _rmsnorm(x, g, eps, round_before_gain, return_r=False):
         return _rms.rmsnorm_cuda(x, g, eps,
                                  round_before_gain=round_before_gain,
                                  return_r=return_r)
+    if _on_meta(x, g):
+        y = x.new_empty(x.shape)
+        out = (y, x.new_empty(x.shape[:-1], dtype=torch.float32)) \
+            if return_r else y
+        return _meta_call("rmsnorm", out, x, g)
     on_card(x, g)  # raises unless g is on the CPU too
     return _rms.rmsnorm_plain(x, g, eps,
                               round_before_gain=round_before_gain,

@@ -58,9 +58,13 @@ def sorted_scatter_maps(tgt: torch.Tensor):
     """``stack_sorted_scatter`` of a target map that lives on the device,
     computed there: tgt [P, S] (-1 pads) -> (perm [P, S], meta [P, S+1]),
     both int32, equal to the host version's. For a map the device makes
-    per call (the MoE combine's token map), with no trip to the host.
+    per call (the MoE combine's token map), with no trip to the host. On
+    meta (a dry run's trace) the maps are empty tensors of their sizes.
     """
     P, S = tgt.shape
+    if tgt.is_meta:
+        return (tgt.new_empty((P, S), dtype=torch.int32),
+                tgt.new_empty((P, S + 1), dtype=torch.int32))
     tgt = tgt.long()
     key = torch.where(tgt < 0, torch.iinfo(torch.int32).max, tgt)
     perm = torch.sort(key, dim=1, stable=True).indices

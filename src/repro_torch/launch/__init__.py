@@ -1,7 +1,10 @@
 """Launch-side helpers of the port: per-executable memory
 (``launch.memory``), the emulated named grids (``launch.mesh``), the
 shape suite and abstract trees on the ``meta`` device (``launch.specs``),
-the training launcher (``launch.train``) and the
+the dry run of every cell on that device and its roofline
+(``launch.dryrun``, ``launch.hlo_analysis``; run it with ``python -m
+repro_torch.launch.dryrun``), the training launcher (``launch.train``)
+and the
 multi-process fleet (``launch.multiprocess``: ``initialize``,
 ``launch_local``, ``worker_smoke``, ``Supervisor``; run it with ``python
 -m repro_torch.launch.multiprocess``, which is why its names load on

@@ -48,8 +48,14 @@ passes none). ``vlm`` / ``audio`` (llava) put ``prefix_embeds @ adapter``
 before the token embeddings, so the logits are ``[B, P + S, V]``; they
 decode as the dense family, the prefix never entering the cache. Every
 config with a ``frontend`` has the ``adapter`` ``[d, d]``. On a fleet's
-grid these four families raise ``NotImplementedError`` naming ROADMAP
-item 15: their extra batch inputs are not cut to a process's rows.
+grid every family runs this process's rows: ``forward`` cuts
+``enc_embeds`` and ``prefix_embeds`` as it cuts the tokens (so
+``_encode`` runs on those rows), ``decode_step`` cuts ``enc_out`` and
+each cache it writes (the hybrid's SSM state and ``shared_k`` /
+``shared_v`` too). ``shared_attn``, ``encoder`` and ``adapter`` are whole
+leaves: autograd sums the shared block's uses on each process, and
+``fold_leaves`` sums each leaf over the data groups, as for any whole
+leaf.
 
 ``init_params(cfg, None, device="meta")`` and ``init_decode_cache(...,
 device="meta")`` build the trees without drawing or allocating
@@ -84,9 +90,6 @@ __all__ = [
 ]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm", "audio")
-# the families whose extra inputs (encoder frames, a modality prefix) or
-# shared block a fleet's grid does not run yet
-NOT_ON_A_FLEET = ("hybrid", "encdec", "vlm", "audio")
 # the block kind of each family's stacked layers
 _LAYER_KIND = {"dense": "dense", "vlm": "dense", "audio": "dense",
                "moe": "moe", "ssm": "ssm", "hybrid": "ssm",
@@ -97,11 +100,6 @@ def _check(cfg: ModelConfig, dist=None) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
     check_dist(dist)
-    if dist is not None and dist.is_fleet and cfg.family in NOT_ON_A_FLEET:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) on a fleet's grid waits "
-            f"for ROADMAP item 15: its batch inputs are not cut to a "
-            f"process's rows")
 
 
 def _bspec(dist):
@@ -384,20 +382,22 @@ def forward(params: dict, cfg: ModelConfig, dist,
     (int). A frontend arch's ``batch["prefix_embeds"]`` [B, P, D] goes
     before the tokens (S_total = P + S); the encdec family's
     ``batch["enc_embeds"]`` [B, Se, D] feeds its encoder. On a fleet's
-    grid the batch is whole and the logits are this process's rows of it
-    (``dist.local_rows``)."""
+    grid the batch is whole, each input is cut to this process's rows
+    and the logits are those rows' (``dist.local_rows``)."""
     _check(cfg, dist)
-    tokens = batch["tokens"] if dist is None else \
-        dist.local_batch(batch["tokens"])
-    x = _embed(params, tokens, cfg)
+
+    def rows(x):
+        return x if dist is None else dist.local_batch(x)
+
+    x = _embed(params, rows(batch["tokens"]), cfg)
     x = shard(x, dist, _bspec(dist))
     enc_out = None
     if cfg.family == "encdec":
-        enc_out = _encode(params, cfg, dist, batch["enc_embeds"])
+        enc_out = _encode(params, cfg, dist, rows(batch["enc_embeds"]))
     elif cfg.frontend is not None and "prefix_embeds" in batch:
         adapter = params["adapter"]
-        pre = torch.as_tensor(batch["prefix_embeds"], device=adapter.device
-                              ).to(_dtype(cfg)) @ adapter
+        pre = torch.as_tensor(rows(batch["prefix_embeds"]),
+                              device=adapter.device).to(_dtype(cfg)) @ adapter
         x = shard(torch.cat([pre, x], dim=1), dist, _bspec(dist))
     blocks = _unstack(params["layers"], cfg.n_layers)
     if cfg.family == "hybrid":
@@ -412,8 +412,12 @@ def forward(params: dict, cfg: ModelConfig, dist,
                         enc_out)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ _head(params, cfg)
+    # the vocabulary over the model axis where it divides, else whole, as
+    # the head's own spec (distributed/sharding.py); the reference's
+    # jitted constraint pads it (seamless's 256,206 over 8 or 16 ranks)
     return shard(logits, dist, None if dist is None else
-                 (dist.batch_axes, None, "model"))
+                 (dist.batch_axes, None,
+                  dist.model_axis_if_divisible(cfg.vocab_size)))
 
 
 def lm_loss(params: dict, cfg: ModelConfig, dist,
@@ -508,8 +512,9 @@ def decode_step(params: dict, cfg: ModelConfig, dist,
     ``enc_out`` [B, Se, D] (``_encode``'s output) in every decoder block,
     its K / V recomputed each step; without it the decoder runs with no
     cross-attention, as the reference's does. On a fleet's grid
-    ``token`` and the cache are the whole batch's, and the step runs (and
-    writes, and returns the logits of) this process's rows of it.
+    ``token``, the cache and ``enc_out`` are the whole batch's, and the
+    step runs (and writes, and returns the logits of) this process's rows
+    of it.
     """
     _check(cfg, dist)
     if cfg.family == "ssm":
@@ -520,6 +525,8 @@ def decode_step(params: dict, cfg: ModelConfig, dist,
     if dist is not None and dist.is_fleet:
         lo, hi = dist.local_rows(token.shape[0])
         token, ck, cv = token[lo:hi], ck[:, lo:hi], cv[:, lo:hi]
+        if enc_out is not None:
+            enc_out = enc_out[lo:hi]
     h = params["embed"][token.long()].to(_dtype(cfg))
     h = shard(h, dist, _bspec(dist))
     if cfg.family != "encdec":
@@ -589,17 +596,23 @@ def _decode_hybrid(params: dict, cfg: ModelConfig, dist,
     """The hybrid family's step: each group's SSM layers from their state,
     then the shared block against the group's ``shared_k`` / ``shared_v``
     (both written in place). The shared attention takes no ``dist`` and
-    no sequence sharding, as in the reference."""
+    no sequence sharding, as in the reference. On a fleet's grid each of
+    the four caches is cut to this process's rows, as ``_decode_ssm``
+    cuts its own: views, so the step writes into the whole cache."""
+    sh, sc, kk, vv = (cache.ssm_h, cache.ssm_conv, cache.shared_k,
+                      cache.shared_v)
+    if dist is not None and dist.is_fleet:
+        lo, hi = dist.local_rows(token.shape[0])
+        token = token[lo:hi]
+        sh, sc, kk, vv = (c[:, lo:hi] for c in (sh, sc, kk, vv))
     h = params["embed"][token.long()].to(_dtype(cfg))
     h = shard(h, dist, _bspec(dist))
     layers = _unstack(params["layers"], cfg.n_layers)
     sp, per = params["shared_attn"], cfg.attn_every
     for g in range(cfg.n_layers // per):
         for i in range(g * per, (g + 1) * per):
-            h = _ssm_decode_block(layers[i], h, cache.ssm_h[i],
-                                  cache.ssm_conv[i], cfg)
-        h = _dense_decode_block(sp, h, cache.shared_k[g], cache.shared_v[g],
-                                cache.length, cfg)
+            h = _ssm_decode_block(layers[i], h, sh[i], sc[i], cfg)
+        h = _dense_decode_block(sp, h, kk[g], vv[g], cache.length, cfg)
     x = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return x @ _head(params, cfg), dataclasses.replace(
         cache, length=cache.length + 1)

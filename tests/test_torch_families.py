@@ -23,7 +23,8 @@ seeds. Each holds:
   (the encdec's without cross-attention: the reference's batcher passes
   no ``enc_out``);
 * forward on an emulated (data 2, model 2) grid equal to ``dist=None``;
-* the families on a fleet's grid raise naming ROADMAP item 15.
+* the families on a one-process fleet's grid equal the emulated grid
+  (two processes: ``tests/test_torch_families_fleet.py``).
 
 And the reference's pins for these archs (``tests/test_models.py``'s
 smoke forward / train step / decode).
@@ -429,9 +430,10 @@ def test_new_leaves_are_whole_on_a_grid(arch):
 
 
 def test_new_families_on_a_fleet_raise_naming_item_15():
-    """On a fleet's grid (a one-process gloo group here) each of the four
-    families raises naming ROADMAP item 15, in forward, lm_loss and
-    decode_step; the dense family still runs there."""
+    """On a fleet's grid (a one-process gloo group here, holding every
+    rank) each of the four families runs forward, lm_loss and decode_step
+    — ROADMAP item 15's refusal is gone — and equals the emulated grid
+    bit for bit; the dense family still runs there."""
     code = r"""
 import socket, sys, dataclasses, torch, torch.distributed as dist
 s = socket.socket(); s.bind(("localhost", 0)); port = s.getsockname()[1]
@@ -440,25 +442,33 @@ dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                         world_size=1, rank=0)
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed.context import make_context
-from repro_torch.launch.mesh import EmulatedMesh
+from repro_torch.launch.mesh import EmulatedMesh, make_mesh
 from repro_torch.models import transformer as TT
 d = make_context(EmulatedMesh((2, 2), ("data", "model"), span=(0, 4)))
+e = make_context(make_mesh((2, 2), ("data", "model")))
 assert d.is_fleet
 llava = get_smoke_config("llava-next-mistral-7b")
 cfgs = [get_smoke_config(a) for a in ("zamba2-2.7b", "seamless-m4t-medium")]
 cfgs += [llava, dataclasses.replace(llava, family="audio", frontend="audio")]
-tok = torch.zeros((2, 1), dtype=torch.int32)
+tok = torch.zeros((2, 3), dtype=torch.int32)
 n = 0
 for cfg in cfgs:
     p = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    c = TT.init_decode_cache(cfg, 2, 4, "cpu")
-    for fn in (lambda: TT.forward(p, cfg, d, {"tokens": tok}),
-               lambda: TT.lm_loss(p, cfg, d, {"tokens": tok}),
-               lambda: TT.decode_step(p, cfg, d, tok, c)):
-        try:
-            fn()
-        except NotImplementedError as e:
-            assert "item 15" in str(e) and cfg.family in str(e), e
+    emb = torch.randn((2, cfg.frontend_len, cfg.d_model),
+                      generator=torch.Generator().manual_seed(1))
+    b = {"tokens": tok}
+    if cfg.family == "encdec":
+        b["enc_embeds"] = emb
+    elif cfg.frontend is not None:
+        b["prefix_embeds"] = emb
+    enc = TT._encode(p, cfg, e, emb) if cfg.family == "encdec" else None
+    with torch.no_grad():
+        for fn in (lambda x: TT.forward(p, cfg, x, b),
+                   lambda x: TT.lm_loss(p, cfg, x, b),
+                   lambda x: TT.decode_step(
+                       p, cfg, x, tok[:, :1],
+                       TT.init_decode_cache(cfg, 2, 4, "cpu"), enc)[0]):
+            assert torch.equal(fn(d), fn(e)), cfg.name
             n += 1
 dense = get_smoke_config("smollm-135m")
 p = TT.init_params(dense, torch.Generator().manual_seed(0), "cpu")

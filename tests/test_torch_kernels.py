@@ -202,10 +202,18 @@ def test_ops_dispatch_cpu_to_plain_without_launches():
 
 
 def test_ops_reject_other_devices():
+    """``on_card`` raises for any device but CUDA and the CPU; a meta
+    operand (a dry run's planning stand-in) takes the ops' shape-only
+    path instead, which launches nothing, and operands on two devices are
+    refused."""
     b = torch.zeros((1, 4, 8), device="meta")
     idx = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.pack_rows_op(b, idx)
+        ops.on_card(b, idx)
+    before = ops.launch_counts()
+    out = ops.pack_rows_op(b, idx)
+    assert out.is_meta and tuple(out.shape) == (1, 2, 8)
+    assert ops.launch_counts() == before
     with pytest.raises(ValueError, match="different devices"):
         ops.pack_rows_op(torch.zeros((1, 4, 8)), idx)
 

@@ -259,17 +259,17 @@ def test_init_params_has_reference_shapes_and_dtypes(arch):
 
 
 def test_unported_families_and_dist_raise():
-    """What still raises: the hybrid, encdec, vlm and audio families on a
-    fleet's grid (ROADMAP item 15; a real one-process fleet runs them in
-    tests/test_torch_families.py), and a ``dist`` that is not a
-    DistContext. On one device and on the emulated grid every family
-    runs."""
+    """The hybrid, encdec, vlm and audio families are no longer refused on
+    a fleet's grid (they run there: tests/test_torch_families_fleet.py);
+    a ``dist`` that is not a DistContext still raises. On one device and
+    on the emulated grid every family runs."""
     from types import SimpleNamespace
 
     from repro_torch.distributed.context import DistContext
 
     fleet = DistContext(mesh=SimpleNamespace(is_fleet=True),
                         batch_axes=("data",))
+    assert not hasattr(TT, "NOT_ON_A_FLEET")
     llava = get_smoke_config("llava-next-mistral-7b")
     audio = dataclasses.replace(llava, family="audio", frontend="audio")
     for cfg in [get_smoke_config(a) for a in ("zamba2-2.7b",
@@ -277,10 +277,7 @@ def test_unported_families_and_dist_raise():
             [llava, audio]:
         cache = TT.init_decode_cache(cfg, 1, 4, device="cpu")
         assert cache.k is not None or cache.ssm_h is not None
-        with pytest.raises(NotImplementedError, match="item 15"):
-            TT.forward({}, cfg, fleet, {"tokens": torch.zeros(1, 1)})
-        with pytest.raises(NotImplementedError, match="item 15"):
-            TT.decode_step({}, cfg, fleet, torch.zeros(1, 1), cache)
+        TT._check(cfg, fleet)  # the fleet's refusal is gone
     cfg = get_smoke_config("smollm-135m")
     # a DistContext runs (tests/test_torch_dist_context.py); anything
     # else is refused
