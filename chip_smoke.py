@@ -227,8 +227,9 @@ handle. Phases, each of which raises on a failed check:
    parameters ``torch.equal`` on both processes after every step, and
    the same epochs on ``Topology.local(8)`` with the losses within that
    tolerance; per-epoch forward / backward / update by CUDA events, host
-   wall, gloo and staging. Then mp-olmoe-serve-ep: OLMoE-1B-7B as
-   published (phase 7's seed; each process the dense weights and the
+   wall, gloo and staging. Then mp-olmoe-serve-ep: OLMoE-1B-7B at its
+   published width cut to 4 of its 16 layers (``MP_EP_LAYERS``; seed 0;
+   each process the dense weights and the
    experts of its 4 model ranks) on a (data 1, model 8) grid over the
    fleet (``Topology.multiprocess(mesh=...)``, the model axis crossing
    the processes): an 8 × 128 prefill, one ``decode_step`` and the
@@ -250,10 +251,20 @@ handle. Phases, each of which raises on a failed check:
    ``make_train_step`` steps each on one ``SyntheticLM`` 8 × 128 batch
    (``lm_loss`` this process's share, ``fold_leaves``, AdamW with the
    grid's ``GradShards``), a bit digest of every parameter after each
-   step and the last step's parameters saved; one more step split by
-   CUDA events into forward / backward / fold / update beside the host
-   wall, gloo and staging seconds, the fold's bytes and the activation
-   rows across; peak memory per process. Worker 0's K1 / K2 / K6 /
+   step and the last step's parameters saved. The (data 1, model 8) EP
+   case (``MP_LM_TRAINER``) runs through ``Trainer.fit`` on the fleet
+   (the donating step): checkpoints at steps 2 and 3, each the unsharded
+   tree (6.26 GB at this width) written by worker 0 after the experts'
+   params and moments are gathered over the model ranks; worker 0 then
+   deletes step 3 and a second ``fit`` resumes every process from 2 to
+   the uninterrupted run's parameters, ``torch.equal``. One more
+   (donating) step split by CUDA events into forward / backward / fold /
+   update beside the host wall, gloo and staging seconds, the fold's
+   bytes and the activation rows across; peak memory per process; each
+   save's wall seconds beside its gather, host copy and write seconds
+   (the write's sha256 seconds in it), each restore's sha256 and read
+   seconds (the phase's process restores one after the other), and
+   the bytes. Worker 0's K1 / K2 / K6 /
    K6-backward calls of one step are replayed (paths
    ``mp_lm_train_dense``, ``mp_lm_train_ep``, ``mp_lm_train_ep_cross``).
    Then (``MP_FAMILY_CASES``, each model released before the next) the
@@ -269,7 +280,11 @@ handle. Phases, each of which raises on a failed check:
    ``make_mesh`` of each grid in this process: each step's loss, grad
    norm and every parameter a worker holds within ``MP_LM_TWIN_TOL``
    and reported ``torch.equal`` or not; the dense case's first loss
-   within 5e-3 of the unsharded port's; the families on (data 1, model
+   within 5e-3 of the unsharded port's; the (data 1, model 8) EP case's
+   step-2 checkpoint restored onto one device ``torch.equal`` to the
+   twin's params and moments at step 2, and restored onto the emulated
+   (1, 8) grid, one more donating step ``torch.equal`` to the twin's step
+   3; the families on (data 1, model
    8) ``torch.equal`` to the twin in every result, on (data 2, model 4)
    the logits within ``MP_FAMILY_ROWS_TOL``, the steps' losses, the first
    step's grad norm and the parameters within ``MP_LM_TWIN_TOL``, and the
@@ -287,16 +302,20 @@ handle. Phases, each of which raises on a failed check:
    watch (no index_add / scatter_add / accumulating index_put / plain
    version); 5 ``make_train_step`` steps each way on the repeated batch,
    counted from 0, the loss falling, no backward map built on the host,
-   then the same 5 again timed forward / backward / update and equal bit
-   for bit; on a float32 copy (2 × 128 tokens) the first-step grads
+   then the same 5 again donating (a copy of the weights updated in
+   place, ``make_train_step(..., donate=True)``'s update) timed forward /
+   backward / update, AdamW's share of the step logged, and equal bit for
+   bit to the functional 5; on a float32 copy (2 × 128 tokens) the
+   first-step grads
    within rtol 2e-3 / atol 2e-4 of a float64 run (the plain versions),
    the EP grads at capacity 8.0 within 2e-4 of ``_moe_dense``'s and
    ``microbatches=2``'s first moments within the same tolerances of one
    batch's. (b) smollm-train: ``launch/train.py --arch smollm-135m
    --full`` (all 30 layers, remat) at 8 × 256, 30 steps with checkpoints
    at 10, 20 and 30; the step-30 checkpoint deleted, the run resumed
-   from 20 to 30 ends ``torch.equal`` to the uninterrupted run; a step
-   timed forward / backward / update; the watchdog's events and peak
+   from 20 to 30 ends ``torch.equal`` to the uninterrupted run (the
+   launcher's ``Trainer`` donates); a donating step timed forward /
+   backward / update; the watchdog's events and peak
    memory; one more step's K1 / K2 / K6 / K6-backward calls recorded and
    replayed (path ``train_smollm``, 2048 rows of 576). On every train
    path K6 and its backward also give their profiler busy time, each
@@ -354,7 +373,9 @@ handle. Phases, each of which raises on a failed check:
    each phase ran: argument bytes equal to the bytes of the tensors the
    phase placed on the card (else the phase fails); arguments + temp
    (and + outputs) beside the peak each measured step requested above
-   its start, its arguments added; the traced flops over the step's
+   its start, its arguments added — the train steps donate, and their
+   (arguments + temp) ÷ peak must lie in [0.95, 1.05]
+   (``DRYRUN_TRAIN_HOLD``); the traced flops over the step's
    measured time as TFLOP/s; the roofline's bound (H100 datasheet
    constants) over the measured time. Then ``run_cell`` as the CLI runs
    it for qwen2-1.5b and olmoe-1b-7b × decode_32k on the (16, 16) grid
@@ -372,6 +393,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import dataclasses
 import gc
 import json
@@ -4126,6 +4148,9 @@ def serving_phase(args, card, a_u, a_p, b_host) -> dict:
 
 MP_NPROC, MP_LOCAL = 2, 4  # processes x ranks each: P = 8, tiers (2, 4)
 MP_TIMEOUT = 300  # seconds: every wait of the phase, collectives included
+# phase 12's workers in all (the LM cases with their checkpoints, the
+# families, the GCN / GAT cells, the EP LM, the replays: ~330 s)
+MP_TRAIN_TIMEOUT = 600
 MP_DEVICE = "cuda"  # every worker's ranks run on the card
 # the three handles each worker compiles on the fleet's Topology (hier=
 # "auto" resolves to the fleet's tiers; the uniform one runs K3 / K4)
@@ -4512,6 +4537,9 @@ MP_TRAIN_CELLS = (
 # the model axis crosses the process boundary: process i holds model
 # ranks 4i .. 4i + 3 of the one data group
 MP_EP_GRID = ((1, 8), ("data", "model"))
+# the EP LM's layers there: cut from OLMoE-1B-7B's 16, to keep the script
+# inside its limit beside the LM train cell's checkpoints
+MP_EP_LAYERS = 4
 # the LM train step on the fleet: OLMoE-1B-7B at its published width cut
 # to 1 layer (two processes that each hold every whole leaf share the
 # card: ~16 GB a process with AdamW's float32 moments, old and new), one
@@ -4524,6 +4552,13 @@ MP_LM_CASES = (("mp_lm_train_dense", (2, 4), False),
                ("mp_lm_train_ep_cross", (1, 8), True))
 MP_LM_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=3,
                  schedule="constant", grad_clip=1.0)
+# the case that runs through Trainer.fit: a checkpoint every 2
+# steps (2 and 3, the last the final save), the unsharded tree written by
+# worker 0 under the phase's directory; step 3 deleted and a second fit
+# resumed from 2; the phase's process restores step 2 onto one device
+# and onto the emulated (1, 8) grid
+MP_LM_TRAINER = "mp_lm_train_ep_cross"
+MP_LM_CKPT_EVERY = 2
 # the fleet vs its emulated twin in bf16 where the fleet's sums cannot
 # follow the emulated order (two data groups: each group's weight
 # gradients are products over its own rows, folded after): relative loss
@@ -4946,9 +4981,10 @@ def _emulated_cell(gather, what, path, kind, payload, ops_host, feats_host,
 
 def mp_ep_cell(args, topo, gather, recorded) -> dict:
     """The expert-parallel LM of phase 12 on a (data 1, model 8) grid over
-    the fleet: OLMoE-1B-7B as published (``--quick``: olmoe-smoke) with
-    phase 7's random weights, each process keeping the dense weights and
-    its model ranks' experts. Returns this process's report."""
+    the fleet: OLMoE-1B-7B at its published width cut to
+    ``MP_EP_LAYERS`` layers (``--quick``: olmoe-smoke) with random
+    weights (seed 0), each process keeping the dense weights and its
+    model ranks' experts. Returns this process's report."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -4962,7 +4998,8 @@ def mp_ep_cell(args, topo, gather, recorded) -> dict:
 
     me = topo.process_index
     dev = topo.device
-    cfg = get_smoke_config(LM_ARCH) if args.quick else get_config(LM_ARCH)
+    cfg = get_smoke_config(LM_ARCH) if args.quick else dataclasses.replace(
+        get_config(LM_ARCH), n_layers=MP_EP_LAYERS)
     ftopo = Topology.multiprocess(device=MP_DEVICE,
                                   mesh=make_mesh(*MP_EP_GRID))
     fdist = make_context(ftopo)
@@ -5204,14 +5241,106 @@ def bits_digest(t: torch.Tensor) -> int:
     return total
 
 
+class _Repeat:
+    """A data source (``batch(step)``) whose every step is one batch."""
+
+    def __init__(self, batch):
+        self.b = batch
+
+    def batch(self, step, shard=0, n_shards=1):
+        return self.b
+
+
+def mp_lm_fit(cfg, fdist, opt, params, batch, ckpt_dir):
+    """``MP_LM_TRAINER``'s counted run: ``Trainer.fit`` on the fleet for
+    ``MP_LM_TRAIN["steps"]`` steps of the repeated batch, a checkpoint
+    every ``MP_LM_CKPT_EVERY`` (worker 0 writes), each step timed and
+    every parameter's bit digest kept. Returns (params, opt state, the
+    steps, the trainer's checkpoint timings)."""
+    from repro_torch.optim.adamw import _leaves as leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    steps = []
+    tr = Trainer(cfg, opt, TrainerConfig(
+        total_steps=MP_LM_TRAIN["steps"], ckpt_every=MP_LM_CKPT_EVERY,
+        ckpt_dir=ckpt_dir, log_every=1,
+        straggler_warmup=MP_LM_TRAIN["steps"]), fdist)
+    inner = tr.step_fn
+
+    def step(p, state, b):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p, state, met = inner(p, state, b)
+        torch.cuda.synchronize()
+        steps.append({"wall_ms": (time.perf_counter() - t1) * 1e3,
+                      "loss": float(met["loss"]),
+                      "grad_norm": float(met["grad_norm"]),
+                      "digests": [bits_digest(t) for t in leaves(p)]})
+        return p, state, met
+
+    tr.step_fn = step
+    out = tr.fit(params, _Repeat(batch), resume=False)
+    if out["params"] is not params or out["last_step"] != len(steps):
+        raise AssertionError(f"{MP_LM_TRAINER}: fit returned another tree "
+                             f"or stopped at {out['last_step']}")
+    return out["params"], out["opt_state"], steps, tr.ckpt.timings
+
+
+def mp_lm_resume(cfg, fdist, opt, p, batch, ckpt_dir, want) -> tuple:
+    """Worker 0 deletes the last checkpoint; a second ``Trainer.fit``
+    resumes into ``p`` from the one before and must end on ``want`` (the
+    uninterrupted run's parameters, on the host), ``torch.equal``.
+    Returns (params, opt state, the report)."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.optim.adamw import _leaves as leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    last = MP_LM_TRAIN["steps"]
+    if fdist.comm.proc == 0:
+        shutil.rmtree(CheckpointManager(ckpt_dir)._step_dir(last))
+    fdist.comm.barrier()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, opt, TrainerConfig(
+        total_steps=last, ckpt_every=MP_LM_CKPT_EVERY, ckpt_dir=ckpt_dir,
+        log_every=1, straggler_warmup=last), fdist)
+    out = tr.fit(p, _Repeat(batch), resume=True)
+    seconds = time.perf_counter() - t0
+    first = out["history"][0]["step"]
+    equal = all(torch.equal(a.cpu(), b) for a, b in
+                zip(leaves(out["params"]), want))
+    if first != (last - 1) // MP_LM_CKPT_EVERY * MP_LM_CKPT_EVERY \
+            or not equal:
+        raise AssertionError(f"{MP_LM_TRAINER}: the run resumed at step "
+                             f"{first} ended equal to the uninterrupted "
+                             f"run: {equal}")
+    return out["params"], out["opt_state"], {
+        "first_step": first, "equal": equal, "seconds": seconds,
+        "timings": tr.ckpt.timings,
+        "all_steps": tr.ckpt.all_steps() if tr.ckpt.lead else None}
+
+
+def _ckpt_brief(ckpt) -> str:
+    """The checkpoints' host seconds, one (op, step, s) each."""
+    if ckpt is None:
+        return ""
+    ops_ = [(t["op"], t["step"], round(t["seconds"], 1))
+            for t in ckpt["saves"] + ckpt["timings"]]
+    return (f"; checkpoints (op, step, s) {ops_}, resumed fit "
+            f"{ckpt['seconds']:.1f} s")
+
+
 def mp_lm_train_cell(args, topo, recorded, out_dir) -> dict:
     """Phase 12's LM train step on the fleet, each of ``MP_LM_CASES``:
     random weights (``torch.Generator`` seed 0 on the card; this process
     keeps its model ranks' experts), one kernel-recorded step (worker 0
     keeps the calls), ``MP_LM_TRAIN["steps"]`` counted
-    ``make_train_step`` steps with every parameter's bit digest after
-    each, the last step's parameters saved for the emulated twin, then
-    one more step split by CUDA events. Returns this process's report."""
+    ``make_train_step`` steps (``MP_LM_TRAINER``: ``Trainer.fit`` with
+    its checkpoints, ``mp_lm_fit``) with every parameter's bit digest
+    after each, the last step's parameters saved for the emulated twin,
+    (``MP_LM_TRAINER``: the resumed run, ``mp_lm_resume``), then one more
+    step split by CUDA events. Returns this process's report."""
     from repro_torch.distributed.context import make_context
     from repro_torch.distributed.topology import Topology
     from repro_torch.kernels import ops
@@ -5251,19 +5380,25 @@ def mp_lm_train_cell(args, topo, recorded, out_dir) -> dict:
         if me != 0:
             del calls
         sources = fdist.grad_sources(params, cfg)
-        step = make_train_step(cfg, fdist, opt)
-        p, state, steps = params, adamw_init(params), []
         fdist.comm.reset()
         ops.reset_launch_counts()
-        for _ in range(MP_LM_TRAIN["steps"]):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            p, state, met = step(p, state, batch)
-            torch.cuda.synchronize()
-            steps.append({"wall_ms": (time.perf_counter() - t1) * 1e3,
-                          "loss": float(met["loss"]),
-                          "grad_norm": float(met["grad_norm"]),
-                          "digests": [bits_digest(t) for t in _leaves(p)]})
+        ckpt_dir = os.path.join(out_dir, "lm_ckpt")
+        if path == MP_LM_TRAINER:
+            p, state, steps, saves = mp_lm_fit(cfg, fdist, opt, params,
+                                               batch, ckpt_dir)
+        else:
+            step = make_train_step(cfg, fdist, opt)
+            p, state, steps = params, adamw_init(params), []
+            for _ in range(MP_LM_TRAIN["steps"]):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                p, state, met = step(p, state, batch)
+                torch.cuda.synchronize()
+                steps.append({"wall_ms": (time.perf_counter() - t1) * 1e3,
+                              "loss": float(met["loss"]),
+                              "grad_norm": float(met["grad_norm"]),
+                              "digests": [bits_digest(t)
+                                          for t in _leaves(p)]})
         launches = ops.launch_counts()
         tr = fdist.comm.transport()
         cross = {d: fdist.comm.fleet_rows(None, crossing=True, direction=d)
@@ -5275,14 +5410,23 @@ def mp_lm_train_cell(args, topo, recorded, out_dir) -> dict:
         for st in steps:
             if not math.isfinite(st["loss"]) or not st["grad_norm"] > 0:
                 raise AssertionError(f"{path}: step {st}")
-        *_, ms = split_train_step(cfg, fdist, opt, p, state, batch,
-                                  sources)
         # for the twin, outside every timed step, on disk before the next
         # case starts (its dirty pages would stall that case's host)
+        host = [t.cpu() for t in _leaves(p)]
         with open(os.path.join(out_dir, f"{path}.{me}.pt"), "wb") as f:
-            torch.save([t.cpu() for t in _leaves(p)], f)
+            torch.save(host, f)
             f.flush()
             os.fsync(f.fileno())
+        ckpt = None
+        if path == MP_LM_TRAINER:
+            del state
+            p, state, ckpt = mp_lm_resume(cfg, fdist, opt, p, batch,
+                                          ckpt_dir, host)
+            ckpt["saves"] = saves
+        del host
+        # the donating step, timed: it consumes p and state
+        *_, ms = split_train_step(cfg, fdist, opt, p, state, batch,
+                                  sources)
         if me == 0:
             recorded[path] = (calls, launches)
         out[path] = {
@@ -5294,11 +5438,12 @@ def mp_lm_train_cell(args, topo, recorded, out_dir) -> dict:
             "transport": tr, "crossing_rows": cross,
             "crossing_bytes": (cross["fwd"] + cross["bwd"]) * cfg.d_model
             * torch.tensor([], dtype=getattr(torch, cfg.dtype)).element_size(),
+            "ckpt": ckpt, "rss_gb": host_rss_gb(),
             "peak_gb": peak_allocated() / 1e9,
             "seconds": time.perf_counter() - t0}
         log(f"[worker {me}] {path}: {out[path]['seconds']:.1f} s, peak "
-            f"{out[path]['peak_gb']:.2f} GB")
-        del p, state, params, step, met
+            f"{out[path]['peak_gb']:.2f} GB{_ckpt_brief(ckpt)}")
+        del p, state, params
         release_host_memory()
     return out
 
@@ -5341,7 +5486,10 @@ def mp_lm_twin(args, res, out_dir, card: str, dev: str = "cuda") -> None:
         worst = dict(loss=0.0, grad_norm=0.0, param=0.0)
         equal = []  # (step, worker): loss, norm and every parameter
         firsts = []  # (step, worker): loss equal, norm equal, params equal
+        at_ckpt = None
         for i in range(MP_LM_TRAIN["steps"]):
+            if i == MP_LM_CKPT_EVERY and path == MP_LM_TRAINER:
+                at_ckpt = (p, state)  # the twin at the checkpoint's step
             p, state, met = step(p, state, batch)
             loss, norm = float(met["loss"]), float(met["grad_norm"])
             for q, c in enumerate(cases):
@@ -5385,6 +5533,10 @@ def mp_lm_twin(args, res, out_dir, card: str, dev: str = "cuda") -> None:
             f"{[x['counts_rows'] for x in cases]}; (step, worker, loss, "
             f"norm, digests equal) {firsts}; twin "
             f"{time.perf_counter() - t0:.1f} s")
+        if at_ckpt is not None:
+            mp_lm_restores(cfg, edist, opt, batch, os.path.join(
+                out_dir, "lm_ckpt"), at_ckpt, (p, state), cases, card)
+            at_ckpt = None
         for q, x in enumerate(cases):
             ms, tr = x["split_ms"], x["transport"]
             log(f"  {path} worker {q} [{card}]: steps' host wall "
@@ -5401,6 +5553,69 @@ def mp_lm_twin(args, res, out_dir, card: str, dev: str = "cuda") -> None:
         del p, state, params, step
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def mp_lm_restores(cfg, edist, opt, batch, ckpt_dir, at_ckpt, after,
+                   cases, card) -> None:
+    """``MP_LM_TRAINER``'s checkpoint in the phase's process: the fleet's
+    step-``MP_LM_CKPT_EVERY`` checkpoint restored onto one device (no
+    ``dist``) must equal the twin's trees at that step, and restored onto
+    the emulated grid one more donating step must equal the twin's next
+    step, ``torch.equal`` leaf by leaf. Logs the workers' save and
+    restore seconds (gather, write, sha256; sha256, read), the bytes
+    written, the resumed run and each process's peak."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.optim.adamw import _leaves as leaves
+    from repro_torch.train.steps import make_train_step
+
+    step = MP_LM_CKPT_EVERY
+    want = {"params": at_ckpt[0], "opt": at_ckpt[1]}
+    one = CheckpointManager(ckpt_dir)
+    emu = CheckpointManager(ckpt_dir, dist=edist)
+    got = one.restore(step, want)
+    bad = [i for i, (a, b) in enumerate(zip(leaves(got), leaves(want)))
+           if not torch.equal(a, b)]
+    del got
+    st = emu.restore(step, want)
+    p, s, _ = make_train_step(cfg, edist, opt, donate=True)(
+        st["params"], st["opt"], batch)
+    nxt = {"params": after[0], "opt": after[1]}
+    bad_next = [i for i, (a, b) in enumerate(zip(
+        leaves({"params": p, "opt": s}), leaves(nxt)))
+        if not torch.equal(a, b)]
+    del st, p, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad or bad_next:
+        raise AssertionError(
+            f"{MP_LM_TRAINER}: the step-{step} checkpoint restored onto one "
+            f"device differs from the twin at leaves {bad}; a step from it "
+            f"on the emulated grid differs from the twin's next at "
+            f"{bad_next}")
+    r1, r2 = one.timings[-1], emu.timings[-1]
+    log(f"{MP_LM_TRAINER} checkpoint [{card}]: step {step} restored onto one "
+        f"device == the twin's params and moments at step {step}, and onto "
+        f"the emulated {dict(edist.mesh.shape)} grid + one donating step =="
+        f" the twin's step {step + 1}, every leaf torch.equal; the two "
+        f"restores one after the other: sha256 {r1['sha256_s']:.2f} / "
+        f"{r2['sha256_s']:.2f} s, read + place {r1['read_s']:.2f} / "
+        f"{r2['read_s']:.2f} s of {r1['bytes']:,} B")
+    for q, c in enumerate(cases):
+        k = c["ckpt"]
+        for t in k["saves"] + k["timings"]:
+            what = (f"save {t['step']}: {t['seconds']:.2f} s (gather "
+                    f"{t['gather_s']:.2f}, to the host {t['host_s']:.2f}, "
+                    f"write {t['write_s']:.2f} of which sha256 "
+                    f"{t['sha256_s']:.2f}), {t['bytes']:,} B written"
+                    if t["op"] == "save" else
+                    f"restore {t['step']}: {t['seconds']:.2f} s (sha256 "
+                    f"{t['sha256_s']:.2f}, read + place {t['read_s']:.2f})")
+            log(f"  {MP_LM_TRAINER} worker {q} [{card}]: {what}")
+        log(f"  {MP_LM_TRAINER} worker {q}: resumed at step "
+            f"{k['first_step']} in {k['seconds']:.1f} s == the uninterrupted"
+            f" run (torch.equal); checkpoints {k['all_steps']}; peak "
+            f"{c['peak_gb']:.2f} GB on the card, host RSS "
+            f"{c['rss_gb']:.1f} GB")
 
 
 def mp_family_config(args, arch: str, changes: dict):
@@ -5802,7 +6017,7 @@ def mp_train_phase(args, card: str) -> dict:
     out_dir = os.path.join(ROOT, "build", "mp_train")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    rc = launch_local(MP_NPROC, MP_LOCAL, timeout=MP_TIMEOUT,
+    rc = launch_local(MP_NPROC, MP_LOCAL, timeout=MP_TRAIN_TIMEOUT,
                       device=MP_DEVICE,
                       argv=[sys.executable, os.path.abspath(__file__),
                             "--mp-train-worker", out_dir]
@@ -5946,11 +6161,13 @@ def _events(n: int):
 
 
 def split_train_step(cfg, dist, opt, params, state, batch, sources=None):
-    """``make_train_step``'s step (one microbatch) with CUDA events around
-    its forward (``lm_loss``), backward and AdamW update and the host wall
-    around the whole: (params, state, metrics, {fwd, bwd, upd, wall} ms).
-    On a fleet (``sources``: ``dist.grad_sources``) the fold of the
-    gradients and the loss is timed too ("fold")."""
+    """``make_train_step(..., donate=True)``'s step (one microbatch) with
+    CUDA events around its forward (``lm_loss``), backward and AdamW
+    update (in place: it consumes ``params`` and ``state`` and returns
+    them) and the host wall around the whole: (params, state, metrics,
+    {fwd, bwd, upd, wall} ms). On a fleet (``sources``:
+    ``dist.grad_sources``) the fold of the gradients and the loss is
+    timed too ("fold")."""
     from repro_torch.models.transformer import lm_loss
     from repro_torch.optim.adamw import _leaves, _rebuild, adamw_update
 
@@ -5970,7 +6187,8 @@ def split_train_step(cfg, dist, opt, params, state, batch, sources=None):
         ev[3].record()
     params, state, metrics = adamw_update(
         opt, params, _rebuild(params, iter(grads)), state,
-        None if dist is None else dist.grad_shards(params, cfg))
+        None if dist is None else dist.grad_shards(params, cfg),
+        donate=True)
     ev[-1].record()
     torch.cuda.synchronize()
     metrics["loss"] = loss.detach()
@@ -6006,11 +6224,13 @@ def train_lm_cell(what, cfg, dist, params, batch, card, measure=None):
     With ``measure`` the timed five are phase 16's cell of that name.
     Returns (launches, losses, the split medians, the last params)."""
     from repro_torch.kernels import ops
-    from repro_torch.optim.adamw import AdamWConfig, _leaves, adamw_init
+    from repro_torch.optim.adamw import (
+        AdamWConfig, _leaves, _map, adamw_init,
+    )
     from repro_torch.train.steps import make_train_step
 
     opt = AdamWConfig(**TRAIN_LM_OPT)
-    step = make_train_step(cfg, dist, opt)
+    step = make_train_step(cfg, dist, opt)  # functional: params stay
     p, state, losses = params, adamw_init(params), []
     ops.reset_launch_counts()
     with host_map_watch() as maps:
@@ -6036,10 +6256,12 @@ def train_lm_cell(what, cfg, dist, params, batch, card, measure=None):
         raise AssertionError(f"{what}: the loss did not fall: {losses}")
     first = p
     del state, m
+    # the timed run donates: it updates a copy of the initial parameters
+    start = _map(torch.clone, params)
 
     def timed():
-        p, state, times = params, adamw_init(params), []
-        placed = tensor_bytes(params, state, batch)
+        p, state, times = start, adamw_init(start), []
+        placed = tensor_bytes(start, state, batch)
         for _ in range(TRAIN_LM["steps"]):
             p, state, m, ms = split_train_step(cfg, dist, opt, p, state,
                                                batch)
@@ -6053,18 +6275,26 @@ def train_lm_cell(what, cfg, dist, params, batch, card, measure=None):
     if measure:
         p, med = measure_step(measure, cfg, batch["tokens"].shape[1],
                               batch["tokens"].shape[0], "train", timed,
-                              tensor_bytes(params, batch))
+                              tensor_bytes(start, batch))
     else:
         (p, med), *_ = timed()
+    if p is not start:
+        raise AssertionError(f"{what}: the donating steps returned another "
+                             f"tree")
     for a, b in zip(_leaves(first), _leaves(p)):
         if not torch.equal(a, b):
-            raise AssertionError(f"{what}: two 5-step runs differ")
+            raise AssertionError(f"{what}: the donating 5-step run differs "
+                                 f"from the functional one")
+    del start
     tokens = batch["tokens"].numel()
-    log(f"{what} [{card}]: two 5-step runs bit-identical; a step (median of "
-        f"steps 2-5): forward {med['fwd']:.3f} ms, backward "
-        f"{med['bwd']:.3f} ms, update {med['upd']:.3f} ms (CUDA events), "
-        f"host wall {med['wall']:.3f} ms; {tokens / med['wall'] * 1e3:.1f} "
-        f"tokens/s")
+    step_ms = med["fwd"] + med["bwd"] + med["upd"]
+    log(f"{what} [{card}]: 5 donating steps == 5 functional steps, bit for "
+        f"bit; a step (median of steps 2-5): forward {med['fwd']:.3f} ms, "
+        f"backward {med['bwd']:.3f} ms, update {med['upd']:.3f} ms (CUDA "
+        f"events; AdamW in place {med['upd'] / step_ms:.3f} of the step, "
+        f"F2's functional update 74.956 of 115.784 ms = 0.647 on the dense "
+        f"step), host wall {med['wall']:.3f} ms; "
+        f"{tokens / med['wall'] * 1e3:.1f} tokens/s")
     return launches, losses, med, p
 
 
@@ -6332,10 +6562,12 @@ def train_lm_phase(args, card: str, dev: str = "cuda") -> dict:
         "smollm_train", scfg, sbatch["tokens"].shape[1],
         sbatch["tokens"].shape[0], "train", timed,
         tensor_bytes(whole["params"], sbatch))
-    log(f"smollm-train [{card}]: a step (median of steps 2-3, "
+    log(f"smollm-train [{card}]: a donating step (median of steps 2-3, "
         f"{scfg.n_layers} layers, remat {scfg.remat}): forward "
         f"{med['fwd']:.3f} ms, backward {med['bwd']:.3f} ms, update "
-        f"{med['upd']:.3f} ms (CUDA events), host wall {med['wall']:.3f} "
+        f"{med['upd']:.3f} ms (CUDA events; AdamW in place "
+        f"{med['upd'] / (med['fwd'] + med['bwd'] + med['upd']):.3f} of the "
+        f"step), host wall {med['wall']:.3f} "
         f"ms; {sbatch['tokens'].numel() / med['wall'] * 1e3:.1f} tokens/s; "
         f"peak device memory {peak_allocated() / 2 ** 30:.2f} GiB; phase "
         f"13b {time.perf_counter() - t0:.1f} s")
@@ -6412,6 +6644,10 @@ FAMILY_CELLS = (("zamba2-2.7b", "hybrid", 256),
 FAMILY_BATCH = 8
 # the families whose prefill phase 16 holds the dry run against
 DRYRUN_PREFILLS = ("hybrid", "encdec", "vlm")
+# phases 14 and 15's timed prefills: 3 samples, cut from 7 to
+# keep the script inside its limit (zamba2's and falcon-mamba's prefills
+# take ~2.8-2.9 s a sample)
+FAMILY_PREFILL_REPS = 3
 # zamba2's float32 copy and its train check: the first 12 layers, 2
 # groups of attn_every 6, so the shared block is applied twice
 HYBRID_CUT = 12
@@ -6643,21 +6879,23 @@ def family_serve(args, card: str, arch: str, path: str, tokens: int,
                 (lambda: TT.decode_step(params, cfg, None, first, cache,
                                         enc_out),
                  f"{path} decode step B={B}", B)):
-            if what.startswith(f"{path} prefill") and path in DRYRUN_PREFILLS:
+            prefill = what.startswith(f"{path} prefill")
+            reps = FAMILY_PREFILL_REPS if prefill else 7
+            if prefill and path in DRYRUN_PREFILLS:
                 # phase 16's cell: the timed prefills' peak beside them
                 placed = tensor_bytes(params, batch)
 
                 def timed(fn=fn):
-                    dev_ms, host_ms = median_ms(fn)
+                    dev_ms, host_ms = median_ms(fn, reps)
                     return ((dev_ms, host_ms), dev_ms,
-                            "median of 7 by CUDA events", placed)
+                            f"median of {reps} by CUDA events", placed)
 
                 dev_ms, host_ms = measure_step(f"{path}_prefill", cfg,
                                                P_ + S, B, "prefill", timed,
                                                placed)
             else:
-                dev_ms, host_ms = median_ms(fn)
-            log(f"{what} [{card}]: median of 7: {dev_ms:.3f} ms device "
+                dev_ms, host_ms = median_ms(fn, reps)
+            log(f"{what} [{card}]: median of {reps}: {dev_ms:.3f} ms device "
                 f"events, {host_ms:.3f} ms host wall "
                 f"({tok / host_ms * 1e3:.1f} tokens/s)")
     log(f"peak device memory, {path} (weights, prefill, batcher): "
@@ -6887,6 +7125,8 @@ DRYRUN_CELLS = ("olmoe_train", "smollm_train", "hybrid_prefill",
 # dense cell and one whose expert-parallel exchange the trace logs
 DRYRUN_GRID_CELLS = (("qwen2-1.5b", "decode_32k"),
                      ("olmoe-1b-7b", "decode_32k"))
+# (arguments + temp) / the measured peak of the donating train steps
+DRYRUN_TRAIN_HOLD = (0.95, 1.05)
 
 
 def dryrun_phase(args, card: str) -> None:
@@ -6895,12 +7135,14 @@ def dryrun_phase(args, card: str) -> None:
     process on a (data 1, model 1) grid at the shape the phase ran, full
     depth: its argument bytes equal to the bytes of the tensors the phase
     placed on the card (any difference fails); arguments + temp (and +
-    outputs: the port's step keeps its inputs while it builds its
-    outputs, where the reference donates them) beside the peak the step
-    requested above its start with its arguments; the traced flops over
-    the measured time as TFLOP/s; the roofline's bound (H100 datasheet
-    constants) over the measured time. Then ``run_cell`` as the CLI runs
-    it for ``DRYRUN_GRID_CELLS``, records and seconds printed."""
+    outputs, logged) beside the peak the step requested above its start
+    with its arguments — the train steps donate their parameters and
+    moments (the dry run traces the donating step), so their peak is
+    arguments + temp, held within ``DRYRUN_TRAIN_HOLD``; the traced flops
+    over the measured time as TFLOP/s; the roofline's bound (H100
+    datasheet constants) over the measured time. Then ``run_cell`` as
+    the CLI runs it for ``DRYRUN_GRID_CELLS``, records and seconds
+    printed."""
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun as TD
     from repro_torch.launch.mesh import make_mesh
@@ -6924,6 +7166,13 @@ def dryrun_phase(args, card: str) -> None:
                 f" != the {m['placed']:,} bytes the phase placed on the card")
         temp = mem["temp_size_in_bytes"]
         out_b = mem["output_size_in_bytes"]
+        hold = (args_b + temp) / m["peak"]
+        if shape.mode == "train" and not (
+                DRYRUN_TRAIN_HOLD[0] <= hold <= DRYRUN_TRAIN_HOLD[1]):
+            raise AssertionError(
+                f"phase 16 {cell}: arguments + temp {args_b + temp:,.0f} "
+                f"is {hold:.3f} of the donating step's peak {m['peak']:,}, "
+                f"outside {DRYRUN_TRAIN_HOLD}")
         secs = m["ms"] / 1e3
         log(f"dry run vs card, {cell} ({cfg.name}, {cfg.n_layers} layers, "
             f"{shape.mode} {shape.global_batch} x {shape.seq_len}) [{card}]:"

@@ -18,7 +18,9 @@ the LM across two processes
 rows it prints (``train_lm_phase``); 14: falcon-mamba serving
 (``family_serve`` on ``SSM_CELL``); 15: the hybrid, encdec and prefix
 families (zamba2, seamless, llava) and zamba2's train check
-(``family_phase``). Each row as ``chip_smoke.py`` prints it, tagged
+(``family_phase``); 16: the dry run against the steps phases 13 and 15
+measured (``dryrun_phase``; list 13 and 15 before it). Each row as
+``chip_smoke.py`` prints it, tagged
 TAG; with ``--json`` all rows to PATH; ``--quick`` for ``chip_smoke.py
 --quick``'s sizes. Needs one CUDA card.
 """
@@ -51,7 +53,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tag")
     ap.add_argument("--phases", type=int, nargs="+", default=[3, 7, 13],
-                    choices=[3, 7, 9, 11, 12, 13, 14, 15])
+                    choices=[3, 7, 9, 11, 12, 13, 14, 15, 16])
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--json", metavar="PATH")
     args = ap.parse_args()
@@ -90,6 +92,9 @@ def main() -> int:
             got = {"rmsnorm": cs.family_serve(run, card, *cs.SSM_CELL)[0]}
         elif phase == 15:
             got = cs.family_phase(run, card)
+        elif phase == 16:
+            cs.dryrun_phase(run, card)
+            got = {}
         else:
             got = cs.train_lm_phase(run, card)
         cs.log(f"[{args.tag}] phase {phase} {time.perf_counter() - t0:.1f} s")

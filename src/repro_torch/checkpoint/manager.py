@@ -12,12 +12,32 @@ them (dict keys in sorted order, as ``optim.adamw`` walks them):
 * **auto-resume**: ``latest_step`` finds the newest complete checkpoint;
 * **device-free**: arrays are stored on the host with the tree flattened
   to path keys, and ``restore(step, like, device=...)`` places them on
-  any device (the reference's shardings argument, for one device);
+  any device;
+* **unsharded on a fleet** (``CheckpointManager(..., dist=)`` over a
+  fleet's grid, ``Topology.multiprocess(mesh=...)``): ``save(..., shards=
+  dist.leaf_splits(tree, cfg))`` has one writer, the lead (process 0):
+  every sharded leaf (the MoE experts, params and moments) is gathered
+  to it over the model ranks (``DistContext.gather_to_lead``), every
+  whole leaf is its own copy, and it writes each leaf at its global
+  shape — the file a one-device run of the same model writes. The lead
+  alone stages, publishes and garbage-collects; every process then waits
+  at a barrier, so none returns before the checkpoint is published.
+  ``shards`` is keyed by the leaves' paths and must name every leaf;
+  on a fleet it is required;
+* **restore onto any grid** (the reference's ``shardings=``): every
+  process verifies the bundle, reads the global arrays, checks each
+  stored shape against the leaf's global shape and keeps its own run of
+  each sharded leaf (its model ranks' experts) — on one device, the
+  emulated grid or a fleet of another layout alike;
 * **self-describing**: metadata.json carries step, paths, shapes, dtypes
   and the per-file digests, all checked before an array is touched.
 
-Storage is one ``.npz`` per checkpoint; bfloat16 tensors are stored
-through a 16-bit integer view and restored bit for bit.
+Storage is one ``np.savez`` file per checkpoint, its sha256 taken from
+the bytes as ``np.savez`` writes them (``_HashingFile``); bfloat16
+tensors are stored through a 16-bit integer view and restored bit for
+bit. ``timings`` keeps each save's and restore's host seconds and bytes:
+a save's gathers, host copies, write and sha256 (part of the write); a
+restore's sha256 and read.
 """
 from __future__ import annotations
 
@@ -27,7 +47,7 @@ import json
 import os
 import shutil
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -153,6 +173,46 @@ def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+class _HashingFile:
+    """The file ``np.savez`` writes to, hashed as it is written. It
+    cannot seek, so zipfile writes each member front to back (its sizes
+    in a data descriptor after it, as on any stream) and the bytes that
+    pass are the file's; ``np.load`` reads it as any savez file.
+    ``manifest`` is the entry ``bundle_manifest`` would read back."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "wb")
+        self._sha = hashlib.sha256()
+        self.nbytes = 0
+        self.sha256_s = 0.0
+
+    def write(self, data) -> int:
+        n = self._f.write(data)
+        t0 = time.perf_counter()
+        self._sha.update(data)
+        self.sha256_s += time.perf_counter() - t0
+        self.nbytes += n
+        return n
+
+    def tell(self) -> int:
+        return self.nbytes
+
+    def seek(self, *args):
+        raise OSError("written front to back")
+
+    def read(self, *args):  # np.savez takes an object with read() as a file
+        raise OSError("write only")
+
+    def flush(self) -> None:
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
+
+    def manifest(self) -> Dict[str, Any]:
+        return {"bytes": self.nbytes, "sha256": self._sha.hexdigest()}
+
+
 def _rebuild(like: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
     if isinstance(like, dict):
         return {k: _rebuild(v, leaves, f"{prefix}{k}/")
@@ -164,9 +224,13 @@ def _rebuild(like: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, retain: int = 3):
+    def __init__(self, directory: str, retain: int = 3, dist=None):
         self.dir = directory
         self.retain = retain
+        # a fleet's context (one device and the emulated grid need none)
+        self.dist = dist if dist is not None and dist.is_fleet else None
+        self.lead = self.dist is None or self.dist.comm.proc == 0
+        self.timings: List[Dict[str, Any]] = []
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------
@@ -186,30 +250,79 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def _split(self, flat: Dict[str, Any],
+               shards: Optional[Mapping[str, Any]]) -> List[Any]:
+        """Each leaf's (dim, M) split on a fleet, else None. On a fleet
+        ``shards`` must name exactly the leaves of the tree."""
+        if self.dist is None:
+            return [None] * len(flat)
+        if shards is None:
+            raise ValueError(
+                "a fleet's checkpoint needs shards= (DistContext."
+                "leaf_splits of the tree): without it a sharded leaf would "
+                "be taken as whole")
+        if list(shards) != list(flat):
+            missing = sorted(set(flat) - set(shards))
+            extra = sorted(set(shards) - set(flat))
+            raise ValueError(
+                f"shards= does not name the tree's leaves in order "
+                f"(missing {missing[:3]}, unknown {extra[:3]})")
+        return list(shards.values())
+
     # ------------------------------------------------------------------
-    def save(self, step: int, tree: Any, extra: Optional[dict] = None) -> str:
-        """Atomic save: tmp dir + fsync + rename."""
-        flat = {k: _to_host(v) for k, v in _flatten_with_paths(tree).items()}
+    def save(self, step: int, tree: Any, extra: Optional[dict] = None,
+             shards: Optional[Mapping[str, Any]] = None) -> str:
+        """Atomic save: tmp dir + fsync + rename. On a fleet every
+        process calls it with its own ``tree`` and the leaves' splits
+        (``shards``, as ``DistContext.leaf_splits`` gives them); the lead
+        writes the unsharded tree."""
+        flat = _flatten_with_paths(tree)
+        splits = self._split(flat, shards)
         final = self._step_dir(step)
-        with atomic_dir(final) as tmp:
-            np.savez(os.path.join(tmp, "arrays.npz"),
-                     **{k: arr for k, (arr, _) in flat.items()})
-            meta = {
-                "step": step,
-                "time": time.time(),
-                "keys": {k: {"shape": list(arr.shape), "dtype": dt}
-                         for k, (arr, dt) in flat.items()},
-                # per-file digests: restore() verifies these BEFORE
-                # np.load touches anything, so a torn copy of the
-                # checkpoint fails naming the file, not mid-parse
-                "files": bundle_manifest(tmp),
-                "extra": extra or {},
-            }
-            with open(os.path.join(tmp, "metadata.json"), "w") as f:
-                json.dump(meta, f)
-                f.flush()
-                os.fsync(f.fileno())
-        self._gc()
+        t_save = time.perf_counter()
+        rec = {"op": "save", "step": step, "gather_s": 0.0, "host_s": 0.0,
+               "write_s": 0.0, "sha256_s": 0.0, "bytes": 0}
+        arrays: Dict[str, np.ndarray] = {}
+        keys: Dict[str, Dict[str, Any]] = {}
+        for (key, leaf), split in zip(flat.items(), splits):
+            t0 = time.perf_counter()
+            if split is not None:  # a collective every process makes
+                leaf = self.dist.gather_to_lead(leaf, split[0])
+            t1 = time.perf_counter()
+            if self.lead:
+                arrays[key], dt = _to_host(leaf)
+                keys[key] = {"shape": list(arrays[key].shape), "dtype": dt}
+            rec["gather_s"] += t1 - t0
+            rec["host_s"] += time.perf_counter() - t1
+        if self.lead:
+            with atomic_dir(final) as tmp:
+                t0 = time.perf_counter()
+                out = _HashingFile(os.path.join(tmp, "arrays.npz"))
+                try:
+                    np.savez(out, **arrays)
+                finally:
+                    out.close()
+                rec.update(write_s=time.perf_counter() - t0,
+                           sha256_s=out.sha256_s, bytes=out.nbytes)
+                meta = {
+                    "step": step,
+                    "time": time.time(),
+                    "keys": keys,
+                    # per-file digests: restore() verifies these BEFORE
+                    # np.load touches anything, so a torn copy of the
+                    # checkpoint fails naming the file, not mid-parse
+                    "files": {"arrays.npz": out.manifest()},
+                    "extra": extra or {},
+                }
+                with open(os.path.join(tmp, "metadata.json"), "w") as f:
+                    json.dump(meta, f)
+                    f.flush()
+                    os.fsync(f.fileno())
+            self._gc()
+        if self.dist is not None:
+            self.dist.comm.barrier()
+        rec["seconds"] = time.perf_counter() - t_save
+        self.timings.append(rec)
         return final
 
     def _gc(self) -> None:
@@ -219,42 +332,71 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def restore(self, step: int, like: Any,
-                device: Optional[Union[str, torch.device]] = None) -> Any:
+                device: Optional[Union[str, torch.device]] = None,
+                shards: Optional[Mapping[str, Any]] = None,
+                inplace: bool = False) -> Any:
         """Restore into the structure of ``like``.
 
         Each leaf comes back as ``like``'s leaf type and dtype: a tensor
         on ``device`` (default: the ``like`` tensor's own device), a
         numpy array, or a Python scalar. Stored shapes are checked
-        against the metadata and against ``like``.
+        against the metadata and against each leaf's global shape:
+        ``like``'s own, or on a fleet for a leaf ``shards`` splits (dim,
+        M) its shape with this process's model ranks' share of dim made
+        whole; such a leaf keeps this process's run along dim. ``inplace``
+        copies each array into ``like``'s tensor (every leaf a tensor)
+        and returns ``like``.
         """
         d = self._step_dir(step)
+        flat = _flatten_with_paths(like)
+        splits = self._split(flat, shards)
+        rec = {"op": "restore", "step": step}
+        t0 = time.perf_counter()
         with open(os.path.join(d, "metadata.json")) as f:
             meta = json.load(f)
         verify_bundle(d, meta.get("files"), source=f"checkpoint {d}")
+        t1 = time.perf_counter()
         data = np.load(os.path.join(d, "arrays.npz"))
         leaves: Dict[str, Any] = {}
-        for key, leaf in _flatten_with_paths(like).items():
+        for (key, leaf), split in zip(flat.items(), splits):
             if key not in data:
                 raise KeyError(f"checkpoint {d} missing key {key}")
             arr = data[key]
             want = meta["keys"][key]
             if list(arr.shape) != want["shape"]:
                 raise ValueError(f"corrupt checkpoint: {key} shape mismatch")
-            if tuple(arr.shape) != tuple(np.shape(leaf)):
+            shape = list(np.shape(leaf))
+            if split is not None:
+                dim, M = split
+                _, nm, _, m_lo = self.dist.local_grid
+                shape[dim] = shape[dim] * M // nm
+            if tuple(arr.shape) != tuple(shape):
                 raise ValueError(
                     f"{key}: stored shape {arr.shape} != expected "
-                    f"{tuple(np.shape(leaf))}")
+                    f"{tuple(shape)}")
+            if split is not None:  # this process's model ranks' run
+                e = arr.shape[dim] // M
+                keep = slice(m_lo * e, (m_lo + nm) * e)
+                arr = np.ascontiguousarray(arr[(slice(None),) * dim + (keep,)])
             if isinstance(leaf, torch.Tensor):
                 t = torch.from_numpy(arr)
                 if want["dtype"] == "bfloat16":
                     t = t.view(torch.bfloat16)
+                if inplace:
+                    leaf.copy_(t)
+                    continue
                 leaves[key] = t.to(leaf.device if device is None else device,
                                    leaf.dtype)
             elif isinstance(leaf, np.ndarray):
                 leaves[key] = arr.astype(leaf.dtype)
             else:
                 leaves[key] = type(leaf)(arr)
-        return _rebuild(like, leaves)
+        now = time.perf_counter()
+        rec.update(sha256_s=t1 - t0, read_s=now - t1, seconds=now - t0,
+                   bytes=sum(f["bytes"] for f in
+                             (meta.get("files") or {}).values()))
+        self.timings.append(rec)
+        return like if inplace else _rebuild(like, leaves)
 
     def restore_latest(self, like: Any,
                        device: Optional[Union[str, torch.device]] = None):

@@ -787,6 +787,26 @@ class _Fleet:
             acc = acc + part
         return acc.to(t.device)
 
+    def fold_host(self, value: int) -> int:
+        """A host integer summed over the processes (ascending process
+        order), the same on every process: a stop flag any process
+        raised (> 0), or a value only the lead gives (the others give
+        0). One all_gather of one int64."""
+        import torch.distributed as dist
+
+        mine = torch.tensor([int(value)], dtype=torch.int64)
+        parts = [torch.empty_like(mine) for _ in range(self.n_proc)]
+        t0 = time.perf_counter()
+        dist.all_gather(parts, mine)
+        self.gloo_s += time.perf_counter() - t0
+        return sum(int(t) for t in parts)
+
+    def barrier(self) -> None:
+        """Wait until every process of the group gets here."""
+        import torch.distributed as dist
+
+        dist.barrier()
+
     def fold_leaves(self, leaves: Sequence[torch.Tensor],
                     sources: Sequence[Sequence[Sequence[int]]]
                     ) -> List[torch.Tensor]:

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -199,12 +199,21 @@ class DistContext:
         None where every process holds it whole, else (dim, M) — the MoE
         experts, split along ``dim`` over the M model ranks; this process
         holds the model ranks of ``local_grid``."""
-        out = []
-        for path in _leaf_paths(params):
-            expert = (cfg.family == "moe" and len(path) == 3
-                      and path[:2] == ("layers", "moe")
-                      and path[2] in ("w1", "w3", "w2"))
-            out.append((1, self.model_size) if expert else None)
+        return list(self.leaf_splits(params, cfg).values())
+
+    def leaf_splits(self, tree: Any, cfg
+                    ) -> Dict[str, Optional[Tuple[int, int]]]:
+        """``leaf_shards`` keyed by each leaf's path (``"a/b/c"``, the
+        checkpoint's keys). ``tree`` may also hold parameter trees (a
+        checkpoint's ``{"params", "opt": {"m", "v", "step"}}``): a leaf
+        at ``.../layers/moe/w1`` (``w3``, ``w2``) is an expert leaf
+        wherever it sits."""
+        out = {}
+        for path in _leaf_paths(tree):
+            expert = (cfg.family == "moe" and len(path) >= 3
+                      and path[-3:-1] == ("layers", "moe")
+                      and path[-1] in ("w1", "w3", "w2"))
+            out["/".join(path)] = (1, self.model_size) if expert else None
         return out
 
     def grad_sources(self, params: Any, cfg) -> List[List[List[int]]]:
@@ -239,6 +248,46 @@ class DistContext:
 
     def grad_shards(self, params: Any, cfg) -> "GradShards":
         return GradShards(self, self.leaf_shards(params, cfg))
+
+    def gather_to_lead(self, x: torch.Tensor, dim: int
+                       ) -> Optional[torch.Tensor]:
+        """A sharded leaf made whole on the lead (process 0): ``x`` holds
+        this process's model ranks' chunks along ``dim`` (``leaf_shards``'
+        split); the lead gets every model rank's chunk in ascending rank,
+        each from the first process that holds it (its own where it holds
+        it), joined on the host; every other process gets None. A
+        collective every process makes: each process that is first to
+        hold a chunk the lead lacks sends its chunks once, as bytes. On
+        one device (or the emulated grid) ``x`` is whole already and comes
+        back as it is."""
+        if not self.is_fleet:
+            return x
+        import torch.distributed as tdist
+
+        _, nm, _, m_lo = self.local_grid
+        size = x.shape[dim] // nm  # one model rank's chunk
+        owner = {}  # model rank -> the first process that holds it
+        for q in range(self.n_processes):
+            _, nq, _, lo = self.process_grid(q)
+            for m in range(lo, lo + nq):
+                owner.setdefault(m, q)
+        senders = sorted(set(owner.values()) - {0})
+        me = self.comm.proc
+        if me != 0 and me not in senders:
+            return None
+        host = x.detach().to("cpu").contiguous()
+        if me != 0:
+            tdist.send(host.reshape(-1).view(torch.uint8), dst=0)
+            return None
+        chunks = {m: host.narrow(dim, (m - m_lo) * size, size)
+                  for m in range(m_lo, m_lo + nm)}
+        for q in senders:
+            buf = torch.empty_like(host)
+            tdist.recv(buf.reshape(-1).view(torch.uint8), src=q)
+            _, nq, _, lo = self.process_grid(q)
+            chunks.update((m, buf.narrow(dim, (m - lo) * size, size))
+                          for m in range(lo, lo + nq) if owner[m] == q)
+        return torch.cat([chunks[m] for m in range(self.model_size)], dim)
 
 
 class GradShards:

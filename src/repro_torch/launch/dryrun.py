@@ -19,8 +19,11 @@ Per cell (the reference's record, fields kept):
   vocabulary over the model axis, padded where it does not divide, as
   GSPMD pads; the decode cache); ``alias_size_in_
   bytes`` the donated params, state and cache, as the reference donates
-  them; ``temp_size_in_bytes`` the peak of the live bytes of the
-  storages the step makes, its outputs left out, from a dispatch mode
+  them — the train cell traces the donating step (``make_train_step(...,
+  donate=True)``), whose new params and state are its arguments' own
+  storages; ``temp_size_in_bytes`` the peak of the live bytes of the
+  storages the step makes, its outputs left out (an output that aliases
+  an argument is no new storage), from a dispatch mode
   that adds each new storage's bytes and takes them off when it is
   freed. The trace runs at one data rank's batch (the global batch over
   the axes ``batch_specs`` shards it on, at least 1) with the model axis
@@ -206,8 +209,10 @@ def trace_step(step, *args) -> Dict[str, Any]:
     """Run ``step(*args)`` under the trackers: its result, ``flops``,
     ``bytes`` (operands and results of every op, the kernels' meta calls
     included), ``temp`` (the peak of live bytes the step made, its
-    outputs left out) and ``kernel_calls``, the kernels' meta calls it
-    made by kernel (``ops.meta_calls``; a meta call launches nothing)."""
+    outputs left out), ``peak`` (the same with its outputs: what the step
+    holds above its arguments at its top) and ``kernel_calls``, the
+    kernels' meta calls it made by kernel (``ops.meta_calls``; a meta
+    call launches nothing)."""
     before = ops.meta_calls()
     tracker = _Tracker()
     with FlopCounterMode(display=False) as fc, tracker:
@@ -220,6 +225,7 @@ def trace_step(step, *args) -> Dict[str, Any]:
             "bytes": float(tracker.bytes
                            + sum(v["bytes"] for v in made.values())),
             "temp": float(tracker.peak(outs)),
+            "peak": float(tracker.peak()),
             "kernel_calls": {k: v["calls"] for k, v in made.items()}}
 
 
@@ -371,7 +377,7 @@ def _account(cfg: ModelConfig, shape: ShapeSpec, mesh: EmulatedMesh,
     local = dataclasses.replace(shape, global_batch=b_local)
     params = abstract_params(cfg)
     if shape.mode == "train":
-        step = make_train_step(cfg, tdist, AdamWConfig())
+        step = make_train_step(cfg, tdist, AdamWConfig(), donate=True)
         res = trace_step(step, params, abstract_opt_state(cfg),
                          input_specs(cfg, local))
     elif shape.mode == "prefill":

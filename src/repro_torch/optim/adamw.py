@@ -13,7 +13,14 @@ update, so its steps differ from the reference's.
 
     state = adamw_init(params)
     new_params, state, metrics = adamw_update(cfg, params, grads, state)
+    params, state, metrics = adamw_update(cfg, params, grads, state,
+                                          donate=True)  # in place
     state, metrics = adamw_step(cfg, list(model.parameters()), state)  # in place
+
+``donate=True`` is the counterpart of the reference's donated buffers
+(``jax.jit(step, donate_argnums=(0, 1))``): the new parameters, m and v
+are written into the tensors of ``params`` and ``state``, leaf by leaf,
+with the same bits as the functional form (both run ``_leaf_update``).
 """
 from __future__ import annotations
 
@@ -100,10 +107,14 @@ def global_norm(tree: Any, shards=None) -> torch.Tensor:
                           for x in _leaves(tree)))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads: Any, max_norm: float, shards=None
                         ) -> Tuple[Any, torch.Tensor]:
     norm = global_norm(grads, shards)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return _map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
@@ -122,17 +133,47 @@ def linear_warmup(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm
 
 
+def _leaf_update(cfg: AdamWConfig, lr, b1c, b2c, scale, p, g, m, v,
+                 out) -> None:
+    """One leaf's step, written into ``out`` = (new p, new m, new v):
+    fresh tensors in the functional form, ``(p, m, v)`` themselves when
+    donating. The reference's float32 chain op for op — the clip's
+    product in the gradient's dtype, then b1·m + (1 − b1)·g, b2·v +
+    (1 − b2)·g², m̂ / (√v̂ + eps) + wd·p, p − lr·delta — each product and
+    sum its own op and rounding (no ``alpha=`` or ``addcmul``, which may
+    fuse a multiply and an add), so both forms give the same bits. Two
+    float32 temporaries of the leaf's size (and the clipped gradient, and
+    its float32 copy for a bfloat16 gradient), freed before the next
+    leaf."""
+    p_out, m_out, v_out = out
+    if scale is not None:
+        g = g * scale.to(g.dtype)
+    gf = g.float()
+    t = gf * (1 - cfg.b1)
+    torch.mul(m, cfg.b1, out=m_out).add_(t)
+    torch.square(gf, out=t).mul_(1 - cfg.b2)
+    torch.mul(v, cfg.b2, out=v_out).add_(t)
+    del g, gf
+    torch.div(v_out, b2c, out=t).sqrt_().add_(cfg.eps)
+    d = torch.div(m_out, b1c).div_(t)
+    d.add_(t.copy_(p).mul_(cfg.weight_decay)).mul_(lr)
+    p_out.copy_(t.copy_(p).sub_(d))
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
-                 shards=None) -> tuple:
+                 shards=None, donate: bool = False) -> tuple:
     """Returns (new_params, new_state, metrics) — the reference's update:
     clip by the global norm (``global_norm``'s ``shards`` on a grid),
     bias-corrected moments in float32, decoupled weight decay, the
-    schedule's learning rate at the new step."""
-    if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shards)
-    else:
-        gnorm = global_norm(grads, shards)
+    schedule's learning rate at the new step.
+
+    ``donate``: the update consumes ``params`` and ``state`` — every
+    parameter, m and v takes its new value in place and the step counter
+    too, and the same trees come back, as the reference's donated
+    buffers. The bits are the functional form's."""
+    gnorm = global_norm(grads, shards)
+    scale = _clip_scale(gnorm, cfg.grad_clip) if cfg.grad_clip > 0 else None
     step = state["step"] + 1
     if cfg.schedule == "cosine":
         lr = cosine_schedule(cfg, step)
@@ -145,22 +186,19 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
                                        device=step.device), stepf)
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
                                        device=step.device), stepf)
-
-    def upd(p, g, m, v):
-        gf = g.float()
-        m2 = cfg.b1 * m + (1 - cfg.b1) * gf
-        v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(gf)
-        mhat = m2 / b1c
-        vhat = v2 / b2c
-        delta = (mhat / (torch.sqrt(vhat) + cfg.eps)
-                 + cfg.weight_decay * p.float())
-        return (p.float() - lr * delta).to(p.dtype), m2, v2
-
-    outs = [upd(*a) for a in zip(_leaves(params), _leaves(grads),
-                                 _leaves(state["m"]), _leaves(state["v"]))]
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    outs = []
+    for p, g, m, v in zip(_leaves(params), _leaves(grads),
+                          _leaves(state["m"]), _leaves(state["v"])):
+        out = (p, m, v) if donate else tuple(map(torch.empty_like,
+                                                 (p, m, v)))
+        _leaf_update(cfg, lr, b1c, b2c, scale, p, g, m, v, out)
+        outs.append(out)
+    if donate:
+        state["step"].copy_(step)
+        return params, state, metrics
     pick = lambda i: _rebuild(params, iter([o[i] for o in outs]))  # noqa: E731,E501
-    return pick(0), {"m": pick(1), "v": pick(2), "step": step}, {
-        "grad_norm": gnorm, "lr": lr}
+    return pick(0), {"m": pick(1), "v": pick(2), "step": step}, metrics
 
 
 def adamw_step(cfg: AdamWConfig, params: Sequence[torch.Tensor],

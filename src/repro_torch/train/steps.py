@@ -23,9 +23,14 @@ they are), the loss shares fold the same way, and every process runs
 the same AdamW update on its leaves. The expert-parallel layer's
 backward crosses processes through ``_Exchange``.
 
-The step is functional like the reference's: ``params`` is not changed
-in place, and new parameter and state trees come back. A batch of numpy
-arrays moves to the parameters' device first.
+The step is functional like the reference's bare step: ``params`` is
+not changed in place, and new parameter and state trees come back. With
+``donate=True`` it is the reference's ``jax.jit(step, donate_argnums=(0,
+1))``: the step consumes ``params`` and ``opt_state``, writes the new
+parameters, moments and step counter into their tensors (``adamw_update
+(..., donate=True)``, the same bits) and returns those same trees; the
+old values are gone. A batch of numpy arrays moves to the parameters'
+device first.
 """
 from __future__ import annotations
 
@@ -68,10 +73,12 @@ def loss_and_grads(params: Any, cfg: ModelConfig,
 
 
 def make_train_step(cfg: ModelConfig, dist: Optional[DistContext],
-                    opt_cfg: AdamWConfig, microbatches: int = 1):
+                    opt_cfg: AdamWConfig, microbatches: int = 1,
+                    donate: bool = False):
     """Returns train_step(params, opt_state, batch) -> (params, state,
     metrics); metrics: ``loss``, ``grad_norm``, ``lr`` (0-d tensors; on a
-    fleet the global values, the same on every process)."""
+    fleet the global values, the same on every process). ``donate``: the
+    step updates ``params`` and ``opt_state`` in place and returns them."""
     fleet = dist is not None and dist.is_fleet
     layout = {}  # per params structure: (GradShards, fold sources)
 
@@ -109,7 +116,7 @@ def make_train_step(cfg: ModelConfig, dist: Optional[DistContext],
                 _leaves(grads), sources)))
             loss = dist.comm.fold(loss)
         new_params, new_state, metrics = adamw_update(
-            opt_cfg, params, grads, opt_state, shards)
+            opt_cfg, params, grads, opt_state, shards, donate=donate)
         metrics["loss"] = loss
         return new_params, new_state, metrics
 
