@@ -116,8 +116,9 @@ handle. Phases, each of which raises on a failed check:
    ``compile_spmm(uniform, 8, backends=("coo", "bsr"), hier="auto",
    measure=True)`` and ``compile_spmm(power-law, 8, hier="auto",
    measure=True)`` — on a quarter of the two matrices (``LIFE_SCALE``:
-   the same generators and seeds at 42,336 nodes; the rest of the phase
-   at full size) — time the model's top 3 candidates on the card (every
+   the same generators and seeds at 42,336 nodes, as the whole phase
+   since it was cut to keep the script in its limit) — time the model's
+   top 3 candidates on the card (every
    candidate printed with its model and measured ms, the winner beside
    the model-only decision; no candidate may be skipped), C within 2e-4
    of scipy float64 and the logged rows == ``volume_rows_padded``; the
@@ -127,7 +128,8 @@ handle. Phases, each of which raises on a failed check:
    ``donate=True`` than without, C bit-identical, a caller's CUDA B
    untouched; ``SpmmSession.build(power-law, 8, hier="auto",
    p_ladder=(4, 8))`` runs 2 MWVC builds, each rung's decisions equal
-   the reference's (``EXPECT_LADDER``) and C is within 2e-4, and
+   the reference's (``EXPECT_SERVE_LADDER``, phase 9's) and C is
+   within 2e-4, and
    ``on_resize(4)`` / ``on_resize(8)`` build nothing; a values-only
    change refreshes in place (drift 0.0, no new memo entry, C == a cold
    compile's bit for bit); 15% of the edges rewired hot-swaps to a
@@ -143,7 +145,7 @@ handle. Phases, each of which raises on a failed check:
    ``DONATION_CASES`` (the reference's own power-law pin among them),
    each strictly lower donated, with where each first call's peak falls
    (the allocator's history);
-9. serving, on a quarter of arxiv (phase 8's measured cells' matrices,
+9. serving, on a quarter of arxiv (phase 8's matrices,
    ``LIFE_SCALE``, to keep the script inside its limit): an
    ``SpmmWaveServer`` (max_batch 2, host B) over ``SpmmSession.build(
    power-law, 8, hier="auto", p_ladder=(4, 8))`` attached to an
@@ -203,7 +205,24 @@ handle. Phases, each of which raises on a failed check:
    CUDA events and host wall beside its staging and gloo seconds; each
    worker's K1–K4 calls of one h(b) replayed against the plain versions,
    one process at a time (paths ``mp_flat``, ``mp_hier``,
-   ``mp_uniform_hier``); (c) ``--supervise`` drills: a ``worker_kill``
+   ``mp_uniform_hier``). The same workers then run the MoE dispatch and
+   the rungs below the fleet: olmoe-1b-7b's ``compile_dispatch(cfg, 1024,
+   8, where=topo)`` at its published width (float32 x) and
+   ``dispatch_session`` through ``maybe_replan``'s three branches
+   (``EXPECT_MP_DISPATCH``; paths ``mp_dispatch``,
+   ``mp_dispatch_session``); a session with rungs (4, 6, 8) on each of
+   the power-law and uniform matrices, served at rung 8,
+   ``on_resize(6)`` (spans [(0, 4), (4, 6)]), ``on_resize(4)`` (worker 1
+   holds no rank, returns [0, 128], launches nothing and joins every
+   exchange), the group [2, 6) carved across the boundary and the whole
+   fleet again, no MWVC run on a resize (``EXPECT_MP_RUNG``; paths
+   ``mp_rung_power_law``, ``mp_rung_uniform``: the calls of one h(b) at
+   each of rungs 6 and 4 and on the group); and a
+   ``SpmmWaveServer`` wave failed twice on both workers, which degrade
+   8 -> 6 (``mp_degrade``). Every such call: C rows == the emulated
+   run's and within 2e-4 of float64, rows per axis and across
+   processes as the plan counts, median of 7 with staging and gloo
+   shares. (c) ``--supervise`` drills: a ``worker_kill``
    at ``stage:serve`` of rank 1 in epoch 0 recovers after one restart,
    and kills in every epoch with ``--max-restarts 0`` degrade to one
    process that serves rung 4; (a) and (c) run side by side before (b).
@@ -563,38 +582,8 @@ EXPECT_REPL = {
                                     (1,))))),
     },
 }
-# the reference's rungs of SpmmSession.build(power-law, 8, SpmmConfig(
-# hier="auto"), p_ladder=(4, 8)) (the JAX package's session, CPU run)
-EXPECT_LADDER = {
-    "full": {
-        8: dict(strategy="hier", P=8, G=2, L=4, schedule_kind="bucketed",
-                schedule_K=1, overlap=True,
-                modeled_time_flat=0.0030354198400000003,
-                modeled_time_hier=0.00054682528, volume_rows=260413,
-                volume_rows_padded=180992, volume_rows_padded_single=450656,
-                pattern_nnz=1116853),
-        4: dict(strategy="flat", P=4, schedule_kind="bucketed", schedule_K=2,
-                overlap=True, modeled_time_flat=0.00011088500266666666,
-                modeled_time_hier=0.000983150304, volume_rows=170538,
-                volume_rows_padded=334756, volume_rows_padded_single=511248,
-                pattern_nnz=1116853),
-    },
-    "quick": {
-        8: dict(strategy="hier", P=8, G=2, L=4, schedule_kind="bucketed",
-                schedule_K=1, overlap=True,
-                modeled_time_flat=0.00037697924977777783,
-                modeled_time_hier=7.4449472e-05, volume_rows=27371,
-                volume_rows_padded=18448, volume_rows_padded_single=46144,
-                pattern_nnz=107248),
-        4: dict(strategy="flat", P=4, schedule_kind="bucketed", schedule_K=1,
-                overlap=True, modeled_time_flat=1.5631459555555556e-05,
-                modeled_time_hier=0.000120893184, volume_rows=17789,
-                volume_rows_padded=40704, volume_rows_padded_single=54272,
-                pattern_nnz=107248),
-    },
-}
-# phase 9 runs on a quarter of arxiv (LIFE_SCALE: phase 8's measured
-# cells' matrices): the reference's rungs of SpmmSession.build(power-law
+# phases 8 and 9 run on a quarter of arxiv (LIFE_SCALE,
+# ``life_matrices``): the reference's rungs of SpmmSession.build(power-law
 # quarter, 8, SpmmConfig(hier="auto"), p_ladder=(4, 8)) there
 # (scripts/reference_phase9_pins.py: the JAX package's session, CPU run)
 EXPECT_SERVE_LADDER = {
@@ -3440,16 +3429,15 @@ def donation_case(a, cfg: dict, b_host: np.ndarray) -> dict:
                 peak_donated=at_d, peak_not=at_u, c=cd)
 
 
-# phase 8's measured-autotune cells (steps 1-2, and the torn autotune
-# entry of step 8) run on a quarter of the arxiv cell: nodes and edges
-# / 4, the same generators and seeds (cut to keep the script in its time
-# limit; every candidate is planned and prepared on the host)
+# phase 8 runs on a quarter of the arxiv cell: nodes and edges / 4, the
+# same generators and seeds (cut to keep the script in its time limit;
+# every measured candidate is planned and prepared on the host)
 LIFE_SCALE = 4
 
 
 def life_matrices(args):
-    """The uniform and power-law matrices of phase 8's measured cells and
-    their B (host), at 1 / LIFE_SCALE of phases 3-4's size."""
+    """The uniform and power-law matrices of phase 8 and their B (host),
+    at 1 / LIFE_SCALE of phases 3-4's size."""
     from repro_torch.core.sparse import power_law_sparse, random_sparse
 
     m = (16_384 if args.quick else M_FULL) // LIFE_SCALE
@@ -3460,9 +3448,9 @@ def life_matrices(args):
             power_law_sparse(m, m, nnz, 0.8, seed=0), b_host)
 
 
-def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
-    """Phase 8: the session lifecycle on the two SpMM matrices (its
-    measured-autotune cells on a quarter of them, ``life_matrices``).
+def lifecycle_phase(args, card) -> dict:
+    """Phase 8: the session lifecycle on a quarter of the two SpMM
+    matrices (``life_matrices``).
     Returns the kernel rows of the ``lifecycle`` path (one call of each
     measured winner — the uniform one on both backends — and of the
     refreshed handle, replayed against the plain versions)."""
@@ -3476,7 +3464,7 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
     from repro_torch.robustness import Fault, NumericalFault, inject
 
     t_phase = time.perf_counter()
-    expect = EXPECT_LADDER["quick" if args.quick else "full"]
+    expect = EXPECT_SERVE_LADDER["quick" if args.quick else "full"]
     scratch = os.path.join(ROOT, "build", "lifecycle")
     shutil.rmtree(scratch, ignore_errors=True)
     os.makedirs(scratch)
@@ -3485,6 +3473,7 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
     os.environ[autotune.CACHE_ENV] = os.path.join(scratch, "autotune")
     hooks = []
     hook = autotune.register_profile_hook(hooks.append)
+    a_u, a_p, b_host = life_matrices(args)
     b = torch.from_numpy(b_host).cuda()
     try:
         ops.reset_launch_counts()
@@ -3494,17 +3483,12 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
         # None): with G = 2 the hier K sweep repeats one schedule, so the
         # top 3 candidates of "auto" are all hier and the flat tier is
         # timed by its own measured compile
-        # on a quarter of the arxiv cell (LIFE_SCALE): every candidate is
-        # planned and prepared on the host, so these cells cost the most
-        # of the phase
-        a_uq, a_pq, bq_host = life_matrices(args)
-        bq = torch.from_numpy(bq_host).cuda()
-        cells = {"uniform": (a_uq, dict(backends=("coo", "bsr"),
+        cells = {"uniform": (a_u, dict(backends=("coo", "bsr"),
                                         hier="auto", measure=True)),
-                 "power_law": (a_pq, dict(hier="auto", measure=True)),
-                 "uniform_flat": (a_uq, dict(backends=("coo", "bsr"),
+                 "power_law": (a_p, dict(hier="auto", measure=True)),
+                 "uniform_flat": (a_u, dict(backends=("coo", "bsr"),
                                              measure=True)),
-                 "power_law_flat": (a_pq, dict(measure=True))}
+                 "power_law_flat": (a_p, dict(measure=True))}
         winners, timed = {}, {}
         with warnings.catch_warnings(record=True) as caught, \
                 autotune_watch() as watch:
@@ -3550,10 +3534,10 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
         c_first = {}
         for name, h in winners.items():
             a = cells[name][0]
-            c_first[name] = h(bq)
+            c_first[name] = h(b)
             check_rows(h, f"lifecycle {name}")
             log(f"  lifecycle {name}: max abs err vs scipy float64 "
-                f"{check_c(c_first[name], a, bq_host, name):.3g} (tol 2e-4); "
+                f"{check_c(c_first[name], a, b_host, name):.3g} (tol 2e-4); "
                 f"rows == volume_rows_padded "
                 f"{h.plan.volume_rows_padded(h.schedule)}")
         n_hooks = len(hooks)
@@ -3572,7 +3556,7 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
                 raise AssertionError(f"lifecycle {name}: the cache replay "
                                      f"timed {len(hooks) - n_hooks} runs or "
                                      f"changed its decisions")
-            if not torch.equal(h2(bq), c_first[name]):
+            if not torch.equal(h2(b), c_first[name]):
                 raise AssertionError(f"lifecycle {name}: the replayed "
                                      f"handle's C differs")
             log(f"  lifecycle {name}: cache replay in "
@@ -3711,7 +3695,7 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
         before = set(os.listdir(cache_dir))
         with inject([Fault(kind="autotune_corrupt", site="autotune_cache",
                            mode="empty")]) as plan:
-            compile_spmm(a_pq, P, cfg_c)
+            compile_spmm(a_p, P, cfg_c)
         (entry,) = [os.path.join(cache_dir, f)
                     for f in set(os.listdir(cache_dir)) - before]
         if plan.fired("autotune_corrupt") != 1 or os.path.getsize(entry):
@@ -3719,7 +3703,7 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
         n_hooks = len(hooks)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            hc = compile_spmm(a_pq, P, cfg_c)
+            hc = compile_spmm(a_p, P, cfg_c)
         if (not any("zero-byte entry" in str(w.message) for w in caught)
                 or len(hooks) == n_hooks or not os.path.getsize(entry)
                 or hc.decisions["decision_source"] != "measured"):
@@ -3751,13 +3735,13 @@ def lifecycle_phase(args, card, a_u, a_p, b_host) -> dict:
         #    handle, against their plain versions
         uni = winners["uniform"]
         rec = record_kernel_calls(lambda: (
-            uni(bq, backend="coo"), uni(bq, backend="bsr"),
-            winners["power_law"](bq), refreshed_call()))
+            uni(b, backend="coo"), uni(b, backend="bsr"),
+            winners["power_law"](b), refreshed_call()))
         paths = {k: {"lifecycle": (rec, launches)} for k in
                  ("gather_rows", "gather_rows_scaled", "scatter_add_rows",
                   "bsr_spmm", "bsr_spmm_acc") if rec[k]}
         rows = replay_paths(paths)
-        del rec, winners, uni, s, h8, hn, c_v, c_r, refreshed_call, bq
+        del rec, winners, uni, s, h8, hn, c_v, c_r, refreshed_call, b
     finally:
         autotune.unregister_profile_hook(hook)
         for k, v in saved_env.items():
@@ -4222,6 +4206,404 @@ EXPECT_MP = {
 }
 
 
+# phase 11 (b)'s sessions across the processes: the MoE dispatch of one
+# 8 x 128 prefill (phase 7's DISPATCH at the model's width, float32), and
+# a ladder below the fleet on the cells' power-law and uniform matrices:
+# rung 8, on_resize(6) (spans [(0, 4), (4, 6)]), on_resize(4) (worker 1
+# holds no rank), the group [2, 6) carved across the boundary, and back
+# to 8. Six ranks need 6 | M: the --quick rungs take 4080 nodes (4096
+# rounded down to 24 | M), the full ones the cells' 42,336.
+MP_LADDER = (4, 6, 8)
+MP_RUNG_CELLS = (("mp-powerlaw-arxiv flat", "power_law", "mp_rung_power_law",
+                  dict(backends=("coo",))),
+                 ("mp-uniform-arxiv hier", "uniform", "mp_rung_uniform",
+                  dict(backends=("bsr",), hier="auto")))
+MP_RUNG_SPANS = {"p8": [[0, 4], [4, 8]], "p6": [[0, 4], [4, 6]],
+                 "p4": [[0, 4], [4, 4]], "group26": [[0, 2], [2, 4]],
+                 "back8": [[0, 4], [4, 8]]}
+# the steps whose kernel calls and launches make a rung path (those below
+# the whole fleet: rung 8's plan is the cells' own, replayed there)
+MP_RUNG_PATH_STEPS = ("p6", "p4", "group26")
+MP_DISPATCH_DRIFTS = ("drift_ok", "values_refresh", "drift_replan")
+MP_DISPATCH_KERNELS = ("gather_rows", "gather_rows_scaled", "scatter_add_rows")
+# {path: the kernels it must launch}, every path of phase 11 (b)
+MP_PATH_KERNELS = dict(
+    [(path, MP_KERNELS[mat]) for _, mat, path, _ in MP_CELLS]
+    + [("mp_dispatch", MP_DISPATCH_KERNELS),
+       ("mp_dispatch_session", MP_DISPATCH_KERNELS)]
+    + [(path, MP_KERNELS[mat]) for _, mat, path, _ in MP_RUNG_CELLS])
+# the reference's decisions at each step and its events (the adopted
+# group's describe() left out: the reference's is a mesh's), from the JAX
+# package's SpmmSession on a (2, 4) mesh of host devices with the fleet's
+# network named: scripts/reference_fleet_pins.py
+EXPECT_MP_RUNG = {'full': {'mp-powerlaw-arxiv flat': {'back8': {'modeled_time_flat': 0.00027343890133333336,
+                                               'net': 'derived-gpu-2x4',
+                                               'overlap': True,
+                                               'schedule_K': 4,
+                                               'schedule_kind': 'bucketed',
+                                               'strategy': 'flat',
+                                               'volume_rows': 67604,
+                                               'volume_rows_padded': 214696},
+                                     'events': [{'action': 'resize',
+                                                 'census': 6,
+                                                 'changed': True,
+                                                 'rung': 6},
+                                                {'action': 'resize',
+                                                 'census': 4,
+                                                 'changed': True,
+                                                 'rung': 4},
+                                                {'P': 4,
+                                                 'action': 'adopt_topology'},
+                                                {'action': 'resize',
+                                                 'census': 8,
+                                                 'changed': True,
+                                                 'rung': 8}],
+                                     'group26': {'modeled_time_flat': 3.0229052444444446e-05,
+                                                 'net': 'derived-gpu-2x4',
+                                                 'overlap': True,
+                                                 'schedule_K': 1,
+                                                 'schedule_kind': 'bucketed',
+                                                 'strategy': 'flat',
+                                                 'volume_rows': 44066,
+                                                 'volume_rows_padded': 99144},
+                                     'p4': {'modeled_time_flat': 3.0229052444444446e-05,
+                                            'net': 'derived-gpu-2x4',
+                                            'overlap': True,
+                                            'schedule_K': 1,
+                                            'schedule_kind': 'bucketed',
+                                            'strategy': 'flat',
+                                            'volume_rows': 44066,
+                                            'volume_rows_padded': 99144},
+                                     'p6': {'modeled_time_flat': 0.00018971724799999998,
+                                            'net': 'derived-gpu-2x4',
+                                            'overlap': True,
+                                            'schedule_K': 3,
+                                            'schedule_kind': 'bucketed',
+                                            'strategy': 'flat',
+                                            'volume_rows': 57718,
+                                            'volume_rows_padded': 150108},
+                                     'p8': {'modeled_time_flat': 0.00027343890133333336,
+                                            'net': 'derived-gpu-2x4',
+                                            'overlap': True,
+                                            'schedule_K': 4,
+                                            'schedule_kind': 'bucketed',
+                                            'strategy': 'flat',
+                                            'volume_rows': 67604,
+                                            'volume_rows_padded': 214696}},
+          'mp-uniform-arxiv hier': {'back8': {'G': 2,
+                                              'L': 4,
+                                              'modeled_time_flat': 0.000297976608,
+                                              'modeled_time_hier': 8.628572800000001e-05,
+                                              'net': 'derived-gpu-2x4',
+                                              'overlap': True,
+                                              'schedule_K': 1,
+                                              'schedule_kind': 'bucketed',
+                                              'strategy': 'hier',
+                                              'volume_rows': 147373,
+                                              'volume_rows_padded': 51720},
+                                    'events': [{'action': 'resize',
+                                                'census': 6,
+                                                'changed': True,
+                                                'rung': 6},
+                                               {'action': 'resize',
+                                                'census': 4,
+                                                'changed': True,
+                                                'rung': 4},
+                                               {'P': 4,
+                                                'action': 'adopt_topology'},
+                                               {'action': 'resize',
+                                                'census': 8,
+                                                'changed': True,
+                                                'rung': 8}],
+                                    'group26': {'modeled_time_flat': 3.478785066666667e-05,
+                                                'modeled_time_hier': 0.00014471958400000002,
+                                                'net': 'derived-gpu-2x4',
+                                                'overlap': True,
+                                                'schedule_K': 1,
+                                                'schedule_kind': 'bucketed',
+                                                'strategy': 'flat',
+                                                'volume_rows': 92725,
+                                                'volume_rows_padded': 96084},
+                                    'p4': {'modeled_time_flat': 3.478785066666667e-05,
+                                           'modeled_time_hier': 0.00014471958400000002,
+                                           'net': 'derived-gpu-2x4',
+                                           'overlap': True,
+                                           'schedule_K': 1,
+                                           'schedule_kind': 'bucketed',
+                                           'strategy': 'flat',
+                                           'volume_rows': 92725,
+                                           'volume_rows_padded': 96084},
+                                    'p6': {'G': 2,
+                                           'L': 3,
+                                           'modeled_time_flat': 0.00039722868266666664,
+                                           'modeled_time_hier': 0.00010703198933333334,
+                                           'net': 'derived-gpu-2x4',
+                                           'overlap': True,
+                                           'schedule_K': 1,
+                                           'schedule_kind': 'bucketed',
+                                           'strategy': 'hier',
+                                           'volume_rows': 124756,
+                                           'volume_rows_padded': 50508},
+                                    'p8': {'G': 2,
+                                           'L': 4,
+                                           'modeled_time_flat': 0.000297976608,
+                                           'modeled_time_hier': 8.628572800000001e-05,
+                                           'net': 'derived-gpu-2x4',
+                                           'overlap': True,
+                                           'schedule_K': 1,
+                                           'schedule_kind': 'bucketed',
+                                           'strategy': 'hier',
+                                           'volume_rows': 147373,
+                                           'volume_rows_padded': 51720}}},
+ 'quick': {'mp-powerlaw-arxiv flat': {'back8': {'modeled_time_flat': 9.114352000000001e-05,
+                                                'net': 'derived-gpu-2x4',
+                                                'overlap': True,
+                                                'schedule_K': 1,
+                                                'schedule_kind': 'bucketed',
+                                                'strategy': 'flat',
+                                                'volume_rows': 7232,
+                                                'volume_rows_padded': 31752},
+                                      'events': [{'action': 'resize',
+                                                  'census': 6,
+                                                  'changed': True,
+                                                  'rung': 6},
+                                                 {'action': 'resize',
+                                                  'census': 4,
+                                                  'changed': True,
+                                                  'rung': 4},
+                                                 {'P': 4,
+                                                  'action': 'adopt_topology'},
+                                                 {'action': 'resize',
+                                                  'census': 8,
+                                                  'changed': True,
+                                                  'rung': 8}],
+                                      'group26': {'modeled_time_flat': 8.456704e-06,
+                                                  'net': 'derived-gpu-2x4',
+                                                  'overlap': True,
+                                                  'schedule_K': 1,
+                                                  'schedule_kind': 'bucketed',
+                                                  'strategy': 'flat',
+                                                  'volume_rows': 4659,
+                                                  'volume_rows_padded': 10776},
+                                      'p4': {'modeled_time_flat': 8.456704e-06,
+                                             'net': 'derived-gpu-2x4',
+                                             'overlap': True,
+                                             'schedule_K': 1,
+                                             'schedule_kind': 'bucketed',
+                                             'strategy': 'flat',
+                                             'volume_rows': 4659,
+                                             'volume_rows_padded': 10776},
+                                      'p6': {'modeled_time_flat': 6.463349688888888e-05,
+                                             'net': 'derived-gpu-2x4',
+                                             'overlap': True,
+                                             'schedule_K': 1,
+                                             'schedule_kind': 'bucketed',
+                                             'strategy': 'flat',
+                                             'volume_rows': 6209,
+                                             'volume_rows_padded': 20730},
+                                      'p8': {'modeled_time_flat': 9.114352000000001e-05,
+                                             'net': 'derived-gpu-2x4',
+                                             'overlap': True,
+                                             'schedule_K': 1,
+                                             'schedule_kind': 'bucketed',
+                                             'strategy': 'flat',
+                                             'volume_rows': 7232,
+                                             'volume_rows_padded': 31752}},
+           'mp-uniform-arxiv hier': {'back8': {'G': 2,
+                                               'L': 4,
+                                               'modeled_time_flat': 9.263053511111111e-05,
+                                               'modeled_time_hier': 2.6422464000000005e-05,
+                                               'net': 'derived-gpu-2x4',
+                                               'overlap': True,
+                                               'schedule_K': 1,
+                                               'schedule_kind': 'bucketed',
+                                               'strategy': 'hier',
+                                               'volume_rows': 14428,
+                                               'volume_rows_padded': 5160},
+                                     'events': [{'action': 'resize',
+                                                 'census': 6,
+                                                 'changed': True,
+                                                 'rung': 6},
+                                                {'action': 'resize',
+                                                 'census': 4,
+                                                 'changed': True,
+                                                 'rung': 4},
+                                                {'P': 4,
+                                                 'action': 'adopt_topology'},
+                                                {'action': 'resize',
+                                                 'census': 8,
+                                                 'changed': True,
+                                                 'rung': 8}],
+                                     'group26': {'modeled_time_flat': 8.802062222222222e-06,
+                                                 'modeled_time_hier': 3.208832e-05,
+                                                 'net': 'derived-gpu-2x4',
+                                                 'overlap': True,
+                                                 'schedule_K': 1,
+                                                 'schedule_kind': 'bucketed',
+                                                 'strategy': 'flat',
+                                                 'volume_rows': 9008,
+                                                 'volume_rows_padded': 10032},
+                                     'p4': {'modeled_time_flat': 8.802062222222222e-06,
+                                            'modeled_time_hier': 3.208832e-05,
+                                            'net': 'derived-gpu-2x4',
+                                            'overlap': True,
+                                            'schedule_K': 1,
+                                            'schedule_kind': 'bucketed',
+                                            'strategy': 'flat',
+                                            'volume_rows': 9008,
+                                            'volume_rows_padded': 10032},
+                                     'p6': {'G': 2,
+                                            'L': 3,
+                                            'modeled_time_flat': 8.395239822222222e-05,
+                                            'modeled_time_hier': 2.837572266666667e-05,
+                                            'net': 'derived-gpu-2x4',
+                                            'overlap': True,
+                                            'schedule_K': 1,
+                                            'schedule_kind': 'bucketed',
+                                            'strategy': 'hier',
+                                            'volume_rows': 12174,
+                                            'volume_rows_padded': 4974},
+                                     'p8': {'G': 2,
+                                            'L': 4,
+                                            'modeled_time_flat': 9.263053511111111e-05,
+                                            'modeled_time_hier': 2.6422464000000005e-05,
+                                            'net': 'derived-gpu-2x4',
+                                            'overlap': True,
+                                            'schedule_K': 1,
+                                            'schedule_kind': 'bucketed',
+                                            'strategy': 'hier',
+                                            'volume_rows': 14428,
+                                            'volume_rows_padded': 5160}}}}
+# the reference's compile_dispatch decisions on the fleet's network, then
+# dispatch_session through maybe_replan of the planned routing, of its
+# values halved and of the seed-1 routing: each step's decisions and
+# return, and the events (scripts/reference_fleet_pins.py)
+EXPECT_MP_DISPATCH = {'full': {'drift_ok': {'backends': ['coo'],
+                       'modeled_time_schedule': 2.78848e-05,
+                       'net': 'derived-gpu-2x4',
+                       'overlap': True,
+                       'pattern_nnz': 8192,
+                       'plan_strategy': 'joint',
+                       'schedule_K': 1,
+                       'schedule_kind': 'bucketed',
+                       'shape': [8424, 1024],
+                       'strategy': 'flat',
+                       'volume_rows': 4917,
+                       'volume_rows_padded': 6160,
+                       'volume_rows_padded_single': 7040},
+          'drift_replan': {'backends': ['coo'],
+                           'modeled_time_schedule': 2.82432e-05,
+                           'net': 'derived-gpu-2x4',
+                           'overlap': True,
+                           'pattern_nnz': 8192,
+                           'plan_strategy': 'joint',
+                           'schedule_K': 1,
+                           'schedule_kind': 'bucketed',
+                           'shape': [8488, 1024],
+                           'strategy': 'flat',
+                           'volume_rows': 4853,
+                           'volume_rows_padded': 6440,
+                           'volume_rows_padded_single': 7360},
+          'events': [{'action': 'drift_ok', 'drift': 0.0},
+                     {'action': 'values_refresh', 'drift': 0.0},
+                     {'action': 'drift_replan', 'drift': 1.0},
+                     {'action': 'replan',
+                      'drift': 1.0,
+                      'generation': 1,
+                      'rungs': [8]}],
+          'handle': {'backends': ['coo'],
+                     'modeled_time_schedule': 2.78848e-05,
+                     'net': 'derived-gpu-2x4',
+                     'overlap': True,
+                     'pattern_nnz': 8192,
+                     'plan_strategy': 'joint',
+                     'schedule_K': 1,
+                     'schedule_kind': 'bucketed',
+                     'shape': [8424, 1024],
+                     'strategy': 'flat',
+                     'volume_rows': 4917,
+                     'volume_rows_padded': 6160,
+                     'volume_rows_padded_single': 7040},
+          'replan-drift_ok': [0.0, False],
+          'replan-drift_replan': [1.0, True],
+          'replan-values_refresh': [0.0, False],
+          'values_refresh': {'backends': ['coo'],
+                             'modeled_time_schedule': 2.78848e-05,
+                             'net': 'derived-gpu-2x4',
+                             'overlap': True,
+                             'pattern_nnz': 8192,
+                             'plan_strategy': 'joint',
+                             'schedule_K': 1,
+                             'schedule_kind': 'bucketed',
+                             'shape': [8424, 1024],
+                             'strategy': 'flat',
+                             'volume_rows': 4917,
+                             'volume_rows_padded': 6160,
+                             'volume_rows_padded_single': 7040}},
+ 'quick': {'drift_ok': {'backends': ['coo'],
+                        'modeled_time_schedule': 1.3297280000000001e-05,
+                        'net': 'derived-gpu-2x4',
+                        'overlap': True,
+                        'pattern_nnz': 2048,
+                        'plan_strategy': 'joint',
+                        'schedule_K': 1,
+                        'schedule_kind': 'bucketed',
+                        'shape': [2304, 1024],
+                        'strategy': 'flat',
+                        'volume_rows': 1784,
+                        'volume_rows_padded': 2576,
+                        'volume_rows_padded_single': 3008},
+           'drift_replan': {'backends': ['coo'],
+                            'modeled_time_schedule': 1.365568e-05,
+                            'net': 'derived-gpu-2x4',
+                            'overlap': True,
+                            'pattern_nnz': 2048,
+                            'plan_strategy': 'joint',
+                            'schedule_K': 1,
+                            'schedule_kind': 'bucketed',
+                            'shape': [2224, 1024],
+                            'strategy': 'flat',
+                            'volume_rows': 1780,
+                            'volume_rows_padded': 2856,
+                            'volume_rows_padded_single': 3328},
+           'events': [{'action': 'drift_ok', 'drift': 0.0},
+                      {'action': 'values_refresh', 'drift': 0.0},
+                      {'action': 'drift_replan', 'drift': 1.0},
+                      {'action': 'replan',
+                       'drift': 1.0,
+                       'generation': 1,
+                       'rungs': [8]}],
+           'handle': {'backends': ['coo'],
+                      'modeled_time_schedule': 1.3297280000000001e-05,
+                      'net': 'derived-gpu-2x4',
+                      'overlap': True,
+                      'pattern_nnz': 2048,
+                      'plan_strategy': 'joint',
+                      'schedule_K': 1,
+                      'schedule_kind': 'bucketed',
+                      'shape': [2304, 1024],
+                      'strategy': 'flat',
+                      'volume_rows': 1784,
+                      'volume_rows_padded': 2576,
+                      'volume_rows_padded_single': 3008},
+           'replan-drift_ok': [0.0, False],
+           'replan-drift_replan': [1.0, True],
+           'replan-values_refresh': [0.0, False],
+           'values_refresh': {'backends': ['coo'],
+                              'modeled_time_schedule': 1.3297280000000001e-05,
+                              'net': 'derived-gpu-2x4',
+                              'overlap': True,
+                              'pattern_nnz': 2048,
+                              'plan_strategy': 'joint',
+                              'schedule_K': 1,
+                              'schedule_kind': 'bucketed',
+                              'shape': [2304, 1024],
+                              'strategy': 'flat',
+                              'volume_rows': 1784,
+                              'volume_rows_padded': 2576,
+                              'volume_rows_padded_single': 3008}}}
+
+
 def slow_tier_rows(plan, L: int):
     """(B rows, C rows) of a flat plan whose ranks sit in different
     groups of L ranks (``HierPlan.inter_group_rows_flat``)."""
@@ -4236,18 +4618,301 @@ def slow_tier_rows(plan, L: int):
 def check_c_rows(c: torch.Tensor, blocks, a, b_host: np.ndarray,
                  what: str) -> float:
     """The rows of C a process holds (``row_blocks``) within 2e-4 of
-    scipy's product in float64."""
+    scipy's product in float64 (none on an empty span)."""
     import scipy.sparse as sp
 
     a64 = sp.csr_matrix((a.data.astype(np.float64), a.indices, a.indptr),
                         shape=a.shape)
     b64 = b_host.astype(np.float64)
-    ref = np.concatenate([a64[s:e] @ b64 for s, e in blocks])
+    ref = np.concatenate([a64[s:e] @ b64 for s, e in blocks]
+                         or [np.zeros((0, b64.shape[1]))])
     got = c.double().cpu().numpy()
     if got.shape != ref.shape or not np.isfinite(got).all():
         raise AssertionError(f"{what}: C rows {got.shape} or values bad")
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4, err_msg=what)
-    return float(np.abs(got - ref).max())
+    return float(np.abs(got - ref).max()) if got.size else 0.0
+
+
+def _jsonable(x):
+    return json.loads(json.dumps(x, default=list))
+
+
+def check_pinned(h, want: dict, what: str) -> dict:
+    """The handle's decisions (the keys of ``want``) == the pinned
+    reference's."""
+    st = h.stats()
+    got = _jsonable({k: st[k] for k in want if k in st})
+    if got != want:
+        raise AssertionError(f"{what}: decisions {got} != {want}")
+    return got
+
+
+def mp_times(h, b) -> dict:
+    """``h(b)`` median of 7 by CUDA events and host wall, beside each
+    call's staging and gloo host seconds (``transport()``)."""
+    dev_ms, host_ms, stage_ms, gloo_ms = [], [], [], []
+    for _ in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        start.record()
+        h(b)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+        tr = h.comm.transport()
+        stage_ms.append(tr["stage_s"] * 1e3)
+        gloo_ms.append(tr["gloo_s"] * 1e3)
+    return {"ms": statistics.median(dev_ms),
+            "host_ms": statistics.median(host_ms),
+            "stage_ms": statistics.median(stage_ms),
+            "gloo_ms": statistics.median(gloo_ms)}
+
+
+def _path_calls(recorded, path: str):
+    """``recorded[path]``: the kernel calls and launches a path gathers
+    over its steps, as ``replay_paths`` takes them."""
+    return recorded.setdefault(path, [collections.defaultdict(list),
+                                      collections.Counter()])
+
+
+def mp_served(h, b_dev, b_full, a, b_host, what: str, kernels,
+              calls=None) -> dict:
+    """One counted ``h(b_dev)`` on the fleet, checked: this process's C
+    rows ``torch.equal`` to the same rows of the emulated run of the plan
+    (``Topology.local(P)`` on the card) and within 2e-4 of float64, rows
+    per axis summed over the processes == the emulated log's, rows
+    across processes == ``plan_crossing_rows()``; a process whose span
+    is empty launches nothing and returns [0, N], and still enters every
+    collective. ``calls`` (``_path_calls``) gathers the kernel calls of
+    one more ``h(b_dev)`` (where the span holds ranks) and the counted
+    run's launches. Returns the call's record and its times."""
+    from repro_torch.core.api import materialize_payload
+    from repro_torch.distributed.topology import Topology
+    from repro_torch.kernels import ops
+
+    lo, hi = h.comm.span
+    if calls is not None and lo < hi:
+        for k, got in record_kernel_calls(lambda: h(b_dev)).items():
+            calls[0][k].extend(got)
+    ops.reset_launch_counts()
+    c = h(b_dev)
+    torch.cuda.synchronize()
+    launches = {k: ops.launch_counts()[k] for k in kernels}
+    if calls is not None:
+        calls[1].update(launches)
+    axes = {str(ax): [h.comm.fleet_rows(ax), None]
+            for ax in (None, "x", "g", "l")}
+    crossing = h.comm.fleet_rows(crossing=True)
+    transport = h.comm.transport()
+    emu = materialize_payload(h.save_payload(), Topology.local(h.P, h.device))
+    c_emu = emu(b_full)
+    for ax in axes:
+        axes[ax][1] = emu.comm.rows(None if ax == "None" else ax)
+    same = torch.equal(c, torch.cat([c_emu[s:e] for s, e in h.row_blocks()]
+                                    or [c_emu[:0]]))
+    del emu, c_emu
+    if not same or any(f != e for f, e in axes.values()) or \
+            crossing != h.plan_crossing_rows() or c.device != h.device:
+        raise AssertionError(
+            f"{what}: C == emulated {same} (on {c.device}); rows (fleet, "
+            f"emulated) {axes}; crossing {crossing} vs the plan's "
+            f"{h.plan_crossing_rows()}")
+    if lo == hi and (any(launches.values())
+                     or tuple(c.shape) != (0, b_full.shape[1])):
+        raise AssertionError(f"{what}: an empty span launched {launches} "
+                             f"and returned {tuple(c.shape)}")
+    err = check_c_rows(c, h.row_blocks(), a, b_host, what)
+    return dict(span=[lo, hi], row_blocks=h.row_blocks(), rows=axes,
+                crossing_rows=crossing, transport=transport,
+                max_abs_err=err, launches=launches, **mp_times(h, b_dev))
+
+
+def _launched(calls, kernels, what: str) -> None:
+    missing = [k for k in kernels if calls[1][k] < 1]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched "
+                             f"({dict(calls[1])})")
+
+
+def mp_dispatch(args, topo, recorded) -> dict:
+    """Phase 11 (b)'s MoE dispatch across the processes: olmoe-1b-7b's
+    ``compile_dispatch(cfg, 1024, 8, where=topo)`` on one prefill's
+    tokens at the model's width, then ``dispatch_session`` through
+    ``maybe_replan``'s three branches; decisions, returns and events ==
+    ``EXPECT_MP_DISPATCH``, every call ``mp_served``. Paths
+    ``mp_dispatch`` (the handle) and ``mp_dispatch_session`` (the
+    session's handle after the swap)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.moe import (
+        compile_dispatch, dispatch_matrix, dispatch_session,
+    )
+
+    cfg = (get_smoke_config if args.quick else get_config)(LM_ARCH)
+    T, M = DISPATCH["tokens"], DISPATCH["M"]
+    expect = EXPECT_MP_DISPATCH["quick" if args.quick else "full"]
+    x_host = np.random.default_rng(3).standard_normal((T, cfg.d_model),
+                                                      dtype=np.float32)
+    x_full = torch.from_numpy(x_host).to(topo.device)  # the emulated run's
+    x_dev = topo.put_global(x_host)  # this process's tokens
+    a = dispatch_matrix(cfg, T, M)
+    t0 = time.perf_counter()
+    hd = compile_dispatch(cfg, T, M, where=topo)
+    prep_s = time.perf_counter() - t0
+    out = {"mp_dispatch": dict(
+        mp_served(hd, x_dev, x_full, a, x_host, "mp_dispatch",
+                  MP_DISPATCH_KERNELS, _path_calls(recorded, "mp_dispatch")),
+        decisions=check_pinned(hd, expect["handle"], "mp_dispatch"),
+        prep_s=prep_s, width=cfg.d_model)}
+    _launched(recorded["mp_dispatch"], MP_DISPATCH_KERNELS, "mp_dispatch")
+    del hd
+    t0 = time.perf_counter()
+    sess = dispatch_session(cfg, T, M, where=topo)
+    check_pinned(sess.handle(), expect["handle"], "mp_dispatch_session")
+    prep_s = time.perf_counter() - t0
+    drifted = {"drift_ok": a,
+               "values_refresh": dataclasses.replace(a, data=a.data * 0.5),
+               "drift_replan": dispatch_matrix(cfg, T, M, seed=1)}
+    steps = {}
+    for name in MP_DISPATCH_DRIFTS:
+        t0 = time.perf_counter()
+        got = list(sess.maybe_replan(drifted[name]))
+        replan_s = time.perf_counter() - t0
+        if got != expect[f"replan-{name}"]:
+            raise AssertionError(f"mp_dispatch_session: maybe_replan "
+                                 f"({name}) returned {got}")
+        h = sess.handle()
+        last = name == MP_DISPATCH_DRIFTS[-1]
+        steps[name] = dict(
+            mp_served(h, x_dev, x_full, drifted[name], x_host,
+                      f"mp_dispatch_session {name}", MP_DISPATCH_KERNELS,
+                      _path_calls(recorded, "mp_dispatch_session")
+                      if last else None),
+            decisions=check_pinned(h, expect[name],
+                                   f"mp_dispatch_session {name}"),
+            replan=got, replan_s=replan_s)
+    _launched(recorded["mp_dispatch_session"], MP_DISPATCH_KERNELS,
+              "mp_dispatch_session")
+    events = _jsonable(sess.events)
+    if events != expect["events"]:
+        raise AssertionError(f"mp_dispatch_session: events {events}")
+    out["mp_dispatch_session"] = dict(steps[MP_DISPATCH_DRIFTS[-1]],
+                                      steps=steps, events=events,
+                                      prep_s=prep_s)
+    return out
+
+
+def rung_inputs(args, mats, b_host, b_full):
+    """The rung sessions' matrices and B: the cells' own, or at --quick
+    the same generators on 4080 nodes (six ranks need 6 | M)."""
+    from repro_torch.core.sparse import power_law_sparse, random_sparse
+
+    m = b_host.shape[0]
+    m_r = m - m % 24
+    if m_r == m:
+        return mats, b_host, b_full
+    nnz = (7 * 16_384) // LIFE_SCALE
+    return ({"power_law": power_law_sparse(m_r, m_r, nnz, 0.8, seed=0),
+             "uniform": random_sparse(m_r, m_r, nnz / m_r ** 2, seed=0)},
+            np.ascontiguousarray(b_host[:m_r]), b_full[:m_r])
+
+
+def mp_rung(args, topo, mats, b_host, b_full, recorded):
+    """Phase 11 (b)'s rungs below the fleet: per ``MP_RUNG_CELLS`` a
+    session with rungs (4, 6, 8), rung 8, ``on_resize(6)``,
+    ``on_resize(4)``, ``adopt_topology(topo.subtopology(slice(2, 6)))``
+    and ``on_resize(topo)``; at each step the span table, decisions ==
+    ``EXPECT_MP_RUNG`` and ``mp_served``; no MWVC run after the build;
+    the events. The path's kernel calls and launches are those of the
+    steps below the fleet (``MP_RUNG_PATH_STEPS``). Returns ({cell:
+    record}, the power-law session, back on rung 8)."""
+    from repro_torch import SpmmConfig
+    from repro_torch.core.planner import plan_build_count
+    from repro_torch.core.session import SpmmSession
+
+    expect = EXPECT_MP_RUNG["quick" if args.quick else "full"]
+    out, sessions = {}, {}
+    for what, mat, path, fields in MP_RUNG_CELLS:
+        t0 = time.perf_counter()
+        sess = SpmmSession.build(mats[mat], topo, SpmmConfig(**fields),
+                                 p_ladder=MP_LADDER)
+        build_s = time.perf_counter() - t0
+        builds = plan_build_count()
+        steps = {"p8": sess.handle, "p6": lambda: sess.on_resize(6),
+                 "p4": lambda: sess.on_resize(4),
+                 "group26": lambda: sess.adopt_topology(
+                     topo.subtopology(slice(2, 6))),
+                 "back8": lambda: sess.on_resize(topo)}
+        got = {}
+        for step, switch in steps.items():
+            t0 = time.perf_counter()
+            h = switch()
+            switch_s = time.perf_counter() - t0
+            spans = [list(s) for s in h.topology.spans]
+            if spans != MP_RUNG_SPANS[step]:
+                raise AssertionError(f"{what} {step}: spans {spans}")
+            got[step] = dict(
+                mp_served(h, h.topology.put_global(b_host), b_full,
+                          mats[mat], b_host, f"{what} {step}",
+                          MP_KERNELS[mat], _path_calls(recorded, path)
+                          if step in MP_RUNG_PATH_STEPS else None),
+                decisions=check_pinned(h, expect[what][step],
+                                       f"{what} {step}"),
+                P=h.P, spans=spans, switch_s=switch_s)
+        if plan_build_count() != builds:
+            raise AssertionError(f"{what}: a resize re-ran MWVC")
+        _launched(recorded[path], MP_KERNELS[mat], path)
+        events = _jsonable(sess.events)
+        adopted = [e.pop("topology") for e in events
+                   if e["action"] == "adopt_topology"]
+        if events != expect[what]["events"] or adopted != [dict(
+                topo.subtopology(slice(2, 6)).describe(), group=[2, 6])]:
+            raise AssertionError(f"{what}: events {events}, {adopted}")
+        out[what] = {"build_s": build_s, "steps": got, "events": events}
+        sessions[mat] = sess
+    return out, sessions["power_law"]
+
+
+def mp_degrade(sess, a, b_host, b_full) -> dict:
+    """Phase 11 (b)'s degrade: a ``SpmmWaveServer`` over the power-law
+    rung session (on rung 8) whose first wave fails twice on every
+    process (``wave_error``, ``times=2``): both degrade 8 -> 6 and serve
+    the wave there, every output == the emulated rung 6's."""
+    from repro_torch.core.api import materialize_payload
+    from repro_torch.distributed.topology import Topology
+    from repro_torch.robustness.faults import Fault, inject
+    from repro_torch.serving.scheduler import SpmmRequest, SpmmWaveServer
+
+    if sess.current_P != P:
+        raise AssertionError(f"mp_degrade: the session is on rung "
+                             f"{sess.current_P}")
+    server = SpmmWaveServer(sess, max_batch=2, max_retries=2, backoff=0.0)
+    reqs = [SpmmRequest(i, b_host) for i in range(4)]
+    for req in reqs:
+        server.submit(req)
+    with inject([Fault(kind="wave_error", site="wave", times=2)]) as plan:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = server.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    events = [e for e in server.events if e["action"] != "wave_failed"]
+    h = sess.handle()
+    if events != [{"action": "degrade", "from": P, "to": 6}] or \
+            plan.fired("wave_error") != 2 or stats.dropped_waves or \
+            stats.served != len(reqs) or sess.current_P != 6:
+        raise AssertionError(f"mp_degrade: events {events}, {stats}")
+    emu = materialize_payload(h.save_payload(), Topology.local(h.P, h.device))
+    c_emu = emu(b_full)
+    want = torch.cat([c_emu[s:e] for s, e in h.row_blocks()])
+    if not all(torch.equal(req.output, want) for req in reqs):
+        raise AssertionError("mp_degrade: an output != the emulated rung's")
+    return {"events": events, "stats": dataclasses.asdict(stats),
+            "run_s": run_s, "ms_per_request": run_s * 1e3 / len(reqs),
+            "span": list(h.comm.span), "max_abs_err": check_c_rows(
+                reqs[0].output, h.row_blocks(), a, b_host, "mp_degrade")}
 
 
 def mp_worker(args) -> None:
@@ -4257,10 +4922,8 @@ def mp_worker(args) -> None:
     import torch.distributed as dist
 
     from repro_torch import SpmmConfig, compile_spmm
-    from repro_torch.core.api import _tensor_leaves, materialize_payload
+    from repro_torch.core.api import _tensor_leaves
     from repro_torch.core.sparse import power_law_sparse, random_sparse
-    from repro_torch.distributed.topology import Topology
-    from repro_torch.kernels import ops
     from repro_torch.launch.multiprocess import initialize, shutdown
 
     topo = initialize(timeout=MP_TIMEOUT)
@@ -4301,69 +4964,34 @@ def mp_worker(args) -> None:
                                  f"{want}")
         if any(t.device != topo.device for _, t in _tensor_leaves(h.ex)):
             raise AssertionError(f"{what}: exec arrays off the card")
-        emu = materialize_payload(h.save_payload(),
-                                  Topology.local(P, topo.device))
-        # the kernel calls of one h(b), outside the counted run
-        recorded[path] = [record_kernel_calls(lambda: h(b_dev))]
-        ops.reset_launch_counts()
-        c = h(b_dev)
-        torch.cuda.synchronize()
-        launches = ops.launch_counts()
-        recorded[path].append(launches)
-        missing = [k for k in MP_KERNELS[mat] if launches[k] < 1]
-        if missing or c.device != topo.device:
-            raise AssertionError(f"{what}: {missing} not launched "
-                                 f"({launches}) or C off the card")
-        axes = {str(ax): [h.comm.fleet_rows(ax), None]
-                for ax in (None, "x", "g", "l")}
-        crossing = h.comm.fleet_rows(crossing=True)
-        transport = h.comm.transport()
-        c_emu = emu(b_full)
-        for ax in axes:
-            axes[ax][1] = emu.comm.rows(None if ax == "None" else ax)
-        same = torch.equal(c, torch.cat([c_emu[s:e]
-                                         for s, e in h.row_blocks()]))
-        del emu, c_emu
+        cell = mp_served(h, b_dev, b_full, a, b_host, what, MP_KERNELS[mat],
+                         _path_calls(recorded, path))
+        _launched(recorded[path], MP_KERNELS[mat], what)
         vol_axis = "g" if h.strategy == "hier" else "None"
-        if not same or any(f != e for f, e in axes.values()) or \
-                axes[vol_axis][0] != st["volume_rows_padded"] or \
-                crossing != want["crossing_padded"]:
+        if cell["rows"][vol_axis][0] != st["volume_rows_padded"]:
             raise AssertionError(
-                f"worker {me} {what}: C == emulated {same}; rows (fleet, "
-                f"emulated) {axes} vs volume_rows_padded "
-                f"{st['volume_rows_padded']}; crossing {crossing} vs "
-                f"{want['crossing_padded']}")
-        err = check_c_rows(c, h.row_blocks(), a, b_host, what)
+                f"worker {me} {what}: rows (fleet, emulated) "
+                f"{cell['rows']} vs volume_rows_padded "
+                f"{st['volume_rows_padded']}")
         log(f"[worker {me}] {what}: checked at "
             f"{time.perf_counter() - t0:.1f} s")
-        dev_ms, host_ms, stage_ms, gloo_ms = [], [], [], []
-        for _ in range(7):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            start.record()
-            h(b_dev)
-            end.record()
-            torch.cuda.synchronize()
-            host_ms.append((time.perf_counter() - t1) * 1e3)
-            dev_ms.append(start.elapsed_time(end))
-            tr = h.comm.transport()
-            stage_ms.append(tr["stage_s"] * 1e3)
-            gloo_ms.append(tr["gloo_s"] * 1e3)
-        out["cells"][what] = {
-            "decisions": {k: list(v) if isinstance(v, tuple) else v
-                          for k, v in got.items()},
-            "row_blocks": h.row_blocks(), "prep_s": prep_s,
-            "rows": axes, "crossing_rows": crossing,
-            "crossing_bytes": crossing * N_COLS * 4,
-            "transport": transport, "max_abs_err": err,
-            "launches": {k: launches[k] for k in MP_KERNELS[mat]},
-            "ms": statistics.median(dev_ms),
-            "host_ms": statistics.median(host_ms),
-            "stage_ms": statistics.median(stage_ms),
-            "gloo_ms": statistics.median(gloo_ms)}
-    del b_full
+        out["cells"][what] = dict(
+            cell, prep_s=prep_s,
+            decisions={k: list(v) if isinstance(v, tuple) else v
+                       for k, v in got.items()},
+            crossing_bytes=cell["crossing_rows"] * N_COLS * 4)
+    del h
+    # the MoE dispatch, the rungs below the fleet, the wave server's
+    # degrade
+    t0 = time.perf_counter()
+    out.update(mp_dispatch(args, topo, recorded))
+    log(f"[worker {me}] mp_dispatch: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mats, b_host, b_full = rung_inputs(args, mats, b_host, b_full)
+    out["rungs"], sess = mp_rung(args, topo, mats, b_host, b_full, recorded)
+    log(f"[worker {me}] mp_rung: {time.perf_counter() - t0:.1f} s")
+    out["degrade"] = mp_degrade(sess, mats["power_law"], b_host, b_full)
+    del b_full, sess
     torch.cuda.empty_cache()
     # every recorded kernel call against its plain version, one process
     # at a time (both share the card, and the replays are timed)
@@ -4372,8 +5000,8 @@ def mp_worker(args) -> None:
         if turn == me:
             t0 = time.perf_counter()
             rows = replay_paths({
-                k: {path: recorded[path] for _, mat, path, _ in MP_CELLS
-                    if k in MP_KERNELS[mat]}
+                k: {path: recorded[path]
+                    for path, ks in MP_PATH_KERNELS.items() if k in ks}
                 for k in ("gather_rows", "gather_rows_scaled",
                           "scatter_add_rows", "bsr_spmm", "bsr_spmm_acc")})
             log(f"[worker {me}] kernel calls replayed in "
@@ -4383,6 +5011,55 @@ def mp_worker(args) -> None:
     with open(os.path.join(args.mp_worker, f"rank{me}.json"), "w") as f:
         json.dump(out, f)
     shutdown()
+
+
+def _served_line(rec, label: str, card: str) -> None:
+    share = lambda x: x / rec["host_ms"] if rec["host_ms"] else 0.0  # noqa: E731,E501
+    log(f"  {label} rows {rec['row_blocks']}: C == emulated; max abs err "
+        f"vs float64 {rec['max_abs_err']:.3g} (tol 2e-4); launches "
+        f"{rec['launches']}; h(b) [{card}] median of 7: {rec['ms']:.3f} ms "
+        f"device events, {rec['host_ms']:.3f} ms host wall; staging "
+        f"{rec['stage_ms']:.3f} ms ({share(rec['stage_ms']):.1%}), gloo "
+        f"{rec['gloo_ms']:.3f} ms ({share(rec['gloo_ms']):.1%}); "
+        f"{rec['transport']['exchanges']} exchanges, "
+        f"{rec['transport']['staged_bytes']} B staged")
+
+
+def mp_session_log(res, card: str) -> None:
+    """Phase 11 (b)'s dispatch, rungs and degrade, each worker's."""
+    for path in ("mp_dispatch", "mp_dispatch_session"):
+        d = res[0][path]
+        log(f"{path} (width {res[0]['mp_dispatch']['width']}, prep "
+            f"{d['prep_s']:.2f} s) decisions: {json.dumps(d['decisions'])}")
+        log(f"  rows (fleet, emulated) by axis {json.dumps(d['rows'])}; "
+            f"across processes {d['crossing_rows']} rows")
+        for r in res:
+            _served_line(r[path], f"worker {r['process']}", card)
+    d = res[0]["mp_dispatch_session"]
+    for name, st in d["steps"].items():
+        log(f"  maybe_replan ({name}) -> {st['replan']} in "
+            f"{st['replan_s']:.2f} s; volume_rows_padded "
+            f"{st['decisions']['volume_rows_padded']}; worker errors "
+            f"{[r['mp_dispatch_session']['steps'][name]['max_abs_err'] for r in res]}")  # noqa: E501
+    log(f"  events (== the reference's): {json.dumps(d['events'])}")
+    for what, cell in res[0]["rungs"].items():
+        log(f"{what} rungs {MP_LADDER}: session build {cell['build_s']:.1f}"
+            f" s; events (== the reference's) {json.dumps(cell['events'])}")
+        for step in MP_RUNG_SPANS:
+            st = cell["steps"][step]
+            log(f"  {step}: P={st['P']}, spans {st['spans']}, switch "
+                f"{st['switch_s']:.2f} s, decisions "
+                f"{json.dumps(st['decisions'])}; rows (fleet, emulated) "
+                f"{json.dumps(st['rows'])}; across {st['crossing_rows']}")
+            for r in res:
+                _served_line(r["rungs"][what]["steps"][step],
+                             f"{step} worker {r['process']}", card)
+    for r in res:
+        d = r["degrade"]
+        log(f"mp_degrade worker {r['process']}: {json.dumps(d['events'])}; "
+            f"{json.dumps(d['stats'])}; span {d['span']} on rung 6; "
+            f"run() {d['run_s']:.3f} s host wall, {d['ms_per_request']:.3f}"
+            f" ms a request; max abs err {d['max_abs_err']:.3g}")
 
 
 def _launchers(runs):
@@ -4506,6 +5183,7 @@ def mp_phase(args, card: str) -> dict:
                 f"({cell['gloo_ms'] / cell['host_ms']:.1%}); "
                 f"{cell['transport']['exchanges']} exchanges, "
                 f"{cell['transport']['staged_bytes']} B staged")
+    mp_session_log(res, card)
     rows = {}
     for k, per_path in res[0]["kernels"].items():
         for path, row in per_path.items():
@@ -7517,7 +8195,7 @@ def main() -> int:
     mark("phase 10")
     # 8. the lifecycle: measured autotuning, the cache, donation, the
     #    session ladder, drift, the bundle, faults --------------------------
-    for k, extra in lifecycle_phase(args, card, a_u, a_p, b_host).items():
+    for k, extra in lifecycle_phase(args, card).items():
         per_kernel[k].update(extra)
     gc.collect()
     torch.cuda.empty_cache()

@@ -20,18 +20,45 @@ schedule) and the unpadded slow-tier rows (B, C) of the plan and of its
 flat plan. ``--scale 1`` gives the full-size pins, which the script
 reproduces as a check of itself.
 
+Phase 11 (b)'s fleet sessions get theirs too. ``EXPECT_MP_DISPATCH``:
+olmoe-1b-7b's dispatch of 1024 tokens over M = 8 (``--quick``: its smoke
+config), the handle's decisions, then ``dispatch_session`` through
+``maybe_replan``'s three branches (the planned routing, its values
+halved, the seed-1 routing): each step's decisions and return, and the
+events. ``EXPECT_MP_RUNG``: a session with rungs (4, 6, 8) on the
+power-law (flat, coo) and uniform (``hier="auto"``, bsr) matrices, the
+decisions at each step (rung 8, ``on_resize(6)``, ``on_resize(4)``, the
+carved group [2, 6), back to 8) and the events. Both run the reference's
+``SpmmSession`` itself on eight host devices as a (2, 4) mesh with the
+fleet's derived network named (``net=derived-gpu-2x4``), and each rung's
+decisions are checked against ``_plan_and_tune`` on the fleet stand-in.
+The quick rungs use 4080 nodes (4096 rounded down to 24 | M: six ranks
+need equal row blocks).
+
 Run from the repo root (host planning only, a few minutes of CPU):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_fleet_pins.py
 """
 import argparse
+import dataclasses
+import json
+import os
 import pprint
 from types import SimpleNamespace
 
-from repro.core.api import SpmmConfig, _plan_and_tune
-from repro.core.sparse import power_law_sparse, random_sparse
-from repro.distributed.topology import Topology
-from repro.models.gnn import normalize_adjacency
+# the sessions' handles live on eight host devices
+os.environ.setdefault("XLA_FLAGS",
+                      "--xla_force_host_platform_device_count=8")
+
+from repro.configs import get_config, get_smoke_config  # noqa: E402
+from repro.core.api import SpmmConfig, _plan_and_tune  # noqa: E402
+from repro.core.comm_model import NetworkSpec  # noqa: E402
+from repro.core.session import SpmmSession  # noqa: E402
+from repro.core.sparse import power_law_sparse, random_sparse  # noqa: E402
+from repro.distributed.topology import Topology  # noqa: E402
+from repro.launch.mesh import make_spmm_mesh  # noqa: E402
+from repro.models.gnn import normalize_adjacency  # noqa: E402
+from repro.models.moe import dispatch_matrix, dispatch_session  # noqa: E402
 
 M_FULL, NNZ_FULL, SCALE = 169_344, 1_166_243, 4
 NPROC, LOCAL = 2, 4
@@ -49,6 +76,22 @@ MP_TRAIN_CELLS = (("mp-gcn-train-arxiv flat", "power_law", {}),
 MP_KEYS = ("strategy", "G", "L", "net", "schedule_kind", "schedule_K",
            "overlap", "modeled_time_flat", "modeled_time_hier",
            "volume_rows", "volume_rows_padded")
+# chip_smoke.MP_RUNG_CELLS / MP_DISPATCH
+MP_RUNG_CELLS = (("mp-powerlaw-arxiv flat", "power_law",
+                  dict(backends=("coo",))),
+                 ("mp-uniform-arxiv hier", "uniform",
+                  dict(backends=("bsr",), hier="auto")))
+MP_LADDER = (4, 6, 8)
+RUNG_STEPS = ("p8", "p6", "p4", "group26", "back8")
+DISPATCH = dict(arch="olmoe-1b-7b", tokens=1024, M=8)
+DRIFTS = ("drift_ok", "values_refresh", "drift_replan")
+DISPATCH_KEYS = ("strategy", "plan_strategy", "net", "shape", "backends",
+                 "schedule_kind", "schedule_K", "overlap",
+                 "modeled_time_schedule", "volume_rows",
+                 "volume_rows_padded", "volume_rows_padded_single",
+                 "pattern_nnz")
+# the network ``net="auto"`` derives on the GPU fleet
+FLEET_NET = NetworkSpec("derived-gpu-2x4", 450e9, 25e9, group_size=LOCAL)
 TRAIN_KEYS = ("strategy", "G", "L", "net", "schedule_kind", "schedule_K",
               "overlap", "modeled_time_flat", "modeled_time_hier",
               "modeled_time_schedule", "modeled_time_fused", "volume_rows",
@@ -91,11 +134,12 @@ def slow_tier_rows(plan):
     return b, c
 
 
-def plan_cells(cells, mats, keys, fleet_rows: bool) -> dict:
+def plan_cells(cells, mats, keys, fleet_rows: bool,
+               P_of=lambda what: NPROC * LOCAL) -> dict:
     topo, out = fleet_topology(), {}
     for what, mat, fields in cells:
         plan, hier, sched, dec = _plan_and_tune(
-            mats[mat], NPROC * LOCAL, SpmmConfig(**fields), topo)
+            mats[mat], P_of(what), SpmmConfig(**fields), topo)
         # the fields ``DistSpmm.stats()`` adds to the decisions
         stats = dict(dec, strategy="flat" if hier is None else "hier",
                      schedule_kind=sched.kind,
@@ -118,23 +162,101 @@ def plan_cells(cells, mats, keys, fleet_rows: bool) -> dict:
     return out
 
 
+def _json(x):
+    return json.loads(json.dumps(x, default=list))
+
+
+def _stats(h, keys):
+    st = h.stats()
+    return _json({k: st[k] for k in keys if k in st})
+
+
+def mesh_topology() -> Topology:
+    """Eight host devices as the fleet's (2, 4): the same tiers."""
+    return Topology.from_mesh(make_spmm_mesh(NPROC * LOCAL, groups=NPROC))
+
+
+def rung_sessions(mats) -> dict:
+    """Each rung cell's session through the steps phase 11 (b) takes:
+    {what: {step: decisions, "events": [...]}}; every rung's decisions
+    also equal ``_plan_and_tune``'s on the fleet stand-in."""
+    topo, out = mesh_topology(), {}
+    planned = plan_cells([(f"{w} P={P}", m, f) for w, m, f in MP_RUNG_CELLS
+                          for P in MP_LADDER], mats, MP_KEYS, False,
+                         P_of=lambda what: int(what.rsplit("=", 1)[1]))
+    for what, mat, fields in MP_RUNG_CELLS:
+        sess = SpmmSession.build(mats[mat], topo,
+                                 SpmmConfig(**fields, net=FLEET_NET),
+                                 p_ladder=MP_LADDER)
+        steps = {"p8": sess.handle, "p6": lambda: sess.on_resize(6),
+                 "p4": lambda: sess.on_resize(4),
+                 "group26": lambda: sess.adopt_topology(
+                     topo.subtopology(slice(2, 6))),
+                 "back8": lambda: sess.on_resize(topo)}
+        got = {}
+        for step in RUNG_STEPS:
+            h = steps[step]()
+            got[step] = _stats(h, MP_KEYS)
+            assert got[step] == _json(planned[f"{what} P={h.plan.P}"]), \
+                (what, step)
+        got["events"] = [{k: v for k, v in e.items() if k != "topology"}
+                         for e in _json(sess.events)]
+        out[what] = got
+    return out
+
+
+def dispatch_pins(cfg) -> dict:
+    """The dispatch handle and session on the fleet's network."""
+    T, M = DISPATCH["tokens"], DISPATCH["M"]
+    a = dispatch_matrix(cfg, T, M)
+    config = SpmmConfig(strategy="joint", schedule="auto", net=FLEET_NET)
+    sess = dispatch_session(cfg, T, M, where=mesh_topology(), config=config)
+    out = {"handle": _stats(sess.handle(), DISPATCH_KEYS)}
+    # the handle's decisions on the stand-in, with net="auto"
+    plan, hier, sched, dec = _plan_and_tune(
+        a, M, SpmmConfig(strategy="joint", schedule="auto"),
+        fleet_topology())
+    assert (dec["net"], sched.volume_rows_padded()) == (
+        out["handle"]["net"], out["handle"]["volume_rows_padded"])
+    drifted = {"drift_ok": a,
+               "values_refresh": dataclasses.replace(a, data=a.data * 0.5),
+               "drift_replan": dispatch_matrix(cfg, T, M, seed=1)}
+    for name in DRIFTS:
+        out[f"replan-{name}"] = list(sess.maybe_replan(drifted[name]))
+        out[name] = _stats(sess.handle(), DISPATCH_KEYS)
+    out["events"] = _json(sess.events)
+    return out
+
+
+def matrices(m: int, nnz: int) -> dict:
+    return {"power_law": power_law_sparse(m, m, nnz, 0.8, seed=0),
+            "uniform": random_sparse(m, m, nnz / m ** 2, seed=0)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=SCALE,
                     help="nodes and edges / SCALE (1: the full-size cells)")
     args = ap.parse_args()
-    mp, train = {}, {}
+    mp, train, rungs, disp = {}, {}, {}, {}
     for key, m0, nnz0 in (("full", M_FULL, NNZ_FULL),
                           ("quick", 16_384, 7 * 16_384)):
         m, nnz = m0 // args.scale, nnz0 // args.scale
         print(f"# {key}: {m} nodes, {nnz} edges")
-        mats = {"power_law": power_law_sparse(m, m, nnz, 0.8, seed=0),
-                "uniform": random_sparse(m, m, nnz / m ** 2, seed=0)}
+        mats = matrices(m, nnz)
         mp[key] = plan_cells(MP_CELLS, mats, MP_KEYS, True)
+        m_r = m - m % 24  # equal row blocks over 4, 6 and 8 ranks
+        if m_r != m:
+            print(f"# {key} rungs: {m_r} nodes")
+        rungs[key] = rung_sessions(mats if m_r == m else matrices(m_r, nnz))
+        disp[key] = dispatch_pins((get_config if key == "full"
+                                   else get_smoke_config)(DISPATCH["arch"]))
         mats = {k: normalize_adjacency(a) for k, a in mats.items()}
         train[key] = plan_cells(MP_TRAIN_CELLS, mats, TRAIN_KEYS, False)
     print("EXPECT_MP =", pprint.pformat(mp))
     print("EXPECT_MP_TRAIN =", pprint.pformat(train))
+    print("EXPECT_MP_RUNG =", pprint.pformat(rungs))
+    print("EXPECT_MP_DISPATCH =", pprint.pformat(disp))
 
 
 if __name__ == "__main__":

@@ -456,7 +456,8 @@ class DistSpmm:
     def _rows_for(self, x, rows: int) -> int:
         """The rows a dense operand must have: ``rows``, or, on a fleet,
         this process's share of them when ``x`` is a tensor of that
-        share (one handle's output fed to the next)."""
+        share (one handle's output fed to the next): its span's ranks'
+        rows, none on an empty span."""
         lo, hi = self.comm.span
         share = rows * (hi - lo) // self.P
         if self.topology.is_multiprocess and isinstance(x, torch.Tensor) \
@@ -469,12 +470,15 @@ class DistSpmm:
         returns them: [(0, M)] on one device; on a fleet this process's
         span of the row blocks — one run on the flat and hier tiers, and
         on the replicated tier each rank's chunk (rank (r, g) holds rows
-        g·m_local + r·m_local/c onward)."""
+        g·m_local + r·m_local/c onward); none on a process whose span of
+        a narrowed fleet is empty."""
         lo, hi = self.comm.span
         M = self.plan.shape[0]
-        if (lo, hi) == (0, self.P):
+        if not self.topology.is_multiprocess:
             return [(0, M)]
         m_local = self.ex.meta["m_local"]
+        if lo == hi:
+            return []
         if not self.replicated:
             return [(lo * m_local, hi * m_local)]
         s, ch = self.schedule.s, m_local // self.schedule.c
@@ -565,21 +569,50 @@ class DistSpmm:
         on the handle's topology, B and C together — what
         ``ProcessComm.fleet_rows(crossing=True)`` counts (0 on one
         process): the plan's slow-tier traffic as it is really sent.
-        Flat and hier tiers (a hier shift d moves every rank by d·L)."""
+        Flat and hier tiers (a hier shift d moves every rank by d·L);
+        each rank's process from the topology's span table. On a rung
+        whose (G, L) groups straddle a process boundary (a narrowed or
+        carved fleet) the local-axis reduce-scatter and all_gather cross
+        too, with the slabs the executor's body sends."""
         if self.replicated:
             raise NotImplementedError(
                 "plan_crossing_rows covers the flat and hier tiers")
         P, s = self.P, self.schedule
-        w = P // self.topology.n_hosts
+        spans = self.topology.spans or ((0, P),)
+        owner = np.repeat(np.arange(len(spans)),
+                          [hi - lo for lo, hi in spans])
         stride = 1 if self.hier is None else self.hier.L
 
         def crossing(d: int) -> int:  # ranks whose shift-d peer is remote
-            return sum(q // w != (q + d * stride) % P // w for q in range(P))
+            return sum(int(owner[q] != owner[(q + d * stride) % P])
+                       for q in range(P))
 
         if s.kind == "single":
-            return (s.max_b + s.max_c) * sum(crossing(d) for d in range(s.P))
-        return sum((s.slots_b[d - 1] + s.slots_c[d - 1]) * crossing(d)
-                   for d in range(1, s.P))
+            rows = (s.max_b + s.max_c) * sum(crossing(d) for d in range(s.P))
+        else:
+            rows = sum((s.slots_b[d - 1] + s.slots_c[d - 1]) * crossing(d)
+                       for d in range(1, s.P))
+        return rows + self._local_crossing_rows(owner)
+
+    def _local_crossing_rows(self, owner: np.ndarray) -> int:
+        """The hier local axis's rows between processes: (ordered pairs
+        of a group's ranks on different processes) × the rows one pair's
+        slabs hold in the body's reduce-scatter(s) and all_gather(s)."""
+        if self.hier is None:
+            return 0
+        G, L, ex = self.hier.G, self.hier.L, self.ex
+        pairs = sum(int(owner[g * L + a] != owner[g * L + b])
+                    for g in range(G) for a in range(L) for b in range(L))
+        if not pairs:
+            return 0
+        if self.schedule.kind == "single":
+            per = G * (ex.max_cg + ex.max_bg)
+        elif not self.overlap:
+            per = G * ex.max_cg + ex.meta["R_bg"]
+        else:  # a reduce-scatter per C round, an all_gather per B round
+            per = (len(ex.meta["cg_all"]) * ex.max_cg
+                   + sum(slot for _, _, slot in ex.meta["bg_all"]))
+        return pairs * per
 
     def _finite_c(self, c, **kw) -> None:
         lo, hi = self.comm.span
@@ -936,7 +969,8 @@ def _materialize(config: SpmmConfig, plan: SpmmPlan,
 
 def _place(ex, topo: Topology):
     """An exec plan on ``topo``: on a fleet, only this process's span of
-    it goes to the device."""
+    it goes to the device (of a narrowed fleet's span table: shorter
+    than its share, or empty)."""
     if topo.is_multiprocess:
         ex = ex.span(*topo.span)
     return ex.to(topo.device)

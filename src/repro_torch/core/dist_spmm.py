@@ -158,11 +158,13 @@ class _ExecPlanBase:
         the whole plan's storage is not kept. Every index in an exec
         plan is rank-local (a row of the rank's own B block, receive
         space or C block), so nothing is rebased; the metadata keeps the
-        global P, the axis of destinations."""
+        global P, the axis of destinations. An empty span (lo == hi, a
+        process that holds no rank of a narrowed fleet) keeps every
+        tensor with its rank axis 0 long."""
         lo, hi = int(lo), int(hi)
         if (lo, hi) == self.rank_span:
             return self
-        if self.rank_span != (0, self.P) or not 0 <= lo < hi <= self.P:
+        if self.rank_span != (0, self.P) or not 0 <= lo <= hi <= self.P:
             raise ValueError(f"cannot cut ranks [{lo}, {hi}) from a plan of "
                              f"ranks {self.rank_span}")
         cut = lambda t: t[lo:hi].clone()  # noqa: E731
@@ -335,6 +337,7 @@ def flat_exec_arrays(plan: SpmmPlan,
     with ``.to(device)``.
     """
     m_local = _uniform_m_local(plan.bounds)
+    k_local = plan.shape[1] // plan.P  # B rows a rank holds
     if schedule is None or schedule.kind == "single":
         sched = schedule or single_round_schedule(plan)
         pieces, resolved = _prepare_pieces(local_piece_csrs(plan), backends)
@@ -347,7 +350,7 @@ def flat_exec_arrays(plan: SpmmPlan,
             agg_perm=_t(perm),
             agg_meta=_t(meta_arr),
             meta=dict(P=plan.P, max_b=plan.max_b, max_c=plan.max_c,
-                      m_local=m_local, backends=resolved,
+                      m_local=m_local, k_local=k_local, backends=resolved,
                       default_backend=next(iter(resolved)),
                       schedule=sched),
         )
@@ -383,7 +386,7 @@ def flat_exec_arrays(plan: SpmmPlan,
         agg_meta=_t(meta_arr),
         seg_agg=seg_agg,
         meta=dict(P=plan.P, max_b=plan.max_b, max_c=plan.max_c,
-                  m_local=m_local, backends=resolved,
+                  m_local=m_local, k_local=k_local, backends=resolved,
                   default_backend=next(iter(resolved)),
                   schedule=schedule,
                   b_segments=b_spans,
@@ -419,6 +422,7 @@ def hier_exec_arrays(hier: HierPlan,
     base = hier.base
     G, L, P = hier.G, hier.L, hier.base.P
     m_local = _uniform_m_local(base.bounds)
+    k_local = base.shape[1] // P
 
     if schedule is None or schedule.kind == "single":
         sched = schedule or single_round_hier_schedule(hier)
@@ -432,7 +436,7 @@ def hier_exec_arrays(hier: HierPlan,
             agg_perm=_t(perm),
             agg_meta=_t(meta_arr),
             meta=dict(G=G, L=L, max_bg=hier.max_bg, max_cg=hier.max_cg,
-                      m_local=m_local, backends=resolved,
+                      m_local=m_local, k_local=k_local, backends=resolved,
                       default_backend=next(iter(resolved)),
                       schedule=sched),
         )
@@ -466,7 +470,7 @@ def hier_exec_arrays(hier: HierPlan,
         agg_meta=_t(meta_arr),
         seg_agg=seg_agg,
         meta=dict(G=G, L=L, max_bg=hier.max_bg, max_cg=hier.max_cg,
-                  m_local=m_local, backends=resolved,
+                  m_local=m_local, k_local=k_local, backends=resolved,
                   default_backend=next(iter(resolved)),
                   schedule=schedule,
                   bg_segments=tuple(t for t in bg_all if t[0] != 0),
@@ -495,6 +499,7 @@ def replicated_exec_arrays(rp: ReplicatedPlan,
     layout = replicated_schedule_layout(rp, sched)
     c, s = rp.c, rp.s
     m_local = _uniform_m_local(rp.base.bounds)
+    k_local = rp.base.shape[1] // (c * s)  # B's P-way row blocks
     if m_local % c:
         raise ValueError(
             f"replicate={c} needs c | m_local for the tiled replica "
@@ -510,7 +515,8 @@ def replicated_exec_arrays(rp: ReplicatedPlan,
         c_recv_rows=_t(c_recv),
         agg_perm=_t(perm),
         agg_meta=_t(meta_arr),
-        meta=dict(c=c, s=s, m_local=m_local, backends=resolved,
+        meta=dict(c=c, s=s, m_local=m_local, k_local=k_local,
+                  backends=resolved,
                   default_backend=next(iter(resolved)), schedule=sched,
                   b_rounds=tuple((rnd.shifts, rnd.slot_b, rnd.off_b,
                                   rnd.b_lanes)
@@ -731,10 +737,12 @@ def _rank_blocks(plan, comm, b: torch.Tensor, groups: int = 1,
             return comm, b.reshape(P_, K // P_, n)
         return comm, comm.replicate(b.reshape(shards, K // shards, n))
     w = comm.span[1] - comm.span[0]
-    if K % w:
+    if (K % w if w else K):
         raise ValueError(f"{name} has {K} rows, not divisible over this "
                          f"process's {w} ranks")
-    blocks = b.reshape(w, K // w, n)
+    # an empty span's blocks keep a rank's shape: the slabs every process
+    # sends are alike (``ProcessComm.replicate`` sends B's blocks)
+    blocks = b.reshape(w, K // w if w else plan.meta["k_local"], n)
     return comm, blocks if replicas == 1 else comm.replicate(blocks)
 
 
@@ -1011,7 +1019,7 @@ def hier_spmm(plan: HierExecPlan, b_global: torch.Tensor,
             c_segs.append(comm.group_shift(seg, dg) if dg else seg)
 
         # Stage II: gather and consume each B slab as it lands
-        gathered = (comm.local_all_gather(seg).reshape(w, -1, n)
+        gathered = (comm.local_all_gather(seg).flatten(1, 2)
                     for seg in b_segs)
         c = c + _colp_rounds(be, pieces, gathered, torch.zeros_like(c))
 
@@ -1081,4 +1089,4 @@ def replicated_spmm(plan: ReplicatedExecPlan, b_global: torch.Tensor,
     # ④ aggregate received partials, then sum + split the lanes' C blocks
     #   over the replica axis: [s, c, m_local / c, N] in global row order
     c = scatter_add_rows_exec_op(c, recv_c, plan.agg_perm, plan.agg_meta)
-    return comm.replica_psum_scatter(c).reshape(-1, n)
+    return comm.replica_psum_scatter(c).flatten(0, -2)

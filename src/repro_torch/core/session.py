@@ -3,8 +3,11 @@
 Port of ``repro/core/session.py``. The port emulates P ranks on one
 device, so a ladder rung of any P can always serve there: a smaller rung
 narrows the topology, a larger one grows a local topology on the same
-device — except on a carved group (``Topology.split``), where a larger
-rung raises the reference's ``TopologyError``. Rung payloads are the
+device — except on a carved group (``Topology.split``) or a fleet of
+processes, where a larger rung raises the reference's
+``TopologyError``. On a fleet a smaller rung serves on the first P
+ranks, every process keeping its clipped span (an empty one too). Rung
+payloads are the
 port's ``DistSpmm.save`` dicts, and the bundle goes through
 ``checkpoint.manager.atomic_dir`` with a per-file digest manifest, as in
 the reference.
@@ -227,16 +230,17 @@ class SpmmSession:
         return rung.handle
 
     def _topology_for(self, P: int) -> Topology:
-        """The substrate rung P serves on: the ranks are emulated on the
-        session's device, so a smaller rung narrows the topology and a
-        larger one grows a local topology there — unless the session
-        sits on a carved group (``Topology.split``), which it must not
-        escape, or on a fleet of processes, which serves its own P only
-        (``Topology.narrow`` raises for any other)."""
+        """The substrate rung P serves on, as the reference's: a smaller
+        rung narrows the topology (on a fleet of processes, its first P
+        ranks, each process keeping its clipped span), and a larger one
+        grows a local topology on the session's device, where the ranks
+        are emulated — unless the session sits on a carved group
+        (``Topology.split``), which it must not escape, or on a fleet,
+        which only a grown fleet's Topology (``on_resize(topo)``) can
+        widen."""
         if P == self.topology.P:
             return self.topology
-        if P < self.topology.P or self.topology.is_multiprocess:
-            # a fleet of processes neither grows nor narrows in place
+        if P < self.topology.P:
             return self.topology.narrow(P)
         if self.topology.group is not None:
             raise TopologyError(
@@ -245,6 +249,11 @@ class SpmmSession:
                 f"grouped session must not escape onto the wider fleet — "
                 f"migrate it to a larger group (stage_topology/"
                 f"adopt_topology) instead")
+        if self.topology.is_multiprocess:
+            raise TopologyError(
+                f"rung P={P} exceeds the session topology "
+                f"(P={self.topology.P}, kind={self.topology.kind}); pass "
+                f"the grown fleet's Topology to on_resize()")
         return Topology.local(P, self.topology.device)
 
     # ----- drift + replan ----------------------------------------------

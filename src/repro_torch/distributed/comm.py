@@ -489,6 +489,13 @@ class _Route(NamedTuple):
     seq: int
 
 
+def _stacked(outs: List[torch.Tensor], like: torch.Tensor,
+             shape: Tuple[int, ...]) -> torch.Tensor:
+    """A reduction's per-rank results stacked, [w, *shape]; [0, *shape]
+    on a process that holds no rank."""
+    return torch.stack(outs) if outs else like.new_empty((0,) + shape)
+
+
 def _tie(out: torch.Tensor, token: torch.Tensor) -> None:
     """Make ``out`` depend on the empty ``token`` under autograd at no
     cost: an in-place copy of zero elements, which joins the token's node
@@ -547,22 +554,39 @@ class _Fleet:
     process group shares: this process's span of the ranks, the one
     ``all_to_all_single`` per collective (staged through pinned host
     memory on a card), its autograd (``_Exchange``) and its counters.
-    Each process of the default group holds an equal run of the ranks in
-    process order, process i the ranks [i·w, (i+1)·w)."""
+    Each process of the default group holds a run of the ranks in
+    process order, its entry of ``spans``: an equal run by default
+    (process i the ranks [i·w, (i+1)·w)), or any contiguous table — a
+    narrowed or carved fleet's, where a run may be shorter or empty. A
+    process with an empty span holds no rank but still enters every
+    exchange, with nothing to send or receive."""
 
-    def _join(self, P: int, span: Tuple[int, int]) -> None:
+    def _join(self, P: int, span: Tuple[int, int],
+              spans: Optional[Sequence[Tuple[int, int]]] = None) -> None:
         import torch.distributed as dist
 
         self.n_proc = dist.get_world_size()
         self.proc = dist.get_rank()
-        lo, hi = int(span[0]), int(span[1])
-        self.width = hi - lo
-        if self.width < 1 or self.width * self.n_proc != P \
-                or lo != self.proc * self.width:
+        if spans is None:
+            w = P // self.n_proc
+            spans = [(i * w, (i + 1) * w) for i in range(self.n_proc)]
+        spans = tuple((int(lo), int(hi)) for lo, hi in spans)
+        ok = (len(spans) == self.n_proc and spans[0][0] == 0
+              and spans[-1][1] == P
+              and all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+              and all(lo <= hi for lo, hi in spans)
+              and spans[self.proc] == (int(span[0]), int(span[1])))
+        if not ok:
             raise ValueError(
-                f"span {span} is not process {self.proc}'s equal share of "
-                f"P={P} ranks over {self.n_proc} processes")
-        self.span = (lo, hi)
+                f"span {span} of process {self.proc} and the table {spans} "
+                f"are not contiguous runs of P={P} ranks over "
+                f"{self.n_proc} processes in process order")
+        self.spans = spans
+        self.span = spans[self.proc]
+        self.width = self.span[1] - self.span[0]
+        # each rank's process
+        self._owners = np.repeat(np.arange(self.n_proc),
+                                 [hi - lo for lo, hi in spans])
         self._pinned: Dict[str, torch.Tensor] = {}
 
     def reset(self) -> None:
@@ -618,7 +642,7 @@ class _Fleet:
     # ----- the one exchange ----------------------------------------------
 
     def _owner(self, rank: int) -> int:
-        return rank // self.width
+        return int(self._owners[rank])
 
     def _mine(self, rank: int) -> bool:
         return self.span[0] <= rank < self.span[1]
@@ -870,9 +894,10 @@ class ProcessComm(_Fleet, _CommLog):
 
     ``P``, ``groups`` and ``replicas`` lay the global ranks out as
     LocalComm's do. ``span`` = (lo, hi) is the run of ranks this process
-    holds; every process of the default process group holds an equal run
-    in process order, process i the ranks [i·w, (i+1)·w) with
-    w = hi - lo. Operands lead with [w] (this process's ranks) where
+    holds and ``spans`` every process's, in process order (default: an
+    equal run each, process i the ranks [i·w, (i+1)·w)); a narrowed or
+    carved fleet's runs may differ in length, and one may be empty.
+    Operands lead with [w = hi - lo] (this process's ranks) where
     LocalComm's lead with [P]; results too, with one exception named at
     ``replica_psum_scatter``.
 
@@ -899,9 +924,10 @@ class ProcessComm(_Fleet, _CommLog):
     """
 
     def __init__(self, P: int, groups: int = 1, replicas: int = 1, *,
-                 span: Tuple[int, int]):
+                 span: Tuple[int, int],
+                 spans: Optional[Sequence[Tuple[int, int]]] = None):
         _layout(self, P, groups, replicas)
-        self._join(self.P, span)
+        self._join(self.P, span, spans)
         super().__init__()
         self.reset()
 
@@ -1013,7 +1039,7 @@ class ProcessComm(_Fleet, _CommLog):
             for a in range(1, L):
                 acc = acc + got[(base + a, d)]
             outs.append(acc)
-        out = torch.stack(outs)
+        out = _stacked(outs, x, rest[:dim] + (chunk,) + rest[dim + 1:])
         self._record("psum_scatter@l", self._mine_pairs(pairs), x, out)
         return out
 
@@ -1077,7 +1103,7 @@ class ProcessComm(_Fleet, _CommLog):
         for (_, d), slab in got.items():
             out[d - lo] = slab
         mine = self._mine_pairs(pairs)
-        per_rank = x[0].numel() // x.shape[-1] if x.shape[-1] else 0
+        per_rank = math.prod(x.shape[1:-1]) if x.shape[-1] else 0
         self._record("ppermute@s", mine, x, out, per_rank * len(mine))
         return out
 
@@ -1108,7 +1134,7 @@ class ProcessComm(_Fleet, _CommLog):
             for r in range(1, C):
                 acc = acc + got[(r * S + g, d)]
             outs.append(acc)
-        out = torch.stack(outs)
+        out = _stacked(outs, x, (chunk,) + rest[1:])
         self._record("psum_scatter@r", self._mine_pairs(pairs), x, out)
         return out
 

@@ -15,12 +15,13 @@ Port of ``repro/distributed/topology.py``. Three kinds of substrate:
   takes the topology for the mesh's named axes.
 * ``Topology.multiprocess(device=...)``: a ``torch.distributed`` fleet
   (``launch.multiprocess.initialize``). Each process owns a contiguous
-  span of the P = processes × local ranks (``span``), runs the executors
-  on that span's exec arrays and exchanges rows with the other processes
-  through ``comm.ProcessComm``; the processes × local grid is the
-  intrinsic (G, L) structure, the process boundary its slow tier. With
-  ``mesh=`` the fleet's ranks also form a named grid, which
-  ``make_context`` takes for a model's batch / model axes.
+  span of the P = processes × local ranks (``span``; every process's in
+  ``spans``), runs the executors on that span's exec arrays and
+  exchanges rows with the other processes through ``comm.ProcessComm``;
+  the processes × local grid is the intrinsic (G, L) structure, the
+  process boundary its slow tier. With ``mesh=`` the fleet's ranks also
+  form a named grid, which ``make_context`` takes for a model's batch /
+  model axes.
 
 With tiers, ``network()`` derives the reference's two-tier
 ``NetworkSpec`` (``derived-{gpu,cpu}-GxL``, platform from the device)
@@ -29,15 +30,21 @@ the ranks out as the replicated tier's (c, s) replica × shard mesh,
 ``comm(groups, replicas)`` gives the communicator of a layout (a
 ``LocalComm``, or a ``ProcessComm`` over this process's span), and
 ``put_global(b)`` places an operand: on a fleet, only this process's
-rows. ``narrow(P)`` serves a smaller ladder rung on the same device, and
-``fingerprint()`` names the substrate in the measured autotuner's cache
-keys (the device's name included, so an entry timed on another card
-misses).
+rows. ``narrow(P)`` serves a smaller ladder rung on the first P ranks,
+and ``fingerprint()`` names the substrate in the measured autotuner's
+cache keys (the device's name included, so an entry timed on another
+card misses).
 
 ``subtopology(slice)`` / ``split(sizes)`` carve the ranks into GROUPS for
 the fleet (``serving.fleet``): a group is a contiguous span of the
-emulated ranks, served by its own ``LocalComm`` of the group's width on
-the same device, and ``group`` records its absolute (start, stop) span.
+ranks, served by its own communicator of the group's width, and
+``group`` records its absolute (start, stop) span.
+
+On a fleet of processes both keep the processes: ``spans`` is clipped to
+the narrowed or carved ranks and rebased to the group's own rank
+indices, so a process may hold fewer ranks than ``local_device_count``,
+or none (an empty span, ``(lo, lo)``). Such a process still enters every
+collective of a call, and returns no C rows.
 
 Entry points default to ``device="cuda"`` and raise when no CUDA device
 is present; pass ``device="cpu"`` to run the kernels' plain versions.
@@ -115,6 +122,11 @@ class Topology:
     ``process_index``       this process's index in the fleet.
     ``local_device_count``  ranks this process runs (a fleet's ranks
                 per process; None on one device, which runs all P).
+    ``spans``   on a fleet, the (start, stop) run of ranks each process
+                holds, in process order: contiguous, covering [0, P);
+                a run may be shorter than ``local_device_count`` or
+                empty once the fleet is narrowed or carved. None on one
+                device.
     ``mesh``    the adopted ``EmulatedMesh`` ('mesh'; on a fleet, the
                 grid ``multiprocess(mesh=...)`` names, over the processes).
     """
@@ -128,6 +140,13 @@ class Topology:
     process_index: int = 0
     local_device_count: Optional[int] = None
     mesh: Any = dataclasses.field(default=None, repr=False, compare=False)
+    spans: Optional[Tuple[Tuple[int, int], ...]] = None
+
+    def __post_init__(self):
+        if self.is_multiprocess and self.spans is None:
+            w = int(self.local_device_count)
+            object.__setattr__(self, "spans", tuple(
+                (i * w, (i + 1) * w) for i in range(self.n_hosts)))
 
     @classmethod
     def local(cls, P: int, device: Union[str, torch.device, None] = "cuda"
@@ -264,18 +283,18 @@ class Topology:
     @property
     def span(self) -> Tuple[int, int]:
         """The (start, stop) ranks this process runs: all P of them on
-        one device, its own ``local_device_count`` on a fleet."""
+        one device, its entry of ``spans`` on a fleet."""
         if not self.is_multiprocess:
             return 0, self.P
-        lo = self.process_index * self.local_device_count
-        return lo, lo + self.local_device_count
+        return self.spans[self.process_index]
 
     def comm(self, groups: int = 1, replicas: int = 1):
         """The communicator of a rank layout on this substrate: a
         ``LocalComm(P, groups, replicas)`` on one device, a
         ``ProcessComm`` over this process's span on a fleet."""
         if self.is_multiprocess:
-            return ProcessComm(self.P, groups, replicas, span=self.span)
+            return ProcessComm(self.P, groups, replicas, span=self.span,
+                               spans=self.spans)
         return LocalComm(self.P, groups, replicas)
 
     def replicated_mesh(self, c: int, s: int):
@@ -324,7 +343,10 @@ class Topology:
 
     def narrow(self, P: int) -> "Topology":
         """The same substrate over the first ``P`` ranks: the elastic
-        path, where a ladder rung smaller than the fleet serves."""
+        path, where a ladder rung smaller than the fleet serves (the
+        reference's ``narrow``: no tiers). On a fleet every process
+        stays, its span clipped to the first P ranks: 2 × 4 narrowed to
+        6 holds [(0, 4), (4, 6)], to 4 [(0, 4), (4, 4)]."""
         P = int(P)
         if P == self.P:
             return self
@@ -335,14 +357,7 @@ class Topology:
                 f"(Topology.local / Topology.multiprocess)")
         if P < 1:
             raise TopologyError(f"topology needs at least 1 rank, got {P}")
-        if self.is_multiprocess:
-            raise TopologyError(
-                f"cannot narrow a {self.n_hosts}-process fleet of "
-                f"{self.P} ranks to P={P}: a rung below the fleet needs "
-                f"ranks re-spread over the processes, which ROADMAP item "
-                f"15 leaves open; relaunch with a smaller fleet (the "
-                f"supervisor's degrade path)")
-        return dataclasses.replace(self, P=P, tiers=None, mesh=None)
+        return self._carved(0, P, group=self.group)
 
     def subtopology(self, rank_slice: slice) -> "Topology":
         """A same-kind topology over a contiguous span of the ranks.
@@ -351,12 +366,10 @@ class Topology:
         parent substrate — ``group`` records the absolute (start, stop)
         span, so sessions placed on it cannot silently escape back onto
         the full fleet, and ``fingerprint()`` is the carved span's, not
-        the parent's.
+        the parent's. On a fleet each process's span is cut to the
+        group and rebased to its ranks: [2, 6) of 2 × 4 holds [(0, 2),
+        (2, 4)].
         """
-        if self.is_multiprocess:
-            raise TopologyError(
-                "a multiprocess fleet cannot be carved into groups; carve "
-                "a Topology.local instead")
         start, stop, step = rank_slice.indices(self.P)
         if step != 1:
             raise TopologyError(
@@ -367,9 +380,17 @@ class Topology:
                 f"subtopology span [{start}:{stop}] of a {self.P}-device "
                 f"topology is empty")
         base = self.group[0] if self.group is not None else 0
+        return self._carved(start, stop, group=(base + start, base + stop))
+
+    def _carved(self, start: int, stop: int, group) -> "Topology":
+        """The ranks [start, stop), renumbered from 0, with no tiers and
+        no grid; on a fleet the spans intersected with them."""
+        spans = None
+        if self.is_multiprocess:
+            cut = lambda r: min(max(r, start), stop) - start  # noqa: E731
+            spans = tuple((cut(lo), cut(hi)) for lo, hi in self.spans)
         return dataclasses.replace(self, P=stop - start, tiers=None,
-                                   mesh=None,
-                                   group=(base + start, base + stop))
+                                   mesh=None, group=group, spans=spans)
 
     def split(self, sizes: Tuple[int, ...]) -> Tuple["Topology", ...]:
         """Carve the substrate into disjoint contiguous sub-topologies.
@@ -428,7 +449,8 @@ class Topology:
         One device: the whole operand on ``device`` (a tensor already
         there and contiguous passes through). A fleet: only this
         process's rows, [span · rows / P, N], on its device — the full
-        operand is never placed on the device. A tensor that already is
+        operand is never placed on the device; a process with an empty
+        span gets [0, N]. A tensor that already is
         this process's slab passes through (moved to the device if need
         be), so one handle's output feeds the next; a full operand (a
         numpy array or a tensor with ``rows`` rows) is cut on the host

@@ -196,9 +196,9 @@ def _fold_maps(idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sorted-scatter maps of an index array [P, ...] (-1 pads): the
     K2 fold of its slots into the rows they name."""
     if idx.is_meta:
-        return _empty_maps(idx.reshape(idx.shape[0], -1))
+        return _empty_maps(idx.flatten(1))
     return _cached(idx, "fold", lambda: stack_sorted_scatter(
-        _host(idx).reshape(idx.shape[0], -1)))
+        _host(idx.flatten(1))))
 
 
 def _empty_maps(tgt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -247,7 +247,7 @@ def coo_col_maps(col: torch.Tensor, perm: torch.Tensor, meta: torch.Tensor
 
 
 def _pack(b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    flat = idx.reshape(idx.shape[0], -1)
+    flat = idx.flatten(1)  # [P, slots]; P may be 0 (an empty span)
     # every executor body packs here, so a CUDA idx goes straight to the
     # wrapper, which checks b's device itself (looked up on its module at
     # call time, so a recorder that replaces it sees the call)

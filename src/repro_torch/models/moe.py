@@ -445,11 +445,16 @@ def compile_dispatch(cfg: ModelConfig, tokens: int, M: int, where=None,
     """Front-door handle for the MoE dispatch SpMM (the port's
     ``compile_spmm``, P = M ranks emulated on ``device``).
 
-    ``where`` defaults to M ranks; ``config`` to the joint strategy with
-    the model-picked schedule. The handle's ``stats()`` report the dedup
-    (analytic volume vs the per-assignment row count) and the schedule
-    and backend decisions for this routing snapshot; ``h(x)`` with x
-    [tokens, D] returns the dispatched buffer [M·cap, D].
+    ``where`` defaults to M ranks; any substrate of M ranks serves, a
+    fleet of processes too (``Topology.multiprocess()``: each process
+    holds its span of the expert ranks, takes the whole x or its own
+    tokens' rows, and returns its slot rows, ``h.row_blocks()``).
+    ``config`` defaults to the joint strategy with the model-picked
+    schedule. The handle's ``stats()`` report the dedup (analytic volume
+    vs the per-assignment row count) and the schedule and backend
+    decisions for this routing snapshot; ``h(x)`` with x [tokens, D]
+    returns the dispatched buffer [M·cap, D] (on a fleet, this process's
+    rows of it).
     """
     from ..core.api import SpmmConfig, compile_spmm
 
@@ -475,6 +480,11 @@ def dispatch_session(cfg: ModelConfig, tokens: int, M: int, where=None,
         s = dispatch_session(cfg, T, M, device="cpu")
         drift, swapped = s.maybe_replan(dispatch_matrix(cfg, T, M, seed=k))
         y = s.handle()(x)
+
+    On a fleet of processes (``where=Topology.multiprocess()``) every
+    process feeds the same routing snapshot, so ``maybe_replan`` takes
+    the same branch everywhere (drift and values digests are host
+    computations) and the swap happens on every process between waves.
     """
     from ..core.api import SpmmConfig
     from ..core.session import SpmmSession

@@ -20,7 +20,7 @@ import torch
 from repro_torch.core.api import SpmmConfig, compile_spmm, materialize_payload
 from repro_torch.core.sparse import power_law_sparse, random_sparse
 from repro_torch.distributed.comm import LocalComm
-from repro_torch.distributed.topology import Topology, TopologyError
+from repro_torch.distributed.topology import Topology
 from repro_torch.launch.multiprocess import initialize, shutdown
 
 P, N_COLS = 8, 16
@@ -135,10 +135,9 @@ def main(out_dir):
     res = {"span": [lo, hi], "topology": topo.describe(),
            "network": topo.network().name,
            "auto_grouping": list(topo.auto_grouping(topo.network()))}
-    try:
-        topo.narrow(4)
-    except TopologyError as e:
-        res["narrow_error"] = str(e)
+    narrow = topo.narrow(4)  # a rung below the fleet: process 1 empty
+    res["narrow4"] = {"spans": [list(s) for s in narrow.spans],
+                      "describe": narrow.describe()}
     res["comm"] = comm_checks(lo, hi)
 
     rows = {}

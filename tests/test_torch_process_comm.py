@@ -68,7 +68,10 @@ def test_fleet_topology(fleet):
                                  "platform": "cpu"}
         assert r["network"] == "derived-cpu-2x4"
         assert r["auto_grouping"] == [2, 4]
-        assert "ROADMAP item 15" in r["narrow_error"]
+        assert r["narrow4"] == {
+            "spans": [[0, 4], [4, 4]],
+            "describe": {"kind": "multiprocess", "P": 4, "tiers": None,
+                         "n_hosts": 2, "platform": "cpu"}}
         assert r["fused_tier"] == ["hier", 2, 4]
 
 
