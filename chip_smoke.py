@@ -4226,12 +4226,22 @@ MP_RUNG_SPANS = {"p8": [[0, 4], [4, 8]], "p6": [[0, 4], [4, 6]],
 MP_RUNG_PATH_STEPS = ("p6", "p4", "group26")
 MP_DISPATCH_DRIFTS = ("drift_ok", "values_refresh", "drift_replan")
 MP_DISPATCH_KERNELS = ("gather_rows", "gather_rows_scaled", "scatter_add_rows")
+# phase 11 (b)'s SpmmFleet on the process fleet (mp_fleet): phase 9's
+# tenants (FLEET_H2_SEED, FLEET_LIGHT) admitted in this order on groups
+# (4, 4) (one a worker), rebalanced and served, a migration rolled back by
+# a fault on one worker alone; then h1 with rungs (2, 6) on groups (2, 6)
+# migrated into group 1, which straddles the workers (coo: K1, K1 scaled,
+# K2)
+MP_FLEET_SPLIT, MP_FLEET_STRADDLE, MP_FLEET_LADDER = (4, 4), (2, 6), (2, 6)
+MP_FLEET_ORDER = ("h1", "h2", "lt")
+MP_FLEET_FAULT_WORKER = 1
 # {path: the kernels it must launch}, every path of phase 11 (b)
 MP_PATH_KERNELS = dict(
     [(path, MP_KERNELS[mat]) for _, mat, path, _ in MP_CELLS]
     + [("mp_dispatch", MP_DISPATCH_KERNELS),
        ("mp_dispatch_session", MP_DISPATCH_KERNELS)]
-    + [(path, MP_KERNELS[mat]) for _, mat, path, _ in MP_RUNG_CELLS])
+    + [(path, MP_KERNELS[mat]) for _, mat, path, _ in MP_RUNG_CELLS]
+    + [("mp_fleet", MP_DISPATCH_KERNELS)])
 # the reference's decisions at each step and its events (the adopted
 # group's describe() left out: the reference's is a mesh's), from the JAX
 # package's SpmmSession on a (2, 4) mesh of host devices with the fleet's
@@ -4604,6 +4614,261 @@ EXPECT_MP_DISPATCH = {'full': {'drift_ok': {'backends': ['coo'],
                               'volume_rows_padded_single': 3008}}}
 
 
+# mp_fleet's decisions: the reference's SpmmFleet through the same steps on
+# eight host devices as a (2, 4) mesh with SpmmConfig(n_dense_hint=128) (a
+# carved group has no tiers on either side: every score on the model's
+# default network), its ReshardSpec routes and moved rows, its counters and
+# events: scripts/reference_fleet_pins.py (the JAX package, CPU run)
+EXPECT_MP_FLEET = {'full': {'admitted': {'events': [{'action': 'admit',
+                                   'group': 0,
+                                   'scores': {'0': 3.220096e-05,
+                                              '1': 3.220096e-05},
+                                   'tenant': 'h1'},
+                                  {'action': 'admit',
+                                   'group': 0,
+                                   'scores': {'0': 3.2187306666666665e-05,
+                                              '1': 3.2187306666666665e-05},
+                                   'tenant': 'h2'},
+                                  {'action': 'admit',
+                                   'group': 0,
+                                   'scores': {'0': 1.5578026666666666e-05,
+                                              '1': 1.5578026666666666e-05},
+                                   'tenant': 'lt'}],
+                       'failed_migrations': 0,
+                       'imbalance': 2.0,
+                       'migrations': 0,
+                       'placements': {'h1': 0, 'h2': 0, 'lt': 0},
+                       'scores': {'h1': {'0': [3.220096e-05, 47410796],
+                                         '1': [3.220096e-05, 47410796]},
+                                  'h2': {'0': [3.2187306666666665e-05,
+                                               47406368],
+                                         '1': [3.2187306666666665e-05,
+                                               47406368]},
+                                  'lt': {'0': [1.5578026666666666e-05,
+                                               19042432],
+                                         '1': [1.5578026666666666e-05,
+                                               19042432]}}},
+          'moves': [['h1', 1]],
+          'rebalance': [{'b_routes': [[0, 0, 0, 10584],
+                                      [1, 1, 10584, 21168],
+                                      [2, 2, 21168, 31752],
+                                      [3, 3, 31752, 42336]],
+                         'c_routes': [[0, 0, 0, 10584],
+                                      [1, 1, 10584, 21168],
+                                      [2, 2, 21168, 31752],
+                                      [3, 3, 31752, 42336]],
+                         'moved': [0, 0]}],
+          'rollback': ['h1', 0, False],
+          'state': {'events': [{'action': 'admit',
+                                'group': 0,
+                                'scores': {'0': 3.220096e-05,
+                                           '1': 3.220096e-05},
+                                'tenant': 'h1'},
+                               {'action': 'admit',
+                                'group': 0,
+                                'scores': {'0': 3.2187306666666665e-05,
+                                           '1': 3.2187306666666665e-05},
+                                'tenant': 'h2'},
+                               {'action': 'admit',
+                                'group': 0,
+                                'scores': {'0': 1.5578026666666666e-05,
+                                           '1': 1.5578026666666666e-05},
+                                'tenant': 'lt'},
+                               {'action': 'migrate',
+                                'b_rows': 0,
+                                'c_rows': 0,
+                                'from': 0,
+                                'tenant': 'h1',
+                                'to': 1},
+                               {'action': 'migrate_rollback',
+                                'error': 'InjectedFault: injected wave_error '
+                                         "at 'fleet_migrate_fail' (hit 1/1)",
+                                'from': 1,
+                                'tenant': 'h1',
+                                'to': 0}],
+                    'failed_migrations': 1,
+                    'imbalance': 0.38927334717027434,
+                    'migrations': 1,
+                    'placements': {'h1': 1, 'h2': 0, 'lt': 0},
+                    'scores': {'h1': {'0': [3.220096e-05, 47410796],
+                                      '1': [3.220096e-05, 47410796]},
+                               'h2': {'0': [3.2187306666666665e-05, 47406368],
+                                      '1': [3.2187306666666665e-05, 47406368]},
+                               'lt': {'0': [1.5578026666666666e-05, 19042432],
+                                      '1': [1.5578026666666666e-05,
+                                            19042432]}}},
+          'straddle': [{'b_routes': [[0, 0, 0, 7056],
+                                     [0, 1, 7056, 14112],
+                                     [0, 2, 14112, 21168],
+                                     [1, 3, 21168, 28224],
+                                     [1, 4, 28224, 35280],
+                                     [1, 5, 35280, 42336]],
+                        'c_routes': [[0, 0, 0, 7056],
+                                     [0, 1, 7056, 14112],
+                                     [0, 2, 14112, 21168],
+                                     [1, 3, 21168, 28224],
+                                     [1, 4, 28224, 35280],
+                                     [1, 5, 35280, 42336]],
+                        'moved': [35280, 35280],
+                        'ok': True,
+                        'to': 1}],
+          'straddle_admitted': {'events': [{'action': 'admit',
+                                            'group': 0,
+                                            'scores': {'0': 1.8860515555555555e-05,
+                                                       '1': 0.0020075776},
+                                            'tenant': 'h1'}],
+                                'failed_migrations': 0,
+                                'imbalance': 2.0,
+                                'migrations': 0,
+                                'placements': {'h1': 0},
+                                'scores': {'h1': {'0': [1.8860515555555555e-05,
+                                                        51500552],
+                                                  '1': [0.0020075776,
+                                                        39973616]}}},
+          'straddle_rows': 42336,
+          'straddle_state': {'events': [{'action': 'admit',
+                                         'group': 0,
+                                         'scores': {'0': 1.8860515555555555e-05,
+                                                    '1': 0.0020075776},
+                                         'tenant': 'h1'},
+                                        {'action': 'migrate',
+                                         'b_rows': 35280,
+                                         'c_rows': 35280,
+                                         'from': 0,
+                                         'tenant': 'h1',
+                                         'to': 1}],
+                             'failed_migrations': 0,
+                             'imbalance': 2.0,
+                             'migrations': 1,
+                             'placements': {'h1': 1},
+                             'scores': {'h1': {'0': [1.8860515555555555e-05,
+                                                     51500552],
+                                               '1': [0.0020075776,
+                                                     39973616]}}}},
+ 'quick': {'admitted': {'events': [{'action': 'admit',
+                                    'group': 1,
+                                    'scores': {'0': 6.925226666666667e-06,
+                                               '1': 6.925226666666667e-06},
+                                    'tenant': 'h1'},
+                                   {'action': 'admit',
+                                    'group': 1,
+                                    'scores': {'0': 6.914986666666667e-06,
+                                               '1': 6.914986666666667e-06},
+                                    'tenant': 'h2'},
+                                   {'action': 'admit',
+                                    'group': 1,
+                                    'scores': {'0': 4.75776e-06,
+                                               '1': 4.75776e-06},
+                                    'tenant': 'lt'}],
+                        'failed_migrations': 0,
+                        'imbalance': 2.0,
+                        'migrations': 0,
+                        'placements': {'h1': 1, 'h2': 1, 'lt': 1},
+                        'scores': {'h1': {'0': [6.925226666666667e-06, 4817076],
+                                          '1': [6.925226666666667e-06,
+                                                4817076]},
+                                   'h2': {'0': [6.914986666666667e-06, 4808384],
+                                          '1': [6.914986666666667e-06,
+                                                4808384]},
+                                   'lt': {'0': [4.75776e-06, 1242880],
+                                          '1': [4.75776e-06, 1242880]}}},
+           'moves': [['h1', 0]],
+           'rebalance': [{'b_routes': [[0, 0, 0, 1024],
+                                       [1, 1, 1024, 2048],
+                                       [2, 2, 2048, 3072],
+                                       [3, 3, 3072, 4096]],
+                          'c_routes': [[0, 0, 0, 1024],
+                                       [1, 1, 1024, 2048],
+                                       [2, 2, 2048, 3072],
+                                       [3, 3, 3072, 4096]],
+                          'moved': [0, 0]}],
+           'rollback': ['h1', 1, False],
+           'state': {'events': [{'action': 'admit',
+                                 'group': 1,
+                                 'scores': {'0': 6.925226666666667e-06,
+                                            '1': 6.925226666666667e-06},
+                                 'tenant': 'h1'},
+                                {'action': 'admit',
+                                 'group': 1,
+                                 'scores': {'0': 6.914986666666667e-06,
+                                            '1': 6.914986666666667e-06},
+                                 'tenant': 'h2'},
+                                {'action': 'admit',
+                                 'group': 1,
+                                 'scores': {'0': 4.75776e-06, '1': 4.75776e-06},
+                                 'tenant': 'lt'},
+                                {'action': 'migrate',
+                                 'b_rows': 0,
+                                 'c_rows': 0,
+                                 'from': 1,
+                                 'tenant': 'h1',
+                                 'to': 0},
+                                {'action': 'migrate_rollback',
+                                 'error': 'InjectedFault: injected wave_error '
+                                          "at 'fleet_migrate_fail' (hit 1/1)",
+                                 'from': 0,
+                                 'tenant': 'h1',
+                                 'to': 1}],
+                     'failed_migrations': 1,
+                     'imbalance': 0.5105416504163894,
+                     'migrations': 1,
+                     'placements': {'h1': 0, 'h2': 1, 'lt': 1},
+                     'scores': {'h1': {'0': [6.925226666666667e-06, 4817076],
+                                       '1': [6.925226666666667e-06, 4817076]},
+                                'h2': {'0': [6.914986666666667e-06, 4808384],
+                                       '1': [6.914986666666667e-06, 4808384]},
+                                'lt': {'0': [4.75776e-06, 1242880],
+                                       '1': [4.75776e-06, 1242880]}}},
+           'straddle': [{'b_routes': [[0, 0, 0, 680],
+                                      [0, 1, 680, 1360],
+                                      [0, 2, 1360, 2040],
+                                      [1, 3, 2040, 2720],
+                                      [1, 4, 2720, 3400],
+                                      [1, 5, 3400, 4080]],
+                         'c_routes': [[0, 0, 0, 680],
+                                      [0, 1, 680, 1360],
+                                      [0, 2, 1360, 2040],
+                                      [1, 3, 2040, 2720],
+                                      [1, 4, 2720, 3400],
+                                      [1, 5, 3400, 4080]],
+                         'moved': [3400, 3400],
+                         'ok': True,
+                         'to': 1}],
+           'straddle_admitted': {'events': [{'action': 'admit',
+                                             'group': 0,
+                                             'scores': {'0': 5.557617777777777e-06,
+                                                        '1': 0.00027594112},
+                                             'tenant': 'h1'}],
+                                 'failed_migrations': 0,
+                                 'imbalance': 2.0,
+                                 'migrations': 0,
+                                 'placements': {'h1': 0},
+                                 'scores': {'h1': {'0': [5.557617777777777e-06,
+                                                         5123748],
+                                                   '1': [0.00027594112,
+                                                         4286084]}}},
+           'straddle_rows': 4080,
+           'straddle_state': {'events': [{'action': 'admit',
+                                          'group': 0,
+                                          'scores': {'0': 5.557617777777777e-06,
+                                                     '1': 0.00027594112},
+                                          'tenant': 'h1'},
+                                         {'action': 'migrate',
+                                          'b_rows': 3400,
+                                          'c_rows': 3400,
+                                          'from': 0,
+                                          'tenant': 'h1',
+                                          'to': 1}],
+                              'failed_migrations': 0,
+                              'imbalance': 2.0,
+                              'migrations': 1,
+                              'placements': {'h1': 1},
+                              'scores': {'h1': {'0': [5.557617777777777e-06,
+                                                      5123748],
+                                                '1': [0.00027594112,
+                                                      4286084]}}}}}
+
+
 def slow_tier_rows(plan, L: int):
     """(B rows, C rows) of a flat plan whose ranks sit in different
     groups of L ranks (``HierPlan.inter_group_rows_flat``)."""
@@ -4915,6 +5180,205 @@ def mp_degrade(sess, a, b_host, b_full) -> dict:
                 reqs[0].output, h.row_blocks(), a, b_host, "mp_degrade")}
 
 
+def _fleet_state(fleet) -> dict:
+    """A fleet's host-side decisions and counters, as the pins hold them."""
+    return _jsonable({"placements": fleet.placements(),
+                      "scores": {n: {g: list(v) for g, v in t.scores.items()}
+                                 for n, t in fleet.tenants.items()},
+                      "imbalance": fleet.imbalance(),
+                      "migrations": fleet.migrations,
+                      "failed_migrations": fleet.failed_migrations,
+                      "events": fleet.events})
+
+
+def _fleet_routes(old, new) -> dict:
+    """A migration's B / C reshard routes and moved rows."""
+    from repro_torch import ReshardSpec
+    from repro_torch.core.sparse import block_rows
+
+    b = ReshardSpec.between(block_rows(old.shape[1], old.P),
+                            block_rows(new.shape[1], new.P))
+    c = ReshardSpec.between(tuple(old.bounds), tuple(new.bounds))
+    return {"b_routes": [list(r) for r in b.routes],
+            "c_routes": [list(r) for r in c.routes],
+            "moved": [b.moved_rows(), c.moved_rows()]}
+
+
+def mp_fleet(args, topo, mats, b_host, b_full, recorded) -> dict:
+    """Phase 11 (b)'s ``SpmmFleet`` on the groups of the process fleet:
+    phase 9's three tenants on ``SpmmFleet(topo, (4, 4))`` (group 0 on
+    worker 0, group 1 on worker 1): a served round, ``rebalance()`` (a
+    migration across the boundary), a served round, a migration that a
+    fault on worker 1 alone rolls back on both; then h1 with rungs (2, 6)
+    on ``(2, 6)``, served, migrated into group 1 (ranks [2, 8), across
+    the boundary) and served. Decisions, routes, moved rows and events ==
+    ``EXPECT_MP_FLEET``; every served C's rows ``torch.equal`` to the
+    emulated run of its plan and within 2e-4 of float64; the resident
+    slabs after each migration == the served rows under the new
+    partition; no wave dropped. Path ``mp_fleet``: the served rounds'
+    kernel calls and launches."""
+    from repro_torch import SpmmConfig, SpmmFleet
+    from repro_torch.core.api import materialize_payload
+    from repro_torch.core.planner import plan_build_count
+    from repro_torch.core.sparse import block_rows, power_law_sparse
+    from repro_torch.distributed.topology import Topology
+    from repro_torch.kernels import ops
+    from repro_torch.robustness import Fault, inject
+
+    me, dev = topo.process_index, topo.device
+    expect = EXPECT_MP_FLEET["quick" if args.quick else "full"]
+    m = b_host.shape[0]
+    nnz = (7 * 16_384 if args.quick else NNZ_FULL) // LIFE_SCALE
+    lt = FLEET_LIGHT_QUICK if args.quick else FLEET_LIGHT
+    a = {"h1": mats["power_law"],
+         "h2": power_law_sparse(m, m, nnz, 0.8, seed=FLEET_H2_SEED),
+         "lt": power_law_sparse(lt["m"], lt["m"], lt["nnz"], 0.8,
+                                seed=lt["seed"])}
+    lt_host = np.random.default_rng(9).standard_normal(
+        (lt["m"], N_COLS)).astype(np.float32)
+    bs = {"h1": (b_full, b_host), "h2": (b_full, b_host),
+          "lt": (torch.from_numpy(lt_host).to(dev), lt_host)}
+    cfg = SpmmConfig(n_dense_hint=N_COLS)
+    calls = _path_calls(recorded, "mp_fleet")
+    served_c = {}  # tenant -> the whole C of its last served round
+    out = {"rounds": [], "checks": []}
+
+    def check(what, got, want):
+        if got != want:
+            raise AssertionError(f"mp_fleet {what}: {got} != the "
+                                 f"reference's {want}")
+        out["checks"].append(what)
+
+    def serve(fleet, what):
+        # the path's kernel row is one round's, its calls and its launches
+        # both: the first round in which this worker launches (worker 1
+        # holds no rank of group 0, where the three tenants are admitted)
+        record = not any(calls[1].values())
+        for n in fleet.tenants:
+            fleet.submit(n, bs[n][0][:a[n].shape[1]])
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if record:
+            done = {}
+            got = record_kernel_calls(lambda: done.update(fleet.serve()))
+        else:
+            done = fleet.serve()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {k: ops.launch_counts()[k] for k in MP_DISPATCH_KERNELS}
+        if record and any(launches.values()):
+            for k, c in got.items():
+                calls[0][k].extend(c)
+            calls[1].update(launches)
+        rec = {"what": what, "wall_ms": wall,
+               "per_request_ms": wall / len(done), "launches": launches,
+               "tenants": {}}
+        gloo = 0.0
+        for n, (c,) in done.items():
+            h = fleet.tenants[n].session.handle()
+            tr = h.comm.transport()
+            gloo += tr["gloo_s"] * 1e3
+            emu = materialize_payload(h.save_payload(),
+                                      Topology.local(h.P, dev))
+            c_emu = emu(bs[n][0][:a[n].shape[1]])
+            rows = h.row_blocks()
+            if not torch.equal(c, torch.cat([c_emu[s_:e_] for s_, e_ in rows]
+                                             or [c_emu[:0]])):
+                raise AssertionError(f"mp_fleet {what} {n}: C != the "
+                                     f"emulated run's")
+            served_c[n] = c_emu
+            rec["tenants"][n] = {
+                "P": h.P, "group": fleet.placements()[n], "rows": rows,
+                "max_abs_err": check_c_rows(c, rows, a[n],
+                                            bs[n][1][:a[n].shape[1]],
+                                            f"mp_fleet {what} {n}"),
+                "gloo_ms": tr["gloo_s"] * 1e3,
+                "exchanges": tr["exchanges"]}
+            del emu
+        rec["gloo_ms"] = gloo
+        out["rounds"].append(rec)
+        return rec
+
+    def residents(fleet, n, what):
+        """The tenant's resident slabs == the served rows, new partition."""
+        t = fleet.tenants[n]
+        h = t.session.handle()
+        lo, hi = h.topology.span
+        b = bs[n][0][:a[n].shape[1]]
+        ok = (len(t.resident_b) == len(t.resident_c) == hi - lo
+              and all(torch.equal(r, b[x:y]) for r, (x, y) in zip(
+                  t.resident_b, block_rows(h.plan.shape[1], h.P)[lo:hi]))
+              and all(torch.equal(r, served_c[n][x:y]) for r, (x, y) in zip(
+                  t.resident_c, list(h.plan.bounds)[lo:hi])))
+        if not ok:
+            raise AssertionError(f"mp_fleet {what}: resident slabs of {n} "
+                                 f"!= the served rows")
+        return dict(fleet.reshards[-1], span=[lo, hi])
+
+    t0 = time.perf_counter()
+    fleet = SpmmFleet(topo, MP_FLEET_SPLIT, config=cfg)
+    for n in MP_FLEET_ORDER:
+        fleet.admit(n, a[n])
+    out["admit_s"] = time.perf_counter() - t0
+    check("admitted", _fleet_state(fleet), expect["admitted"])
+    serve(fleet, "admitted")
+    old = {n: t.session.handle().plan for n, t in fleet.tenants.items()}
+    n0 = plan_build_count()
+    moves, _, out["rebalance_ms"] = _timed(fleet.rebalance)
+    moves = [list(mv) for mv in moves]
+    check("moves", moves, expect["moves"])
+    if plan_build_count() != n0:
+        raise AssertionError("mp_fleet: rebalance ran MWVC")
+    check("rebalance routes", [_fleet_routes(
+        old[n], fleet.tenants[n].session.handle().plan) for n, _ in moves],
+        expect["rebalance"])
+    out["rebalance"] = [residents(fleet, n, "rebalance") for n, _ in moves]
+    serve(fleet, "rebalanced")
+    name = moves[0][0]
+    src = fleet.placements()[name]
+    faults = [Fault(kind="wave_error", site="fleet_migrate_fail")] \
+        if me == MP_FLEET_FAULT_WORKER else []
+    with inject(faults) as fp:
+        ok, _, out["rollback_ms"] = _timed(
+            lambda: fleet.migrate(name, 1 - src))
+    if ok or fp.fired("wave_error") != int(me == MP_FLEET_FAULT_WORKER):
+        raise AssertionError(f"mp_fleet: the fault on worker "
+                             f"{MP_FLEET_FAULT_WORKER} did not roll the "
+                             f"migration back here")
+    check("rollback", [name, 1 - src, ok], expect["rollback"])
+    check("state", _fleet_state(fleet), expect["state"])
+    # a migration into the group that straddles the processes
+    m26 = m - m % 24
+    a26 = a["h1"] if m26 == m else power_law_sparse(m26, m26, nnz, 0.8,
+                                                    seed=0)
+    a["h1"] = a26
+    f26 = SpmmFleet(topo, MP_FLEET_STRADDLE, config=cfg)
+    f26.admit("h1", a26, p_ladder=MP_FLEET_LADDER)
+    check("straddle admitted", _fleet_state(f26), expect["straddle_admitted"])
+    serve(f26, "straddle")
+    out["straddle"] = []
+    for dst in ((1,) if f26.placements()["h1"] == 0 else (0, 1)):
+        old26 = f26.tenants["h1"].session.handle().plan
+        ok, _, ms = _timed(lambda: f26.migrate("h1", dst))
+        step = dict(to=dst, ok=ok, **_fleet_routes(
+            old26, f26.tenants["h1"].session.handle().plan))
+        check(f"straddle to {dst}", step,
+              expect["straddle"][len(out["straddle"])])
+        out["straddle"].append(dict(residents(f26, "h1", f"straddle {dst}"),
+                                    migrate_ms=ms))
+        serve(f26, f"straddle at group {dst}")
+    check("straddle state", _fleet_state(f26), expect["straddle_state"])
+    dropped = [t.server.stats.dropped_waves for fl in (fleet, f26)
+               for t in fl.tenants.values()]
+    if any(dropped):
+        raise AssertionError(f"mp_fleet: dropped waves {dropped}")
+    _launched(calls, MP_DISPATCH_KERNELS, "mp_fleet")
+    out["span"] = list(topo.span)
+    del fleet, f26, served_c
+    return out
+
+
 def mp_worker(args) -> None:
     """One process of phase 11 (b): its span of the P = 8 ranks on the
     card. Writes ``<dir>/rank<i>.json`` for the parent; any failed check
@@ -4987,11 +5451,17 @@ def mp_worker(args) -> None:
     out.update(mp_dispatch(args, topo, recorded))
     log(f"[worker {me}] mp_dispatch: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    fleet_in = (mats, b_host, b_full)  # the cells' own, for mp_fleet
     mats, b_host, b_full = rung_inputs(args, mats, b_host, b_full)
     out["rungs"], sess = mp_rung(args, topo, mats, b_host, b_full, recorded)
     log(f"[worker {me}] mp_rung: {time.perf_counter() - t0:.1f} s")
     out["degrade"] = mp_degrade(sess, mats["power_law"], b_host, b_full)
-    del b_full, sess
+    del sess, b_full
+    t0 = time.perf_counter()
+    out["mp_fleet"] = mp_fleet(args, topo, *fleet_in, recorded)
+    out["mp_fleet"]["seconds"] = time.perf_counter() - t0
+    log(f"[worker {me}] mp_fleet: {out['mp_fleet']['seconds']:.1f} s")
+    del fleet_in
     torch.cuda.empty_cache()
     # every recorded kernel call against its plain version, one process
     # at a time (both share the card, and the replays are timed)
@@ -5060,6 +5530,37 @@ def mp_session_log(res, card: str) -> None:
             f"{json.dumps(d['stats'])}; span {d['span']} on rung 6; "
             f"run() {d['run_s']:.3f} s host wall, {d['ms_per_request']:.3f}"
             f" ms a request; max abs err {d['max_abs_err']:.3g}")
+
+
+def mp_fleet_log(res, card: str) -> None:
+    """Phase 11 (b)'s mp_fleet, each worker's."""
+    f = res[0]["mp_fleet"]
+    log(f"mp_fleet: decisions, routes, moved rows and events == the "
+        f"reference's ({', '.join(f['checks'])}); admitted in "
+        f"{f['admit_s']:.1f} s; worker spans {[r['span'] for r in res]}")
+    for r in res:
+        x = r["mp_fleet"]
+        for rb in x["rebalance"] + x["straddle"]:
+            log(f"  worker {r['process']} migrate {rb['tenant']} "
+                f"{rb['from']} -> {rb['to']} (span here {rb['span']}): "
+                f"moved rows (B, C) {rb['b_rows']}, {rb['c_rows']} "
+                f"(ReshardSpec.moved_rows), across processes "
+                f"{rb['b_rows_crossing']}, {rb['c_rows_crossing']} rows = "
+                f"{rb['bytes_crossing']} B; resident slabs == the served "
+                f"rows" + (f"; {rb['migrate_ms']:.1f} ms host wall"
+                           if "migrate_ms" in rb else ""))
+        log(f"  worker {r['process']}: rebalance {x['rebalance_ms']:.1f} ms"
+            f", rolled-back migrate {x['rollback_ms']:.1f} ms host wall; "
+            f"seconds {x['seconds']:.1f}")
+        for rd in x["rounds"]:
+            log(f"  worker {r['process']} served round ({rd['what']}) "
+                f"[{card}]: {len(rd['tenants'])} requests in "
+                f"{rd['wall_ms']:.3f} ms host wall, {rd['per_request_ms']:.3f}"
+                f" ms a request; gloo {rd['gloo_ms']:.3f} ms "
+                f"({rd['gloo_ms'] / rd['wall_ms']:.1%}); launches "
+                f"{json.dumps(rd['launches'])}; per tenant (P, group, rows, "
+                f"max abs err vs float64, gloo ms) "
+                f"{[(n, t['P'], t['group'], t['rows'], round(t['max_abs_err'], 7), round(t['gloo_ms'], 3)) for n, t in rd['tenants'].items()]}")  # noqa: E501
 
 
 def _launchers(runs):
@@ -5184,6 +5685,7 @@ def mp_phase(args, card: str) -> dict:
                 f"{cell['transport']['exchanges']} exchanges, "
                 f"{cell['transport']['staged_bytes']} B staged")
     mp_session_log(res, card)
+    mp_fleet_log(res, card)
     rows = {}
     for k, per_path in res[0]["kernels"].items():
         for path, row in per_path.items():
@@ -5245,6 +5747,20 @@ MP_LM_CKPT_EVERY = 2
 # end at most 3 steps × 2 × 2·lr = 3.6e-3 apart, plus one bf16 ulp of the
 # largest weights (9.8e-4 below 0.25)
 MP_LM_TWIN_TOL = dict(loss=1e-3, grad_norm=1e-2, param=5e-3)
+# a (pod 2, data 2, model 2) grid in the same 2 x 4 workers (mp_pod): one
+# pod a worker, the batch over (pod, data) flattened; OLMoE-1B-7B at its
+# published width cut to 1 layer (--quick: olmoe-smoke), one 8 x 128
+# prefill and one decode step against the emulated grid, and a float32
+# copy's forward and decode within 2e-4
+MP_POD_GRID = ((2, 2, 2), ("pod", "data", "model"))
+MP_POD = dict(layers=1, batch=8, seq=128)
+# a ragged grid in a second launch of 2 processes x 3 ranks
+# (mp_ragged_train): (data 3, model 2), process 0 runs group 0 and model
+# rank 0 of group 1, process 1 the rest, so each holds both model ranks'
+# experts and group 1 is split between them; phase 12's LM train config,
+# a 6 x 128 SyntheticLM batch, 3 steps against the emulated twin within
+# MP_LM_TWIN_TOL, and a float32 copy's forward and decode within 2e-4
+MP_RAGGED = dict(nproc=2, local=3, grid=(3, 2), batch=6, seq=128, steps=3)
 # the hybrid, encdec, vlm and audio families on the fleet's grid after the
 # LM cases, at their published widths cut in depth, each released before
 # the next: (path, arch, config changes, tokens a prompt). zamba2: its
@@ -5884,6 +6400,290 @@ def mp_ep_f32(args, cfg, fdist, edist, me, gather, dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def _f32_vs_emulated(cfg, full, mine, fdist, edist, batch, what, dev):
+    """A float32 copy's forward and its teacher-forced decode steps on the
+    fleet against the emulated grid's rows, within 2e-4 (and whether
+    ``torch.equal``)."""
+    from repro_torch.models import transformer as TT
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = lambda t: TT._tree_map(lambda x: x.float(), t)  # noqa: E731
+    full, mine = f32(full), f32(mine)
+    B = batch["tokens"].shape[0]
+    lo, hi = fdist.local_rows(B)
+    toks = batch["tokens"][:, :LM_F32["tokens"]]
+    res = {}
+    got = TT.forward(mine, c32, fdist, {"tokens": toks})
+    want = TT.forward(full, c32, edist, {"tokens": toks})[lo:hi]
+    res["forward"] = check_close(got, _host64(want), f"{what} forward")
+    res["forward_equal"] = bool(torch.equal(got, want))
+    caches = [TT.init_decode_cache(c32, B, toks.shape[1], device=dev)
+              for _ in range(2)]
+    equal, outs = True, []
+    for j in range(toks.shape[1]):
+        t = toks[:, j:j + 1]
+        lf, caches[0] = TT.decode_step(mine, c32, fdist, t, caches[0])
+        le, caches[1] = TT.decode_step(full, c32, edist, t, caches[1])
+        equal &= bool(torch.equal(lf, le[lo:hi]))
+        outs.append((lf, le[lo:hi]))
+    res["decode"] = check_close(torch.cat([o[0] for o in outs], 1),
+                                _host64(torch.cat([o[1] for o in outs], 1)),
+                                f"{what} decode")
+    res["decode_equal"] = equal
+    del full, mine, caches, outs
+    return res
+
+
+def mp_pod_cell(args, topo, gather, recorded) -> dict:
+    """The EP LM on a (pod 2, data 2, model 2) grid over the fleet (one
+    pod a worker): ``MP_POD``'s prefill and one decode step, counted, the
+    logits against the emulated grid's (bf16: ``torch.equal`` reported,
+    held to ``MP_FAMILY_ROWS_TOL`` of their largest magnitude), and a
+    float32 copy's forward and decode within 2e-4. Path ``mp_pod``: both
+    calls' kernels."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed.context import make_context
+    from repro_torch.distributed.topology import Topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as TT
+
+    me, dev = topo.process_index, topo.device
+    cfg = get_smoke_config(LM_ARCH) if args.quick else dataclasses.replace(
+        get_config(LM_ARCH), n_layers=MP_POD["layers"])
+    fdist = make_context(Topology.multiprocess(
+        device=MP_DEVICE, mesh=make_mesh(*MP_POD_GRID)))
+    edist = make_context(make_mesh(*MP_POD_GRID))
+    B, S = MP_POD["batch"], MP_POD["seq"]
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)}
+    first = batch["tokens"][:, :1]
+    lo, hi = fdist.local_rows(B)
+    full = TT.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                          device=dev)
+    emu_pre = TT.forward(full, cfg, edist, batch)[lo:hi]
+    cache = TT.init_decode_cache(cfg, B, S, device=dev)
+    emu_dec = TT.decode_step(full, cfg, edist, first, cache)[0][lo:hi]
+    params = TT.shard_experts(full, cfg, fdist)
+    calls = record_kernel_calls(
+        lambda: TT.forward(params, cfg, fdist, batch), host=True)
+    cache = TT.init_decode_cache(cfg, B, S, device=dev)
+    for k, got in record_kernel_calls(
+            lambda: TT.decode_step(params, cfg, fdist, first, cache),
+            host=True).items():
+        calls[k].extend(got)
+    fdist.comm.reset()
+    ops.reset_launch_counts()
+    pre, pre_ms, pre_host = _timed(lambda: TT.forward(params, cfg, fdist,
+                                                      batch))
+    cache = TT.init_decode_cache(cfg, B, S, device=dev)
+    (dec, _), dec_ms, dec_host = _timed(
+        lambda: TT.decode_step(params, cfg, fdist, first, cache))
+    launches = ops.launch_counts()
+    tr = fdist.comm.transport()
+    per_call = {"gather_rows": 2 * cfg.n_layers,
+                "scatter_add_rows": 2 * cfg.n_layers,
+                "rmsnorm": 2 * cfg.n_layers + 1}
+    if {k: launches[k] for k in per_call} != \
+            {k: 2 * n for k, n in per_call.items()}:
+        raise AssertionError(f"mp_pod: launches {launches}, want twice "
+                             f"{per_call}")
+    check_finite(pre, (hi - lo, S, cfg.vocab_size), "mp_pod prefill")
+    check_finite(dec, (hi - lo, 1, cfg.vocab_size), "mp_pod decode")
+    res = {"span": list(fdist.span), "rows": [lo, hi],
+           "groups": list(fdist.local_span.groups),
+           "launches": launches, "transport": tr,
+           "prefill_ms": [pre_ms, pre_host], "decode_ms": [dec_ms, dec_host]}
+    for key, got, want in (("prefill", pre, emu_pre),
+                           ("decode", dec, emu_dec)):
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        if not err <= MP_FAMILY_ROWS_TOL * scale:
+            raise AssertionError(f"mp_pod {key}: logits {err} from the "
+                                 f"emulated grid's (largest {scale})")
+        res[key] = {"equal": bool(torch.equal(got, want)), "max_err": err,
+                    "scale": scale}
+    del pre, dec, emu_pre, emu_dec, cache
+    res["f32"] = _f32_vs_emulated(cfg, full, params, fdist, edist, batch,
+                                  "mp_pod float32", dev)
+    recorded["mp_pod"] = (calls, launches)
+    del full, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mp_ragged_worker(args) -> None:
+    """One process of phase 12's ragged launch (``MP_RAGGED``): the LM
+    train step on (data 3, model 2) over 2 processes x 3 ranks — one
+    kernel-recorded step (worker 0 keeps it), ``MP_RAGGED["steps"]``
+    counted ``make_train_step`` steps with each parameter's bit digest,
+    the last parameters saved for the twin, one step split by CUDA events,
+    a float32 copy's forward and decode against the emulated grid, then
+    worker 0 replays its calls against the plain versions. Writes
+    ``<dir>/ragged<i>.json``."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.context import make_context
+    from repro_torch.distributed.topology import Topology
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.multiprocess import initialize, shutdown
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import AdamWConfig, _leaves, adamw_init
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    t_start = time.perf_counter()
+    out_dir = args.mp_ragged_worker
+    topo = initialize(timeout=MP_TIMEOUT)
+    me, dev = topo.process_index, topo.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = "mp_ragged_train"
+    cfg = mp_lm_config(args, True)
+    grid = (MP_RAGGED["grid"], ("data", "model"))
+    fdist = make_context(Topology.multiprocess(device=MP_DEVICE,
+                                               mesh=make_mesh(*grid)))
+    edist = make_context(make_mesh(*grid))
+    batch = {"tokens": torch.from_numpy(SyntheticLM(
+        cfg.vocab_size, MP_RAGGED["seq"], MP_RAGGED["batch"],
+        seed=0).batch(0)["tokens"]).to(dev)}
+    opt = AdamWConfig(**MP_LM_OPT)
+    reset_peak()
+    full = TT.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                          device=dev)
+    params = TT.shard_experts(full, cfg, fdist)
+    n_params = sum(t.numel() for t in _leaves(params))
+    span = fdist.local_span
+    calls = record_kernel_calls(
+        lambda: loss_and_grads(params, cfg, fdist, batch), host=True)
+    if me != 0:
+        del calls
+    sources = fdist.grad_sources(params, cfg)
+    fdist.comm.reset()
+    ops.reset_launch_counts()
+    step = make_train_step(cfg, fdist, opt)
+    p, state, steps = params, adamw_init(params), []
+    for _ in range(MP_RAGGED["steps"]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p, state, met = step(p, state, batch)
+        torch.cuda.synchronize()
+        steps.append({"wall_ms": (time.perf_counter() - t1) * 1e3,
+                      "loss": float(met["loss"]),
+                      "grad_norm": float(met["grad_norm"]),
+                      "digests": [bits_digest(t) for t in _leaves(p)]})
+    launches = ops.launch_counts()
+    tr = fdist.comm.transport()
+    want = ("gather_rows", "scatter_add_rows", "rmsnorm", "rmsnorm_bwd")
+    if min(launches[k] for k in want) < 1:
+        raise AssertionError(f"{path}: a kernel of the path was not "
+                             f"launched: {launches}")
+    torch.save([t.cpu() for t in _leaves(p)],
+               os.path.join(out_dir, f"{path}.{me}.pt"))
+    *_, ms = split_train_step(cfg, fdist, opt, p, state, batch, sources)
+    del p, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = _f32_vs_emulated(cfg, full, params, fdist, edist, batch,
+                           f"{path} float32", dev)
+    del full, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"process": me, "span": list(fdist.span),
+           "ranks": [list(r) for r in span.ranks],
+           "models": list(span.models), "counted": list(fdist.counted_groups),
+           "steps": steps, "launches": launches, "split_ms": ms,
+           "transport": tr, "f32": f32, "peak_gb": peak_allocated() / 1e9,
+           "params": n_params}
+    rows = {}
+    if me == 0:
+        t0 = time.perf_counter()
+        for k in want:
+            rows.setdefault(k, {})[path] = kernel_row(k, calls[k],
+                                                      launches[k], busy=False)
+        del calls
+        log(f"[ragged worker 0] {path} calls replayed in "
+            f"{time.perf_counter() - t0:.1f} s")
+    out["kernels"] = rows
+    out["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"ragged{me}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown()
+
+
+def mp_ragged_twin(args, res, out_dir, card: str, dev: str = "cuda") -> None:
+    """``mp_ragged_train``'s emulated twin in the phase's process: the same
+    weights, batch and steps on ``make_mesh((3, 2))``; each step's loss
+    and grad norm and every parameter each worker holds (digests each
+    step, the saved values after the last) within ``MP_LM_TWIN_TOL``."""
+    from repro_torch.distributed.context import make_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim.adamw import AdamWConfig, _leaves, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    from repro_torch.data.pipeline import SyntheticLM
+
+    path = "mp_ragged_train"
+    cfg = mp_lm_config(args, True)
+    edist = make_context(make_mesh(MP_RAGGED["grid"], ("data", "model")))
+    batch = {"tokens": torch.from_numpy(SyntheticLM(
+        cfg.vocab_size, MP_RAGGED["seq"], MP_RAGGED["batch"],
+        seed=0).batch(0)["tokens"]).to(dev)}
+    p = TT.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    step = make_train_step(cfg, edist, AdamWConfig(**MP_LM_OPT))
+    state = adamw_init(p)
+    worst = dict(loss=0.0, grad_norm=0.0, param=0.0)
+    equal = []
+    for i in range(MP_RAGGED["steps"]):
+        p, state, met = step(p, state, batch)
+        loss, norm = float(met["loss"]), float(met["grad_norm"])
+        digests = [bits_digest(t) for t in _leaves(p)]
+        for r in res:
+            st = r["steps"][i]
+            dl = abs(st["loss"] - loss) / abs(loss)
+            dn = abs(st["grad_norm"] - norm) / norm
+            worst["loss"] = max(worst["loss"], dl)
+            worst["grad_norm"] = max(worst["grad_norm"], dn)
+            equal.append(dl == 0 and dn == 0 and digests == st["digests"])
+    for r in res:  # both workers hold every expert on (data 3, model 2)
+        saved = torch.load(os.path.join(out_dir, f"{path}.{r['process']}.pt"))
+        for t, s_ in zip(_leaves(p), saved):
+            worst["param"] = max(worst["param"], float(
+                (t.float() - s_.to(dev).float()).abs().max()))
+    if not all(worst[k] <= MP_LM_TWIN_TOL[k] for k in worst):
+        raise AssertionError(f"{path}: fleet vs emulated twin {worst} past "
+                             f"{MP_LM_TWIN_TOL}")
+    r0 = res[0]
+    log(f"{path}: {cfg.name} ({r0['params']:,} parameters a worker) on "
+        f"{dict(edist.mesh.shape)} over {MP_RAGGED['nproc']} x "
+        f"{MP_RAGGED['local']} ranks; spans {[r['ranks'] for r in res]}, "
+        f"experts of model ranks {[r['models'] for r in res]}, counted "
+        f"groups {[r['counted'] for r in res]}; losses "
+        f"{[x['loss'] for x in r0['steps']]}, grad norms "
+        f"{[x['grad_norm'] for x in r0['steps']]}; vs the emulated twin: "
+        f"torch.equal at {sum(equal)} of {len(equal)} (step, worker) pairs; "
+        f"worst relative loss {worst['loss']:.3g}, grad norm "
+        f"{worst['grad_norm']:.3g}, parameter abs {worst['param']:.3g} "
+        f"(limits {MP_LM_TWIN_TOL})")
+    for r in res:
+        ms, tr = r["split_ms"], r["transport"]
+        log(f"  {path} worker {r['process']} [{card}]: steps' host wall "
+            f"{[round(x['wall_ms'], 3) for x in r['steps']]} ms; a step by "
+            f"CUDA events: forward {ms['fwd']:.3f}, backward {ms['bwd']:.3f},"
+            f" fold {ms['fold']:.3f}, update {ms['upd']:.3f} ms, host wall "
+            f"{ms['wall']:.3f} ms; 3 steps' gloo {tr['gloo_s']:.3f} s, "
+            f"staging {tr['stage_s']:.3f} s, fold {tr['fold_bytes']} B sent,"
+            f" exchanges {tr['exchanges']} ({tr['bwd_exchanges']} backward);"
+            f" launches {json.dumps(r['launches'])}; peak "
+            f"{r['peak_gb']:.2f} GB; float32 copy: forward "
+            f"{r['f32']['forward']} (torch.equal {r['f32']['forward_equal']})"
+            f", decode {r['f32']['decode']} (torch.equal "
+            f"{r['f32']['decode_equal']}); worker {r['seconds']:.1f} s")
+    del p, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def mp_lm_config(args, moe: bool):
@@ -6650,6 +7450,9 @@ def mp_train_worker(args) -> None:
     t0 = time.perf_counter()
     out["ep"] = mp_ep_cell(args, topo, gather, recorded)
     log(f"[worker {me}] EP: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["pod"] = mp_pod_cell(args, topo, gather, recorded)
+    log(f"[worker {me}] pod grid: {time.perf_counter() - t0:.1f} s")
     # every recorded call against its plain version, one process at a time
     kernels = {"mp_gcn_step": ("gather_rows", "gather_rows_scaled",
                                "scatter_add_rows"),
@@ -6658,7 +7461,8 @@ def mp_train_worker(args) -> None:
                "mp_ep_prefill": ("gather_rows", "scatter_add_rows",
                                  "rmsnorm"),
                "mp_ep_decode": ("gather_rows", "scatter_add_rows",
-                                "rmsnorm")}
+                                "rmsnorm"),
+               "mp_pod": ("gather_rows", "scatter_add_rows", "rmsnorm")}
     log(f"[worker {me}] host RSS before the replays {host_rss_gb():.1f} GB")
     for turn in range(topo.n_hosts):
         if turn == me:
@@ -6781,6 +7585,42 @@ def mp_train_phase(args, card: str) -> dict:
                 row, max_abs_err=max([row["max_abs_err"]]
                                      + [o["max_abs_err"] for o in other]),
                 launches_per_worker=launches)
+    pods = [r["pod"] for r in res]
+    log(f"mp_pod: (pod 2, data 2, model 2) over {MP_NPROC} x {MP_LOCAL} "
+        f"ranks, batch rows {[x['rows'] for x in pods]} (groups "
+        f"{[x['groups'] for x in pods]}): prefill {MP_POD['batch']}x"
+        f"{MP_POD['seq']} and one decode step vs the emulated grid, bf16 "
+        f"torch.equal {[(x['prefill']['equal'], x['decode']['equal']) for x in pods]}"  # noqa: E501
+        f", max err {[(x['prefill']['max_err'], x['decode']['max_err']) for x in pods]}"  # noqa: E501
+        f" (limit {MP_FAMILY_ROWS_TOL} of {[x['prefill']['scale'] for x in pods]})")  # noqa: E501
+    for r, x in zip(res, pods):
+        log(f"  mp_pod worker {r['process']} [{card}]: prefill "
+            f"{x['prefill_ms'][0]:.3f} ms events / {x['prefill_ms'][1]:.3f} "
+            f"ms host, decode {x['decode_ms'][0]:.3f} / "
+            f"{x['decode_ms'][1]:.3f} ms; gloo {x['transport']['gloo_s']:.3f}"
+            f" s, {x['transport']['exchanges']} exchanges; launches "
+            f"{json.dumps(x['launches'])}; float32 copy: forward "
+            f"{x['f32']['forward']} (torch.equal {x['f32']['forward_equal']}"
+            f"), decode {x['f32']['decode']} (torch.equal "
+            f"{x['f32']['decode_equal']})")
+    # the ragged grid, in a launch of its own (2 processes x 3 ranks)
+    t0 = time.perf_counter()
+    rc = launch_local(MP_RAGGED["nproc"], MP_RAGGED["local"],
+                      timeout=MP_TIMEOUT, device=MP_DEVICE,
+                      argv=[sys.executable, os.path.abspath(__file__),
+                            "--mp-ragged-worker", out_dir]
+                      + (["--quick"] if args.quick else []))
+    if rc:
+        raise AssertionError(f"phase 12: a ragged worker failed (exit {rc})")
+    ragged = [json.load(open(os.path.join(out_dir, f"ragged{r}.json")))
+              for r in range(MP_RAGGED["nproc"])]
+    for k, per_path in ragged[0]["kernels"].items():
+        rows.setdefault(k, {})["mp_ragged_train"] = dict(
+            per_path["mp_ragged_train"],
+            launches_per_worker=[r["launches"][k] for r in ragged])
+    mp_ragged_twin(args, ragged, out_dir, card)
+    log(f"phase 12 ragged launch and its twin: "
+        f"{time.perf_counter() - t0:.1f} s")
     t_twin = time.perf_counter()
     mp_lm_twin(args, res, out_dir, card)
     cases_s = [round(sum(c["seconds"] for c in r["lm_train"].values()), 1)
@@ -7904,6 +8744,10 @@ def main() -> int:
     parser.add_argument("--mp-train-worker", metavar="DIR",
                         help="run as one worker of phase 12, writing its "
                              "results under DIR (the phase starts it)")
+    parser.add_argument("--mp-ragged-worker", metavar="DIR",
+                        help="run as one worker of phase 12's ragged grid, "
+                             "writing its results under DIR (the phase "
+                             "starts it)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7914,6 +8758,9 @@ def main() -> int:
         return 0
     if args.mp_train_worker:
         mp_train_worker(args)
+        return 0
+    if args.mp_ragged_worker:
+        mp_ragged_worker(args)
         return 0
     from repro_torch import SpmmConfig, compile_fused, compile_spmm
     from repro_torch.core.dist_spmm import flat_spmm

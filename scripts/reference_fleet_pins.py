@@ -35,6 +35,19 @@ decisions are checked against ``_plan_and_tune`` on the fleet stand-in.
 The quick rungs use 4080 nodes (4096 rounded down to 24 | M: six ranks
 need equal row blocks).
 
+``EXPECT_MP_FLEET``: phase 11 (b)'s ``mp_fleet``, the reference's
+``SpmmFleet`` on the same (2, 4) stand-in with ``SpmmConfig(n_dense_hint=
+128)`` (a carved group has no tiers, so ``net="auto"`` scores each group
+on the model's default network, as the port's carved groups do). Split
+(4, 4): phase 9's three tenants (h1 the quarter power-law matrix, h2 its
+seed-1 twin, lt the 16,384-node one; ``--quick``: 1,024) admitted, a
+served round, ``rebalance()``, a served round, a migration that an
+injected ``fleet_migrate_fail`` rolls back: the admissions, scores,
+imbalance before and after, moves, each migration's B / C reshard routes
+and moved rows, the counters and the events. Split (2, 6): h1 with rungs
+(2, 6) (its rows cut to a multiple of 24 under ``--quick``), a served
+round and a migration into group 1: the same fields.
+
 Run from the repo root (host planning only, a few minutes of CPU):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_fleet_pins.py
@@ -46,6 +59,8 @@ import os
 import pprint
 from types import SimpleNamespace
 
+import numpy as np
+
 # the sessions' handles live on eight host devices
 os.environ.setdefault("XLA_FLAGS",
                       "--xla_force_host_platform_device_count=8")
@@ -54,11 +69,14 @@ from repro.configs import get_config, get_smoke_config  # noqa: E402
 from repro.core.api import SpmmConfig, _plan_and_tune  # noqa: E402
 from repro.core.comm_model import NetworkSpec  # noqa: E402
 from repro.core.session import SpmmSession  # noqa: E402
-from repro.core.sparse import power_law_sparse, random_sparse  # noqa: E402
+from repro.core.sparse import (block_rows, power_law_sparse,  # noqa: E402
+                               random_sparse)
 from repro.distributed.topology import Topology  # noqa: E402
 from repro.launch.mesh import make_spmm_mesh  # noqa: E402
 from repro.models.gnn import normalize_adjacency  # noqa: E402
 from repro.models.moe import dispatch_matrix, dispatch_session  # noqa: E402
+from repro.robustness import Fault, inject  # noqa: E402
+from repro.serving.fleet import ReshardSpec, SpmmFleet  # noqa: E402
 
 M_FULL, NNZ_FULL, SCALE = 169_344, 1_166_243, 4
 NPROC, LOCAL = 2, 4
@@ -228,6 +246,89 @@ def dispatch_pins(cfg) -> dict:
     return out
 
 
+# chip_smoke.MP_FLEET: phase 9's tenants (chip_smoke.FLEET_*), on a fleet
+MP_FLEET = dict(cols=128, h2_seed=1, light=dict(m=16_384, nnz=7 * 16_384,
+                                                seed=0),
+                light_quick=dict(m=1024, nnz=7 * 1024, seed=0),
+                split=(4, 4), order=("h1", "h2", "lt"), straddle=(2, 6),
+                ladder=(2, 6))
+
+
+def _routes(old, new) -> dict:
+    """A migration's reshard routes and moved rows (B, then C)."""
+    b = ReshardSpec.between(block_rows(old.shape[1], old.P),
+                            block_rows(new.shape[1], new.P))
+    c = ReshardSpec.between(tuple(old.bounds), tuple(new.bounds))
+    return {"b_routes": [list(r) for r in b.routes],
+            "c_routes": [list(r) for r in c.routes],
+            "moved": [b.moved_rows(), c.moved_rows()]}
+
+
+def _fleet_state(fleet) -> dict:
+    return _json({"placements": fleet.placements(),
+                  "scores": {n: {g: list(v) for g, v in t.scores.items()}
+                             for n, t in fleet.tenants.items()},
+                  "imbalance": fleet.imbalance(),
+                  "migrations": fleet.migrations,
+                  "failed_migrations": fleet.failed_migrations,
+                  "events": fleet.events})
+
+
+def mp_fleet_pins(m: int, nnz: int, light: dict) -> dict:
+    """The reference fleet through ``mp_fleet``'s steps."""
+    topo = mesh_topology()
+    cfg = SpmmConfig(n_dense_hint=MP_FLEET["cols"])
+    mats = {"h1": power_law_sparse(m, m, nnz, 0.8, seed=0),
+            "h2": power_law_sparse(m, m, nnz, 0.8,
+                                   seed=MP_FLEET["h2_seed"]),
+            "lt": power_law_sparse(light["m"], light["m"], light["nnz"],
+                                   0.8, seed=light["seed"])}
+
+    def serve(fleet):
+        for n, t in fleet.tenants.items():
+            fleet.submit(n, np.zeros((mats[n].shape[1], MP_FLEET["cols"]),
+                                     np.float32))
+        fleet.serve()
+
+    def plan(fleet, n):
+        return fleet.tenants[n].session.handle().plan
+
+    fleet = SpmmFleet(topo, MP_FLEET["split"], config=cfg)
+    for n in MP_FLEET["order"]:
+        fleet.admit(n, mats[n])
+    out = {"admitted": _fleet_state(fleet)}
+    serve(fleet)
+    old = {n: plan(fleet, n) for n in mats}
+    out["moves"] = [list(mv) for mv in fleet.rebalance()]
+    out["rebalance"] = [_routes(old[n], plan(fleet, n))
+                        for n, _ in out["moves"]]
+    serve(fleet)
+    name = out["moves"][0][0] if out["moves"] else "h1"
+    src = fleet.placements()[name]
+    with inject([Fault(kind="wave_error", site="fleet_migrate_fail")]):
+        out["rollback"] = [name, 1 - src, fleet.migrate(name, 1 - src)]
+    out["state"] = _fleet_state(fleet)
+    # split (2, 6): a migration into the straddling group
+    m26 = m - m % 24
+    a26 = mats["h1"] if m26 == m else power_law_sparse(m26, m26, nnz, 0.8,
+                                                       seed=0)
+    mats["h1"] = a26
+    f26 = SpmmFleet(topo, MP_FLEET["straddle"], config=cfg)
+    f26.admit("h1", a26, p_ladder=MP_FLEET["ladder"])
+    out["straddle_admitted"] = _fleet_state(f26)
+    serve(f26)
+    out["straddle"] = []
+    for dst in ((1,) if f26.placements()["h1"] == 0 else (0, 1)):
+        old = plan(f26, "h1")
+        ok = f26.migrate("h1", dst)
+        out["straddle"].append(dict(to=dst, ok=ok,
+                                    **_routes(old, plan(f26, "h1"))))
+        serve(f26)
+    out["straddle_state"] = _fleet_state(f26)
+    out["straddle_rows"] = m26
+    return out
+
+
 def matrices(m: int, nnz: int) -> dict:
     return {"power_law": power_law_sparse(m, m, nnz, 0.8, seed=0),
             "uniform": random_sparse(m, m, nnz / m ** 2, seed=0)}
@@ -238,7 +339,7 @@ def main():
     ap.add_argument("--scale", type=int, default=SCALE,
                     help="nodes and edges / SCALE (1: the full-size cells)")
     args = ap.parse_args()
-    mp, train, rungs, disp = {}, {}, {}, {}
+    mp, train, rungs, disp, fleets = {}, {}, {}, {}, {}
     for key, m0, nnz0 in (("full", M_FULL, NNZ_FULL),
                           ("quick", 16_384, 7 * 16_384)):
         m, nnz = m0 // args.scale, nnz0 // args.scale
@@ -251,12 +352,15 @@ def main():
         rungs[key] = rung_sessions(mats if m_r == m else matrices(m_r, nnz))
         disp[key] = dispatch_pins((get_config if key == "full"
                                    else get_smoke_config)(DISPATCH["arch"]))
+        fleets[key] = mp_fleet_pins(
+            m, nnz, MP_FLEET["light" if key == "full" else "light_quick"])
         mats = {k: normalize_adjacency(a) for k, a in mats.items()}
         train[key] = plan_cells(MP_TRAIN_CELLS, mats, TRAIN_KEYS, False)
     print("EXPECT_MP =", pprint.pformat(mp))
     print("EXPECT_MP_TRAIN =", pprint.pformat(train))
     print("EXPECT_MP_RUNG =", pprint.pformat(rungs))
     print("EXPECT_MP_DISPATCH =", pprint.pformat(disp))
+    print("EXPECT_MP_FLEET =", pprint.pformat(fleets))
 
 
 if __name__ == "__main__":

@@ -26,9 +26,10 @@ them (dict keys in sorted order, as ``optim.adamw`` walks them):
   on a fleet it is required;
 * **restore onto any grid** (the reference's ``shardings=``): every
   process verifies the bundle, reads the global arrays, checks each
-  stored shape against the leaf's global shape and keeps its own run of
-  each sharded leaf (its model ranks' experts) — on one device, the
-  emulated grid or a fleet of another layout alike;
+  stored shape against the leaf's global shape and keeps its own chunks
+  of each sharded leaf (its model ranks' experts, in ascending rank: a
+  run, or not where its span cuts across data groups) — on one device,
+  the emulated grid or a fleet of another layout alike;
 * **self-describing**: metadata.json carries step, paths, shapes, dtypes
   and the per-file digests, all checked before an array is touched.
 
@@ -343,7 +344,8 @@ class CheckpointManager:
         against the metadata and against each leaf's global shape:
         ``like``'s own, or on a fleet for a leaf ``shards`` splits (dim,
         M) its shape with this process's model ranks' share of dim made
-        whole; such a leaf keeps this process's run along dim. ``inplace``
+        whole; such a leaf keeps this process's model ranks' chunks along
+        dim (``DistContext.local_span.models``). ``inplace``
         copies each array into ``like``'s tensor (every leaf a tensor)
         and returns ``like``.
         """
@@ -368,16 +370,17 @@ class CheckpointManager:
             shape = list(np.shape(leaf))
             if split is not None:
                 dim, M = split
-                _, nm, _, m_lo = self.dist.local_grid
-                shape[dim] = shape[dim] * M // nm
+                models = self.dist.local_span.models
+                shape[dim] = shape[dim] * M // len(models)
             if tuple(arr.shape) != tuple(shape):
                 raise ValueError(
                     f"{key}: stored shape {arr.shape} != expected "
                     f"{tuple(shape)}")
-            if split is not None:  # this process's model ranks' run
+            if split is not None:  # this process's model ranks' chunks
                 e = arr.shape[dim] // M
-                keep = slice(m_lo * e, (m_lo + nm) * e)
-                arr = np.ascontiguousarray(arr[(slice(None),) * dim + (keep,)])
+                keep = np.concatenate([np.arange(m * e, (m + 1) * e)
+                                       for m in models])
+                arr = np.ascontiguousarray(np.take(arr, keep, axis=dim))
             if isinstance(leaf, torch.Tensor):
                 t = torch.from_numpy(arr)
                 if want["dtype"] == "bfloat16":

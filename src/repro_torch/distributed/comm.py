@@ -72,12 +72,14 @@ from __future__ import annotations
 import itertools
 import math
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
-__all__ = ["LocalComm", "MeshComm", "ProcessComm", "ProcessMeshComm"]
+__all__ = ["LocalComm", "MeshComm", "ProcessComm", "ProcessMeshComm",
+           "ChunkSources"]
 
 Pairs = Tuple[Tuple[int, int], ...]
 
@@ -474,6 +476,24 @@ class MeshComm(_CommLog):
 
 
 
+class ChunkSources(NamedTuple):
+    """A sharded leaf's fold sources on one process
+    (``ProcessMeshComm.fold_leaves``): the leaf is cut along ``dim`` into
+    one chunk per model rank the process holds, and ``chunks[j]`` lists
+    the (process, chunk index there) pieces that chunk j sums, in fold
+    order."""
+
+    dim: int
+    chunks: Tuple[Tuple[Tuple[int, int], ...], ...]
+
+
+def _keeps(srcs: Any, q: int) -> bool:
+    """Whether process q's fold sources leave its leaf as it is."""
+    if isinstance(srcs, ChunkSources):
+        return all(tuple(c) == ((q, j),) for j, c in enumerate(srcs.chunks))
+    return list(srcs) == [q]
+
+
 _SEQ = itertools.count()  # this process's cross-process exchanges, in order
 
 
@@ -640,6 +660,11 @@ class _Fleet:
                 "fold_bytes": self.fold_bytes}
 
     # ----- the one exchange ----------------------------------------------
+
+    @property
+    def owners(self) -> Tuple[int, ...]:
+        """Each rank's process, rank by rank (the span table's)."""
+        return tuple(int(q) for q in self._owners)
 
     def _owner(self, rank: int) -> int:
         return int(self._owners[rank])
@@ -825,6 +850,32 @@ class _Fleet:
         self.gloo_s += time.perf_counter() - t0
         return sum(int(t) for t in parts)
 
+    def fold_first(self, obj: Any) -> Any:
+        """The first host object that is not None over the processes
+        (ascending process order), the same on every process; None where
+        every process gives None. One all_gather_object."""
+        import torch.distributed as dist
+
+        every: List[Any] = [None] * self.n_proc
+        t0 = time.perf_counter()
+        dist.all_gather_object(every, obj)
+        self.gloo_s += time.perf_counter() - t0
+        return next((o for o in every if o is not None), None)
+
+    def exchange_bytes(self, data: torch.Tensor, in_splits: Sequence[int],
+                       out_splits: Sequence[int],
+                       dtype: torch.dtype) -> torch.Tensor:
+        """``data`` (this process's outgoing slabs, contiguous, grouped by
+        destination process) through the one exchange every collective
+        uses (``_exchange``: pinned host staging on a card, its counters):
+        ``in_splits[p]`` bytes go to process p and ``out_splits[p]``
+        come from it. The bytes received, as ``dtype``, 1-D. A collective
+        every process makes."""
+        route = _Route(tuple(int(n) for n in in_splits),
+                       tuple(int(n) for n in out_splits), 0, dtype,
+                       next(_SEQ))
+        return self._exchange(data.contiguous(), route)
+
     def barrier(self) -> None:
         """Wait until every process of the group gets here."""
         import torch.distributed as dist
@@ -832,22 +883,24 @@ class _Fleet:
         dist.barrier()
 
     def fold_leaves(self, leaves: Sequence[torch.Tensor],
-                    sources: Sequence[Sequence[Sequence[int]]]
-                    ) -> List[torch.Tensor]:
+                    sources: Sequence[Sequence[Any]]) -> List[torch.Tensor]:
         """A functional gradient tree's leaves summed over processes:
         leaf i becomes the left fold, in the order of ``sources[i][q]``
         for this process q, of those processes' leaf i (a process's own
         list may name another process alone: its leaf is then that one's
-        copy). ``sources[i]`` holds every process's list, so every
-        process knows which leaves cross: those go, per dtype, through
-        one all_gather on the host; a leaf that every process keeps as it
-        is stays on its device untouched. Every process that sums the
-        same list gets the same bits."""
+        copy) — or, where ``sources[i][q]`` is a ``ChunkSources``, each
+        of its chunks along ``dim`` the left fold of the named
+        (process, chunk) pieces, joined in chunk order. ``sources[i]``
+        holds every process's entry, so every process knows which leaves
+        cross: those go, per dtype, through one all_gather on the host; a
+        leaf that every process keeps as it is stays on its device
+        untouched. Every process that sums the same list gets the same
+        bits."""
         import torch.distributed as dist
 
         out = list(leaves)
         cross = [i for i, per in enumerate(sources)
-                 if any(list(srcs) != [q] for q, srcs in enumerate(per))]
+                 if any(not _keeps(srcs, q) for q, srcs in enumerate(per))]
         by_dtype: Dict[torch.dtype, List[int]] = {}
         for i in cross:
             by_dtype.setdefault(leaves[i].dtype, []).append(i)
@@ -866,12 +919,27 @@ class _Fleet:
             self.fold_bytes += host.numel() * host.element_size()
             off = 0
             for i in idx:
-                n = leaves[i].numel()
+                n, shape = leaves[i].numel(), leaves[i].shape
                 srcs = sources[i][self.proc]
-                acc = parts[srcs[0]][off:off + n]
-                for q in srcs[1:]:
-                    acc = acc + parts[q][off:off + n]
-                out[i] = acc.reshape(leaves[i].shape).to(leaves[i].device)
+                leaf = [p[off:off + n].view(shape) for p in parts]
+                if isinstance(srcs, ChunkSources):
+                    size = shape[srcs.dim] // len(srcs.chunks)
+
+                    def piece(q, j):
+                        return leaf[q].narrow(srcs.dim, j * size, size)
+
+                    accs = []
+                    for chunk in srcs.chunks:
+                        acc = piece(*chunk[0])
+                        for q, j in chunk[1:]:
+                            acc = acc + piece(q, j)
+                        accs.append(acc)
+                    acc = torch.cat(accs, srcs.dim)
+                else:
+                    acc = leaf[srcs[0]]
+                    for q in srcs[1:]:
+                        acc = acc + leaf[q]
+                out[i] = acc.reshape(shape).to(leaves[i].device)
                 off += n
         return out
 

@@ -24,20 +24,26 @@ runs this process's ``span`` of the ranks: per-rank tensors lead with
 its [w] ranks (``lead``), a batch holds its data groups' rows
 (``local_batch``, ``local_rows``; ``gather_batch`` rebuilds the whole
 batch on every process), and the grid's collectives cross processes
-(``comm.ProcessMeshComm``).
+(``comm.ProcessMeshComm``). Any grid of processes × local ranks runs: a
+span is a ``Span`` of (data group, model rank) pairs — in general a
+partial head group, whole middle groups and a partial tail group — and
+holds the experts of its distinct model ranks (``local_span.models``,
+not always a run).
 
 What a train step needs of the grid: which processes hold each data
-group (``group_processes``), whether this process counts its rows in the
-loss (``counts_rows``: it holds model rank 0 of its data groups, the
+group (``group_processes``), which groups' rows this process counts in
+the loss (``counted_groups``: those whose model rank 0 it holds, the
 rank whose output the emulated grid returns), which slice of each
 parameter it holds (``leaf_shards``: the MoE experts are split over the
 model ranks, every other leaf is whole) and whose gradients make each
-leaf's sum (``grad_sources``); ``GradShards`` sums a gradient tree's
-squares in one order on the emulated grid and on a fleet.
+leaf's sum (``grad_sources``: an expert leaf's per model-rank chunk);
+``GradShards`` sums a gradient tree's squares in one order on the
+emulated grid and on a fleet.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -45,10 +51,10 @@ import numpy as np
 import torch
 
 from ..launch.mesh import EmulatedMesh
-from .comm import MeshComm
+from .comm import ChunkSources, MeshComm
 
-__all__ = ["DistContext", "make_context", "shard", "logical_to_spec",
-           "check_dist", "GradShards"]
+__all__ = ["DistContext", "Span", "make_context", "shard",
+           "logical_to_spec", "check_dist", "GradShards"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,24 +118,48 @@ class DistContext:
         return tuple(self.axis_size(a) for a in self.layout)
 
     @property
+    def local_span(self) -> "Span":
+        """This process's ranks as (data group, model rank) pairs: all of
+        the grid on one device, its span on a fleet (``span_of``)."""
+        return self.span_of(self.comm.proc if self.is_fleet else 0)
+
+    def span_of(self, q: int) -> "Span":
+        """Process q's ranks as a ``Span`` of the (batch groups, model)
+        grid (the whole grid on one device)."""
+        if not self.is_fleet:
+            return Span.of(0, self.mesh.size, self.model_size)
+        lo, hi = self.comm.spans[q]
+        return Span.of(lo, hi, self.model_size)
+
+    @property
     def local_grid(self) -> Tuple[int, int, int, int]:
-        """This process's ranks as a block of the (batch groups, model)
-        grid: (groups, model ranks per group, first group, first model
-        rank). All of it on one device; on a fleet the span must hold
-        whole groups or a run inside one."""
-        lo, hi = self.span
-        return _block(lo, hi - lo, self.model_size)
+        """The block of the (batch groups, model) grid this process runs,
+        as (data groups, model ranks per group, first group, first model
+        rank): all of the grid on one device; whole groups, or a run
+        inside one, on a fleet. A block accessor, which the model paths
+        do not use: they read ``local_span``, which names the ranks of
+        any span. A span that cuts across groups is no block, and this
+        raises there."""
+        span = self.local_span
+        if not span.is_block:
+            raise ValueError(
+                f"the span {self.span} of ranks is no block of the grid "
+                f"(ranks {span.ranks}): read local_span")
+        if not span.ranks:
+            return 0, 0, 0, 0
+        return (len(span.groups), len(span.models), span.groups[0],
+                span.models[0])
 
     def local_rows(self, n: int) -> Tuple[int, int]:
         """The rows [start, stop) of an n-row batch that this process's
-        data groups hold (all n on one device)."""
+        data groups hold (all n on one device): every row of each group
+        it touches, the groups a contiguous run."""
         dsz = self.batch_size_divisor
         if n % dsz:
             raise ValueError(f"batch {n} is not divisible by the batch axes "
                              f"{self.batch_axes} ({dsz} ranks)")
-        ng, _, g_lo, _ = self.local_grid
-        per = n // dsz
-        return g_lo * per, (g_lo + ng) * per
+        groups, per = self.local_span.groups, n // dsz
+        return groups[0] * per, (groups[-1] + 1) * per
 
     def local_batch(self, x):
         """``x``'s batch rows (dim 0) that this process holds."""
@@ -140,24 +170,34 @@ class DistContext:
 
     def gather_batch(self, local: np.ndarray, n: int) -> np.ndarray:
         """The whole n-row batch from every process's ``local`` rows
-        (``local_batch`` of it): each data group's rows as the processes
-        holding it give them (the same bits on each), the same result on
-        every process. The identity on one device."""
+        (``local_batch`` of it): each data group's rows from the first
+        process holding them (every holder has the same bits), the same
+        result on every process. One all_gather, each process's rows
+        padded to the most any process holds. The identity on one
+        device."""
         if not self.is_fleet:
             return local
         import torch.distributed as dist
 
+        per = n // self.batch_size_divisor
+        spans = [self.span_of(q) for q in range(self.n_processes)]
+        most = max(len(s.groups) for s in spans) * per
         local = np.ascontiguousarray(local)
         t = torch.from_numpy(local)
+        if t.shape[0] < most:
+            t = torch.cat([t, t.new_zeros((most - t.shape[0],)
+                                          + tuple(t.shape[1:]))])
         parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
         dist.all_gather(parts, t)
         out = np.empty((n,) + local.shape[1:], local.dtype)
-        w, per = self.span[1] - self.span[0], n // self.batch_size_divisor
-        for proc, part in enumerate(parts):
-            ng, _, g_lo, _ = _block(proc * w, w, self.model_size)
-            out[g_lo * per:(g_lo + ng) * per] = part.numpy()
+        done = set()
+        for s, part in zip(spans, parts):
+            for i, g in enumerate(s.groups):
+                if g not in done:
+                    done.add(g)
+                    out[g * per:(g + 1) * per] = \
+                        part[i * per:(i + 1) * per].numpy()
         return out
-
 
     # ----- what a train step needs of the grid ---------------------------
 
@@ -166,39 +206,42 @@ class DistContext:
         """The processes the grid runs over (1 on one device)."""
         return self.comm.n_proc if self.is_fleet else 1
 
-    def process_grid(self, q: int) -> Tuple[int, int, int, int]:
-        """Process q's ``local_grid``: (groups, model ranks per group,
-        first group, first model rank)."""
-        w = self.span[1] - self.span[0]
-        return _block(q * w, w, self.model_size)
-
     def group_processes(self) -> List[List[int]]:
         """For each data group (the batch axes' ranks, ascending), the
-        processes that hold its rows, ascending: one on one device or
-        when a process holds whole groups, several when a group's model
-        ranks are split over processes."""
+        processes that hold any rank of it, ascending: one on one device
+        or when a process holds whole groups, several when a group's
+        model ranks are split over processes."""
         out: List[List[int]] = [[] for _ in range(self.batch_size_divisor)]
         for q in range(self.n_processes):
-            ng, _, g_lo, _ = self.process_grid(q)
-            for g in range(g_lo, g_lo + ng):
+            for g in self.span_of(q).groups:
                 out[g].append(q)
         return out
 
     @property
+    def counted_groups(self) -> Tuple[int, ...]:
+        """The data groups whose rows this process counts in the loss:
+        each group once, by the process holding its model rank 0 (the
+        rank whose output the emulated grid returns). The other
+        processes of a group run the same forward and backward with a
+        zero share for it (their exchanges pair up with the counting
+        process's; their expert shards receive its gradients)."""
+        return self.local_span.counted
+
+    @property
     def counts_rows(self) -> bool:
-        """Whether this process's rows count in the loss: each data
-        group's once, by the process holding its model rank 0. The other
-        processes of the group run the same forward and backward with a
-        zero share (their exchanges pair up with the counting process's;
-        their expert shards receive its gradients)."""
-        return self.local_grid[3] == 0
+        """Whether this process counts the rows of any data group
+        (``counted_groups``): on a block span, whether it holds model
+        rank 0 of its groups. A block accessor, as ``local_grid``: the
+        loss reads ``counted_groups``."""
+        return bool(self.counted_groups)
 
     def leaf_shards(self, params: Any, cfg
                     ) -> List[Optional[Tuple[int, int]]]:
         """For each leaf of ``params`` (``optim.adamw._leaves`` order):
         None where every process holds it whole, else (dim, M) — the MoE
         experts, split along ``dim`` over the M model ranks; this process
-        holds the model ranks of ``local_grid``."""
+        holds the chunks of its model ranks (``local_span.models``, in
+        ascending rank)."""
         return list(self.leaf_splits(params, cfg).values())
 
     def leaf_splits(self, tree: Any, cfg
@@ -216,62 +259,63 @@ class DistContext:
             out["/".join(path)] = (1, self.model_size) if expert else None
         return out
 
-    def grad_sources(self, params: Any, cfg) -> List[List[List[int]]]:
-        """For each leaf, and for each process q, the processes whose
-        gradient of that leaf q sums: in ascending data group, the first
-        process of the group that holds q's slice of the leaf (for a
-        whole leaf, the group's counting process), each process once.
-        Every process computes every process's lists."""
-        groups = self.group_processes()
-
-        def m_range(q):
-            _, nm, _, m_lo = self.process_grid(q)
-            return m_lo, m_lo + nm
-
+    def grad_sources(self, params: Any, cfg) -> List[List[Any]]:
+        """For each leaf, and for each process q, whose gradients q's copy
+        of the leaf sums. A whole leaf: the processes, in ascending data
+        group, that count each group (its first process), each once. An
+        expert leaf (``ChunkSources``): for each model rank m that q
+        holds, in q's chunk order, every process that holds any rank
+        (g, m), ascending, each once with the index of m's chunk there —
+        its own autograd has summed the groups it holds. Every process
+        computes every process's lists."""
+        spans = [self.span_of(q) for q in range(self.n_processes)]
+        firsts: List[int] = []
+        for members in self.group_processes():
+            if members[0] not in firsts:
+                firsts.append(members[0])
         out = []
         for split in self.leaf_shards(params, cfg):
-            per = []
-            for q in range(self.n_processes):
-                srcs: List[int] = []
-                for members in groups:
-                    hold = [r for r in members
-                            if split is None or m_range(r) == m_range(q)]
-                    if not hold:
-                        raise ValueError(
-                            f"no process of a data group holds process "
-                            f"{q}'s slice {m_range(q)} of a sharded leaf")
-                    if hold[0] not in srcs:
-                        srcs.append(hold[0])
-                per.append(srcs)
-            out.append(per)
+            if split is None:
+                out.append([list(firsts) for _ in spans])
+                continue
+            out.append([ChunkSources(split[0], tuple(
+                tuple((r, s.models.index(m)) for r, s in enumerate(spans)
+                      if m in s.models)
+                for m in mine.models)) for mine in spans])
         return out
 
     def grad_shards(self, params: Any, cfg) -> "GradShards":
         return GradShards(self, self.leaf_shards(params, cfg))
 
+    def chunk_owners(self) -> Dict[int, Tuple[int, int]]:
+        """Each model rank's first holder: {m: (process, the index of
+        m's chunk in that process's expert leaves)}."""
+        owner: Dict[int, Tuple[int, int]] = {}
+        for q in range(self.n_processes):
+            for j, m in enumerate(self.span_of(q).models):
+                owner.setdefault(m, (q, j))
+        return owner
+
     def gather_to_lead(self, x: torch.Tensor, dim: int
                        ) -> Optional[torch.Tensor]:
         """A sharded leaf made whole on the lead (process 0): ``x`` holds
         this process's model ranks' chunks along ``dim`` (``leaf_shards``'
-        split); the lead gets every model rank's chunk in ascending rank,
-        each from the first process that holds it (its own where it holds
-        it), joined on the host; every other process gets None. A
-        collective every process makes: each process that is first to
-        hold a chunk the lead lacks sends its chunks once, as bytes. On
-        one device (or the emulated grid) ``x`` is whole already and comes
-        back as it is."""
+        split, ascending rank); the lead gets every model rank's chunk in
+        ascending rank, each from the first process that holds it (its
+        own where it holds it), placed by the index of that rank in the
+        holder's ranks, joined on the host; every other process gets
+        None. A collective every process makes: each process that is
+        first to hold a chunk the lead lacks sends its chunks once, as
+        bytes. On one device (or the emulated grid) ``x`` is whole
+        already and comes back as it is."""
         if not self.is_fleet:
             return x
         import torch.distributed as tdist
 
-        _, nm, _, m_lo = self.local_grid
-        size = x.shape[dim] // nm  # one model rank's chunk
-        owner = {}  # model rank -> the first process that holds it
-        for q in range(self.n_processes):
-            _, nq, _, lo = self.process_grid(q)
-            for m in range(lo, lo + nq):
-                owner.setdefault(m, q)
-        senders = sorted(set(owner.values()) - {0})
+        mine = self.local_span.models
+        size = x.shape[dim] // len(mine)  # one model rank's chunk
+        owner = self.chunk_owners()
+        senders = sorted({q for q, _ in owner.values()} - {0})
         me = self.comm.proc
         if me != 0 and me not in senders:
             return None
@@ -279,15 +323,68 @@ class DistContext:
         if me != 0:
             tdist.send(host.reshape(-1).view(torch.uint8), dst=0)
             return None
-        chunks = {m: host.narrow(dim, (m - m_lo) * size, size)
-                  for m in range(m_lo, m_lo + nm)}
+        chunks = {m: host.narrow(dim, j * size, size)
+                  for j, m in enumerate(mine)}
         for q in senders:
             buf = torch.empty_like(host)
             tdist.recv(buf.reshape(-1).view(torch.uint8), src=q)
-            _, nq, _, lo = self.process_grid(q)
-            chunks.update((m, buf.narrow(dim, (m - lo) * size, size))
-                          for m in range(lo, lo + nq) if owner[m] == q)
+            chunks.update((m, buf.narrow(dim, j * size, size))
+                          for m, (o, j) in owner.items() if o == q)
         return torch.cat([chunks[m] for m in range(self.model_size)], dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """A run of ranks of the row-major (batch groups, M) grid, as its
+    (data group, model rank) pairs in rank order. In general a partial
+    head group, whole middle groups and a partial tail group: ranks
+    [3, 6) of M = 4 are (0, 3), (1, 0), (1, 1)."""
+
+    ranks: Tuple[Tuple[int, int], ...]
+    M: int
+
+    @classmethod
+    @functools.lru_cache(maxsize=None)
+    def of(cls, lo: int, hi: int, M: int) -> "Span":
+        return cls(tuple(divmod(r, M) for r in range(lo, hi)), int(M))
+
+    @functools.cached_property
+    def groups(self) -> Tuple[int, ...]:
+        """The data groups it touches, ascending (a contiguous run)."""
+        return tuple(sorted({g for g, _ in self.ranks}))
+
+    @functools.cached_property
+    def models(self) -> Tuple[int, ...]:
+        """The distinct model ranks it holds, ascending: the order of its
+        expert leaves' chunks. Not always a run: {0, 1, 3} above."""
+        return tuple(sorted({m for _, m in self.ranks}))
+
+    @property
+    def counted(self) -> Tuple[int, ...]:
+        """The groups whose model rank 0 it holds."""
+        return tuple(g for g, m in self.ranks if m == 0)
+
+    def runs(self) -> List[Tuple[int, int, int, int]]:
+        """Per group it touches, ascending: (group, first rank index in
+        the span, ranks of the group in it, index of the group's first
+        model rank in ``models``). A group's model ranks are a run of M,
+        so their chunks are a run of ``models`` too."""
+        return list(self._runs)
+
+    @functools.cached_property
+    def _runs(self) -> Tuple[Tuple[int, int, int, int], ...]:
+        out = []
+        for g in self.groups:
+            idx = [i for i, (h, _) in enumerate(self.ranks) if h == g]
+            out.append((g, idx[0], len(idx),
+                        self.models.index(self.ranks[idx[0]][1])))
+        return tuple(out)
+
+    @property
+    def is_block(self) -> bool:
+        """Whether it is a block of the grid: every group it touches
+        holds the same model ranks (whole groups, or a run inside one)."""
+        return len(self.ranks) == len(self.groups) * len(self.models)
 
 
 class GradShards:
@@ -314,7 +411,7 @@ class GradShards:
         if len(leaves) != len(self.shards):
             raise ValueError(f"{len(leaves)} leaves for {len(self.shards)} "
                              f"shard entries")
-        _, nm, _, m_lo = self.dist.local_grid
+        nm = len(self.dist.local_span.models)
         sums: List[Any] = []
         local = []  # this process's chunk sums, leaf by leaf
         for x, split in zip(leaves, self.shards):
@@ -345,7 +442,8 @@ class GradShards:
 
     def _all_chunks(self, local: torch.Tensor) -> List[List[torch.Tensor]]:
         """Every sharded leaf's M chunk sums in model-rank order, from
-        ``local`` (this process's [n_sharded · nm] sums)."""
+        ``local`` (this process's [n_sharded · nm] sums; every process of
+        a fleet holds min(w, M) model ranks, so as many sums)."""
         n_leaves = sum(s is not None for s in self.shards)
         M = self.dist.model_size
         if not self.dist.is_fleet:
@@ -356,12 +454,8 @@ class GradShards:
         host = local.detach().to("cpu", copy=True)
         parts = [torch.empty_like(host) for _ in range(self.dist.n_processes)]
         tdist.all_gather(parts, host)
-        nm = self.dist.local_grid[1]
-        owner = {}  # model rank -> (process, its index there)
-        for q in range(self.dist.n_processes):
-            _, _, _, m_lo = self.dist.process_grid(q)
-            for j in range(nm):
-                owner.setdefault(m_lo + j, (q, j))
+        nm = len(self.dist.local_span.models)
+        owner = self.dist.chunk_owners()
         every = torch.stack([torch.stack([
             parts[owner[m][0]].reshape(n_leaves, nm)[i, owner[m][1]]
             for m in range(M)]) for i in range(n_leaves)]).to(local.device)
@@ -379,19 +473,6 @@ def _leaf_paths(tree: Any, keys: Tuple[str, ...] = ()
         return [p for i, t in enumerate(tree)
                 for p in _leaf_paths(t, keys + (str(i),))]
     return [keys]
-
-def _block(lo: int, w: int, M: int) -> Tuple[int, int, int, int]:
-    """Ranks [lo, lo + w) of a (groups, M) grid as (groups, model ranks
-    per group, first group, first model rank)."""
-    if w % M and M % w:
-        raise ValueError(
-            f"a span of {w} ranks neither holds whole model groups nor "
-            f"falls inside one ({M} model ranks); pick a grid whose model "
-            f"axis and ranks per process divide one another")
-    if w >= M:
-        return w // M, M, lo // M, 0
-    return 1, w, lo // M, lo % M
-
 
 def make_context(mesh, fsdp: bool = False) -> DistContext:
     """Build a DistContext from an ``EmulatedMesh`` or a Topology.
@@ -453,7 +534,7 @@ def shard(x, dist: Optional[DistContext], spec):
     for dim, entry in enumerate(spec):
         n = math.prod(dist.axis_size(a) for a in _axes(entry))
         if dist.is_fleet and _axes(entry) == tuple(dist.batch_axes):
-            n = dist.local_grid[0]  # this process's data groups
+            n = len(dist.local_span.groups)  # this process's data groups
         if x.shape[dim] % n:
             raise ValueError(
                 f"dim {dim} of shape {tuple(x.shape)} is not divisible by "

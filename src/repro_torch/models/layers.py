@@ -282,7 +282,8 @@ def attention_decode_seqshard(
     if smax % M:
         raise ValueError(f"the cache length {smax} is not divisible by the "
                          f"model axis ({M} ranks)")
-    ng, nm, _, m_lo = dist.local_grid
+    span = dist.local_span
+    ng = len(span.groups)
     if b % ng:
         raise ValueError(f"batch {b} is not divisible by the batch axes "
                          f"{dist.batch_axes} ({ng} groups on these ranks)")
@@ -296,23 +297,35 @@ def attention_decode_seqshard(
         cache.v[:, :, length] = vn[:, :, 0].to(cache.v.dtype)
 
     bl = b // ng
+    if span.is_block:  # [ng, nm, ...]: one broadcast query per group
+        nm, m_lo = len(span.models), span.models[0]
+        lead_ranks, by_rank = (ng, nm), (1, nm)
+        q_ = q.reshape((ng, 1, bl) + tuple(q.shape[1:]))
+        rank_m = m_lo + torch.arange(nm, device=q.device)
+    else:  # [w, ...]: each rank its group's rows and its model rank's slice
+        lead_ranks = by_rank = (len(span.ranks),)
+        g_idx = [i for i, (_, _, n, _) in enumerate(span.runs())
+                 for _ in range(n)]
+        q_ = q.reshape((ng, bl) + tuple(q.shape[1:]))[g_idx]
+        rank_m = torch.tensor([m for _, m in span.ranks], device=q.device)
 
-    def ranks(c):  # [B, kvh, Smax, hd] -> [ng, nm, B/ng, kvh, s_loc, hd]
-        v = c.reshape((ng, bl, kvh, M, s_loc, hd))[:, :, :, m_lo:m_lo + nm]
-        return v.permute(0, 3, 1, 2, 4, 5)
+    def ranks(c):  # [B, kvh, Smax, hd] -> [*lead_ranks, B/ng, kvh, s_loc, hd]
+        v = c.reshape((ng, bl, kvh, M, s_loc, hd))
+        if span.is_block:
+            return v[:, :, :, m_lo:m_lo + nm].permute(0, 3, 1, 2, 4, 5)
+        return torch.stack([v[i, :, :, m] for i, (_, m)
+                            in zip(g_idx, span.ranks)])
 
     kk = _repeat_kv_ranks(ranks(cache.k), groups)
     vv = _repeat_kv_ranks(ranks(cache.v), groups)
-    q_ = q.reshape((ng, 1, bl) + tuple(q.shape[1:]))
     logits = (q_ @ kk.transpose(-1, -2)) / math.sqrt(float(hd))
-    logits = logits.to(torch.float32)  # [ng, nm, B/ng, H, 1, s_loc]
-    rank_start = ((m_lo + torch.arange(nm, device=q.device)) * s_loc
-                  ).reshape(1, nm, 1, 1, 1, 1)
+    logits = logits.to(torch.float32)  # [*lead_ranks, B/ng, H, 1, s_loc]
+    rank_start = (rank_m * s_loc).reshape(by_rank + (1, 1, 1, 1))
     pos = rank_start + torch.arange(s_loc, device=q.device)
     neg = torch.tensor(-0.7 * torch.finfo(torch.float32).max,
                        device=q.device)
     logits = torch.where(pos <= length, logits, neg)
-    m_loc = logits.amax(-1)  # [ng, nm, B/ng, H, 1]
+    m_loc = logits.amax(-1)  # [*lead_ranks, B/ng, H, 1]
     p = torch.exp(logits - m_loc[..., None])
     l_loc = p.sum(-1)
     acc_loc = p.to(vv.dtype) @ vv
@@ -322,7 +335,8 @@ def attention_decode_seqshard(
         dist.lead
 
     def combine(reduce, t):
-        out = reduce(t.reshape(lead + tuple(t.shape[2:])), layout, m_ax)
+        out = reduce(t.reshape(lead + tuple(t.shape[len(lead_ranks):])),
+                     layout, m_ax)
         return out.reshape(t.shape)
 
     m_glob = combine(comm.pmax, m_loc)
@@ -331,7 +345,9 @@ def attention_decode_seqshard(
     acc_glob = combine(comm.psum, acc_loc * corr[..., None].to(acc_loc.dtype))
     out = acc_glob / torch.clamp_min(l_glob[..., None], 1e-30).to(
         acc_glob.dtype)
-    out = out.to(q.dtype)[:, 0]  # the first model rank of each group
+    out = out.to(q.dtype)  # the first rank of each group
+    out = out[:, 0] if span.is_block else out[[r0 for _, r0, _, _
+                                               in span.runs()]]
     return out.reshape(q.shape), KVCache(cache.k, cache.v, cache.length + 1)
 
 

@@ -130,14 +130,17 @@ def _moe_ep(params: dict, x: torch.Tensor, cfg: ModelConfig, dist,
     """The reference's shard_map over the grid: batch over the batch
     axes, experts over the model axis, on the ranks this process runs
     (all of the grid on one device; its span on a fleet, whose ``x`` is
-    this process's batch rows, ``dist.local_batch``). Returns model rank
-    0's y [B, S, D] — on a fleet the first model rank of each data group
-    it holds — or, with ``all_ranks``, every model rank's it runs,
-    [M', B, S, D]."""
+    this process's batch rows, ``dist.local_batch``: every row of each
+    data group it touches). Returns model rank 0's y [B, S, D] — on a
+    fleet the first rank it holds of each data group — or, with
+    ``all_ranks``, every model rank's it runs: [M', B, S, D] where the
+    span is a block, else each rank's rows of its group, [w, B/G', S, D]
+    (G' groups touched)."""
     M = dist.model_size
     e_loc = cfg.n_experts // M
     b, s, d = x.shape
-    ng, nm, _, m_lo = dist.local_grid
+    span = dist.local_span
+    ng = len(span.groups)
     if b % ng:
         raise ValueError(f"batch {b} is not divisible by the batch axes "
                          f"{dist.batch_axes} ({ng} groups on these ranks)")
@@ -156,34 +159,53 @@ def _moe_ep(params: dict, x: torch.Tensor, cfg: ModelConfig, dist,
                        * cfg.capacity_factor))
 
     # every rank of a data group holds that group's tokens (the batch is
-    # replicated over the model axis): [ng, nm, t_loc, D]
-    xs = x.reshape(ng, 1, t_loc, d).expand(ng, nm, t_loc, d)
+    # replicated over the model axis): [w, t_loc, D], rank by rank
+    xg = x.reshape(ng, t_loc, d)
+    xs = torch.cat([xg[i].expand(n, t_loc, d) for i, (_, _, n, _)
+                    in enumerate(span.runs())])
     w1, w3, w2 = (local_experts(params[k], cfg, dist) for k in
                   ("w1", "w3", "w2"))
-    y = _moe_ep_body(xs, params["router"], w1, w3, w2, cfg=cfg, dist=dist,
-                     M=M, e_loc=e_loc, cap=cap, cap_e=cap_e, shiro=shiro)
-    y = y.reshape(ng, nm, b // ng, s, d)
-    if all_ranks:
-        return y.transpose(0, 1).reshape(nm, b, s, d)
-    return y[:, 0].reshape(b, s, d)
+    y = _moe_ep_body(xs, params["router"], w1, w3, w2, cfg=cfg, span=span,
+                     comm=dist.comm, layout=dist.layout,
+                     m_ax=dist.model_axis, lead=dist.lead, M=M,
+                     e_loc=e_loc, cap=cap, cap_e=cap_e, shiro=shiro)
+    y = y.reshape((len(span.ranks), b // ng, s, d))
+    if not all_ranks:  # each group's first rank here
+        return torch.cat([y[r0] for _, r0, _, _ in span.runs()])
+    if not span.is_block:
+        return y
+    nm = len(span.models)
+    return y.reshape(ng, nm, b // ng, s, d).transpose(0, 1).reshape(
+        nm, b, s, d)
 
 
 def local_experts(w, cfg: ModelConfig, dist, dim: int = 0):
     """The experts of the model ranks this process runs, along ``dim`` of
-    ``w`` (a tensor or a numpy array): all of them on one device; on a
-    fleet the run of experts of its model ranks, cut from a whole ``w``
-    or ``w`` itself when it holds just those
-    (``transformer.shard_experts``)."""
-    _, nm, _, m_lo = dist.local_grid
+    ``w`` (a tensor or a numpy array), in ascending model rank: all of
+    them on one device; on a fleet those of ``dist.local_span.models`` —
+    a run, or not ({0, 1, 3} of M = 4) — cut from a whole ``w``, or ``w``
+    itself when it holds just those (``transformer.shard_experts``)."""
+    models = dist.local_span.models
     e_loc = cfg.n_experts // dist.model_size
-    if w.shape[dim] == nm * e_loc:
+    if w.shape[dim] == len(models) * e_loc:
         return w
     if w.shape[dim] != cfg.n_experts:
         raise ValueError(f"expert weights hold {w.shape[dim]} experts: "
-                         f"neither all {cfg.n_experts} nor the {nm * e_loc} "
-                         f"of model ranks {m_lo}..{m_lo + nm - 1}")
-    cut = [slice(None)] * dim + [slice(m_lo * e_loc, (m_lo + nm) * e_loc)]
-    return w[tuple(cut)]
+                         f"neither all {cfg.n_experts} nor the "
+                         f"{len(models) * e_loc} of model ranks {models}")
+    runs = []  # (first, last + 1) runs of consecutive model ranks
+    for m in models:
+        if runs and runs[-1][1] == m:
+            runs[-1][1] = m + 1
+        else:
+            runs.append([m, m + 1])
+    cuts = [w[tuple([slice(None)] * dim + [slice(lo * e_loc, hi * e_loc)])]
+            for lo, hi in runs]
+    if len(cuts) == 1:
+        return cuts[0]
+    if isinstance(w, torch.Tensor):
+        return torch.cat(cuts, dim)
+    return np.concatenate(cuts, dim)
 
 
 def to_dispatch_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -255,17 +277,16 @@ def _scatter_drop(size: int, tgt: torch.Tensor, ok: torch.Tensor,
     return out.scatter(1, idx, src)[:, :size]
 
 
-def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
-                 cap_e, shiro):
+def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, span, comm, layout, m_ax,
+                 lead, M, e_loc, cap, cap_e, shiro):
     """The reference's ``_moe_ep_body`` on every rank this process runs
     at once.
 
-    xs [ng, nm, T, D] (rank (g, m) at xs[g - g0, m - m0]: ng data groups
-    of nm model ranks, the whole [Dsz, M] grid on one device) and the
-    experts of those nm model ranks, [nm·e_loc, ...] -> y [ng·nm, T, D]."""
-    ng, nm, t, d = xs.shape
-    m_lo = dist.local_grid[3]
-    R = ng * nm
+    xs [R, T, D] holds the R ranks of ``span`` (``dist.local_span``: the
+    whole grid on one device) in rank order, each with its data group's
+    tokens, and w1 / w3 / w2 the experts of the span's model ranks,
+    [nm·e_loc, ...] in ascending rank -> y [R, T, D]."""
+    R, t, d = xs.shape
     dev = xs.device
     k = cfg.top_k
     xt = xs.reshape(R, t, d)
@@ -341,15 +362,12 @@ def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
     if _RECORD is not None:
         # model rank 0 of each data group (on a fleet, on the process
         # that holds it: the others count nothing)
-        rank0 = slice(None, None, nm) if m_lo == 0 else slice(0, 0)
+        rank0 = [r for r, (_, m) in enumerate(span.ranks) if m == 0]
         _RECORD.append(dict(cap=cap, cap_e=cap_e,
                             sent=send_ok[rank0].sum(),
                             dropped=(~exp_ok[rank0]).sum()))
 
     # ---- all_to_all on the model axis: activations + metadata ----------
-    comm, layout, m_ax, lead = dist.comm, dist.layout, dist.model_axis, \
-        dist.lead
-
     def a2a(v, *rest, meta=False):
         out = comm.all_to_all(v.reshape(lead + (M,) + rest), layout, m_ax,
                               meta=meta)
@@ -362,12 +380,12 @@ def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
     # ---- expert compute + row-based pre-aggregated combine -------------
     # every local expert of every rank at once: the index lists in
     # (expert, source, slot) order, K1 gathers their rows, the FFN runs
-    # batched over the [nm, e_loc] experts with each model rank's own
-    # weights, one data group at a time (each expert's product is [n_e,
-    # D] @ [D, F] on any grid and any span), and K2 folds each buffer
-    # row's partials in ascending expert order — the reference's loop of
-    # combine adds (pre-aggregation: partials for the same token row sum
-    # HERE, before the return transfer)
+    # batched over the [n, e_loc] experts of each data group's n ranks
+    # here with each model rank's own weights, one group at a time (each
+    # expert's product is [n_e, D] @ [D, F] on any grid and any span),
+    # and K2 folds each buffer row's partials in ascending expert order —
+    # the reference's loop of combine adds (pre-aggregation: partials for
+    # the same token row sum HERE, before the return transfer)
     flat_recv = recv_buf.reshape(R, M * cap, d).to(xs.dtype)
     idx = recv_idx.transpose(1, 2)  # [R, e_loc, M(src), cap_e]
     gate = recv_gate.transpose(1, 2)
@@ -377,11 +395,17 @@ def _moe_ep_body(xs, router, w1, w3, w2, *, cfg, dist, M, e_loc, cap,
     tgt_maps = sorted_scatter_maps(tgt)
     n_e = M * cap_e
     xin = pack_rows_op(flat_recv, tgt, maps=tgt_maps)  # [R, e_loc·n_e, D]
-    xe = xin.reshape(ng, nm, e_loc, n_e, d)
+    xe = xin.reshape(R, e_loc, n_e, d)
+    nm = len(span.models)
     w1r, w3r, w2r = (w.reshape((nm, e_loc) + tuple(w.shape[1:]))
                      for w in (w1, w3, w2))
-    ye = [(F.silu(xg @ w1r) * (xg @ w3r)) @ w2r for xg in xe]
-    yout = (torch.stack(ye) if ng > 1 else ye[0]).reshape(R, e_loc * n_e, d)
+    ye = []
+    for _, r0, n, i0 in span.runs():
+        xg, ws = xe[r0:r0 + n], (w1r[i0:i0 + n], w3r[i0:i0 + n],
+                                 w2r[i0:i0 + n])
+        ye.append((F.silu(xg @ ws[0]) * (xg @ ws[1])) @ ws[2])
+    yout = (torch.cat(ye) if len(ye) > 1 else ye[0]).reshape(
+        R, e_loc * n_e, d)
     # a pad's row joins no fold (K2 stops at the valid slots)
     yout = yout * gate.reshape(R, -1, 1).to(xs.dtype)
     combine = torch.zeros((R, M * cap, d), dtype=xs.dtype, device=dev)

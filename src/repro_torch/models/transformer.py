@@ -427,11 +427,14 @@ def lm_loss(params: dict, cfg: ModelConfig, dist,
     With a grid the mean is a left fold over the data groups, ascending,
     of each group's sum of token terms over the global token count (each
     group's sum one reduction of its rows). On a fleet's grid this
-    process returns its share of that: its data groups' terms if it
-    counts their rows (``dist.counts_rows``), else zero times them (the
-    same graph, so its backward runs every exchange). The shares summed
-    over the processes in ascending order are the emulated grid's loss
-    bit for bit wherever each group's terms are."""
+    process returns its share of that: a term per data group it touches,
+    ascending, that group's sum if it counts the group's rows
+    (``dist.counted_groups``: it holds the group's model rank 0), else
+    zero times it (the same graph, so its backward runs every exchange).
+    The shares summed over the processes in ascending order are the
+    emulated grid's loss bit for bit wherever each group's terms are: a
+    process's uncounted groups precede its counted ones, so each
+    process's share is the fold of the groups it counts."""
     logits = forward(params, cfg, dist, batch)
     whole = batch["tokens"]
     tokens = (whole if dist is None else dist.local_batch(whole)).long()
@@ -444,12 +447,15 @@ def lm_loss(params: dict, cfg: ModelConfig, dist,
     if dist is None:
         return terms.mean()
     n = whole.shape[0] * (s - 1)  # the global token count
-    ng = dist.local_grid[0]
+    groups = dist.local_span.groups
+    counted = set(dist.counted_groups)
     loss = None
-    for part in terms.reshape(ng, -1).unbind(0):
+    for g, part in zip(groups, terms.reshape(len(groups), -1).unbind(0)):
         share = part.clone().sum() / n
+        if g not in counted:
+            share = share * 0.0
         loss = share if loss is None else loss + share
-    return loss if not dist.is_fleet or dist.counts_rows else loss * 0.0
+    return loss
 
 
 # ---------------------------------------------------------------------------

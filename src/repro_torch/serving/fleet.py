@@ -9,7 +9,10 @@ session's hot-swap. The fleet owns four pieces:
 * **sub-topology groups** — ``Topology.split(sizes)`` carves the fleet
   into disjoint contiguous rank spans. On one card a group is a span of
   the emulated ranks, served by its own ``LocalComm`` of the group's
-  width on the same device, with its own ``fingerprint()``.
+  width on the same device, with its own ``fingerprint()``. On a fleet
+  of processes (``Topology.multiprocess()``) each process keeps its
+  span of every group (possibly empty) and runs every tenant's waves,
+  returning its rows of C.
 * **placement** — ``admit(name, a, cfg)`` runs the offline planner
   (``_plan_and_tune`` with measurement forced OFF, so scoring is
   deterministic) once per candidate group, filters groups whose
@@ -30,16 +33,23 @@ session's hot-swap. The fleet owns four pieces:
   serving interruption), moves the resident B/C slabs by a host-side
   ``ReshardSpec`` (exact per-rank send/recv row ranges computed from
   the outgoing and incoming partitions), then commits with one
-  reference swap. On one card a reshard is a device copy. An injected
-  ``fleet_migrate_fail`` (``robustness.faults``, kind ``wave_error``)
-  fires BETWEEN stage and commit: rollback is discarding the staged
-  state, the source group keeps serving, ``dropped_waves`` stays 0.
+  reference swap. On one card a reshard is a device copy. On a fleet of
+  processes each process holds its ranks' slabs; a route between two
+  ranks of one process is a device copy and the rest cross in one
+  exchange per operand (``ReshardSpec.apply_fleet``), counted beside
+  ``moved_rows()`` in ``reshards``. An injected ``fleet_migrate_fail``
+  (``robustness.faults``, kind ``wave_error``) fires BETWEEN stage and
+  commit: rollback is discarding the staged state, the source group
+  keeps serving, ``dropped_waves`` stays 0. On a fleet the outcome is
+  folded over the processes first, so a fault on one process rolls the
+  migration back on all of them.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -154,11 +164,92 @@ class ReshardSpec:
         return out
 
 
-def _shard_rows(arr: Rows, bounds: Sequence[Tuple[int, int]]) -> List[Rows]:
-    """Row views of ``arr``, one per (lo, hi) of ``bounds``."""
+    def apply_fleet(self, shards: Sequence[torch.Tensor], like: torch.Tensor,
+                    comm, src: "_Side", dst: "_Side"
+                    ) -> Tuple[List[torch.Tensor], Dict[str, int]]:
+        """Execute the spec across a fleet of processes.
+
+        ``src`` / ``dst`` name the outgoing and incoming partitions on
+        the fleet: this process's ranks of each (rank indices of the
+        partition, possibly none) and every rank's process. ``shards``
+        are this process's outgoing ranks' slabs, tensors; ``like`` an
+        empty [0, N] tensor of their dtype and device (a process with no
+        outgoing rank has no slab to take them from). The result is this
+        process's incoming ranks' slabs. A route whose two ranks are on
+        this process is a device copy; the rows of every other route go
+        through ``comm`` (a ``ProcessComm`` over the fleet) in ONE
+        exchange, as bytes, in route order per process pair: every
+        process enters it, with nothing to send or receive where it has
+        no such route. Also returns what crossed processes, fleet-wide
+        (``rows``, ``bytes``: the host-side route table's, the same on
+        every process)."""
+        me = comm.proc
+        if len(shards) != src.hi - src.lo:
+            raise ValueError(f"ReshardSpec expects this process's "
+                             f"{src.hi - src.lo} source shard(s), got "
+                             f"{len(shards)}")
+        width = int(like.shape[1])
+
+        def piece(s: int, lo: int, hi: int) -> torch.Tensor:
+            base = self.src_bounds[s][0]
+            return shards[s - src.lo][lo - base:hi - base]
+
+        got: Dict[Tuple[int, int, int, int], torch.Tensor] = {
+            r: piece(r[0], r[2], r[3]) for r in self.routes
+            if src.owners[r[0]] == me and dst.owners[r[1]] == me}
+        cross = [r for r in self.routes
+                 if src.owners[r[0]] != dst.owners[r[1]]]
+        if cross:  # the same on every process
+            row_bytes = width * like.element_size()
+            send = sorted((r for r in cross if src.owners[r[0]] == me),
+                          key=lambda r: dst.owners[r[1]])
+            recv = sorted((r for r in cross if dst.owners[r[1]] == me),
+                          key=lambda r: src.owners[r[0]])
+            in_splits, out_splits = [0] * comm.n_proc, [0] * comm.n_proc
+            for s, d, lo, hi in send:
+                in_splits[dst.owners[d]] += (hi - lo) * row_bytes
+            for s, d, lo, hi in recv:
+                out_splits[src.owners[s]] += (hi - lo) * row_bytes
+            buf = torch.cat([piece(s, lo, hi).reshape(-1)
+                             for s, _, lo, hi in send]) if send \
+                else like.new_empty(0)
+            vals = comm.exchange_bytes(buf, in_splits, out_splits,
+                                       like.dtype)
+            off = 0
+            for r in recv:
+                n = (r[3] - r[2]) * width
+                got[r] = vals[off:off + n].view(r[3] - r[2], width)
+                off += n
+        out = []
+        for d in range(dst.lo, dst.hi):
+            parts = [got[r] for r in self.routes if r[1] == d]
+            out.append(torch.cat(parts) if parts else like.clone())
+        rows = sum(hi - lo for _, _, lo, hi in cross)
+        return out, {"rows": rows,
+                     "bytes": rows * width * like.element_size()}
+
+
+class _Side(NamedTuple):
+    """One partition of a reshard on a fleet: this process's ranks of it
+    [lo, hi) and each rank's process."""
+
+    lo: int
+    hi: int
+    owners: Tuple[int, ...]
+
+
+def _shard_rows(arr: Rows, bounds: Sequence[Tuple[int, int]],
+                span: Optional[Tuple[int, int]] = None) -> List[Rows]:
+    """Row views of ``arr``, one per (lo, hi) of ``bounds`` — or, with
+    ``span``, one per rank of it, ``arr`` then holding just those ranks'
+    rows (a fleet process's slab)."""
     if not isinstance(arr, torch.Tensor):
         arr = np.asarray(arr)
-    return [arr[lo:hi] for lo, hi in bounds]
+    if span is None:
+        return [arr[lo:hi] for lo, hi in bounds]
+    mine = bounds[span[0]:span[1]]
+    base = mine[0][0] if mine else 0
+    return [arr[lo - base:hi - base] for lo, hi in mine]
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +273,9 @@ class _Tenant:
     # views in the CURRENT group's partition — what a migration reshards
     resident_b: Optional[List[Rows]] = None
     resident_c: Optional[List[Rows]] = None
+    # on a fleet of processes: empty [0, N] B and C tensors of the served
+    # dtypes and device (a process may hold no rank of the group)
+    resident_like: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     inflight: List[SpmmRequest] = dataclasses.field(default_factory=list)
 
     @property
@@ -224,7 +318,15 @@ class SpmmFleet:
         self.migrations = 0
         self.failed_migrations = 0
         self.events: List[dict] = []
+        # per committed migration: the rows ``ReshardSpec.moved_rows``
+        # counts and what really crossed processes (0 on one device)
+        self.reshards: List[dict] = []
         self._next_rid = 0
+        # on a fleet of processes: its communicator (the reshards' one
+        # exchange, the agreed rollback, each rank's process)
+        self._comm = None
+        if self.topology.is_multiprocess:
+            self._comm = self.topology.comm()
 
     # ----- placement ---------------------------------------------------
 
@@ -323,11 +425,27 @@ class SpmmFleet:
 
     def _update_resident(self, tenant: _Tenant, req: SpmmRequest) -> None:
         """Pin the latest served B/C as row views in the CURRENT
-        partition."""
-        plan = tenant.session.handle().plan
-        tenant.resident_b = _shard_rows(
-            req.b, block_rows(plan.shape[1], plan.P))
-        tenant.resident_c = _shard_rows(req.output, tuple(plan.bounds))
+        partition: on a fleet of processes, of this process's ranks of
+        the group (its span there; none on an empty one), cut from B
+        (the full operand where it is on the device, else its slab,
+        ``put_global``) and from its rows of C."""
+        h = tenant.session.handle()
+        plan = h.plan
+        b_bounds = block_rows(plan.shape[1], plan.P)
+        if self._comm is None:
+            tenant.resident_b = _shard_rows(req.b, b_bounds)
+            tenant.resident_c = _shard_rows(req.output, tuple(plan.bounds))
+            return
+        span = h.topology.span
+        b = req.b
+        if isinstance(b, torch.Tensor) and b.device == req.output.device \
+                and b.shape[0] == plan.shape[1]:
+            tenant.resident_b = _shard_rows(b, b_bounds)[span[0]:span[1]]
+        else:
+            b = h.topology.put_global(b, plan.shape[1])
+            tenant.resident_b = _shard_rows(b, b_bounds, span)
+        tenant.resident_c = _shard_rows(req.output, tuple(plan.bounds), span)
+        tenant.resident_like = (b[:0], req.output[:0])
 
     def maybe_replan(self, name: str, a_new: CSRMatrix
                      ) -> Tuple[float, bool]:
@@ -423,38 +541,68 @@ class SpmmFleet:
             raise TopologyError(
                 f"tenant {name!r} does not fit group {dst_idx} "
                 f"(pruned by the memory budget at admission)")
-        old_plan = tenant.session.handle().plan
+        old = tenant.session.handle()
+        old_plan = old.plan
         staged = tenant.session.stage_topology(self.groups[dst_idx])
+        error = None
         try:
             # the testable failure point: everything staged, nothing
             # committed — rollback is garbage collection
             faults.maybe_error("fleet_migrate_fail")
         except faults.InjectedFault as e:
+            error = f"{type(e).__name__}: {e}"
+        if self._comm is not None:
+            # one commit-or-rollback decision for the fleet: where any
+            # process failed, every one rolls back with the first failing
+            # process's message, so counters and events stay the same
+            error = self._comm.fold_first(error)
+        if error is not None:
             self.failed_migrations += 1
             self.events.append({
                 "action": "migrate_rollback", "tenant": name,
-                "from": src_idx, "to": dst_idx,
-                "error": f"{type(e).__name__}: {e}"})
+                "from": src_idx, "to": dst_idx, "error": error})
             return False
         new_plan = staged.rung.payload["plan"]
         moved = {}
-        if tenant.resident_b is not None:
-            b_spec = ReshardSpec.between(
-                block_rows(old_plan.shape[1], old_plan.P),
-                block_rows(new_plan.shape[1], new_plan.P))
-            tenant.resident_b = b_spec.apply(tenant.resident_b)
-            moved["b_rows"] = b_spec.moved_rows()
-        if tenant.resident_c is not None:
-            c_spec = ReshardSpec.between(tuple(old_plan.bounds),
-                                         tuple(new_plan.bounds))
-            tenant.resident_c = c_spec.apply(tenant.resident_c)
-            moved["c_rows"] = c_spec.moved_rows()
+        crossed = {"b_rows_crossing": 0, "c_rows_crossing": 0,
+                   "bytes_crossing": 0}
+        for key, spec, held in (
+                ("b", ReshardSpec.between(
+                    block_rows(old_plan.shape[1], old_plan.P),
+                    block_rows(new_plan.shape[1], new_plan.P)),
+                 tenant.resident_b),
+                ("c", ReshardSpec.between(tuple(old_plan.bounds),
+                                          tuple(new_plan.bounds)),
+                 tenant.resident_c)):
+            if held is None:
+                continue
+            if self._comm is None:
+                held = spec.apply(held)
+            else:
+                like = tenant.resident_like[key == "c"]
+                held, info = spec.apply_fleet(
+                    held, like, self._comm, self._side(old.topology),
+                    self._side(staged.rung.handle.topology))
+                crossed[f"{key}_rows_crossing"] = info["rows"]
+                crossed["bytes_crossing"] += info["bytes"]
+            setattr(tenant, f"resident_{key}", held)
+            moved[f"{key}_rows"] = spec.moved_rows()
         tenant.session.commit_topology(staged)
         tenant.group_idx = dst_idx
         self.migrations += 1
         self.events.append({"action": "migrate", "tenant": name,
                             "from": src_idx, "to": dst_idx, **moved})
+        self.reshards.append({"tenant": name, "from": src_idx,
+                              "to": dst_idx, **moved, **crossed})
         return True
+
+    def _side(self, topo: Topology) -> _Side:
+        """A handle's partition on the fleet (its topology: a group, or
+        the first P ranks of one where a smaller rung serves): this
+        process's ranks of it and each of its ranks' process."""
+        lo, hi = topo.span
+        g0 = topo.group[0]
+        return _Side(lo, hi, self._comm.owners[g0:g0 + topo.P])
 
     # ----- introspection -----------------------------------------------
 
